@@ -1,0 +1,88 @@
+"""Scene and config conversion (the renderer's "weights" are its compiled
+scene).
+
+`arrays_from_reference` takes the reference package's
+`CompiledScene.arrays` (a nested dict of numpy arrays) and returns the
+port's tensors for the keys slice 1 reads; `static_from_reference`,
+`camera_from_reference` and `config_from_reference` copy the plain fields
+of the reference's SceneStatic, Camera and RenderConfig from duck-typed
+objects.  Nothing here imports the reference package: the tests use these
+to feed both engines identical scenes.  `to_tensors` is also how a render
+moves the port's own compile to its device.
+"""
+from __future__ import annotations
+
+import dataclasses
+
+import numpy as np
+import torch
+
+from .backgrounds.base import BackgroundSpec
+from .cameras.base import Camera
+from .integrators.config import RenderConfig
+from .scene.scene import SLICE_ARRAY_KEYS, LightStatic, SceneStatic
+
+_DTYPES = {np.dtype(np.float32): torch.float32,
+           np.dtype(np.int32): torch.int32,
+           np.dtype(np.bool_): torch.bool}
+
+
+def to_tensors(arrays: dict, device) -> dict:
+    """Nested dict of numpy arrays -> the same dict of tensors on `device`.
+    Keeps float32 / int32 / bool; float64 and int64 are narrowed to
+    float32 / int32 so no lane is promoted to 64 bits."""
+    out = {}
+    for k, v in arrays.items():
+        if isinstance(v, dict):
+            out[k] = to_tensors(v, device)
+            continue
+        a = np.asarray(v)
+        if a.dtype == np.float64:
+            a = a.astype(np.float32)
+        elif a.dtype == np.int64:
+            a = a.astype(np.int32)
+        if a.dtype not in _DTYPES:
+            raise TypeError(f"array {k!r}: unsupported dtype {a.dtype}")
+        out[k] = torch.from_numpy(np.ascontiguousarray(a)).to(device)
+    return out
+
+
+def arrays_from_reference(arrays: dict, device) -> dict:
+    """The reference's CompiledScene.arrays -> the port's scene tensors
+    (the keys slice 1 reads)."""
+    missing = [k for k in SLICE_ARRAY_KEYS if k not in arrays]
+    if missing:
+        raise KeyError(f"reference arrays lack {missing}")
+    return to_tensors({k: arrays[k] for k in SLICE_ARRAY_KEYS}, device)
+
+
+def _copy_fields(cls, ref, **override):
+    return cls(**{f.name: override.get(f.name, getattr(ref, f.name))
+                  for f in dataclasses.fields(cls)})
+
+
+def static_from_reference(static) -> SceneStatic:
+    """The reference's SceneStatic -> the port's (the fields slice 1 reads).
+    Raises for reference features the port does not render."""
+    for name, what, item in (("n_spheres", "analytic spheres", "10"),
+                             ("volumes", "volumes", "17"),
+                             ("textures", "textures", "15"),
+                             ("node_programs", "shader nodes", "15"),
+                             ("max_additional_depth", "additionalDepth",
+                              "16")):
+        if getattr(static, name, 0):
+            raise NotImplementedError(
+                f"{what} are not ported yet: ROADMAP Queue 1 item {item}")
+    return _copy_fields(
+        SceneStatic, static,
+        lights=tuple(_copy_fields(LightStatic, ls) for ls in static.lights),
+        bg=_copy_fields(BackgroundSpec, static.bg),
+        mat_families=tuple(int(c) for c in static.mat_families))
+
+
+def camera_from_reference(camera) -> Camera:
+    return _copy_fields(Camera, camera)
+
+
+def config_from_reference(cfg) -> RenderConfig:
+    return _copy_fields(RenderConfig, cfg)

@@ -1,0 +1,76 @@
+"""Vector math over stacked SoA tensors whose trailing axis is 3 (xyz).
+
+Port of libyafaray_tpu/core/math.py, restricted to what slice 1 calls.
+Sums over xyz are written out in x, y, z order so the float32 rounding
+follows the reference's sequential reduction.
+"""
+from __future__ import annotations
+
+import torch
+
+
+def dot(a: torch.Tensor, b: torch.Tensor) -> torch.Tensor:
+    """Batched 3-vector dot product -> (...,) scalar."""
+    p = a * b
+    return p[..., 0] + p[..., 1] + p[..., 2]
+
+
+def cross(a: torch.Tensor, b: torch.Tensor) -> torch.Tensor:
+    ax, ay, az = a[..., 0], a[..., 1], a[..., 2]
+    bx, by, bz = b[..., 0], b[..., 1], b[..., 2]
+    return torch.stack([ay * bz - az * by, az * bx - ax * bz,
+                        ax * by - ay * bx], dim=-1)
+
+
+def length(v: torch.Tensor) -> torch.Tensor:
+    return torch.sqrt(torch.clamp(dot(v, v), min=0.0))
+
+
+def normalize(v: torch.Tensor) -> torch.Tensor:
+    return v / torch.clamp(length(v)[..., None], min=1e-20)
+
+
+def reflect(d: torch.Tensor, n: torch.Tensor) -> torch.Tensor:
+    """Mirror of the away-from-surface direction d about n: 2(n·d)n - d."""
+    return 2.0 * dot(n, d)[..., None] * n - d
+
+
+def refract_unit_eta(wo: torch.Tensor, n: torch.Tensor):
+    """`refract(wo, n, eta)` of the reference at eta = 1 (the null
+    material's pass-through).  Returns (wi, valid)."""
+    cos_i = dot(n, wo)
+    sin2_t = torch.clamp(1.0 - cos_i * cos_i, min=0.0)
+    valid = sin2_t < 1.0
+    cos_t = torch.sqrt(torch.clamp(1.0 - sin2_t, min=0.0))
+    wi = -wo + (cos_i - cos_t)[..., None] * n
+    return normalize(wi), valid
+
+
+def fresnel_dielectric(cos_i: torch.Tensor, eta: torch.Tensor) -> torch.Tensor:
+    """Unpolarized Fresnel reflectance for a dielectric (1.0 under TIR)."""
+    cos_i = torch.clamp(cos_i, 0.0, 1.0)
+    sin2_t = (1.0 / (eta * eta)) * torch.clamp(1.0 - cos_i * cos_i, min=0.0)
+    tir = sin2_t >= 1.0
+    cos_t = torch.sqrt(torch.clamp(1.0 - sin2_t, min=0.0))
+    r_par = (eta * cos_i - cos_t) / torch.clamp(eta * cos_i + cos_t, min=1e-12)
+    r_perp = (cos_i - eta * cos_t) / torch.clamp(cos_i + eta * cos_t,
+                                                 min=1e-12)
+    kr = 0.5 * (r_par * r_par + r_perp * r_perp)
+    return torch.where(tir, 1.0, torch.clamp(kr, 0.0, 1.0))
+
+
+def build_onb(n: torch.Tensor):
+    """Orthonormal basis from a unit normal (branchless Duff/Frisvad 2017).
+    Returns (u, v) with (u, v, n) right-handed."""
+    nx, ny, nz = n[..., 0], n[..., 1], n[..., 2]
+    s = torch.where(nz >= 0.0, 1.0, -1.0)
+    a = -1.0 / (s + nz)
+    b = nx * ny * a
+    u = torch.stack([1.0 + s * nx * nx * a, s * b, -s * nx], dim=-1)
+    v = torch.stack([b, s + ny * ny * a, -ny], dim=-1)
+    return u, v
+
+
+def face_forward(n: torch.Tensor, d: torch.Tensor) -> torch.Tensor:
+    """Flip n to lie in the hemisphere of d."""
+    return torch.where(dot(n, d)[..., None] < 0.0, -n, n)

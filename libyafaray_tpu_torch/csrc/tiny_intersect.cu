@@ -1,0 +1,185 @@
+// Tiny-scene ray-triangle intersection kernels for Hopper (sm_90a).
+//
+// Replace the TPU kernels of libyafaray_tpu/ops/pallas_intersect.py for
+// scenes of at most 64 triangles:
+//   closest_tiny_kernel  <- _closest_kernel_tiny (wrapper _closest_hit_tiny)
+//   shadow_tiny_kernel   <- _shadow_kernel_tiny  (wrapper
+//                           _shadow_transmission_tiny)
+// with the per-pair math of _mt_test_scalar (Moller-Trumbore).
+//
+// Design: one thread per ray, no reduction across threads.  Each block
+// stages the n_tris x 9 floats of the (10, T) pack (rows v0|e1|e2), plus
+// the 3 log-filter rows for the shadow kernel, into shared memory once
+// (at most 3 KB), then every thread walks the triangles in column order.
+// Rays come as the engine holds them: (N, 3) contiguous org / dir and
+// (N,) tmin / tmax / dist; the TPU's (3, M, 128) tiling is not reproduced.
+//
+// What bounds it on the H100: FP32 compute.  A ray-triangle test is about
+// 40 flops; the Cornell scene has 32 triangles, so a ray costs ~1300 flops
+// against 32 B read (org, dir, tmin, tmax) and 16 B written by the closest
+// kernel, far above the card's flop-per-byte balance.  This is the first,
+// untuned version: no early exit, no register tiling of several rays per
+// thread, no use of the triangle count at compile time.
+//
+// Built with -fmad=false and IEEE division (no --use_fast_math) on
+// purpose: no product is contracted into an FMA and 1/det is the correctly
+// rounded quotient, so every operation rounds exactly as one float32 op of
+// the plain PyTorch version in ops/cuda_intersect.py (and of the JAX
+// reference) does.  The kernels then reproduce the plain version bit for
+// bit, which lets chip_smoke.py hold them to equality, not only tolerance.
+// Constants are written as (float)<double> to round as the reference's
+// Python-float constants do.
+
+#include <cuda_runtime.h>
+#include <math.h>
+
+#define TINY_TRIS 64
+#define THREADS 256
+
+namespace {
+
+// Moller-Trumbore test of triangle k (staged pack s, row stride nt)
+// against one ray, in the operation order of _mt_test_scalar.
+__device__ __forceinline__ bool mt_test(const float* s, int nt, int k,
+                                        float ox, float oy, float oz,
+                                        float dx, float dy, float dz,
+                                        float* t, float* u, float* v) {
+  const float v0x = s[0 * nt + k], v0y = s[1 * nt + k], v0z = s[2 * nt + k];
+  const float e1x = s[3 * nt + k], e1y = s[4 * nt + k], e1z = s[5 * nt + k];
+  const float e2x = s[6 * nt + k], e2y = s[7 * nt + k], e2z = s[8 * nt + k];
+  const float eps = (float)1e-12;
+  const float px = dy * e2z - dz * e2y;
+  const float py = dz * e2x - dx * e2z;
+  const float pz = dx * e2y - dy * e2x;
+  const float det = px * e1x + py * e1y + pz * e1z;
+  const float inv = 1.0f / (fabsf(det) < eps ? 1.0f : det);
+  const float tx = ox - v0x;
+  const float ty = oy - v0y;
+  const float tz = oz - v0z;
+  *u = (tx * px + ty * py + tz * pz) * inv;
+  const float qx = ty * e1z - tz * e1y;
+  const float qy = tz * e1x - tx * e1z;
+  const float qz = tx * e1y - ty * e1x;
+  *v = (dx * qx + dy * qy + dz * qz) * inv;
+  *t = (e2x * qx + e2y * qy + e2z * qz) * inv;
+  return (fabsf(det) > eps) & (*u >= 0.0f) & (*v >= 0.0f) &
+         (*u + *v <= 1.0f);
+}
+
+// Copies rows [0, rows) x columns [0, nt) of a row-major (.., w) array
+// into s[r * nt + k].
+__device__ __forceinline__ void stage(float* s, const float* src, int w,
+                                      int rows, int nt) {
+  for (int i = threadIdx.x; i < rows * nt; i += blockDim.x) {
+    const int r = i / nt;
+    const int k = i - r * nt;
+    s[i] = src[(long long)r * w + k];
+  }
+}
+
+__global__ void closest_tiny_kernel(
+    const float* __restrict__ pack, int pack_w, int n_tris,
+    const float* __restrict__ org, const float* __restrict__ dir,
+    const float* __restrict__ tmin, const float* __restrict__ tmax, int n,
+    float* __restrict__ t_out, int* __restrict__ tri_out,
+    float* __restrict__ u_out, float* __restrict__ v_out) {
+  __shared__ float s[9 * TINY_TRIS];
+  stage(s, pack, pack_w, 9, n_tris);
+  __syncthreads();
+  const long long i = (long long)blockIdx.x * blockDim.x + threadIdx.x;
+  if (i >= n) return;
+  const float ox = org[3 * i], oy = org[3 * i + 1], oz = org[3 * i + 2];
+  const float dx = dir[3 * i], dy = dir[3 * i + 1], dz = dir[3 * i + 2];
+  const float lo = tmin[i], hi = tmax[i];
+  float best_t = INFINITY, best_u = 0.0f, best_v = 0.0f;
+  int best_k = 0;
+  for (int k = 0; k < n_tris; ++k) {
+    float t, u, v;
+    const bool ok = mt_test(s, n_tris, k, ox, oy, oz, dx, dy, dz, &t, &u, &v);
+    // strict t < best_t: the first column wins ties, as in the reference
+    if (ok && t > lo && t < best_t && t < hi) {
+      best_t = t;
+      best_u = u;
+      best_v = v;
+      best_k = k;
+    }
+  }
+  t_out[i] = best_t;
+  tri_out[i] = best_k;
+  u_out[i] = best_u;
+  v_out[i] = best_v;
+}
+
+__global__ void shadow_tiny_kernel(
+    const float* __restrict__ pack, int pack_w, const float* __restrict__ logf,
+    int logf_w, int n_tris, const float* __restrict__ org,
+    const float* __restrict__ dir, const float* __restrict__ dist, int n,
+    float* __restrict__ lg_out) {
+  __shared__ float s[9 * TINY_TRIS];
+  __shared__ float lf[3 * TINY_TRIS];
+  stage(s, pack, pack_w, 9, n_tris);
+  stage(lf, logf, logf_w, 3, n_tris);
+  __syncthreads();
+  const long long i = (long long)blockIdx.x * blockDim.x + threadIdx.x;
+  if (i >= n) return;
+  const float ox = org[3 * i], oy = org[3 * i + 1], oz = org[3 * i + 2];
+  const float dx = dir[3 * i], dy = dir[3 * i + 1], dz = dir[3 * i + 2];
+  const float lo = (float)5e-4;
+  const float hi = dist[i] * (float)(1.0 - 1e-4) - (float)5e-4;
+  float lr = 0.0f, lg = 0.0f, lb = 0.0f;
+  for (int k = 0; k < n_tris; ++k) {
+    float t, u, v;
+    const bool ok = mt_test(s, n_tris, k, ox, oy, oz, dx, dy, dz, &t, &u, &v);
+    if (ok && t > lo && t < hi) {
+      lr += lf[k];
+      lg += lf[n_tris + k];
+      lb += lf[2 * n_tris + k];
+    }
+  }
+  lg_out[3 * i] = lr;
+  lg_out[3 * i + 1] = lg;
+  lg_out[3 * i + 2] = lb;
+}
+
+}  // namespace
+
+// Plain C interface, loaded with ctypes.  Pointers are device pointers;
+// `stream` is a cudaStream_t.  Each returns cudaGetLastError() after the
+// launch (0 = launched).
+extern "C" int closest_hit_tiny_launch(const void* pack, int pack_w,
+                                       int n_tris, const void* org,
+                                       const void* dir, const void* tmin,
+                                       const void* tmax, int n, void* t_out,
+                                       void* tri_out, void* u_out,
+                                       void* v_out, void* stream) {
+  if (n_tris < 0 || n_tris > TINY_TRIS || n_tris > pack_w) {
+    return (int)cudaErrorInvalidValue;
+  }
+  if (n > 0) {
+    const int blocks = (n + THREADS - 1) / THREADS;
+    closest_tiny_kernel<<<blocks, THREADS, 0, (cudaStream_t)stream>>>(
+        (const float*)pack, pack_w, n_tris, (const float*)org,
+        (const float*)dir, (const float*)tmin, (const float*)tmax, n,
+        (float*)t_out, (int*)tri_out, (float*)u_out, (float*)v_out);
+  }
+  return (int)cudaGetLastError();
+}
+
+extern "C" int shadow_logsum_tiny_launch(const void* pack, int pack_w,
+                                         const void* logf, int logf_w,
+                                         int n_tris, const void* org,
+                                         const void* dir, const void* dist,
+                                         int n, void* lg_out, void* stream) {
+  if (n_tris < 0 || n_tris > TINY_TRIS || n_tris > pack_w ||
+      n_tris > logf_w) {
+    return (int)cudaErrorInvalidValue;
+  }
+  if (n > 0) {
+    const int blocks = (n + THREADS - 1) / THREADS;
+    shadow_tiny_kernel<<<blocks, THREADS, 0, (cudaStream_t)stream>>>(
+        (const float*)pack, pack_w, (const float*)logf, logf_w, n_tris,
+        (const float*)org, (const float*)dir, (const float*)dist, n,
+        (float*)lg_out);
+  }
+  return (int)cudaGetLastError();
+}

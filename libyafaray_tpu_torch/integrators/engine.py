@@ -1,0 +1,390 @@
+"""The wavefront render engine, path mode (port of
+libyafaray_tpu/integrators/engine.py `make_sample_step`).
+
+`make_sample_step` builds a function that advances every pixel of the
+film by one sample:
+
+    sample_step : (scene tensors, film, flags) -> film'
+      generate rays   (camera.shoot_rays over pixel lanes, QMC dims 0,1)
+      bounce 0        static QMC dims; every light's full sample count
+                      for NEE, batched block-major over ns·N lanes
+      bounces 1..B    hash-keyed dynamic QMC dims; 1 NEE sample per light
+      splat           into a fresh film fragment, added once to the film
+
+Everything is SoA over N = H·W lanes; dead lanes are masked, not
+compacted, exactly as in the reference, so the same QMC stream gives the
+same image.  The reference's `lax.scan` over bounces is a Python loop that
+keeps its split between static and dynamic dims.  Features outside slice 1
+raise NotImplementedError naming their ROADMAP item.
+"""
+from __future__ import annotations
+
+import torch
+
+from ..backgrounds.base import check_supported as check_background
+from ..backgrounds.base import eval_background
+from ..cameras.base import shoot_rays
+from ..core import math as vmath
+from ..core import qmc
+from ..core.sampling import power_heuristic
+from ..film.imagefilm import film_splat
+from ..lights import base as lightmod
+from ..materials import bsdf
+from ..materials.base import gather_rows
+from ..ops import intersect as isect
+from .config import RenderConfig
+
+F32 = torch.float32
+
+
+def check_supported(static, cfg: RenderConfig) -> None:
+    """Raise for any part of (scene, config) that slice 1 does not render."""
+    if cfg.integrator != "pathtracing":
+        raise NotImplementedError(
+            f"integrator {cfg.integrator!r} is not ported yet: ROADMAP "
+            "Queue 1 items 12-14 and 18 (slice 1 is pathtracing)")
+    if cfg.aa_passes > 1:
+        raise NotImplementedError(
+            "adaptive AA (aa_passes > 1) is not ported yet: ROADMAP Queue 1 "
+            "item 16")
+    if cfg.aa_clamp_indirect > 0.0:
+        raise NotImplementedError(
+            "AA_clamp_indirect is not ported yet: ROADMAP Queue 1 item 16")
+    if cfg.spp_batch != 1:
+        raise NotImplementedError(
+            "spp_batch > 1 is not ported yet: ROADMAP Queue 1 item 16")
+    if cfg.caustic_type in ("photon", "both"):
+        raise NotImplementedError(
+            "photon caustics are not ported yet: ROADMAP Queue 1 item 13")
+    if cfg.passes or cfg.transp_background:
+        raise NotImplementedError(
+            "render passes / AOVs and alpha are not ported yet: ROADMAP "
+            "Queue 1 item 17")
+    if static.has_blend:
+        raise NotImplementedError(
+            "blend/mask materials are not ported yet: ROADMAP Queue 1 item 15")
+    check_background(static.bg)
+    for ls in static.lights:
+        if ls.ltype != lightmod.LT_AREA:
+            raise NotImplementedError(
+                f"light type {ls.ltype} is not ported yet: ROADMAP Queue 1 "
+                "item 17")
+
+
+def check_arrays(arrays: dict, device: torch.device, prefix: str = "") -> None:
+    """Every scene tensor lies on `device`, and floats are float32."""
+    for k, v in arrays.items():
+        if isinstance(v, dict):
+            check_arrays(v, device, f"{prefix}{k}.")
+            continue
+        if v.device != device:
+            raise ValueError(f"scene array {prefix}{k} is on {v.device}, "
+                             f"expected {device}")
+        if v.is_floating_point() and v.dtype != F32:
+            raise TypeError(f"scene array {prefix}{k} is {v.dtype}, "
+                            "expected float32")
+
+
+def resolve_device(device) -> torch.device:
+    """torch.device with the index made explicit ("cuda" -> "cuda:<current>"),
+    so tensors' devices compare equal to it."""
+    dev = torch.device(device)
+    if dev.type == "cuda" and dev.index is None:
+        dev = torch.device("cuda", torch.cuda.current_device())
+    return dev
+
+
+def _div(x: torch.Tensor, s: float) -> torch.Tensor:
+    """x / s as a true float32 division (a Python-scalar divisor may become
+    a multiply by its reciprocal on the GPU)."""
+    return x / torch.full((), float(s), dtype=F32, device=x.device)
+
+
+def _tile(x: torch.Tensor, ns: int) -> torch.Tensor:
+    """(N, ...) -> (ns·N, ...) block-major: lane s·N + i holds x[i]."""
+    if ns == 1:
+        return x
+    return x[None].expand((ns,) + x.shape).reshape((ns * x.shape[0],)
+                                                   + x.shape[1:])
+
+
+def pixel_lanes(h: int, w: int, qmc_seed: int, device):
+    """The N = H·W pixel lanes, row-major: (px, py) int32 and each lane's
+    QMC pixel hash."""
+    lane = torch.arange(h * w, dtype=torch.int32, device=device)
+    py = torch.div(lane, w, rounding_mode="floor")
+    px = lane - py * w
+    return px, py, qmc.hash_u32(px ^ (py << 16) ^ qmc.i32(qmc_seed))
+
+
+def camera_rays(camera, px, py, pixel_hash, s_idx):
+    """Primary rays of sample s_idx: (dx, dy, org, dirn, weight), (dx, dy)
+    the in-pixel offsets from QMC dims 0-1.  (The lens pair, dims 2-3, only
+    feeds depth of field, which the perspective pinhole of slice 1 does not
+    have.)"""
+    dx, dy = qmc.sample_dim_pair(s_idx, qmc.DIM_PIXEL_X, pixel_hash)
+    org, dirn, wt = shoot_rays(camera, px.to(F32) + dx, py.to(F32) + dy)
+    return dx, dy, org, dirn, wt
+
+
+def ray_bounds(static, alive: torch.Tensor):
+    """(tmin, tmax) of a path vertex's rays; dead lanes get an empty
+    interval."""
+    tmin = torch.full(alive.shape, static.ray_min_dist, dtype=F32,
+                      device=alive.device)
+    return tmin, torch.where(alive, float("inf"), -1.0)
+
+
+def bounce_key(pixel_hash: torch.Tensor, bounce_idx: int) -> torch.Tensor:
+    """The QMC scramble key of one path vertex."""
+    return qmc.hash_combine(pixel_hash, qmc.word_like(pixel_hash, bounce_idx))
+
+
+def shading_frame(sp: dict, wo: torch.Tensor):
+    """(n, ng) of a surface point, flipped to face wo."""
+    backface = (vmath.dot(sp["ng"], wo) < 0.0)[..., None]
+    return (torch.where(backface, -sp["n"], sp["n"]),
+            torch.where(backface, -sp["ng"], sp["ng"]))
+
+
+def nee_count(ls, cfg: RenderConfig, first: bool) -> int:
+    """NEE samples per lane of one light: its full `samples` count at the
+    first vertex, one deeper."""
+    if first:
+        return max(1, int(round(ls.samples * cfg.light_ns_mult)))
+    return max(1, int(round(cfg.indirect_ns_mult)))
+
+
+def shadow_rays(arrays, static, li: int, ns: int, p, n, ng, alive, s_idx,
+                skey, bounce_dim: int, first: bool):
+    """Light li's NEE samples and their shadow rays, ns per lane, batched
+    block-major over ns·N lanes (lane s·N + i is sample s of lane i).
+    Returns (smp, cos_i, org, dist): the area-light sample record, the
+    cosine at the shading normal, and the segments; dead lanes get a
+    negative dist, an empty segment."""
+    skey_l = qmc.hash_combine(skey, qmc.word_like(skey, 0xABCD01 + 131 * li))
+    if ns > 1:
+        s = torch.arange(ns, dtype=torch.int32, device=p.device)
+        sub_idx = (s_idx[None, :] * ns + s[:, None]).reshape(-1)
+    else:
+        sub_idx = s_idx
+    skey_v, p_, n_, ng_, alive_ = (_tile(x, ns)
+                                   for x in (skey_l, p, n, ng, alive))
+    dim_u = bounce_dim + qmc.SLOT_LIGHT_U
+    if first:
+        u1, u2 = qmc.sample_dim_pair(sub_idx, dim_u, skey_v)
+    else:
+        u1 = qmc.dynamic_sample_dim(sub_idx, dim_u, skey_v)
+        u2 = qmc.dynamic_sample_dim(sub_idx, bounce_dim + qmc.SLOT_LIGHT_V,
+                                    skey_v)
+    smp = lightmod.sample_area(lightmod.light_row(arrays["lights"], li), p_,
+                               u1, u2)
+    cos_i = vmath.dot(n_, smp["wi"])
+    org = p_ + ng_ * torch.sign(cos_i)[..., None] * static.shadow_bias
+    dist = torch.where(alive_, smp["dist"], -1.0)
+    return smp, cos_i, org, dist
+
+
+def _surface_point(arrays: dict, hit: isect.Hit) -> dict:
+    """Hit -> shading record from one packed gather of tri_shade_pack
+    (pos 0:9, normal 9:18, geo_n 24:27, mat 27, light_id 28)."""
+    pack = arrays["tri_shade_pack"]
+    tri = torch.clamp(hit.tri, 0, pack.shape[0] - 1)
+    b1, b2 = hit.u, hit.v
+    b0 = 1.0 - b1 - b2
+    pk = pack[tri.long()]  # (N, 36)
+    p = (b0[..., None] * pk[:, 0:3] + b1[..., None] * pk[:, 3:6]
+         + b2[..., None] * pk[:, 6:9])
+    n = vmath.normalize(b0[..., None] * pk[:, 9:12]
+                        + b1[..., None] * pk[:, 12:15]
+                        + b2[..., None] * pk[:, 15:18])
+    return dict(p=p, n=n, ng=pk[:, 24:27], mat=pk[:, 27].to(torch.int32),
+                light_id=pk[:, 28].to(torch.int32))
+
+
+def _direct_lighting(arrays, static, cfg, p, n, ng, row, wo, s_idx, skey,
+                     bounce_dim: int, first: bool, alive):
+    """NEE with two-strategy MIS over the enabled lights (reference
+    estimateAllDirectLight).  At the first vertex every light takes its
+    full `samples` count, all ns samples batched block-major over ns·N
+    lanes (`shadow_rays`); deeper vertices take one.
+    Returns (L (N,3), shadow rays per live lane)."""
+    L = torch.zeros_like(p)
+    nrays = 0
+    families = static.mat_families
+    for li, ls in enumerate(static.lights):
+        if not ls.enabled or ls.photon_only:
+            continue
+        ns = nee_count(ls, cfg, first)
+        n0 = p.shape[0]
+        smp, cos_i, org_s, d_ = shadow_rays(
+            arrays, static, li, ns, p, n, ng, alive, s_idx, skey, bounce_dim,
+            first)
+        n_, ng_, wo_ = (_tile(x, ns) for x in (n, ng, wo))
+        row_ = {k: _tile(row[k], ns) for k in bsdf.EVAL_KEYS}
+        f = bsdf.eval_bsdf(row_, n_, ng_, wo_, smp["wi"], families)
+        contrib_w = cos_i.abs() / torch.clamp(smp["pdf"], min=1e-9)
+        ok = smp["valid"] & (smp["pdf"] > 1e-9)
+        if ls.cast_shadows:
+            tr = isect.shadow_transmission(arrays, static, cfg.transp_shad,
+                                           org_s, smp["wi"], d_)
+        else:
+            tr = torch.ones_like(f)
+        term = f * smp["li"] * tr * contrib_w[..., None]
+        if (not ls.is_delta) and ls.intersectable:
+            bpdf = bsdf.pdf_bsdf(row_, n_, ng_, wo_, smp["wi"], families)
+            term = term * power_heuristic(smp["pdf"], bpdf)[..., None]
+        term = torch.where(ok[..., None], term, 0.0)
+        accum = term[:n0]
+        for k in range(1, ns):
+            accum = accum + term[k * n0:(k + 1) * n0]
+        if ls.cast_shadows:
+            nrays += ns
+        L = L + _div(accum, ns)
+    return L, nrays
+
+
+def make_sample_step(static, camera, cfg: RenderConfig, device):
+    """Builds the one-sample-per-pixel step on `device`:
+    sample_step(arrays, film, flags) -> film, with `arrays` the scene
+    tensors on `device` (convert.to_tensors) and flags (H, W) bool."""
+    check_supported(static, cfg)
+    dev = resolve_device(device)
+    h, w = cfg.height, cfg.width
+    n = h * w
+    px, py, pixel_hash = pixel_lanes(h, w, cfg.qmc_seed, dev)
+    nee_on_table = torch.tensor(
+        [1.0 if (ls.enabled and not ls.photon_only) else 0.0
+         for ls in static.lights] or [0.0], dtype=F32, device=dev)
+
+    def shade_vertex(arrays, st, bounce_idx: int, s_idx, first: bool):
+        """One path vertex: intersect, add background/emission (MIS), NEE,
+        sample the continuation."""
+        bounce_dim = qmc.bounce_dim(bounce_idx, 0)
+        throughput, alive = st["throughput"], st["alive"]
+        spec_mask, prev_pdf = st["spec_mask"], st["prev_pdf"]
+        L, nrays = st["L"], st["nrays"]
+        org, dirn = st["org"], st["dirn"]
+        mats = arrays["materials"]
+
+        hit = isect.closest_hit(arrays, static, org, dirn,
+                                *ray_bounds(static, alive))
+
+        # escaped rays: constant background
+        escape = alive & ~hit.hit
+        L = L + torch.where(escape[..., None],
+                            throughput * eval_background(static.bg, dirn),
+                            0.0)
+        alive = alive & hit.hit
+
+        sp = _surface_point(arrays, hit)
+        wo = -dirn
+        row = gather_rows(mats, sp["mat"].long())
+
+        # ---- emission with MIS against NEE ----
+        emit = bsdf.emission(row, sp["ng"], wo)
+        li_id = sp["light_id"]
+        is_light_tri = li_id >= 0
+        if static.lights:
+            lpk = arrays["lights"]["hit_pack"][torch.clamp(li_id, min=0)
+                                               .long()]
+            area_l = lpk[:, 0]
+            dbl = lpk[:, 1] > 0.5
+            front = (vmath.dot(sp["ng"], wo) > 0.0) | dbl
+            emit = emit + torch.where((is_light_tri & front)[..., None],
+                                      lpk[:, 2:5], 0.0)
+        else:
+            area_l = torch.ones((n,), dtype=F32, device=dev)
+        cos_l = vmath.dot(sp["ng"], wo).abs()
+        pdf_light_hit = (hit.t * hit.t) / torch.clamp(
+            area_l * torch.clamp(cos_l, min=1e-6), min=1e-9)
+        # MIS only against lights that the NEE step actually samples
+        nee_on = nee_on_table[torch.clamp(li_id, min=0).long()] > 0.5
+        mis_w = torch.where(is_light_tri & ~spec_mask & nee_on,
+                            power_heuristic(prev_pdf, pdf_light_hit), 1.0)
+        L = L + torch.where(alive[..., None],
+                            throughput * emit * mis_w[..., None], 0.0)
+
+        # ---- shading frame ----
+        n_sh, ng_sh = shading_frame(sp, wo)
+        skey_b = bounce_key(pixel_hash, bounce_idx)
+
+        # ---- NEE ----
+        Ld, sh_rays = _direct_lighting(
+            arrays, static, cfg, sp["p"], n_sh, ng_sh, row, wo, s_idx,
+            skey_b, bounce_dim, first, alive)
+        L = L + torch.where(alive[..., None], throughput * Ld, 0.0)
+        nrays = nrays + sh_rays * alive.to(F32).sum()
+
+        # ---- continuation ----
+        if first:
+            u1, u2 = qmc.sample_dim_pair(s_idx, bounce_dim + qmc.SLOT_BSDF_U,
+                                         skey_b)
+            ul, u_rr = qmc.sample_dim_pair(
+                s_idx, bounce_dim + qmc.SLOT_LIGHT_PICK, skey_b)
+        else:
+            u1, u2, ul, u_rr = (
+                qmc.dynamic_sample_dim(s_idx, bounce_dim + slot, skey_b)
+                for slot in (qmc.SLOT_BSDF_U, qmc.SLOT_BSDF_V,
+                             qmc.SLOT_LIGHT_PICK, qmc.SLOT_RR))
+        smp = bsdf.sample_bsdf(row, n_sh, ng_sh, wo, u1, u2, ul,
+                               static.mat_families)
+        alive = alive & smp["valid"]
+        throughput = throughput * smp["tp"]
+
+        # Russian roulette (reference: survival = max component)
+        if bounce_idx >= cfg.rr_min_bounces:
+            q = torch.clamp(throughput.amax(dim=-1), 0.05, 1.0)
+            alive = alive & ~(u_rr > q)
+            throughput = throughput / q[..., None]
+
+        off = torch.where(smp["transmit"], -1.0, 1.0)[..., None]
+        org = sp["p"] + ng_sh * off * static.shadow_bias
+        # null pass-through keeps the MIS state of the last real vertex
+        pt = smp["passthrough"]
+        spec_mask = torch.where(pt, spec_mask, smp["specular"])
+        prev_pdf = torch.where(pt, prev_pdf, smp["pdf"])
+        nrays = nrays + alive.to(F32).sum()
+        return dict(org=org, dirn=smp["wi"], throughput=throughput,
+                    alive=alive, spec_mask=spec_mask, prev_pdf=prev_pdf,
+                    L=L, nrays=nrays)
+
+    def sample_step(arrays: dict, film: dict, flags: torch.Tensor) -> dict:
+        check_arrays(arrays, dev)
+        # film sample counters are the QMC sample index (int32 = uint32
+        # bits for the non-negative counts)
+        s_idx = film["nsamples"].reshape(-1)
+        active = flags.reshape(-1)
+        dx, dy, org, dirn, wt = camera_rays(camera, px, py, pixel_hash,
+                                            s_idx)
+        alive = active & (wt > 0.0)
+        st = dict(
+            org=org, dirn=dirn,
+            throughput=torch.ones((n, 3), dtype=F32, device=dev),
+            alive=alive,
+            # the primary ray counts emission fully
+            spec_mask=torch.ones((n,), dtype=torch.bool, device=dev),
+            prev_pdf=torch.zeros((n,), dtype=F32, device=dev),
+            L=torch.zeros((n, 3), dtype=F32, device=dev),
+            nrays=alive.to(F32).sum(),
+        )
+        st = shade_vertex(arrays, st, 0, s_idx, first=True)
+        for b in range(1, cfg.bounces + 1):
+            st = shade_vertex(arrays, st, b, s_idx, first=False)
+        L = st["L"] * wt[..., None]
+        # two-level accumulation: splat into a fresh fragment, then add it
+        # once (splatting straight into the long-run sums stagnates in f32)
+        frag = film_splat(
+            dict(wsum=torch.zeros_like(film["wsum"]),
+                 w=torch.zeros_like(film["w"]),
+                 nsamples=torch.zeros_like(film["nsamples"])),
+            L.reshape(h, w, 3), dx.reshape(h, w), dy.reshape(h, w),
+            flags.to(F32), cfg.filter_type, cfg.aa_pixelwidth,
+            clamp_samples=cfg.aa_clamp_samples)
+        return dict(film,
+                    wsum=film["wsum"] + frag["wsum"],
+                    w=film["w"] + frag["w"],
+                    nsamples=film["nsamples"] + frag["nsamples"],
+                    rays=film["rays"] + st["nrays"])
+
+    return sample_step

@@ -1,0 +1,81 @@
+"""Render orchestration (port of libyafaray_tpu/integrators/render.py:
+`render` for one pass without mesh or film save, and `render_timed`).
+
+`device` is explicit and threads from here down: the scene tensors, the
+film and every lane live on it.  Timing synchronizes the device before the
+clock is read.
+"""
+from __future__ import annotations
+
+import time
+
+import numpy as np
+import torch
+
+from ..convert import to_tensors
+from ..film.imagefilm import film_image, film_init
+from ..scene.scene import CompiledScene
+from .config import RenderConfig
+from .engine import make_sample_step, resolve_device
+
+
+class RenderResult:
+    def __init__(self, film: dict, stats: dict):
+        self.film = film
+        self.stats = stats  # render_s (timed seconds), rays (film["rays"])
+
+    @property
+    def image(self) -> np.ndarray:
+        return film_image(self.film).cpu().numpy()
+
+    @property
+    def mrays_per_sec(self) -> float:
+        """Rays counted as film["rays"] (camera rays, shadow rays and live
+        continuation rays) over the timed render seconds."""
+        return self.stats["rays"] / max(self.stats["render_s"], 1e-9) / 1e6
+
+
+def _sync(device: torch.device) -> None:
+    if device.type == "cuda":
+        torch.cuda.synchronize(device)
+
+
+def _fresh_film(cfg: RenderConfig, device) -> dict:
+    f = film_init(cfg.height, cfg.width, device)
+    f["rays"] = torch.zeros((), dtype=torch.float32, device=device)
+    return f
+
+
+def render(cscene: CompiledScene, cfg: RenderConfig, *,
+           device) -> RenderResult:
+    """Full render: aa_samples one-sample steps over every pixel."""
+    dev = resolve_device(device)
+    arrays = to_tensors(cscene.arrays, dev)
+    step = make_sample_step(cscene.static, cscene.camera, cfg, dev)
+    film = _fresh_film(cfg, dev)
+    flags = torch.ones((cfg.height, cfg.width), dtype=torch.bool, device=dev)
+    t0 = time.perf_counter()
+    for _ in range(cfg.aa_samples):
+        film = step(arrays, film, flags)
+    _sync(dev)
+    return RenderResult(film, dict(render_s=time.perf_counter() - t0,
+                                   rays=float(film["rays"])))
+
+
+def render_timed(cscene: CompiledScene, cfg: RenderConfig, *,
+                 device) -> RenderResult:
+    """Benchmark render: one warm-up step on a throw-away film, then the
+    timed steps (the Mrays/s metric)."""
+    dev = resolve_device(device)
+    arrays = to_tensors(cscene.arrays, dev)
+    step = make_sample_step(cscene.static, cscene.camera, cfg, dev)
+    flags = torch.ones((cfg.height, cfg.width), dtype=torch.bool, device=dev)
+    step(arrays, _fresh_film(cfg, dev), flags)
+    _sync(dev)
+    film = _fresh_film(cfg, dev)
+    t0 = time.perf_counter()
+    for _ in range(cfg.aa_samples):
+        film = step(arrays, film, flags)
+    _sync(dev)
+    return RenderResult(film, dict(render_s=time.perf_counter() - t0,
+                                   rays=float(film["rays"])))

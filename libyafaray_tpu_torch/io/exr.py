@@ -1,0 +1,89 @@
+"""Minimal OpenEXR reader (the scanline NONE / ZIPS / ZIP subset of
+libyafaray_tpu/io/exr.py `read_exr`), enough to read the repository's
+golden images.  Pure numpy, struct and zlib."""
+from __future__ import annotations
+
+import struct
+import zlib
+
+import numpy as np
+
+_MAGIC = 20000630
+_SIZE = {0: 4, 1: 2, 2: 4}  # UINT, HALF, FLOAT bytes
+_DT = {0: "<u4", 1: "<f2", 2: "<f4"}
+_LINES = {0: 1, 2: 1, 3: 16}  # NONE, ZIPS, ZIP
+
+
+def _unfilter(buf: bytes) -> bytes:
+    """Undo the EXR zip byte filter: delta predictor, then re-interleave
+    the two halves."""
+    d = np.frombuffer(buf, np.uint8).astype(np.int64)
+    n = d.shape[0]
+    rec = ((np.cumsum(d) - 128 * np.arange(n)) % 256).astype(np.uint8)
+    half = (n + 1) // 2
+    out = np.empty(n, np.uint8)
+    out[0::2] = rec[:half]
+    out[1::2] = rec[half:]
+    return out.tobytes()
+
+
+def read_exr(path: str) -> np.ndarray:
+    """(H, W, C) float32 image of a single-part scanline EXR (channels
+    R, G, B[, A] in that order)."""
+    with open(path, "rb") as f:
+        data = f.read()
+    magic, version = struct.unpack_from("<II", data, 0)
+    if magic != _MAGIC:
+        raise ValueError("not an EXR file")
+    if version & 0x1200:
+        raise NotImplementedError("tiled / multi-part EXR files")
+    pos = 8
+    channels = []
+    h = w = None
+    compression = 0
+    while data[pos] != 0:
+        name_end = data.index(b"\0", pos)
+        name = data[pos:name_end].decode()
+        type_end = data.index(b"\0", name_end + 1)
+        (size,) = struct.unpack_from("<i", data, type_end + 1)
+        payload = data[type_end + 5:type_end + 5 + size]
+        pos = type_end + 5 + size
+        if name == "channels":
+            cpos = 0
+            while payload[cpos] != 0:
+                ce = payload.index(b"\0", cpos)
+                ptype = struct.unpack_from("<i", payload, ce + 1)[0]
+                channels.append((payload[cpos:ce].decode(), ptype))
+                cpos = ce + 1 + 16
+        elif name == "dataWindow":
+            x0, y0, x1, y1 = struct.unpack("<iiii", payload)
+            w, h = x1 - x0 + 1, y1 - y0 + 1
+        elif name == "compression":
+            compression = payload[0]
+    pos += 1  # header terminator
+    if compression not in _LINES:
+        raise NotImplementedError(f"EXR compression type {compression}")
+    lines = _LINES[compression]
+    chans = sorted(c for c, _ in channels)
+    ptypes = dict(channels)
+    planes = {c: np.zeros((h, w), np.float32) for c in chans}
+    offsets = struct.unpack_from(f"<{-(-h // lines)}Q", data, pos)
+    for off in offsets:
+        y0, nbytes = struct.unpack_from("<ii", data, off)
+        raw = data[off + 8:off + 8 + nbytes]
+        bh = min(lines, h - y0)
+        expect = sum(_SIZE[ptypes[c]] * w for c in chans) * bh
+        if compression == 0 or len(raw) == expect:
+            chunk = raw  # stored raw (did not compress smaller)
+        else:
+            chunk = _unfilter(zlib.decompress(raw))
+        p = 0
+        for ly in range(bh):
+            for c in chans:
+                planes[c][y0 + ly] = np.frombuffer(
+                    chunk, _DT[ptypes[c]], w, p).astype(np.float32)
+                p += _SIZE[ptypes[c]] * w
+    order = [planes[k] for k in ("R", "G", "B", "A") if k in planes]
+    if not order:
+        raise ValueError(f"EXR without R/G/B/A channels: {chans}")
+    return np.stack(order, axis=-1)

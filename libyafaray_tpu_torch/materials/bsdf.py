@@ -1,0 +1,183 @@
+"""Lane-wise BSDF eval / sample / pdf / emission over gathered material rows.
+
+Port of libyafaray_tpu/materials/bsdf.py for the families slice 1 renders:
+null (pass-through), shinydiffuse and light.  The glossy, coated-glossy,
+glass and rough-glass families raise (ROADMAP Queue 1 item 10); blend and
+mask composites raise too, since `materials/blend.py` is only needed as the
+`has_blend == 0` pass-through these functions already are.
+"""
+from __future__ import annotations
+
+import torch
+
+from ..core import math as vmath
+from ..core.color import luminance
+from ..core.sampling import INV_PI, sample_cos_hemisphere
+from .base import (
+    MT_BLEND, MT_COATED_GLOSSY, MT_GLASS, MT_GLOSSY, MT_LIGHT, MT_MASK,
+    MT_NULL, MT_ROUGH_GLASS, MT_SHINYDIFFUSE, SUPPORTED_FAMILIES,
+    oren_nayar_factor, shinydiffuse_weights,
+)
+
+_ROADMAP = {
+    MT_GLOSSY: "ROADMAP Queue 1 item 10 (glossy)",
+    MT_COATED_GLOSSY: "ROADMAP Queue 1 item 10 (glossy)",
+    MT_GLASS: "ROADMAP Queue 1 item 10 (glass)",
+    MT_ROUGH_GLASS: "ROADMAP Queue 1 item 10 (glass)",
+    MT_BLEND: "ROADMAP Queue 1 item 15 (materials/blend.py)",
+    MT_MASK: "ROADMAP Queue 1 item 15 (materials/blend.py)",
+}
+
+
+# the row entries eval_bsdf / pdf_bsdf read (the engine tiles only these
+# for the batched NEE lanes)
+EVAL_KEYS = ("mtype", "diffuse_color", "sigma", "fresnel_effect", "ior",
+             "specular_reflect", "transparency", "translucency",
+             "diffuse_reflect")
+
+
+def check_families(families) -> None:
+    """Raise for a material family the port does not render yet."""
+    for code in families:
+        if code not in SUPPORTED_FAMILIES:
+            raise NotImplementedError(
+                f"material family {code} is not ported yet: "
+                f"{_ROADMAP.get(code, 'ROADMAP Queue 1')}")
+
+
+def eval_bsdf(row, n, ng, wo, wi, families) -> torch.Tensor:
+    """f(wo, wi) of all non-delta lobes. (N,3)."""
+    check_families(families)
+    cos_o = vmath.dot(n, wo)
+    cos_i = vmath.dot(n, wi)
+    same_side = (cos_i * cos_o) > 0.0
+    f = torch.zeros_like(row["diffuse_color"])
+    if MT_SHINYDIFFUSE in families:
+        _, _, w_transl, w_diff = shinydiffuse_weights(row, cos_o)
+        on = oren_nayar_factor(row["sigma"], n, wo, wi)
+        f_diff = (w_diff * on * INV_PI)[..., None] * row["diffuse_color"]
+        f_transl = (w_transl * INV_PI)[..., None] * row["diffuse_color"]
+        f_shiny = torch.where(same_side[..., None], f_diff, f_transl)
+        f = torch.where((row["mtype"] == MT_SHINYDIFFUSE)[..., None],
+                        f_shiny, f)
+    return f
+
+
+def pdf_bsdf(row, n, ng, wo, wi, families) -> torch.Tensor:
+    """pdf of sample_bsdf for non-delta directions (solid angle). (N,)."""
+    check_families(families)
+    cos_o = vmath.dot(n, wo)
+    cos_i = vmath.dot(n, wi)
+    same_side = (cos_i * cos_o) > 0.0
+    abs_ci = cos_i.abs()
+    pdf = torch.zeros_like(cos_i)
+    if MT_SHINYDIFFUSE in families:
+        w_m, w_t, w_tl, w_d = shinydiffuse_weights(row, cos_o)
+        tot = torch.clamp(w_m + w_t + w_tl + w_d, min=1e-8)
+        pdf_shiny = torch.where(
+            same_side, (w_d / tot) * abs_ci * INV_PI,
+            (w_tl / tot) * abs_ci * INV_PI)
+        pdf = torch.where(row["mtype"] == MT_SHINYDIFFUSE, pdf_shiny, pdf)
+    return pdf
+
+
+def sample_bsdf(row, n, ng, wo, u1, u2, u_lobe, families) -> dict:
+    """Sample a continuation direction for every lane.
+
+    Returns dict with wi (N,3), tp (N,3) throughput multiplier (f·|cos|/pdf,
+    delta lobes pre-folded), pdf (N,) solid-angle pdf for MIS (0 = delta),
+    specular, transmit, entering, valid and passthrough (N,) bools."""
+    check_families(families)
+    cos_o = vmath.dot(n, wo)
+    nf = vmath.face_forward(n, wo)
+    mtype = row["mtype"]
+    n_lanes = cos_o.shape[0]
+    dev = cos_o.device
+    wi = wo  # placeholder; overwritten per present family
+    tp = torch.zeros((n_lanes, 3), dtype=torch.float32, device=dev)
+    pdf = torch.zeros((n_lanes,), dtype=torch.float32, device=dev)
+    specular = torch.zeros((n_lanes,), dtype=torch.bool, device=dev)
+    transmit = torch.zeros((n_lanes,), dtype=torch.bool, device=dev)
+    valid = torch.zeros((n_lanes,), dtype=torch.bool, device=dev)
+    entering = vmath.dot(ng, wo) > 0.0
+    is_null = mtype == MT_NULL
+
+    if MT_SHINYDIFFUSE in families:
+        wi_diff, pdf_diff = sample_cos_hemisphere(nf, u1, u2)
+        wi_mirror = vmath.reflect(wo, nf)
+        w_m, w_t, w_tl, w_d = shinydiffuse_weights(row, cos_o)
+        tot = torch.clamp(w_m + w_t + w_tl + w_d, min=1e-8)
+        p_m, p_t, p_tl = w_m / tot, w_t / tot, w_tl / tot
+        c0, c1, c2 = p_m, p_m + p_t, p_m + p_t + p_tl
+        pick_m = u_lobe < c0
+        pick_t = (~pick_m) & (u_lobe < c1)
+        pick_tl = (~pick_m) & (~pick_t) & (u_lobe < c2)
+        wi_transl = -wi_diff
+        wi_transp = -wo
+        sh_wi = torch.where(
+            pick_m[..., None], wi_mirror,
+            torch.where(pick_t[..., None], wi_transp,
+                        torch.where(pick_tl[..., None], wi_transl, wi_diff)))
+        on = oren_nayar_factor(row["sigma"], n, wo, wi_diff)
+        # diffuse: f·cos/(pdf·p_d), f = w_d·on·ρ/π, pdf = cos/π ⇒ w_d·on·ρ/p_d
+        p_d = torch.clamp(1.0 - c2, min=1e-8)
+        tp_diff = (w_d * on / p_d)[..., None] * row["diffuse_color"]
+        tp_transl = (w_tl / torch.clamp(p_tl, min=1e-8))[..., None] \
+            * row["diffuse_color"]
+        tp_mirror = (w_m / torch.clamp(p_m, min=1e-8))[..., None] \
+            * row["mirror_color"]
+        tp_transp = (w_t / torch.clamp(p_t, min=1e-8))[..., None] \
+            * row["filter_color"]
+        sh_tp = torch.where(
+            pick_m[..., None], tp_mirror,
+            torch.where(pick_t[..., None], tp_transp,
+                        torch.where(pick_tl[..., None], tp_transl, tp_diff)))
+        pick_d = (~pick_m) & (~pick_t) & (~pick_tl)
+        sh_pdf = torch.where(
+            pick_d, pdf_diff * p_d,
+            torch.where(pick_tl, pdf_diff * torch.clamp(p_tl, min=1e-8), 0.0))
+        m = mtype == MT_SHINYDIFFUSE
+        wi = torch.where(m[..., None], sh_wi, wi)
+        tp = torch.where(m[..., None], sh_tp, tp)
+        pdf = torch.where(m, sh_pdf, pdf)
+        specular = torch.where(m, pick_m | pick_t, specular)
+        transmit = torch.where(m, pick_t | pick_tl, transmit)
+        valid = torch.where(m, tot > 1e-6, valid)
+
+    if MT_NULL in families:
+        # the reference's glass-family block at is_null: eta = 1, no
+        # Fresnel reflection unless the refraction fails (TIR -> reflect)
+        wi_refr, refr_ok = vmath.refract_unit_eta(wo, nf)
+        kr = torch.where(refr_ok, 0.0, 1.0)
+        pick_refl = u_lobe < kr
+        gs_wi = torch.where(pick_refl[..., None], vmath.reflect(wo, nf),
+                            wi_refr)
+        wi = torch.where(is_null[..., None], gs_wi, wi)
+        tp = torch.where(is_null[..., None], 1.0, tp)
+        pdf = torch.where(is_null, 0.0, pdf)
+        specular = torch.where(is_null, True, specular)
+        transmit = torch.where(is_null, ~pick_refl, transmit)
+        valid = torch.where(is_null, True, valid)
+
+    valid = valid & (luminance(tp.abs()) > 1e-7)
+    return dict(
+        wi=vmath.normalize(wi), tp=tp, pdf=pdf,
+        specular=specular, transmit=transmit,
+        entering=entering & transmit, valid=valid,
+        # null transmission is not a scattering event: callers keep their
+        # MIS state (spec_mask/prev_pdf) across it
+        passthrough=is_null & transmit,
+    )
+
+
+def emission(row, ng, wo) -> torch.Tensor:
+    """Surface emission toward wo (light_mat power-folded color;
+    shinydiffuse `emit` knob)."""
+    front = vmath.dot(ng, wo) > 0.0
+    vis = front | row["double_sided"]
+    e_light = torch.where(vis[..., None], row["emit_color"], 0.0)
+    e_shiny = row["emit_strength"][..., None] * row["diffuse_color"]
+    mtype = row["mtype"]
+    return torch.where(
+        (mtype == MT_LIGHT)[..., None], e_light,
+        torch.where((mtype == MT_SHINYDIFFUSE)[..., None], e_shiny, 0.0))

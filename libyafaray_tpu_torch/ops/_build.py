@@ -1,0 +1,76 @@
+"""Build and load the port's CUDA kernels (nvcc -> plain-C-ABI .so -> ctypes).
+
+A library is built at first use into `libyafaray_tpu_torch/_build/`, keyed
+on a hash of its source and flags, so a fresh checkout builds it on the
+first call and later calls in the process reuse the loaded library.
+Only the package's own `csrc/` sources are compiled; nothing is fetched.
+A failed build raises with nvcc's stderr.
+"""
+from __future__ import annotations
+
+import ctypes
+import hashlib
+import os
+import shutil
+import subprocess
+import threading
+
+_PKG = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
+CSRC = os.path.join(_PKG, "csrc")
+BUILD_DIR = os.path.join(_PKG, "_build")
+NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
+              "-O3", "-fmad=false", "-shared", "-Xcompiler", "-fPIC",
+              "-Xptxas", "-v")
+
+_lock = threading.Lock()
+_loaded: dict[str, ctypes.CDLL] = {}
+
+
+def _nvcc() -> str:
+    for cand in (shutil.which("nvcc"),
+                 os.path.join(os.environ.get("CUDA_HOME", "/usr/local/cuda"),
+                              "bin", "nvcc")):
+        if cand and os.path.exists(cand):
+            return cand
+    raise RuntimeError("nvcc not found (PATH, $CUDA_HOME/bin, "
+                       "/usr/local/cuda/bin): the CUDA kernels cannot be "
+                       "built")
+
+
+def library_path(name: str) -> str:
+    """Path of the built library for csrc/<name>.cu at its current source."""
+    with open(os.path.join(CSRC, f"{name}.cu"), "rb") as f:
+        key = hashlib.sha256(f.read() + " ".join(NVCC_FLAGS).encode())
+    return os.path.join(BUILD_DIR, f"lib{name}_{key.hexdigest()[:16]}.so")
+
+
+def build(name: str) -> str:
+    """Compile csrc/<name>.cu unless the keyed library exists; returns its
+    path.  The ptxas report (registers, shared memory, spills) is kept
+    beside it in a .log file."""
+    out = library_path(name)
+    if os.path.exists(out):
+        return out
+    os.makedirs(BUILD_DIR, exist_ok=True)
+    tmp = f"{out}.{os.getpid()}.tmp"
+    cmd = [_nvcc(), *NVCC_FLAGS, "-o", tmp,
+           os.path.join(CSRC, f"{name}.cu")]
+    r = subprocess.run(cmd, capture_output=True, text=True)
+    if r.returncode != 0:
+        raise RuntimeError(
+            f"nvcc failed ({r.returncode}) building {name}.cu:\n"
+            f"{' '.join(cmd)}\n{r.stderr}")
+    with open(out[:-3] + ".log", "w") as f:
+        f.write(r.stderr)
+    os.replace(tmp, out)
+    return out
+
+
+def load(name: str) -> ctypes.CDLL:
+    """Build (if needed) and load csrc/<name>.cu; cached per process."""
+    with _lock:
+        lib = _loaded.get(name)
+        if lib is None:
+            lib = ctypes.CDLL(build(name))
+            _loaded[name] = lib
+        return lib

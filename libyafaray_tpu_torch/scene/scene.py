@@ -1,0 +1,341 @@
+"""Scene — host-side scene graph + compile to flat arrays (port of
+libyafaray_tpu/scene/scene.py, restricted to what slice 1 renders).
+
+`compile()` stays numpy and yields the reference's `CompiledScene.arrays`
+keys that the slice reads, with equal values; `convert.to_tensors` moves
+them to a torch device once per render.  Features outside the slice raise
+NotImplementedError naming their ROADMAP item.
+"""
+from __future__ import annotations
+
+from dataclasses import dataclass, replace
+
+import numpy as np
+
+from ..backgrounds.base import BackgroundSpec
+from ..backgrounds.factory import background_from_params
+from ..cameras.base import Camera
+from ..cameras.factory import camera_from_params
+from ..lights.base import build_light_table
+from ..lights.factory import light_from_params
+from ..materials.base import MT_LIGHT, build_material_table, default_row
+from ..materials.bsdf import check_families
+from ..materials.factory import material_row_from_params
+from ..materials.host import shadow_filter_np
+from ..ops.cuda_intersect import build_tri_pack
+from ..ops.intersect import intersector_for, pad_triangles
+from .mesh import TriMesh, finalize_mesh
+from .params import ParamMap
+
+# the arrays of the reference's CompiledScene.arrays that slice 1 reads
+SLICE_ARRAY_KEYS = (
+    "tris", "tri_shade_pack", "tri_geom_pack", "tri_pack10", "stri_pack10",
+    "sfilt4", "sfilt4_binary", "shadow_filt", "shadow_filt_binary",
+    "materials", "lights",
+)
+
+
+@dataclass(frozen=True)
+class LightStatic:
+    ltype: int
+    samples: int
+    is_delta: bool
+    intersectable: bool
+    cast_shadows: bool
+    photon_only: bool
+    enabled: bool
+    tri_start: int = -1
+    tri_count: int = 0
+
+
+@dataclass(frozen=True)
+class SceneStatic:
+    """The SceneStatic fields of the reference that slice 1 reads."""
+
+    n_tris_real: int
+    n_stris_real: int
+    lights: tuple  # tuple[LightStatic, ...]
+    bg: BackgroundSpec
+    mat_families: tuple
+    has_blend: int
+    ray_min_dist: float
+    shadow_bias: float
+    intersector: str  # "brute" | "bvh"
+    chunk: int
+
+
+@dataclass
+class CompiledScene:
+    arrays: dict  # numpy arrays, SLICE_ARRAY_KEYS
+    static: SceneStatic
+    camera: Camera
+
+
+class Scene:
+    """Host scene under construction through the flat API."""
+
+    def __init__(self):
+        self.meshes: dict[int, TriMesh] = {}
+        self.materials: list[dict] = [default_row()]  # row 0 = fallback null
+        self.material_names: dict[str, int] = {"__default__": 0}
+        self.lights: list[dict] = []
+        self.light_geometry: list = []  # parallel: geometry or None
+        self.cameras: dict[str, Camera] = {}
+        self.background = BackgroundSpec()
+        self.render_params = ParamMap()
+        self.integrator_params: dict[str, ParamMap] = {}
+        self._cur_mesh: TriMesh | None = None
+        self._next_mesh_id = 0
+        self.shadow_bias = 5e-4
+        self.ray_min_dist = 5e-5
+
+    # ---- geometry streaming (yafrayInterface parity) -------------------
+
+    def start_tri_mesh(self, mesh_id: int, has_uv: bool,
+                       visibility: str) -> int:
+        self._next_mesh_id = max(self._next_mesh_id, mesh_id + 1)
+        if visibility != "normal":
+            raise NotImplementedError(
+                f"object visibility {visibility!r} is not ported yet: "
+                "ROADMAP Queue 1 item 17")
+        self._cur_mesh = TriMesh(mesh_id=mesh_id, has_uv=bool(has_uv))
+        self.meshes[mesh_id] = self._cur_mesh
+        return mesh_id
+
+    def add_vertex(self, x, y, z):
+        self._cur_mesh.add_vertex(x, y, z)
+        return len(self._cur_mesh.vertices) - 1
+
+    def add_normal(self, x, y, z):
+        self._cur_mesh.add_normal(x, y, z)
+
+    def add_uv(self, u, v):
+        return self._cur_mesh.add_uv(u, v)
+
+    def add_triangle(self, a, b, c, mat_id: int, uv_a=-1, uv_b=-1, uv_c=-1):
+        self._cur_mesh.add_triangle(a, b, c, mat_id, uv_a, uv_b, uv_c)
+
+    def end_tri_mesh(self):
+        self._cur_mesh = None
+
+    # ---- factories (renderEnvironment_t::create*) ----------------------
+
+    def create_material(self, name: str, params: ParamMap) -> int:
+        row = material_row_from_params(params, self.material_names)
+        if name in self.material_names:
+            self.materials[self.material_names[name]] = row
+            return self.material_names[name]
+        self.materials.append(row)
+        self.material_names[name] = len(self.materials) - 1
+        return self.material_names[name]
+
+    def create_light(self, name: str, params: ParamMap) -> int:
+        row, geometry = light_from_params(params)
+        self.lights.append(row)
+        self.light_geometry.append(geometry)
+        return len(self.lights) - 1
+
+    def create_camera(self, name: str, params: ParamMap) -> Camera:
+        cam = camera_from_params(params)
+        self.cameras[name] = cam
+        return cam
+
+    def create_background(self, name: str, params: ParamMap):
+        self.background = background_from_params(params)
+        return self.background
+
+    def create_integrator(self, name: str, params: ParamMap):
+        self.integrator_params[name] = ParamMap(params)
+
+    def set_render_params(self, params: ParamMap):
+        self.render_params = ParamMap(params)
+        self.shadow_bias = params.get_float("shadow_bias", 5e-4)
+        self.ray_min_dist = params.get_float("ray_min_dist", 5e-5)
+
+    # ---- compile (scene_t::update analog) ------------------------------
+
+    def compile(self, device: str = "cpu") -> CompiledScene:
+        """Lower the scene to numpy arrays + statics.  `device` is the torch
+        device the render will run on; it picks the intersector."""
+        blocks = [b for b in (finalize_mesh(m) for m in self.meshes.values())
+                  if b is not None]
+        materials = list(self.materials)
+        # area-light panels -> synthetic light_mat + triangles
+        for li, geom in enumerate(self.light_geometry):
+            if geom is None:
+                continue
+            lm = default_row()
+            lm["mtype"] = MT_LIGHT
+            lm["emit_color"] = geom["radiance"]
+            lm["diffuse_reflect"] = 0.0
+            materials.append(lm)
+            pos = geom["pos"]
+            tcount = pos.shape[0]
+            gn = np.cross(pos[:, 1] - pos[:, 0], pos[:, 2] - pos[:, 0])
+            gn /= np.maximum(np.linalg.norm(gn, axis=1, keepdims=True), 1e-20)
+            blocks.append(dict(
+                pos=pos.astype(np.float32),
+                normal=np.repeat(gn[:, None, :], 3, axis=1).astype(np.float32),
+                geo_n=gn.astype(np.float32),
+                uv=np.zeros((tcount, 3, 2), np.float32),
+                mat=np.full(tcount, len(materials) - 1, np.int32),
+                light_id=np.full(tcount, li, np.int32),
+            ))
+        if not blocks:
+            raise NotImplementedError("an empty scene is not ported")
+        families = tuple(sorted({r["mtype"] for r in materials}))
+        check_families(families)
+
+        def cat(key):
+            return np.concatenate([b[key] for b in blocks], axis=0)
+
+        pos = cat("pos")  # (T,3,3)
+        normal = cat("normal")
+        geo_n = cat("geo_n")
+        uv = cat("uv")
+        mat = cat("mat")
+        light_id = cat("light_id")
+        n_real = pos.shape[0]
+
+        v0 = pos[:, 0]
+        e1 = pos[:, 1] - pos[:, 0]
+        e2 = pos[:, 2] - pos[:, 0]
+        chunk = int(min(512, max(8, -(-n_real // 8) * 8)))
+        v0p, e1p, e2p, _ = pad_triangles(v0, e1, e2, chunk)
+        ns_pad = v0p.shape[0]
+
+        mats = build_material_table(materials)
+        filt_m = shadow_filter_np(mats)  # (M,3)
+        sfilt = filt_m[mat]
+        sfilt = np.concatenate(
+            [sfilt, np.zeros((ns_pad - sfilt.shape[0], 3), np.float32)])
+        # binary variant for transpShad=false renders: only true
+        # pass-through (null) materials don't block
+        sfilt_bin = np.where(
+            np.min(sfilt, axis=-1, keepdims=True) >= 1.0 - 1e-6, 1.0, 0.0
+        ).astype(np.float32)
+
+        lights_table = build_light_table(
+            [{k: v for k, v in r.items() if not k.startswith("_")}
+             for r in self.lights])
+        # emission radiance for BSDF hits on meshlights (area lights emit
+        # through their synthetic light_mat instead)
+        hit_rad = np.zeros((len(self.lights), 3), np.float32)
+        lights_table["hit_radiance"] = hit_rad
+        # per-light emission-hit attributes, one gather in the engine:
+        # [area, double_sided, hit_radiance rgb, ltype, center xyz, radius]
+        lights_table["hit_pack"] = np.concatenate([
+            lights_table["area"][:, None].astype(np.float32),
+            lights_table["double_sided"][:, None].astype(np.float32),
+            hit_rad,
+            lights_table["ltype"][:, None].astype(np.float32),
+            lights_table["p0"].astype(np.float32),
+            lights_table["radius"][:, None].astype(np.float32),
+        ], axis=1) if self.lights else np.zeros((0, 10), np.float32)
+        light_statics = tuple(
+            LightStatic(
+                ltype=int(r["ltype"]), samples=int(r["samples"]),
+                is_delta=bool(r["is_delta"]),
+                intersectable=bool(r["intersectable"]),
+                cast_shadows=bool(r["cast_shadows"]),
+                photon_only=bool(r["photon_only"]),
+                enabled=bool(r["enabled"]),
+                tri_start=int(r["tri_start"]),
+                tri_count=int(r["tri_count"]),
+            )
+            for r in self.lights
+        )
+
+        # per-triangle uv density sqrt(uv_area / world_area)
+        uv_e1 = uv[:, 1] - uv[:, 0]
+        uv_e2 = uv[:, 2] - uv[:, 0]
+        uv_area = 0.5 * np.abs(uv_e1[:, 0] * uv_e2[:, 1]
+                               - uv_e1[:, 1] * uv_e2[:, 0])
+        w_area = 0.5 * np.linalg.norm(np.cross(e1, e2), axis=1)
+        uv_density = np.sqrt(uv_area / np.maximum(w_area, 1e-12))
+        # surface derivatives dPdU/dPdV; degenerate UVs fall back to an
+        # ONB of the geometric normal (branchless Duff construction)
+        du1, dv1 = uv_e1[:, 0], uv_e1[:, 1]
+        du2, dv2 = uv_e2[:, 0], uv_e2[:, 1]
+        uv_det = du1 * dv2 - dv1 * du2
+        ok_uv = np.abs(uv_det) > 1e-12
+        inv_det = 1.0 / np.where(ok_uv, uv_det, 1.0)
+        dpdu = (dv2[:, None] * e1 - dv1[:, None] * e2) * inv_det[:, None]
+        dpdv = (-du2[:, None] * e1 + du1[:, None] * e2) * inv_det[:, None]
+        gs = np.where(geo_n[:, 2] >= 0.0, 1.0, -1.0)
+        ga = -1.0 / (gs + geo_n[:, 2])
+        gb = geo_n[:, 0] * geo_n[:, 1] * ga
+        onb_u = np.stack([1.0 + gs * geo_n[:, 0] ** 2 * ga, gs * gb,
+                          -gs * geo_n[:, 0]], axis=1)
+        onb_v = np.stack([gb, gs + geo_n[:, 1] ** 2 * ga,
+                          -geo_n[:, 1]], axis=1)
+        dpdu = np.where(ok_uv[:, None], dpdu, onb_u).astype(np.float32)
+        dpdv = np.where(ok_uv[:, None], dpdv, onb_v).astype(np.float32)
+
+        # packed per-triangle shading attributes, one gather per hit:
+        # pos 0:9, normal 9:18, uv 18:24, geo_n 24:27, mat 27, light_id 28,
+        # uv_density 29, dPdU 30:33, dPdV 33:36
+        tri_shade_pack = np.concatenate([
+            np.asarray(pos.reshape(n_real, 9), np.float32),
+            np.asarray(normal.reshape(n_real, 9), np.float32),
+            np.asarray(uv.reshape(n_real, 6), np.float32),
+            np.asarray(geo_n, np.float32),
+            mat[:, None].astype(np.float32),
+            light_id[:, None].astype(np.float32),
+            uv_density[:, None].astype(np.float32),
+            dpdu, dpdv,
+        ], axis=1)
+        tri_geom_pack = np.concatenate(
+            [np.asarray(v0, np.float32), np.asarray(e1, np.float32),
+             np.asarray(e2, np.float32)], axis=1)
+        # (10, T) v0|e1|e2|orig_id pack of the intersection kernels; below
+        # 1025 triangles it is in original order, so column = triangle id
+        if n_real > 1024:
+            raise NotImplementedError(
+                "Morton-ordered packs (scenes above 1024 triangles) are not "
+                "ported yet: ROADMAP Queue 1 item 11")
+        tri_pack10, s_ord = build_tri_pack(v0, e1, e2)
+        # shadow filters in pack order (padded entries alias tri 0 — they
+        # are degenerate and never hit)
+        sfilt_pk = filt_m[mat][s_ord]
+        sfilt_bin_pk = np.where(
+            np.min(sfilt_pk, axis=-1, keepdims=True) >= 1.0 - 1e-6,
+            1.0, 0.0).astype(np.float32)
+
+        arrays = dict(
+            tris=dict(v0=np.asarray(v0p, np.float32),
+                      e1=np.asarray(e1p, np.float32),
+                      e2=np.asarray(e2p, np.float32)),
+            tri_shade_pack=tri_shade_pack,
+            tri_geom_pack=tri_geom_pack,
+            tri_pack10=tri_pack10,
+            stri_pack10=tri_pack10,
+            sfilt4=np.concatenate(
+                [sfilt_pk.T.astype(np.float32),
+                 np.zeros((1, sfilt_pk.shape[0]), np.float32)]),
+            sfilt4_binary=np.concatenate(
+                [np.broadcast_to(sfilt_bin_pk, (sfilt_pk.shape[0], 3))
+                 .T.astype(np.float32),
+                 np.zeros((1, sfilt_pk.shape[0]), np.float32)]),
+            shadow_filt=sfilt.astype(np.float32),
+            shadow_filt_binary=sfilt_bin,
+            materials=mats,
+            lights=lights_table,
+        )
+        static = SceneStatic(
+            n_tris_real=n_real, n_stris_real=n_real,
+            lights=light_statics, bg=self.background,
+            mat_families=families, has_blend=0,
+            ray_min_dist=self.ray_min_dist, shadow_bias=self.shadow_bias,
+            intersector=intersector_for(device), chunk=chunk,
+        )
+        cam = next(iter(self.cameras.values())) if self.cameras else Camera()
+        cam_name = self.render_params.get_str("camera_name", "")
+        if cam_name and cam_name in self.cameras:
+            cam = self.cameras[cam_name]
+        # <render> width/height override the camera resolution
+        rw = self.render_params.get_int("width", cam.resx)
+        rh = self.render_params.get_int("height", cam.resy)
+        if rw != cam.resx or rh != cam.resy:
+            cam = replace(cam, resx=rw, resy=rh)
+        return CompiledScene(arrays=arrays, static=static, camera=cam)

@@ -1,0 +1,150 @@
+"""The port's scene compile (libyafaray_tpu_torch/scene) against the JAX
+reference's, the converter, the features that must raise, and the rule
+that the port imports neither jax nor the reference package."""
+import os
+import subprocess
+import sys
+import textwrap
+
+import numpy as np
+import pytest
+import torch
+
+from libyafaray_tpu.scene.xml_parser import parse_xml_file as ref_parse
+from libyafaray_tpu_torch import convert
+from libyafaray_tpu_torch.scene.scene import SLICE_ARRAY_KEYS
+from libyafaray_tpu_torch.scene.xml_parser import (parse_xml_file,
+                                                   parse_xml_string)
+
+REPO = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
+CORNELL = os.path.join(REPO, "scenes", "cornell.xml")
+STATIC_FIELDS = ("n_tris_real", "n_stris_real", "lights", "bg",
+                 "mat_families", "has_blend", "ray_min_dist", "shadow_bias",
+                 "intersector", "chunk")
+
+
+def _sized(parse, size=16):
+    s = parse(CORNELL)
+    s.render_params["width"] = size
+    s.render_params["height"] = size
+    return s
+
+
+@pytest.fixture(scope="module")
+def compiled():
+    ref = _sized(ref_parse).compile()
+    port = _sized(parse_xml_file).compile(device="cpu")
+    return ref, port
+
+
+def _flat(d, prefix=""):
+    for k, v in d.items():
+        if isinstance(v, dict):
+            yield from _flat(v, f"{prefix}{k}.")
+        else:
+            yield f"{prefix}{k}", v
+
+
+@pytest.mark.parametrize("key", SLICE_ARRAY_KEYS)
+def test_compile_array_equals_reference(compiled, key):
+    """Arrays compared exactly, key by key, after the converter."""
+    ref, port = compiled
+    want = dict(_flat(
+        {key: convert.arrays_from_reference(ref.arrays, "cpu")[key]}))
+    got = dict(_flat(convert.to_tensors({key: port.arrays[key]}, "cpu")))
+    assert set(got) == set(want)
+    for k in want:
+        assert got[k].dtype == want[k].dtype, (key, k)
+        assert torch.equal(got[k], want[k]), (key, k)
+
+
+def test_static_and_camera_equal_reference(compiled):
+    ref, port = compiled
+    conv = convert.static_from_reference(ref.static)
+    for f in STATIC_FIELDS:
+        assert getattr(port.static, f) == getattr(conv, f), f
+    assert port.static.n_tris_real == 32 and port.static.intersector == "brute"
+    assert port.static.mat_families == (0, 1, 8)
+    assert port.camera == convert.camera_from_reference(ref.camera)
+    assert port.arrays["tri_pack10"].shape == (10, 128)
+
+
+def test_build_config_equals_reference():
+    from libyafaray_tpu.scene.session import build_config as ref_build
+    from libyafaray_tpu_torch.scene.session import build_config
+
+    want = convert.config_from_reference(ref_build(_sized(ref_parse)))
+    assert build_config(_sized(parse_xml_file)) == want
+    assert want.integrator == "directlighting" and want.aa_samples == 64
+
+
+def test_intersector_follows_torch_device(compiled):
+    from libyafaray_tpu_torch.ops.intersect import intersector_for
+
+    assert intersector_for("cpu") == "brute"
+    assert intersector_for("cuda") == "brute"
+    with pytest.raises(ValueError, match="meta"):
+        intersector_for("meta")
+    assert compiled[1].static.intersector == intersector_for("cpu")
+
+
+def test_converter_narrows_to_32_bits():
+    out = convert.to_tensors(
+        {"a": np.ones(3), "b": {"c": np.arange(3)}, "d": np.zeros(2, bool)},
+        "cpu")
+    assert out["a"].dtype == torch.float32
+    assert out["b"]["c"].dtype == torch.int32
+    assert out["d"].dtype == torch.bool
+
+
+_SCENE = """<scene type="triangle">{body}
+  <mesh id="1" vertices="3" faces="1" has_uv="false" type="0">
+    <p x="0" y="0" z="0"/><p x="1" y="0" z="0"/><p x="0" y="1" z="0"/>
+    <set_material sval="m"/><f a="0" b="1" c="2"/>
+  </mesh>
+</scene>"""
+
+
+@pytest.mark.parametrize("body, item", [
+    ('<material name="m"><type sval="glass"/></material>', "item 10"),
+    ('<material name="m"><type sval="glossy"/></material>', "item 10"),
+    ('<material name="m"><type sval="shinydiffusemat"/></material>'
+     '<texture name="t"><type sval="clouds"/></texture>', "item 15"),
+    ('<light name="l"><type sval="pointlight"/></light>', "item 17"),
+    ('<background name="b"><type sval="gradient"/></background>', "items 15"),
+])
+def test_unsupported_features_raise(body, item):
+    with pytest.raises(NotImplementedError, match=item):
+        parse_xml_string(_SCENE.format(body=body)).compile()
+
+
+def test_port_imports_no_jax_and_no_reference():
+    """In a fresh interpreter, importing the port (and chip_smoke.py) and
+    rendering 8x8 on the CPU leaves jax and libyafaray_tpu out of
+    sys.modules."""
+    code = textwrap.dedent(f"""
+        import sys
+        sys.path.insert(0, {REPO!r})
+        from libyafaray_tpu_torch.integrators.config import RenderConfig
+        from libyafaray_tpu_torch.integrators.render import render
+        from libyafaray_tpu_torch.scene.session import build_config
+        from libyafaray_tpu_torch.scene.xml_parser import parse_xml_file
+        import libyafaray_tpu_torch.convert, libyafaray_tpu_torch.io.exr
+        import chip_smoke  # the on-card script imports no jax either
+        s = parse_xml_file({CORNELL!r})
+        s.render_params["width"] = 8
+        s.render_params["height"] = 8
+        c = build_config(s)
+        c = RenderConfig(**{{**c.__dict__, "integrator": "pathtracing",
+                            "aa_samples": 1, "width": 8, "height": 8}})
+        img = render(s.compile(), c, device="cpu").image
+        assert img.shape == (8, 8, 3) and img.mean() > 0
+        bad = [m for m in sys.modules if m == "jax" or m.startswith("jax.")
+               or m == "libyafaray_tpu" or m.startswith("libyafaray_tpu.")]
+        print("BAD", bad)
+        assert not bad, bad
+    """)
+    r = subprocess.run([sys.executable, "-c", code], capture_output=True,
+                       text=True, timeout=300, cwd=REPO)
+    assert r.returncode == 0, r.stdout + r.stderr
+    assert "BAD []" in r.stdout
