@@ -3,7 +3,7 @@ scene).
 
 `arrays_from_reference` takes the reference package's
 `CompiledScene.arrays` (a nested dict of numpy arrays) and returns the
-port's tensors for the keys slice 1 reads; `static_from_reference`,
+port's tensors for the keys the port reads; `static_from_reference`,
 `camera_from_reference` and `config_from_reference` copy the plain fields
 of the reference's SceneStatic, Camera and RenderConfig from duck-typed
 objects.  Nothing here imports the reference package: the tests use these
@@ -20,7 +20,9 @@ import torch
 from .backgrounds.base import BackgroundSpec
 from .cameras.base import Camera
 from .integrators.config import RenderConfig
-from .scene.scene import SLICE_ARRAY_KEYS, LightStatic, SceneStatic
+from .ops.fine_intersect import sub_aabbs
+from .scene.scene import (FINE_ARRAY_KEYS, SLICE_ARRAY_KEYS, LightStatic,
+                          SceneStatic)
 
 _DTYPES = {np.dtype(np.float32): torch.float32,
            np.dtype(np.int32): torch.int32,
@@ -48,12 +50,20 @@ def to_tensors(arrays: dict, device) -> dict:
 
 
 def arrays_from_reference(arrays: dict, device) -> dict:
-    """The reference's CompiledScene.arrays -> the port's scene tensors
-    (the keys slice 1 reads)."""
+    """The reference's CompiledScene.arrays -> the port's scene tensors:
+    the keys the port reads, plus the sub-cluster box tables the port
+    builds once per scene (FINE_ARRAY_KEYS) derived from the reference's
+    packs, whose real width is the triangle count (tri_shade_pack rows)."""
     missing = [k for k in SLICE_ARRAY_KEYS if k not in arrays]
     if missing:
         raise KeyError(f"reference arrays lack {missing}")
-    return to_tensors({k: arrays[k] for k in SLICE_ARRAY_KEYS}, device)
+    if not np.array_equal(arrays["stri_pack10"], arrays["tri_pack10"]):
+        raise NotImplementedError(
+            "a shadow triangle set other than the scene's (object "
+            "visibility) is not ported yet: ROADMAP Queue 1 item 17")
+    sub8 = sub_aabbs(arrays["tri_pack10"], arrays["tri_shade_pack"].shape[0])
+    return to_tensors({**{k: arrays[k] for k in SLICE_ARRAY_KEYS},
+                       **dict.fromkeys(FINE_ARRAY_KEYS, sub8)}, device)
 
 
 def _copy_fields(cls, ref, **override):
@@ -62,7 +72,7 @@ def _copy_fields(cls, ref, **override):
 
 
 def static_from_reference(static) -> SceneStatic:
-    """The reference's SceneStatic -> the port's (the fields slice 1 reads).
+    """The reference's SceneStatic -> the port's (the fields the port reads).
     Raises for reference features the port does not render."""
     for name, what, item in (("n_spheres", "analytic spheres", "10"),
                              ("volumes", "volumes", "17"),

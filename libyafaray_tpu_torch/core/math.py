@@ -1,6 +1,7 @@
 """Vector math over stacked SoA tensors whose trailing axis is 3 (xyz).
 
-Port of libyafaray_tpu/core/math.py, restricted to what slice 1 calls.
+Port of libyafaray_tpu/core/math.py, restricted to what the ported slices
+call.
 Sums over xyz are written out in x, y, z order so the float32 rounding
 follows the reference's sequential reduction.
 """
@@ -69,6 +70,17 @@ def build_onb(n: torch.Tensor):
     u = torch.stack([1.0 + s * nx * nx * a, s * b, -s * nx], dim=-1)
     v = torch.stack([b, s + ny * ny * a, -ny], dim=-1)
     return u, v
+
+
+def to_local(u: torch.Tensor, v: torch.Tensor, n: torch.Tensor,
+             w: torch.Tensor) -> torch.Tensor:
+    """World direction -> components in the frame (x=u, y=v, z=n)."""
+    return torch.stack([dot(w, u), dot(w, v), dot(w, n)], dim=-1)
+
+
+def from_local(u: torch.Tensor, v: torch.Tensor, n: torch.Tensor,
+               wl: torch.Tensor) -> torch.Tensor:
+    return wl[..., 0:1] * u + wl[..., 1:2] * v + wl[..., 2:3] * n
 
 
 def face_forward(n: torch.Tensor, d: torch.Tensor) -> torch.Tensor:

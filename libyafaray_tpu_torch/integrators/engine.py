@@ -14,8 +14,8 @@ film by one sample:
 Everything is SoA over N = H·W lanes; dead lanes are masked, not
 compacted, exactly as in the reference, so the same QMC stream gives the
 same image.  The reference's `lax.scan` over bounces is a Python loop that
-keeps its split between static and dynamic dims.  Features outside slice 1
-raise NotImplementedError naming their ROADMAP item.
+keeps its split between static and dynamic dims.  Features outside the
+ported slices raise NotImplementedError naming their ROADMAP item.
 """
 from __future__ import annotations
 
@@ -38,11 +38,11 @@ F32 = torch.float32
 
 
 def check_supported(static, cfg: RenderConfig) -> None:
-    """Raise for any part of (scene, config) that slice 1 does not render."""
+    """Raise for any part of (scene, config) that the port does not render."""
     if cfg.integrator != "pathtracing":
         raise NotImplementedError(
             f"integrator {cfg.integrator!r} is not ported yet: ROADMAP "
-            "Queue 1 items 12-14 and 18 (slice 1 is pathtracing)")
+            "Queue 1 items 12-14 and 18 (the port renders pathtracing)")
     if cfg.aa_passes > 1:
         raise NotImplementedError(
             "adaptive AA (aa_passes > 1) is not ported yet: ROADMAP Queue 1 "
@@ -120,7 +120,7 @@ def pixel_lanes(h: int, w: int, qmc_seed: int, device):
 def camera_rays(camera, px, py, pixel_hash, s_idx):
     """Primary rays of sample s_idx: (dx, dy, org, dirn, weight), (dx, dy)
     the in-pixel offsets from QMC dims 0-1.  (The lens pair, dims 2-3, only
-    feeds depth of field, which the perspective pinhole of slice 1 does not
+    feeds depth of field, which the port's perspective pinhole does not
     have.)"""
     dx, dy = qmc.sample_dim_pair(s_idx, qmc.DIM_PIXEL_X, pixel_hash)
     org, dirn, wt = shoot_rays(camera, px.to(F32) + dx, py.to(F32) + dy)
@@ -221,7 +221,7 @@ def _direct_lighting(arrays, static, cfg, p, n, ng, row, wo, s_idx, skey,
             arrays, static, li, ns, p, n, ng, alive, s_idx, skey, bounce_dim,
             first)
         n_, ng_, wo_ = (_tile(x, ns) for x in (n, ng, wo))
-        row_ = {k: _tile(row[k], ns) for k in bsdf.EVAL_KEYS}
+        row_ = {k: _tile(row[k], ns) for k in bsdf.eval_keys(families)}
         f = bsdf.eval_bsdf(row_, n_, ng_, wo_, smp["wi"], families)
         contrib_w = cos_i.abs() / torch.clamp(smp["pdf"], min=1e-9)
         ok = smp["valid"] & (smp["pdf"] > 1e-9)

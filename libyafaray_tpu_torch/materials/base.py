@@ -2,8 +2,9 @@
 
 Port of libyafaray_tpu/materials/base.py: the MT_* codes, the table layout
 (`build_material_table`, identical columns so the packed matrix matches
-the reference's), `gather_rows`, and the shinydiffuse lobe math slice 1
-calls.  The table build is numpy; `gather_rows` runs on tensors.
+the reference's), `gather_rows`, and the shinydiffuse and glossy
+(Ashikhmin-Shirley) lobe math the ported slices call.  The table build is
+numpy; `gather_rows` runs on tensors.
 """
 from __future__ import annotations
 
@@ -11,6 +12,7 @@ import numpy as np
 import torch
 
 from ..core import math as vmath
+from ..core.sampling import INV_PI, PI
 
 # material type codes
 MT_NULL = 0
@@ -35,8 +37,9 @@ MATERIAL_TYPE_NAMES = {
     "light_mat": MT_LIGHT,
 }
 
-# the families slice 1 ports; the rest raise at scene compile
-SUPPORTED_FAMILIES = (MT_NULL, MT_SHINYDIFFUSE, MT_LIGHT)
+# the families the port renders; the rest raise at scene compile
+SUPPORTED_FAMILIES = (MT_NULL, MT_SHINYDIFFUSE, MT_GLOSSY, MT_COATED_GLOSSY,
+                      MT_LIGHT)
 
 _SCALAR_COLS = [
     "diffuse_reflect", "specular_reflect", "transparency", "translucency",
@@ -138,6 +141,89 @@ def oren_nayar_factor(sigma, n, wo, wi):
         torch.maximum(cos_o.abs(), cos_i.abs()), min=1e-3)
     on = a + b * torch.clamp(cos_dphi, min=0.0) * sin_alpha * tan_beta
     return torch.where(sigma > 1e-6, on, 1.0)
+
+
+def _as_exponent(row: dict, hx, hy, hz):
+    """Ashikhmin-Shirley exponent: isotropic `exponent` or the anisotropic
+    combination of exp_u / exp_v by the half-vector azimuth."""
+    denom = torch.clamp(1.0 - hz * hz, min=1e-8)
+    e_aniso = (row["exp_u"] * hx * hx + row["exp_v"] * hy * hy) / denom
+    return torch.where(row["anisotropic"], e_aniso, row["exponent"])
+
+
+def glossy_eval_local(row: dict, wo_l, wi_l):
+    """Ashikhmin-Shirley glossy lobe and its coupled diffuse, in the local
+    shading frame (z = normal).  Returns (f_glossy (N,3), f_diffuse (N,3))."""
+    cos_o = torch.clamp(wo_l[..., 2], min=0.0)
+    cos_i = torch.clamp(wi_l[..., 2], min=0.0)
+    h = vmath.normalize(wo_l + wi_l)
+    hz = torch.clamp(h[..., 2], -1.0, 1.0)
+    e = _as_exponent(row, h[..., 0], h[..., 1], hz)
+    wo_h = torch.clamp(vmath.dot(wo_l, h), min=1e-6)
+    norm_iso = (row["exponent"] + 1.0) / (8.0 * PI)
+    norm_aniso = torch.sqrt(torch.clamp(
+        (row["exp_u"] + 1.0) * (row["exp_v"] + 1.0), min=0.0)) / (8.0 * PI)
+    norm = torch.where(row["anisotropic"], norm_aniso, norm_iso)
+    d = torch.pow(torch.clamp(hz, min=0.0), e)
+    denom = wo_h * torch.clamp(torch.maximum(cos_o, cos_i), min=1e-6)
+    rs = row["glossy_reflect"]
+    fr = rs + (1.0 - rs) * torch.pow(1.0 - wo_h, 5.0)  # Schlick on the lobe
+    spec = norm * d / denom * fr
+    f_glossy = spec[..., None] * row["glossy_color"]
+    # AS coupled diffuse (energy-compensated Lambert)
+    k = 28.0 / (23.0 * PI)
+    t_o = 1.0 - torch.pow(1.0 - 0.5 * cos_o, 5.0)
+    t_i = 1.0 - torch.pow(1.0 - 0.5 * cos_i, 5.0)
+    fd = k * row["diffuse_reflect"] * (1.0 - rs) * t_o * t_i
+    f_diffuse = fd[..., None] * row["diffuse_color"]
+    valid = ((cos_o > 1e-6) & (cos_i > 1e-6))[..., None]
+    return (torch.where(valid, f_glossy, 0.0),
+            torch.where(valid, f_diffuse, 0.0))
+
+
+def glossy_pdf_local(row: dict, wo_l, wi_l, p_diffuse):
+    """Mixture pdf of the glossy sampler (cosine + Blinn / AS half-vector)."""
+    cos_i = torch.clamp(wi_l[..., 2], min=0.0)
+    pdf_d = cos_i * INV_PI
+    h = vmath.normalize(wo_l + wi_l)
+    hz = torch.clamp(h[..., 2], 0.0, 1.0)
+    e = _as_exponent(row, h[..., 0], h[..., 1], hz)
+    wo_h = torch.clamp(vmath.dot(wo_l, h), min=1e-6)
+    norm_iso = (row["exponent"] + 1.0) / (2.0 * PI)
+    norm_aniso = torch.sqrt(torch.clamp(
+        (row["exp_u"] + 1.0) * (row["exp_v"] + 1.0), min=0.0)) / (2.0 * PI)
+    norm = torch.where(row["anisotropic"], norm_aniso, norm_iso)
+    pdf_h = norm * torch.pow(hz, e)
+    pdf_g = pdf_h / (4.0 * wo_h)
+    return p_diffuse * pdf_d + (1.0 - p_diffuse) * pdf_g
+
+
+def sample_blinn_h(row: dict, u1, u2):
+    """Half-vector from the Blinn (isotropic) or AS-anisotropic NDF, in the
+    local frame."""
+    e_iso = row["exponent"]
+    cos_h_iso = torch.pow(torch.clamp(u1, 1e-9, 1.0), 1.0 / (e_iso + 1.0))
+    phi_iso = 2.0 * PI * u2
+    # anisotropic (AS): per-quadrant phi warp
+    eu, ev = row["exp_u"], row["exp_v"]
+    q = torch.floor(u1 * 4.0)
+    u1q = torch.clamp(u1 * 4.0 - q, 1e-9, 1.0 - 1e-7)
+    phi_q = torch.atan(torch.sqrt((eu + 1.0) / torch.clamp(ev + 1.0,
+                                                           min=1e-6))
+                       * torch.tan(0.5 * PI * u1q))
+    phi_aniso = torch.where(
+        q == 0, phi_q,
+        torch.where(q == 1, PI - phi_q,
+                    torch.where(q == 2, PI + phi_q, 2 * PI - phi_q)))
+    cphi_a, sphi_a = torch.cos(phi_aniso), torch.sin(phi_aniso)
+    e_a = eu * cphi_a * cphi_a + ev * sphi_a * sphi_a
+    cos_h_aniso = torch.pow(torch.clamp(u2, 1e-9, 1.0), 1.0 / (e_a + 1.0))
+    use_a = row["anisotropic"]
+    cos_h = torch.where(use_a, cos_h_aniso, cos_h_iso)
+    phi = torch.where(use_a, phi_aniso, phi_iso)
+    sin_h = torch.sqrt(torch.clamp(1.0 - cos_h * cos_h, min=0.0))
+    return torch.stack([sin_h * torch.cos(phi), sin_h * torch.sin(phi),
+                        cos_h], dim=-1)
 
 
 def shinydiffuse_weights(row: dict, cos_o: torch.Tensor):

@@ -1,9 +1,10 @@
 """Lane-wise BSDF eval / sample / pdf / emission over gathered material rows.
 
-Port of libyafaray_tpu/materials/bsdf.py for the families slice 1 renders:
-null (pass-through), shinydiffuse and light.  The glossy, coated-glossy,
-glass and rough-glass families raise (ROADMAP Queue 1 item 10); blend and
-mask composites raise too, since `materials/blend.py` is only needed as the
+Port of libyafaray_tpu/materials/bsdf.py for the families the port
+renders: null (pass-through), shinydiffuse, glossy and coated-glossy
+(Ashikhmin-Shirley under an optional dielectric coat) and light.  The glass
+and rough-glass families raise (ROADMAP Queue 1 item 10); blend and mask
+composites raise too, since `materials/blend.py` is only needed as the
 `has_blend == 0` pass-through these functions already are.
 """
 from __future__ import annotations
@@ -16,12 +17,12 @@ from ..core.sampling import INV_PI, sample_cos_hemisphere
 from .base import (
     MT_BLEND, MT_COATED_GLOSSY, MT_GLASS, MT_GLOSSY, MT_LIGHT, MT_MASK,
     MT_NULL, MT_ROUGH_GLASS, MT_SHINYDIFFUSE, SUPPORTED_FAMILIES,
-    oren_nayar_factor, shinydiffuse_weights,
+    glossy_eval_local, glossy_pdf_local, oren_nayar_factor, sample_blinn_h,
+    shinydiffuse_weights,
 )
 
+_MIN_PDF = 1e-6
 _ROADMAP = {
-    MT_GLOSSY: "ROADMAP Queue 1 item 10 (glossy)",
-    MT_COATED_GLOSSY: "ROADMAP Queue 1 item 10 (glossy)",
     MT_GLASS: "ROADMAP Queue 1 item 10 (glass)",
     MT_ROUGH_GLASS: "ROADMAP Queue 1 item 10 (glass)",
     MT_BLEND: "ROADMAP Queue 1 item 15 (materials/blend.py)",
@@ -30,10 +31,12 @@ _ROADMAP = {
 
 
 # the row entries eval_bsdf / pdf_bsdf read (the engine tiles only these
-# for the batched NEE lanes)
+# for the batched NEE lanes), and those the glossy families add
 EVAL_KEYS = ("mtype", "diffuse_color", "sigma", "fresnel_effect", "ior",
              "specular_reflect", "transparency", "translucency",
              "diffuse_reflect")
+GLOSSY_EVAL_KEYS = ("glossy_reflect", "glossy_color", "exponent", "exp_u",
+                    "exp_v", "anisotropic")
 
 
 def check_families(families) -> None:
@@ -43,6 +46,40 @@ def check_families(families) -> None:
             raise NotImplementedError(
                 f"material family {code} is not ported yet: "
                 f"{_ROADMAP.get(code, 'ROADMAP Queue 1')}")
+
+
+def _has_glossy(families) -> bool:
+    return MT_GLOSSY in families or MT_COATED_GLOSSY in families
+
+
+def eval_keys(families) -> tuple:
+    """The row entries eval_bsdf and pdf_bsdf read for these families."""
+    return EVAL_KEYS + (GLOSSY_EVAL_KEYS if _has_glossy(families) else ())
+
+
+def _is_glossy(mtype: torch.Tensor) -> torch.Tensor:
+    return (mtype == MT_GLOSSY) | (mtype == MT_COATED_GLOSSY)
+
+
+def _glossy_pick_prob(row) -> torch.Tensor:
+    """Probability of the diffuse lobe in the glossy family's sampler."""
+    wd = row["diffuse_reflect"] * luminance(row["diffuse_color"])
+    wg = row["glossy_reflect"] * luminance(row["glossy_color"])
+    return wd / torch.clamp(wd + wg, min=1e-8)
+
+
+def _coat_kr(row, cos_o) -> torch.Tensor:
+    """Dielectric coat reflectance of coated_glossy; 0 for plain glossy."""
+    kr = vmath.fresnel_dielectric(cos_o.abs(),
+                                  torch.clamp(row["ior"], min=1.0 + 1e-5))
+    return torch.where(row["mtype"] == MT_COATED_GLOSSY, kr, 0.0)
+
+
+def _local_frame(n, wo):
+    """(u, v, nf): the shading frame around n flipped to face wo."""
+    nf = vmath.face_forward(n, wo)
+    u, v = vmath.build_onb(nf)
+    return u, v, nf
 
 
 def eval_bsdf(row, n, ng, wo, wi, families) -> torch.Tensor:
@@ -60,6 +97,13 @@ def eval_bsdf(row, n, ng, wo, wi, families) -> torch.Tensor:
         f_shiny = torch.where(same_side[..., None], f_diff, f_transl)
         f = torch.where((row["mtype"] == MT_SHINYDIFFUSE)[..., None],
                         f_shiny, f)
+    if _has_glossy(families):
+        u, v, nf = _local_frame(n, wo)
+        f_g, f_d = glossy_eval_local(row, vmath.to_local(u, v, nf, wo),
+                                     vmath.to_local(u, v, nf, wi))
+        f_glossy = (f_g + f_d) * (1.0 - _coat_kr(row, cos_o))[..., None]
+        f_glossy = torch.where(same_side[..., None], f_glossy, 0.0)
+        f = torch.where(_is_glossy(row["mtype"])[..., None], f_glossy, f)
     return f
 
 
@@ -78,6 +122,13 @@ def pdf_bsdf(row, n, ng, wo, wi, families) -> torch.Tensor:
             same_side, (w_d / tot) * abs_ci * INV_PI,
             (w_tl / tot) * abs_ci * INV_PI)
         pdf = torch.where(row["mtype"] == MT_SHINYDIFFUSE, pdf_shiny, pdf)
+    if _has_glossy(families):
+        u, v, nf = _local_frame(n, wo)
+        pdf_glossy = glossy_pdf_local(
+            row, vmath.to_local(u, v, nf, wo), vmath.to_local(u, v, nf, wi),
+            _glossy_pick_prob(row)) * (1.0 - _coat_kr(row, cos_o))
+        pdf_glossy = torch.where(same_side, pdf_glossy, 0.0)
+        pdf = torch.where(_is_glossy(row["mtype"]), pdf_glossy, pdf)
     return pdf
 
 
@@ -102,9 +153,11 @@ def sample_bsdf(row, n, ng, wo, u1, u2, u_lobe, families) -> dict:
     entering = vmath.dot(ng, wo) > 0.0
     is_null = mtype == MT_NULL
 
-    if MT_SHINYDIFFUSE in families:
+    if MT_SHINYDIFFUSE in families or _has_glossy(families):
         wi_diff, pdf_diff = sample_cos_hemisphere(nf, u1, u2)
         wi_mirror = vmath.reflect(wo, nf)
+
+    if MT_SHINYDIFFUSE in families:
         w_m, w_t, w_tl, w_d = shinydiffuse_weights(row, cos_o)
         tot = torch.clamp(w_m + w_t + w_tl + w_d, min=1e-8)
         p_m, p_t, p_tl = w_m / tot, w_t / tot, w_tl / tot
@@ -143,6 +196,38 @@ def sample_bsdf(row, n, ng, wo, u1, u2, u_lobe, families) -> dict:
         specular = torch.where(m, pick_m | pick_t, specular)
         transmit = torch.where(m, pick_t | pick_tl, transmit)
         valid = torch.where(m, tot > 1e-6, valid)
+
+    if _has_glossy(families):
+        u, v = vmath.build_onb(nf)
+        wo_l = vmath.to_local(u, v, nf, wo)
+        p_diff = _glossy_pick_prob(row)
+        coat = _coat_kr(row, cos_o)
+        pick_coat = u_lobe < coat  # dielectric coat (coated_glossy only)
+        u_rem = torch.clamp((u_lobe - coat) / torch.clamp(1.0 - coat,
+                                                          min=1e-8),
+                            0.0, 1.0)
+        pick_gd = u_rem < p_diff  # diffuse under the coat
+        h_l = sample_blinn_h(row, u1, u2)
+        wo_h = vmath.dot(wo_l, h_l)
+        wi_glossy = vmath.from_local(u, v, nf,
+                                     2.0 * wo_h[..., None] * h_l - wo_l)
+        gl_wi = torch.where(
+            pick_coat[..., None], wi_mirror,
+            torch.where(pick_gd[..., None], wi_diff, wi_glossy))
+        wi_l_pick = vmath.to_local(u, v, nf, gl_wi)
+        f_g, f_d = glossy_eval_local(row, wo_l, wi_l_pick)
+        f_gl = (f_g + f_d) * (1.0 - coat)[..., None]
+        pdf_gl = glossy_pdf_local(row, wo_l, wi_l_pick, p_diff) * (1.0 - coat)
+        gl_smooth_tp = f_gl * (wi_l_pick[..., 2].abs()
+                               / torch.clamp(pdf_gl, min=_MIN_PDF))[..., None]
+        gl_tp = torch.where(pick_coat[..., None], row["mirror_color"],
+                            gl_smooth_tp)
+        m = _is_glossy(mtype)
+        wi = torch.where(m[..., None], gl_wi, wi)
+        tp = torch.where(m[..., None], gl_tp, tp)
+        pdf = torch.where(m, torch.where(pick_coat, 0.0, pdf_gl), pdf)
+        specular = torch.where(m, pick_coat, specular)
+        valid = torch.where(m, pick_coat | (wi_l_pick[..., 2] > 1e-6), valid)
 
     if MT_NULL in families:
         # the reference's glass-family block at is_null: eta = 1, no

@@ -38,17 +38,44 @@ def _pick_bt(t: int) -> int:
     return 1024
 
 
-def build_tri_pack(v0, e1, e2):
-    """(10, T') float32 pack in original triangle order: rows v0 | e1 | e2
-    | triangle id, T' padded to a `_pick_bt` multiple with degenerate
-    (never-hit) columns.  Returns (pack10, order), `order` the triangle id
-    of each column (padded entries alias triangle 0)."""
-    v0o = np.asarray(v0, np.float32)
-    e1o = np.asarray(e1, np.float32)
-    e2o = np.asarray(e2, np.float32)
-    t = v0o.shape[0]
+def morton_order(v0, e1, e2) -> np.ndarray:
+    """Permutation sorting triangles by the 30-bit Morton code of their
+    centroid over the scene's centroid box (stable argsort), the pack order
+    that gives clusters and sub-clusters tight boxes."""
+    v0 = np.asarray(v0, np.float64)
+    c = v0 + (np.asarray(e1, np.float64) + np.asarray(e2, np.float64)) / 3.0
+    lo, hi = c.min(axis=0), c.max(axis=0)
+    q = ((c - lo) / np.maximum(hi - lo, 1e-12) * 1023.0).astype(np.uint32)
+    q = np.minimum(q, 1023)
+
+    def spread(x):
+        x = (x | (x << 16)) & np.uint32(0x030000FF)
+        x = (x | (x << 8)) & np.uint32(0x0300F00F)
+        x = (x | (x << 4)) & np.uint32(0x030C30C3)
+        x = (x | (x << 2)) & np.uint32(0x09249249)
+        return x
+
+    code = (spread(q[:, 0]) | (spread(q[:, 1]) << np.uint32(1))
+            | (spread(q[:, 2]) << np.uint32(2)))
+    return np.argsort(code, kind="stable")
+
+
+def build_tri_pack(v0, e1, e2, order=None):
+    """(10, T') float32 pack: rows v0 | e1 | e2 | original triangle id, in
+    `order` (default: original order), T' padded to a `_pick_bt` multiple
+    with degenerate (never-hit) columns; and the (8, T'/bt) cluster boxes
+    (rows lo xyz | hi xyz | 0 0) over each bt-wide cluster's real
+    triangles, inverted (+inf / -inf) for all-pad clusters.  Returns
+    (pack10, cluster8, order), `order` the triangle id of each column
+    (padded entries alias triangle 0).  Row 9 holds the id as float32,
+    exact below 2^24."""
+    v0 = np.asarray(v0, np.float32)
+    e1 = np.asarray(e1, np.float32)
+    e2 = np.asarray(e2, np.float32)
+    t = v0.shape[0]
     bt = _pick_bt(t)
-    order = np.arange(t)
+    order = np.arange(t) if order is None else np.asarray(order)
+    v0o, e1o, e2o = v0[order], e1[order], e2[order]
     pad = (-t) % bt
     if pad:
         z = np.zeros((pad, 3), np.float32)
@@ -56,12 +83,31 @@ def build_tri_pack(v0, e1, e2):
         e1o = np.concatenate([e1o, z])
         e2o = np.concatenate([e2o, z])
         order = np.concatenate([order, np.zeros(pad, order.dtype)])
-    pack10 = np.empty((10, v0o.shape[0]), np.float32)
+    tp = v0o.shape[0]
+    pack10 = np.empty((10, tp), np.float32)
     pack10[0:3] = v0o.T
     pack10[3:6] = e1o.T
     pack10[6:9] = e2o.T
     pack10[9] = order
-    return pack10, order
+    return pack10, _column_boxes(pack10, t, bt), order
+
+
+def _column_boxes(pack10: np.ndarray, n_tris: int, width: int) -> np.ndarray:
+    """(8, T'/width) boxes of consecutive `width`-column groups of the pack
+    over its first n_tris (real) columns: rows lo xyz | hi xyz | 0 0; a
+    group with no real column gets the inverted box (+inf, -inf)."""
+    tp = pack10.shape[1]
+    v0 = pack10[0:3]
+    p1 = v0 + pack10[3:6]
+    p2 = v0 + pack10[6:9]
+    real = (np.arange(tp) < n_tris)[None, :]
+    lo = np.where(real, np.minimum(np.minimum(v0, p1), p2), np.inf)
+    hi = np.where(real, np.maximum(np.maximum(v0, p1), p2), -np.inf)
+    c = tp // width
+    out = np.zeros((8, c), np.float32)
+    out[0:3] = lo.reshape(3, c, width).min(axis=2)
+    out[3:6] = hi.reshape(3, c, width).max(axis=2)
+    return out
 
 
 def log_filter(filt4: torch.Tensor) -> torch.Tensor:

@@ -1,10 +1,13 @@
 """Ray-scene intersection: the hit record and the dispatch to the kernels.
 
-Port of the tiny-scene section of libyafaray_tpu/ops/intersect.py and
+Port of libyafaray_tpu/ops/intersect.py's hit record and of the choice
+`closest_hit_pallas` / `shadow_transmission_pallas` make in
 ops/pallas_intersect.py.  Scenes of at most TINY_TRIS triangles go to the
-two tiny-scene kernels of `ops/cuda_intersect.py`, whose wrappers launch
-the CUDA kernel for a CUDA tensor and run the plain PyTorch version for a
-CPU tensor.  Larger scenes raise until the clustered kernels are ported.
+two tiny-scene kernels of `ops/cuda_intersect.py`; larger packs whose shape
+takes the reference's gathered-fine kernels go to the two kernels of
+`ops/fine_intersect.py`.  Each wrapper launches its CUDA kernel for a CUDA
+tensor and runs its plain PyTorch version for a CPU tensor.  The dense and
+stream ranges between them raise until their kernels are ported.
 """
 from __future__ import annotations
 
@@ -13,15 +16,19 @@ from typing import NamedTuple
 import numpy as np
 import torch
 
-from . import cuda_intersect
+from . import cuda_intersect, fine_intersect
 
 RAY_EPS = 5e-5  # reference ray_min_dist default
 SHADOW_EPS = 5e-4  # reference shadow_bias default
 TINY_TRIS = cuda_intersect.TINY_TRIS
+MAX_TRIS = 1 << 20  # the reference's budget for its clustered kernels
 
-_LARGER = ("scenes above {} triangles need the clustered intersection "
-           "kernels, not ported yet: ROADMAP Queue 2 item 3 onward (items "
-           "3-6)")
+_DENSE = ("scenes of {} triangles in fewer than {} clusters need the dense "
+          "clustered kernels (_closest_kernel / _shadow_kernel), not ported "
+          "yet: ROADMAP Queue 2 item 6")
+_STREAM = ("scenes of {} triangles ({} sub-clusters) need the streaming "
+           "kernels (_closest_kernel_stream / _shadow_kernel_stream), not "
+           "ported yet: ROADMAP Queue 2 item 5")
 
 
 class Hit(NamedTuple):
@@ -32,14 +39,22 @@ class Hit(NamedTuple):
     hit: torch.Tensor  # (N,) bool
 
 
-def intersector_for(device) -> str:
-    """The reference's intersector choice, keyed on the torch device.  The
-    port compiles at most 1024 triangles, below the reference's dense
-    budget on either device, so the choice is "brute"; the budgets come
-    with the BVH and clustered paths (ROADMAP Queue 2 item 3)."""
+def intersector_for(device, n_tris: int) -> str:
+    """The intersector for a scene of n_tris triangles rendered on `device`:
+    "brute" (the tiny and clustered kernels) up to MAX_TRIS on either
+    device.  Above it the reference switches to its BVH, which the port
+    does not have yet.  Unlike the reference, the CPU does not switch to
+    the BVH above CPU_DENSE_MAX = 131072: that switch is a speed heuristic
+    of the JAX CPU path, and the port's CPU path runs the plain versions
+    of its kernels, whose answers are the kernels' own."""
     dev = torch.device(device)
     if dev.type not in ("cpu", "cuda"):
         raise ValueError(f"no intersector for device {dev}")
+    if n_tris > MAX_TRIS:
+        raise NotImplementedError(
+            f"scenes above {MAX_TRIS} triangles need the BVH intersector "
+            "(accel/bvh.py, ops/bvh_traverse.py), not ported yet: ROADMAP "
+            "Queue 1 item 11")
     return "brute"
 
 
@@ -56,25 +71,47 @@ def pad_triangles(v0, e1, e2, multiple: int):
             np.concatenate([e2, z]), t)
 
 
-def _check_tiny(n_tris: int) -> None:
-    if n_tris > TINY_TRIS:
-        raise NotImplementedError(_LARGER.format(TINY_TRIS))
+def _check_fine(pack10: torch.Tensor, cluster8: torch.Tensor,
+                n_tris: int) -> None:
+    """Raise unless a pack of more than TINY_TRIS triangles takes the
+    reference's gathered-fine kernels."""
+    tp, n_cl = pack10.shape[1], cluster8.shape[1]
+    if n_cl < fine_intersect.FB_MIN_CLUSTERS:
+        raise NotImplementedError(_DENSE.format(
+            n_tris, fine_intersect.FB_MIN_CLUSTERS))
+    if not fine_intersect.takes_fine_path(tp, n_cl):
+        raise NotImplementedError(_STREAM.format(
+            n_tris, tp // fine_intersect.SUB_BT))
 
 
 def closest_hit(arrays: dict, static, org, dirn, tmin, tmax) -> Hit:
     """Nearest hit of every ray in (tmin, tmax) over the scene triangles."""
-    _check_tiny(static.n_tris_real)
-    t, tri, u, v, hit = cuda_intersect.closest_hit_tiny(
-        arrays["tri_pack10"], org.contiguous(), dirn.contiguous(),
-        tmin.contiguous(), tmax.contiguous(), n_tris=static.n_tris_real)
-    return Hit(t=t, tri=tri, u=u, v=v, hit=hit)
+    n_tris = static.n_tris_real
+    pack = arrays["tri_pack10"]
+    org, dirn = org.contiguous(), dirn.contiguous()
+    tmin, tmax = tmin.contiguous(), tmax.contiguous()
+    if n_tris <= TINY_TRIS:
+        return Hit(*cuda_intersect.closest_hit_tiny(pack, org, dirn, tmin,
+                                                    tmax, n_tris=n_tris))
+    _check_fine(pack, arrays["tri_cluster8"], n_tris)
+    t, col = fine_intersect.closest_hit_fine(
+        pack, arrays["tri_cluster8"], arrays["tri_sub8"], org, dirn, tmin,
+        tmax, n_tris=n_tris)
+    return Hit(*fine_intersect.closest_epilogue(pack, org, dirn, t, col,
+                                                n_tris))
 
 
 def shadow_transmission(arrays: dict, static, transp_shad: bool, org, dirn,
                         dist) -> torch.Tensor:
     """(N,3) transmission along org -> org + dirn·dist (0 = occluded)."""
-    _check_tiny(static.n_stris_real)
+    n_tris = static.n_stris_real
+    pack = arrays["stri_pack10"]
     filt4 = arrays["sfilt4"] if transp_shad else arrays["sfilt4_binary"]
-    return cuda_intersect.shadow_transmission_tiny(
-        arrays["stri_pack10"], filt4, org.contiguous(), dirn.contiguous(),
-        dist.contiguous(), n_tris=static.n_stris_real)
+    org, dirn, dist = org.contiguous(), dirn.contiguous(), dist.contiguous()
+    if n_tris <= TINY_TRIS:
+        return cuda_intersect.shadow_transmission_tiny(
+            pack, filt4, org, dirn, dist, n_tris=n_tris)
+    _check_fine(pack, arrays["stri_cluster8"], n_tris)
+    return fine_intersect.shadow_transmission_fine(
+        pack, arrays["stri_cluster8"], arrays["stri_sub8"], filt4, org, dirn,
+        dist, n_tris=n_tris)

@@ -1,5 +1,6 @@
 """Scene — host-side scene graph + compile to flat arrays (port of
-libyafaray_tpu/scene/scene.py, restricted to what slice 1 renders).
+libyafaray_tpu/scene/scene.py, restricted to what the ported slices
+render).
 
 `compile()` stays numpy and yields the reference's `CompiledScene.arrays`
 keys that the slice reads, with equal values; `convert.to_tensors` moves
@@ -22,17 +23,21 @@ from ..materials.base import MT_LIGHT, build_material_table, default_row
 from ..materials.bsdf import check_families
 from ..materials.factory import material_row_from_params
 from ..materials.host import shadow_filter_np
-from ..ops.cuda_intersect import build_tri_pack
+from ..ops.cuda_intersect import build_tri_pack, morton_order
+from ..ops.fine_intersect import sub_aabbs
 from ..ops.intersect import intersector_for, pad_triangles
 from .mesh import TriMesh, finalize_mesh
 from .params import ParamMap
 
-# the arrays of the reference's CompiledScene.arrays that slice 1 reads
+# the arrays of the reference's CompiledScene.arrays that the port reads
 SLICE_ARRAY_KEYS = (
-    "tris", "tri_shade_pack", "tri_geom_pack", "tri_pack10", "stri_pack10",
-    "sfilt4", "sfilt4_binary", "shadow_filt", "shadow_filt_binary",
-    "materials", "lights",
+    "tris", "tri_shade_pack", "tri_geom_pack", "tri_pack10", "tri_cluster8",
+    "stri_pack10", "stri_cluster8", "sfilt4", "sfilt4_binary", "shadow_filt",
+    "shadow_filt_binary", "materials", "lights",
 )
+# the sub-cluster box tables the port adds to them (the reference derives
+# its own inside every intersection call)
+FINE_ARRAY_KEYS = ("tri_sub8", "stri_sub8")
 
 
 @dataclass(frozen=True)
@@ -50,7 +55,7 @@ class LightStatic:
 
 @dataclass(frozen=True)
 class SceneStatic:
-    """The SceneStatic fields of the reference that slice 1 reads."""
+    """The SceneStatic fields of the reference that the port reads."""
 
     n_tris_real: int
     n_stris_real: int
@@ -66,7 +71,7 @@ class SceneStatic:
 
 @dataclass
 class CompiledScene:
-    arrays: dict  # numpy arrays, SLICE_ARRAY_KEYS
+    arrays: dict  # numpy arrays, SLICE_ARRAY_KEYS + FINE_ARRAY_KEYS
     static: SceneStatic
     camera: Camera
 
@@ -196,6 +201,7 @@ class Scene:
         mat = cat("mat")
         light_id = cat("light_id")
         n_real = pos.shape[0]
+        intersector = intersector_for(device, n_real)
 
         v0 = pos[:, 0]
         e1 = pos[:, 1] - pos[:, 0]
@@ -288,13 +294,13 @@ class Scene:
         tri_geom_pack = np.concatenate(
             [np.asarray(v0, np.float32), np.asarray(e1, np.float32),
              np.asarray(e2, np.float32)], axis=1)
-        # (10, T) v0|e1|e2|orig_id pack of the intersection kernels; below
-        # 1025 triangles it is in original order, so column = triangle id
-        if n_real > 1024:
-            raise NotImplementedError(
-                "Morton-ordered packs (scenes above 1024 triangles) are not "
-                "ported yet: ROADMAP Queue 1 item 11")
-        tri_pack10, s_ord = build_tri_pack(v0, e1, e2)
+        # (10, T') v0|e1|e2|orig_id pack of the intersection kernels, in
+        # Morton order above 1024 triangles (column = triangle id below),
+        # with its cluster boxes and the 128-column sub-cluster boxes the
+        # large-scene kernels walk
+        t_order = morton_order(v0, e1, e2) if n_real > 1024 else None
+        tri_pack10, tri_cluster8, s_ord = build_tri_pack(v0, e1, e2, t_order)
+        tri_sub8 = sub_aabbs(tri_pack10, n_real)
         # shadow filters in pack order (padded entries alias tri 0 — they
         # are degenerate and never hit)
         sfilt_pk = filt_m[mat][s_ord]
@@ -309,7 +315,11 @@ class Scene:
             tri_shade_pack=tri_shade_pack,
             tri_geom_pack=tri_geom_pack,
             tri_pack10=tri_pack10,
+            tri_cluster8=tri_cluster8,
+            tri_sub8=tri_sub8,
             stri_pack10=tri_pack10,
+            stri_cluster8=tri_cluster8,
+            stri_sub8=tri_sub8,
             sfilt4=np.concatenate(
                 [sfilt_pk.T.astype(np.float32),
                  np.zeros((1, sfilt_pk.shape[0]), np.float32)]),
@@ -327,7 +337,7 @@ class Scene:
             lights=light_statics, bg=self.background,
             mat_families=families, has_blend=0,
             ray_min_dist=self.ray_min_dist, shadow_bias=self.shadow_bias,
-            intersector=intersector_for(device), chunk=chunk,
+            intersector=intersector, chunk=chunk,
         )
         cam = next(iter(self.cameras.values())) if self.cameras else Camera()
         cam_name = self.render_params.get_str("camera_name", "")

@@ -1,0 +1,331 @@
+"""The port's large-scene intersection (libyafaray_tpu_torch/ops/
+fine_intersect.py: the Morton pack, the sub-cluster boxes, the plain
+PyTorch versions of the two CUDA kernels and the closest-hit epilogue)
+against the JAX reference's gathered-fine path: `closest_hit_pallas` and
+`shadow_transmission_pallas` with their Pallas kernels in interpret mode,
+on the 2,304-triangle soup of tests/test_accel.py and on a small generated
+grid-spheres scene (scripts/make_large_scene.py --grid 2 --subdiv 2).
+
+Tolerances are the reference's own (tests/test_accel.py): hit and tri equal,
+t within rtol 1e-4 (u, v also atol 1e-6), transmission within atol 2e-3.
+On the sphere meshes adjacent triangles can give exactly equal t on a shared
+edge: the port takes the lowest pack column, the reference's fine kernel the
+first-visited group's winner, so there a tri may differ on a lane whose two
+triangles' t are exactly equal in the port's arithmetic, and nowhere else.
+The kernels themselves run only on the card; chip_smoke.py holds them to
+these plain versions there."""
+import os
+import subprocess
+import sys
+
+import numpy as np
+import pytest
+import torch
+
+import jax.numpy as jnp
+
+from libyafaray_tpu.ops import pallas_intersect as pli
+from libyafaray_tpu.scene.xml_parser import parse_xml_file as ref_parse
+from libyafaray_tpu_torch import convert
+from libyafaray_tpu_torch.ops import cuda_intersect as ci
+from libyafaray_tpu_torch.ops import fine_intersect as fi
+from libyafaray_tpu_torch.ops import intersect as isect
+
+REPO = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
+
+
+def _soup(n_tris=2304):
+    rng = np.random.default_rng(11)
+    v0 = rng.uniform(-4, 4, (n_tris, 3)).astype(np.float32)
+    e1 = rng.normal(0, 0.3, (n_tris, 3)).astype(np.float32)
+    e2 = rng.normal(0, 0.3, (n_tris, 3)).astype(np.float32)
+    return v0, e1, e2
+
+
+def _random_rays(rng, n, center, spread):
+    org = (center + (rng.random((n, 3)) - 0.5) * spread).astype(np.float32)
+    d = rng.normal(size=(n, 3))
+    d = (d / np.linalg.norm(d, axis=1, keepdims=True)).astype(np.float32)
+    return org, d
+
+
+@pytest.fixture(scope="module")
+def grid_scene(tmp_path_factory):
+    """The reference's compile of a generated 2.6K-triangle grid-spheres
+    scene (n_sc = 21 sub-clusters: the fine path)."""
+    path = str(tmp_path_factory.mktemp("grid") / "grid2.xml")
+    subprocess.run([sys.executable,
+                    os.path.join(REPO, "scripts", "make_large_scene.py"),
+                    "--grid", "2", "--subdiv", "2", "--size", "32",
+                    "--out", path], check=True, capture_output=True)
+    return ref_parse(path).compile()
+
+
+def _grid_rays(cs, rng):
+    from libyafaray_tpu.cameras.base import shoot_rays
+
+    cam = cs.camera
+    n = 512
+    px = (rng.random(n) * cam.resx).astype(np.float32)
+    py = (rng.random(n) * cam.resy).astype(np.float32)
+    o, d, _ = shoot_rays(cam, jnp.asarray(px), jnp.asarray(py),
+                         jnp.zeros(n), jnp.zeros(n))
+    o2, d2 = _random_rays(rng, 256, 2.75, 5.0)  # inside the 5.5 room
+    return (np.concatenate([np.array(o), o2]),
+            np.concatenate([np.array(d), d2]))
+
+
+@pytest.fixture(scope="module")
+def cases(grid_scene):
+    """name -> (pack10, cluster8, n_tris, org, dir)."""
+    rng = np.random.default_rng(3)
+    v0, e1, e2 = _soup()
+    pack, cl, _ = ci.build_tri_pack(v0, e1, e2, ci.morton_order(v0, e1, e2))
+    o, d = _random_rays(rng, 256, 0.0, 10.0)
+    a = grid_scene.arrays
+    return {"soup2304": (pack, cl, 2304, o, d),
+            "grid2": (a["tri_pack10"], a["tri_cluster8"],
+                      grid_scene.static.n_tris_real, *_grid_rays(grid_scene,
+                                                                 rng))}
+
+
+CASES = ("soup2304", "grid2")
+
+
+def _t(a):
+    return torch.from_numpy(np.ascontiguousarray(a))
+
+
+def test_morton_pack_and_boxes_equal_reference():
+    v0, e1, e2 = _soup()
+    order = ci.morton_order(v0, e1, e2)
+    assert np.array_equal(order, pli.morton_order(v0, e1, e2))
+    got = ci.build_tri_pack(v0, e1, e2, order)
+    want = pli.build_tri_pack(v0, e1, e2, order)
+    for g, w in zip(got, want):
+        assert g.dtype == w.dtype and np.array_equal(g, w)
+    pack = got[0]
+    assert pack.shape == (10, 2304) and got[1].shape == (8, 18)
+    sub8 = fi.sub_aabbs(pack, 2304)
+    assert np.array_equal(sub8, np.asarray(pli._sub_aabbs(jnp.asarray(pack),
+                                                           2304)))
+    # padded columns: the last sub-cluster of 2,000 triangles is partly real,
+    # the all-pad tail inverted
+    sub_p = fi.sub_aabbs(pack, 2000)
+    assert np.array_equal(sub_p, np.asarray(pli._sub_aabbs(
+        jnp.asarray(pack), 2000)))
+    assert np.isinf(sub_p[0:3, 16:]).all() and (sub_p[0:3, 16:] > 0).all()
+
+
+def test_compile_packs_grid_scene_like_reference(tmp_path):
+    """The port's compile of a generated grid scene gives the reference's
+    Morton pack, cluster boxes and shadow filters, and sub-cluster boxes
+    equal to the reference's `_sub_aabbs` of that pack."""
+    from libyafaray_tpu_torch.scene.xml_parser import parse_xml_file
+
+    path = str(tmp_path / "grid2.xml")
+    subprocess.run([sys.executable,
+                    os.path.join(REPO, "scripts", "make_large_scene.py"),
+                    "--grid", "2", "--subdiv", "2", "--out", path],
+                   check=True, capture_output=True)
+    ref = ref_parse(path).compile()
+    port = parse_xml_file(path).compile(device="cpu")
+    n = ref.static.n_tris_real
+    assert port.static.n_tris_real == n == 2572
+    for k in ("tri_pack10", "tri_cluster8", "stri_pack10", "stri_cluster8",
+              "sfilt4", "sfilt4_binary"):
+        assert np.array_equal(port.arrays[k], ref.arrays[k]), k
+    want = np.asarray(pli._sub_aabbs(jnp.asarray(ref.arrays["tri_pack10"]),
+                                     n))
+    assert port.arrays["tri_sub8"].shape == (8, 21)
+    assert np.array_equal(port.arrays["tri_sub8"], want)
+    conv = convert.arrays_from_reference(ref.arrays, "cpu")
+    for k in ("tri_sub8", "stri_sub8"):
+        assert torch.equal(conv[k], torch.tensor(want)), k
+
+
+def _reference_closest(pack, cl, n_tris, o, d, tmin, tmax):
+    pli.INTERPRET = True
+    try:
+        return [np.asarray(x) for x in pli.closest_hit_pallas(
+            jnp.asarray(pack), jnp.asarray(cl), jnp.asarray(o),
+            jnp.asarray(d), jnp.asarray(tmin), jnp.asarray(tmax),
+            n_tris=n_tris)]
+    finally:
+        pli.INTERPRET = False
+
+
+@pytest.mark.parametrize("case", CASES)
+def test_closest_plain_matches_reference_fine(cases, case):
+    pack, cl, n_tris, o, d = cases[case]
+    assert fi.takes_fine_path(pack.shape[1], cl.shape[1])
+    n = o.shape[0]
+    tmin = np.full(n, 5e-5, np.float32)
+    tmax = np.full(n, np.inf, np.float32)
+    tmax[::7] = 1.5  # some finite segments
+    tmax[::11] = -1.0  # dead lanes: empty interval
+    sub8 = fi.sub_aabbs(pack, n_tris)
+    tc, col = fi.closest_hit_fine(_t(pack), _t(cl), _t(sub8), _t(o), _t(d),
+                                  _t(tmin), _t(tmax), n_tris)
+    t, tri, u, v, hit = (x.numpy() for x in fi.closest_epilogue(
+        _t(pack), _t(o), _t(d), tc, col, n_tris))
+    assert np.array_equal(t, tc.numpy())  # the epilogue keeps the t
+    rt, rtri, ru, rv, rhit = _reference_closest(pack, cl, n_tris, o, d, tmin,
+                                                tmax)
+    assert hit.any() and not hit.all() and not hit[::11].any()
+    assert np.array_equal(hit, rhit)
+    m = rhit
+    assert np.allclose(t[m], rt[m], rtol=1e-4)
+    flip = m & (tri != rtri)
+    if case == "soup2304":
+        assert not flip.any()
+    else:
+        # a flip is a tie: the reference's triangle gives the port's t
+        # exactly, and its column lies above the port's
+        inv = np.empty(n_tris, np.int64)
+        inv[pack[9, :n_tris].astype(np.int64)] = np.arange(n_tris)
+        rcol = inv[rtri[flip]]
+        c10 = _t(pack[:, rcol])
+        t_ref, _, _, ok = ci._mt_test(c10, slice(None),
+                                      *_t(o[flip]).unbind(-1),
+                                      *_t(d[flip]).unbind(-1))
+        assert ok.all() and np.array_equal(t_ref.numpy(), t[flip])
+        assert (rcol > col.numpy()[flip]).all()
+        assert flip.sum() <= 0.02 * m.sum(), (flip.sum(), m.sum())
+    keep = m & ~flip
+    for a, b in ((u, ru), (v, rv)):
+        assert np.allclose(a[keep], b[keep], rtol=1e-4, atol=1e-6)
+
+
+@pytest.mark.parametrize("case", CASES)
+def test_shadow_plain_matches_reference_fine(cases, case):
+    pack, cl, n_tris, o, d = cases[case]
+    n = o.shape[0]
+    rng = np.random.default_rng(5)
+    dist = rng.uniform(0.5, 12.0, n).astype(np.float32)
+    dist[::9] = -1.0  # dead lanes: empty segment
+    tp = pack.shape[1]
+    filt4 = np.zeros((4, tp), np.float32)
+    filt4[:3, :n_tris] = (rng.random((3, n_tris))
+                          * (rng.random((1, n_tris)) > 0.5))
+    tr = fi.shadow_transmission_fine(
+        _t(pack), _t(cl), _t(fi.sub_aabbs(pack, n_tris)), _t(filt4), _t(o),
+        _t(d), _t(dist), n_tris).numpy()
+    pli.INTERPRET = True
+    try:
+        rtr = np.asarray(pli.shadow_transmission_pallas(
+            jnp.asarray(pack), jnp.asarray(cl), jnp.asarray(filt4),
+            jnp.asarray(o), jnp.asarray(d), jnp.asarray(dist),
+            n_tris=n_tris))
+    finally:
+        pli.INTERPRET = False
+    assert np.allclose(tr, rtr, atol=2e-3)
+    assert (tr[::9] == 1.0).all()
+    assert (tr < 1e-30).any() and ((tr > 0.01) & (tr < 0.99)).any()
+
+
+def test_shadow_plain_floors_at_opaque():
+    """Every log filter is <= 0, so one floor at -80 after the sum is the
+    reference's per-group floor: three opaque triangles on one segment
+    give exactly -80, not -240."""
+    v0 = np.array([[0, 0, z] for z in (1.0, 2.0, 3.0)], np.float32) - 0.5
+    e1 = np.tile(np.float32([[2, 0, 0]]), (3, 1))
+    e2 = np.tile(np.float32([[0, 2, 0]]), (3, 1))
+    pack, _, _ = ci.build_tri_pack(v0, e1, e2)
+    logf = ci.log_filter(torch.zeros((4, pack.shape[1])))
+    lg = fi.shadow_logsum_fine_plain(
+        _t(pack), logf, torch.tensor([[0.0, 0.0, 0.0]]),
+        torch.tensor([[0.0, 0.0, 1.0]]), torch.tensor([5.0]), 3)
+    assert torch.equal(lg, torch.full((1, 3), -80.0))
+
+
+@pytest.mark.parametrize("n_tris, route", [
+    (64, "tiny"), (65, "Queue 2 item 6"), (384, "Queue 2 item 6"),
+    (385, "Queue 2 item 5"), (896, "Queue 2 item 5"), (897, "fine"),
+    (2304, "fine")])
+def test_dispatch_boundaries(monkeypatch, n_tris, route):
+    """The reference's routing by pack shape: <= 64 triangles the tiny
+    kernels; fewer than 4 clusters the dense kernels and 4 or more with
+    fewer than 8 sub-clusters the streaming kernels (both raise naming
+    their ROADMAP item); from 897 triangles (8 sub-clusters) the fine
+    kernels."""
+    from libyafaray_tpu_torch.scene.scene import SceneStatic
+
+    v0, e1, e2 = (x[:n_tris] for x in _soup())
+    pack, cl, _ = ci.build_tri_pack(v0, e1, e2)
+    sub8 = fi.sub_aabbs(pack, n_tris)
+    arrays = {"tri_pack10": _t(pack), "stri_pack10": _t(pack),
+              "tri_cluster8": _t(cl), "stri_cluster8": _t(cl),
+              "tri_sub8": _t(sub8), "stri_sub8": _t(sub8),
+              "sfilt4": torch.zeros((4, pack.shape[1])),
+              "sfilt4_binary": torch.zeros((4, pack.shape[1]))}
+    static = SceneStatic(n_tris_real=n_tris, n_stris_real=n_tris, lights=(),
+                         bg=None, mat_families=(), has_blend=0,
+                         ray_min_dist=5e-5, shadow_bias=5e-4,
+                         intersector="brute", chunk=8)
+    called = []
+    for mod, name in ((ci, "closest_hit_tiny_plain"),
+                      (ci, "shadow_logsum_tiny_plain"),
+                      (fi, "closest_fine_plain"),
+                      (fi, "shadow_logsum_fine_plain")):
+        fn = getattr(mod, name)
+        monkeypatch.setattr(mod, name, lambda *a, fn=fn, name=name: (
+            called.append(name), fn(*a))[1])
+    o, d = _random_rays(np.random.default_rng(1), 16, 0.0, 6.0)
+    args = (_t(o), _t(d))
+    lim = (torch.full((16,), 5e-5), torch.full((16,), float("inf")))
+    if route in ("tiny", "fine"):
+        hit = isect.closest_hit(arrays, static, *args, *lim)
+        tr = isect.shadow_transmission(arrays, static, False, *args,
+                                       torch.full((16,), 3.0))
+        assert hit.t.shape == (16,) and tr.shape == (16, 3)
+        assert all(route in name for name in called) and len(called) == 2
+    else:
+        with pytest.raises(NotImplementedError, match=route):
+            isect.closest_hit(arrays, static, *args, *lim)
+        with pytest.raises(NotImplementedError, match=route):
+            isect.shadow_transmission(arrays, static, True, *args,
+                                      torch.full((16,), 3.0))
+        assert not called
+
+
+def test_fine_wrapper_routes_cpu_to_plain_and_counts_nothing(cases):
+    pack, cl, n_tris, o, d = cases["soup2304"]
+    n = o.shape[0]
+    sub8 = _t(fi.sub_aabbs(pack, n_tris))
+    lim = (torch.full((n,), 5e-5), torch.full((n,), float("inf")))
+    before = (fi.closest_hit_fine.launches, fi.shadow_logsum_fine.launches)
+    got = fi.closest_hit_fine(_t(pack), _t(cl), sub8, _t(o), _t(d), *lim,
+                              n_tris)
+    want = fi.closest_fine_plain(_t(pack), _t(o), _t(d), *lim, n_tris)
+    for a, b in zip(got, want):
+        assert torch.equal(a, b)
+    logf = torch.zeros((3, pack.shape[1]))
+    fi.shadow_logsum_fine(_t(pack), _t(cl), sub8, logf, _t(o), _t(d),
+                          torch.ones(n), n_tris)
+    assert (fi.closest_hit_fine.launches,
+            fi.shadow_logsum_fine.launches) == before
+
+
+def test_fine_wrapper_rejects_bad_inputs(cases):
+    pack, cl, n_tris, o, d = cases["soup2304"]
+    n = o.shape[0]
+    pk, c8 = _t(pack), _t(cl)
+    sub8 = _t(fi.sub_aabbs(pack, n_tris))
+    org, dirn = _t(o), _t(d)
+    lim = torch.zeros(n)
+    with pytest.raises(ValueError, match="shape"):  # sub table of other width
+        fi.closest_hit_fine(pk, c8, sub8[:, :-1].contiguous(), org, dirn,
+                            lim, lim, n_tris)
+    with pytest.raises(ValueError, match="clusters"):  # 18 sub-clusters in 5
+        fi.closest_hit_fine(pk, torch.zeros((8, 5)), sub8, org, dirn, lim,
+                            lim, n_tris)
+    with pytest.raises(ValueError, match="n_tris"):
+        fi.closest_hit_fine(pk, c8, sub8, org, dirn, lim, lim,
+                            pack.shape[1] + 1)
+    with pytest.raises(TypeError):
+        fi.closest_hit_fine(pk, c8, sub8, org.double(), dirn, lim, lim,
+                            n_tris)
+    with pytest.raises(ValueError, match="rgb rows"):
+        fi.shadow_logsum_fine(pk, c8, sub8, torch.zeros(2, pack.shape[1]),
+                              org, dirn, lim, n_tris)

@@ -72,7 +72,7 @@ def _cases(cornell):
             ("cornell-random", _random_rays(rng, 256, 2.75, 5.0))):
         cases.append((name, a["tri_pack10"], n_real, tris, filt, o, d))
     v0, e1, e2 = _soup(rng)
-    pack, _ = ci.build_tri_pack(v0, e1, e2)
+    pack, _, _ = ci.build_tri_pack(v0, e1, e2)
     filt_s = (rng.random((48, 3)) * (rng.random((48, 1)) > 0.5)).astype(
         np.float32)
     o, d = _random_rays(rng, 256, 0.0, 6.0)
@@ -200,5 +200,5 @@ def test_dispatch_above_tiny_raises(cornell):
     big = type(st)(**{**st.__dict__, "n_tris_real": 65})
     arrays = convert.arrays_from_reference(cornell.arrays, "cpu")
     o = torch.zeros((4, 3))
-    with pytest.raises(NotImplementedError, match="Queue 2 item 3"):
+    with pytest.raises(NotImplementedError, match="Queue 2 item 6"):
         isect.closest_hit(arrays, big, o, o, torch.zeros(4), torch.ones(4))

@@ -81,11 +81,13 @@ def test_build_config_equals_reference():
 def test_intersector_follows_torch_device(compiled):
     from libyafaray_tpu_torch.ops.intersect import intersector_for
 
-    assert intersector_for("cpu") == "brute"
-    assert intersector_for("cuda") == "brute"
+    assert intersector_for("cpu", 1 << 20) == "brute"
+    assert intersector_for("cuda", 1 << 20) == "brute"
+    with pytest.raises(NotImplementedError, match="Queue 1 item 11"):
+        intersector_for("cuda", (1 << 20) + 1)
     with pytest.raises(ValueError, match="meta"):
-        intersector_for("meta")
-    assert compiled[1].static.intersector == intersector_for("cpu")
+        intersector_for("meta", 32)
+    assert compiled[1].static.intersector == intersector_for("cpu", 32)
 
 
 def test_converter_narrows_to_32_bits():
@@ -107,7 +109,7 @@ _SCENE = """<scene type="triangle">{body}
 
 @pytest.mark.parametrize("body, item", [
     ('<material name="m"><type sval="glass"/></material>', "item 10"),
-    ('<material name="m"><type sval="glossy"/></material>', "item 10"),
+    ('<material name="m"><type sval="rough_glass"/></material>', "item 10"),
     ('<material name="m"><type sval="shinydiffusemat"/></material>'
      '<texture name="t"><type sval="clouds"/></texture>', "item 15"),
     ('<light name="l"><type sval="pointlight"/></light>', "item 17"),

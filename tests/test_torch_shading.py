@@ -1,6 +1,7 @@
 """Shading-layer parity of the port against the JAX reference: perspective
-camera rays, area-light sampling, the shinydiffuse / light / null BSDFs,
-the constant background and the box-filter film.
+camera rays, area-light sampling, the shinydiffuse / glossy /
+coated-glossy / light / null BSDFs, the constant background, the four
+reconstruction filters and the film.
 
 Inputs are made with numpy from a fixed seed and fed to both packages.
 Tolerance: allclose atol 1e-6 / rtol 1e-5.  Both sides compute in float32
@@ -56,13 +57,13 @@ def jax_tree(d):
             for k, v in d.items()}
 
 
-def _close(ref, port, name=""):
+def _close(ref, port, name="", rtol=RTOL):
     r = np.asarray(ref)
     p = port.numpy() if isinstance(port, torch.Tensor) else np.asarray(port)
     if r.dtype == np.bool_:
         assert np.array_equal(r, p), name
     else:
-        np.testing.assert_allclose(p, r, atol=ATOL, rtol=RTOL, err_msg=name)
+        np.testing.assert_allclose(p, r, atol=ATOL, rtol=rtol, err_msg=name)
 
 
 def test_shoot_rays_perspective(cornell, rng):
@@ -162,6 +163,99 @@ def test_sample_bsdf_families(shading_lanes):
     assert np.array_equal(np.asarray(r["new_wavelength"]), np.full(N, -1.0))
 
 
+# cos(theta_h)^e with exponents up to 200 multiplies the last-bit rounding
+# of cos(theta_h) by e: rtol 1e-4 (~e * 8 ulp) on the glossy values
+GLOSSY_RTOL = 1e-4
+GLOSSY_FAMILIES = (rmat.MT_NULL, rmat.MT_SHINYDIFFUSE, rmat.MT_GLOSSY,
+                   rmat.MT_COATED_GLOSSY, rmat.MT_LIGHT)
+
+
+@pytest.fixture(scope="module")
+def glossy_lanes(rng):
+    """Glossy and coated-glossy rows (isotropic and anisotropic, the
+    grid-spheres scene's own glossy material among them) mixed with a
+    shinydiffuse and a null row, with random frames, directions and
+    uniforms."""
+    rows = []
+    for mt, aniso, exp, eu, ev, g_refl, ior in (
+            (rmat.MT_GLOSSY, False, 120.0, 50.0, 50.0, 0.7, 1.0),
+            (rmat.MT_GLOSSY, False, 8.0, 50.0, 50.0, 0.3, 1.0),
+            (rmat.MT_GLOSSY, True, 50.0, 200.0, 20.0, 0.5, 1.0),
+            (rmat.MT_COATED_GLOSSY, False, 40.0, 50.0, 50.0, 0.6, 1.5),
+            (rmat.MT_COATED_GLOSSY, True, 50.0, 10.0, 90.0, 0.8, 1.8)):
+        r = rmat.default_row()
+        r.update(mtype=mt, diffuse_color=(0.2, 0.25, 0.7),
+                 glossy_color=(0.9, 0.8, 0.6), mirror_color=(0.7, 0.9, 0.8),
+                 anisotropic=aniso, exponent=exp, exp_u=eu, exp_v=ev,
+                 glossy_reflect=g_refl, ior=ior, diffuse_reflect=0.8)
+        rows.append(r)
+    shiny = rmat.default_row()
+    shiny.update(mtype=rmat.MT_SHINYDIFFUSE, diffuse_color=(0.5, 0.6, 0.7))
+    rows += [shiny, rmat.default_row()]
+    table = rmat.build_material_table(rows)
+    mid = rng.integers(0, len(rows), N).astype(np.int32)
+    n = _unit(rng, N)
+    ng = n + 0.1 * _unit(rng, N)
+    ng = (ng / np.linalg.norm(ng, axis=1, keepdims=True)).astype(np.float32)
+    wo = _unit(rng, N)
+    # half the wi near the mirror direction, where the glossy lobe peaks
+    refl = 2.0 * np.sum(n * wo, axis=1, keepdims=True) * n - wo
+    wi = np.where(np.arange(N)[:, None] % 2 == 0, _unit(rng, N),
+                  refl + 0.05 * _unit(rng, N))
+    wi = (wi / np.linalg.norm(wi, axis=1, keepdims=True)).astype(np.float32)
+    u = rng.random((3, N)).astype(np.float32)
+    row_r = rmat.gather_rows(jax_tree(table), jnp.asarray(mid))
+    row_p = pmat.gather_rows(convert.to_tensors(table, "cpu"),
+                             torch.from_numpy(mid).long())
+    return row_r, row_p, (n, ng, wo, wi), u
+
+
+def test_glossy_eval_and_pdf(glossy_lanes):
+    row_r, row_p, vecs, _ = glossy_lanes
+    jr = [jnp.asarray(v) for v in vecs]
+    tp = [torch.from_numpy(v) for v in vecs]
+    f = pbsdf.eval_bsdf(row_p, *tp, GLOSSY_FAMILIES)
+    assert (f.amax(dim=-1) > 1.0).any()  # the lobe's peak is sampled
+    _close(rbsdf.eval_bsdf(row_r, *jr, families=GLOSSY_FAMILIES), f, "eval",
+           GLOSSY_RTOL)
+    _close(rbsdf.pdf_bsdf(row_r, *jr, families=GLOSSY_FAMILIES),
+           pbsdf.pdf_bsdf(row_p, *tp, GLOSSY_FAMILIES), "pdf", GLOSSY_RTOL)
+
+
+def test_glossy_sample(glossy_lanes):
+    row_r, row_p, (n, ng, wo, _), u = glossy_lanes
+    r = rbsdf.sample_bsdf(row_r, jnp.asarray(n), jnp.asarray(ng),
+                          jnp.asarray(wo), *(jnp.asarray(x) for x in u),
+                          families=GLOSSY_FAMILIES)
+    p = pbsdf.sample_bsdf(row_p, torch.from_numpy(n), torch.from_numpy(ng),
+                          torch.from_numpy(wo),
+                          *(torch.from_numpy(x) for x in u), GLOSSY_FAMILIES)
+    glossy = np.isin(np.asarray(row_r["mtype"]),
+                     (rmat.MT_GLOSSY, rmat.MT_COATED_GLOSSY))
+    assert (glossy & np.asarray(r["specular"])).any()  # coat reflections
+    assert (glossy & np.asarray(r["valid"]) & ~np.asarray(r["specular"])).any()
+    for k in ("wi", "tp", "pdf", "specular", "transmit", "entering",
+              "valid", "passthrough"):
+        _close(r[k], p[k], k, GLOSSY_RTOL)
+
+
+@pytest.mark.parametrize("filter_type", ["box", "mitchell", "gauss",
+                                         "lanczos"])
+def test_filters_match_reference(filter_type):
+    from libyafaray_tpu.film import filters as rfilters
+    from libyafaray_tpu_torch.film import filters as pfilters
+
+    x = np.linspace(-2.5, 2.5, 2001).astype(np.float32)
+    for width in (1.0, 1.5, 2.0, 3.0):
+        assert (pfilters.filter_radius(filter_type, width)
+                == rfilters.filter_radius(filter_type, width))
+        _close(rfilters.eval_filter_1d(filter_type, jnp.asarray(x), width),
+               pfilters.eval_filter_1d(filter_type, torch.from_numpy(x),
+                                       width), f"{filter_type} {width}")
+    with pytest.raises(ValueError, match="unknown filter"):
+        pfilters.eval_filter_1d("sinc", torch.from_numpy(x), 1.5)
+
+
 def test_emission(shading_lanes):
     row_r, row_p, (_, ng, wo, _), _ = shading_lanes
     _close(rbsdf.emission(row_r, jnp.asarray(ng), jnp.asarray(wo)),
@@ -188,6 +282,15 @@ def test_eval_background_constant(cornell, rng):
 
 
 def test_film_splat_box_and_image(rng):
+    _check_splat(rng, "box")
+
+
+def test_film_splat_gauss_and_image(rng):
+    """The grid-spheres scene's gauss filter (width 1.5, radius 1)."""
+    _check_splat(rng, "gauss")
+
+
+def _check_splat(rng, filter_type):
     h, w = 12, 10
     color = rng.random((h, w, 3)).astype(np.float32) * 3.0
     sx, sy = (rng.random((h, w)).astype(np.float32) for _ in range(2))
@@ -196,11 +299,11 @@ def test_film_splat_box_and_image(rng):
     fp = pfilm.film_init(h, w, "cpu")
     for _ in range(2):  # accumulate twice, as consecutive steps do
         fr = rfilm.film_splat(fr, jnp.asarray(color), jnp.asarray(sx),
-                              jnp.asarray(sy), jnp.asarray(active), "box",
-                              1.5)
+                              jnp.asarray(sy), jnp.asarray(active),
+                              filter_type, 1.5)
         fp = pfilm.film_splat(fp, torch.from_numpy(color),
                               torch.from_numpy(sx), torch.from_numpy(sy),
-                              torch.from_numpy(active), "box", 1.5)
+                              torch.from_numpy(active), filter_type, 1.5)
     for k in ("wsum", "w", "nsamples"):
         _close(fr[k], fp[k], k)
     _close(rfilm.film_image(fr), pfilm.film_image(fp), "image")
