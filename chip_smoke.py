@@ -14,7 +14,15 @@ started together) and drives the two ported paths through them:
   3, made here by scripts/make_large_scene.py in a subprocess): the two
   large-scene kernels against their plain versions at the path's shapes,
   the 512²·4 spp render, one profiled sample step, and the card against the
-  CPU on a small generated grid.
+  CPU on a small generated grid;
+- slice 3, photon mapping on scenes/cornell_photon.xml (BASELINE config 3,
+  glass and glossy analytic spheres): the three photon-gather kernels
+  against their plain versions at the path's shapes, the full-width render
+  (512², 16 spp, 200,000 + 100,000 photons, final gather 16) through the
+  entry point `render_scene`, one profiled sample step, cornell.xml against
+  the stored photon-mapping golden, the card against the CPU, and the
+  2,000,000-photon scale route, where the diffuse map takes the culled
+  layout and its kernel.
 Each path is rendered with every launch counter set to 0 just before it and
 read just after.  Every phase prints one line; any failure raises and the
 script exits non-zero without printing a result.  The last line is
@@ -49,14 +57,21 @@ from libyafaray_tpu_torch.ops import _build  # noqa: E402
 from libyafaray_tpu_torch.ops import cuda_intersect as ci  # noqa: E402
 from libyafaray_tpu_torch.ops import fine_intersect as fi  # noqa: E402
 from libyafaray_tpu_torch.ops import intersect as isect  # noqa: E402
-from libyafaray_tpu_torch.scene.session import build_config  # noqa: E402
+from libyafaray_tpu_torch.ops import photon_flash as pf  # noqa: E402
+from libyafaray_tpu_torch.integrators import photonmap  # noqa: E402
+from libyafaray_tpu_torch.scene.session import (  # noqa: E402
+    build_config, render_scene)
 from libyafaray_tpu_torch.scene.xml_parser import parse_xml_file  # noqa: E402
 
 CORNELL = os.path.join(REPO, "scenes", "cornell.xml")
 GOLDEN = os.path.join(REPO, "scenes", "goldens", "cornell_pathtracing.exr")
-SOURCES = ("tiny_intersect", "fine_intersect")
+PHOTON = os.path.join(REPO, "scenes", "cornell_photon.xml")
+PHOTON_GOLDEN = os.path.join(REPO, "scenes", "goldens",
+                             "cornell_photonmapping.exr")
+SOURCES = ("tiny_intersect", "fine_intersect", "photon_flash")
 SRC = "libyafaray_tpu_torch/csrc/{}.cu"
 PALLAS = "libyafaray_tpu/ops/pallas_intersect.py:{}"
+FLASH = "libyafaray_tpu/ops/photon_flash.py:{}"
 # main path: bench.py config 1
 MAIN = dict(size=512, spp=64, bounces=4, rr_min_bounces=2)
 # slice 2: bench.py config 3 (the scene's own pathtracing settings)
@@ -64,6 +79,19 @@ GRID = dict(grid=4, subdiv=4, size=512, spp=4)
 # shadow rays the plain brute force is compared and timed on: the first
 # (contiguous) light sample of the bounce-0 NEE block, one per pixel
 PLAIN_SHADOW_RAYS = 262144
+# slice 3 runs cornell_photon.xml at its own settings (BASELINE config 3);
+# the golden is cornell.xml with scripts/make_goldens.py's overrides
+GOLDEN_PHOTON = dict(integrator="photonmapping", photons=200_000,
+                     caustic_photons=50_000, fg_samples=24, raydepth=4,
+                     aa_samples=24, aa_passes=1)
+CARD_VS_CPU_PHOTON = dict(size=32, aa_samples=2, photons=16_384,
+                          caustic_photons=8_192, fg_samples=4)
+# the scale route: diffuse stores above CULL_MIN_PHOTONS
+SCALE = dict(size=128, aa_samples=1, photons=2_000_000)
+# queries the plain gathers are compared and timed on (bounds their time)
+PLAIN_QUERIES = 16384
+PHOTON_TAGS = ("closest_tiny_kernel", "shadow_tiny_kernel",
+               "density_flash_kernel", "nearest_flash_kernel")
 
 
 def phase(tag: str, **kv) -> None:
@@ -381,18 +409,17 @@ def card_vs_cpu(tag, make, size, spp) -> None:
         raise AssertionError(f"{tag}: card and CPU renders disagree")
 
 
-def profile_step(cscene, cfg, kernel_tag: str) -> dict:
+def profile_step(step, arrays, cfg, kernel_tags: tuple) -> dict:
     """One sample step under torch.profiler, after an unprofiled one: its
     kernel launches, the device's busy milliseconds (the union of its
     kernel and copy intervals), the milliseconds of the ported kernels
-    whose names hold `kernel_tag` (in all and per launch, in launch order),
-    and the aten ops with the most device time (ms / calls)."""
+    whose names hold one of `kernel_tags` (in all, per launch in launch
+    order, and per tag as ms / launches), and the aten ops with the most
+    device time (ms / calls)."""
     from torch.autograd import DeviceType
     from torch.profiler import ProfilerActivity, profile
 
     dev = engine.resolve_device("cuda")
-    arrays = to_tensors(cscene.arrays, dev)
-    step = engine.make_sample_step(cscene.static, cscene.camera, cfg, dev)
     flags = torch.ones((cfg.height, cfg.width), dtype=torch.bool, device=dev)
     film = step(arrays, _fresh_film(cfg, dev), flags)
     torch.cuda.synchronize()
@@ -412,26 +439,379 @@ def profile_step(cscene, cfg, kernel_tag: str) -> dict:
     ops = sorted((e for e in prof.key_averages()
                   if e.key.startswith("aten::") and e.device_time_total > 0),
                  key=lambda e: -e.device_time_total)[:6]
+    ported = [(next(t for t in kernel_tags if t in n), (b - a) / 1e3)
+              for a, b, n in spans if any(t in n for t in kernel_tags)]
+    by_tag = {t: [ms for k, ms in ported if k == t] for t in kernel_tags}
     return dict(
         kernel_launches=sum(not n.startswith(("Memcpy", "Memset"))
                             for _, _, n in spans),
         device_busy_ms=busy_us / 1e3,
-        ported_ms=sum(b - a for a, b, n in spans if kernel_tag in n) / 1e3,
-        ported_calls_ms=[round((b - a) / 1e3, 4) for a, b, n in spans
-                         if kernel_tag in n],
+        ported_ms=sum(ms for _, ms in ported),
+        ported_calls_ms=[round(ms, 4) for _, ms in ported],
+        ported_by_kernel={t: f"{sum(v):.4f}ms/{len(v)}"
+                          for t, v in by_tag.items()},
         top_ops={e.key: f"{e.device_time_total / 1e3:.4f}ms/{e.count}"
                  for e in ops})
 
 
-def profile(tag, res, cscene, cfg, kernel_tag, smi) -> None:
+def profile(tag, res, step, arrays, cfg, kernel_tags, smi) -> None:
     """The profile phase line of a path: one step profiled, its wall time
     the path's unprofiled render_s per sample."""
     step_ms = 1e3 * res.stats["render_s"] / cfg.aa_samples
-    prof = profile_step(cscene, cfg, kernel_tag)
+    prof = profile_step(step, arrays, cfg, kernel_tags)
     busy = prof["device_busy_ms"]
     phase(tag, step_ms=round(step_ms, 3), **prof,
           busy_share=(busy / step_ms if isinstance(busy, float)
                       else "not measured"), gpu=repr(smi))
+
+
+def path_step(cscene, cfg):
+    """A pathtracing sample step on the card and its scene tensors."""
+    dev = engine.resolve_device("cuda")
+    return (engine.make_sample_step(cscene.static, cscene.camera, cfg, dev),
+            to_tensors(cscene.arrays, dev))
+
+
+# ---- slice 3: photon mapping ----------------------------------------------
+
+
+def photon_scene(path: str, device: str, size: int = 0, **over):
+    """Slice 3's inputs: parse -> build_config (the scene's own settings,
+    then `over`) -> compile.  size=0 keeps the scene's resolution."""
+    scene = parse_xml_file(path)
+    if size:
+        scene.render_params["width"] = size
+        scene.render_params["height"] = size
+    cfg = build_config(scene)
+    if size:
+        over = dict(over, width=size, height=size)
+    cfg = RenderConfig(**{**cfg.__dict__, **over})
+    return scene.compile(device=device), cfg
+
+
+def gather_calls(run):
+    """run() with photonmap's gathers (density_auto, nearest_flash)
+    recording their arguments.  Returns (run's result, [(name, args)])."""
+    calls = []
+    saved = {k: getattr(photonmap, k) for k in ("density_auto",
+                                                 "nearest_flash")}
+
+    def recorder(name, fn):
+        def call(*args):
+            calls.append((name, args))
+            return fn(*args)
+        return call
+
+    for k, fn in saved.items():
+        setattr(photonmap, k, recorder(k, fn))
+    try:
+        out = run()
+    finally:
+        for k, fn in saved.items():
+            setattr(photonmap, k, fn)
+    return out, calls
+
+
+def photon_inputs(cscene, cfg):
+    """The gathers' arguments as the photon path makes them: the maps are
+    built and installed, then one sample step runs.  Returns (step,
+    arrays, pre_calls, step_calls): the step and its scene tensors with
+    the packs, the radiance-map precompute's density gathers (one per
+    65,536 queries) and the step's caustic density and fg_samples nearest
+    lookups."""
+    dev = engine.resolve_device("cuda")
+    arrays = to_tensors(cscene.arrays, dev)
+    maps, pre_calls = gather_calls(
+        lambda: photonmap.install_photon_maps(cscene, cfg, arrays))
+    step = photonmap.make_photon_sample_step(cscene, cfg, maps, dev)
+    flags = torch.ones((cfg.height, cfg.width), dtype=torch.bool, device=dev)
+    _, step_calls = gather_calls(
+        lambda: step(arrays, _fresh_film(cfg, dev), flags))
+    torch.cuda.synchronize()
+    return step, arrays, pre_calls, step_calls
+
+
+def compare_density(what, kernel, plain, pack, qp, qn, r, n_plain):
+    """kernel(pack, qp, qn, r) against plain(...) on the first n_plain
+    queries: counts equal, flux within rtol 1e-5 / atol 1e-6 of the flux
+    scale.  Returns (kernel result, differ, max_abs_err, plain ms)."""
+    kf, kc = kernel(pack, qp, qn, r)
+    torch.cuda.synchronize()
+    (pf_, pc), plain_ms = once_ms(
+        lambda: plain(pack, qp[:n_plain], qn[:n_plain], r))
+    differ = int((kc[:n_plain] != pc).sum())
+    scale = float(pf_.abs().max())
+    err = float((kf[:n_plain] - pf_).abs().max())
+    if differ:
+        raise AssertionError(f"{what}: {differ} counts differ from plain")
+    if not torch.allclose(kf[:n_plain], pf_, rtol=1e-5, atol=1e-6 * scale):
+        raise AssertionError(f"{what}: flux beyond rtol 1e-5 (err {err})")
+    return (kf, kc), differ, err, plain_ms
+
+
+def check_photon_kernels(pre_calls, step_calls) -> list:
+    """density_flash at both of the path's shapes (the step's caustic
+    gather, the first radiance-map precompute gather) and nearest_flash at
+    the step's first final-gather lookup, against their plain versions."""
+    caustic = next(a for name, a in step_calls if name == "density_auto")
+    nearest = next(a for name, a in step_calls if name == "nearest_flash")
+    out = {}
+    for what, args in (("caustic", caustic), ("radiance", pre_calls[0][1])):
+        pack, qp, qn, r = args
+        n = qp.shape[0]
+        (_, kc), differ, err, plain_ms = compare_density(
+            "density_flash", pf.density_flash, pf.density_flash_plain,
+            pack, qp, qn, r, n)
+        kernel = lambda: pf.density_flash(pack, qp, qn, r)  # noqa: E731
+        ms = device_ms(kernel, calls=3, replays=3)
+        phase("kernel", name="density_flash", gather=what, queries=n,
+              photons=pack["pos_t"].shape[1], radius=r,
+              counted=int(kc.sum()), differ=differ, max_abs_err=err,
+              tolerance="counts equal; flux rtol 1e-5, atol 1e-6*scale",
+              ms=round(ms, 4), call_ms=round(call_ms(kernel, 3), 4),
+              plain_ms=round(plain_ms, 4), plain="one eager call")
+        out[what] = dict(ms=ms, plain_ms=plain_ms, err=err)
+
+    pack, qp, r = nearest
+    n = PLAIN_QUERIES
+    kv, kfound = pf.nearest_flash(pack, qp, r)
+    torch.cuda.synchronize()
+    (pv, pfound), plain_ms = once_ms(
+        lambda: pf.nearest_flash_plain(pack, qp[:n], r))
+    differ = int((kfound[:n] != pfound).sum())
+    err = float((kv[:n] - pv).abs().max())
+    if differ or not torch.allclose(kv[:n], pv, rtol=1e-5,
+                                    atol=1e-6 * float(pv.abs().max())):
+        raise AssertionError(f"nearest_flash: {differ} found flags differ, "
+                             f"value err {err}")
+    kernel = lambda: pf.nearest_flash(pack, qp, r)  # noqa: E731
+    ms_n = device_ms(kernel, calls=2, replays=3)
+    ms_n_sub = device_ms(lambda: pf.nearest_flash(pack, qp[:n], r),
+                         calls=5, replays=3)
+    phase("kernel", name="nearest_flash", queries=qp.shape[0],
+          photons=pack["pos_t"].shape[1], radius=r, compared_queries=n,
+          found=int(kfound.sum()), differ=differ, max_abs_err=err,
+          tolerance="found equal; value rtol 1e-5", ms=round(ms_n, 4),
+          call_ms=round(call_ms(kernel, 2), 4),
+          ms_on_compared=round(ms_n_sub, 4), plain_ms=round(plain_ms, 4),
+          plain=f"one eager call on the first {n} queries")
+    c, rd = out["caustic"], out["radiance"]
+    return [
+        dict(name="density_flash", route="cuda",
+             source=SRC.format("photon_flash"), replaces=FLASH.format(104),
+             max_abs_err=max(c["err"], rd["err"]), ms=c["ms"],
+             plain_ms=c["plain_ms"], ms_radiance=rd["ms"],
+             plain_ms_radiance=rd["plain_ms"]),
+        dict(name="nearest_flash", route="cuda",
+             source=SRC.format("photon_flash"), replaces=FLASH.format(123),
+             max_abs_err=err, ms=ms_n, plain_ms=plain_ms,
+             plain_queries=n, ms_on_plain_queries=ms_n_sub),
+    ]
+
+
+def check_culled_kernel(calls) -> dict:
+    """density_culled on the scale route's culled diffuse pack and its
+    radiance-map queries: counts equal to density_flash_plain's and
+    density_culled_plain's on the first PLAIN_QUERIES queries, and to the
+    flash kernel's over the same sorted photons on all of them."""
+    pack, qp, qn, r = next(a for name, a in calls if name == "density_auto"
+                           and "tbl" in a[0])
+    n = PLAIN_QUERIES
+    (kf, kc), differ, err, plain_ms = compare_density(
+        "density_culled", pf.density_culled, pf.density_culled_plain,
+        pack, qp, qn, r, n)
+    compare_density("density_culled vs flash plain", pf.density_culled,
+                    lambda p, *a: pf.density_flash_plain(pf.flash_view(p),
+                                                         *a),
+                    pack, qp, qn, r, n)
+    flat = pf.flash_view(pack)
+    (ff, fc), flash_ms = once_ms(lambda: pf.density_flash(flat, qp, qn, r))
+    if not torch.equal(fc, kc):
+        raise AssertionError("density_culled: counts differ from the flash "
+                             "kernel's over the same photons")
+    kernel = lambda: pf.density_culled(pack, qp, qn, r)  # noqa: E731
+    ms = device_ms(kernel, calls=3, replays=3)
+    phase("kernel", name="density_culled", queries=qp.shape[0],
+          photons=int(pack["n_valid"]), pack=pack["tbl"].shape[1],
+          clusters=pack["cl_lo"].shape[0], radius=r, compared_queries=n,
+          counted=int(kc.sum()), differ=differ, max_abs_err=err,
+          flux_differ_vs_flash_kernel=int((kf != ff).any(dim=1).sum()),
+          tolerance="counts equal; flux rtol 1e-5, atol 1e-6*scale",
+          ms=round(ms, 4), call_ms=round(call_ms(kernel, 3), 4),
+          flash_kernel_ms=round(flash_ms, 4), plain_ms=round(plain_ms, 4),
+          plain=f"density_culled_plain, one eager call on the first {n} "
+                "queries")
+    return dict(name="density_culled", route="cuda",
+                source=SRC.format("photon_flash"),
+                replaces=FLASH.format(330), max_abs_err=err, ms=ms,
+                plain_ms=plain_ms, plain_queries=n)
+
+
+def photon_launch_counts(cfg, maps_info) -> dict:
+    """Launches a timed photon render makes (its warm-up step included):
+    per step fg_samples nearest lookups, one caustic density, raydepth + 1
+    + fg_samples closest hits and one NEE shadow batch per light; at
+    preprocess one density per 65,536 radiance queries and one closest
+    hit per bounce slot of every photon pass."""
+    steps = cfg.aa_samples + 1
+    passes = sum(maps_info[m]["passes"] for m in ("diffuse", "caustic"))
+    return dict(
+        density_flash=steps + -(-maps_info["radiance"]["queries"]
+                                // photonmap.RADIANCE_QUERIES),
+        nearest_flash=steps * cfg.fg_samples,
+        closest_hit_tiny=steps * (cfg.raydepth + 1 + cfg.fg_samples)
+        + passes * (cfg.photon_bounces + 1),
+        shadow_logsum_tiny=steps)
+
+
+PHOTON_WRAPPERS = {
+    "density_flash": pf.density_flash, "nearest_flash": pf.nearest_flash,
+    "density_culled": pf.density_culled,
+    "closest_hit_tiny": ci.closest_hit_tiny,
+    "shadow_logsum_tiny": ci.shadow_logsum_tiny}
+
+
+def counted(run):
+    """run() with every photon-path launch counter set to 0 just before and
+    read just after: (result, launches)."""
+    for fn in PHOTON_WRAPPERS.values():
+        fn.launches = 0
+    out = run()
+    return out, {k: fn.launches for k, fn in PHOTON_WRAPPERS.items()}
+
+
+def photon_path(smi) -> dict:
+    """cornell_photon.xml at its own settings through the entry point."""
+    scene = parse_xml_file(PHOTON)
+    cfg = build_config(scene)
+    res, launches = counted(
+        lambda: render_scene(scene, device="cuda", timed=True))
+    info = res.stats["photon_maps"]
+    img = res.image
+    phase("photon_maps", preprocess_s=round(res.stats["preprocess_s"], 4),
+          **{m: info[m] for m in ("diffuse", "caustic", "radiance")})
+    want = photon_launch_counts(cfg, info)
+    phase("photon_path", size=f"{cfg.width}x{cfg.height}",
+          spp=cfg.aa_samples, raydepth=cfg.raydepth,
+          photons=cfg.photons, caustic_photons=cfg.caustic_photons,
+          fg_samples=cfg.fg_samples,
+          render_s=round(res.stats["render_s"], 4),
+          preprocess_s=round(res.stats["preprocess_s"], 4),
+          rays=res.stats["rays"], mrays_per_s=round(res.mrays_per_sec, 3),
+          launches=launches, expected_launches=want,
+          image_mean=float(img.mean()), gpu=repr(smi))
+    if not np.all(np.isfinite(img)) or img.min() < 0.0 or img.mean() <= 0:
+        raise AssertionError("photon_path: image is not finite, >= 0, lit")
+    for k, v in want.items():
+        if launches[k] != v:
+            raise AssertionError(f"photon_path: {k} launched {launches[k]} "
+                                 f"times, expected {v}")
+    return res, launches
+
+
+def photon_golden() -> None:
+    """cornell.xml with scripts/make_goldens.py's photonmapping overrides
+    against the stored golden."""
+    golden = read_exr(PHOTON_GOLDEN)
+    gs = golden.shape[0]
+    cs, cc = photon_scene(CORNELL, "cuda", size=gs, **GOLDEN_PHOTON)
+    img = photonmap.render_photonmap(cs, cc, device="cuda").image
+    rmse = float(np.sqrt(np.mean((img - golden) ** 2)))
+    phase("photon_golden", size=f"{gs}x{gs}", spp=cc.aa_samples,
+          photons=cc.photons, caustic_photons=cc.caustic_photons,
+          fg_samples=cc.fg_samples, raydepth=cc.raydepth, rmse=rmse,
+          bound=0.02)
+    if not rmse < 0.02:
+        raise AssertionError(f"photon golden RMSE {rmse} >= 0.02")
+
+
+def photon_card_vs_cpu() -> None:
+    """The same photon render on the card (kernels) and the CPU (plain
+    versions): image RMSE <= 1e-3, stored photons and rays within 0.1%."""
+    out = {}
+    for dev in ("cuda", "cpu"):
+        cs, cc = photon_scene(PHOTON, dev, **CARD_VS_CPU_PHOTON)
+        out[dev] = photonmap.render_photonmap(cs, cc, device=dev)
+    rmse = float(np.sqrt(np.mean((out["cuda"].image
+                                  - out["cpu"].image) ** 2)))
+    rel = {}
+    for what, get in (
+            ("rays", lambda r: r.stats["rays"]),
+            ("stored_diffuse",
+             lambda r: r.stats["photon_maps"]["diffuse"]["stored"]),
+            ("stored_caustic",
+             lambda r: r.stats["photon_maps"]["caustic"]["stored"])):
+        a, b = get(out["cuda"]), get(out["cpu"])
+        rel[what] = (a, b, abs(a - b) / max(b, 1.0))
+    phase("photon_card_vs_cpu", **CARD_VS_CPU_PHOTON, rmse=rmse, bound=1e-3,
+          **{k: f"{a}/{b} rel={r}" for k, (a, b, r) in rel.items()},
+          rel_bound=1e-3)
+    if not (rmse <= 1e-3 and all(r <= 1e-3 for _, _, r in rel.values())):
+        raise AssertionError("photon_card_vs_cpu: card and CPU disagree")
+
+
+def photon_scale(cs, cc, smi) -> int:
+    """The scale route: 2,000,000 diffuse photons store over
+    CULL_MIN_PHOTONS, so the diffuse pack takes the culled layout and the
+    radiance-map precompute runs density_culled.  The image is held
+    against the same render forced onto the flash layout."""
+    res, launches = counted(
+        lambda: photonmap.render_photonmap(cs, cc, device="cuda"))
+    info = res.stats["photon_maps"]["diffuse"]
+    cull_min = pf.CULL_MIN_PHOTONS
+    pf.CULL_MIN_PHOTONS = 1 << 62
+    try:
+        flash = photonmap.render_photonmap(cs, cc, device="cuda")
+    finally:
+        pf.CULL_MIN_PHOTONS = cull_min
+    rmse = float(np.sqrt(np.mean((res.image - flash.image) ** 2)))
+    phase("photon_scale", size=f"{cc.width}x{cc.height}", spp=cc.aa_samples,
+          photons=cc.photons, diffuse=info,
+          preprocess_s=round(res.stats["preprocess_s"], 4),
+          flash_preprocess_s=round(flash.stats["preprocess_s"], 4),
+          launches=launches, rmse_vs_flash=rmse, bound=1e-5,
+          gpu=repr(smi))
+    if info["layout"] != "culled" or info["stored"] < cull_min:
+        raise AssertionError("photon_scale: the diffuse pack is not culled")
+    if launches["density_culled"] < 1:
+        raise AssertionError("photon_scale: density_culled never launched")
+    if not rmse <= 1e-5:
+        raise AssertionError(f"photon_scale: RMSE vs flash {rmse} > 1e-5")
+    return launches["density_culled"]
+
+
+def photon_phases(smi) -> list:
+    """Slice 3: the photon kernels against their plain versions at the
+    path's shapes, the full-width path through the entry point, one
+    profiled step, the golden, the card against the CPU, and the scale
+    route with the culled kernel."""
+    t0 = time.perf_counter()
+    cs, cfg = photon_scene(PHOTON, "cuda")
+    phase("photon_scene", tris=cs.static.n_tris_real,
+          spheres=cs.static.n_spheres,
+          compile_s=round(time.perf_counter() - t0, 3),
+          integrator=cfg.integrator, size=f"{cfg.width}x{cfg.height}",
+          spp=cfg.aa_samples, filter=cfg.filter_type)
+    step, arrays, pre_calls, step_calls = photon_inputs(cs, cfg)
+    kernels = check_photon_kernels(pre_calls, step_calls)
+    del pre_calls, step_calls
+
+    res, launches = photon_path(smi)
+    for k in kernels:
+        k["launches"] = launches[k["name"]]
+    profile("photon_profile", res, step, arrays, cfg, PHOTON_TAGS, smi)
+    del step, arrays
+
+    photon_golden()
+    photon_card_vs_cpu()
+
+    scs, scfg = photon_scene(PHOTON, "cuda", **SCALE)
+    _, scalls = gather_calls(lambda: photonmap.install_photon_maps(
+        scs, scfg, to_tensors(scs.arrays, "cuda")))
+    culled = check_culled_kernel(scalls)
+    del scalls
+    culled["launches"] = photon_scale(scs, scfg, smi)
+    return kernels + [culled]
 
 
 def main() -> None:
@@ -478,7 +858,8 @@ def main() -> None:
         k["launches"] = launches[k["name"]]
 
     # 5. where one step's time goes
-    profile("profile", res, cscene, cfg, "tiny_kernel", smi)
+    profile("profile", res, *path_step(cscene, cfg), cfg, ("tiny_kernel",),
+            smi)
 
     # 6. physics on the card: the stored golden (96², 256 spp)
     golden = read_exr(GOLDEN)
@@ -521,14 +902,18 @@ def main() -> None:
         check_path("grid_path", res, gcfg, launches, smi)
         for k in fine:
             k["launches"] = launches[k["name"]]
-        profile("grid_profile", res, gscene, gcfg, "fine_kernel", smi)
+        profile("grid_profile", res, *path_step(gscene, gcfg), gcfg,
+                ("fine_kernel",), smi)
 
         # 9. slice 2 card vs CPU on a small generated grid (fine path too)
         small = make_grid(scenes, 2, 2)
         card_vs_cpu("grid_card_vs_cpu", lambda dev: grid(small, 32, 2, dev),
                     32, 2)
 
-    print(json.dumps({"kernels": kernels + fine}), flush=True)
+    # 10. slice 3: photon mapping on cornell_photon.xml
+    photon = photon_phases(smi)
+
+    print(json.dumps({"kernels": kernels + fine + photon}), flush=True)
     print(smi, flush=True)
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": kind,

@@ -21,8 +21,8 @@ from .backgrounds.base import BackgroundSpec
 from .cameras.base import Camera
 from .integrators.config import RenderConfig
 from .ops.fine_intersect import sub_aabbs
-from .scene.scene import (FINE_ARRAY_KEYS, SLICE_ARRAY_KEYS, LightStatic,
-                          SceneStatic)
+from .scene.scene import (FINE_ARRAY_KEYS, SLICE_ARRAY_KEYS,
+                          SPHERE_ARRAY_KEYS, LightStatic, SceneStatic)
 
 _DTYPES = {np.dtype(np.float32): torch.float32,
            np.dtype(np.int32): torch.int32,
@@ -51,9 +51,10 @@ def to_tensors(arrays: dict, device) -> dict:
 
 def arrays_from_reference(arrays: dict, device) -> dict:
     """The reference's CompiledScene.arrays -> the port's scene tensors:
-    the keys the port reads, plus the sub-cluster box tables the port
-    builds once per scene (FINE_ARRAY_KEYS) derived from the reference's
-    packs, whose real width is the triangle count (tri_shade_pack rows)."""
+    the keys the port reads (with the sphere pack where the scene has
+    spheres), plus the sub-cluster box tables the port builds once per
+    scene (FINE_ARRAY_KEYS) derived from the reference's packs, whose real
+    width is the triangle count (tri_shade_pack rows)."""
     missing = [k for k in SLICE_ARRAY_KEYS if k not in arrays]
     if missing:
         raise KeyError(f"reference arrays lack {missing}")
@@ -62,7 +63,9 @@ def arrays_from_reference(arrays: dict, device) -> dict:
             "a shadow triangle set other than the scene's (object "
             "visibility) is not ported yet: ROADMAP Queue 1 item 17")
     sub8 = sub_aabbs(arrays["tri_pack10"], arrays["tri_shade_pack"].shape[0])
-    return to_tensors({**{k: arrays[k] for k in SLICE_ARRAY_KEYS},
+    keys = SLICE_ARRAY_KEYS + tuple(k for k in SPHERE_ARRAY_KEYS
+                                    if k in arrays)
+    return to_tensors({**{k: arrays[k] for k in keys},
                        **dict.fromkeys(FINE_ARRAY_KEYS, sub8)}, device)
 
 
@@ -74,8 +77,7 @@ def _copy_fields(cls, ref, **override):
 def static_from_reference(static) -> SceneStatic:
     """The reference's SceneStatic -> the port's (the fields the port reads).
     Raises for reference features the port does not render."""
-    for name, what, item in (("n_spheres", "analytic spheres", "10"),
-                             ("volumes", "volumes", "17"),
+    for name, what, item in (("volumes", "volumes", "17"),
                              ("textures", "textures", "15"),
                              ("node_programs", "shader nodes", "15"),
                              ("max_additional_depth", "additionalDepth",

@@ -36,6 +36,19 @@ def reflect(d: torch.Tensor, n: torch.Tensor) -> torch.Tensor:
     return 2.0 * dot(n, d)[..., None] * n - d
 
 
+def refract(wo: torch.Tensor, n: torch.Tensor, eta: torch.Tensor):
+    """Refract wo (away from the surface) through n with the relative IOR
+    eta (N,) of the side wo lies on.  Returns (wi, valid); valid is False
+    under total internal reflection."""
+    cos_i = dot(n, wo)
+    inv_eta = torch.ones_like(eta) / eta
+    sin2_t = inv_eta * inv_eta * torch.clamp(1.0 - cos_i * cos_i, min=0.0)
+    valid = sin2_t < 1.0
+    cos_t = torch.sqrt(torch.clamp(1.0 - sin2_t, min=0.0))
+    wi = -inv_eta[..., None] * wo + (inv_eta * cos_i - cos_t)[..., None] * n
+    return normalize(wi), valid
+
+
 def refract_unit_eta(wo: torch.Tensor, n: torch.Tensor):
     """`refract(wo, n, eta)` of the reference at eta = 1 (the null
     material's pass-through).  Returns (wi, valid)."""

@@ -133,6 +133,17 @@ def word_like(x: torch.Tensor, v: int) -> torch.Tensor:
     return torch.full((), i32(v), dtype=torch.int32, device=x.device)
 
 
+def sample_dim(sample_idx: torch.Tensor, dim: int,
+               scramble_key: torch.Tensor) -> torch.Tensor:
+    """One component of the Sobol pair (dim >> 1) at the static `dim`, odd
+    or even: the value sample_dim_pair gives for that component."""
+    idx = _shuffled_index(sample_idx, scramble_key, dim >> 1)
+    bits = _sobol2_bits(idx) if dim % 2 else reverse_bits32(idx)
+    u = nested_uniform_scramble(
+        bits, hash_combine(scramble_key, word_like(idx, dim)))
+    return _srl(u, 8).to(torch.float32) * (1.0 / (1 << 24))
+
+
 def sample_dim_pair(sample_idx: torch.Tensor, dim: int,
                     scramble_key: torch.Tensor):
     """Both components of the (even, odd) Sobol pair starting at the static

@@ -16,6 +16,12 @@ compacted, exactly as in the reference, so the same QMC stream gives the
 same image.  The reference's `lax.scan` over bounces is a Python loop that
 keeps its split between static and dynamic dims.  Features outside the
 ported slices raise NotImplementedError naming their ROADMAP item.
+
+The intersection, surface-point and NEE functions here are shared with the
+photon-mapping integrator (`integrators/photonmap.py`), which also renders
+analytic spheres and glass: `closest_hit` and `shadow_transmission` merge
+the reference's exact quadric pass (plain torch) into the triangle kernels'
+answers, and `_surface_point` decodes sphere hits (tri = -2 - sphere).
 """
 from __future__ import annotations
 
@@ -30,7 +36,7 @@ from ..core.sampling import power_heuristic
 from ..film.imagefilm import film_splat
 from ..lights import base as lightmod
 from ..materials import bsdf
-from ..materials.base import gather_rows
+from ..materials.base import MT_GLASS, gather_rows
 from ..ops import intersect as isect
 from .config import RenderConfig
 
@@ -38,11 +44,22 @@ F32 = torch.float32
 
 
 def check_supported(static, cfg: RenderConfig) -> None:
-    """Raise for any part of (scene, config) that the port does not render."""
-    if cfg.integrator != "pathtracing":
+    """Raise for any part of (scene, config) that the port does not render
+    with cfg.integrator (pathtracing or photonmapping)."""
+    if cfg.integrator not in ("pathtracing", "photonmapping"):
         raise NotImplementedError(
             f"integrator {cfg.integrator!r} is not ported yet: ROADMAP "
-            "Queue 1 items 12-14 and 18 (the port renders pathtracing)")
+            "Queue 1 items 12-14 and 18 (the port renders pathtracing and, "
+            "of item 13, photonmapping)")
+    if cfg.integrator == "pathtracing":
+        if cfg.caustic_type in ("photon", "both"):
+            raise NotImplementedError(
+                "photon caustics in pathtracing (build_caustic_map) are not "
+                "ported yet: ROADMAP Queue 1 item 13")
+        if static.n_spheres or MT_GLASS in static.mat_families:
+            raise NotImplementedError(
+                "spheres and glass in pathtracing need its Beer medium "
+                "tracking, not ported yet: ROADMAP Queue 1 item 10")
     if cfg.aa_passes > 1:
         raise NotImplementedError(
             "adaptive AA (aa_passes > 1) is not ported yet: ROADMAP Queue 1 "
@@ -53,9 +70,6 @@ def check_supported(static, cfg: RenderConfig) -> None:
     if cfg.spp_batch != 1:
         raise NotImplementedError(
             "spp_batch > 1 is not ported yet: ROADMAP Queue 1 item 16")
-    if cfg.caustic_type in ("photon", "both"):
-        raise NotImplementedError(
-            "photon caustics are not ported yet: ROADMAP Queue 1 item 13")
     if cfg.passes or cfg.transp_background:
         raise NotImplementedError(
             "render passes / AOVs and alpha are not ported yet: ROADMAP "
@@ -156,9 +170,12 @@ def nee_count(ls, cfg: RenderConfig, first: bool) -> int:
 
 
 def shadow_rays(arrays, static, li: int, ns: int, p, n, ng, alive, s_idx,
-                skey, bounce_dim: int, first: bool):
+                skey, bounce_dim, first: bool):
     """Light li's NEE samples and their shadow rays, ns per lane, batched
     block-major over ns·N lanes (lane s·N + i is sample s of lane i).
+    bounce_dim is a static int (static QMC dims at the first vertex,
+    dynamic ones deeper) or an (N,) int32 tensor of per-lane dim bases
+    (always dynamic dims).
     Returns (smp, cos_i, org, dist): the area-light sample record, the
     cosine at the shading normal, and the segments; dead lanes get a
     negative dist, an empty segment."""
@@ -170,13 +187,14 @@ def shadow_rays(arrays, static, li: int, ns: int, p, n, ng, alive, s_idx,
         sub_idx = s_idx
     skey_v, p_, n_, ng_, alive_ = (_tile(x, ns)
                                    for x in (skey_l, p, n, ng, alive))
-    dim_u = bounce_dim + qmc.SLOT_LIGHT_U
-    if first:
-        u1, u2 = qmc.sample_dim_pair(sub_idx, dim_u, skey_v)
+    per_lane = isinstance(bounce_dim, torch.Tensor)
+    if first and not per_lane:
+        u1, u2 = qmc.sample_dim_pair(sub_idx, bounce_dim + qmc.SLOT_LIGHT_U,
+                                     skey_v)
     else:
-        u1 = qmc.dynamic_sample_dim(sub_idx, dim_u, skey_v)
-        u2 = qmc.dynamic_sample_dim(sub_idx, bounce_dim + qmc.SLOT_LIGHT_V,
-                                    skey_v)
+        dims = _tile(bounce_dim, ns) if per_lane else bounce_dim
+        u1 = qmc.dynamic_sample_dim(sub_idx, dims + qmc.SLOT_LIGHT_U, skey_v)
+        u2 = qmc.dynamic_sample_dim(sub_idx, dims + qmc.SLOT_LIGHT_V, skey_v)
     smp = lightmod.sample_area(lightmod.light_row(arrays["lights"], li), p_,
                                u1, u2)
     cos_i = vmath.dot(n_, smp["wi"])
@@ -185,9 +203,77 @@ def shadow_rays(arrays, static, li: int, ns: int, p, n, ng, alive, s_idx,
     return smp, cos_i, org, dist
 
 
-def _surface_point(arrays: dict, hit: isect.Hit) -> dict:
+def _sphere_roots(spheres, org, dirn):
+    """The rays against the (S, 5) analytic sphere pack [cx cy cz r mat]:
+    (disc, t0, t1), each (N, S), the quadric's discriminant and its two
+    roots (no hit where disc < 0)."""
+    oc = org[:, None, :] - spheres[None, :, 0:3]
+    r = spheres[:, 3]
+    b = vmath.dot(oc, dirn[:, None, :])
+    disc = b * b - (vmath.dot(oc, oc) - r[None] * r[None])
+    sq = torch.sqrt(torch.clamp(disc, min=0.0))
+    return disc, -b - sq, -b + sq
+
+
+def _sphere_hits(spheres, org, dirn, tmin, tmax):
+    """Exact quadric intersection against the analytic spheres.  Returns
+    (t (N,), sphere index (N,) int32, hit)."""
+    disc, t0, t1 = _sphere_roots(spheres, org, dirn)
+    t = torch.where(t0 > tmin[:, None], t0, t1)
+    ok = (disc >= 0.0) & (t > tmin[:, None]) & (t < tmax[:, None])
+    t = torch.where(ok, t, float("inf"))
+    idx = torch.argmin(t, dim=1)  # the first sphere on ties
+    tb = t.gather(1, idx[:, None])[:, 0]
+    return tb, idx.to(torch.int32), torch.isfinite(tb)
+
+
+def closest_hit(arrays: dict, static, org, dirn, tmin, tmax) -> isect.Hit:
+    """Nearest hit over the triangle kernels, merged with the analytic
+    spheres' (a sphere hit is encoded as tri = -2 - sphere index)."""
+    hit = isect.closest_hit(arrays, static, org, dirn, tmin, tmax)
+    if not static.n_spheres:
+        return hit
+    st, sidx, shit = _sphere_hits(arrays["spheres"], org, dirn, tmin, tmax)
+    better = shit & (st < hit.t)
+    return isect.Hit(t=torch.where(better, st, hit.t),
+                     tri=torch.where(better, -2 - sidx, hit.tri),
+                     u=torch.where(better, 0.0, hit.u),
+                     v=torch.where(better, 0.0, hit.v),
+                     hit=hit.hit | better)
+
+
+def shadow_transmission(arrays: dict, static, transp_shad: bool, org, dirn,
+                        dist) -> torch.Tensor:
+    """(N,3) transmission over the triangle kernels times the spheres':
+    a shadow ray through a sphere crosses two interfaces, so each quadric
+    root inside (SHADOW_EPS, dist·(1-1e-4) - SHADOW_EPS) applies the
+    sphere's filter once."""
+    tr = isect.shadow_transmission(arrays, static, transp_shad, org, dirn,
+                                   dist)
+    if not static.n_spheres:
+        return tr
+    sp = arrays["spheres"]
+    sfil = arrays["sphere_filt" if transp_shad else "sphere_filt_binary"]
+    disc, t0, t1 = _sphere_roots(sp, org, dirn)
+    tmax = (dist * (1.0 - 1e-4) - isect.SHADOW_EPS)[:, None]
+    opacity = 1.0 - sfil[None]  # (1,S,3)
+    factor = torch.ones_like(opacity)
+    for root in (t0, t1):
+        hit = ((disc >= 0.0) & (root > isect.SHADOW_EPS)
+               & (root < tmax)).to(F32)
+        factor = factor * (1.0 - hit[..., None] * opacity)
+    tr_sph = factor[:, 0]
+    for s in range(1, sp.shape[0]):
+        tr_sph = tr_sph * factor[:, s]
+    return tr * tr_sph
+
+
+def _surface_point(arrays: dict, hit: isect.Hit, org=None,
+                   dirn=None) -> dict:
     """Hit -> shading record from one packed gather of tri_shade_pack
-    (pos 0:9, normal 9:18, geo_n 24:27, mat 27, light_id 28)."""
+    (pos 0:9, normal 9:18, geo_n 24:27, mat 27, light_id 28).  In a scene
+    with spheres, sphere hits (tri < -1) take the exact point org + t·dirn
+    and its radial normal."""
     pack = arrays["tri_shade_pack"]
     tri = torch.clamp(hit.tri, 0, pack.shape[0] - 1)
     b1, b2 = hit.u, hit.v
@@ -198,16 +284,32 @@ def _surface_point(arrays: dict, hit: isect.Hit) -> dict:
     n = vmath.normalize(b0[..., None] * pk[:, 9:12]
                         + b1[..., None] * pk[:, 12:15]
                         + b2[..., None] * pk[:, 15:18])
-    return dict(p=p, n=n, ng=pk[:, 24:27], mat=pk[:, 27].to(torch.int32),
-                light_id=pk[:, 28].to(torch.int32))
+    ng = pk[:, 24:27]
+    mat = pk[:, 27].to(torch.int32)
+    light_id = pk[:, 28].to(torch.int32)
+    if "spheres" in arrays:
+        is_sph = hit.tri < -1
+        sph = arrays["spheres"]
+        srow = sph[torch.clamp(-2 - hit.tri, 0, sph.shape[0] - 1).long()]
+        p_s = org + hit.t[..., None] * dirn
+        n_s = vmath.normalize(p_s - srow[:, 0:3])
+        m3 = is_sph[..., None]
+        p = torch.where(m3, p_s, p)
+        n = torch.where(m3, n_s, n)
+        ng = torch.where(m3, n_s, ng)
+        mat = torch.where(is_sph, srow[:, 4].to(torch.int32), mat)
+        light_id = torch.where(is_sph, -1, light_id)
+    return dict(p=p, n=n, ng=ng, mat=mat, light_id=light_id)
 
 
 def _direct_lighting(arrays, static, cfg, p, n, ng, row, wo, s_idx, skey,
-                     bounce_dim: int, first: bool, alive):
+                     bounce_dim, first: bool, alive, mis_with_bsdf=True):
     """NEE with two-strategy MIS over the enabled lights (reference
     estimateAllDirectLight).  At the first vertex every light takes its
     full `samples` count, all ns samples batched block-major over ns·N
-    lanes (`shadow_rays`); deeper vertices take one.
+    lanes (`shadow_rays`); deeper vertices take one.  bounce_dim as in
+    `shadow_rays`.  mis_with_bsdf=False weighs the light samples 1 (the
+    photon step never takes the BSDF-sampled counterpart).
     Returns (L (N,3), shadow rays per live lane)."""
     L = torch.zeros_like(p)
     nrays = 0
@@ -226,12 +328,12 @@ def _direct_lighting(arrays, static, cfg, p, n, ng, row, wo, s_idx, skey,
         contrib_w = cos_i.abs() / torch.clamp(smp["pdf"], min=1e-9)
         ok = smp["valid"] & (smp["pdf"] > 1e-9)
         if ls.cast_shadows:
-            tr = isect.shadow_transmission(arrays, static, cfg.transp_shad,
-                                           org_s, smp["wi"], d_)
+            tr = shadow_transmission(arrays, static, cfg.transp_shad, org_s,
+                                     smp["wi"], d_)
         else:
             tr = torch.ones_like(f)
         term = f * smp["li"] * tr * contrib_w[..., None]
-        if (not ls.is_delta) and ls.intersectable:
+        if mis_with_bsdf and (not ls.is_delta) and ls.intersectable:
             bpdf = bsdf.pdf_bsdf(row_, n_, ng_, wo_, smp["wi"], families)
             term = term * power_heuristic(smp["pdf"], bpdf)[..., None]
         term = torch.where(ok[..., None], term, 0.0)
@@ -249,6 +351,10 @@ def make_sample_step(static, camera, cfg: RenderConfig, device):
     sample_step(arrays, film, flags) -> film, with `arrays` the scene
     tensors on `device` (convert.to_tensors) and flags (H, W) bool."""
     check_supported(static, cfg)
+    if cfg.integrator != "pathtracing":
+        raise ValueError(f"make_sample_step renders pathtracing, not "
+                         f"{cfg.integrator!r} (scene.session.render_scene "
+                         "dispatches on the integrator)")
     dev = resolve_device(device)
     h, w = cfg.height, cfg.width
     n = h * w
@@ -267,8 +373,8 @@ def make_sample_step(static, camera, cfg: RenderConfig, device):
         org, dirn = st["org"], st["dirn"]
         mats = arrays["materials"]
 
-        hit = isect.closest_hit(arrays, static, org, dirn,
-                                *ray_bounds(static, alive))
+        hit = closest_hit(arrays, static, org, dirn,
+                          *ray_bounds(static, alive))
 
         # escaped rays: constant background
         escape = alive & ~hit.hit

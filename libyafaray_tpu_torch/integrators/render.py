@@ -22,7 +22,9 @@ from .engine import make_sample_step, resolve_device
 class RenderResult:
     def __init__(self, film: dict, stats: dict):
         self.film = film
-        self.stats = stats  # render_s (timed seconds), rays (film["rays"])
+        # render_s (timed seconds of the sample steps), rays (film["rays"]);
+        # the photon render adds preprocess_s and photon_maps
+        self.stats = stats
 
     @property
     def image(self) -> np.ndarray:

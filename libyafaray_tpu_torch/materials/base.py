@@ -39,7 +39,7 @@ MATERIAL_TYPE_NAMES = {
 
 # the families the port renders; the rest raise at scene compile
 SUPPORTED_FAMILIES = (MT_NULL, MT_SHINYDIFFUSE, MT_GLOSSY, MT_COATED_GLOSSY,
-                      MT_LIGHT)
+                      MT_GLASS, MT_LIGHT)
 
 _SCALAR_COLS = [
     "diffuse_reflect", "specular_reflect", "transparency", "translucency",

@@ -2,8 +2,9 @@
 
 Port of libyafaray_tpu/materials/bsdf.py for the families the port
 renders: null (pass-through), shinydiffuse, glossy and coated-glossy
-(Ashikhmin-Shirley under an optional dielectric coat) and light.  The glass
-and rough-glass families raise (ROADMAP Queue 1 item 10); blend and mask
+(Ashikhmin-Shirley under an optional dielectric coat), smooth glass
+(sample only, without dispersion: delta lobes, so eval and pdf are 0) and
+light.  Rough glass raises (ROADMAP Queue 1 item 10); blend and mask
 composites raise too, since `materials/blend.py` is only needed as the
 `has_blend == 0` pass-through these functions already are.
 """
@@ -23,8 +24,7 @@ from .base import (
 
 _MIN_PDF = 1e-6
 _ROADMAP = {
-    MT_GLASS: "ROADMAP Queue 1 item 10 (glass)",
-    MT_ROUGH_GLASS: "ROADMAP Queue 1 item 10 (glass)",
+    MT_ROUGH_GLASS: "ROADMAP Queue 1 item 10 (rough glass)",
     MT_BLEND: "ROADMAP Queue 1 item 15 (materials/blend.py)",
     MT_MASK: "ROADMAP Queue 1 item 15 (materials/blend.py)",
 }
@@ -229,20 +229,39 @@ def sample_bsdf(row, n, ng, wo, u1, u2, u_lobe, families) -> dict:
         specular = torch.where(m, pick_coat, specular)
         valid = torch.where(m, pick_coat | (wi_l_pick[..., 2] > 1e-6), valid)
 
-    if MT_NULL in families:
-        # the reference's glass-family block at is_null: eta = 1, no
-        # Fresnel reflection unless the refraction fails (TIR -> reflect)
-        wi_refr, refr_ok = vmath.refract_unit_eta(wo, nf)
-        kr = torch.where(refr_ok, 0.0, 1.0)
-        pick_refl = u_lobe < kr
+    if MT_NULL in families or MT_GLASS in families:
+        # the reference's glass-family block: Fresnel pick between the
+        # mirror and the refracted direction around nf; null is glass at
+        # eta = 1 with no Fresnel reflection unless the refraction fails
+        # (TIR -> reflect) and a throughput of 1 (a null-only table skips
+        # the glass terms)
+        if MT_GLASS in families:
+            is_glass = is_null | (mtype == MT_GLASS)
+            ior = torch.clamp(row["ior"], min=1.0 + 1e-6)
+            eta = torch.where(entering, ior, torch.ones_like(ior) / ior)
+            eta = torch.where(is_null, 1.0, eta)
+            kr = vmath.fresnel_dielectric(vmath.dot(nf, wo).abs(), eta)
+            kr = torch.where(is_null, 0.0, kr)
+            wi_refr, refr_ok = vmath.refract(wo, nf, eta)
+            pick_refl = u_lobe < torch.where(refr_ok, kr, 1.0)  # TIR
+            tp_refl = torch.where(refr_ok[..., None], row["mirror_color"],
+                                  1.0)
+            gs_tp = torch.where(pick_refl[..., None], tp_refl,
+                                row["filter_color"])
+            gs_tp = torch.where(is_null[..., None], 1.0, gs_tp)
+        else:
+            is_glass = is_null
+            wi_refr, refr_ok = vmath.refract_unit_eta(wo, nf)
+            pick_refl = u_lobe < torch.where(refr_ok, 0.0, 1.0)
+            gs_tp = 1.0
         gs_wi = torch.where(pick_refl[..., None], vmath.reflect(wo, nf),
                             wi_refr)
-        wi = torch.where(is_null[..., None], gs_wi, wi)
-        tp = torch.where(is_null[..., None], 1.0, tp)
-        pdf = torch.where(is_null, 0.0, pdf)
-        specular = torch.where(is_null, True, specular)
-        transmit = torch.where(is_null, ~pick_refl, transmit)
-        valid = torch.where(is_null, True, valid)
+        wi = torch.where(is_glass[..., None], gs_wi, wi)
+        tp = torch.where(is_glass[..., None], gs_tp, tp)
+        pdf = torch.where(is_glass, 0.0, pdf)
+        specular = torch.where(is_glass, True, specular)
+        transmit = torch.where(is_glass, ~pick_refl, transmit)
+        valid = torch.where(is_glass, True, valid)
 
     valid = valid & (luminance(tp.abs()) > 1e-7)
     return dict(

@@ -46,7 +46,7 @@ def material_row_from_params(params: ParamMap, mat_name_to_id: dict) -> dict:
     row["additional_depth"] = float(params.get_int(
         "additionaldepth", params.get_int("additional_depth", 0)))
 
-    # glossy family (table columns only; the family itself raises)
+    # glossy family
     row["glossy_color"] = params.get_rgb("glossy_color", (1.0, 1.0, 1.0))
     row["glossy_reflect"] = params.get_float("glossy_reflect", 1.0)
     row["exponent"] = params.get_float("exponent", 50.0)
@@ -55,7 +55,7 @@ def material_row_from_params(params: ParamMap, mat_name_to_id: dict) -> dict:
     row["exp_v"] = params.get_float("exp_v", 50.0)
     row["as_diffuse"] = params.get_bool("as_diffuse", False)
 
-    # glass family (table columns only; the family itself raises)
+    # glass family (rough glass: table columns only, the family raises)
     if row["mtype"] in (MT_GLASS, MT_ROUGH_GLASS):
         row["ior"] = params.get_float("IOR", 1.5)
         row["filter_color"] = params.get_rgb("filter_color", (1.0, 1.0, 1.0))

@@ -38,6 +38,9 @@ SLICE_ARRAY_KEYS = (
 # the sub-cluster box tables the port adds to them (the reference derives
 # its own inside every intersection call)
 FINE_ARRAY_KEYS = ("tri_sub8", "stri_sub8")
+# the analytic sphere pack [cx cy cz r mat] and its shadow filters, present
+# only in scenes with <sphere> elements
+SPHERE_ARRAY_KEYS = ("spheres", "sphere_filt", "sphere_filt_binary")
 
 
 @dataclass(frozen=True)
@@ -67,13 +70,20 @@ class SceneStatic:
     shadow_bias: float
     intersector: str  # "brute" | "bvh"
     chunk: int
+    n_spheres: int = 0
 
 
 @dataclass
 class CompiledScene:
-    arrays: dict  # numpy arrays, SLICE_ARRAY_KEYS + FINE_ARRAY_KEYS
+    # numpy arrays, SLICE_ARRAY_KEYS + FINE_ARRAY_KEYS (+ SPHERE_ARRAY_KEYS
+    # in a scene with spheres)
+    arrays: dict
     static: SceneStatic
     camera: Camera
+    # scene bounds over triangles and spheres (photon radii default to a
+    # share of the diagonal)
+    bound_min: tuple
+    bound_max: tuple
 
 
 class Scene:
@@ -85,6 +95,7 @@ class Scene:
         self.material_names: dict[str, int] = {"__default__": 0}
         self.lights: list[dict] = []
         self.light_geometry: list = []  # parallel: geometry or None
+        self.analytic_spheres: list = []  # (center, radius, mat_id)
         self.cameras: dict[str, Camera] = {}
         self.background = BackgroundSpec()
         self.render_params = ParamMap()
@@ -122,6 +133,14 @@ class Scene:
 
     def end_tri_mesh(self):
         self._cur_mesh = None
+
+    def add_sphere(self, center, radius, mat_name: str):
+        """Analytic sphere primitive (reference std_primitives.cc "sphere"),
+        intersected exactly by the engine's quadric pass.  (The reference's
+        analytic=False icosphere is not ported.)"""
+        self.analytic_spheres.append(
+            (tuple(float(x) for x in center), float(radius),
+             self.material_names.get(mat_name, 0)))
 
     # ---- factories (renderEnvironment_t::create*) ----------------------
 
@@ -332,12 +351,33 @@ class Scene:
             materials=mats,
             lights=lights_table,
         )
+        if self.analytic_spheres:
+            sp_rows = np.asarray([[c[0], c[1], c[2], r, float(m)]
+                                  for (c, r, m) in self.analytic_spheres],
+                                 np.float32)
+            arrays["spheres"] = sp_rows
+            arrays["sphere_filt"] = filt_m[sp_rows[:, 4].astype(np.int32)]
+            arrays["sphere_filt_binary"] = np.where(
+                np.min(arrays["sphere_filt"], axis=-1, keepdims=True)
+                >= 1.0 - 1e-6, 1.0, 0.0).astype(np.float32) \
+                * np.ones((1, 3), np.float32)
+
+        finite = pos[np.all(np.isfinite(pos), axis=(1, 2))]
+        bmin = finite.min(axis=(0, 1)) if finite.size else np.zeros(3)
+        bmax = finite.max(axis=(0, 1)) if finite.size else np.ones(3)
+        if self.analytic_spheres:
+            sc = np.asarray([c for (c, r, m) in self.analytic_spheres])
+            sr = np.asarray([[r] for (c, r, m) in self.analytic_spheres])
+            bmin = np.minimum(bmin, (sc - sr).min(axis=0))
+            bmax = np.maximum(bmax, (sc + sr).max(axis=0))
+
         static = SceneStatic(
             n_tris_real=n_real, n_stris_real=n_real,
             lights=light_statics, bg=self.background,
             mat_families=families, has_blend=0,
             ray_min_dist=self.ray_min_dist, shadow_bias=self.shadow_bias,
             intersector=intersector, chunk=chunk,
+            n_spheres=len(self.analytic_spheres),
         )
         cam = next(iter(self.cameras.values())) if self.cameras else Camera()
         cam_name = self.render_params.get_str("camera_name", "")
@@ -348,4 +388,6 @@ class Scene:
         rh = self.render_params.get_int("height", cam.resy)
         if rw != cam.resx or rh != cam.resy:
             cam = replace(cam, resx=rw, resy=rh)
-        return CompiledScene(arrays=arrays, static=static, camera=cam)
+        return CompiledScene(arrays=arrays, static=static, camera=cam,
+                             bound_min=tuple(float(x) for x in bmin),
+                             bound_max=tuple(float(x) for x in bmax))

@@ -1,8 +1,9 @@
-"""Render session helpers (port of `build_config` from
-libyafaray_tpu/scene/session.py)."""
+"""Render session helpers (port of `build_config` and `render_scene` from
+libyafaray_tpu/scene/session.py, one device, no film persistence)."""
 from __future__ import annotations
 
 from ..integrators.config import RenderConfig, config_from_params
+from ..integrators.render import RenderResult
 from .params import ParamMap
 from .scene import Scene
 
@@ -32,3 +33,27 @@ def build_config(scene: Scene) -> RenderConfig:
                 surf = p
                 break
     return config_from_params(scene.render_params, surf, vol)
+
+
+def render_scene(scene: Scene, *, device, timed: bool = False
+                 ) -> RenderResult:
+    """The entry point: build the config, compile for `device` and render
+    with the scene's integrator (pathtracing -> integrators.render,
+    photonmapping -> integrators.photonmap).  timed=True takes the
+    benchmark variants, which run one warm-up step outside the timed
+    steps.  Every other integrator raises naming its ROADMAP item."""
+    from ..integrators import photonmap, render
+
+    cfg = build_config(scene)
+    runners = {
+        "pathtracing": (render.render, render.render_timed),
+        "photonmapping": (photonmap.render_photonmap,
+                          photonmap.render_photonmap_timed),
+    }
+    if cfg.integrator not in runners:
+        raise NotImplementedError(
+            f"integrator {cfg.integrator!r} is not ported yet: ROADMAP Queue "
+            "1 items 12 (directlighting), 14 (SPPM) and 18 (bidirectional, "
+            "DebugIntegrator)")
+    return runners[cfg.integrator][timed](scene.compile(device=device), cfg,
+                                          device=device)

@@ -2,9 +2,9 @@
 
 stdlib ElementTree; typed leaf params (ival/fval/bval/sval attributes,
 colors as r/g/b/a, points as x/y/z), meshes streamed via
-<p>/<n>/<uv>/<set_material>/<f>, and the closing <render> block.  Elements
-outside slice 1 (textures, volumes, smoothing, instances, spheres) raise
-NotImplementedError naming their ROADMAP item.
+<p>/<n>/<uv>/<set_material>/<f>, analytic <sphere>s, and the closing
+<render> block.  Elements outside the ported slices (textures, volumes,
+smoothing, instances) raise NotImplementedError naming their ROADMAP item.
 """
 from __future__ import annotations
 
@@ -21,7 +21,6 @@ _NOT_PORTED = {
     "volumeregion": "ROADMAP Queue 1 item 17",
     "smooth": "ROADMAP Queue 1 item 10",
     "instance": "ROADMAP Queue 1 item 11",
-    "sphere": "ROADMAP Queue 1 item 10",
 }
 
 
@@ -133,6 +132,11 @@ def parse_xml_string(text: str) -> Scene:
             scene.create_integrator(name or "default", _parse_params(el))
         elif tag == "mesh":
             _parse_mesh(el, scene)
+        elif tag == "sphere":
+            p = _parse_params(el)
+            scene.add_sphere(p.get_point("center", (0, 0, 0)),
+                             p.get_float("radius", 1.0),
+                             p.get_str("material", "__default__"))
         elif tag == "render":
             scene.set_render_params(_parse_params(el))
         else:

@@ -1,0 +1,371 @@
+"""The photon-mapping slice of the port against the JAX reference on the
+CPU: the photon packs and the plain versions of the three photon-gather
+kernels (libyafaray_tpu_torch/ops/photon_flash.py), photon shooting,
+compaction and the radiance map, and `render_photonmap` on
+scenes/cornell_photon.xml (glass and glossy analytic spheres).
+
+Inputs are made with numpy from fixed seeds and fed to both packages.  The
+reference's gathers run as its own CPU tests run them: density_flash and
+nearest_flash through their XLA reference path, density_culled in Pallas
+interpret mode.  Tolerances:
+- counts and found flags equal (the radius and side tests are computed in
+  the same operation order);
+- flux and values rtol 1e-5 (float32 sums taken in another order);
+- photon records and maps: >= 99.5% of slots agree, a slot agreeing if
+  both leave it empty or both store a photon with pos/dir/power/normal
+  (and, in the maps, the value) within rtol 1e-4.  XLA contracts
+  multiply-adds on the CPU, so Russian roulette and the Fresnel pick can
+  flip on the last bit and a few photons go another way, and a refraction
+  near the critical angle turns a last-bit difference into ~1e-3;
+- the render: image RMSE <= 1e-4, rays within 0.01%.
+"""
+import os
+
+import jax
+import jax.numpy as jnp
+import numpy as np
+import pytest
+import torch
+
+from libyafaray_tpu.integrators import photon_shoot as rshoot
+from libyafaray_tpu.integrators import photonmap as rpm
+from libyafaray_tpu.integrators.config import RenderConfig as RefConfig
+from libyafaray_tpu.ops import photon_flash as rpf
+from libyafaray_tpu.scene.session import build_config as ref_build
+from libyafaray_tpu.scene.xml_parser import parse_xml_file as ref_parse
+from libyafaray_tpu_torch.convert import to_tensors
+from libyafaray_tpu_torch.integrators import photon_shoot as pshoot
+from libyafaray_tpu_torch.integrators import photonmap as ppm
+from libyafaray_tpu_torch.integrators.config import RenderConfig
+from libyafaray_tpu_torch.ops import photon_flash as ppf
+from libyafaray_tpu_torch.scene import session
+from libyafaray_tpu_torch.scene.xml_parser import parse_xml_file
+
+REPO = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
+SCENE = os.path.join(REPO, "scenes", "cornell_photon.xml")
+RTOL = 1e-5
+# the slice's test size: 16², 1 spp, raydepth 2, photon_bounces 2, fg 2,
+# 4,096 photons per map
+SLICE = dict(width=16, height=16, aa_samples=1, raydepth=2, photon_bounces=2,
+             fg_samples=2, photons=4096, caustic_photons=4096)
+
+
+def _t(a):
+    return torch.from_numpy(np.ascontiguousarray(a))
+
+
+def _unit(rng, n):
+    v = rng.normal(size=(n, 3))
+    return (v / np.linalg.norm(v, axis=1, keepdims=True)).astype(np.float32)
+
+
+@pytest.fixture(scope="module")
+def photons():
+    """3,000 photons (10% invalid) with exact duplicates inside one
+    512-block (10, 11) and across two (20 in block 0, 600 in block 1), and
+    300 queries, the first two exactly on the duplicates."""
+    rng = np.random.default_rng(17)
+    p, nq = 3000, 300
+    pos = rng.uniform(0, 4, (p, 3)).astype(np.float32)
+    pos[11], pos[600] = pos[10], pos[20]
+    power = rng.random((p, 3)).astype(np.float32)
+    dirs = _unit(rng, p)
+    valid = rng.random(p) > 0.1
+    valid[[10, 11, 20, 600]] = True
+    qp = rng.uniform(0, 4, (nq, 3)).astype(np.float32)
+    qp[0], qp[1] = pos[10], pos[20]
+    qn = _unit(rng, nq)
+    radius = rng.uniform(0.1, 0.4, nq).astype(np.float32)
+    return pos, valid, dirs, power, qp, qn, radius
+
+
+def _packs(photons):
+    pos, valid, dirs, power = photons[:4]
+    ref = rpf.make_photon_pack(jnp.asarray(pos), jnp.asarray(valid),
+                               jnp.asarray(dirs), jnp.asarray(power))
+    port = ppf.make_photon_pack(_t(pos), _t(valid), _t(dirs), _t(power))
+    return ref, port
+
+
+def test_flash_pack_equals_reference(photons):
+    ref, port = _packs(photons)
+    assert set(ref) == set(port)
+    for k in ref:
+        assert np.array_equal(np.asarray(ref[k]), port[k].numpy()), k
+    assert port["pos_t"].shape == (3, 3072) and port["pos_t"].is_contiguous()
+
+
+def _close(ref, port, name, scale=1.0):
+    np.testing.assert_allclose(port.numpy(), np.asarray(ref), rtol=RTOL,
+                               atol=1e-6 * scale, err_msg=name)
+
+
+@pytest.mark.parametrize("per_query", [True, False])
+def test_density_flash_plain_matches_reference(photons, per_query):
+    qp, qn, radius = photons[4:]
+    rad = radius if per_query else 0.3
+    ref_pack, port_pack = _packs(photons)
+    rf, rc = rpf.density_flash(ref_pack, jnp.asarray(qp), jnp.asarray(qn),
+                               jnp.asarray(rad))
+    pf, pc = ppf.density_flash(port_pack, _t(qp), _t(qn),
+                               _t(rad) if per_query else rad)
+    assert np.array_equal(np.asarray(rc), pc.numpy())
+    assert pc.sum() > 200
+    _close(rf, pf, "flux", float(np.abs(np.asarray(rf)).max()))
+
+
+@pytest.mark.parametrize("per_query", [True, False])
+def test_nearest_flash_plain_matches_reference(photons, per_query):
+    power = photons[3]
+    qp, _, radius = photons[4:]
+    rad = radius if per_query else 0.3
+    ref_pack, port_pack = _packs(photons)
+    rv, rfound = rpf.nearest_flash(ref_pack, jnp.asarray(qp),
+                                   jnp.asarray(rad))
+    pv, pfound = ppf.nearest_flash(port_pack, _t(qp),
+                                   _t(rad) if per_query else rad)
+    assert np.array_equal(np.asarray(rfound), pfound.numpy())
+    _close(rv, pv, "value")
+    # the tie rule: a tie inside a block is averaged, across blocks the
+    # earlier block wins
+    np.testing.assert_allclose(pv[0].numpy(), (power[10] + power[11]) / 2,
+                               rtol=RTOL)
+    assert np.array_equal(pv[1].numpy(), power[20])
+
+
+@pytest.fixture(scope="module")
+def sorted_photons():
+    """6,000 photons in [-5, 5]³, 10% invalid, with runs of photons that
+    share a Morton cell (repeated keys), 700 queries."""
+    rng = np.random.default_rng(13)
+    p, nq = 6000, 700
+    pos = rng.uniform(-5, 5, (p, 3)).astype(np.float32)
+    pos[100:140] = pos[100] + rng.uniform(0, 1e-4, (40, 3)).astype(np.float32)
+    power = rng.random((p, 3)).astype(np.float32)
+    dirs = _unit(rng, p)
+    valid = rng.random(p) > 0.1
+    qp = rng.uniform(-5, 5, (nq, 3)).astype(np.float32)
+    qn = _unit(rng, nq)
+    radius = rng.uniform(0.2, 0.8, nq).astype(np.float32)
+    ref = rpf.make_photon_pack_sorted(jnp.asarray(pos), jnp.asarray(valid),
+                                      jnp.asarray(dirs), jnp.asarray(power))
+    port = ppf.make_photon_pack_sorted(_t(pos), _t(valid), _t(dirs),
+                                       _t(power))
+    return ref, port, (qp, qn, radius)
+
+
+def test_sorted_pack_equals_reference(sorted_photons):
+    ref, port, _ = sorted_photons
+    for k in ("tbl", "cl_lo", "cl_hi", "n_valid"):
+        assert np.array_equal(np.asarray(ref[k]), port[k].numpy()), k
+    assert port["tbl"].shape == (16, 6144)
+    assert int(port["n_valid"]) < 6000
+
+
+def test_density_culled_plain_matches_reference(sorted_photons):
+    ref, port, (qp, qn, radius) = sorted_photons
+    rpf.INTERPRET = True
+    try:
+        rf, rc = rpf.density_culled(ref, jnp.asarray(qp), jnp.asarray(qn),
+                                    jnp.asarray(radius))
+    finally:
+        rpf.INTERPRET = False
+    pf, pc = ppf.density_culled(port, _t(qp), _t(qn), _t(radius))
+    assert np.array_equal(np.asarray(rc), pc.numpy())
+    assert pc.sum() > 1000
+    _close(rf, pf, "flux", float(np.abs(np.asarray(rf)).max()))
+    # the same photons through the flash sweep: equal counts
+    ff, fc = ppf.density_flash_plain(ppf.flash_view(port), _t(qp), _t(qn),
+                                     _t(radius))
+    assert torch.equal(fc, pc)
+    _close(ff.numpy(), pf, "flux vs flash", float(ff.abs().max()))
+    assert ppf.density_auto(port, _t(qp), _t(qn), _t(radius))[1].equal(pc)
+
+
+def test_auto_pack_takes_flash_layout_on_cpu(monkeypatch, photons):
+    """The culled layout is for CUDA packs only, as the reference builds it
+    only where its Pallas kernels run."""
+    pos, valid, dirs, power = (_t(a) for a in photons[:4])
+    monkeypatch.setattr(ppf, "CULL_MIN_PHOTONS", 1024)
+    assert "pos_t" in ppf.make_photon_pack_auto(pos, valid, dirs, power)
+
+
+def test_wrappers_check_their_inputs(photons):
+    _, port_pack = _packs(photons)
+    qp = _t(photons[4])
+    bad = dict(port_pack, pos_t=port_pack["pos_t"][:, :1000].contiguous())
+    with pytest.raises(ValueError, match="multiple of 512"):
+        ppf.nearest_flash(bad, qp, 0.3)
+    with pytest.raises(TypeError, match="float32"):
+        ppf.nearest_flash(port_pack, qp.double(), 0.3)
+    with pytest.raises(ValueError, match="shape"):
+        ppf.density_flash(port_pack, qp, qp[:5], 0.3)
+
+
+# ---- photon shooting, maps and the slice render ----------------------------
+
+
+def _scene(parse):
+    s = parse(SCENE)
+    s.render_params["width"] = 16
+    s.render_params["height"] = 16
+    return s
+
+
+@pytest.fixture(scope="module")
+def ref_slice():
+    """The reference's compiled scene, slice config, photon maps and
+    render, each computed once (the maps are the ones its render builds)."""
+    s = _scene(ref_parse)
+    cfg = RefConfig(**{**ref_build(s).__dict__, **SLICE})
+    cs = s.compile()
+    arrays = jax.device_put(cs.arrays)
+    built = []
+
+    def build_and_keep(*args, **kwargs):
+        built.append(build_maps(*args, **kwargs))
+        return built[-1]
+
+    build_maps = rpm.build_photon_maps
+    with pytest.MonkeyPatch.context() as mp:
+        mp.setattr(rpm, "build_photon_maps", build_and_keep)
+        res = rpm.render_photonmap(cs, cfg)
+    return cs, cfg, arrays, built[0], res
+
+
+@pytest.fixture(scope="module")
+def port_slice():
+    s = _scene(parse_xml_file)
+    cfg = RenderConfig(**{**session.build_config(s).__dict__, **SLICE})
+    cs = s.compile(device="cpu")
+    return cs, cfg, to_tensors(cs.arrays, "cpu")
+
+
+@pytest.mark.parametrize("mode", ["diffuse", "caustic"])
+def test_photon_pass_matches_reference(ref_slice, port_slice, mode):
+    """make_photon_pass on cornell_photon.xml, 4,096 lanes, 2 bounces."""
+    rcs, rcfg, rarrays = ref_slice[:3]
+    pcs, pcfg, parrays = port_slice
+    cdf, total = rpm._light_cdf(rcs.static, rarrays)
+    pcdf, ptotal = ppm._light_cdf(pcs.static, pcs.arrays["lights"])
+    assert np.array_equal(cdf, pcdf) and total == ptotal
+    ref = jax.jit(rshoot.make_photon_pass(rcs.static, rcfg, 4096, 2, mode))(
+        rarrays, jnp.asarray(cdf), total, jnp.uint32(5))
+    port = pshoot.make_photon_pass(pcs.static, pcfg, 4096, 2, mode)(
+        parrays, pcdf, 5)
+    rv, pv = np.asarray(ref["valid"]), port["valid"].numpy()
+    both = rv & pv
+    assert both.sum() > (300 if mode == "diffuse" else 10)
+    # a slot agrees if both leave it empty, or both store a photon with
+    # the same material and pos/dir/power/normal within rtol 1e-4
+    agree = (rv == pv) & ~both
+    same = both & np.equal(port["mat"].numpy(), np.asarray(ref["mat"]))
+    for k in ("pos", "dir", "power", "normal"):
+        same &= np.isclose(port[k].numpy(), np.asarray(ref[k]), rtol=1e-4,
+                           atol=1e-5).all(axis=1)
+    agree |= same
+    assert agree.mean() >= 0.995, ((rv != pv).sum(), (both & ~same).sum())
+
+
+def test_compaction_and_radiance_map_match_reference(ref_slice, port_slice):
+    rmaps = ref_slice[3]
+    pcs, pcfg, parrays = port_slice
+    pmaps = ppm.build_photon_maps(pcs, pcfg, parrays)
+    assert pmaps["n_em_d"] == rmaps[3] and pmaps["n_em_c"] == rmaps[4]
+    for name, i in (("diffuse", 0), ("caustic", 1), ("radiance", 2)):
+        r, p = rmaps[i], pmaps[name]
+        assert set(r) == set(p), name
+        rvalid = np.asarray(r["pos_t"])[0] < 1e8
+        pvalid = p["pos_t"].numpy()[0] < 1e8
+        assert r["pos_t"].shape == tuple(p["pos_t"].shape), name
+        assert abs(int(rvalid.sum()) - int(pvalid.sum())) <= \
+            0.005 * rvalid.sum(), name
+        # compaction keeps record order, so a photon stored on one side only
+        # shifts the columns after it: compare the columns before the first
+        # such photon, of which >= 99.5% agree within rtol 1e-4, as the
+        # slots of the photon records do
+        k = int(np.argmax(rvalid != pvalid)) if (rvalid != pvalid).any() \
+            else len(rvalid)
+        assert k > 0.3 * rvalid.sum(), (name, k)
+        agree = np.isclose(p["val"].numpy()[:k], np.asarray(r["val"])[:k],
+                           rtol=1e-4, atol=1e-6).all(axis=1)
+        for key in ("pos_t", "aux_t"):
+            agree &= np.isclose(p[key].numpy()[:, :k],
+                                np.asarray(r[key])[:, :k], rtol=1e-4,
+                                atol=1e-5).all(axis=0)
+        assert agree.mean() >= 0.995, (name, (~agree).sum(), k)
+    assert pmaps["info"]["radiance"]["pack"] == rmaps[2]["val"].shape[0]
+
+
+def test_compact_photons_device():
+    rng = np.random.default_rng(3)
+    valid = rng.random(50) > 0.5
+    rec = dict(pos=rng.random((50, 3)).astype(np.float32),
+               mat=np.arange(50, dtype=np.int32), valid=valid)
+    ref = rpm.compact_photons_device({k: jnp.asarray(v)
+                                      for k, v in rec.items()}, 16)
+    port = ppm.compact_photons_device({k: _t(v) for k, v in rec.items()}, 16)
+    for k in ref:
+        assert np.array_equal(np.asarray(ref[k]), port[k].numpy()), k
+
+
+@pytest.fixture(scope="module")
+def port_render(port_slice):
+    pcs, pcfg, _ = port_slice
+    return ppm.render_photonmap(pcs, pcfg, device="cpu")
+
+
+def test_render_photonmap_matches_reference(ref_slice, port_render):
+    """The slice as a whole: 16², 1 spp, raydepth 2, photon_bounces 2,
+    fg 2, 4,096 photons per map."""
+    ref = ref_slice[4]
+    img = port_render.image
+    assert img.shape == (16, 16, 3) and np.isfinite(img).all()
+    assert img.mean() > 0.02
+    rmse = float(np.sqrt(np.mean((img.astype(np.float64)
+                                  - np.asarray(ref.image)) ** 2)))
+    assert rmse <= 1e-4, rmse
+    r_ref, r_port = ref.stats["rays"], port_render.stats["rays"]
+    assert abs(r_port - r_ref) <= 1e-4 * r_ref, (r_ref, r_port)
+
+
+def test_render_photonmap_timed_counts_the_same_rays(port_slice,
+                                                     port_render):
+    pcs, pcfg, _ = port_slice
+    timed = ppm.render_photonmap_timed(pcs, pcfg, device="cpu")
+    assert timed.stats["rays"] == port_render.stats["rays"] > 0
+    assert np.array_equal(timed.image, port_render.image)
+    st = timed.stats
+    assert st["preprocess_s"] > 0 and st["render_s"] > 0
+    assert st["photon_maps"]["diffuse"]["layout"] == "flash"
+
+
+def test_render_scene_dispatches_on_the_integrator(monkeypatch):
+    """render_scene: pathtracing -> render, photonmapping ->
+    render_photonmap, every other integrator raises."""
+    from libyafaray_tpu_torch.integrators import photonmap, render
+
+    calls = []
+    monkeypatch.setattr(render, "render",
+                        lambda cs, cfg, device: calls.append(cfg.integrator))
+    monkeypatch.setattr(photonmap, "render_photonmap_timed",
+                        lambda cs, cfg, device: calls.append(cfg.integrator))
+    for name in ("pathtracing", "photonmapping", "SPPM", "directlighting"):
+        s = _scene(parse_xml_file)
+        s.integrator_params["default"]["type"] = name
+        if name in ("pathtracing", "photonmapping"):
+            session.render_scene(s, device="cpu",
+                                 timed=name == "photonmapping")
+        else:
+            with pytest.raises(NotImplementedError, match="Queue 1 item"):
+                session.render_scene(s, device="cpu")
+    assert calls == ["pathtracing", "photonmapping"]
+
+
+def test_pathtracing_raises_on_spheres_and_glass(port_slice):
+    from libyafaray_tpu_torch.integrators.render import render
+
+    pcs, pcfg, _ = port_slice
+    cfg = RenderConfig(**{**pcfg.__dict__, "integrator": "pathtracing"})
+    with pytest.raises(NotImplementedError, match="item 10"):
+        render(pcs, cfg, device="cpu")

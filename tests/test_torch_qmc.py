@@ -65,6 +65,19 @@ def test_sample_dim_pair_bit_identical(lanes, dim):
         assert 0.0 <= float(p.min()) and float(p.max()) < 1.0
 
 
+@pytest.mark.parametrize("dim", [0, 1, 5, 8, 11])
+def test_sample_dim_bit_identical(lanes, dim):
+    """One static dimension, odd or even (the photon passes' sampler), and
+    the component of the pair it belongs to."""
+    idx, key = lanes
+    r = ref.sample_dim(jnp.asarray(idx), dim, jnp.asarray(key))
+    p = qmc.sample_dim(_t(idx), dim, _t(key))
+    assert p.dtype == torch.float32
+    assert np.array_equal(np.asarray(r), p.numpy())
+    pair = qmc.sample_dim_pair(_t(idx), dim - dim % 2, _t(key))
+    assert torch.equal(p, pair[dim % 2])
+
+
 def test_dynamic_sample_dim_bit_identical(lanes):
     """The deep-bounce sampler converts the full 32-bit word to float32;
     words within 128 of 2^32 round to exactly 1.0 there, and must round

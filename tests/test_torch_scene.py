@@ -1,6 +1,7 @@
 """The port's scene compile (libyafaray_tpu_torch/scene) against the JAX
-reference's, the converter, the features that must raise, and the rule
-that the port imports neither jax nor the reference package."""
+reference's (cornell.xml, and cornell_photon.xml with its analytic glass
+and glossy spheres), the converter, the features that must raise, and the
+rule that the port imports neither jax nor the reference package."""
 import os
 import subprocess
 import sys
@@ -12,19 +13,21 @@ import torch
 
 from libyafaray_tpu.scene.xml_parser import parse_xml_file as ref_parse
 from libyafaray_tpu_torch import convert
-from libyafaray_tpu_torch.scene.scene import SLICE_ARRAY_KEYS
+from libyafaray_tpu_torch.scene.scene import (SLICE_ARRAY_KEYS,
+                                              SPHERE_ARRAY_KEYS)
 from libyafaray_tpu_torch.scene.xml_parser import (parse_xml_file,
                                                    parse_xml_string)
 
 REPO = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 CORNELL = os.path.join(REPO, "scenes", "cornell.xml")
+PHOTON = os.path.join(REPO, "scenes", "cornell_photon.xml")
 STATIC_FIELDS = ("n_tris_real", "n_stris_real", "lights", "bg",
                  "mat_families", "has_blend", "ray_min_dist", "shadow_bias",
                  "intersector", "chunk")
 
 
-def _sized(parse, size=16):
-    s = parse(CORNELL)
+def _sized(parse, size=16, path=CORNELL):
+    s = parse(path)
     s.render_params["width"] = size
     s.render_params["height"] = size
     return s
@@ -67,6 +70,48 @@ def test_static_and_camera_equal_reference(compiled):
     assert port.static.mat_families == (0, 1, 8)
     assert port.camera == convert.camera_from_reference(ref.camera)
     assert port.arrays["tri_pack10"].shape == (10, 128)
+
+
+@pytest.fixture(scope="module")
+def compiled_photon():
+    ref = _sized(ref_parse, path=PHOTON).compile()
+    port = _sized(parse_xml_file, path=PHOTON).compile(device="cpu")
+    return ref, port
+
+
+@pytest.mark.parametrize("key", SLICE_ARRAY_KEYS + SPHERE_ARRAY_KEYS)
+def test_photon_scene_array_equals_reference(compiled_photon, key):
+    """cornell_photon.xml: every key the port reads, the sphere pack and
+    its shadow filters included, exactly."""
+    ref, port = compiled_photon
+    want = dict(_flat(
+        {key: convert.arrays_from_reference(ref.arrays, "cpu")[key]}))
+    got = dict(_flat(convert.to_tensors({key: port.arrays[key]}, "cpu")))
+    assert set(got) == set(want)
+    for k in want:
+        assert got[k].dtype == want[k].dtype, (key, k)
+        assert torch.equal(got[k], want[k]), (key, k)
+
+
+def test_photon_scene_static_bounds_and_config(compiled_photon):
+    from libyafaray_tpu.scene.session import build_config as ref_build
+    from libyafaray_tpu_torch.scene.session import build_config
+
+    ref, port = compiled_photon
+    conv = convert.static_from_reference(ref.static)
+    for f in STATIC_FIELDS + ("n_spheres",):
+        assert getattr(port.static, f) == getattr(conv, f), f
+    assert port.static.n_spheres == 2 and port.static.n_tris_real == 32
+    assert port.static.mat_families == (0, 1, 2, 4, 8)
+    assert port.bound_min == tuple(ref.bound_min)
+    assert port.bound_max == tuple(ref.bound_max)
+    assert port.arrays["spheres"].shape == (2, 5)
+    cfg = build_config(_sized(parse_xml_file, path=PHOTON))
+    assert cfg == convert.config_from_reference(
+        ref_build(_sized(ref_parse, path=PHOTON)))
+    assert (cfg.integrator, cfg.photons, cfg.caustic_photons,
+            cfg.fg_samples, cfg.photon_bounces) == (
+        "photonmapping", 200000, 100000, 16, 5)
 
 
 def test_build_config_equals_reference():
@@ -116,8 +161,14 @@ _SCENE = """<scene type="triangle">{body}
     ('<background name="b"><type sval="gradient"/></background>', "items 15"),
 ])
 def test_unsupported_features_raise(body, item):
+    """Raised at compile, or, for what only photon mapping renders (glass),
+    when pathtracing checks the compiled scene."""
+    from libyafaray_tpu_torch.integrators.config import RenderConfig
+    from libyafaray_tpu_torch.integrators.engine import check_supported
+
     with pytest.raises(NotImplementedError, match=item):
-        parse_xml_string(_SCENE.format(body=body)).compile()
+        cs = parse_xml_string(_SCENE.format(body=body)).compile()
+        check_supported(cs.static, RenderConfig(integrator="pathtracing"))
 
 
 def test_port_imports_no_jax_and_no_reference():

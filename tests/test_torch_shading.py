@@ -1,7 +1,8 @@
 """Shading-layer parity of the port against the JAX reference: perspective
 camera rays, area-light sampling, the shinydiffuse / glossy /
-coated-glossy / light / null BSDFs, the constant background, the four
-reconstruction filters and the film.
+coated-glossy / glass / light / null BSDFs, the constant background, the
+four reconstruction filters, the film, and the analytic spheres' closest
+hit, shading record and shadow transmission.
 
 Inputs are made with numpy from a fixed seed and fed to both packages.
 Tolerance: allclose atol 1e-6 / rtol 1e-5.  Both sides compute in float32
@@ -265,7 +266,7 @@ def test_emission(shading_lanes):
 
 def test_unported_family_raises():
     with pytest.raises(NotImplementedError, match="Queue 1 item 10"):
-        pbsdf.check_families((rmat.MT_SHINYDIFFUSE, rmat.MT_GLASS))
+        pbsdf.check_families((rmat.MT_SHINYDIFFUSE, rmat.MT_ROUGH_GLASS))
 
 
 def test_eval_background_constant(cornell, rng):
@@ -307,3 +308,130 @@ def _check_splat(rng, filter_type):
     for k in ("wsum", "w", "nsamples"):
         _close(fr[k], fp[k], k)
     _close(rfilm.film_image(fr), pfilm.film_image(fp), "image")
+
+
+GLASS_FAMILIES = (rmat.MT_NULL, rmat.MT_SHINYDIFFUSE, rmat.MT_GLASS,
+                  rmat.MT_LIGHT)
+
+
+def test_glass_sample(rng):
+    """Smooth glass (cornell_photon.xml's IOR 1.55 and a denser 2.4, where
+    total internal reflection is common) mixed with null and shinydiffuse
+    rows: both Fresnel lobes are sampled, from both sides."""
+    rows = []
+    for ior, mirror, filt in ((1.55, (1.0, 1.0, 1.0), (0.97, 0.99, 0.98)),
+                              (2.4, (0.8, 0.9, 1.0), (0.6, 0.7, 0.8))):
+        r = rmat.default_row()
+        r.update(mtype=rmat.MT_GLASS, ior=ior, mirror_color=mirror,
+                 filter_color=filt)
+        rows.append(r)
+    shiny = rmat.default_row()
+    shiny.update(mtype=rmat.MT_SHINYDIFFUSE, diffuse_color=(0.5, 0.6, 0.7))
+    rows += [shiny, rmat.default_row()]
+    table = rmat.build_material_table(rows)
+    mid = rng.integers(0, len(rows), N).astype(np.int32)
+    n = _unit(rng, N)
+    ng = n + 0.1 * _unit(rng, N)
+    ng = (ng / np.linalg.norm(ng, axis=1, keepdims=True)).astype(np.float32)
+    wo = _unit(rng, N)
+    u = rng.random((3, N)).astype(np.float32)
+    row_r = rmat.gather_rows(jax_tree(table), jnp.asarray(mid))
+    row_p = pmat.gather_rows(convert.to_tensors(table, "cpu"),
+                             torch.from_numpy(mid).long())
+    r = rbsdf.sample_bsdf(row_r, jnp.asarray(n), jnp.asarray(ng),
+                          jnp.asarray(wo), *(jnp.asarray(x) for x in u),
+                          families=GLASS_FAMILIES)
+    p = pbsdf.sample_bsdf(row_p, torch.from_numpy(n), torch.from_numpy(ng),
+                          torch.from_numpy(wo),
+                          *(torch.from_numpy(x) for x in u), GLASS_FAMILIES)
+    glass = np.asarray(row_r["mtype"]) == rmat.MT_GLASS
+    tr = np.asarray(r["transmit"])
+    assert (glass & tr).sum() > 100 and (glass & ~tr).sum() > 100
+    for k in ("wi", "tp", "pdf", "specular", "transmit", "entering",
+              "valid", "passthrough"):
+        _close(r[k], p[k], k)
+    # delta lobes: nothing to evaluate
+    wi = _unit(rng, N)
+    f = pbsdf.eval_bsdf(row_p, torch.from_numpy(n), torch.from_numpy(ng),
+                        torch.from_numpy(wo), torch.from_numpy(wi),
+                        GLASS_FAMILIES)
+    assert (f[torch.from_numpy(glass)] == 0).all()
+
+
+@pytest.fixture(scope="module")
+def photon_scene():
+    s = ref_parse("scenes/cornell_photon.xml")
+    s.render_params["width"] = 16
+    s.render_params["height"] = 16
+    return s.compile()
+
+
+def _sphere_rays(rng, n=N):
+    """Rays from inside the box, half of them aimed at the two spheres."""
+    org = rng.uniform((0.3, 0.3, 0.3), (5.2, 5.3, 5.2), (n, 3))
+    aim = np.where(np.arange(n)[:, None] % 4 == 0, (1.86, 1.69, 2.35),
+                   (4.3, 1.1, 0.65)) + rng.normal(0, 0.5, (n, 3))
+    d = np.where(np.arange(n)[:, None] % 2 == 0, aim - org,
+                 rng.normal(size=(n, 3)))
+    d /= np.linalg.norm(d, axis=1, keepdims=True)
+    return org.astype(np.float32), d.astype(np.float32)
+
+
+def test_sphere_hit_and_surface_point(photon_scene, rng):
+    """The merged triangle + analytic sphere closest hit and its shading
+    record (sphere hits: tri = -2 - sphere) against the reference."""
+    from libyafaray_tpu.integrators import engine as reng
+    from libyafaray_tpu_torch.integrators import engine as peng
+
+    org, d = _sphere_rays(rng)
+    tmin = np.full(N, 5e-5, np.float32)
+    tmax = np.where(np.arange(N) % 7 == 0, 2.0, np.inf).astype(np.float32)
+    ra = jax_tree(photon_scene.arrays)
+    pa = convert.arrays_from_reference(photon_scene.arrays, "cpu")
+    ps = convert.static_from_reference(photon_scene.static)
+    rh = reng._closest_hit(ra, photon_scene.static, jnp.asarray(org),
+                           jnp.asarray(d), jnp.asarray(tmin),
+                           jnp.asarray(tmax))
+    ph = peng.closest_hit(pa, ps, *(torch.from_numpy(x)
+                                    for x in (org, d, tmin, tmax)))
+    hit = np.array(rh.hit)
+    assert (np.asarray(rh.tri)[hit] < -1).sum() > N // 8  # sphere hits
+    _close(rh.hit, ph.hit, "hit")
+    assert np.array_equal(np.asarray(rh.tri)[hit], ph.tri.numpy()[hit])
+    _close(np.asarray(rh.t)[hit], ph.t[torch.from_numpy(hit)], "t", 1e-4)
+    rs = reng._surface_point(ra, rh, jnp.asarray(org), jnp.asarray(d))
+    pt = peng._surface_point(pa, ph, torch.from_numpy(org),
+                             torch.from_numpy(d))
+    for k in ("p", "n", "ng"):
+        np.testing.assert_allclose(pt[k].numpy()[hit], np.asarray(rs[k])[hit],
+                                   rtol=1e-4, atol=1e-5, err_msg=k)
+    for k in ("mat", "light_id"):
+        assert np.array_equal(pt[k].numpy()[hit], np.asarray(rs[k])[hit]), k
+
+
+@pytest.mark.parametrize("transp_shad", [False, True])
+def test_sphere_shadow_transmission(photon_scene, rng, transp_shad):
+    """Shadow segments through the glass (two roots, filter applied per
+    crossing with transpShad, opaque without) and chrome spheres."""
+    from libyafaray_tpu.integrators import engine as reng
+    from libyafaray_tpu.integrators.config import RenderConfig as RC
+    from libyafaray_tpu_torch.integrators import engine as peng
+
+    org, d = _sphere_rays(rng)
+    dist = np.where(np.arange(N) % 5 == 0, -1.0,
+                    rng.uniform(0.1, 6.0, N)).astype(np.float32)
+    ra = jax_tree(photon_scene.arrays)
+    pa = convert.arrays_from_reference(photon_scene.arrays, "cpu")
+    ps = convert.static_from_reference(photon_scene.static)
+    rt = reng._shadow_transmission(ra, photon_scene.static,
+                                   RC(transp_shad=transp_shad),
+                                   jnp.asarray(org), jnp.asarray(d),
+                                   jnp.asarray(dist))
+    pt = peng.shadow_transmission(pa, ps, transp_shad, torch.from_numpy(org),
+                                  torch.from_numpy(d),
+                                  torch.from_numpy(dist))
+    rt = np.asarray(rt)
+    assert 0.1 < (rt.max(axis=1) < 1e-3).mean() < 0.9
+    # the tiny kernels floor an opaque hit at exp(-80), the reference's
+    # brute force gives 0: the intersection tolerance, atol 2e-3
+    np.testing.assert_allclose(pt.numpy(), rt, atol=2e-3, rtol=0)
