@@ -5,13 +5,13 @@ Run from the repository root on a machine with one NVIDIA GPU:
     python3 chip_smoke.py
 
 It builds the port's CUDA kernels from csrc/ (one nvcc per source, all
-started together) and drives the two ported paths through them:
+started together) and drives the four ported paths through them:
 - slice 1, the Cornell pathtracing main path (bench.py config 1): the two
   tiny-scene kernels against their plain PyTorch versions at the path's
   shapes, the 512²·64 spp render, one profiled sample step, the physics
   against the stored golden and the card against the CPU;
 - slice 2, the generated 164K-triangle grid-spheres scene (bench.py config
-  3, made here by scripts/make_large_scene.py in a subprocess): the two
+  3, written here by the port's generator, scene/generate.py): the two
   large-scene kernels against their plain versions at the path's shapes,
   the 512²·4 spp render, one profiled sample step, and the card against the
   CPU on a small generated grid;
@@ -22,15 +22,26 @@ started together) and drives the two ported paths through them:
   entry point `render_scene`, one profiled sample step, cornell.xml against
   the stored photon-mapping golden, the card against the CPU, and the
   2,000,000-photon scale route, where the diffuse map takes the culled
-  layout and its kernel.
+  layout and its kernel;
+- slice 4, the generated mid-size scenes at their own settings (512²,
+  16 spp): 172 triangles in 2 clusters (the dense kernels) and 652 in 6
+  (the streaming kernels), each kernel against its plain version on rays
+  recorded from a real sample step, the render through the entry point
+  `render_scene`, the same scene through the port's CLI to an .exr, one
+  profiled step, and the card against the CPU.
 Each path is rendered with every launch counter set to 0 just before it and
-read just after.  Every phase prints one line; any failure raises and the
-script exits non-zero without printing a result.  The last line is
+read just after.  Every kernel's line carries its bound: the larger of its
+FP32 operations over the card's 67 TFLOP/s and its bytes (each input read
+once, each output written once) over 3.35 TB/s, with the pair tests counted
+from this run's rays.  Every phase prints one line; any failure raises and
+the script exits non-zero without printing a result.  The last line is
 {"ok": true, "device": {"platform": "gpu", "kind": ..., "count": ...}}.
-Imports nothing of JAX.
+Imports nothing of JAX and runs no other program of the repository.
 """
 from __future__ import annotations
 
+import contextlib
+import io
 import json
 import os
 import statistics
@@ -46,6 +57,7 @@ import torch
 REPO = os.path.dirname(os.path.abspath(__file__))
 sys.path.insert(0, REPO)
 
+from libyafaray_tpu_torch.cli.yafaray_xml import main as cli_main  # noqa: E402
 from libyafaray_tpu_torch.convert import to_tensors  # noqa: E402
 from libyafaray_tpu_torch.core import qmc  # noqa: E402
 from libyafaray_tpu_torch.integrators import engine  # noqa: E402
@@ -54,11 +66,14 @@ from libyafaray_tpu_torch.integrators.render import (  # noqa: E402
     _fresh_film, render, render_timed)
 from libyafaray_tpu_torch.io.exr import read_exr  # noqa: E402
 from libyafaray_tpu_torch.ops import _build  # noqa: E402
+from libyafaray_tpu_torch.ops import cluster_intersect as cx  # noqa: E402
 from libyafaray_tpu_torch.ops import cuda_intersect as ci  # noqa: E402
 from libyafaray_tpu_torch.ops import fine_intersect as fi  # noqa: E402
 from libyafaray_tpu_torch.ops import intersect as isect  # noqa: E402
 from libyafaray_tpu_torch.ops import photon_flash as pf  # noqa: E402
 from libyafaray_tpu_torch.integrators import photonmap  # noqa: E402
+from libyafaray_tpu_torch.scene.generate import (  # noqa: E402
+    write_grid_spheres)
 from libyafaray_tpu_torch.scene.session import (  # noqa: E402
     build_config, render_scene)
 from libyafaray_tpu_torch.scene.xml_parser import parse_xml_file  # noqa: E402
@@ -68,7 +83,8 @@ GOLDEN = os.path.join(REPO, "scenes", "goldens", "cornell_pathtracing.exr")
 PHOTON = os.path.join(REPO, "scenes", "cornell_photon.xml")
 PHOTON_GOLDEN = os.path.join(REPO, "scenes", "goldens",
                              "cornell_photonmapping.exr")
-SOURCES = ("tiny_intersect", "fine_intersect", "photon_flash")
+SOURCES = ("tiny_intersect", "fine_intersect", "photon_flash",
+           "cluster_intersect")
 SRC = "libyafaray_tpu_torch/csrc/{}.cu"
 PALLAS = "libyafaray_tpu/ops/pallas_intersect.py:{}"
 FLASH = "libyafaray_tpu/ops/photon_flash.py:{}"
@@ -80,7 +96,7 @@ GRID = dict(grid=4, subdiv=4, size=512, spp=4)
 # (contiguous) light sample of the bounce-0 NEE block, one per pixel
 PLAIN_SHADOW_RAYS = 262144
 # slice 3 runs cornell_photon.xml at its own settings (BASELINE config 3);
-# the golden is cornell.xml with scripts/make_goldens.py's overrides
+# the golden is cornell.xml with the overrides it was rendered with
 GOLDEN_PHOTON = dict(integrator="photonmapping", photons=200_000,
                      caustic_photons=50_000, fg_samples=24, raydepth=4,
                      aa_samples=24, aa_passes=1)
@@ -92,11 +108,48 @@ SCALE = dict(size=128, aa_samples=1, photons=2_000_000)
 PLAIN_QUERIES = 16384
 PHOTON_TAGS = ("closest_tiny_kernel", "shadow_tiny_kernel",
                "density_flash_kernel", "nearest_flash_kernel")
+# slice 4: the generated mid-size scenes at the generator's own settings
+# (512², 16 spp, bounces 3, gauss filter, one area light with 8 samples)
+MID = (("dense", 1), ("stream", 2))  # (kernel pair, --grid), --subdiv 1
+MID_CARD_VS_CPU = dict(size=32, spp=2)
+# the bounds: NVIDIA H100 SXM datasheet peaks, FP32
+# outside the tensor cores (counting a fused multiply-add as two; built with
+# -fmad=false, the kernels can reach half of it) and device memory
+FP32_PEAK = 67e12
+HBM_RATE = 3.35e12
+MT_OPS = 45  # one Möller-Trumbore pair test: 44 add/mul/sub + 1 division
+BOX_OPS = 39  # one widened slab test: per axis 4 add/sub, 3 mul, 6 min/max
+DENSITY_OPS = 13  # d2 (3 sub, 3 mul, 2 add), side test (3 mul, 2 add)
+NEAREST_OPS = 8  # d2
+BOX_D2_OPS = 20  # point-box d2: per axis 2 sub, 3 max; then 3 mul, 2 add
 
 
 def phase(tag: str, **kv) -> None:
     print(f"[{tag}] " + " ".join(f"{k}={v}" for k, v in kv.items()),
           flush=True)
+
+
+def nbytes(*tensors) -> int:
+    """Bytes of the given tensors (a dict counts its tensors)."""
+    out = 0
+    for x in tensors:
+        if isinstance(x, dict):
+            out += nbytes(*x.values())
+        elif isinstance(x, torch.Tensor):
+            out += x.numel() * x.element_size()
+    return out
+
+
+def bound(ops: float, moved: int, **work) -> dict:
+    """The least time the card could take for a call: the larger of its
+    FP32 operations over FP32_PEAK and the bytes it must move (each input
+    read once, each output written once) over HBM_RATE; which of the two
+    bounds it; and the work counted.  No single PyTorch call computes any
+    of the port's kernels, so library_ms is None."""
+    t_ops, t_bytes = 1e3 * ops / FP32_PEAK, 1e3 * moved / HBM_RATE
+    return dict(bound_ms=max(t_ops, t_bytes),
+                bound_by="operations" if t_ops >= t_bytes else "bytes",
+                ops=ops, bytes=moved, library_ms=None, **work)
 
 
 def cornell(size: int, spp: int, bounces: int, rr_min_bounces: int,
@@ -115,14 +168,10 @@ def cornell(size: int, spp: int, bounces: int, rr_min_bounces: int,
 
 
 def make_grid(out_dir: str, grid: int, subdiv: int) -> str:
-    """Generate a grid-spheres scene with the repository's generator, in a
-    subprocess (the generator imports the JAX package's mesh module)."""
-    path = os.path.join(out_dir, f"grid{grid}_{subdiv}.xml")
-    subprocess.run([sys.executable,
-                    os.path.join(REPO, "scripts", "make_large_scene.py"),
-                    "--grid", str(grid), "--subdiv", str(subdiv),
-                    "--out", path], check=True, capture_output=True)
-    return path
+    """Write a grid-spheres scene with the port's generator at its default
+    settings (512², 16 spp)."""
+    return write_grid_spheres(
+        os.path.join(out_dir, f"grid{grid}_{subdiv}.xml"), grid, subdiv)
 
 
 def grid(path: str, size: int, spp: int, device: str):
@@ -247,13 +296,16 @@ def check_kernels(cscene, cfg, arrays) -> list:
     call_ms_c = call_ms(kernel_c, calls=20)
     plain_ms_c = device_ms(lambda: ci.closest_hit_tiny_plain(
         pack, *primary, st.n_tris_real), calls=2)
+    pairs_c = n_rays * st.n_tris_real
+    bound_c = bound(MT_OPS * pairs_c, nbytes(pack, *primary, kt, ktri, ku,
+                                             kv), pair_tests=pairs_c)
     phase("kernel", name="closest_hit_tiny", rays=n_rays,
           hits=int(phit.sum()), differ=n_diff,
           differ_share=n_diff / n_rays, max_abs_err=err_c,
           tolerance="hit,tri equal; t,u,v rtol 1e-4",
           ms=round(ms_c, 4), call_ms=round(call_ms_c, 4),
           plain_ms=round(plain_ms_c, 4),
-          bit_equal_expected=n_diff <= 1e-4 * n_rays)
+          bit_equal_expected=n_diff <= 1e-4 * n_rays, **bound_c)
 
     klg = ci.shadow_logsum_tiny(pack, logf, *shadow, st.n_stris_real)
     torch.cuda.synchronize()
@@ -271,20 +323,23 @@ def check_kernels(cscene, cfg, arrays) -> list:
     plain_ms_s = device_ms(lambda: ci.shadow_logsum_tiny_plain(
         pack, logf, *shadow, st.n_stris_real), calls=2)
     n_sh = shadow[0].shape[0]
+    pairs_s = n_sh * st.n_stris_real
+    bound_s = bound(MT_OPS * pairs_s, nbytes(pack, logf, *shadow, klg),
+                    pair_tests=pairs_s)
     phase("kernel", name="shadow_logsum_tiny", rays=n_sh,
           live=int((shadow[2] > 0).sum()), differ=n_diff_s,
           max_abs_err=err_s, tolerance="transmission atol 2e-3",
           ms=round(ms_s, 4), call_ms=round(call_ms_s, 4),
-          plain_ms=round(plain_ms_s, 4))
+          plain_ms=round(plain_ms_s, 4), **bound_s)
     return [
         dict(name="closest_hit_tiny", route="cuda",
              source=SRC.format("tiny_intersect"),
              replaces=PALLAS.format(2259), max_abs_err=err_c, ms=ms_c,
-             plain_ms=plain_ms_c),
+             plain_ms=plain_ms_c, **bound_c),
         dict(name="shadow_logsum_tiny", route="cuda",
              source=SRC.format("tiny_intersect"),
              replaces=PALLAS.format(2281), max_abs_err=err_s, ms=ms_s,
-             plain_ms=plain_ms_s),
+             plain_ms=plain_ms_s, **bound_s),
     ]
 
 
@@ -322,11 +377,17 @@ def check_fine_kernels(cscene, cfg, arrays) -> list:
         pk, cl, sub, *primary, n_tris)
     ms_c = device_ms(kernel_c, calls=5, replays=3)
     call_ms_c = call_ms(kernel_c, calls=5)
+    pairs_c, boxes_c = fi.fine_pair_tests(
+        cl, sub, org, dirn, primary[2], torch.minimum(primary[3], kt),
+        n_tris)
+    bound_c = bound(MT_OPS * pairs_c + BOX_OPS * boxes_c,
+                    nbytes(pk, cl, sub, *primary, kt, kcol),
+                    pair_tests=pairs_c, box_tests=boxes_c)
     phase("kernel", name="closest_hit_fine", tris=n_tris, rays=n_rays,
           hits=int(phit.sum()), differ=n_diff, max_abs_err=err_c,
           tolerance="hit,tri equal; t,u,v rtol 1e-4",
           ms=round(ms_c, 4), call_ms=round(call_ms_c, 4),
-          plain_ms=round(plain_ms_c, 4), plain="one eager call")
+          plain_ms=round(plain_ms_c, 4), plain="one eager call", **bound_c)
 
     klg = fi.shadow_logsum_fine(pk, cl, sub, logf, *shadow, n_tris)
     torch.cuda.synchronize()
@@ -346,33 +407,58 @@ def check_fine_kernels(cscene, cfg, arrays) -> list:
     ms_s_sub = device_ms(lambda: fi.shadow_logsum_fine(
         pk, cl, sub, logf, *sub_rays, n_tris), calls=5, replays=3)
     n_sh = shadow[0].shape[0]
+    pairs_s, boxes_s = fi.fine_pair_tests(
+        cl, sub, shadow[0], shadow[1], *cx.shadow_limits(shadow[2]), n_tris)
+    bound_s = bound(MT_OPS * pairs_s + BOX_OPS * boxes_s,
+                    nbytes(pk, cl, sub, logf, *shadow, klg),
+                    pair_tests=pairs_s, box_tests=boxes_s)
     phase("kernel", name="shadow_logsum_fine", tris=n_tris, rays=n_sh,
           live=int((shadow[2] > 0).sum()), compared_rays=PLAIN_SHADOW_RAYS,
           differ=n_diff_s, max_abs_err=err_s,
           tolerance="transmission atol 2e-3", ms=round(ms_s, 4),
           call_ms=round(call_ms_s, 4), ms_on_compared=round(ms_s_sub, 4),
           plain_ms=round(plain_ms_s, 4),
-          plain=f"one eager call on the first {PLAIN_SHADOW_RAYS} rays")
+          plain=f"one eager call on the first {PLAIN_SHADOW_RAYS} rays",
+          **bound_s)
     return [
         dict(name="closest_hit_fine", route="cuda",
              source=SRC.format("fine_intersect"),
              replaces=PALLAS.format(910), max_abs_err=err_c, ms=ms_c,
-             plain_ms=plain_ms_c),
+             plain_ms=plain_ms_c, **bound_c),
         dict(name="shadow_logsum_fine", route="cuda",
              source=SRC.format("fine_intersect"),
              replaces=PALLAS.format(1019), max_abs_err=err_s, ms=ms_s,
              plain_ms=plain_ms_s, rays=n_sh,
-             plain_rays=PLAIN_SHADOW_RAYS, ms_on_plain_rays=ms_s_sub),
+             plain_rays=PLAIN_SHADOW_RAYS, ms_on_plain_rays=ms_s_sub,
+             **bound_s),
     ]
 
 
-def render_counted(cscene, cfg, wrappers: dict):
-    """render_timed on the card with the given wrappers' launch counters
-    set to 0 just before and read just after."""
-    for fn in wrappers.values():
+# every kernel wrapper of the port, by name: each counts its launches
+WRAPPERS = {fn.__name__: fn for fn in (
+    ci.closest_hit_tiny, ci.shadow_logsum_tiny, fi.closest_hit_fine,
+    fi.shadow_logsum_fine, pf.density_flash, pf.nearest_flash,
+    pf.density_culled, cx.closest_hit_dense, cx.shadow_logsum_dense,
+    cx.closest_hit_stream, cx.shadow_logsum_stream)}
+
+
+def counted(run):
+    """run() with every launch counter set to 0 just before and read just
+    after: (result, {wrapper name: launches})."""
+    for fn in WRAPPERS.values():
         fn.launches = 0
-    res = render_timed(cscene, cfg, device="cuda")
-    return res, {k: fn.launches for k, fn in wrappers.items()}
+    out = run()
+    return out, {k: fn.launches for k, fn in WRAPPERS.items()}
+
+
+def render_counted(cscene, cfg, names: tuple):
+    """render_timed on the card, counted; returns the launches of `names`
+    and raises if any other kernel launched."""
+    res, launches = counted(lambda: render_timed(cscene, cfg, device="cuda"))
+    others = {k: v for k, v in launches.items() if k not in names and v}
+    if others:
+        raise AssertionError(f"kernels off the path launched: {others}")
+    return res, {k: launches[k] for k in names}
 
 
 def check_path(tag, res, cfg, launches, smi) -> None:
@@ -489,27 +575,32 @@ def photon_scene(path: str, device: str, size: int = 0, **over):
     return scene.compile(device=device), cfg
 
 
-def gather_calls(run):
-    """run() with photonmap's gathers (density_auto, nearest_flash)
-    recording their arguments.  Returns (run's result, [(name, args)])."""
+def record_calls(module, names, run):
+    """run() with the functions `names` of `module` recording their
+    positional arguments.  Returns (run's result, [(name, args)])."""
     calls = []
-    saved = {k: getattr(photonmap, k) for k in ("density_auto",
-                                                 "nearest_flash")}
+    saved = {k: getattr(module, k) for k in names}
 
     def recorder(name, fn):
-        def call(*args):
-            calls.append((name, args))
-            return fn(*args)
+        def call(*args, **kwargs):
+            calls.append((name, args + tuple(kwargs.values())))
+            return fn(*args, **kwargs)
         return call
 
     for k, fn in saved.items():
-        setattr(photonmap, k, recorder(k, fn))
+        setattr(module, k, recorder(k, fn))
     try:
         out = run()
     finally:
         for k, fn in saved.items():
-            setattr(photonmap, k, fn)
+            setattr(module, k, fn)
     return out, calls
+
+
+def gather_calls(run):
+    """run() with photonmap's gathers (density_auto, nearest_flash)
+    recording their arguments."""
+    return record_calls(photonmap, ("density_auto", "nearest_flash"), run)
 
 
 def photon_inputs(cscene, cfg):
@@ -549,6 +640,12 @@ def compare_density(what, kernel, plain, pack, qp, qn, r, n_plain):
     return (kf, kc), differ, err, plain_ms
 
 
+def valid_photons(pack: dict) -> int:
+    """Photons of a flash pack not at the sentinel (the pairs the brute
+    force needs per query)."""
+    return int((pack["pos_t"][0] < 0.5 * pf.SENTINEL).sum())
+
+
 def check_photon_kernels(pre_calls, step_calls) -> list:
     """density_flash at both of the path's shapes (the step's caustic
     gather, the first radiance-map precompute gather) and nearest_flash at
@@ -564,13 +661,16 @@ def check_photon_kernels(pre_calls, step_calls) -> list:
             pack, qp, qn, r, n)
         kernel = lambda: pf.density_flash(pack, qp, qn, r)  # noqa: E731
         ms = device_ms(kernel, calls=3, replays=3)
+        pairs = n * valid_photons(pack)
+        bnd = bound(DENSITY_OPS * pairs,
+                    nbytes(pack, qp, qn) + 4 * n + 16 * n, pair_tests=pairs)
         phase("kernel", name="density_flash", gather=what, queries=n,
               photons=pack["pos_t"].shape[1], radius=r,
               counted=int(kc.sum()), differ=differ, max_abs_err=err,
               tolerance="counts equal; flux rtol 1e-5, atol 1e-6*scale",
               ms=round(ms, 4), call_ms=round(call_ms(kernel, 3), 4),
-              plain_ms=round(plain_ms, 4), plain="one eager call")
-        out[what] = dict(ms=ms, plain_ms=plain_ms, err=err)
+              plain_ms=round(plain_ms, 4), plain="one eager call", **bnd)
+        out[what] = dict(ms=ms, plain_ms=plain_ms, err=err, bound=bnd)
 
     pack, qp, r = nearest
     n = PLAIN_QUERIES
@@ -588,24 +688,30 @@ def check_photon_kernels(pre_calls, step_calls) -> list:
     ms_n = device_ms(kernel, calls=2, replays=3)
     ms_n_sub = device_ms(lambda: pf.nearest_flash(pack, qp[:n], r),
                          calls=5, replays=3)
-    phase("kernel", name="nearest_flash", queries=qp.shape[0],
+    nq = qp.shape[0]
+    pairs = nq * valid_photons(pack)
+    bnd = bound(NEAREST_OPS * pairs,
+                nbytes(pack["pos_t"], pack["val"], qp) + 4 * nq + 16 * nq,
+                pair_tests=pairs)
+    phase("kernel", name="nearest_flash", queries=nq,
           photons=pack["pos_t"].shape[1], radius=r, compared_queries=n,
           found=int(kfound.sum()), differ=differ, max_abs_err=err,
           tolerance="found equal; value rtol 1e-5", ms=round(ms_n, 4),
           call_ms=round(call_ms(kernel, 2), 4),
           ms_on_compared=round(ms_n_sub, 4), plain_ms=round(plain_ms, 4),
-          plain=f"one eager call on the first {n} queries")
+          plain=f"one eager call on the first {n} queries", **bnd)
     c, rd = out["caustic"], out["radiance"]
     return [
         dict(name="density_flash", route="cuda",
              source=SRC.format("photon_flash"), replaces=FLASH.format(104),
              max_abs_err=max(c["err"], rd["err"]), ms=c["ms"],
              plain_ms=c["plain_ms"], ms_radiance=rd["ms"],
-             plain_ms_radiance=rd["plain_ms"]),
+             plain_ms_radiance=rd["plain_ms"],
+             bound_ms_radiance=rd["bound"]["bound_ms"], **c["bound"]),
         dict(name="nearest_flash", route="cuda",
              source=SRC.format("photon_flash"), replaces=FLASH.format(123),
              max_abs_err=err, ms=ms_n, plain_ms=plain_ms,
-             plain_queries=n, ms_on_plain_queries=ms_n_sub),
+             plain_queries=n, ms_on_plain_queries=ms_n_sub, **bnd),
     ]
 
 
@@ -631,6 +737,12 @@ def check_culled_kernel(calls) -> dict:
                              "kernel's over the same photons")
     kernel = lambda: pf.density_culled(pack, qp, qn, r)  # noqa: E731
     ms = device_ms(kernel, calls=3, replays=3)
+    nq = qp.shape[0]
+    pairs, boxes = pf.culled_pair_tests(pack, qp, r)
+    bnd = bound(DENSITY_OPS * pairs + BOX_D2_OPS * boxes,
+                nbytes(pack["tbl"][0:9], pack["cl_lo"], pack["cl_hi"], qp,
+                       qn) + 4 * nq + 16 * nq,
+                pair_tests=pairs, box_tests=boxes)
     phase("kernel", name="density_culled", queries=qp.shape[0],
           photons=int(pack["n_valid"]), pack=pack["tbl"].shape[1],
           clusters=pack["cl_lo"].shape[0], radius=r, compared_queries=n,
@@ -640,11 +752,11 @@ def check_culled_kernel(calls) -> dict:
           ms=round(ms, 4), call_ms=round(call_ms(kernel, 3), 4),
           flash_kernel_ms=round(flash_ms, 4), plain_ms=round(plain_ms, 4),
           plain=f"density_culled_plain, one eager call on the first {n} "
-                "queries")
+                "queries", **bnd)
     return dict(name="density_culled", route="cuda",
                 source=SRC.format("photon_flash"),
                 replaces=FLASH.format(330), max_abs_err=err, ms=ms,
-                plain_ms=plain_ms, plain_queries=n)
+                plain_ms=plain_ms, plain_queries=n, **bnd)
 
 
 def photon_launch_counts(cfg, maps_info) -> dict:
@@ -662,22 +774,6 @@ def photon_launch_counts(cfg, maps_info) -> dict:
         closest_hit_tiny=steps * (cfg.raydepth + 1 + cfg.fg_samples)
         + passes * (cfg.photon_bounces + 1),
         shadow_logsum_tiny=steps)
-
-
-PHOTON_WRAPPERS = {
-    "density_flash": pf.density_flash, "nearest_flash": pf.nearest_flash,
-    "density_culled": pf.density_culled,
-    "closest_hit_tiny": ci.closest_hit_tiny,
-    "shadow_logsum_tiny": ci.shadow_logsum_tiny}
-
-
-def counted(run):
-    """run() with every photon-path launch counter set to 0 just before and
-    read just after: (result, launches)."""
-    for fn in PHOTON_WRAPPERS.values():
-        fn.launches = 0
-    out = run()
-    return out, {k: fn.launches for k, fn in PHOTON_WRAPPERS.items()}
 
 
 def photon_path(smi) -> dict:
@@ -710,7 +806,7 @@ def photon_path(smi) -> dict:
 
 
 def photon_golden() -> None:
-    """cornell.xml with scripts/make_goldens.py's photonmapping overrides
+    """cornell.xml with the golden's photonmapping overrides
     against the stored golden."""
     golden = read_exr(PHOTON_GOLDEN)
     gs = golden.shape[0]
@@ -814,6 +910,186 @@ def photon_phases(smi) -> list:
     return kernels + [culled]
 
 
+# ---- slice 4: mid-size meshes (the dense and streaming kernels) -----------
+
+
+def mid_calls(cscene, cfg, kind: str):
+    """One sample step on the card with the pair's wrappers recording their
+    arguments: per path vertex a closest hit (the first on the primary
+    rays) and an NEE shadow batch (the first at bounce 0: light samples x
+    pixels).  Returns (step, arrays, closest calls, shadow calls)."""
+    step, arrays = path_step(cscene, cfg)
+    dev = engine.resolve_device("cuda")
+    flags = torch.ones((cfg.height, cfg.width), dtype=torch.bool, device=dev)
+    names = (f"closest_hit_{kind}", f"shadow_logsum_{kind}")
+    _, calls = record_calls(cx, names, lambda: step(
+        arrays, _fresh_film(cfg, dev), flags))
+    torch.cuda.synchronize()
+    return (step, arrays, [a for n, a in calls if n == names[0]],
+            [a for n, a in calls if n == names[1]])
+
+
+def check_mid_closest(kind: str, args, rays: str) -> dict:
+    """closest_hit_<kind> against its plain version on recorded rays: hit
+    and tri equal after the epilogue, t, u, v within rtol 1e-4."""
+    pk, c8, org, dirn, tmin, tmax, n_tris = args
+    kernel = getattr(cx, f"closest_hit_{kind}")
+    plain = getattr(cx, f"closest_{kind}_plain")
+    kt, kcol = kernel(pk, c8, org, dirn, tmin, tmax, n_tris)
+    torch.cuda.synchronize()
+    (pt, pcol), plain_ms = once_ms(
+        lambda: plain(pk, org, dirn, tmin, tmax, n_tris))
+    k_hit = fi.closest_epilogue(pk, org, dirn, kt, kcol, n_tris)
+    p_hit = fi.closest_epilogue(pk, org, dirn, pt, pcol, n_tris)
+    phit = p_hit[4]
+    name = f"closest_hit_{kind}"
+    if not torch.equal(k_hit[4], phit) or not torch.equal(k_hit[1][phit],
+                                                          p_hit[1][phit]):
+        raise AssertionError(f"{name}: hit/tri differ from plain ({rays})")
+    for what, i in (("t", 0), ("u", 2), ("v", 3)):
+        if not torch.allclose(k_hit[i][phit], p_hit[i][phit], rtol=1e-4):
+            raise AssertionError(f"{name}: {what} beyond rtol 1e-4 ({rays})")
+    n_diff = int(((kt != pt) | (kcol != pcol)).sum())
+    err = max(float((k_hit[i][phit] - p_hit[i][phit]).abs().max())
+              for i in (0, 2, 3))
+    call = lambda: kernel(pk, c8, org, dirn, tmin, tmax, n_tris)  # noqa: E731
+    ms = device_ms(call, calls=20, replays=3)
+    pairs, boxes = cx.cluster_pair_tests(pk, c8, org, dirn, tmin,
+                                         torch.minimum(tmax, kt), n_tris)
+    bnd = bound(MT_OPS * pairs + BOX_OPS * boxes,
+                nbytes(pk, c8, org, dirn, tmin, tmax, kt, kcol),
+                pair_tests=pairs, box_tests=boxes)
+    phase("kernel", name=name, rays=rays, n=org.shape[0], tris=n_tris,
+          hits=int(phit.sum()), differ=n_diff, max_abs_err=err,
+          tolerance="hit,tri equal; t,u,v rtol 1e-4", ms=round(ms, 4),
+          call_ms=round(call_ms(call, calls=20), 4),
+          plain_ms=round(plain_ms, 4), plain="one eager call", **bnd)
+    return dict(ms=ms, plain_ms=plain_ms, err=err, bound=bnd)
+
+
+def check_mid_shadow(kind: str, args) -> dict:
+    """shadow_logsum_<kind> against its plain version on the recorded
+    bounce-0 NEE rays: transmission within atol 2e-3."""
+    pk, c8, logf, org, dirn, dist, n_tris = args
+    kernel = getattr(cx, f"shadow_logsum_{kind}")
+    plain = getattr(cx, f"shadow_logsum_{kind}_plain")
+    name = f"shadow_logsum_{kind}"
+    klg = kernel(pk, c8, logf, org, dirn, dist, n_tris)
+    torch.cuda.synchronize()
+    plg, plain_ms = once_ms(lambda: plain(pk, logf, org, dirn, dist, n_tris))
+    err = float((torch.exp(klg) - torch.exp(plg)).abs().max())
+    if err > 2e-3:
+        raise AssertionError(f"{name}: transmission off by {err} > 2e-3")
+    n_diff = int((klg != plg).any(dim=-1).sum())
+    call = lambda: kernel(pk, c8, logf, org, dirn, dist, n_tris)  # noqa: E731
+    ms = device_ms(call, calls=10, replays=3)
+    pairs, boxes = cx.cluster_pair_tests(pk, c8, org, dirn,
+                                         *cx.shadow_limits(dist), n_tris)
+    bnd = bound(MT_OPS * pairs + BOX_OPS * boxes,
+                nbytes(pk, c8, logf, org, dirn, dist, klg),
+                pair_tests=pairs, box_tests=boxes)
+    phase("kernel", name=name, rays="bounce-0 NEE", n=org.shape[0],
+          tris=n_tris, live=int((dist > 0).sum()),
+          opaque=int((klg <= -80.0).all(dim=-1).sum()), differ=n_diff,
+          max_abs_err=err, tolerance="transmission atol 2e-3",
+          ms=round(ms, 4), call_ms=round(call_ms(call, calls=10), 4),
+          plain_ms=round(plain_ms, 4), plain="one eager call", **bnd)
+    return dict(ms=ms, plain_ms=plain_ms, err=err, bound=bnd)
+
+
+def mid_cli(kind: str, path: str, res, smi) -> None:
+    """The scene through the port's CLI to an .exr at its own settings: the
+    image read back, its --json-stats rays equal to the entry point's
+    render's (the CLI's render is untimed, the same steps without the
+    warm-up) and its image within RMSE 1e-4 of it."""
+    out = os.path.join(os.path.dirname(path), f"{kind}.exr")
+    buf = io.StringIO()
+    with contextlib.redirect_stdout(buf):
+        rc = cli_main([path, out, "--json-stats", "-vl", "warning"])
+    stats = json.loads([line for line in buf.getvalue().splitlines()
+                        if line.startswith("{")][-1])
+    img = read_exr(out)
+    rmse = float(np.sqrt(np.mean((img - res.image) ** 2)))
+    rel = abs(stats["rays"] - res.stats["rays"]) / max(res.stats["rays"], 1)
+    phase(f"{kind}_cli", rc=rc, output=os.path.basename(out),
+          shape=img.shape, wall_s=round(stats["wall_s"], 4),
+          render_s=round(stats["render_s"], 4), rays=stats["rays"],
+          mrays_per_s=round(stats["mrays_per_sec"], 3), rays_rel=rel,
+          rmse_vs_path=rmse, bound=1e-4, gpu=repr(smi))
+    if rc != 0 or stats["output"] != out or img.shape != res.image.shape:
+        raise AssertionError(f"{kind}_cli: no image of the path's shape")
+    if not (np.all(np.isfinite(img)) and rel <= 1e-4 and rmse <= 1e-4):
+        raise AssertionError(f"{kind}_cli: the CLI's render disagrees")
+
+
+def mid_phases(scenes: str, smi) -> list:
+    """Slice 4: each generated mid-size scene, its kernels against their
+    plain versions on recorded rays, the path through the entry point at
+    the scene's own settings, the CLI, one profiled step, and the card
+    against the CPU."""
+    kernels = []
+    for kind, g in MID:
+        t0 = time.perf_counter()
+        path = make_grid(scenes, g, 1)
+        gen_s = time.perf_counter() - t0
+        t0 = time.perf_counter()
+        scene = parse_xml_file(path)
+        cfg = build_config(scene)
+        cs = scene.compile(device="cuda")
+        a = cs.arrays
+        n = cs.static.n_tris_real
+        routes = (isect.route(a["tri_pack10"], a["tri_cluster8"], n),
+                  isect.route(a["stri_pack10"], a["stri_cluster8"],
+                              cs.static.n_stris_real))
+        phase(f"{kind}_scene", tris=n, pack=tuple(a["tri_pack10"].shape),
+              clusters=a["tri_cluster8"].shape[1],
+              sub_clusters=a["tri_sub8"].shape[1], routes=routes,
+              generate_s=round(gen_s, 3),
+              parse_compile_s=round(time.perf_counter() - t0, 3),
+              integrator=cfg.integrator, bounces=cfg.bounces,
+              filter=cfg.filter_type, size=f"{cfg.width}x{cfg.height}",
+              spp=cfg.aa_samples)
+        if routes != (kind, kind):
+            raise AssertionError(f"{kind}_scene: routed {routes}")
+        step, arrays, closest, shadow = mid_calls(cs, cfg, kind)
+        prim = check_mid_closest(kind, closest[0], "primary")
+        bounce = check_mid_closest(kind, closest[1], "bounce 1")
+        shad = check_mid_shadow(kind, shadow[0])
+        del closest, shadow
+
+        names = (f"closest_hit_{kind}", f"shadow_logsum_{kind}")
+        res, launches = counted(
+            lambda: render_scene(scene, device="cuda", timed=True))
+        others = {k: v for k, v in launches.items() if k not in names and v}
+        if others:
+            raise AssertionError(f"{kind}_path: off-path kernels {others}")
+        check_path(f"{kind}_path", res, cfg,
+                   {k: launches[k] for k in names}, smi)
+        mid_cli(kind, path, res, smi)
+        profile(f"{kind}_profile", res, step, arrays, cfg,
+                (f"closest_{kind}_kernel", f"shadow_{kind}_kernel"), smi)
+        del step, arrays
+        card_vs_cpu(f"{kind}_card_vs_cpu", lambda dev: grid(
+            path, MID_CARD_VS_CPU["size"], MID_CARD_VS_CPU["spp"], dev),
+            MID_CARD_VS_CPU["size"], MID_CARD_VS_CPU["spp"])
+
+        src = SRC.format("cluster_intersect")
+        line = PALLAS.format(308 if kind == "dense" else 592)
+        kernels.append(dict(
+            name=names[0], route="cuda", source=src, replaces=line,
+            launches=launches[names[0]], max_abs_err=max(prim["err"],
+                                                         bounce["err"]),
+            ms=prim["ms"], plain_ms=prim["plain_ms"],
+            ms_bounce=bounce["ms"], plain_ms_bounce=bounce["plain_ms"],
+            bound_ms_bounce=bounce["bound"]["bound_ms"], **prim["bound"]))
+        kernels.append(dict(
+            name=names[1], route="cuda", source=src,
+            replaces=PALLAS.format(353 if kind == "dense" else 693),
+            launches=launches[names[1]], max_abs_err=shad["err"],
+            ms=shad["ms"], plain_ms=shad["plain_ms"], **shad["bound"]))
+    return kernels
+
+
 def main() -> None:
     # 1. device
     if not torch.cuda.is_available():
@@ -850,9 +1126,8 @@ def main() -> None:
     kernels = check_kernels(cscene, cfg, arrays)
 
     # 4. main path at full size, through the kernels
-    res, launches = render_counted(cscene, cfg, {
-        "closest_hit_tiny": ci.closest_hit_tiny,
-        "shadow_logsum_tiny": ci.shadow_logsum_tiny})
+    res, launches = render_counted(cscene, cfg, ("closest_hit_tiny",
+                                                 "shadow_logsum_tiny"))
     check_path("main_path", res, cfg, launches, smi)
     for k in kernels:
         k["launches"] = launches[k["name"]]
@@ -896,9 +1171,8 @@ def main() -> None:
               filter=gcfg.filter_type)
         fine = check_fine_kernels(gscene, gcfg, garrays)
         del garrays
-        res, launches = render_counted(gscene, gcfg, {
-            "closest_hit_fine": fi.closest_hit_fine,
-            "shadow_logsum_fine": fi.shadow_logsum_fine})
+        res, launches = render_counted(gscene, gcfg, ("closest_hit_fine",
+                                                      "shadow_logsum_fine"))
         check_path("grid_path", res, gcfg, launches, smi)
         for k in fine:
             k["launches"] = launches[k["name"]]
@@ -910,10 +1184,13 @@ def main() -> None:
         card_vs_cpu("grid_card_vs_cpu", lambda dev: grid(small, 32, 2, dev),
                     32, 2)
 
-    # 10. slice 3: photon mapping on cornell_photon.xml
+        # 10. slice 4: the mid-size scenes on the dense and stream kernels
+        mid = mid_phases(scenes, smi)
+
+    # 11. slice 3: photon mapping on cornell_photon.xml
     photon = photon_phases(smi)
 
-    print(json.dumps({"kernels": kernels + fine + photon}), flush=True)
+    print(json.dumps({"kernels": kernels + fine + photon + mid}), flush=True)
     print(smi, flush=True)
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": kind,

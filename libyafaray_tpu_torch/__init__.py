@@ -5,23 +5,30 @@ tree and names so each module has an obvious counterpart, and is held
 against it by the `tests/test_torch_*.py` parity tests.  It imports torch
 and never jax, and nothing from `libyafaray_tpu`.
 
-Slice 1 covers the Cornell pathtracing main path: XML parse -> scene
-compile -> `integrators/render.py` `render_timed` -> wavefront sample step
--> film -> image.  Its two intersection kernels are hand-written CUDA for
-Hopper (`csrc/tiny_intersect.cu`, bound in `ops/cuda_intersect.py`).  Every
-feature outside the slice raises NotImplementedError naming its ROADMAP
-item.
+The entry points are `scene/session.py` `render_scene` and the CLI
+`python -m libyafaray_tpu_torch.cli.yafaray_xml scene.xml out.exr`: XML
+parse -> scene compile -> `integrators/render.py` (pathtracing) or
+`integrators/photonmap.py` (photon mapping) -> wavefront sample step ->
+film -> image.  They run on the card ("cuda") unless the caller passes
+device="cpu".  Every Pallas kernel of the reference on these paths is
+hand-written CUDA for Hopper under `csrc/`, with a plain PyTorch version
+beside its wrapper in `ops/`.  Every feature outside the ported slices
+raises NotImplementedError naming its ROADMAP item.
 
   core/         math, color, QMC, sampling warps
-  scene/        params, meshes, XML parser, scene compile, session
+  scene/        params, meshes, XML parser, scene compile, session, the
+                grid-spheres scene generator
   cameras/      perspective shoot_rays
-  materials/    material table, shinydiffuse / light / null BSDFs
+  materials/    material table and the ported BSDFs
   lights/       light table, area-light sampling
   backgrounds/  constant background
-  ops/          intersection dispatch + CUDA kernels and plain versions
-  film/         box filter, scatter-free splat, film image
-  integrators/  the wavefront engine (path mode) and the render loop
-  io/           EXR reading for the golden comparison
+  ops/          intersection dispatch, photon gathers: CUDA wrappers and
+                plain versions
+  film/         filters, scatter-free splat, film image
+  integrators/  the wavefront engine, photon mapping, the render loops
+  io/           EXR, RGBE and 8-bit image output, EXR reading
+  utils/        render logs and the parameter badge
+  cli/          the yafaray-xml command line
   convert.py    reference compiled scene -> port tensors
 """
 

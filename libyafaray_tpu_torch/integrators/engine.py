@@ -101,8 +101,14 @@ def check_arrays(arrays: dict, device: torch.device, prefix: str = "") -> None:
 
 def resolve_device(device) -> torch.device:
     """torch.device with the index made explicit ("cuda" -> "cuda:<current>"),
-    so tensors' devices compare equal to it."""
+    so tensors' devices compare equal to it.  Raises for "cuda" without a
+    card: the entry points default to it and never fall back to the CPU."""
     dev = torch.device(device)
+    if dev.type == "cuda" and not torch.cuda.is_available():
+        raise RuntimeError(
+            f"device {device!r}: no CUDA device is available "
+            "(torch.cuda.is_available() is False); pass device='cpu' to "
+            "render on the CPU")
     if dev.type == "cuda" and dev.index is None:
         dev = torch.device("cuda", torch.cuda.current_device())
     return dev

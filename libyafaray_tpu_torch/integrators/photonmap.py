@@ -332,10 +332,11 @@ def _render(cscene, cfg: RenderConfig, device, warmup: bool) -> RenderResult:
     _sync(dev)
     return RenderResult(film, dict(
         render_s=time.perf_counter() - t1, preprocess_s=preprocess_s,
-        rays=float(film["rays"]), photon_maps=maps["info"]))
+        rays=float(film["rays"]), photon_maps=maps["info"]), cfg)
 
 
-def render_photonmap(cscene, cfg: RenderConfig, *, device) -> RenderResult:
+def render_photonmap(cscene, cfg: RenderConfig, *,
+                     device="cuda") -> RenderResult:
     """Full photon-mapping render: preprocess, then aa_samples steps.
     stats: render_s (the steps), preprocess_s (photon shooting, packs and
     the radiance map), rays, photon_maps (counts per map)."""
@@ -343,7 +344,7 @@ def render_photonmap(cscene, cfg: RenderConfig, *, device) -> RenderResult:
 
 
 def render_photonmap_timed(cscene, cfg: RenderConfig, *,
-                           device) -> RenderResult:
+                           device="cuda") -> RenderResult:
     """Benchmark variant: one warm-up step on a throw-away film after the
     preprocess, then the timed steps (the Mrays/s metric)."""
     return _render(cscene, cfg, device, warmup=True)

@@ -1,9 +1,9 @@
 """Render orchestration (port of libyafaray_tpu/integrators/render.py:
 `render` for one pass without mesh or film save, and `render_timed`).
 
-`device` is explicit and threads from here down: the scene tensors, the
-film and every lane live on it.  Timing synchronizes the device before the
-clock is read.
+`device` (default "cuda", which raises without a card) threads from here
+down: the scene tensors, the film and every lane live on it.  Timing
+synchronizes the device before the clock is read.
 """
 from __future__ import annotations
 
@@ -20,11 +20,13 @@ from .engine import make_sample_step, resolve_device
 
 
 class RenderResult:
-    def __init__(self, film: dict, stats: dict):
+    def __init__(self, film: dict, stats: dict, cfg: RenderConfig):
         self.film = film
         # render_s (timed seconds of the sample steps), rays (film["rays"]);
         # the photon render adds preprocess_s and photon_maps
         self.stats = stats
+        # the render's config (the CLI reads color_space, gamma, sizes)
+        self.cfg = cfg
 
     @property
     def image(self) -> np.ndarray:
@@ -49,7 +51,7 @@ def _fresh_film(cfg: RenderConfig, device) -> dict:
 
 
 def render(cscene: CompiledScene, cfg: RenderConfig, *,
-           device) -> RenderResult:
+           device="cuda") -> RenderResult:
     """Full render: aa_samples one-sample steps over every pixel."""
     dev = resolve_device(device)
     arrays = to_tensors(cscene.arrays, dev)
@@ -61,11 +63,11 @@ def render(cscene: CompiledScene, cfg: RenderConfig, *,
         film = step(arrays, film, flags)
     _sync(dev)
     return RenderResult(film, dict(render_s=time.perf_counter() - t0,
-                                   rays=float(film["rays"])))
+                                   rays=float(film["rays"])), cfg)
 
 
 def render_timed(cscene: CompiledScene, cfg: RenderConfig, *,
-                 device) -> RenderResult:
+                 device="cuda") -> RenderResult:
     """Benchmark render: one warm-up step on a throw-away film, then the
     timed steps (the Mrays/s metric)."""
     dev = resolve_device(device)
@@ -80,4 +82,4 @@ def render_timed(cscene: CompiledScene, cfg: RenderConfig, *,
         film = step(arrays, film, flags)
     _sync(dev)
     return RenderResult(film, dict(render_s=time.perf_counter() - t0,
-                                   rays=float(film["rays"])))
+                                   rays=float(film["rays"])), cfg)

@@ -1,6 +1,8 @@
-"""Minimal OpenEXR reader (the scanline NONE / ZIPS / ZIP subset of
-libyafaray_tpu/io/exr.py `read_exr`), enough to read the repository's
-golden images.  Pure numpy, struct and zlib."""
+"""Minimal OpenEXR codec: the scanline NONE / ZIPS / ZIP subset of
+libyafaray_tpu/io/exr.py `read_exr`, enough to read the repository's
+golden images, and its float32 ZIPS scanline writer `write_exr` (channels
+R, G, B[, A]), which the CLI's .exr output uses.  Pure numpy,
+struct and zlib."""
 from __future__ import annotations
 
 import struct
@@ -25,6 +27,66 @@ def _unfilter(buf: bytes) -> bytes:
     out[0::2] = rec[:half]
     out[1::2] = rec[half:]
     return out.tobytes()
+
+
+def _filter(buf: bytes) -> bytes:
+    """EXR zip byte filter (compress side): de-interleave, then delta."""
+    d = np.frombuffer(buf, np.uint8)
+    n = d.shape[0]
+    half = (n + 1) // 2
+    tmp = np.empty(n, np.uint8)
+    tmp[:half] = d[0::2]
+    tmp[half:] = d[1::2]
+    t = tmp.astype(np.int64)
+    out = np.empty(n, np.int64)
+    out[0] = t[0]
+    out[1:] = t[1:] - t[:-1] + 128
+    return (out % 256).astype(np.uint8).tobytes()
+
+
+def _attr(name: bytes, typ: bytes, data: bytes) -> bytes:
+    return name + b"\0" + typ + b"\0" + struct.pack("<i", len(data)) + data
+
+
+def write_exr(path: str, img: np.ndarray) -> None:
+    """Write an (H, W, 3|4) image as a single-part scanline EXR of float32
+    channels R, G, B[, A], one scanline per ZIPS chunk (a chunk that does
+    not shrink is stored raw), as the reference's writer does."""
+    img = np.asarray(img, np.float32)
+    h, w, c = img.shape
+    names = sorted("RGBA"[:c])  # channels in alphabetical order on disk
+    planes = {n: img[..., "RGBA".index(n)] for n in names}
+    chlist = b"".join(n.encode() + b"\0" + struct.pack("<iiii", 2, 0, 1, 1)
+                      for n in names) + b"\0"
+    header = (
+        _attr(b"channels", b"chlist", chlist)
+        + _attr(b"compression", b"compression", bytes([2]))  # ZIPS
+        + _attr(b"dataWindow", b"box2i", struct.pack("<iiii", 0, 0, w - 1,
+                                                     h - 1))
+        + _attr(b"displayWindow", b"box2i", struct.pack("<iiii", 0, 0,
+                                                        w - 1, h - 1))
+        + _attr(b"lineOrder", b"lineOrder", b"\0")  # INCREASING_Y
+        + _attr(b"pixelAspectRatio", b"float", struct.pack("<f", 1.0))
+        + _attr(b"screenWindowCenter", b"v2f", struct.pack("<ff", 0.0, 0.0))
+        + _attr(b"screenWindowWidth", b"float", struct.pack("<f", 1.0))
+        + b"\0")
+    chunks = []
+    for y in range(h):
+        raw = b"".join(planes[n][y].astype("<f4").tobytes() for n in names)
+        z = zlib.compress(_filter(raw))
+        raw = z if len(z) < len(raw) else raw
+        chunks.append(struct.pack("<ii", y, len(raw)) + raw)
+    with open(path, "wb") as f:
+        f.write(struct.pack("<II", _MAGIC, 2))
+        f.write(header)
+        off = f.tell() + 8 * len(chunks)
+        offsets = []
+        for ch in chunks:
+            offsets.append(off)
+            off += len(ch)
+        f.write(struct.pack(f"<{len(chunks)}Q", *offsets))
+        for ch in chunks:
+            f.write(ch)
 
 
 def read_exr(path: str) -> np.ndarray:

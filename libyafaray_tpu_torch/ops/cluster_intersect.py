@@ -1,0 +1,253 @@
+"""The mid-size-scene intersection kernels: CUDA wrappers and plain PyTorch
+versions of the dense and streaming pairs.
+
+Port of the dense and streaming sections of
+libyafaray_tpu/ops/pallas_intersect.py: `_closest_kernel` and
+`_shadow_kernel` (packs of fewer than FB_MIN_CLUSTERS = 4 clusters, 65 to
+384 triangles), `_closest_kernel_stream` and `_shadow_kernel_stream` with
+their wrappers `_closest_fb_tcol` / `_shadow_fb_lg` (4 or more clusters
+with fewer than FINE_GROUP = 8 sub-clusters, 385 to 896 triangles).  The
+kernels live in csrc/cluster_intersect.cu and are built by ops/_build.py
+at first use.
+
+The closest-hit kernels return (best t, best pack column), which
+`fine_intersect.closest_epilogue` turns into a hit record; both compute the
+brute-force nearest hit with the lowest column on ties, so their plain
+versions share `fine_intersect.closest_fine_plain`.  The shadow kernels
+sum the per-column log filters of the columns each segment crosses: the
+dense sum has no floor on its total (as the reference's `_shadow_kernel`),
+the stream sum is floored at -80.  The reference's block lists, ray sort
+and DMA pipeline schedule the TPU and are not ported.
+
+Each wrapper takes the plain version only for CPU tensors; for CUDA tensors
+it launches its kernel on the current stream or raises, and counts the
+launch in its `launches` attribute.
+"""
+from __future__ import annotations
+
+import ctypes
+
+import torch
+
+from . import _build
+from .cuda_intersect import (LOG_FLOOR, SHADOW_TMIN, _check, _raise_on,
+                             log_filter)
+from .fine_intersect import (box_entry, closest_fine_plain, real_columns,
+                             shadow_sum_plain)
+
+MAX_STREAM_CLUSTERS = 8  # clusters a stream kernel sorts in registers
+_MAX_SMEM = 232448  # shared memory a block may use on Hopper
+
+
+# ---- plain PyTorch versions ---------------------------------------------
+
+
+def closest_dense_plain(pack10, org, dirn, tmin, tmax, n_tris: int):
+    """Nearest hit in (tmin, tmax) over the first n_tris pack columns:
+    (t (inf on a miss), pack column (int32, 0 on a miss)), lowest column on
+    ties."""
+    return closest_fine_plain(pack10, org, dirn, tmin, tmax, n_tris)
+
+
+def closest_stream_plain(pack10, org, dirn, tmin, tmax, n_tris: int):
+    """The stream kernel's function: the same nearest hit as
+    `closest_dense_plain` (the front-to-back walk only orders the work)."""
+    return closest_fine_plain(pack10, org, dirn, tmin, tmax, n_tris)
+
+
+def shadow_logsum_dense_plain(pack10, logf, org, dirn, dist, n_tris: int):
+    """(N, 3) sum of the log filters of the columns each segment crosses,
+    with no floor on the total (the reference's dense `_shadow_kernel`)."""
+    return shadow_sum_plain(pack10, logf, org, dirn, dist, n_tris)
+
+
+def shadow_logsum_stream_plain(pack10, logf, org, dirn, dist, n_tris: int):
+    """The same sum floored at -80 (opaque), as `_shadow_kernel_stream`
+    floors it after each cluster."""
+    return torch.clamp(shadow_sum_plain(pack10, logf, org, dirn, dist,
+                                        n_tris), min=LOG_FLOOR)
+
+
+def cluster_pair_tests(pack10, cluster8, org, dirn, lo, hi,
+                       n_tris: int) -> tuple:
+    """(pair tests, box tests) the dense and stream kernels' data needs:
+    per ray, the real columns of every cluster whose box its interval
+    [lo, hi] enters, and one box test per real cluster.  For the closest
+    hit pass hi = min(tmax, the hit's t): the boxes a ray enters before
+    its hit.  Counts what the inputs need, for a kernel's bound; not a
+    kernel path."""
+    bt = pack10.shape[1] // cluster8.shape[1]
+    cl_real = -(-n_tris // bt)
+    cols = real_columns(bt, cl_real, n_tris, org.device)
+    ent = box_entry(cluster8[:, :cl_real], org, dirn, lo, hi)
+    pairs = int((torch.isfinite(ent).to(torch.int64) * cols).sum())
+    return pairs, org.shape[0] * cl_real
+
+
+def shadow_limits(dist):
+    """The interval (lo, hi) a shadow kernel tests along each segment."""
+    return (torch.full_like(dist, SHADOW_TMIN),
+            dist * (1.0 - 1e-4) - SHADOW_TMIN)
+
+
+# ---- CUDA wrappers --------------------------------------------------------
+
+_P = ctypes.c_void_p
+_I = ctypes.c_int
+_CLOSEST_ARGS = [_P, _I, _P, _I, _I, _P, _P, _P, _P, _I, _P, _P, _P]
+_SHADOW_ARGS = [_P, _I, _P, _I, _I, _P, _I, _P, _P, _P, _I, _P, _P]
+
+
+def _lib() -> ctypes.CDLL:
+    lib = _build.load("cluster_intersect")
+    if lib.closest_hit_dense_launch.argtypes is None:
+        for kind in ("dense", "stream"):
+            fn = getattr(lib, f"closest_hit_{kind}_launch")
+            fn.argtypes, fn.restype = _CLOSEST_ARGS, _I
+            fn = getattr(lib, f"shadow_logsum_{kind}_launch")
+            fn.argtypes, fn.restype = _SHADOW_ARGS, _I
+    return lib
+
+
+def _check_scene(what: str, pack10, cluster8, n_tris: int, device,
+                 shadow: bool) -> None:
+    _check("pack10", pack10, (10, None), device)
+    _check("cluster8", cluster8, (8, None), device)
+    tp, n_cl = pack10.shape[1], cluster8.shape[1]
+    if n_cl == 0 or tp % n_cl:
+        raise ValueError(f"pack width {tp} is not {n_cl} equal clusters")
+    if not 0 <= n_tris <= tp:
+        raise ValueError(f"n_tris={n_tris} outside [0, {tp}]")
+    if what == "stream" and n_cl > MAX_STREAM_CLUSTERS:
+        raise ValueError(f"{n_cl} clusters: the stream kernels take at most "
+                         f"{MAX_STREAM_CLUSTERS}")
+    smem = 4 * ((12 if shadow else 9) * tp + 6 * n_cl)
+    if smem > _MAX_SMEM:
+        raise ValueError(f"a pack of {tp} columns needs {smem} B of shared "
+                         f"memory, more than a block's {_MAX_SMEM}")
+
+
+def _closest(what: str, pack10, cluster8, org, dirn, tmin, tmax,
+             n_tris: int):
+    dev = org.device
+    n = org.shape[0]
+    _check_scene(what, pack10, cluster8, n_tris, dev, shadow=False)
+    _check("org", org, (n, 3), dev)
+    _check("dirn", dirn, (n, 3), dev)
+    _check("tmin", tmin, (n,), dev)
+    _check("tmax", tmax, (n,), dev)
+    if dev.type == "cpu":
+        plain = (closest_dense_plain if what == "dense"
+                 else closest_stream_plain)
+        return plain(pack10, org, dirn, tmin, tmax, n_tris)
+    if dev.type != "cuda":
+        raise ValueError(f"closest_hit_{what}: unsupported device {dev}")
+    t = torch.empty((n,), dtype=torch.float32, device=dev)
+    col = torch.empty((n,), dtype=torch.int32, device=dev)
+    launch = getattr(_lib(), f"closest_hit_{what}_launch")
+    with torch.cuda.device(dev):
+        stream = torch.cuda.current_stream(dev).cuda_stream
+        code = launch(pack10.data_ptr(), pack10.shape[1], cluster8.data_ptr(),
+                      cluster8.shape[1], n_tris, org.data_ptr(),
+                      dirn.data_ptr(), tmin.data_ptr(), tmax.data_ptr(), n,
+                      t.data_ptr(), col.data_ptr(), stream)
+    _WRAPPERS[f"closest_hit_{what}"].launches += 1
+    _raise_on(code, f"closest_hit_{what}")
+    return t, col
+
+
+def _shadow(what: str, pack10, cluster8, logf, org, dirn, dist,
+            n_tris: int):
+    dev = org.device
+    n = org.shape[0]
+    _check_scene(what, pack10, cluster8, n_tris, dev, shadow=True)
+    _check("logf", logf, (None, pack10.shape[1]), dev)
+    if logf.shape[0] < 3:
+        raise ValueError(f"logf: needs 3 rgb rows, has {logf.shape[0]}")
+    _check("org", org, (n, 3), dev)
+    _check("dirn", dirn, (n, 3), dev)
+    _check("dist", dist, (n,), dev)
+    if dev.type == "cpu":
+        plain = (shadow_logsum_dense_plain if what == "dense"
+                 else shadow_logsum_stream_plain)
+        return plain(pack10, logf, org, dirn, dist, n_tris)
+    if dev.type != "cuda":
+        raise ValueError(f"shadow_logsum_{what}: unsupported device {dev}")
+    lg = torch.empty((n, 3), dtype=torch.float32, device=dev)
+    launch = getattr(_lib(), f"shadow_logsum_{what}_launch")
+    with torch.cuda.device(dev):
+        stream = torch.cuda.current_stream(dev).cuda_stream
+        code = launch(pack10.data_ptr(), pack10.shape[1], cluster8.data_ptr(),
+                      cluster8.shape[1], n_tris, logf.data_ptr(),
+                      logf.shape[1], org.data_ptr(), dirn.data_ptr(),
+                      dist.data_ptr(), n, lg.data_ptr(), stream)
+    _WRAPPERS[f"shadow_logsum_{what}"].launches += 1
+    _raise_on(code, f"shadow_logsum_{what}")
+    return lg
+
+
+def closest_hit_dense(pack10, cluster8, org, dirn, tmin, tmax, n_tris: int):
+    """(best t, best pack column (int32)) of each ray over the first n_tris
+    pack columns, clusters in index order; `fine_intersect.
+    closest_epilogue` turns them into a hit record.
+
+    pack10 (10, T'), cluster8 (8, n_cl), org/dirn (N, 3), tmin/tmax (N,):
+    float32, contiguous, one device."""
+    return _closest("dense", pack10, cluster8, org, dirn, tmin, tmax,
+                    n_tris)
+
+
+closest_hit_dense.launches = 0
+
+
+def closest_hit_stream(pack10, cluster8, org, dirn, tmin, tmax, n_tris: int):
+    """As `closest_hit_dense`, each ray walking the (at most
+    MAX_STREAM_CLUSTERS) cluster boxes it enters nearest first."""
+    return _closest("stream", pack10, cluster8, org, dirn, tmin, tmax,
+                    n_tris)
+
+
+closest_hit_stream.launches = 0
+
+
+def shadow_logsum_dense(pack10, cluster8, logf, org, dirn, dist, n_tris: int):
+    """(N, 3) log transmission of each segment over the first n_tris pack
+    columns, not floored; logf (>=3, T') holds the per-column log filter
+    rows.  All float32, contiguous, one device."""
+    return _shadow("dense", pack10, cluster8, logf, org, dirn, dist,
+                   n_tris)
+
+
+shadow_logsum_dense.launches = 0
+
+
+def shadow_logsum_stream(pack10, cluster8, logf, org, dirn, dist,
+                         n_tris: int):
+    """As `shadow_logsum_dense`, floored at -80, each segment walking its
+    boxes nearest first and stopping once opaque in every channel."""
+    return _shadow("stream", pack10, cluster8, logf, org, dirn, dist,
+                   n_tris)
+
+
+shadow_logsum_stream.launches = 0
+# the wrappers whose launches _closest / _shadow count, bound here so a
+# caller that wraps a module attribute (to record calls) keeps the counts
+_WRAPPERS = {f.__name__: f for f in (closest_hit_dense, closest_hit_stream,
+                                     shadow_logsum_dense,
+                                     shadow_logsum_stream)}
+
+
+def shadow_transmission_dense(pack10, cluster8, filt4, org, dirn, dist,
+                              n_tris: int):
+    """(N, 3) transmission = exp(log sum), filt4 (4, T') rgb filter rows in
+    pack order (0 = opaque)."""
+    return torch.exp(shadow_logsum_dense(pack10, cluster8, log_filter(filt4),
+                                         org, dirn, dist, n_tris))
+
+
+def shadow_transmission_stream(pack10, cluster8, filt4, org, dirn, dist,
+                               n_tris: int):
+    """(N, 3) transmission = exp(floored log sum)."""
+    return torch.exp(shadow_logsum_stream(pack10, cluster8,
+                                          log_filter(filt4), org, dirn, dist,
+                                          n_tris))

@@ -84,10 +84,10 @@ def closest_fine_plain(pack10, org, dirn, tmin, tmax, n_tris: int):
     return best_t, best_c
 
 
-def shadow_logsum_fine_plain(pack10, logf, org, dirn, dist, n_tris: int):
+def shadow_sum_plain(pack10, logf, org, dirn, dist, n_tris: int):
     """(N, 3) sum of the log filters of the triangles each segment
     org -> org + dirn·dist crosses, t in (5e-4, dist·(1-1e-4) - 5e-4), over
-    the first n_tris pack columns, floored at -80 (opaque)."""
+    the first n_tris pack columns, by brute force, with no floor."""
     ox, oy, oz = (x[:, None] for x in org.unbind(-1))
     dx, dy, dz = (x[:, None] for x in dirn.unbind(-1))
     hi = (dist * (1.0 - 1e-4) - SHADOW_TMIN)[:, None]
@@ -97,7 +97,66 @@ def shadow_logsum_fine_plain(pack10, logf, org, dirn, dist, n_tris: int):
         t, _, _, ok = _mt_test(pack10, slice(k0, k1), ox, oy, oz, dx, dy, dz)
         okf = (ok & (t > SHADOW_TMIN) & (t < hi)).to(torch.float32)
         lg = lg + okf @ logf[:3, k0:k1].T
-    return torch.clamp(lg, min=LOG_FLOOR)
+    return lg
+
+
+def shadow_logsum_fine_plain(pack10, logf, org, dirn, dist, n_tris: int):
+    """`shadow_sum_plain` floored at -80 (opaque)."""
+    return torch.clamp(shadow_sum_plain(pack10, logf, org, dirn, dist,
+                                        n_tris), min=LOG_FLOOR)
+
+
+def box_entry(box8, org, dirn, lo, hi):
+    """(N, C) entry distance of each ray's interval [lo, hi] into each box
+    of a (8, C) table, widened as the kernels widen it (1e-5 of the largest
+    face and ray-origin magnitude per axis); inf where the interval misses
+    the box.  The boxes must be finite (real clusters)."""
+    eps = 1e-12
+    d = torch.where(dirn.abs() < eps, torch.where(dirn < 0, -eps, eps), dirn)
+    iv = torch.ones_like(d) / d
+    enter, exit_ = lo[:, None], hi[:, None]
+    for a in range(3):
+        bl, bh = box8[a][None], box8[a + 3][None]
+        o = org[:, a:a + 1]
+        pad = torch.maximum(1e-5 * o.abs(),
+                            1e-5 * torch.maximum(bl.abs(), bh.abs()))
+        t0 = (bl - pad - o) * iv[:, a:a + 1]
+        t1 = (bh + pad - o) * iv[:, a:a + 1]
+        enter = torch.maximum(enter, torch.minimum(t0, t1))
+        exit_ = torch.minimum(exit_, torch.maximum(t0, t1))
+    return torch.where(enter <= exit_, enter, float("inf"))
+
+
+def real_columns(width: int, groups: int, n_tris: int, device):
+    """(groups,) real columns of each `width`-column group of the pack."""
+    start = torch.arange(groups, device=device) * width
+    return torch.clamp(n_tris - start, 0, width)
+
+
+def fine_pair_tests(cluster8, sub8, org, dirn, lo, hi, n_tris: int,
+                    chunk: int = 1 << 16) -> tuple:
+    """(pair tests, box tests) the fine kernels' data needs: per ray, the
+    real columns of every sub-cluster whose box, and whose cluster's box,
+    its interval [lo, hi] enters; a box test for every real cluster and
+    for every real sub-cluster of an entered cluster.  For the closest hit
+    pass hi = min(tmax, the hit's t): the boxes a ray enters before its
+    hit.  Counts what the inputs need, for a kernel's bound; not a kernel
+    path."""
+    n_sc = sub8.shape[1]
+    spc = n_sc // cluster8.shape[1]
+    sc_real = -(-n_tris // SUB_BT)
+    cl_real = -(-sc_real // spc)
+    cols = real_columns(SUB_BT, sc_real, n_tris, org.device)
+    pairs = boxes = 0
+    for r0 in range(0, org.shape[0], chunk):
+        sl = slice(r0, r0 + chunk)
+        args = (org[sl], dirn[sl], lo[sl], hi[sl])
+        c_in = torch.isfinite(box_entry(cluster8[:, :cl_real], *args))
+        s_in = torch.isfinite(box_entry(sub8[:, :sc_real], *args))
+        c_of_s = c_in.repeat_interleave(spc, dim=1)[:, :sc_real]
+        pairs += int(((s_in & c_of_s).to(torch.int64) * cols).sum())
+        boxes += c_in.shape[0] * cl_real + int(c_of_s.sum())
+    return pairs, boxes
 
 
 def closest_epilogue(pack10, org, dirn, t, col, n_tris: int):

@@ -2,12 +2,17 @@
 
 Port of libyafaray_tpu/ops/intersect.py's hit record and of the choice
 `closest_hit_pallas` / `shadow_transmission_pallas` make in
-ops/pallas_intersect.py.  Scenes of at most TINY_TRIS triangles go to the
-two tiny-scene kernels of `ops/cuda_intersect.py`; larger packs whose shape
-takes the reference's gathered-fine kernels go to the two kernels of
-`ops/fine_intersect.py`.  Each wrapper launches its CUDA kernel for a CUDA
-tensor and runs its plain PyTorch version for a CPU tensor.  The dense and
-stream ranges between them raise until their kernels are ported.
+ops/pallas_intersect.py, by pack shape:
+- at most TINY_TRIS triangles: the tiny-scene kernels
+  (`ops/cuda_intersect.py`);
+- fewer than FB_MIN_CLUSTERS = 4 clusters: the dense kernels
+  (`ops/cluster_intersect.py`, 65 to 384 triangles);
+- 4 or more clusters that do not take the gathered-fine kernels (fewer
+  than 8 sub-clusters): the streaming kernels (same module, 385 to 896);
+- the rest: the gathered-fine kernels (`ops/fine_intersect.py`).
+The reference's pair-granular kernels are off by default (`LIBYAF_PAIRS`)
+and are not taken.  Each wrapper launches its CUDA kernel for a CUDA
+tensor and runs its plain PyTorch version for a CPU tensor.
 """
 from __future__ import annotations
 
@@ -16,20 +21,12 @@ from typing import NamedTuple
 import numpy as np
 import torch
 
-from . import cuda_intersect, fine_intersect
+from . import cluster_intersect, cuda_intersect, fine_intersect
 
 RAY_EPS = 5e-5  # reference ray_min_dist default
 SHADOW_EPS = 5e-4  # reference shadow_bias default
 TINY_TRIS = cuda_intersect.TINY_TRIS
 MAX_TRIS = 1 << 20  # the reference's budget for its clustered kernels
-
-_DENSE = ("scenes of {} triangles in fewer than {} clusters need the dense "
-          "clustered kernels (_closest_kernel / _shadow_kernel), not ported "
-          "yet: ROADMAP Queue 2 item 6")
-_STREAM = ("scenes of {} triangles ({} sub-clusters) need the streaming "
-           "kernels (_closest_kernel_stream / _shadow_kernel_stream), not "
-           "ported yet: ROADMAP Queue 2 item 5")
-
 
 class Hit(NamedTuple):
     t: torch.Tensor  # (N,) hit distance (inf if miss)
@@ -71,17 +68,16 @@ def pad_triangles(v0, e1, e2, multiple: int):
             np.concatenate([e2, z]), t)
 
 
-def _check_fine(pack10: torch.Tensor, cluster8: torch.Tensor,
-                n_tris: int) -> None:
-    """Raise unless a pack of more than TINY_TRIS triangles takes the
-    reference's gathered-fine kernels."""
+def route(pack10: torch.Tensor, cluster8: torch.Tensor, n_tris: int) -> str:
+    """The kernel pair a pack takes: "tiny", "dense", "stream" or "fine"."""
+    if n_tris <= TINY_TRIS:
+        return "tiny"
     tp, n_cl = pack10.shape[1], cluster8.shape[1]
     if n_cl < fine_intersect.FB_MIN_CLUSTERS:
-        raise NotImplementedError(_DENSE.format(
-            n_tris, fine_intersect.FB_MIN_CLUSTERS))
+        return "dense"
     if not fine_intersect.takes_fine_path(tp, n_cl):
-        raise NotImplementedError(_STREAM.format(
-            n_tris, tp // fine_intersect.SUB_BT))
+        return "stream"
+    return "fine"
 
 
 def closest_hit(arrays: dict, static, org, dirn, tmin, tmax) -> Hit:
@@ -90,13 +86,18 @@ def closest_hit(arrays: dict, static, org, dirn, tmin, tmax) -> Hit:
     pack = arrays["tri_pack10"]
     org, dirn = org.contiguous(), dirn.contiguous()
     tmin, tmax = tmin.contiguous(), tmax.contiguous()
-    if n_tris <= TINY_TRIS:
+    cl = arrays["tri_cluster8"]
+    kind = route(pack, cl, n_tris)
+    if kind == "tiny":
         return Hit(*cuda_intersect.closest_hit_tiny(pack, org, dirn, tmin,
                                                     tmax, n_tris=n_tris))
-    _check_fine(pack, arrays["tri_cluster8"], n_tris)
-    t, col = fine_intersect.closest_hit_fine(
-        pack, arrays["tri_cluster8"], arrays["tri_sub8"], org, dirn, tmin,
-        tmax, n_tris=n_tris)
+    if kind == "fine":
+        t, col = fine_intersect.closest_hit_fine(
+            pack, cl, arrays["tri_sub8"], org, dirn, tmin, tmax,
+            n_tris=n_tris)
+    else:
+        kernel = getattr(cluster_intersect, f"closest_hit_{kind}")
+        t, col = kernel(pack, cl, org, dirn, tmin, tmax, n_tris=n_tris)
     return Hit(*fine_intersect.closest_epilogue(pack, org, dirn, t, col,
                                                 n_tris))
 
@@ -108,10 +109,14 @@ def shadow_transmission(arrays: dict, static, transp_shad: bool, org, dirn,
     pack = arrays["stri_pack10"]
     filt4 = arrays["sfilt4"] if transp_shad else arrays["sfilt4_binary"]
     org, dirn, dist = org.contiguous(), dirn.contiguous(), dist.contiguous()
-    if n_tris <= TINY_TRIS:
+    cl = arrays["stri_cluster8"]
+    kind = route(pack, cl, n_tris)
+    if kind == "tiny":
         return cuda_intersect.shadow_transmission_tiny(
             pack, filt4, org, dirn, dist, n_tris=n_tris)
-    _check_fine(pack, arrays["stri_cluster8"], n_tris)
-    return fine_intersect.shadow_transmission_fine(
-        pack, arrays["stri_cluster8"], arrays["stri_sub8"], filt4, org, dirn,
-        dist, n_tris=n_tris)
+    if kind == "fine":
+        return fine_intersect.shadow_transmission_fine(
+            pack, cl, arrays["stri_sub8"], filt4, org, dirn, dist,
+            n_tris=n_tris)
+    kernel = getattr(cluster_intersect, f"shadow_transmission_{kind}")
+    return kernel(pack, cl, filt4, org, dirn, dist, n_tris=n_tris)

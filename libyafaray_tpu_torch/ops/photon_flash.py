@@ -235,6 +235,29 @@ def density_culled_plain(pack: dict, query_p, query_n, radius):
     return flux, cnt
 
 
+def culled_pair_tests(pack: dict, query_p, radius,
+                      chunk: int = 4096) -> tuple:
+    """(pair tests, box tests) the culled gather's data needs: per query,
+    the valid photons of every cluster whose box lies within its radius,
+    and one box test per cluster.  Counts what the inputs need, for a
+    kernel's bound; not a kernel path."""
+    lo, hi = pack["cl_lo"], pack["cl_hi"]
+    n, n_cl = query_p.shape[0], lo.shape[0]
+    valid = (pack["tbl"][0] < 0.5 * SENTINEL).reshape(n_cl, BP)
+    per_cl = valid.sum(dim=1).to(torch.int64)
+    r2 = _r2(radius, n, query_p.device)
+    pairs = 0
+    for q0 in range(0, n, chunk):
+        q = query_p[q0:q0 + chunk, None, :].to(F32)
+        dd = torch.maximum(torch.clamp(lo[None] - q, min=0.0),
+                           torch.clamp(q - hi[None], min=0.0))
+        d2 = (dd[..., 0] * dd[..., 0] + dd[..., 1] * dd[..., 1]
+              + dd[..., 2] * dd[..., 2])
+        near = d2 <= r2[q0:q0 + chunk, None]
+        pairs += int((near.to(torch.int64) * per_cl).sum())
+    return pairs, n * n_cl
+
+
 # ---- CUDA wrappers --------------------------------------------------------
 
 _P = ctypes.c_void_p

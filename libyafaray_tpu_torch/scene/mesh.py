@@ -1,6 +1,7 @@
 """Host-side triangle meshes (port of libyafaray_tpu/scene/mesh.py: TriMesh and
 `finalize_mesh` for faceted meshes with optional per-vertex normals and
-UVs).  Scene.compile flattens them into SoA triangle arrays."""
+UVs, and `make_sphere_mesh`, the icosphere that scene/generate.py
+tessellates).  Scene.compile flattens them into SoA triangle arrays."""
 from __future__ import annotations
 
 from dataclasses import dataclass, field
@@ -84,4 +85,71 @@ def finalize_mesh(mesh: TriMesh):
         mat=mats,
         light_id=np.full(len(faces), mesh.light_id, np.int32),
         visibility=mesh.visibility,
+    )
+
+
+def make_sphere_mesh(center, radius, mat_id, subdiv: int = 3) -> dict:
+    """Sphere primitive (reference std_primitives.cc) — realized as a
+    subdivided icosphere so the single intersector handles it.  subdiv=3
+    gives 1280 faces; adequate for the std_primitives use cases."""
+    t = (1.0 + np.sqrt(5.0)) / 2.0
+    verts = np.array(
+        [
+            [-1, t, 0], [1, t, 0], [-1, -t, 0], [1, -t, 0],
+            [0, -1, t], [0, 1, t], [0, -1, -t], [0, 1, -t],
+            [t, 0, -1], [t, 0, 1], [-t, 0, -1], [-t, 0, 1],
+        ],
+        np.float64,
+    )
+    verts /= np.linalg.norm(verts, axis=1, keepdims=True)
+    faces = np.array(
+        [
+            [0, 11, 5], [0, 5, 1], [0, 1, 7], [0, 7, 10], [0, 10, 11],
+            [1, 5, 9], [5, 11, 4], [11, 10, 2], [10, 7, 6], [7, 1, 8],
+            [3, 9, 4], [3, 4, 2], [3, 2, 6], [3, 6, 8], [3, 8, 9],
+            [4, 9, 5], [2, 4, 11], [6, 2, 10], [8, 6, 7], [9, 8, 1],
+        ],
+        np.int64,
+    )
+    for _ in range(subdiv):
+        edge_mid: dict = {}
+        verts_list = list(verts)
+        new_faces = []
+
+        def midpoint(a, b):
+            key = (min(a, b), max(a, b))
+            if key not in edge_mid:
+                m = verts_list[a] + verts_list[b]
+                m = m / np.linalg.norm(m)
+                verts_list.append(m)
+                edge_mid[key] = len(verts_list) - 1
+            return edge_mid[key]
+
+        for a, b, c in faces:
+            ab, bc, ca = midpoint(a, b), midpoint(b, c), midpoint(c, a)
+            new_faces += [[a, ab, ca], [b, bc, ab], [c, ca, bc], [ab, bc, ca]]
+        verts = np.asarray(verts_list)
+        faces = np.asarray(new_faces, np.int64)
+
+    center = np.asarray(center, np.float64)
+    pos = verts[faces] * radius + center  # (T,3,3)
+    nrm = verts[faces]  # unit sphere normals
+    gn = np.cross(pos[:, 1] - pos[:, 0], pos[:, 2] - pos[:, 0])
+    gn /= np.maximum(np.linalg.norm(gn, axis=1, keepdims=True), 1e-20)
+    # spherical uv
+    u = 0.5 + np.arctan2(nrm[..., 1], nrm[..., 0]) / (2 * np.pi)
+    v = 0.5 - np.arcsin(np.clip(nrm[..., 2], -1, 1)) / np.pi
+    uv = np.stack([u, v], axis=-1)
+    T = len(faces)
+    return dict(
+        pos=pos.astype(np.float32),
+        normal=nrm.astype(np.float32),
+        geo_n=gn.astype(np.float32),
+        uv=uv.astype(np.float32),
+        # local = sphere-centered coords; orco = unit-sphere coords
+        local=(verts[faces] * radius).astype(np.float32),
+        orco=nrm.astype(np.float32),
+        mat=np.full(T, mat_id, np.int32),
+        light_id=np.full(T, -1, np.int32),
+        visibility="normal",
     )

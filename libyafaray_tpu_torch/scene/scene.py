@@ -178,9 +178,10 @@ class Scene:
 
     # ---- compile (scene_t::update analog) ------------------------------
 
-    def compile(self, device: str = "cpu") -> CompiledScene:
+    def compile(self, device: str = "cuda") -> CompiledScene:
         """Lower the scene to numpy arrays + statics.  `device` is the torch
-        device the render will run on; it picks the intersector."""
+        device the render will run on (default the card, as the entry
+        points); it only picks the intersector, so it needs no card."""
         blocks = [b for b in (finalize_mesh(m) for m in self.meshes.values())
                   if b is not None]
         materials = list(self.materials)

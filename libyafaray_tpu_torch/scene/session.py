@@ -35,14 +35,18 @@ def build_config(scene: Scene) -> RenderConfig:
     return config_from_params(scene.render_params, surf, vol)
 
 
-def render_scene(scene: Scene, *, device, timed: bool = False
+def render_scene(scene: Scene, *, device="cuda", timed: bool = False
                  ) -> RenderResult:
-    """The entry point: build the config, compile for `device` and render
-    with the scene's integrator (pathtracing -> integrators.render,
+    """The entry point: build the config, compile for `device` (default
+    the card; it raises without one, device="cpu" renders on the CPU) and
+    render with the scene's integrator (pathtracing -> integrators.render,
     photonmapping -> integrators.photonmap).  timed=True takes the
     benchmark variants, which run one warm-up step outside the timed
     steps.  Every other integrator raises naming its ROADMAP item."""
     from ..integrators import photonmap, render
+    from ..integrators.engine import resolve_device
+
+    resolve_device(device)  # no card, no render: raise before compiling
 
     cfg = build_config(scene)
     runners = {

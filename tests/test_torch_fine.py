@@ -240,15 +240,15 @@ def test_shadow_plain_floors_at_opaque():
 
 
 @pytest.mark.parametrize("n_tris, route", [
-    (64, "tiny"), (65, "Queue 2 item 6"), (384, "Queue 2 item 6"),
-    (385, "Queue 2 item 5"), (896, "Queue 2 item 5"), (897, "fine"),
-    (2304, "fine")])
+    (64, "tiny"), (65, "dense"), (384, "dense"), (385, "stream"),
+    (896, "stream"), (897, "fine"), (2304, "fine")])
 def test_dispatch_boundaries(monkeypatch, n_tris, route):
     """The reference's routing by pack shape: <= 64 triangles the tiny
     kernels; fewer than 4 clusters the dense kernels and 4 or more with
-    fewer than 8 sub-clusters the streaming kernels (both raise naming
-    their ROADMAP item); from 897 triangles (8 sub-clusters) the fine
+    fewer than 8 sub-clusters the streaming kernels (ops/
+    cluster_intersect.py); from 897 triangles (8 sub-clusters) the fine
     kernels."""
+    from libyafaray_tpu_torch.ops import cluster_intersect as cx
     from libyafaray_tpu_torch.scene.scene import SceneStatic
 
     v0, e1, e2 = (x[:n_tris] for x in _soup())
@@ -267,26 +267,23 @@ def test_dispatch_boundaries(monkeypatch, n_tris, route):
     for mod, name in ((ci, "closest_hit_tiny_plain"),
                       (ci, "shadow_logsum_tiny_plain"),
                       (fi, "closest_fine_plain"),
-                      (fi, "shadow_logsum_fine_plain")):
+                      (fi, "shadow_logsum_fine_plain"),
+                      (cx, "closest_dense_plain"),
+                      (cx, "shadow_logsum_dense_plain"),
+                      (cx, "closest_stream_plain"),
+                      (cx, "shadow_logsum_stream_plain")):
         fn = getattr(mod, name)
         monkeypatch.setattr(mod, name, lambda *a, fn=fn, name=name: (
             called.append(name), fn(*a))[1])
     o, d = _random_rays(np.random.default_rng(1), 16, 0.0, 6.0)
     args = (_t(o), _t(d))
     lim = (torch.full((16,), 5e-5), torch.full((16,), float("inf")))
-    if route in ("tiny", "fine"):
-        hit = isect.closest_hit(arrays, static, *args, *lim)
-        tr = isect.shadow_transmission(arrays, static, False, *args,
-                                       torch.full((16,), 3.0))
-        assert hit.t.shape == (16,) and tr.shape == (16, 3)
-        assert all(route in name for name in called) and len(called) == 2
-    else:
-        with pytest.raises(NotImplementedError, match=route):
-            isect.closest_hit(arrays, static, *args, *lim)
-        with pytest.raises(NotImplementedError, match=route):
-            isect.shadow_transmission(arrays, static, True, *args,
-                                      torch.full((16,), 3.0))
-        assert not called
+    assert isect.route(_t(pack), _t(cl), n_tris) == route
+    hit = isect.closest_hit(arrays, static, *args, *lim)
+    tr = isect.shadow_transmission(arrays, static, False, *args,
+                                   torch.full((16,), 3.0))
+    assert hit.t.shape == (16,) and tr.shape == (16, 3)
+    assert all(route in name for name in called) and len(called) == 2
 
 
 def test_fine_wrapper_routes_cpu_to_plain_and_counts_nothing(cases):

@@ -193,12 +193,25 @@ def test_wrapper_rejects_bad_inputs(cases):
 
 
 def test_dispatch_above_tiny_raises(cornell):
+    """Above TINY_TRIS the dispatch no longer raises (the dense range is
+    ported): 65 triangles in one cluster take the dense kernels, and over
+    Cornell's pack (its 33 columns past the real 32 are degenerate) they
+    find the tiny kernels' hits."""
     from libyafaray_tpu_torch import convert
     from libyafaray_tpu_torch.ops import intersect as isect
 
     st = convert.static_from_reference(cornell.static)
     big = type(st)(**{**st.__dict__, "n_tris_real": 65})
     arrays = convert.arrays_from_reference(cornell.arrays, "cpu")
-    o = torch.zeros((4, 3))
-    with pytest.raises(NotImplementedError, match="Queue 2 item 6"):
-        isect.closest_hit(arrays, big, o, o, torch.zeros(4), torch.ones(4))
+    assert isect.route(arrays["tri_pack10"], arrays["tri_cluster8"],
+                       65) == "dense"
+    rng = np.random.default_rng(2)
+    o = torch.from_numpy(rng.uniform(-0.5, 0.5, (64, 3)).astype(np.float32))
+    d = torch.from_numpy(rng.normal(size=(64, 3)).astype(np.float32))
+    lim = (torch.full((64,), 5e-5), torch.full((64,), float("inf")))
+    got = isect.closest_hit(arrays, big, o, d, *lim)
+    want = isect.closest_hit(arrays, st, o, d, *lim)
+    m = want.hit
+    assert m.any() and torch.equal(got.hit, m) and torch.equal(got.t, want.t)
+    for a, b in ((got.tri, want.tri), (got.u, want.u), (got.v, want.v)):
+        assert torch.equal(a[m], b[m])  # misses: the epilogue's column 0

@@ -97,7 +97,7 @@ def test_render_timed_counts_the_same_rays():
 def test_unported_config_raises(over, item):
     s, cfg = _setup(parse_xml_file, build_config, RenderConfig, 8, 1, **over)
     with pytest.raises(NotImplementedError, match=item):
-        render(s.compile(), cfg, device="cpu")
+        render(s.compile(device="cpu"), cfg, device="cpu")
 
 
 def _grid_renders(path, size, spp):

@@ -167,30 +167,44 @@ def test_unsupported_features_raise(body, item):
     from libyafaray_tpu_torch.integrators.engine import check_supported
 
     with pytest.raises(NotImplementedError, match=item):
-        cs = parse_xml_string(_SCENE.format(body=body)).compile()
+        cs = parse_xml_string(_SCENE.format(body=body)).compile(
+            device="cpu")
         check_supported(cs.static, RenderConfig(integrator="pathtracing"))
 
 
-def test_port_imports_no_jax_and_no_reference():
-    """In a fresh interpreter, importing the port (and chip_smoke.py) and
-    rendering 8x8 on the CPU leaves jax and libyafaray_tpu out of
-    sys.modules."""
+def test_port_imports_no_jax_and_no_reference(tmp_path):
+    """In a fresh interpreter, importing the port (and chip_smoke.py),
+    rendering 8x8 on the CPU, and generating a scene and rendering it
+    through the port's CLI leave jax and libyafaray_tpu out of
+    sys.modules; and chip_smoke.py's text names neither the JAX package's
+    modules nor the repository's scripts (it runs no subprocess of them)."""
+    with open(os.path.join(REPO, "chip_smoke.py")) as f:
+        smoke = f.read()
+    for bad in ("libyafaray_tpu.", "scripts/", "import jax"):
+        assert bad not in smoke, bad
     code = textwrap.dedent(f"""
         import sys
         sys.path.insert(0, {REPO!r})
+        import torch
+        torch.set_num_threads(1)
         from libyafaray_tpu_torch.integrators.config import RenderConfig
         from libyafaray_tpu_torch.integrators.render import render
         from libyafaray_tpu_torch.scene.session import build_config
         from libyafaray_tpu_torch.scene.xml_parser import parse_xml_file
+        from libyafaray_tpu_torch.scene.generate import write_grid_spheres
+        from libyafaray_tpu_torch.cli.yafaray_xml import main
         import libyafaray_tpu_torch.convert, libyafaray_tpu_torch.io.exr
         import chip_smoke  # the on-card script imports no jax either
+        xml = write_grid_spheres({str(tmp_path / "g.xml")!r}, 1, 1, 1, 8)
+        assert main([xml, {str(tmp_path / "g.exr")!r}, "--device", "cpu",
+                     "-vl", "warning"]) == 0
         s = parse_xml_file({CORNELL!r})
         s.render_params["width"] = 8
         s.render_params["height"] = 8
         c = build_config(s)
         c = RenderConfig(**{{**c.__dict__, "integrator": "pathtracing",
                             "aa_samples": 1, "width": 8, "height": 8}})
-        img = render(s.compile(), c, device="cpu").image
+        img = render(s.compile(device="cpu"), c, device="cpu").image
         assert img.shape == (8, 8, 3) and img.mean() > 0
         bad = [m for m in sys.modules if m == "jax" or m.startswith("jax.")
                or m == "libyafaray_tpu" or m.startswith("libyafaray_tpu.")]
