@@ -28,7 +28,15 @@ started together) and drives the four ported paths through them:
   (the streaming kernels), each kernel against its plain version on rays
   recorded from a real sample step, the render through the entry point
   `render_scene`, the same scene through the port's CLI to an .exr, one
-  profiled step, and the card against the CPU.
+  profiled step, and the card against the CPU;
+- slice 5, the pair-granular route (`Scene.compile(pairs=True)`): its two
+  kernels against their plain versions on slots recorded from a real grid
+  step, the pair route against the fine route on the grid's recorded
+  bounce-1 and NEE rays, the 164K grid at 512², 4 spp through
+  `render_scene(pairs=True)` against slice 2's fine-route render, one
+  profiled step split by stage, the card against the CPU on the
+  10,252-triangle grid, and the 131,072-triangle random soup with 262,144
+  incoherent and coherent rays on both routes against the brute force.
 Each path is rendered with every launch counter set to 0 just before it and
 read just after.  Every kernel's line carries its bound: the larger of its
 FP32 operations over the card's 67 TFLOP/s and its bytes (each input read
@@ -70,10 +78,11 @@ from libyafaray_tpu_torch.ops import cluster_intersect as cx  # noqa: E402
 from libyafaray_tpu_torch.ops import cuda_intersect as ci  # noqa: E402
 from libyafaray_tpu_torch.ops import fine_intersect as fi  # noqa: E402
 from libyafaray_tpu_torch.ops import intersect as isect  # noqa: E402
+from libyafaray_tpu_torch.ops import pairs_intersect as pi  # noqa: E402
 from libyafaray_tpu_torch.ops import photon_flash as pf  # noqa: E402
 from libyafaray_tpu_torch.integrators import photonmap  # noqa: E402
 from libyafaray_tpu_torch.scene.generate import (  # noqa: E402
-    write_grid_spheres)
+    make_rays, make_soup, write_grid_spheres)
 from libyafaray_tpu_torch.scene.session import (  # noqa: E402
     build_config, render_scene)
 from libyafaray_tpu_torch.scene.xml_parser import parse_xml_file  # noqa: E402
@@ -84,7 +93,7 @@ PHOTON = os.path.join(REPO, "scenes", "cornell_photon.xml")
 PHOTON_GOLDEN = os.path.join(REPO, "scenes", "goldens",
                              "cornell_photonmapping.exr")
 SOURCES = ("tiny_intersect", "fine_intersect", "photon_flash",
-           "cluster_intersect")
+           "cluster_intersect", "pairs_intersect")
 SRC = "libyafaray_tpu_torch/csrc/{}.cu"
 PALLAS = "libyafaray_tpu/ops/pallas_intersect.py:{}"
 FLASH = "libyafaray_tpu/ops/photon_flash.py:{}"
@@ -92,9 +101,10 @@ FLASH = "libyafaray_tpu/ops/photon_flash.py:{}"
 MAIN = dict(size=512, spp=64, bounces=4, rr_min_bounces=2)
 # slice 2: bench.py config 3 (the scene's own pathtracing settings)
 GRID = dict(grid=4, subdiv=4, size=512, spp=4)
-# shadow rays the plain brute force is compared and timed on: the first
-# (contiguous) light sample of the bounce-0 NEE block, one per pixel
-PLAIN_SHADOW_RAYS = 262144
+# rays the grid kernels' plain brute force is compared and timed on (it
+# runs ~40 ns a ray-triangle pair): every 4th primary ray, every 32nd of the
+# bounce-0 NEE block (light samples x pixels)
+PLAIN_GRID_STRIDE = dict(closest=4, shadow=32)
 # slice 3 runs cornell_photon.xml at its own settings (BASELINE config 3);
 # the golden is cornell.xml with the overrides it was rendered with
 GOLDEN_PHOTON = dict(integrator="photonmapping", photons=200_000,
@@ -104,14 +114,30 @@ CARD_VS_CPU_PHOTON = dict(size=32, aa_samples=2, photons=16_384,
                           caustic_photons=8_192, fg_samples=4)
 # the scale route: diffuse stores above CULL_MIN_PHOTONS
 SCALE = dict(size=128, aa_samples=1, photons=2_000_000)
-# queries the plain gathers are compared and timed on (bounds their time)
+# queries the plain gathers are compared and timed on (bounds their time);
+# the culled kernel's two plain versions over 3.68 M photons take half
 PLAIN_QUERIES = 16384
+PLAIN_CULLED_QUERIES = 8192
 PHOTON_TAGS = ("closest_tiny_kernel", "shadow_tiny_kernel",
                "density_flash_kernel", "nearest_flash_kernel")
 # slice 4: the generated mid-size scenes at the generator's own settings
 # (512², 16 spp, bounces 3, gauss filter, one area light with 8 samples)
 MID = (("dense", 1), ("stream", 2))  # (kernel pair, --grid), --subdiv 1
 MID_CARD_VS_CPU = dict(size=32, spp=2)
+# slice 5: the pair route on the grid path (GRID) and, at 32², 2 spp, on
+# the 10,252-triangle grid (81 clusters of 128); the 131K random soup of
+# the intersection benchmarks, soup131 (BT 1,024, 128 clusters)
+PAIRS_SMALL = dict(grid=2, subdiv=3, size=32, spp=2)
+SOUP = dict(tris=131072, rays=262144)
+# slots the plain pair versions are compared and timed on (bounds their time)
+PLAIN_SLOTS = 1 << 22
+PAIR_KERNELS = ("pairs_closest_kernel", "pairs_shadow_kernel",
+                "closest_fine_kernel", "shadow_fine_kernel")
+# the pair route's stages a profiled step splits its glue by
+PAIR_STAGES = {"pairs.entries": (pi, "nearest_clusters"),
+               "pairs.expand": (pi, "expand_pairs"),
+               "pairs.route": (pi, "closest_hit_pairs"),
+               "pairs.route_shadow": (pi, "shadow_logsum_pairs")}
 # the bounds: NVIDIA H100 SXM datasheet peaks, FP32
 # outside the tensor cores (counting a fused multiply-add as two; built with
 # -fmad=false, the kernels can reach half of it) and device memory
@@ -124,7 +150,13 @@ NEAREST_OPS = 8  # d2
 BOX_D2_OPS = 20  # point-box d2: per axis 2 sub, 3 max; then 3 mul, 2 add
 
 
+START = time.perf_counter()
+
+
 def phase(tag: str, **kv) -> None:
+    """One line per phase, ending with the seconds since the script
+    started (at_s): the run's time budget, phase by phase."""
+    kv["at_s"] = round(time.perf_counter() - START, 1)
     print(f"[{tag}] " + " ".join(f"{k}={v}" for k, v in kv.items()),
           flush=True)
 
@@ -174,16 +206,17 @@ def make_grid(out_dir: str, grid: int, subdiv: int) -> str:
         os.path.join(out_dir, f"grid{grid}_{subdiv}.xml"), grid, subdiv)
 
 
-def grid(path: str, size: int, spp: int, device: str):
+def grid(path: str, size: int, spp: int, device: str, pairs: bool = False):
     """Slice 2's inputs: parse -> build_config (the scene's own pathtracing
-    settings and gauss filter) -> compile."""
+    settings and gauss filter) -> compile (for the pair route with
+    pairs=True)."""
     scene = parse_xml_file(path)
     scene.render_params["width"] = size
     scene.render_params["height"] = size
     cfg = build_config(scene)
     cfg = RenderConfig(**{**cfg.__dict__, "width": size, "height": size,
                           "aa_samples": spp, "aa_passes": 1})
-    return scene.compile(device=device), cfg
+    return scene.compile(device=device, pairs=pairs), cfg
 
 
 def device_ms(fn, calls: int, replays: int = 5) -> float:
@@ -347,7 +380,8 @@ def check_fine_kernels(cscene, cfg, arrays) -> list:
     """The two large-scene kernels against their plain versions at the grid
     path's shapes: closest hit on the 262,144 primary rays of sample 0
     (hit, tri equal after the epilogue; t, u, v rtol 1e-4), shadows on the
-    bounce-0 NEE rays, the plain brute force on their first 262,144."""
+    bounce-0 NEE rays (transmission atol 2e-3), each compared with the plain
+    brute force on a strided sample (PLAIN_GRID_STRIDE)."""
     st = cscene.static
     pk, cl, sub = (arrays[k] for k in ("tri_pack10", "tri_cluster8",
                                        "tri_sub8"))
@@ -358,10 +392,13 @@ def check_fine_kernels(cscene, cfg, arrays) -> list:
 
     kt, kcol = fi.closest_hit_fine(pk, cl, sub, *primary, n_tris)
     torch.cuda.synchronize()
+    sample_c = tuple(x[::PLAIN_GRID_STRIDE["closest"]].contiguous()
+                     for x in primary)
     (pt, pcol), plain_ms_c = once_ms(
-        lambda: fi.closest_fine_plain(pk, *primary, n_tris))
-    k_hit = fi.closest_epilogue(pk, org, dirn, kt, kcol, n_tris)
-    p_hit = fi.closest_epilogue(pk, org, dirn, pt, pcol, n_tris)
+        lambda: fi.closest_fine_plain(pk, *sample_c, n_tris))
+    kt_c, kcol_c = (x[::PLAIN_GRID_STRIDE["closest"]] for x in (kt, kcol))
+    k_hit = fi.closest_epilogue(pk, *sample_c[:2], kt_c, kcol_c, n_tris)
+    p_hit = fi.closest_epilogue(pk, *sample_c[:2], pt, pcol, n_tris)
     phit = p_hit[4]
     if not torch.equal(k_hit[4], phit) or not torch.equal(k_hit[1][phit],
                                                           p_hit[1][phit]):
@@ -369,14 +406,17 @@ def check_fine_kernels(cscene, cfg, arrays) -> list:
     for name, i in (("t", 0), ("u", 2), ("v", 3)):
         if not torch.allclose(k_hit[i][phit], p_hit[i][phit], rtol=1e-4):
             raise AssertionError(f"closest_hit_fine: {name} beyond rtol 1e-4")
-    n_diff = int(((kt != pt) | (kcol != pcol)).sum())
+    n_diff = int(((kt_c != pt) | (kcol_c != pcol)).sum())
     n_rays = kt.shape[0]
+    n_cmp = pt.shape[0]
     err_c = max(float((k_hit[i][phit] - p_hit[i][phit]).abs().max())
                 for i in (0, 2, 3))
     kernel_c = lambda: fi.closest_hit_fine(  # noqa: E731
         pk, cl, sub, *primary, n_tris)
     ms_c = device_ms(kernel_c, calls=5, replays=3)
     call_ms_c = call_ms(kernel_c, calls=5)
+    ms_c_sub = device_ms(lambda: fi.closest_hit_fine(
+        pk, cl, sub, *sample_c, n_tris), calls=5, replays=3)
     pairs_c, boxes_c = fi.fine_pair_tests(
         cl, sub, org, dirn, primary[2], torch.minimum(primary[3], kt),
         n_tris)
@@ -384,17 +424,20 @@ def check_fine_kernels(cscene, cfg, arrays) -> list:
                     nbytes(pk, cl, sub, *primary, kt, kcol),
                     pair_tests=pairs_c, box_tests=boxes_c)
     phase("kernel", name="closest_hit_fine", tris=n_tris, rays=n_rays,
-          hits=int(phit.sum()), differ=n_diff, max_abs_err=err_c,
-          tolerance="hit,tri equal; t,u,v rtol 1e-4",
+          compared_rays=n_cmp, hits=int(phit.sum()), differ=n_diff,
+          max_abs_err=err_c, tolerance="hit,tri equal; t,u,v rtol 1e-4",
           ms=round(ms_c, 4), call_ms=round(call_ms_c, 4),
-          plain_ms=round(plain_ms_c, 4), plain="one eager call", **bound_c)
+          ms_on_compared=round(ms_c_sub, 4), plain_ms=round(plain_ms_c, 4),
+          plain=f"one eager call on every "
+          f"{PLAIN_GRID_STRIDE['closest']}th ray", **bound_c)
 
     klg = fi.shadow_logsum_fine(pk, cl, sub, logf, *shadow, n_tris)
     torch.cuda.synchronize()
-    sub_rays = tuple(x[:PLAIN_SHADOW_RAYS] for x in shadow)
+    sub_rays = tuple(x[::PLAIN_GRID_STRIDE["shadow"]].contiguous()
+                     for x in shadow)
     plg, plain_ms_s = once_ms(
         lambda: fi.shadow_logsum_fine_plain(pk, logf, *sub_rays, n_tris))
-    klg_sub = klg[:PLAIN_SHADOW_RAYS]
+    klg_sub = klg[::PLAIN_GRID_STRIDE["shadow"]]
     err_s = float((torch.exp(klg_sub) - torch.exp(plg)).abs().max())
     if err_s > 2e-3:
         raise AssertionError(f"shadow_logsum_fine: transmission off by "
@@ -413,23 +456,24 @@ def check_fine_kernels(cscene, cfg, arrays) -> list:
                     nbytes(pk, cl, sub, logf, *shadow, klg),
                     pair_tests=pairs_s, box_tests=boxes_s)
     phase("kernel", name="shadow_logsum_fine", tris=n_tris, rays=n_sh,
-          live=int((shadow[2] > 0).sum()), compared_rays=PLAIN_SHADOW_RAYS,
+          live=int((shadow[2] > 0).sum()), compared_rays=plg.shape[0],
           differ=n_diff_s, max_abs_err=err_s,
           tolerance="transmission atol 2e-3", ms=round(ms_s, 4),
           call_ms=round(call_ms_s, 4), ms_on_compared=round(ms_s_sub, 4),
           plain_ms=round(plain_ms_s, 4),
-          plain=f"one eager call on the first {PLAIN_SHADOW_RAYS} rays",
-          **bound_s)
+          plain=f"one eager call on every "
+          f"{PLAIN_GRID_STRIDE['shadow']}th ray", **bound_s)
     return [
         dict(name="closest_hit_fine", route="cuda",
              source=SRC.format("fine_intersect"),
              replaces=PALLAS.format(910), max_abs_err=err_c, ms=ms_c,
-             plain_ms=plain_ms_c, **bound_c),
+             plain_ms=plain_ms_c, rays=n_rays, plain_rays=n_cmp,
+             ms_on_plain_rays=ms_c_sub, **bound_c),
         dict(name="shadow_logsum_fine", route="cuda",
              source=SRC.format("fine_intersect"),
              replaces=PALLAS.format(1019), max_abs_err=err_s, ms=ms_s,
              plain_ms=plain_ms_s, rays=n_sh,
-             plain_rays=PLAIN_SHADOW_RAYS, ms_on_plain_rays=ms_s_sub,
+             plain_rays=plg.shape[0], ms_on_plain_rays=ms_s_sub,
              **bound_s),
     ]
 
@@ -439,7 +483,8 @@ WRAPPERS = {fn.__name__: fn for fn in (
     ci.closest_hit_tiny, ci.shadow_logsum_tiny, fi.closest_hit_fine,
     fi.shadow_logsum_fine, pf.density_flash, pf.nearest_flash,
     pf.density_culled, cx.closest_hit_dense, cx.shadow_logsum_dense,
-    cx.closest_hit_stream, cx.shadow_logsum_stream)}
+    cx.closest_hit_stream, cx.shadow_logsum_stream, pi.pairs_closest,
+    pi.pairs_shadow)}
 
 
 def counted(run):
@@ -495,24 +540,54 @@ def card_vs_cpu(tag, make, size, spp) -> None:
         raise AssertionError(f"{tag}: card and CPU renders disagree")
 
 
-def profile_step(step, arrays, cfg, kernel_tags: tuple) -> dict:
+def _stage_ms(events, stages) -> dict:
+    """Device ms of the aten kernels launched inside each `stages` range
+    (the innermost one), by the profiler's CPU-op -> kernel links."""
+    out = dict.fromkeys(stages, 0.0)
+    for e in events:
+        if not getattr(e, "kernels", None):
+            continue
+        p = e
+        while p is not None and p.name not in out:
+            p = p.cpu_parent
+        if p is not None:
+            out[p.name] += sum(k.duration for k in e.kernels) / 1e3
+    return {k: round(v, 4) for k, v in out.items()}
+
+
+def profile_step(step, arrays, cfg, kernel_tags: tuple,
+                 stages: dict | None = None) -> dict:
     """One sample step under torch.profiler, after an unprofiled one: its
     kernel launches, the device's busy milliseconds (the union of its
     kernel and copy intervals), the milliseconds of the ported kernels
     whose names hold one of `kernel_tags` (in all, per launch in launch
     order, and per tag as ms / launches), and the aten ops with the most
-    device time (ms / calls)."""
+    device time (ms / calls).  `stages` ({range name: (module, function
+    name)}) wraps those functions in profiler ranges for the profiled step
+    and adds the device ms of the aten kernels inside each."""
     from torch.autograd import DeviceType
-    from torch.profiler import ProfilerActivity, profile
+    from torch.profiler import ProfilerActivity, profile, record_function
 
     dev = engine.resolve_device("cuda")
     flags = torch.ones((cfg.height, cfg.width), dtype=torch.bool, device=dev)
     film = step(arrays, _fresh_film(cfg, dev), flags)
     torch.cuda.synchronize()
-    with profile(activities=[ProfilerActivity.CPU,
-                             ProfilerActivity.CUDA]) as prof:
-        step(arrays, film, flags)
-        torch.cuda.synchronize()
+    saved = {}
+    for name, (module, fn_name) in (stages or {}).items():
+        fn = saved[(module, fn_name)] = getattr(module, fn_name)
+
+        def ranged(*a, _fn=fn, _name=name, **k):
+            with record_function(_name):
+                return _fn(*a, **k)
+        setattr(module, fn_name, ranged)
+    try:
+        with profile(activities=[ProfilerActivity.CPU,
+                                 ProfilerActivity.CUDA]) as prof:
+            step(arrays, film, flags)
+            torch.cuda.synchronize()
+    finally:
+        for (module, fn_name), fn in saved.items():
+            setattr(module, fn_name, fn)
     spans = sorted((e.time_range.start, e.time_range.end, e.name)
                    for e in prof.events()
                    if getattr(e, "device_type", None) == DeviceType.CUDA)
@@ -528,6 +603,9 @@ def profile_step(step, arrays, cfg, kernel_tags: tuple) -> dict:
     ported = [(next(t for t in kernel_tags if t in n), (b - a) / 1e3)
               for a, b, n in spans if any(t in n for t in kernel_tags)]
     by_tag = {t: [ms for k, ms in ported if k == t] for t in kernel_tags}
+    extra = {}
+    if stages:
+        extra["stage_ms"] = _stage_ms(prof.events(), stages)
     return dict(
         kernel_launches=sum(not n.startswith(("Memcpy", "Memset"))
                             for _, _, n in spans),
@@ -537,14 +615,15 @@ def profile_step(step, arrays, cfg, kernel_tags: tuple) -> dict:
         ported_by_kernel={t: f"{sum(v):.4f}ms/{len(v)}"
                           for t, v in by_tag.items()},
         top_ops={e.key: f"{e.device_time_total / 1e3:.4f}ms/{e.count}"
-                 for e in ops})
+                 for e in ops}, **extra)
 
 
-def profile(tag, res, step, arrays, cfg, kernel_tags, smi) -> None:
+def profile(tag, res, step, arrays, cfg, kernel_tags, smi,
+            stages=None) -> None:
     """The profile phase line of a path: one step profiled, its wall time
     the path's unprofiled render_s per sample."""
     step_ms = 1e3 * res.stats["render_s"] / cfg.aa_samples
-    prof = profile_step(step, arrays, cfg, kernel_tags)
+    prof = profile_step(step, arrays, cfg, kernel_tags, stages)
     busy = prof["device_busy_ms"]
     phase(tag, step_ms=round(step_ms, 3), **prof,
           busy_share=(busy / step_ms if isinstance(busy, float)
@@ -718,11 +797,11 @@ def check_photon_kernels(pre_calls, step_calls) -> list:
 def check_culled_kernel(calls) -> dict:
     """density_culled on the scale route's culled diffuse pack and its
     radiance-map queries: counts equal to density_flash_plain's and
-    density_culled_plain's on the first PLAIN_QUERIES queries, and to the
-    flash kernel's over the same sorted photons on all of them."""
+    density_culled_plain's on the first PLAIN_CULLED_QUERIES queries, and
+    to the flash kernel's over the same sorted photons on all of them."""
     pack, qp, qn, r = next(a for name, a in calls if name == "density_auto"
                            and "tbl" in a[0])
-    n = PLAIN_QUERIES
+    n = PLAIN_CULLED_QUERIES
     (kf, kc), differ, err, plain_ms = compare_density(
         "density_culled", pf.density_culled, pf.density_culled_plain,
         pack, qp, qn, r, n)
@@ -913,20 +992,19 @@ def photon_phases(smi) -> list:
 # ---- slice 4: mid-size meshes (the dense and streaming kernels) -----------
 
 
-def mid_calls(cscene, cfg, kind: str):
-    """One sample step on the card with the pair's wrappers recording their
-    arguments: per path vertex a closest hit (the first on the primary
-    rays) and an NEE shadow batch (the first at bounce 0: light samples x
-    pixels).  Returns (step, arrays, closest calls, shadow calls)."""
+def step_calls(cscene, cfg, module, names: tuple):
+    """One sample step on the card with the wrappers `names` of `module`
+    recording their arguments, in call order (per path vertex a closest
+    hit, the first on the primary rays, and an NEE shadow batch, the first
+    at bounce 0: light samples x pixels).  Returns (step, arrays, {name:
+    [args, ...]})."""
     step, arrays = path_step(cscene, cfg)
     dev = engine.resolve_device("cuda")
     flags = torch.ones((cfg.height, cfg.width), dtype=torch.bool, device=dev)
-    names = (f"closest_hit_{kind}", f"shadow_logsum_{kind}")
-    _, calls = record_calls(cx, names, lambda: step(
+    _, calls = record_calls(module, names, lambda: step(
         arrays, _fresh_film(cfg, dev), flags))
     torch.cuda.synchronize()
-    return (step, arrays, [a for n, a in calls if n == names[0]],
-            [a for n, a in calls if n == names[1]])
+    return step, arrays, {n: [a for k, a in calls if k == n] for n in names}
 
 
 def check_mid_closest(kind: str, args, rays: str) -> dict:
@@ -1051,13 +1129,13 @@ def mid_phases(scenes: str, smi) -> list:
               spp=cfg.aa_samples)
         if routes != (kind, kind):
             raise AssertionError(f"{kind}_scene: routed {routes}")
-        step, arrays, closest, shadow = mid_calls(cs, cfg, kind)
-        prim = check_mid_closest(kind, closest[0], "primary")
-        bounce = check_mid_closest(kind, closest[1], "bounce 1")
-        shad = check_mid_shadow(kind, shadow[0])
-        del closest, shadow
-
         names = (f"closest_hit_{kind}", f"shadow_logsum_{kind}")
+        step, arrays, calls = step_calls(cs, cfg, cx, names)
+        prim = check_mid_closest(kind, calls[names[0]][0], "primary")
+        bounce = check_mid_closest(kind, calls[names[0]][1], "bounce 1")
+        shad = check_mid_shadow(kind, calls[names[1]][0])
+        del calls
+
         res, launches = counted(
             lambda: render_scene(scene, device="cuda", timed=True))
         others = {k: v for k, v in launches.items() if k not in names and v}
@@ -1087,6 +1165,313 @@ def mid_phases(scenes: str, smi) -> list:
             replaces=PALLAS.format(353 if kind == "dense" else 693),
             launches=launches[names[1]], max_abs_err=shad["err"],
             ms=shad["ms"], plain_ms=shad["plain_ms"], **shad["bound"]))
+    return kernels
+
+
+# ---- slice 5: the pair-granular route -------------------------------------
+
+
+def ties_only(pack10, org, dirn, col, other, t) -> bool:
+    """Where two closest-hit columns differ, the other column gives the
+    same t in the kernels' arithmetic: an exact tie."""
+    c10 = pack10[:, other.long()]
+    t_o, _, _, ok = ci._mt_test(c10, slice(None), *org.unbind(-1),
+                                *dirn.unbind(-1))
+    return bool(ok.all()) and torch.equal(t_o, t)
+
+
+def plain_sample(p: int) -> slice:
+    """Every k-th slot, at most PLAIN_SLOTS of them: the slots are sorted by
+    cluster, so a stride reaches every cluster where a prefix would not."""
+    return slice(None, None, -(-p // PLAIN_SLOTS))
+
+
+def check_pairs_closest(args, sub8) -> dict:
+    """pairs_closest against its plain version on recorded slots (the
+    grid's bounce-1 rays, round 1): t, col and the hits equal on a strided
+    sample of at most PLAIN_SLOTS slots.  The bound counts, per slot, the
+    columns of its cluster's sub-clusters entered below min(tmax, its t)."""
+    pk, n_cl, sray, scl, org, dirn, tmin, tmax, n_tris = args
+    p = sray.shape[0]
+    kt, kcol = pi.pairs_closest(*args)
+    torch.cuda.synchronize()
+    sel = plain_sample(p)
+    (pt, pcol), plain_ms = once_ms(lambda: pi.pairs_closest_plain(
+        pk, n_cl, sray[sel], scl[sel], org, dirn, tmin, tmax, n_tris))
+    kt_s, kcol_s = kt[sel], kcol[sel]
+    m = pt.shape[0]
+    hit = torch.isfinite(pt)
+    if not (torch.equal(torch.isfinite(kt_s), hit)
+            and torch.equal(kt_s, pt) and torch.equal(kcol_s, pcol)):
+        raise AssertionError("pairs_closest: t, col or hits differ from "
+                             "plain")
+    err = float((kt_s[hit] - pt[hit]).abs().max()) if hit.any() else 0.0
+    call = lambda: pi.pairs_closest(*args)  # noqa: E731
+    ms = device_ms(call, calls=5, replays=3)
+    r = sray.long()
+    pairs, boxes = pi.slot_pair_tests(sub8, n_cl, sray, scl, org, dirn,
+                                      tmin[r], torch.minimum(tmax[r], kt),
+                                      n_tris)
+    bnd = bound(MT_OPS * pairs + BOX_OPS * boxes,
+                nbytes(pk, sray, scl, org, dirn, tmin, tmax, kt, kcol),
+                pair_tests=pairs, box_tests=boxes, slots=p)
+    phase("kernel", name="pairs_closest", rays="bounce 1, round 1",
+          n=org.shape[0], tris=n_tris, clusters=n_cl, compared_slots=m,
+          compared_stride=sel.step, hits=int(torch.isfinite(kt).sum()),
+          differ=int(((kt_s != pt) | (kcol_s != pcol)).sum()),
+          max_abs_err=err, tolerance="t, col, hits equal", ms=round(ms, 4),
+          call_ms=round(call_ms(call, calls=5), 4),
+          plain_ms=round(plain_ms, 4),
+          plain=f"one eager call on every {sel.step}th slot ({m})", **bnd)
+    return dict(name="pairs_closest", route="cuda",
+                source=SRC.format("pairs_intersect"),
+                replaces=PALLAS.format(1237), max_abs_err=err, ms=ms,
+                plain_ms=plain_ms, plain_slots=m, **bnd)
+
+
+def check_pairs_shadow(args, sub8) -> dict:
+    """pairs_shadow against its plain version on recorded slots (the grid's
+    bounce-0 NEE rays): transmission within atol 2e-3 on a strided sample
+    of at most PLAIN_SLOTS slots.  The bound counts, per slot, the columns
+    of its cluster's sub-clusters the segment enters."""
+    pk, n_cl, logf, sray, scl, org, dirn, dist, n_tris = args
+    p = sray.shape[0]
+    klg = pi.pairs_shadow(*args)
+    torch.cuda.synchronize()
+    sel = plain_sample(p)
+    plg, plain_ms = once_ms(lambda: pi.pairs_shadow_plain(
+        pk, n_cl, logf, sray[sel], scl[sel], org, dirn, dist, n_tris))
+    klg_s = klg[sel]
+    m = plg.shape[0]
+    err = float((torch.exp(klg_s) - torch.exp(plg)).abs().max())
+    if err > 2e-3:
+        raise AssertionError(f"pairs_shadow: transmission off by {err} > "
+                             "2e-3")
+    call = lambda: pi.pairs_shadow(*args)  # noqa: E731
+    ms = device_ms(call, calls=3, replays=3)
+    lo, hi = cx.shadow_limits(dist)
+    r = sray.long()
+    pairs, boxes = pi.slot_pair_tests(sub8, n_cl, sray, scl, org, dirn,
+                                      lo[r], hi[r], n_tris)
+    bnd = bound(MT_OPS * pairs + BOX_OPS * boxes,
+                nbytes(pk, logf, sray, scl, org, dirn, dist, klg),
+                pair_tests=pairs, box_tests=boxes, slots=p)
+    phase("kernel", name="pairs_shadow", rays="bounce-0 NEE",
+          n=org.shape[0], tris=n_tris, clusters=n_cl, compared_slots=m,
+          compared_stride=sel.step,
+          differ=int((klg_s != plg).any(dim=-1).sum()),
+          max_abs_err=err, tolerance="transmission atol 2e-3",
+          ms=round(ms, 4), call_ms=round(call_ms(call, calls=3), 4),
+          plain_ms=round(plain_ms, 4),
+          plain=f"one eager call on every {sel.step}th slot ({m})", **bnd)
+    return dict(name="pairs_shadow", route="cuda",
+                source=SRC.format("pairs_intersect"),
+                replaces=PALLAS.format(1283), max_abs_err=err, ms=ms,
+                plain_ms=plain_ms, plain_slots=m, **bnd)
+
+
+def compare_routes(what: str, closest, shadow) -> None:
+    """The pair route against the fine route on the same rays (closest
+    args of `closest_hit_fine`, shadow args of `shadow_logsum_fine`): t and
+    hits equal, columns only on exact ties, transmission within atol 2e-3;
+    eager ms per call of each (the pair route reads slot and straggler
+    counts from the device, so it is not captured in a graph)."""
+    pk, cl, sub, org, dirn, tmin, tmax, n_tris = closest
+    ft, fcol = fi.closest_hit_fine(*closest)
+    pt, pcol = pi.closest_hit_pairs(*closest)
+    flip = torch.isfinite(ft) & (pcol != fcol)
+    if not torch.equal(pt, ft) or not ties_only(
+            pk, org[flip], dirn[flip], pcol[flip], fcol[flip], ft[flip]):
+        raise AssertionError(f"{what}: the pair route's closest hits differ "
+                             "from the fine route's")
+    c_pairs = call_ms(lambda: pi.closest_hit_pairs(*closest), calls=3)
+    c_fine = call_ms(lambda: fi.closest_hit_fine(*closest), calls=3)
+    flg = fi.shadow_logsum_fine(*shadow)
+    plg = pi.shadow_logsum_pairs(*shadow)
+    err = float((torch.exp(plg) - torch.exp(flg)).abs().max())
+    if err > 2e-3:
+        raise AssertionError(f"{what}: pair route transmission off by {err}")
+    s_pairs = call_ms(lambda: pi.shadow_logsum_pairs(*shadow), calls=2)
+    s_fine = call_ms(lambda: fi.shadow_logsum_fine(*shadow), calls=2)
+    phase("pairs_vs_fine", scene=what, closest_rays=org.shape[0],
+          hits=int(torch.isfinite(ft).sum()), col_ties=int(flip.sum()),
+          closest_pairs_ms=round(c_pairs, 4), closest_fine_ms=round(c_fine, 4),
+          shadow_rays=shadow[4].shape[0], shadow_max_abs_err=err,
+          shadow_pairs_ms=round(s_pairs, 4), shadow_fine_ms=round(s_fine, 4))
+
+
+def fine_bounce(closest, fine_kernel: dict) -> None:
+    """closest_hit_fine on the grid's recorded bounce-1 rays: its ms and
+    its bound there, added to its kernel entry."""
+    pk, cl, sub, org, dirn, tmin, tmax, n_tris = closest
+    kt, _ = fi.closest_hit_fine(*closest)
+    ms = device_ms(lambda: fi.closest_hit_fine(*closest), calls=3, replays=3)
+    pairs, boxes = fi.fine_pair_tests(cl, sub, org, dirn, tmin,
+                                      torch.minimum(tmax, kt), n_tris)
+    bnd = bound(MT_OPS * pairs + BOX_OPS * boxes,
+                nbytes(pk, cl, sub, org, dirn, tmin, tmax) + 8 * org.shape[0],
+                pair_tests=pairs, box_tests=boxes)
+    phase("kernel", name="closest_hit_fine", rays="bounce 1",
+          n=org.shape[0], hits=int(torch.isfinite(kt).sum()),
+          ms=round(ms, 4), **bnd)
+    fine_kernel.update(ms_bounce=ms, bound_ms_bounce=bnd["bound_ms"],
+                       pair_tests_bounce=pairs, box_tests_bounce=boxes)
+
+
+def pairs_path(path: str, gcfg, fine_res, smi):
+    """The grid at GRID's settings through render_scene(pairs=True), held to
+    slice 2's fine-route render: rays within 0.01%, image RMSE <= 1e-4.
+    The pair kernels launch, the fine kernels only for stragglers, no
+    other kernel."""
+    scene = parse_xml_file(path)
+    scene.render_params.update(width=GRID["size"], height=GRID["size"],
+                               AA_minsamples=GRID["spp"], AA_passes=1)
+    cfg = build_config(scene)
+    if cfg != gcfg:
+        raise AssertionError("pairs_path: not the grid path's config")
+    res, launches = counted(lambda: render_scene(
+        scene, device="cuda", timed=True, pairs=True))
+    names = ("pairs_closest", "pairs_shadow", "closest_hit_fine",
+             "shadow_logsum_fine")
+    others = {k: v for k, v in launches.items() if k not in names and v}
+    rmse = float(np.sqrt(np.mean((res.image - fine_res.image) ** 2)))
+    r_p, r_f = res.stats["rays"], fine_res.stats["rays"]
+    rel = abs(r_p - r_f) / max(r_f, 1.0)
+    steps = cfg.aa_samples + 1
+    phase("pairs_path", size=f"{cfg.width}x{cfg.height}", spp=cfg.aa_samples,
+          bounces=cfg.bounces, render_s=round(res.stats["render_s"], 4),
+          rays=r_p, mrays_per_s=round(res.mrays_per_sec, 3),
+          fine_mrays_per_s=round(fine_res.mrays_per_sec, 3),
+          launches={k: launches[k] for k in names},
+          launches_per_step={k: launches[k] / steps for k in names},
+          rmse_vs_fine=rmse, rays_rel=rel, bound=1e-4, gpu=repr(smi))
+    if others:
+        raise AssertionError(f"pairs_path: off-path kernels {others}")
+    if not (launches["pairs_closest"] and launches["pairs_shadow"]):
+        raise AssertionError("pairs_path: a pair kernel never launched")
+    if not np.all(np.isfinite(res.image)) or res.image.min() < 0.0:
+        raise AssertionError("pairs_path: image is not finite and >= 0")
+    if not (rmse <= 1e-4 and rel <= 1e-4):
+        raise AssertionError("pairs_path: the pair route's render differs "
+                             "from the fine route's")
+    return res, launches
+
+
+def soup131(smi) -> None:
+    """The 131,072-triangle random soup (BT 1,024, 128 clusters) with
+    262,144 incoherent and coherent rays (`scene/generate.py` make_soup /
+    make_rays, the benchmarks' bench_pairs rays and filters), the pair and
+    the fine route for
+    closest hits and shadows, each against the plain brute force on the
+    first 16,384 rays; eager ms per call of each route."""
+    v0, e1, e2 = make_soup(SOUP["tris"])
+    n_tris = v0.shape[0]
+    pack, cl8, s_ord = ci.build_tri_pack(v0, e1, e2,
+                                         ci.morton_order(v0, e1, e2))
+    rng = np.random.default_rng(9)
+    filt = (rng.random((n_tris, 3))
+            * (rng.random((n_tris, 1)) > 0.5)).astype(np.float32)
+    tp = pack.shape[1]
+    fcols = np.where((np.arange(tp) < n_tris)[None, :], filt[s_ord].T, 1.0)
+    dev = "cuda"
+    pk = torch.from_numpy(pack).to(dev)
+    cl = torch.from_numpy(cl8).to(dev)
+    sub = torch.from_numpy(fi.sub_aabbs(pack, n_tris)).to(dev)
+    logf = ci.log_filter(torch.from_numpy(
+        np.ascontiguousarray(fcols, np.float32)).to(dev))
+    n = SOUP["rays"]
+    m = PLAIN_QUERIES
+    for kind in ("incoherent", "coherent"):
+        o, d = (torch.from_numpy(x).to(dev) for x in make_rays(n, kind))
+        tmin = torch.full((n,), 1e-3, device=dev)
+        tmax = torch.full((n,), 1e9, device=dev)
+        dist = torch.from_numpy(rng.uniform(0.3, 1.5, n).astype(np.float32)
+                                * 10.0).to(dev)
+        closest = (pk, cl, sub, o, d, tmin, tmax, n_tris)
+        shadow = (pk, cl, sub, logf, o, d, dist, n_tris)
+        bt, bcol = fi.closest_fine_plain(pk, o[:m], d[:m], tmin[:m],
+                                         tmax[:m], n_tris)
+        blg = fi.shadow_logsum_fine_plain(pk, logf, o[:m], d[:m], dist[:m],
+                                          n_tris)
+        out = {}
+        for route, c_fn, s_fn in (
+                ("pairs", pi.closest_hit_pairs, pi.shadow_logsum_pairs),
+                ("fine", fi.closest_hit_fine, fi.shadow_logsum_fine)):
+            t, col = c_fn(*closest)
+            flip = torch.isfinite(bt) & (col[:m] != bcol)
+            if not torch.equal(t[:m], bt) or not ties_only(
+                    pk, o[:m][flip], d[:m][flip], col[:m][flip], bcol[flip],
+                    bt[flip]):
+                raise AssertionError(f"soup131 {kind}: {route} closest hits "
+                                     "differ from the brute force")
+            err = float((torch.exp(s_fn(*shadow)[:m])
+                         - torch.exp(blg)).abs().max())
+            if err > 2e-3:
+                raise AssertionError(f"soup131 {kind}: {route} shadows off "
+                                     f"by {err}")
+            out[route] = dict(
+                col_ties=int(flip.sum()), shadow_err=err,
+                closest_ms=round(call_ms(lambda: c_fn(*closest), 2), 4),
+                shadow_ms=round(call_ms(lambda: s_fn(*shadow), 2), 4))
+        phase("soup131", rays=kind, n=n, tris=n_tris,
+              clusters=cl.shape[1], sub_clusters=sub.shape[1],
+              compared_rays=m, hits=int(torch.isfinite(bt).sum()),
+              pairs=out["pairs"], fine=out["fine"],
+              closest_speedup=out["fine"]["closest_ms"]
+              / out["pairs"]["closest_ms"],
+              shadow_speedup=out["fine"]["shadow_ms"]
+              / out["pairs"]["shadow_ms"], gpu=repr(smi))
+
+
+def pairs_phases(scenes: str, grid_path: str, gscene, gcfg, fine_res,
+                 fine_kernel, smi) -> list:
+    """Slice 5: the pair kernels against their plain versions on slots
+    recorded from a grid step, the fine kernel's bounce-1 bound, the two
+    routes on the same recorded rays, the grid path through the pair route,
+    one profiled step, the card against the CPU on the 10K grid, and the
+    soup."""
+    _, _, calls = step_calls(gscene, gcfg, fi, ("closest_hit_fine",
+                                                "shadow_logsum_fine"))
+    fine_bounce(calls["closest_hit_fine"][1], fine_kernel)
+    compare_routes("grid164k", calls["closest_hit_fine"][1],
+                   calls["shadow_logsum_fine"][0])
+    del calls
+
+    pscene, _ = grid(grid_path, GRID["size"], GRID["spp"], "cuda",
+                     pairs=True)
+    step, arrays, calls = step_calls(pscene, gcfg, pi, ("pairs_closest",
+                                                        "pairs_shadow"))
+    rounds = [a[2].shape[0] for a in calls["pairs_closest"]]
+    phase("pairs_slots", closest_per_round=rounds,
+          shadow=[a[3].shape[0] for a in calls["pairs_shadow"]])
+    kernels = [check_pairs_closest(calls["pairs_closest"][2],
+                                   arrays["tri_sub8"]),
+               check_pairs_shadow(calls["pairs_shadow"][0],
+                                  arrays["stri_sub8"])]
+    del calls
+
+    res, launches = pairs_path(grid_path, gcfg, fine_res, smi)
+    for k in kernels:
+        k["launches"] = launches[k["name"]]
+    profile("pairs_profile", res, step, arrays, gcfg, PAIR_KERNELS, smi,
+            stages=PAIR_STAGES)
+    del step, arrays
+
+    small = make_grid(scenes, PAIRS_SMALL["grid"], PAIRS_SMALL["subdiv"])
+    cs, _ = grid(small, PAIRS_SMALL["size"], PAIRS_SMALL["spp"], "cuda",
+                 pairs=True)
+    a = cs.arrays
+    route = isect.route(a["tri_pack10"], a["tri_cluster8"],
+                        cs.static.n_tris_real, cs.static.pairs)
+    phase("pairs_small_scene", tris=cs.static.n_tris_real,
+          clusters=a["tri_cluster8"].shape[1], route=route)
+    if route != "pairs":
+        raise AssertionError(f"pairs_small_scene: routed {route}")
+    card_vs_cpu("pairs_card_vs_cpu", lambda dev: grid(
+        small, PAIRS_SMALL["size"], PAIRS_SMALL["spp"], dev, pairs=True),
+        PAIRS_SMALL["size"], PAIRS_SMALL["spp"])
+
+    soup131(smi)
     return kernels
 
 
@@ -1184,13 +1569,17 @@ def main() -> None:
         card_vs_cpu("grid_card_vs_cpu", lambda dev: grid(small, 32, 2, dev),
                     32, 2)
 
-        # 10. slice 4: the mid-size scenes on the dense and stream kernels
+        # 10. slice 5: the pair route on the grid, the 10K grid and the soup
+        pairs = pairs_phases(scenes, path, gscene, gcfg, res, fine[0], smi)
+
+        # 11. slice 4: the mid-size scenes on the dense and stream kernels
         mid = mid_phases(scenes, smi)
 
-    # 11. slice 3: photon mapping on cornell_photon.xml
+    # 12. slice 3: photon mapping on cornell_photon.xml
     photon = photon_phases(smi)
 
-    print(json.dumps({"kernels": kernels + fine + photon + mid}), flush=True)
+    print(json.dumps({"kernels": kernels + fine + photon + mid + pairs}),
+          flush=True)
     print(smi, flush=True)
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": kind,

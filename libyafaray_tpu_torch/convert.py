@@ -70,8 +70,8 @@ def arrays_from_reference(arrays: dict, device) -> dict:
 
 
 def _copy_fields(cls, ref, **override):
-    return cls(**{f.name: override.get(f.name, getattr(ref, f.name))
-                  for f in dataclasses.fields(cls)})
+    return cls(**{f.name: override[f.name] if f.name in override
+                  else getattr(ref, f.name) for f in dataclasses.fields(cls)})
 
 
 def static_from_reference(static) -> SceneStatic:
@@ -85,8 +85,10 @@ def static_from_reference(static) -> SceneStatic:
         if getattr(static, name, 0):
             raise NotImplementedError(
                 f"{what} are not ported yet: ROADMAP Queue 1 item {item}")
+    # the reference takes its pair route from an environment flag, not its
+    # static: a converted static asks for the default routes
     return _copy_fields(
-        SceneStatic, static,
+        SceneStatic, static, pairs=False,
         lights=tuple(_copy_fields(LightStatic, ls) for ls in static.lights),
         bg=_copy_fields(BackgroundSpec, static.bg),
         mat_families=tuple(int(c) for c in static.mat_families))

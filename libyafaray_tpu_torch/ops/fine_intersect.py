@@ -110,7 +110,8 @@ def box_entry(box8, org, dirn, lo, hi):
     """(N, C) entry distance of each ray's interval [lo, hi] into each box
     of a (8, C) table, widened as the kernels widen it (1e-5 of the largest
     face and ray-origin magnitude per axis); inf where the interval misses
-    the box.  The boxes must be finite (real clusters)."""
+    the box.  A (8, N, C) table, C boxes per ray, gives (1, N, C).  The
+    boxes must be finite (real clusters)."""
     eps = 1e-12
     d = torch.where(dirn.abs() < eps, torch.where(dirn < 0, -eps, eps), dirn)
     iv = torch.ones_like(d) / d
@@ -235,7 +236,7 @@ def closest_hit_fine(pack10, cluster8, sub8, org, dirn, tmin, tmax,
             *_scene_args(pack10, cluster8, sub8, n_tris), org.data_ptr(),
             dirn.data_ptr(), tmin.data_ptr(), tmax.data_ptr(), n,
             t.data_ptr(), col.data_ptr(), stream)
-    closest_hit_fine.launches += 1
+    _WRAPPERS["closest_hit_fine"].launches += 1
     _raise_on(code, "closest_hit_fine")
     return t, col
 
@@ -269,12 +270,15 @@ def shadow_logsum_fine(pack10, cluster8, sub8, logf, org, dirn, dist,
             *_scene_args(pack10, cluster8, sub8, n_tris), logf.data_ptr(),
             logf.shape[1], org.data_ptr(), dirn.data_ptr(), dist.data_ptr(),
             n, lg.data_ptr(), stream)
-    shadow_logsum_fine.launches += 1
+    _WRAPPERS["shadow_logsum_fine"].launches += 1
     _raise_on(code, "shadow_logsum_fine")
     return lg
 
 
 shadow_logsum_fine.launches = 0
+# the wrappers whose launches they count, bound here so a caller that wraps
+# a module attribute (to record calls) keeps the counts
+_WRAPPERS = {f.__name__: f for f in (closest_hit_fine, shadow_logsum_fine)}
 
 
 def shadow_transmission_fine(pack10, cluster8, sub8, filt4, org, dirn, dist,

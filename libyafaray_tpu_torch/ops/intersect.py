@@ -9,10 +9,14 @@ ops/pallas_intersect.py, by pack shape:
   (`ops/cluster_intersect.py`, 65 to 384 triangles);
 - 4 or more clusters that do not take the gathered-fine kernels (fewer
   than 8 sub-clusters): the streaming kernels (same module, 385 to 896);
-- the rest: the gathered-fine kernels (`ops/fine_intersect.py`).
-The reference's pair-granular kernels are off by default (`LIBYAF_PAIRS`)
-and are not taken.  Each wrapper launches its CUDA kernel for a CUDA
-tensor and runs its plain PyTorch version for a CPU tensor.
+- the rest: the gathered-fine kernels (`ops/fine_intersect.py`);
+- on request (`Scene.compile(pairs=True)`, which sets `SceneStatic.pairs`)
+  and at PAIRS_MIN_CLUSTERS = 64 clusters or more: the pair-granular route
+  (`ops/pairs_intersect.py`), its stragglers through the fine kernels.
+The reference takes its pair route from an environment flag
+(`LIBYAF_PAIRS`); the port only from the caller's argument.  Each wrapper
+launches its CUDA kernel for a CUDA tensor and runs its plain PyTorch
+version for a CPU tensor.
 """
 from __future__ import annotations
 
@@ -21,7 +25,8 @@ from typing import NamedTuple
 import numpy as np
 import torch
 
-from . import cluster_intersect, cuda_intersect, fine_intersect
+from . import (cluster_intersect, cuda_intersect, fine_intersect,
+               pairs_intersect)
 
 RAY_EPS = 5e-5  # reference ray_min_dist default
 SHADOW_EPS = 5e-4  # reference shadow_bias default
@@ -68,11 +73,21 @@ def pad_triangles(v0, e1, e2, multiple: int):
             np.concatenate([e2, z]), t)
 
 
-def route(pack10: torch.Tensor, cluster8: torch.Tensor, n_tris: int) -> str:
-    """The kernel pair a pack takes: "tiny", "dense", "stream" or "fine"."""
+def route(pack10: torch.Tensor, cluster8: torch.Tensor, n_tris: int,
+          pairs: bool = False) -> str:
+    """The kernels a pack takes: "tiny", "dense", "stream" or "fine"; or
+    "pairs" when the caller asks for it and the pack has at least
+    PAIRS_MIN_CLUSTERS clusters."""
     if n_tris <= TINY_TRIS:
         return "tiny"
     tp, n_cl = pack10.shape[1], cluster8.shape[1]
+    if pairs and n_cl >= pairs_intersect.PAIRS_MIN_CLUSTERS:
+        # the pair route's stragglers take the fine kernels
+        if not fine_intersect.takes_fine_path(tp, n_cl):
+            raise ValueError(f"a pack of {tp} columns in {n_cl} clusters "
+                             "cannot take the fine kernels the pair route's "
+                             "stragglers need")
+        return "pairs"
     if n_cl < fine_intersect.FB_MIN_CLUSTERS:
         return "dense"
     if not fine_intersect.takes_fine_path(tp, n_cl):
@@ -87,14 +102,15 @@ def closest_hit(arrays: dict, static, org, dirn, tmin, tmax) -> Hit:
     org, dirn = org.contiguous(), dirn.contiguous()
     tmin, tmax = tmin.contiguous(), tmax.contiguous()
     cl = arrays["tri_cluster8"]
-    kind = route(pack, cl, n_tris)
+    kind = route(pack, cl, n_tris, static.pairs)
     if kind == "tiny":
         return Hit(*cuda_intersect.closest_hit_tiny(pack, org, dirn, tmin,
                                                     tmax, n_tris=n_tris))
-    if kind == "fine":
-        t, col = fine_intersect.closest_hit_fine(
-            pack, cl, arrays["tri_sub8"], org, dirn, tmin, tmax,
-            n_tris=n_tris)
+    if kind in ("fine", "pairs"):
+        kernel = (fine_intersect.closest_hit_fine if kind == "fine"
+                  else pairs_intersect.closest_hit_pairs)
+        t, col = kernel(pack, cl, arrays["tri_sub8"], org, dirn, tmin, tmax,
+                        n_tris=n_tris)
     else:
         kernel = getattr(cluster_intersect, f"closest_hit_{kind}")
         t, col = kernel(pack, cl, org, dirn, tmin, tmax, n_tris=n_tris)
@@ -110,13 +126,14 @@ def shadow_transmission(arrays: dict, static, transp_shad: bool, org, dirn,
     filt4 = arrays["sfilt4"] if transp_shad else arrays["sfilt4_binary"]
     org, dirn, dist = org.contiguous(), dirn.contiguous(), dist.contiguous()
     cl = arrays["stri_cluster8"]
-    kind = route(pack, cl, n_tris)
+    kind = route(pack, cl, n_tris, static.pairs)
     if kind == "tiny":
         return cuda_intersect.shadow_transmission_tiny(
             pack, filt4, org, dirn, dist, n_tris=n_tris)
-    if kind == "fine":
-        return fine_intersect.shadow_transmission_fine(
-            pack, cl, arrays["stri_sub8"], filt4, org, dirn, dist,
-            n_tris=n_tris)
+    if kind in ("fine", "pairs"):
+        kernel = (fine_intersect.shadow_transmission_fine if kind == "fine"
+                  else pairs_intersect.shadow_transmission_pairs)
+        return kernel(pack, cl, arrays["stri_sub8"], filt4, org, dirn, dist,
+                      n_tris=n_tris)
     kernel = getattr(cluster_intersect, f"shadow_transmission_{kind}")
     return kernel(pack, cl, filt4, org, dirn, dist, n_tris=n_tris)

@@ -12,6 +12,10 @@ same XML, byte for byte.  The triangle count is 20·4^subdiv per sphere
 
     python -m libyafaray_tpu_torch.scene.generate --grid 1 --subdiv 1 \\
         --out scene.xml
+
+Also the intersection benchmarks' random triangle soup and ray batches
+(`make_soup`, `make_rays`: the same arrays as scripts/bench_intersect.py
+for the same arguments).
 """
 from __future__ import annotations
 
@@ -135,6 +139,45 @@ def write_grid_spheres(path: str, grid: int = 8, subdiv: int = 3,
     with open(path, "w") as fh:
         fh.write(grid_spheres_xml(grid, subdiv, spp, size))
     return path
+
+
+def make_soup(n: int, seed: int = 0, extent: float = 10.0,
+              tri_size: float = 0.4):
+    """(v0, e1, e2) float32 (n, 3) of n random triangles: corners uniform in
+    a cube of half-width `extent`, edges normal with deviation tri_size.
+    Their Morton clusters overlap everywhere: the worst case for box
+    culling."""
+    rng = np.random.default_rng(seed)
+    v0 = rng.uniform(-extent, extent, (n, 3)).astype(np.float32)
+    e1 = rng.normal(0, tri_size, (n, 3)).astype(np.float32)
+    e2 = rng.normal(0, tri_size, (n, 3)).astype(np.float32)
+    return v0, e1, e2
+
+
+def make_rays(n: int, kind: str, seed: int = 1, ctr=None, ext=None):
+    """(org, dir) float32 (n, 3) of n rays over the box ctr ± ext (default
+    the origin ± 10): "coherent" from one camera-like origin cluster towards
+    targets in scanline order, as primary rays arrive; otherwise
+    ("incoherent") origins uniform in the box and directions uniform on the
+    sphere, as bounce rays."""
+    rng = np.random.default_rng(seed)
+    ctr = np.zeros(3) if ctr is None else np.asarray(ctr)
+    ext = np.full(3, 10.0) if ext is None else np.asarray(ext)
+    if kind == "coherent":
+        org = (ctr + np.array([0.0, 0.0, 3.0]) * ext
+               + rng.normal(0, 0.02, (n, 3)) * ext).astype(np.float32)
+        side = int(np.sqrt(n))
+        gy, gx = np.meshgrid(np.linspace(-1, 1, side),
+                             np.linspace(-1, 1, side), indexing="ij")
+        tgt = np.stack([gx.ravel(), gy.ravel(), np.zeros(side * side)],
+                       axis=1)
+        tgt = np.concatenate([tgt, tgt[: n - len(tgt)]])[:n] * ext + ctr
+        d = tgt.astype(np.float32) - org
+    else:
+        org = (ctr + rng.uniform(-1, 1, (n, 3)) * ext).astype(np.float32)
+        d = rng.normal(0, 1, (n, 3)).astype(np.float32)
+    d /= np.linalg.norm(d, axis=1, keepdims=True) + 1e-12
+    return org, d.astype(np.float32)
 
 
 def main(argv=None) -> None:

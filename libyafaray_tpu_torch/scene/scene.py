@@ -71,6 +71,9 @@ class SceneStatic:
     intersector: str  # "brute" | "bvh"
     chunk: int
     n_spheres: int = 0
+    # the caller asked for the pair-granular intersection route (packs of
+    # PAIRS_MIN_CLUSTERS clusters or more take it; ops/intersect.py)
+    pairs: bool = False
 
 
 @dataclass
@@ -178,10 +181,13 @@ class Scene:
 
     # ---- compile (scene_t::update analog) ------------------------------
 
-    def compile(self, device: str = "cuda") -> CompiledScene:
+    def compile(self, device: str = "cuda", *,
+                pairs: bool = False) -> CompiledScene:
         """Lower the scene to numpy arrays + statics.  `device` is the torch
         device the render will run on (default the card, as the entry
-        points); it only picks the intersector, so it needs no card."""
+        points); it only picks the intersector, so it needs no card.
+        pairs=True asks for the pair-granular intersection route, which
+        packs of 64 or more clusters (above ~8,000 triangles) then take."""
         blocks = [b for b in (finalize_mesh(m) for m in self.meshes.values())
                   if b is not None]
         materials = list(self.materials)
@@ -378,7 +384,7 @@ class Scene:
             mat_families=families, has_blend=0,
             ray_min_dist=self.ray_min_dist, shadow_bias=self.shadow_bias,
             intersector=intersector, chunk=chunk,
-            n_spheres=len(self.analytic_spheres),
+            n_spheres=len(self.analytic_spheres), pairs=bool(pairs),
         )
         cam = next(iter(self.cameras.values())) if self.cameras else Camera()
         cam_name = self.render_params.get_str("camera_name", "")

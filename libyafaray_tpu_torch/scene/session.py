@@ -35,14 +35,16 @@ def build_config(scene: Scene) -> RenderConfig:
     return config_from_params(scene.render_params, surf, vol)
 
 
-def render_scene(scene: Scene, *, device="cuda", timed: bool = False
-                 ) -> RenderResult:
+def render_scene(scene: Scene, *, device="cuda", timed: bool = False,
+                 pairs: bool = False) -> RenderResult:
     """The entry point: build the config, compile for `device` (default
     the card; it raises without one, device="cpu" renders on the CPU) and
     render with the scene's integrator (pathtracing -> integrators.render,
     photonmapping -> integrators.photonmap).  timed=True takes the
     benchmark variants, which run one warm-up step outside the timed
-    steps.  Every other integrator raises naming its ROADMAP item."""
+    steps.  pairs=True asks for the pair-granular intersection route (packs
+    of 64 or more clusters take it).  Every other integrator raises naming
+    its ROADMAP item."""
     from ..integrators import photonmap, render
     from ..integrators.engine import resolve_device
 
@@ -59,5 +61,5 @@ def render_scene(scene: Scene, *, device="cuda", timed: bool = False
             f"integrator {cfg.integrator!r} is not ported yet: ROADMAP Queue "
             "1 items 12 (directlighting), 14 (SPPM) and 18 (bidirectional, "
             "DebugIntegrator)")
-    return runners[cfg.integrator][timed](scene.compile(device=device), cfg,
-                                          device=device)
+    return runners[cfg.integrator][timed](
+        scene.compile(device=device, pairs=pairs), cfg, device=device)
