@@ -5,7 +5,7 @@ Run from the repository root on a machine with one NVIDIA GPU:
     python3 chip_smoke.py
 
 It builds the port's CUDA kernels from csrc/ (one nvcc per source, all
-started together) and drives the four ported paths through them:
+started together) and drives the ported paths through them:
 - slice 1, the Cornell pathtracing main path (bench.py config 1): the two
   tiny-scene kernels against their plain PyTorch versions at the path's
   shapes, the 512²·64 spp render, one profiled sample step, the physics
@@ -17,7 +17,9 @@ started together) and drives the four ported paths through them:
   CPU on a small generated grid;
 - slice 3, photon mapping on scenes/cornell_photon.xml (BASELINE config 3,
   glass and glossy analytic spheres): the three photon-gather kernels
-  against their plain versions at the path's shapes, the full-width render
+  against their plain versions at the path's shapes (the nearest lookup's
+  culled search also against the brute-force kernel on every query), the
+  full-width render
   (512², 16 spp, 200,000 + 100,000 photons, final gather 16) through the
   entry point `render_scene`, one profiled sample step, cornell.xml against
   the stored photon-mapping golden, the card against the CPU, and the
@@ -31,12 +33,17 @@ started together) and drives the four ported paths through them:
   profiled step, and the card against the CPU;
 - slice 5, the pair-granular route (`Scene.compile(pairs=True)`): its two
   kernels against their plain versions on slots recorded from a real grid
-  step, the pair route against the fine route on the grid's recorded
+  step, the fine kernels on the grid's recorded bounce-1 rays (the closest
+  hit against its plain version where the walk order matters, the
+  one-sample shadow launch with its bound), the pair route against the
+  fine route on the grid's recorded
   bounce-1 and NEE rays, the 164K grid at 512², 4 spp through
   `render_scene(pairs=True)` against slice 2's fine-route render, one
   profiled step split by stage, the card against the CPU on the
-  10,252-triangle grid, and the 131,072-triangle random soup with 262,144
-  incoherent and coherent rays on both routes against the brute force.
+  10,252-triangle grid, the 131,072-triangle random soup with 262,144
+  incoherent and coherent rays on both routes against the brute force, and
+  the fine closest hit on a 300,000-triangle soup (more cluster boxes than
+  one sweep of its walk holds) against the brute force.
 Each path is rendered with every launch counter set to 0 just before it and
 read just after.  Every kernel's line carries its bound: the larger of its
 FP32 operations over the card's 67 TFLOP/s and its bytes (each input read
@@ -119,7 +126,8 @@ SCALE = dict(size=128, aa_samples=1, photons=2_000_000)
 PLAIN_QUERIES = 16384
 PLAIN_CULLED_QUERIES = 8192
 PHOTON_TAGS = ("closest_tiny_kernel", "shadow_tiny_kernel",
-               "density_flash_kernel", "nearest_flash_kernel")
+               "density_flash_kernel", "nearest_flash_kernel",
+               "nearest_culled_kernel")
 # slice 4: the generated mid-size scenes at the generator's own settings
 # (512², 16 spp, bounces 3, gauss filter, one area light with 8 samples)
 MID = (("dense", 1), ("stream", 2))  # (kernel pair, --grid), --subdiv 1
@@ -129,6 +137,9 @@ MID_CARD_VS_CPU = dict(size=32, spp=2)
 # the intersection benchmarks, soup131 (BT 1,024, 128 clusters)
 PAIRS_SMALL = dict(grid=2, subdiv=3, size=32, spp=2)
 SOUP = dict(tris=131072, rays=262144)
+# a pack of more clusters than one sweep of closest_hit_fine's walk holds
+# (256): 300,000 triangles in 293 clusters of 1,024
+SWEEPS = dict(tris=300_000, rays=16384)
 # slots the plain pair versions are compared and timed on (bounds their time)
 PLAIN_SLOTS = 1 << 22
 PAIR_KERNELS = ("pairs_closest_kernel", "pairs_shadow_kernel",
@@ -422,7 +433,8 @@ def check_fine_kernels(cscene, cfg, arrays) -> list:
         n_tris)
     bound_c = bound(MT_OPS * pairs_c + BOX_OPS * boxes_c,
                     nbytes(pk, cl, sub, *primary, kt, kcol),
-                    pair_tests=pairs_c, box_tests=boxes_c)
+                    pair_tests=pairs_c, box_tests=boxes_c,
+                    **walk_bracket(cl, sub, *primary, n_tris))
     phase("kernel", name="closest_hit_fine", tris=n_tris, rays=n_rays,
           compared_rays=n_cmp, hits=int(phit.sum()), differ=n_diff,
           max_abs_err=err_c, tolerance="hit,tri equal; t,u,v rtol 1e-4",
@@ -476,6 +488,15 @@ def check_fine_kernels(cscene, cfg, arrays) -> list:
              plain_rays=plg.shape[0], ms_on_plain_rays=ms_s_sub,
              **bound_s),
     ]
+
+
+def walk_bracket(cl, sub, org, dirn, tmin, tmax, n_tris) -> dict:
+    """The most a closest-hit walk can need: the pair and box tests of
+    every box the whole interval [tmin, tmax] enters (a walk that never
+    culls by its best t).  With the bound's count (boxes entered before
+    the hit) it brackets what a walk tests."""
+    pairs, boxes = fi.fine_pair_tests(cl, sub, org, dirn, tmin, tmax, n_tris)
+    return dict(pair_tests_no_cull=pairs, box_tests_no_cull=boxes)
 
 
 # every kernel wrapper of the port, by name: each counts its launches
@@ -677,9 +698,10 @@ def record_calls(module, names, run):
 
 
 def gather_calls(run):
-    """run() with photonmap's gathers (density_auto, nearest_flash)
-    recording their arguments."""
-    return record_calls(photonmap, ("density_auto", "nearest_flash"), run)
+    """run() with photonmap's gathers (density_auto, nearest_flash) and
+    the function that packs the radiance map recording their arguments."""
+    return record_calls(photonmap, ("density_auto", "nearest_flash",
+                                    "make_photon_pack_lookup"), run)
 
 
 def photon_inputs(cscene, cfg):
@@ -727,12 +749,19 @@ def valid_photons(pack: dict) -> int:
 
 def check_photon_kernels(pre_calls, step_calls) -> list:
     """density_flash at both of the path's shapes (the step's caustic
-    gather, the first radiance-map precompute gather) and nearest_flash at
-    the step's first final-gather lookup, against their plain versions."""
+    gather, the first radiance-map precompute gather) against its plain
+    version, and nearest_flash at the step's first final-gather lookup:
+    the culled search on the path's sorted pack against the brute-force
+    kernel on the same photons in their original order, on every query
+    (found and best d2 equal, values rtol 1e-5), each kernel against its
+    plain version on the first PLAIN_QUERIES queries."""
     caustic = next(a for name, a in step_calls if name == "density_auto")
     nearest = next(a for name, a in step_calls if name == "nearest_flash")
+    radiance = next(a for name, a in pre_calls if name == "density_auto")
+    photons = next(a for name, a in pre_calls
+                   if name == "make_photon_pack_lookup")
     out = {}
-    for what, args in (("caustic", caustic), ("radiance", pre_calls[0][1])):
+    for what, args in (("caustic", caustic), ("radiance", radiance)):
         pack, qp, qn, r = args
         n = qp.shape[0]
         (_, kc), differ, err, plain_ms = compare_density(
@@ -752,33 +781,63 @@ def check_photon_kernels(pre_calls, step_calls) -> list:
         out[what] = dict(ms=ms, plain_ms=plain_ms, err=err, bound=bnd)
 
     pack, qp, r = nearest
+    if "tbl" not in pack:
+        raise AssertionError("nearest_flash: the path's radiance pack is "
+                             "not the sorted layout")
+    flash = pf.make_photon_pack(*photons)
     n = PLAIN_QUERIES
-    kv, kfound = pf.nearest_flash(pack, qp, r)
+    nq = qp.shape[0]
+    kv, kbest = pf.nearest_flash_best(pack, qp, r)
+    bv, bbest = pf.nearest_flash_best(flash, qp, r)
     torch.cuda.synchronize()
-    (pv, pfound), plain_ms = once_ms(
-        lambda: pf.nearest_flash_plain(pack, qp[:n], r))
-    differ = int((kfound[:n] != pfound).sum())
-    err = float((kv[:n] - pv).abs().max())
-    if differ or not torch.allclose(kv[:n], pv, rtol=1e-5,
-                                    atol=1e-6 * float(pv.abs().max())):
-        raise AssertionError(f"nearest_flash: {differ} found flags differ, "
-                             f"value err {err}")
+    kfound = torch.isfinite(kbest)
+    scale = float(bv.abs().max())
+    differ_b = int((kbest != bbest).sum())
+    err_b = float((kv - bv).abs().max())
+    if differ_b or not torch.allclose(kv, bv, rtol=1e-5, atol=1e-6 * scale):
+        raise AssertionError(f"nearest_flash: {differ_b} best d2 differ from "
+                             f"the brute-force kernel's, value err {err_b}")
+    err, differ_p = 0.0, 0
+    plain_ms = {}
+    for what, kernel_v, kernel_best, plain, p in (
+            ("culled", kv, kbest, pf.nearest_culled_plain, pack),
+            ("brute", bv, bbest, pf.nearest_flash_plain, flash)):
+        (pv, pfound), plain_ms[what] = once_ms(lambda: plain(p, qp[:n], r))
+        differ = int((torch.isfinite(kernel_best[:n]) != pfound).sum())
+        e = float((kernel_v[:n] - pv).abs().max())
+        err, differ_p = max(err, e), max(differ_p, differ)
+        if differ or not torch.allclose(kernel_v[:n], pv, rtol=1e-5,
+                                        atol=1e-6 * scale):
+            raise AssertionError(f"nearest_flash ({what}): {differ} found "
+                                 f"flags differ from plain, value err {e}")
     kernel = lambda: pf.nearest_flash(pack, qp, r)  # noqa: E731
-    ms_n = device_ms(kernel, calls=2, replays=3)
+    brute = lambda: pf.nearest_flash(flash, qp, r)  # noqa: E731
+    ms_n = device_ms(kernel, calls=4, replays=3)
+    ms_brute = device_ms(brute, calls=2, replays=3)
     ms_n_sub = device_ms(lambda: pf.nearest_flash(pack, qp[:n], r),
                          calls=5, replays=3)
-    nq = qp.shape[0]
-    pairs = nq * valid_photons(pack)
-    bnd = bound(NEAREST_OPS * pairs,
-                nbytes(pack["pos_t"], pack["val"], qp) + 4 * nq + 16 * nq,
-                pair_tests=pairs)
+    moved = nbytes(pack["tbl"][0:3], pack["tbl"][6:10], pack["cl_lo"],
+                   pack["cl_hi"], qp) + 4 * nq + 16 * nq
+    pairs, boxes = pf.nearest_pair_tests(pack, qp, r, kbest)
+    bnd = bound(NEAREST_OPS * pairs + BOX_D2_OPS * boxes, moved,
+                pair_tests=pairs, box_tests=boxes)
+    pairs_b = nq * valid_photons(flash)
+    bnd_b = bound(NEAREST_OPS * pairs_b,
+                  nbytes(flash["pos_t"], flash["val"], qp) + 4 * nq + 16 * nq)
     phase("kernel", name="nearest_flash", queries=nq,
-          photons=pack["pos_t"].shape[1], radius=r, compared_queries=n,
-          found=int(kfound.sum()), differ=differ, max_abs_err=err,
-          tolerance="found equal; value rtol 1e-5", ms=round(ms_n, 4),
-          call_ms=round(call_ms(kernel, 2), 4),
-          ms_on_compared=round(ms_n_sub, 4), plain_ms=round(plain_ms, 4),
-          plain=f"one eager call on the first {n} queries", **bnd)
+          photons=pack["tbl"].shape[1], clusters=pack["cl_lo"].shape[0],
+          radius=r, compared_queries=n, found=int(kfound.sum()),
+          differ=differ_p, differ_vs_brute=differ_b, max_abs_err=err,
+          max_abs_err_vs_brute=err_b,
+          tolerance="found, best d2 equal; value rtol 1e-5",
+          ms=round(ms_n, 4), ms_before=round(ms_brute, 4),
+          call_ms=round(call_ms(kernel, 4), 4),
+          ms_on_compared=round(ms_n_sub, 4),
+          plain_ms=round(plain_ms["culled"], 4),
+          plain_ms_brute=round(plain_ms["brute"], 4),
+          plain=f"one eager call on the first {n} queries",
+          bound_ms_before=bnd_b["bound_ms"], pair_tests_before=pairs_b,
+          clusters_per_query=round(pairs / pf.BP / nq, 3), **bnd)
     c, rd = out["caustic"], out["radiance"]
     return [
         dict(name="density_flash", route="cuda",
@@ -789,8 +848,10 @@ def check_photon_kernels(pre_calls, step_calls) -> list:
              bound_ms_radiance=rd["bound"]["bound_ms"], **c["bound"]),
         dict(name="nearest_flash", route="cuda",
              source=SRC.format("photon_flash"), replaces=FLASH.format(123),
-             max_abs_err=err, ms=ms_n, plain_ms=plain_ms,
-             plain_queries=n, ms_on_plain_queries=ms_n_sub, **bnd),
+             max_abs_err=err, ms=ms_n, plain_ms=plain_ms["culled"],
+             plain_queries=n, ms_on_plain_queries=ms_n_sub,
+             ms_brute=ms_brute, bound_ms_brute=bnd_b["bound_ms"],
+             pair_tests_brute=pairs_b, **bnd),
     ]
 
 
@@ -798,7 +859,9 @@ def check_culled_kernel(calls) -> dict:
     """density_culled on the scale route's culled diffuse pack and its
     radiance-map queries: counts equal to density_flash_plain's and
     density_culled_plain's on the first PLAIN_CULLED_QUERIES queries, and
-    to the flash kernel's over the same sorted photons on all of them."""
+    to the flash kernel's over the same sorted photons on all of them; and
+    the culled nearest search over that pack (thousands of clusters) against
+    the brute-force kernel in best d2."""
     pack, qp, qn, r = next(a for name, a in calls if name == "density_auto"
                            and "tbl" in a[0])
     n = PLAIN_CULLED_QUERIES
@@ -814,6 +877,13 @@ def check_culled_kernel(calls) -> dict:
     if not torch.equal(fc, kc):
         raise AssertionError("density_culled: counts differ from the flash "
                              "kernel's over the same photons")
+    # the nearest search over the same pack: thousands of clusters, many
+    # sweeps of 256; its best d2 equals the brute force's over the photons
+    _, nbest = pf.nearest_flash_best(pack, qp, r)
+    _, fbest = pf.nearest_flash_best(flat, qp, r)
+    if not torch.equal(nbest, fbest):
+        raise AssertionError("nearest_flash: best d2 over the culled pack "
+                             "differs from the brute-force kernel's")
     kernel = lambda: pf.density_culled(pack, qp, qn, r)  # noqa: E731
     ms = device_ms(kernel, calls=3, replays=3)
     nq = qp.shape[0]
@@ -827,6 +897,8 @@ def check_culled_kernel(calls) -> dict:
           clusters=pack["cl_lo"].shape[0], radius=r, compared_queries=n,
           counted=int(kc.sum()), differ=differ, max_abs_err=err,
           flux_differ_vs_flash_kernel=int((kf != ff).any(dim=1).sum()),
+          nearest_found=int(torch.isfinite(nbest).sum()),
+          nearest_differ_vs_brute=int((nbest != fbest).sum()),
           tolerance="counts equal; flux rtol 1e-5, atol 1e-6*scale",
           ms=round(ms, 4), call_ms=round(call_ms(kernel, 3), 4),
           flash_kernel_ms=round(flash_ms, 4), plain_ms=round(plain_ms, 4),
@@ -1301,19 +1373,53 @@ def compare_routes(what: str, closest, shadow) -> None:
 
 
 def fine_bounce(closest, fine_kernel: dict) -> None:
-    """closest_hit_fine on the grid's recorded bounce-1 rays: its ms and
-    its bound there, added to its kernel entry."""
+    """closest_hit_fine on the grid's recorded bounce-1 rays, where a
+    warp's rays share no boxes and the walk order matters: t and col equal
+    to the plain brute force on a strided sample, its ms and its bound
+    there, added to its kernel entry."""
     pk, cl, sub, org, dirn, tmin, tmax, n_tris = closest
-    kt, _ = fi.closest_hit_fine(*closest)
+    kt, kcol = fi.closest_hit_fine(*closest)
+    torch.cuda.synchronize()
+    step = PLAIN_GRID_STRIDE["closest"]
+    sample = tuple(x[::step].contiguous() for x in (org, dirn, tmin, tmax))
+    (pt, pcol), plain_ms = once_ms(
+        lambda: fi.closest_fine_plain(pk, *sample, n_tris))
+    differ = int(((kt[::step] != pt) | (kcol[::step] != pcol)).sum())
+    if differ:
+        raise AssertionError(f"closest_hit_fine: {differ} bounce-1 rays "
+                             "differ from plain in t or col")
     ms = device_ms(lambda: fi.closest_hit_fine(*closest), calls=3, replays=3)
     pairs, boxes = fi.fine_pair_tests(cl, sub, org, dirn, tmin,
                                       torch.minimum(tmax, kt), n_tris)
     bnd = bound(MT_OPS * pairs + BOX_OPS * boxes,
                 nbytes(pk, cl, sub, org, dirn, tmin, tmax) + 8 * org.shape[0],
-                pair_tests=pairs, box_tests=boxes)
+                pair_tests=pairs, box_tests=boxes,
+                **walk_bracket(cl, sub, org, dirn, tmin, tmax, n_tris))
     phase("kernel", name="closest_hit_fine", rays="bounce 1",
           n=org.shape[0], hits=int(torch.isfinite(kt).sum()),
-          ms=round(ms, 4), **bnd)
+          compared_rays=pt.shape[0], differ=differ,
+          tolerance="t, col equal", ms=round(ms, 4),
+          plain_ms=round(plain_ms, 4),
+          plain=f"one eager call on every {step}th ray", **bnd)
+    fine_kernel.update(ms_bounce=ms, bound_ms_bounce=bnd["bound_ms"],
+                       pair_tests_bounce=pairs, box_tests_bounce=boxes)
+
+
+def fine_bounce_shadow(shadow, fine_kernel: dict) -> None:
+    """shadow_logsum_fine on the grid's recorded bounce-1 NEE rays (one
+    light sample a pixel): its ms and its bound there, added to its
+    kernel entry."""
+    pk, cl, sub, logf, org, dirn, dist, n_tris = shadow
+    lg = fi.shadow_logsum_fine(*shadow)
+    ms = device_ms(lambda: fi.shadow_logsum_fine(*shadow), calls=3,
+                   replays=3)
+    pairs, boxes = fi.fine_pair_tests(cl, sub, org, dirn,
+                                      *cx.shadow_limits(dist), n_tris)
+    bnd = bound(MT_OPS * pairs + BOX_OPS * boxes,
+                nbytes(pk, cl, sub, logf, org, dirn, dist, lg),
+                pair_tests=pairs, box_tests=boxes)
+    phase("kernel", name="shadow_logsum_fine", rays="bounce-1 NEE",
+          n=org.shape[0], live=int((dist > 0).sum()), ms=round(ms, 4), **bnd)
     fine_kernel.update(ms_bounce=ms, bound_ms_bounce=bnd["bound_ms"],
                        pair_tests_bounce=pairs, box_tests_bounce=boxes)
 
@@ -1423,16 +1529,42 @@ def soup131(smi) -> None:
               / out["pairs"]["shadow_ms"], gpu=repr(smi))
 
 
+def fine_sweeps() -> None:
+    """closest_hit_fine on a random soup of more than 256 clusters, where
+    its walk takes the cluster boxes in more than one sweep: t and col
+    equal to the plain brute force on incoherent rays."""
+    v0, e1, e2 = make_soup(SWEEPS["tris"])
+    n_tris = v0.shape[0]
+    pack, cl8, _ = ci.build_tri_pack(v0, e1, e2, ci.morton_order(v0, e1, e2))
+    pk, cl, sub = (torch.from_numpy(x).to("cuda") for x in (
+        pack, cl8, fi.sub_aabbs(pack, n_tris)))
+    n = SWEEPS["rays"]
+    o, d = (torch.from_numpy(x).to("cuda")
+            for x in make_rays(n, "incoherent"))
+    tmin = torch.full((n,), 1e-3, device="cuda")
+    tmax = torch.full((n,), 1e9, device="cuda")
+    kt, kcol = fi.closest_hit_fine(pk, cl, sub, o, d, tmin, tmax, n_tris)
+    pt, pcol = fi.closest_fine_plain(pk, o, d, tmin, tmax, n_tris)
+    differ = int(((kt != pt) | (kcol != pcol)).sum())
+    phase("fine_sweeps", tris=n_tris, clusters=cl.shape[1], rays=n,
+          hits=int(torch.isfinite(pt).sum()), differ=differ,
+          tolerance="t, col equal")
+    if cl.shape[1] <= 256 or differ:
+        raise AssertionError(f"fine_sweeps: {differ} rays differ from plain "
+                             f"over {cl.shape[1]} clusters")
+
+
 def pairs_phases(scenes: str, grid_path: str, gscene, gcfg, fine_res,
-                 fine_kernel, smi) -> list:
+                 fine_kernels, smi) -> list:
     """Slice 5: the pair kernels against their plain versions on slots
-    recorded from a grid step, the fine kernel's bounce-1 bound, the two
+    recorded from a grid step, the fine kernels on bounce-1 rays, the two
     routes on the same recorded rays, the grid path through the pair route,
-    one profiled step, the card against the CPU on the 10K grid, and the
-    soup."""
+    one profiled step, the card against the CPU on the 10K grid, the soup,
+    and the fine closest hit over a pack of several sweeps."""
     _, _, calls = step_calls(gscene, gcfg, fi, ("closest_hit_fine",
                                                 "shadow_logsum_fine"))
-    fine_bounce(calls["closest_hit_fine"][1], fine_kernel)
+    fine_bounce(calls["closest_hit_fine"][1], fine_kernels[0])
+    fine_bounce_shadow(calls["shadow_logsum_fine"][1], fine_kernels[1])
     compare_routes("grid164k", calls["closest_hit_fine"][1],
                    calls["shadow_logsum_fine"][0])
     del calls
@@ -1472,6 +1604,7 @@ def pairs_phases(scenes: str, grid_path: str, gscene, gcfg, fine_res,
         PAIRS_SMALL["size"], PAIRS_SMALL["spp"])
 
     soup131(smi)
+    fine_sweeps()
     return kernels
 
 
@@ -1570,7 +1703,7 @@ def main() -> None:
                     32, 2)
 
         # 10. slice 5: the pair route on the grid, the 10K grid and the soup
-        pairs = pairs_phases(scenes, path, gscene, gcfg, res, fine[0], smi)
+        pairs = pairs_phases(scenes, path, gscene, gcfg, res, fine, smi)
 
         # 11. slice 4: the mid-size scenes on the dense and stream kernels
         mid = mid_phases(scenes, smi)

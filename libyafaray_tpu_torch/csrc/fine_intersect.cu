@@ -10,14 +10,37 @@
 //
 // The function, not the TPU schedule.  The TPU kernels sort rays, build
 // per-128-ray-block front-to-back sub-cluster lists and gather 8 sub-clusters
-// per DMA visit, because a TPU core has no per-ray control flow.  Here one
-// thread walks one ray through the scene's two-level box hierarchy: the
-// (8, n_cl) cluster boxes of the pack (tri_cluster8) and, inside an entered
-// cluster, its (8, n_sc) 128-column sub-cluster boxes; an entered sub-cluster
-// runs Moller-Trumbore over its real columns.  The walk goes in pack-column
-// order, so with a strict `t < best` the lowest column wins ties, as in the
-// plain versions of ops/fine_intersect.py (the reference's fine kernel keeps
-// the first visited group's winner instead; the t is the same).
+// per DMA visit, because a TPU core has no per-ray control flow.  Here a ray
+// walks the scene's two-level box hierarchy itself: the (8, n_cl) cluster
+// boxes of the pack (tri_cluster8) and, inside an entered cluster, its
+// (8, n_sc) 128-column sub-cluster boxes; an entered sub-cluster runs
+// Moller-Trumbore over its real columns.
+//
+// closest_fine_kernel: one warp per ray.  Bounce rays have no coherence
+// between neighbours, so with one thread per ray a warp's 32 rays walk 32
+// different boxes: every pack read is 32 scattered 4-byte loads and lanes
+// idle while others test.  With the warp on one ray the 32 lanes
+// * test 32 cluster boxes at once and keep each entry distance in a register
+//   (LANE_BOXES per lane: 256 clusters a sweep, larger packs in several);
+// * visit the entered clusters nearest entry first (one warp-wide minimum
+//   per pick), so the best t shrinks early and culls what lies behind it: a
+//   box is skipped only when its entry lies beyond min(tmax, best t), entry
+//   == best is still visited;
+// * test the picked cluster's sub-boxes in parallel, one lane each, and
+//   visit them nearest first under the same rule;
+// * take columns k, k+32, k+64, k+96 of an entered sub-cluster, so each of
+//   the nine pack-row reads of a test is one coalesced 128-byte load.
+// Each lane keeps its own (t, column); the warp-wide best t is refreshed
+// after every sub-cluster for the cull.  The answer is the lexicographic
+// minimum of (t, column) over the lanes, so it does not depend on the visit
+// order: the lowest column wins ties, as in the plain versions of
+// ops/fine_intersect.py (the reference's fine kernel keeps the first visited
+// group's winner instead; the t is the same).  One launch a call, no sort of
+// the rays and no scratch memory.
+//
+// shadow_fine_kernel: one thread per ray, boxes in pack-column order.  Its
+// rays enter ~12x the pairs of a closest-hit call, which a warp per ray
+// would read from L2 once per ray; it wants tiles reused from shared memory.
 //
 // Exactness against the plain brute force:
 // * A box is skipped only when the ray's interval cannot enter it: entry
@@ -35,12 +58,13 @@
 //   all three channels are <= -80 the result is exactly -80 and the walk
 //   stops (the reference's opaque early exit).
 //
-// What bounds it on the H100: FP32 instructions of the Moller-Trumbore tests
-// (about 45 per ray-triangle pair, -fmad=false, IEEE division) and divergence
-// between the rays of a warp.  The pack (10, T') stays in device memory and
-// L2 (6.6 MB at 164K triangles); box reads go through the read-only cache.
-// This first version does no ray sorting, front-to-back ordering, warp
-// cooperation or shared-memory staging.
+// What bounds it on the H100.  The closest hit: L2 reads.  A ray-triangle
+// pair is 36 bytes of the pack, read once per ray (the pack, 6.6 MB at 164K
+// triangles, stays in L2; rays of one block that share a sub-cluster meet in
+// L1), against ~45 FP32 operations; a warp-wide minimum and a sub-box round
+// per visit are the walk's overhead.  Shadows: FP32 instructions of the
+// Moller-Trumbore tests (-fmad=false, IEEE division) and divergence between
+// the rays of a warp.
 //
 // Built with -fmad=false and IEEE division like tiny_intersect.cu, so each
 // operation rounds as the plain PyTorch version's float32 op does.
@@ -50,6 +74,9 @@
 
 #define SUB_BT 128
 #define THREADS 256
+#define RAYS_PER_CTA (THREADS / 32)  // closest hit: one warp per ray
+#define LANE_BOXES 8  // cluster entries a lane holds: 32 * 8 clusters a sweep
+#define FULL 0xffffffffu
 
 namespace {
 
@@ -75,12 +102,13 @@ __device__ __forceinline__ Ray load_ray(const float* __restrict__ org,
   return r;
 }
 
-// Does the ray's interval [lo, hi] enter box j of a row-major (8, w) table
-// (rows lo xyz | hi xyz), widened as the header says?
-__device__ __forceinline__ bool box_entered(const float* __restrict__ tab,
-                                            int w, int j, const Ray& r,
-                                            float lo, float hi) {
-  float enter = lo, exit_ = hi;
+// Slab test of the ray's interval [lo, hi] against box j of a row-major
+// (8, w) table (rows lo xyz | hi xyz), widened as the header says: the
+// interval's part inside the box is [*enter, *exit_], empty if it misses.
+__device__ __forceinline__ void slab(const float* __restrict__ tab, int w,
+                                     int j, const Ray& r, float lo, float hi,
+                                     float* enter, float* exit_) {
+  *enter = lo, *exit_ = hi;
   for (int a = 0; a < 3; ++a) {
     const float bl = __ldg(tab + a * w + j);
     const float bh = __ldg(tab + (a + 3) * w + j);
@@ -88,10 +116,51 @@ __device__ __forceinline__ bool box_entered(const float* __restrict__ tab,
                             (float)1e-5 * fmaxf(fabsf(bl), fabsf(bh)));
     const float t0 = (bl - pad - r.o[a]) * r.iv[a];
     const float t1 = (bh + pad - r.o[a]) * r.iv[a];
-    enter = fmaxf(enter, fminf(t0, t1));
-    exit_ = fminf(exit_, fmaxf(t0, t1));
+    *enter = fmaxf(*enter, fminf(t0, t1));
+    *exit_ = fminf(*exit_, fmaxf(t0, t1));
   }
+}
+
+// Does the ray's interval [lo, hi] enter box j?
+__device__ __forceinline__ bool box_entered(const float* __restrict__ tab,
+                                            int w, int j, const Ray& r,
+                                            float lo, float hi) {
+  float enter, exit_;
+  slab(tab, w, j, r, lo, hi, &enter, &exit_);
   return enter <= exit_;
+}
+
+// Where the ray's interval [lo, hi] enters box j; +inf if it does not.
+__device__ __forceinline__ float box_entry(const float* __restrict__ tab,
+                                           int w, int j, const Ray& r,
+                                           float lo, float hi) {
+  float enter, exit_;
+  slab(tab, w, j, r, lo, hi, &enter, &exit_);
+  return enter <= exit_ ? enter : INFINITY;
+}
+
+// Floats as unsigned keys of the same order (any sign), for the warp-wide
+// integer minimum, and back.
+__device__ __forceinline__ unsigned ordered(float f) {
+  const unsigned u = __float_as_uint(f);
+  return (u & 0x80000000u) ? ~u : (u | 0x80000000u);
+}
+
+__device__ __forceinline__ float unordered(unsigned u) {
+  return __uint_as_float((u & 0x80000000u) ? (u & 0x7fffffffu) : ~u);
+}
+
+__device__ __forceinline__ float warp_min(float f) {
+  return unordered(__reduce_min_sync(FULL, ordered(f)));
+}
+
+// The lane holding the warp's smallest `f` (the lowest such lane) and, in
+// *m, that value.
+__device__ __forceinline__ int warp_argmin(float f, float* m) {
+  const unsigned key = ordered(f);
+  const unsigned best = __reduce_min_sync(FULL, key);
+  *m = unordered(best);
+  return __ffs(__ballot_sync(FULL, key == best)) - 1;
 }
 
 // Moller-Trumbore test of pack column k (row stride w) in the operation
@@ -131,39 +200,99 @@ struct Scene {
   int n_tris;
 };
 
-__global__ void closest_fine_kernel(Scene s, const float* __restrict__ org,
-                                    const float* __restrict__ dir,
-                                    const float* __restrict__ tmin,
-                                    const float* __restrict__ tmax, int n,
-                                    float* __restrict__ t_out,
-                                    int* __restrict__ col_out) {
-  const long long i = (long long)blockIdx.x * blockDim.x + threadIdx.x;
-  if (i >= n) return;
+// Moller-Trumbore over the real columns of sub-cluster j, 32 columns a
+// round; each lane keeps the lexicographic minimum (t, column) of its hits.
+__device__ __forceinline__ void closest_sub(const Scene& s, int j,
+                                            const Ray& r, float lo, float hi,
+                                            int lane, float* lt, int* lcol) {
+  const int k1 = min((j + 1) * SUB_BT, s.n_tris);
+#pragma unroll
+  for (int q = 0; q < SUB_BT / 32; ++q) {
+    const int k = j * SUB_BT + 32 * q + lane;
+    if (k < k1) {
+      float t;
+      const bool ok = mt_test(s.pack, s.pack_w, k, r, &t);
+      // the walk is not in column order: on equal t the lower column wins
+      if (ok && t > lo && t < hi && (t < *lt || (t == *lt && k < *lcol))) {
+        *lt = t;
+        *lcol = k;
+      }
+    }
+  }
+}
+
+__global__ void __launch_bounds__(THREADS)
+closest_fine_kernel(Scene s, const float* __restrict__ org,
+                    const float* __restrict__ dir,
+                    const float* __restrict__ tmin,
+                    const float* __restrict__ tmax, int n,
+                    float* __restrict__ t_out, int* __restrict__ col_out) {
+  const int lane = threadIdx.x & 31;
+  const long long i =
+      (long long)blockIdx.x * RAYS_PER_CTA + (threadIdx.x >> 5);
+  if (i >= n) return;  // the whole warp
   const Ray r = load_ray(org, dir, i);
   const float lo = tmin[i], hi = tmax[i];
   const int spc = s.n_sc / s.n_cl;
   const int sc_real = (s.n_tris + SUB_BT - 1) / SUB_BT;
-  float best = INFINITY;
-  int best_k = 0;
-  for (int c = 0; c < s.n_cl && c * spc < sc_real; ++c) {
-    if (!box_entered(s.cl8, s.n_cl, c, r, lo, fminf(hi, best))) continue;
-    const int s1 = min((c + 1) * spc, sc_real);
-    for (int j = c * spc; j < s1; ++j) {
-      if (!box_entered(s.sub8, s.n_sc, j, r, lo, fminf(hi, best))) continue;
-      const int k1 = min((j + 1) * SUB_BT, s.n_tris);
-      for (int k = j * SUB_BT; k < k1; ++k) {
-        float t;
-        const bool ok = mt_test(s.pack, s.pack_w, k, r, &t);
-        // columns rise along the walk: strict < keeps the lowest on ties
-        if (ok && t > lo && t < hi && t < best) {
-          best = t;
-          best_k = k;
+  const int cl_real = (sc_real + spc - 1) / spc;
+  float lt = INFINITY;  // this lane's best hit
+  int lcol = 0x7fffffff;
+  float lim = hi;  // min(tmax, the warp's best t): no box beyond it matters
+  for (int c0 = 0; c0 < cl_real; c0 += 32 * LANE_BOXES) {
+    float ent[LANE_BOXES];  // entry distances of this lane's clusters
+#pragma unroll
+    for (int b = 0; b < LANE_BOXES; ++b) {
+      const int c = c0 + 32 * b + lane;
+      ent[b] = c < cl_real ? box_entry(s.cl8, s.n_cl, c, r, lo, lim)
+                           : INFINITY;
+    }
+    for (;;) {
+      // the nearest entered cluster not yet visited
+      float mine = ent[0];
+#pragma unroll
+      for (int b = 1; b < LANE_BOXES; ++b) mine = fminf(mine, ent[b]);
+      float e;
+      const int src = warp_argmin(mine, &e);
+      if (!(e <= lim) || e == INFINITY) break;
+      int c = 0;
+      if (lane == src) {
+        bool taken = false;
+#pragma unroll
+        for (int b = 0; b < LANE_BOXES; ++b) {
+          if (!taken && ent[b] == e) {
+            ent[b] = INFINITY;
+            c = c0 + 32 * b + lane;
+            taken = true;
+          }
+        }
+      }
+      c = __shfl_sync(FULL, c, src);
+      // its sub-boxes, one lane each, nearest entry first
+      const int j0 = c * spc;
+      const int n_sub = min(spc, sc_real - j0);
+      for (int s0 = 0; s0 < n_sub; s0 += 32) {
+        float sub = s0 + lane < n_sub
+                        ? box_entry(s.sub8, s.n_sc, j0 + s0 + lane, r, lo, lim)
+                        : INFINITY;
+        for (;;) {
+          float se;
+          const int sl = warp_argmin(sub, &se);
+          if (!(se <= lim) || se == INFINITY) break;
+          if (lane == sl) sub = INFINITY;
+          closest_sub(s, j0 + s0 + sl, r, lo, hi, lane, &lt, &lcol);
+          lim = fminf(hi, warp_min(lt));
         }
       }
     }
   }
-  t_out[i] = best;
-  col_out[i] = best_k;
+  const float best = warp_min(lt);
+  const unsigned col = __reduce_min_sync(
+      FULL, lt == best ? (unsigned)lcol : 0x7fffffffu);
+  if (lane == 0) {
+    t_out[i] = best;
+    col_out[i] = best < INFINITY ? (int)col : 0;
+  }
 }
 
 __global__ void shadow_fine_kernel(Scene s, const float* __restrict__ logf,
@@ -227,7 +356,7 @@ extern "C" int closest_hit_fine_launch(
                 (const float*)sub8, n_sc, n_tris};
   if (const int bad = check_scene(s)) return bad;
   if (n > 0) {
-    const int blocks = (n + THREADS - 1) / THREADS;
+    const int blocks = (n + RAYS_PER_CTA - 1) / RAYS_PER_CTA;
     closest_fine_kernel<<<blocks, THREADS, 0, (cudaStream_t)stream>>>(
         s, (const float*)org, (const float*)dir, (const float*)tmin,
         (const float*)tmax, n, (float*)t_out, (int*)col_out);

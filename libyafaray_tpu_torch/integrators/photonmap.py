@@ -32,8 +32,8 @@ from ..film.imagefilm import film_splat
 from ..materials import bsdf
 from ..materials.base import (MT_COATED_GLOSSY, MT_GLOSSY, MT_SHINYDIFFUSE,
                               gather_rows)
-from ..ops.photon_flash import (density_auto, make_photon_pack,
-                                make_photon_pack_auto, nearest_flash)
+from ..ops.photon_flash import (density_auto, make_photon_pack_auto,
+                                make_photon_pack_lookup, nearest_flash)
 from .config import RenderConfig
 from .engine import (F32, _direct_lighting, _div, _surface_point,
                      bounce_key, camera_rays, check_arrays, check_supported,
@@ -84,6 +84,14 @@ def photon_radii(cscene, cfg: RenderConfig):
             cfg.caustic_radius if cfg.caustic_radius > 0 else diag * 0.005)
 
 
+def _layout_info(pack: dict) -> dict:
+    """A pack's width and layout (sorted table or flash rows), for
+    reports."""
+    culled = "tbl" in pack
+    return dict(pack=pack["tbl" if culled else "pos_t"].shape[1],
+                layout="culled" if culled else "flash")
+
+
 def build_photon_maps(cscene, cfg: RenderConfig, arrays: dict) -> dict:
     """Shoot the diffuse and caustic maps and precompute the radiance map.
     Returns dict(diffuse, caustic, radiance: packs or None, n_em_d, n_em_c:
@@ -113,13 +121,9 @@ def build_photon_maps(cscene, cfg: RenderConfig, arrays: dict) -> dict:
     rec_d, out["n_em_d"] = shoot_map(cfg.photons, "diffuse", 1000)
     rec_c, out["n_em_c"] = shoot_map(cfg.caustic_photons, "caustic", 9000)
     for key, rec in (("diffuse", rec_d), ("caustic", rec_c)):
-        pack = make_photon_pack_auto(rec["pos"], rec["valid"], rec["dir"],
-                                     rec["power"])
-        culled = "tbl" in pack
-        out[key] = pack
-        out["info"][key].update(
-            pack=pack["tbl" if culled else "pos_t"].shape[1],
-            layout="culled" if culled else "flash")
+        out[key] = make_photon_pack_auto(rec["pos"], rec["valid"],
+                                         rec["dir"], rec["power"])
+        out["info"][key].update(_layout_info(out[key]))
 
     if cfg.final_gather:
         # outgoing radiance at a strided subset of the stored diffuse
@@ -137,10 +141,10 @@ def build_photon_maps(cscene, cfg: RenderConfig, arrays: dict) -> dict:
                            rec_d["mat"][::stride].long())
         lo = (e_irr * rows["diffuse_color"]
               * rows["diffuse_reflect"][..., None] * INV_PI)
-        out["radiance"] = make_photon_pack(qp, rec_d["valid"][::stride], qn,
-                                           lo)
+        out["radiance"] = make_photon_pack_lookup(
+            qp, rec_d["valid"][::stride], qn, lo)
         out["info"]["radiance"] = dict(queries=qp.shape[0], stride=stride,
-                                       pack=out["radiance"]["val"].shape[0])
+                                       **_layout_info(out["radiance"]))
     return out
 
 

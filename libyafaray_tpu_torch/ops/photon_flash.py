@@ -7,12 +7,19 @@ Port of libyafaray_tpu/ops/photon_flash.py: the flash packs
 (`make_photon_pack_auto`, `density_auto`) and the three TPU kernels
 `_density_kernel`, `_nearest_kernel` and `_density_kernel_culled`, which
 live in csrc/photon_flash.cu and are built by ops/_build.py at first use.
+The nearest lookup has two kernels there: the brute force over a flash pack
+(the reference kernel's counterpart) and, for a sorted pack that carries
+each photon's original block (`make_photon_pack_nearest`), a search that
+visits only the clusters near the query.
 
     density:  flux_q = sum_p [|q-p|^2 <= r^2] [n_q . dir_p > 0] value_p,
               count_q the number of such photons
     nearest:  the value of the nearest photon within r, per 512-photon
               block the mean over the photons at the block's minimum d2,
-              an earlier block winning exact ties; found = a block won
+              an earlier block winning exact ties; found = a block won.
+              Without blocks: the lexicographic minimum of (d2, original
+              index // 512) over the photons with d2 <= r^2, the value
+              averaged over the photons sharing that pair
 
 Invalid photons sit at SENTINEL (1e9), so d2 (~1e18) stays finite and
 fails every radius test.  The flux sum is float32 throughout (the TPU's is
@@ -39,6 +46,7 @@ BP = 512  # photons per block (the tie and cluster unit)
 SENTINEL = 1.0e9  # invalid-photon position -> d2 ~ 1e18 fails any r2
 CULL_MIN_PHOTONS = 1 << 20  # packs >= ~1M photons take the culled layout
 _PLAIN_QUERIES = 1 << 16  # query chunk of the plain versions
+_PLAIN_PAIRS = 1 << 25  # queries x photons per chunk of nearest_culled_plain
 F32 = torch.float32
 
 
@@ -84,13 +92,8 @@ def _morton_points(p: torch.Tensor, lo: torch.Tensor,
             | (_spread3(q[:, 2]) << 2))
 
 
-def make_photon_pack_sorted(pos, valid, direction, value) -> dict:
-    """Morton-sorted pack for the culled gather: the (16, P') table (rows
-    0:3 pos with invalid at SENTINEL, 3:6 dir, 6:9 value, 9:16 zero) in
-    Morton order (invalid photons last, a stable sort: the key of an
-    invalid photon is 0xFFFFFFFF, held in int64 so it sorts last), the
-    (C, 3) boxes cl_lo / cl_hi of each BP-photon cluster's valid photons
-    (+inf / -inf for a cluster without one) and n_valid."""
+def _sorted_pack(pos, valid, direction, value) -> tuple:
+    """(`make_photon_pack_sorted`'s pack, the (P,) sort permutation)."""
     pos = pos.to(F32)
     inf = torch.tensor(float("inf"), dtype=F32, device=pos.device)
     lo = torch.where(valid[:, None], pos, inf).amin(dim=0)
@@ -109,7 +112,39 @@ def make_photon_pack_sorted(pos, valid, direction, value) -> dict:
                      torch.zeros((7, posv.shape[0]), dtype=F32,
                                  device=pos.device)]).contiguous()
     return dict(tbl=tbl, cl_lo=lo_c.contiguous(), cl_hi=hi_c.contiguous(),
-                n_valid=valid.sum(dtype=torch.int32))
+                n_valid=valid.sum(dtype=torch.int32)), perm
+
+
+def make_photon_pack_sorted(pos, valid, direction, value) -> dict:
+    """Morton-sorted pack for the culled gather: the (16, P') table (rows
+    0:3 pos with invalid at SENTINEL, 3:6 dir, 6:9 value, 9:16 zero) in
+    Morton order (invalid photons last, a stable sort: the key of an
+    invalid photon is 0xFFFFFFFF, held in int64 so it sorts last), the
+    (C, 3) boxes cl_lo / cl_hi of each BP-photon cluster's valid photons
+    (+inf / -inf for a cluster without one) and n_valid."""
+    return _sorted_pack(pos, valid, direction, value)[0]
+
+
+def make_photon_pack_nearest(pos, valid, direction, value) -> dict:
+    """Sorted pack for the nearest lookup: `make_photon_pack_sorted` with
+    row 9 of the table holding each photon's block in the original order,
+    index // BP (exact in float32 below 2^24 blocks; the padding keeps its
+    place after the photons), the unit `nearest_flash` breaks ties by."""
+    pack, perm = _sorted_pack(pos, valid, direction, value)
+    tbl = pack["tbl"]
+    n = perm.shape[0]
+    index = torch.cat([perm, torch.arange(n, tbl.shape[1],
+                                          device=perm.device)])
+    tbl[9] = torch.div(index, BP, rounding_mode="floor").to(F32)
+    return pack
+
+
+def make_photon_pack_lookup(pos, valid, direction, value) -> dict:
+    """Pack for `nearest_flash`: the sorted layout for CUDA packs, where
+    the culled search runs, the flash layout on the CPU."""
+    if pos.device.type == "cuda":
+        return make_photon_pack_nearest(pos, valid, direction, value)
+    return make_photon_pack(pos, valid, direction, value)
 
 
 def make_photon_pack_auto(pos, valid, direction, value) -> dict:
@@ -180,8 +215,8 @@ def density_flash_plain(pack: dict, query_p, query_n, radius):
     return flux, cnt
 
 
-def nearest_flash_plain(pack: dict, query_p, radius):
-    """Plain nearest_flash (the reference's `_nearest_ref`)."""
+def _nearest_flash_plain(pack: dict, query_p, radius):
+    """(value, best d2) of `nearest_flash_plain`."""
     n = query_p.shape[0]
     r2 = _r2(radius, n, query_p.device)[:, None]
     pos_t, val = pack["pos_t"], pack["val"]
@@ -203,7 +238,45 @@ def nearest_flash_plain(pack: dict, query_p, radius):
             bst = torch.where(better, m, bst)
             v_out = torch.where(better, v, v_out)
         best[sl], out[sl] = bst, v_out
-    return out, torch.isfinite(best[:, 0])
+    return out, best[:, 0]
+
+
+def nearest_flash_plain(pack: dict, query_p, radius):
+    """Plain nearest_flash (the reference's `_nearest_ref`)."""
+    out, best = _nearest_flash_plain(pack, query_p, radius)
+    return out, torch.isfinite(best)
+
+
+def _nearest_culled_plain(pack: dict, query_p, radius):
+    """(value, best d2) of `nearest_culled_plain`."""
+    n = query_p.shape[0]
+    tbl = pack["tbl"]
+    r2 = _r2(radius, n, query_p.device)[:, None]
+    blk, val = tbl[9:10], tbl[6:9].T
+    out = torch.zeros((n, 3), dtype=F32, device=query_p.device)
+    best = torch.full((n,), float("inf"), dtype=F32, device=query_p.device)
+    step = max(1, _PLAIN_PAIRS // max(tbl.shape[1], 1))
+    for q0 in range(0, n, step):
+        sl = slice(q0, q0 + step)
+        d2 = _d2(query_p[sl].to(F32), tbl[0:3])
+        d2 = torch.where((d2 <= r2[sl]) & torch.isfinite(d2), d2,
+                         float("inf"))
+        m = d2.amin(dim=1, keepdim=True)
+        tie = (d2 <= m) & torch.isfinite(d2)
+        first = torch.where(tie, blk, float("inf")).amin(dim=1, keepdim=True)
+        win = (tie & (blk == first)).to(F32)
+        win = win / torch.clamp(win.sum(dim=1, keepdim=True), min=1.0)
+        out[sl], best[sl] = win @ val, m[:, 0]
+    return out, best
+
+
+def nearest_culled_plain(pack: dict, query_p, radius):
+    """Plain nearest_flash over a `make_photon_pack_nearest` pack: per
+    query the lexicographic minimum of (d2, original block) over the
+    photons within the radius, the value averaged over the photons that
+    share that pair.  Equals `nearest_flash_plain` on the unsorted pack."""
+    out, best = _nearest_culled_plain(pack, query_p, radius)
+    return out, torch.isfinite(best)
 
 
 def _box_d2(q, lo, hi):
@@ -235,17 +308,14 @@ def density_culled_plain(pack: dict, query_p, query_n, radius):
     return flux, cnt
 
 
-def culled_pair_tests(pack: dict, query_p, radius,
-                      chunk: int = 4096) -> tuple:
-    """(pair tests, box tests) the culled gather's data needs: per query,
-    the valid photons of every cluster whose box lies within its radius,
-    and one box test per cluster.  Counts what the inputs need, for a
-    kernel's bound; not a kernel path."""
+def _near_pair_tests(pack: dict, query_p, lim2, chunk: int) -> tuple:
+    """(pair tests, box tests) of a search that visits, per query, every
+    cluster whose box lies within the squared distance lim2 (N,): the
+    valid photons of those clusters, and one box test per cluster."""
     lo, hi = pack["cl_lo"], pack["cl_hi"]
     n, n_cl = query_p.shape[0], lo.shape[0]
     valid = (pack["tbl"][0] < 0.5 * SENTINEL).reshape(n_cl, BP)
     per_cl = valid.sum(dim=1).to(torch.int64)
-    r2 = _r2(radius, n, query_p.device)
     pairs = 0
     for q0 in range(0, n, chunk):
         q = query_p[q0:q0 + chunk, None, :].to(F32)
@@ -253,9 +323,29 @@ def culled_pair_tests(pack: dict, query_p, radius,
                            torch.clamp(q - hi[None], min=0.0))
         d2 = (dd[..., 0] * dd[..., 0] + dd[..., 1] * dd[..., 1]
               + dd[..., 2] * dd[..., 2])
-        near = d2 <= r2[q0:q0 + chunk, None]
+        near = d2 <= lim2[q0:q0 + chunk, None]
         pairs += int((near.to(torch.int64) * per_cl).sum())
     return pairs, n * n_cl
+
+
+def culled_pair_tests(pack: dict, query_p, radius,
+                      chunk: int = 4096) -> tuple:
+    """(pair tests, box tests) the culled gather's data needs: per query,
+    the valid photons of every cluster whose box lies within its radius,
+    and one box test per cluster.  Counts what the inputs need, for a
+    kernel's bound; not a kernel path."""
+    return _near_pair_tests(
+        pack, query_p, _r2(radius, query_p.shape[0], query_p.device), chunk)
+
+
+def nearest_pair_tests(pack: dict, query_p, radius, best_d2,
+                       chunk: int = 4096) -> tuple:
+    """(pair tests, box tests) the culled nearest search's data needs: per
+    query, the valid photons of every cluster whose box lies within
+    min(r2, the query's final best d2), and one box test per cluster.
+    Counts what the inputs need, for a kernel's bound; not a kernel path."""
+    r2 = _r2(radius, query_p.shape[0], query_p.device)
+    return _near_pair_tests(pack, query_p, torch.minimum(r2, best_d2), chunk)
 
 
 # ---- CUDA wrappers --------------------------------------------------------
@@ -276,6 +366,9 @@ def _lib() -> ctypes.CDLL:
         lib.density_culled_launch.argtypes = [
             _P, _I, _P, _P, _I, _P, _P, _P, _P, _I, _P, _P, _P]
         lib.density_culled_launch.restype = _I
+        lib.nearest_culled_launch.argtypes = [
+            _P, _I, _P, _P, _I, _P, _P, _I, _P, _P, _P]
+        lib.nearest_culled_launch.restype = _I
     return lib
 
 
@@ -324,15 +417,30 @@ def density_flash(pack: dict, query_p, query_n, radius):
 density_flash.launches = 0
 
 
-def nearest_flash(pack: dict, query_p, radius):
-    """Value of the nearest photon within `radius` of each query (the
-    reference's block semantics).  Returns (value (N,3), found (N,))."""
+def _check_sorted(pack: dict, dev) -> int:
+    n_cl = pack["cl_lo"].shape[0]
+    _check("tbl", pack["tbl"], (16, n_cl * BP), dev)
+    _check("cl_lo", pack["cl_lo"], (n_cl, 3), dev)
+    _check("cl_hi", pack["cl_hi"], (n_cl, 3), dev)
+    return n_cl
+
+
+def nearest_flash_best(pack: dict, query_p, radius):
+    """`nearest_flash` with the squared distance of the winner instead of
+    the found flag: (value (N,3), best d2 (N,), inf where none is within
+    the radius).  A flash pack takes the brute-force kernel, a
+    `make_photon_pack_nearest` pack the culled search."""
     dev = query_p.device
     n = query_p.shape[0]
     _check("query_p", query_p, (n, 3), dev)
-    w = _check_flash(pack, dev, with_aux=False)
+    culled = "tbl" in pack
+    if culled:
+        n_cl = _check_sorted(pack, dev)
+    else:
+        w = _check_flash(pack, dev, with_aux=False)
     if dev.type == "cpu":
-        return nearest_flash_plain(pack, query_p, radius)
+        plain = _nearest_culled_plain if culled else _nearest_flash_plain
+        return plain(pack, query_p, radius)
     if dev.type != "cuda":
         raise ValueError(f"nearest_flash: unsupported device {dev}")
     r2 = _r2(radius, n, dev)
@@ -340,12 +448,26 @@ def nearest_flash(pack: dict, query_p, radius):
     val = torch.empty((n, 3), dtype=F32, device=dev)
     lib = _lib()
     with torch.cuda.device(dev):
-        code = lib.nearest_flash_launch(
-            pack["pos_t"].data_ptr(), pack["val"].data_ptr(), w,
-            query_p.data_ptr(), r2.data_ptr(), n, best.data_ptr(),
-            val.data_ptr(), _stream(dev))
+        if culled:
+            code = lib.nearest_culled_launch(
+                pack["tbl"].data_ptr(), n_cl * BP, pack["cl_lo"].data_ptr(),
+                pack["cl_hi"].data_ptr(), n_cl, query_p.data_ptr(),
+                r2.data_ptr(), n, best.data_ptr(), val.data_ptr(),
+                _stream(dev))
+        else:
+            code = lib.nearest_flash_launch(
+                pack["pos_t"].data_ptr(), pack["val"].data_ptr(), w,
+                query_p.data_ptr(), r2.data_ptr(), n, best.data_ptr(),
+                val.data_ptr(), _stream(dev))
     nearest_flash.launches += 1
     _raise_on(code, "nearest_flash")
+    return val, best
+
+
+def nearest_flash(pack: dict, query_p, radius):
+    """Value of the nearest photon within `radius` of each query (the
+    reference's block semantics).  Returns (value (N,3), found (N,))."""
+    val, best = nearest_flash_best(pack, query_p, radius)
     return val, torch.isfinite(best)
 
 
@@ -377,10 +499,7 @@ def density_culled(pack: dict, query_p, query_n, radius):
     _check("query_p", query_p, (n, 3), dev)
     _check("query_n", query_n, (n, 3), dev)
     tbl, lo, hi = pack["tbl"], pack["cl_lo"], pack["cl_hi"]
-    n_cl = lo.shape[0]
-    _check("tbl", tbl, (16, n_cl * BP), dev)
-    _check("cl_lo", lo, (n_cl, 3), dev)
-    _check("cl_hi", hi, (n_cl, 3), dev)
+    n_cl = _check_sorted(pack, dev)
     if dev.type == "cpu":
         return density_culled_plain(pack, query_p, query_n, radius)
     if dev.type != "cuda":

@@ -197,6 +197,105 @@ def test_closest_plain_matches_reference_fine(cases, case):
         assert np.allclose(a[keep], b[keep], rtol=1e-4, atol=1e-6)
 
 
+def _walk_closest(pk, cl8, sub8, n_tris, o, d, lo, hi):
+    """One ray through the card kernel's walk, in plain PyTorch: clusters
+    by entry distance, a box skipped only when its entry lies beyond
+    min(tmax, best t) (entry == best is visited), the same for the picked
+    cluster's sub-boxes; 32 lanes take a sub-cluster's columns k, k + 32,
+    ..., each keeping its own lexicographic minimum (t, column), reduced
+    over the lanes at the end.  Returns (t, col, sub-clusters visited)."""
+    spc = sub8.shape[1] // cl8.shape[1]
+    sc_real = -(-n_tris // fi.SUB_BT)
+    cl_real = -(-sc_real // spc)
+    inf = float("inf")
+    lane_t = torch.full((32,), inf)
+    lane_c = torch.full((32,), 2 ** 31 - 1, dtype=torch.int64)
+    lim, visited = float(hi), 0
+    ent = fi.box_entry(cl8[:, :cl_real], o, d, lo, hi)[0]
+    for c in torch.argsort(ent, stable=True).tolist():
+        if not ent[c] <= lim or torch.isinf(ent[c]):
+            break
+        j0 = c * spc
+        j1 = min(j0 + spc, sc_real)
+        sub = fi.box_entry(sub8[:, j0:j1], o, d, lo, torch.tensor([lim]))[0]
+        for b in torch.argsort(sub, stable=True).tolist():
+            if not sub[b] <= lim or torch.isinf(sub[b]):
+                break
+            visited += 1
+            k0 = (j0 + b) * fi.SUB_BT
+            k = torch.arange(k0, k0 + fi.SUB_BT)
+            t, _, _, ok = ci._mt_test(pk, slice(k0, k0 + fi.SUB_BT), *o[0],
+                                      *d[0])
+            t = torch.where(ok & (t > lo) & (t < hi) & (k < n_tris), t, inf)
+            for row_t, row_k in zip(t.reshape(-1, 32), k.reshape(-1, 32)):
+                # sub-clusters are not met in column order: on equal t
+                # the lower column wins
+                better = (row_t < lane_t) | ((row_t == lane_t)
+                                             & (row_k < lane_c)
+                                             & (row_t < inf))
+                lane_t = torch.where(better, row_t, lane_t)
+                lane_c = torch.where(better, row_k, lane_c)
+            lim = min(float(hi), float(lane_t.amin()))
+    best = float(lane_t.amin())
+    if best == inf:
+        return best, 0, visited
+    return best, int(lane_c[lane_t == best].amin()), visited
+
+
+def _edge_rays(pack, n_tris, n, rng):
+    """Rays from inside the room through a point of an edge (v0, v0 + e1)
+    of n random triangles, the vertex v0 for every other one: where
+    triangles of a sphere mesh share it, each gives a hit there."""
+    k = rng.choice(n_tris, n, replace=False)
+    mid = (pack[0:3, k] + 0.5 * (np.arange(n) % 2) * pack[3:6, k]).T
+    org = np.tile(np.float32([2.75, 2.75, 2.75]), (n, 1))
+    org += rng.uniform(-0.2, 0.2, (n, 3)).astype(np.float32)
+    d = mid - org
+    return org, (d / np.linalg.norm(d, axis=1, keepdims=True)).astype(
+        np.float32)
+
+
+@pytest.mark.parametrize("case", CASES)
+def test_walk_rule_gives_the_plain_answer(cases, case):
+    """The near-first walk with its skip rule and the lexicographic
+    (t, column) minimum gives closest_fine_plain's (t, col) exactly, ties
+    on shared edges included, and visits fewer sub-clusters than the pack
+    holds."""
+    pack, cl, n_tris, o, d = cases[case]
+    rng = np.random.default_rng(23)
+    keep = rng.choice(o.shape[0], 96, replace=False)
+    o, d = o[keep], d[keep]
+    if case == "grid2":
+        eo, ed = _edge_rays(pack, n_tris, 400, rng)
+        o, d = np.concatenate([o, eo]), np.concatenate([d, ed])
+    n = o.shape[0]
+    tmin = np.full(n, 5e-5, np.float32)
+    tmax = np.full(n, np.inf, np.float32)
+    tmax[::7] = 1.5
+    tmax[::11] = -1.0
+    pk, c8 = _t(pack), _t(cl)
+    sub8 = _t(fi.sub_aabbs(pack, n_tris))
+    args = [_t(x) for x in (o, d, tmin, tmax)]
+    pt, pcol = fi.closest_fine_plain(pk, *args, n_tris)
+    visited = 0
+    for i in range(n):
+        t, col, v = _walk_closest(pk, c8, sub8, n_tris,
+                                  *(x[i:i + 1] for x in args))
+        assert (t, col) == (float(pt[i]), int(pcol[i])), i
+        visited += v
+    hit = torch.isfinite(pt)
+    assert hit.any() and not hit.all()
+    assert visited < 0.5 * n * sub8.shape[1]
+    if case == "grid2":
+        # some of the edge rays are exact ties between two columns
+        ox, oy, oz = (x[:, None] for x in args[0].unbind(-1))
+        dx, dy, dz = (x[:, None] for x in args[1].unbind(-1))
+        t_all, _, _, ok = ci._mt_test(pk, slice(0, n_tris), ox, oy, oz, dx,
+                                      dy, dz)
+        tied = (ok & (t_all == pt[:, None])).sum(dim=1) > 1
+        assert int((tied & hit).sum()) >= 3, int((tied & hit).sum())
+
+
 @pytest.mark.parametrize("case", CASES)
 def test_shadow_plain_matches_reference_fine(cases, case):
     pack, cl, n_tris, o, d = cases[case]

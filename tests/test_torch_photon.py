@@ -133,6 +133,133 @@ def test_nearest_flash_plain_matches_reference(photons, per_query):
     assert np.array_equal(pv[1].numpy(), power[20])
 
 
+def _nearest_case(photons, case):
+    """(pos, valid, dirs, power, qp, radius) of a nearest-lookup case."""
+    pos, valid, dirs, power, qp, _, radius = photons
+    if case == "scalar_radius":
+        radius = 0.3
+    elif case == "all_invalid":
+        valid = np.zeros_like(valid)
+    elif case == "radius_excludes_all":
+        radius = 1e-6
+        qp = qp + np.float32(0.01)  # off the duplicates it sat on
+    elif case == "duplicates_in_sorted_neighbours":
+        # 40 copies of one photon spread over blocks 0, 2 and 5 of the
+        # original order: the sort puts them side by side, block 0 must win
+        pos, power = pos.copy(), power.copy()
+        idx = np.r_[30:40, 1100:1115, 2600:2615]
+        pos[idx] = pos[30]
+        valid = valid.copy()
+        valid[idx] = True
+        qp = qp.copy()
+        qp[2] = pos[30]
+    return pos, valid, dirs, power, qp, radius
+
+
+NEAREST_CASES = ("per_query_radius", "scalar_radius", "all_invalid",
+                 "radius_excludes_all", "duplicates_in_sorted_neighbours")
+
+
+@pytest.mark.parametrize("case", NEAREST_CASES)
+def test_nearest_culled_plain_matches_flash_and_reference(photons, case):
+    """The lexicographic rule over the sorted pack (what the culled search
+    on the card computes) against the block rule over the unsorted pack
+    and the reference's nearest_flash: found equal, best d2 equal, value
+    rtol 1e-5."""
+    pos, valid, dirs, power, qp, radius = _nearest_case(photons, case)
+    rad_t = _t(radius) if isinstance(radius, np.ndarray) else radius
+    flash = ppf.make_photon_pack(_t(pos), _t(valid), _t(dirs), _t(power))
+    near = ppf.make_photon_pack_nearest(_t(pos), _t(valid), _t(dirs),
+                                        _t(power))
+    fv, fbest = ppf.nearest_flash_best(flash, _t(qp), rad_t)
+    cv, cbest = ppf.nearest_flash_best(near, _t(qp), rad_t)
+    assert torch.equal(fbest, cbest)
+    _close(fv.numpy(), cv, "value vs flash")
+    pv, pfound = ppf.nearest_flash(near, _t(qp), rad_t)
+    assert torch.equal(pv, cv) and torch.equal(pfound, torch.isfinite(cbest))
+    plain_v, plain_found = ppf.nearest_culled_plain(near, _t(qp), rad_t)
+    assert torch.equal(plain_v, cv) and torch.equal(plain_found, pfound)
+    ref = rpf.make_photon_pack(jnp.asarray(pos), jnp.asarray(valid),
+                               jnp.asarray(dirs), jnp.asarray(power))
+    rv, rfound = rpf.nearest_flash(ref, jnp.asarray(qp), jnp.asarray(radius))
+    assert np.array_equal(np.asarray(rfound), pfound.numpy())
+    _close(rv, cv, "value vs reference")
+    if case in ("all_invalid", "radius_excludes_all"):
+        assert not pfound.any() and not cv.any()
+    else:
+        assert 20 < int(pfound.sum()) < len(qp)
+        # ties inside a block are averaged, across blocks the earlier wins
+        np.testing.assert_allclose(cv[0].numpy(), (power[10] + power[11]) / 2,
+                                   rtol=RTOL)
+        assert np.array_equal(cv[1].numpy(), power[20])
+    if case == "duplicates_in_sorted_neighbours":
+        np.testing.assert_allclose(cv[2].numpy(),
+                                   power[30:40].mean(axis=0), rtol=RTOL)
+
+
+def test_nearest_pack_carries_original_blocks(photons):
+    """make_photon_pack_nearest: the sorted pack with row 9 = original
+    index // 512; every other row and the boxes are the sorted pack's."""
+    pos, valid, dirs, power = (_t(a) for a in photons[:4])
+    near = ppf.make_photon_pack_nearest(pos, valid, dirs, power)
+    srt = ppf.make_photon_pack_sorted(pos, valid, dirs, power)
+    for k in ("cl_lo", "cl_hi", "n_valid"):
+        assert torch.equal(near[k], srt[k]), k
+    rows = [r for r in range(16) if r != 9]
+    assert torch.equal(near["tbl"][rows], srt["tbl"][rows])
+    assert not srt["tbl"][9].any()
+    # each valid photon is found again at its sorted place with its block
+    tbl = near["tbl"].numpy()
+    p = photons[0].shape[0]
+    by_pos = {tuple(x): i // 512 for i, x in enumerate(photons[0])
+              if photons[1][i]}
+    seen = 0
+    for j in range(tbl.shape[1]):
+        key = tuple(tbl[0:3, j])
+        if key in by_pos and key not in (tuple(photons[0][10]),
+                                         tuple(photons[0][20])):
+            assert tbl[9, j] == by_pos[key], j
+            seen += 1
+    assert seen >= photons[1].sum() - 4
+    assert np.array_equal(tbl[9, p:], np.arange(p, tbl.shape[1]) // 512)
+    assert sorted(np.unique(tbl[9])) == list(range(tbl.shape[1] // 512))
+    # the dispatch: sorted only for CUDA packs
+    assert "pos_t" in ppf.make_photon_pack_lookup(pos, valid, dirs, power)
+
+
+def test_nearest_pair_tests_counts_near_clusters(sorted_photons_near):
+    """The bound's count: clusters within min(r2, best d2) of a query, by
+    their valid photons; never more than the radius alone admits, and at
+    least the winner's cluster."""
+    near, qp, radius = sorted_photons_near
+    _, best = ppf.nearest_flash_best(near, _t(qp), _t(radius))
+    pairs, boxes = ppf.nearest_pair_tests(near, _t(qp), _t(radius), best)
+    wide, boxes_w = ppf.culled_pair_tests(near, _t(qp), _t(radius))
+    n_cl = near["cl_lo"].shape[0]
+    assert boxes == boxes_w == len(qp) * n_cl
+    found = int(torch.isfinite(best).sum())
+    assert 0 < found and found <= pairs < wide
+    # queries outside every box's reach need no pair test
+    none, _ = ppf.nearest_pair_tests(near, _t(qp + np.float32(100.0)),
+                                     _t(radius), best)
+    assert none == 0
+
+
+@pytest.fixture(scope="module")
+def sorted_photons_near():
+    """6,000 photons in [-5, 5]³ (10% invalid) as a nearest pack, 700
+    queries with radii 0.2-0.8."""
+    rng = np.random.default_rng(13)
+    p, nq = 6000, 700
+    pos = rng.uniform(-5, 5, (p, 3)).astype(np.float32)
+    power = rng.random((p, 3)).astype(np.float32)
+    valid = rng.random(p) > 0.1
+    near = ppf.make_photon_pack_nearest(_t(pos), _t(valid), _t(_unit(rng, p)),
+                                        _t(power))
+    qp = rng.uniform(-5, 5, (nq, 3)).astype(np.float32)
+    return near, qp, rng.uniform(0.2, 0.8, nq).astype(np.float32)
+
+
 @pytest.fixture(scope="module")
 def sorted_photons():
     """6,000 photons in [-5, 5]³, 10% invalid, with runs of photons that
@@ -338,6 +465,14 @@ def test_render_photonmap_timed_counts_the_same_rays(port_slice,
     st = timed.stats
     assert st["preprocess_s"] > 0 and st["render_s"] > 0
     assert st["photon_maps"]["diffuse"]["layout"] == "flash"
+
+
+def test_radiance_pack_keeps_the_flash_layout_on_cpu(port_render):
+    """The sorted lookup pack is built for CUDA only: on the CPU the
+    radiance map stays the reference's flash pack and nearest_flash its
+    plain block sweep."""
+    info = port_render.stats["photon_maps"]["radiance"]
+    assert info["layout"] == "flash" and info["pack"] % 512 == 0
 
 
 def test_render_scene_dispatches_on_the_integrator(monkeypatch):
