@@ -43,7 +43,13 @@ started together) and drives the ported paths through them:
   10,252-triangle grid, the 131,072-triangle random soup with 262,144
   incoherent and coherent rays on both routes against the brute force, and
   the fine closest hit on a 300,000-triangle soup (more cluster boxes than
-  one sweep of its walk holds) against the brute force.
+  one sweep of its walk holds) against the brute force;
+- slice 7, the two shadow-sum kernels rebuilt around one shared-memory tile
+  routine (csrc/shadow_tile.cuh): inside the phases above,
+  `shadow_logsum_fine` is held to its plain version on the grid's bounce-0
+  batch and on its bounce-1 launch (rays from scattered bounce points),
+  `pairs_shadow` takes the sub-box table, and on the soup, whose filters are
+  not binary, each of the two is called twice and must repeat bit for bit.
 Each path is rendered with every launch counter set to 0 just before it and
 read just after.  Every kernel's line carries its bound: the larger of its
 FP32 operations over the card's 67 TFLOP/s and its bytes (each input read
@@ -1301,12 +1307,12 @@ def check_pairs_closest(args, sub8) -> dict:
                 plain_ms=plain_ms, plain_slots=m, **bnd)
 
 
-def check_pairs_shadow(args, sub8) -> dict:
+def check_pairs_shadow(args) -> dict:
     """pairs_shadow against its plain version on recorded slots (the grid's
     bounce-0 NEE rays): transmission within atol 2e-3 on a strided sample
     of at most PLAIN_SLOTS slots.  The bound counts, per slot, the columns
     of its cluster's sub-clusters the segment enters."""
-    pk, n_cl, logf, sray, scl, org, dirn, dist, n_tris = args
+    pk, n_cl, sub8, logf, sray, scl, org, dirn, dist, n_tris = args
     p = sray.shape[0]
     klg = pi.pairs_shadow(*args)
     torch.cuda.synchronize()
@@ -1326,7 +1332,7 @@ def check_pairs_shadow(args, sub8) -> dict:
     pairs, boxes = pi.slot_pair_tests(sub8, n_cl, sray, scl, org, dirn,
                                       lo[r], hi[r], n_tris)
     bnd = bound(MT_OPS * pairs + BOX_OPS * boxes,
-                nbytes(pk, logf, sray, scl, org, dirn, dist, klg),
+                nbytes(pk, sub8, logf, sray, scl, org, dirn, dist, klg),
                 pair_tests=pairs, box_tests=boxes, slots=p)
     phase("kernel", name="pairs_shadow", rays="bounce-0 NEE",
           n=org.shape[0], tris=n_tris, clusters=n_cl, compared_slots=m,
@@ -1407,10 +1413,21 @@ def fine_bounce(closest, fine_kernel: dict) -> None:
 
 def fine_bounce_shadow(shadow, fine_kernel: dict) -> None:
     """shadow_logsum_fine on the grid's recorded bounce-1 NEE rays (one
-    light sample a pixel): its ms and its bound there, added to its
+    light sample a pixel, from scattered bounce points: a block's rays
+    share few tiles): transmission within atol 2e-3 of the plain brute
+    force on a strided sample, its ms and its bound there, added to its
     kernel entry."""
     pk, cl, sub, logf, org, dirn, dist, n_tris = shadow
     lg = fi.shadow_logsum_fine(*shadow)
+    torch.cuda.synchronize()
+    step = PLAIN_GRID_STRIDE["closest"]
+    plg, plain_ms = once_ms(lambda: fi.shadow_logsum_fine_plain(
+        pk, logf, *(x[::step].contiguous() for x in (org, dirn, dist)),
+        n_tris))
+    err = float((torch.exp(lg[::step]) - torch.exp(plg)).abs().max())
+    if err > 2e-3:
+        raise AssertionError(f"shadow_logsum_fine: bounce-1 transmission off "
+                             f"by {err} > 2e-3")
     ms = device_ms(lambda: fi.shadow_logsum_fine(*shadow), calls=3,
                    replays=3)
     pairs, boxes = fi.fine_pair_tests(cl, sub, org, dirn,
@@ -1419,9 +1436,15 @@ def fine_bounce_shadow(shadow, fine_kernel: dict) -> None:
                 nbytes(pk, cl, sub, logf, org, dirn, dist, lg),
                 pair_tests=pairs, box_tests=boxes)
     phase("kernel", name="shadow_logsum_fine", rays="bounce-1 NEE",
-          n=org.shape[0], live=int((dist > 0).sum()), ms=round(ms, 4), **bnd)
+          n=org.shape[0], live=int((dist > 0).sum()),
+          compared_rays=plg.shape[0],
+          differ=int((lg[::step] != plg).any(dim=-1).sum()),
+          max_abs_err=err, tolerance="transmission atol 2e-3",
+          ms=round(ms, 4), plain_ms=round(plain_ms, 4),
+          plain=f"one eager call on every {step}th ray", **bnd)
     fine_kernel.update(ms_bounce=ms, bound_ms_bounce=bnd["bound_ms"],
-                       pair_tests_bounce=pairs, box_tests_bounce=boxes)
+                       pair_tests_bounce=pairs, box_tests_bounce=boxes,
+                       max_abs_err_bounce=err)
 
 
 def pairs_path(path: str, gcfg, fine_res, smi):
@@ -1469,7 +1492,8 @@ def soup131(smi) -> None:
     make_rays, the benchmarks' bench_pairs rays and filters), the pair and
     the fine route for
     closest hits and shadows, each against the plain brute force on the
-    first 16,384 rays; eager ms per call of each route."""
+    first 16,384 rays; eager ms per call of each route; and each shadow
+    kernel called twice on the same rays or slots, bit-equal."""
     v0, e1, e2 = make_soup(SOUP["tris"])
     n_tris = v0.shape[0]
     pack, cl8, s_ord = ci.build_tri_pack(v0, e1, e2,
@@ -1519,14 +1543,28 @@ def soup131(smi) -> None:
                 col_ties=int(flip.sum()), shadow_err=err,
                 closest_ms=round(call_ms(lambda: c_fn(*closest), 2), 4),
                 shadow_ms=round(call_ms(lambda: s_fn(*shadow), 2), 4))
+        # the soup's filters are not binary, so the order of a sum shows in
+        # its last bits: two calls of a shadow kernel must still agree
+        lg1, lg2 = (fi.shadow_logsum_fine(*shadow) for _ in range(2))
+        _, rec = record_calls(pi, ("pairs_shadow",),
+                              lambda: pi.shadow_logsum_pairs(*shadow))
+        sl1, sl2 = (pi.pairs_shadow(*rec[0][1]) for _ in range(2))
+        repeat = dict(
+            shadow_logsum_fine=int((lg1 != lg2).any(dim=-1).sum()),
+            pairs_shadow=int((sl1 != sl2).any(dim=-1).sum()))
         phase("soup131", rays=kind, n=n, tris=n_tris,
               clusters=cl.shape[1], sub_clusters=sub.shape[1],
               compared_rays=m, hits=int(torch.isfinite(bt).sum()),
               pairs=out["pairs"], fine=out["fine"],
+              partly_lit=int(((lg1 > -80.0) & (lg1 < 0.0)).any(dim=-1).sum()),
+              slots=sl1.shape[0], repeat_differ=repeat,
               closest_speedup=out["fine"]["closest_ms"]
               / out["pairs"]["closest_ms"],
               shadow_speedup=out["fine"]["shadow_ms"]
               / out["pairs"]["shadow_ms"], gpu=repr(smi))
+        if any(repeat.values()):
+            raise AssertionError(f"soup131 {kind}: two calls of a shadow "
+                                 f"kernel differ: {repeat}")
 
 
 def fine_sweeps() -> None:
@@ -1575,11 +1613,10 @@ def pairs_phases(scenes: str, grid_path: str, gscene, gcfg, fine_res,
                                                         "pairs_shadow"))
     rounds = [a[2].shape[0] for a in calls["pairs_closest"]]
     phase("pairs_slots", closest_per_round=rounds,
-          shadow=[a[3].shape[0] for a in calls["pairs_shadow"]])
+          shadow=[a[4].shape[0] for a in calls["pairs_shadow"]])
     kernels = [check_pairs_closest(calls["pairs_closest"][2],
                                    arrays["tri_sub8"]),
-               check_pairs_shadow(calls["pairs_shadow"][0],
-                                  arrays["stri_sub8"])]
+               check_pairs_shadow(calls["pairs_shadow"][0])]
     del calls
 
     res, launches = pairs_path(grid_path, gcfg, fine_res, smi)

@@ -38,9 +38,21 @@
 // group's winner instead; the t is the same).  One launch a call, no sort of
 // the rays and no scratch memory.
 //
-// shadow_fine_kernel: one thread per ray, boxes in pack-column order.  Its
-// rays enter ~12x the pairs of a closest-hit call, which a warp per ray
-// would read from L2 once per ray; it wants tiles reused from shared memory.
+// shadow_fine_kernel: one block per run of up to 256 consecutive rays, the
+// pack met as 128-column tiles staged in shared memory (shadow_tile.cuh).
+// Its rays enter ~12x the pairs of a closest-hit call, which a warp per ray
+// would read from L2 once per ray; here a tile is read from L2 once per block
+// that has a taker for it.  Each thread tests its own ray against the real
+// cluster boxes in pack order; a cluster no ray of the block enters is
+// skipped by a block-wide vote, an entered one has its sub-boxes tested and
+// its tiles summed by tile_group: the rays that enter a tile are listed and
+// dealt to warps, a (ray, tile) item at a time.  NEE rays arrive as light
+// sample x pixel, so the rays of a block are neighbouring pixels aimed at one
+// light and share their tiles; rays from scattered bounce points share few,
+// and then a tile has one or two takers but still all 32 lanes of a warp on
+// each.  A launch of few rays (the pair route's stragglers) gives a block
+// fewer rays, down to 32, so that the card has blocks to run; the threads
+// past a block's rays own none and only join the tile work.
 //
 // Exactness against the plain brute force:
 // * A box is skipped only when the ray's interval cannot enter it: entry
@@ -63,72 +75,20 @@
 // triangles, stays in L2; rays of one block that share a sub-cluster meet in
 // L1), against ~45 FP32 operations; a warp-wide minimum and a sub-box round
 // per visit are the walk's overhead.  Shadows: FP32 instructions of the
-// Moller-Trumbore tests (-fmad=false, IEEE division) and divergence between
-// the rays of a warp.
+// Moller-Trumbore tests (-fmad=false, IEEE division), their operands read
+// from shared memory; beside them the box tests every thread makes for its
+// ray (all real clusters, and the sub-boxes of each cluster its block
+// enters) and a barrier per visited tile.
 //
 // Built with -fmad=false and IEEE division like tiny_intersect.cu, so each
 // operation rounds as the plain PyTorch version's float32 op does.
 
-#include <cuda_runtime.h>
-#include <math.h>
+#include "shadow_tile.cuh"
 
-#define SUB_BT 128
-#define THREADS 256
 #define RAYS_PER_CTA (THREADS / 32)  // closest hit: one warp per ray
 #define LANE_BOXES 8  // cluster entries a lane holds: 32 * 8 clusters a sweep
-#define FULL 0xffffffffu
 
 namespace {
-
-struct Ray {
-  float o[3], d[3], iv[3], pad[3];
-};
-
-__device__ __forceinline__ Ray load_ray(const float* __restrict__ org,
-                                        const float* __restrict__ dir,
-                                        long long i) {
-  Ray r;
-  for (int a = 0; a < 3; ++a) {
-    r.o[a] = org[3 * i + a];
-    r.d[a] = dir[3 * i + a];
-    // _inv_dir: |d| < 1e-12 -> +-1e-12 before inverting, so an axis-parallel
-    // ray gives a finite slope, never 0 * inf = NaN
-    const float eps = (float)1e-12;
-    const float dd = fabsf(r.d[a]) < eps ? (r.d[a] < 0.0f ? -eps : eps)
-                                         : r.d[a];
-    r.iv[a] = 1.0f / dd;
-    r.pad[a] = (float)1e-5 * fabsf(r.o[a]);
-  }
-  return r;
-}
-
-// Slab test of the ray's interval [lo, hi] against box j of a row-major
-// (8, w) table (rows lo xyz | hi xyz), widened as the header says: the
-// interval's part inside the box is [*enter, *exit_], empty if it misses.
-__device__ __forceinline__ void slab(const float* __restrict__ tab, int w,
-                                     int j, const Ray& r, float lo, float hi,
-                                     float* enter, float* exit_) {
-  *enter = lo, *exit_ = hi;
-  for (int a = 0; a < 3; ++a) {
-    const float bl = __ldg(tab + a * w + j);
-    const float bh = __ldg(tab + (a + 3) * w + j);
-    const float pad = fmaxf(r.pad[a],
-                            (float)1e-5 * fmaxf(fabsf(bl), fabsf(bh)));
-    const float t0 = (bl - pad - r.o[a]) * r.iv[a];
-    const float t1 = (bh + pad - r.o[a]) * r.iv[a];
-    *enter = fmaxf(*enter, fminf(t0, t1));
-    *exit_ = fminf(*exit_, fmaxf(t0, t1));
-  }
-}
-
-// Does the ray's interval [lo, hi] enter box j?
-__device__ __forceinline__ bool box_entered(const float* __restrict__ tab,
-                                            int w, int j, const Ray& r,
-                                            float lo, float hi) {
-  float enter, exit_;
-  slab(tab, w, j, r, lo, hi, &enter, &exit_);
-  return enter <= exit_;
-}
 
 // Where the ray's interval [lo, hi] enters box j; +inf if it does not.
 __device__ __forceinline__ float box_entry(const float* __restrict__ tab,
@@ -161,33 +121,6 @@ __device__ __forceinline__ int warp_argmin(float f, float* m) {
   const unsigned best = __reduce_min_sync(FULL, key);
   *m = unordered(best);
   return __ffs(__ballot_sync(FULL, key == best)) - 1;
-}
-
-// Moller-Trumbore test of pack column k (row stride w) in the operation
-// order of _mt_test_scalar; returns det/barycentric validity, t in *t.
-__device__ __forceinline__ bool mt_test(const float* __restrict__ p, int w,
-                                        int k, const Ray& r, float* t) {
-  const float v0x = p[k], v0y = p[w + k], v0z = p[2 * w + k];
-  const float e1x = p[3 * w + k], e1y = p[4 * w + k], e1z = p[5 * w + k];
-  const float e2x = p[6 * w + k], e2y = p[7 * w + k], e2z = p[8 * w + k];
-  const float ox = r.o[0], oy = r.o[1], oz = r.o[2];
-  const float dx = r.d[0], dy = r.d[1], dz = r.d[2];
-  const float eps = (float)1e-12;
-  const float px = dy * e2z - dz * e2y;
-  const float py = dz * e2x - dx * e2z;
-  const float pz = dx * e2y - dy * e2x;
-  const float det = px * e1x + py * e1y + pz * e1z;
-  const float inv = 1.0f / (fabsf(det) < eps ? 1.0f : det);
-  const float tx = ox - v0x;
-  const float ty = oy - v0y;
-  const float tz = oz - v0z;
-  const float u = (tx * px + ty * py + tz * pz) * inv;
-  const float qx = ty * e1z - tz * e1y;
-  const float qy = tz * e1x - tx * e1z;
-  const float qz = tx * e1y - ty * e1x;
-  const float v = (dx * qx + dy * qy + dz * qz) * inv;
-  *t = (e2x * qx + e2y * qy + e2z * qz) * inv;
-  return (fabsf(det) > eps) & (u >= 0.0f) & (v >= 0.0f) & (u + v <= 1.0f);
 }
 
 struct Scene {
@@ -295,43 +228,55 @@ closest_fine_kernel(Scene s, const float* __restrict__ org,
   }
 }
 
-__global__ void shadow_fine_kernel(Scene s, const float* __restrict__ logf,
-                                   int logf_w, const float* __restrict__ org,
-                                   const float* __restrict__ dir,
-                                   const float* __restrict__ dist, int n,
-                                   float* __restrict__ lg_out) {
-  const long long i = (long long)blockIdx.x * blockDim.x + threadIdx.x;
-  if (i >= n) return;
-  const Ray r = load_ray(org, dir, i);
-  const float lo = (float)5e-4;
-  const float hi = dist[i] * (float)(1.0 - 1e-4) - (float)5e-4;
-  const float floor_ = -80.0f;
+// rpb: rays per block, a multiple of 32 up to SHADOW_THREADS; thread
+// t < rpb owns ray blockIdx.x * rpb + t.
+__global__ void __launch_bounds__(SHADOW_THREADS, SHADOW_MIN_BLOCKS)
+shadow_fine_kernel(Scene s, const float* __restrict__ logf,
+                   const float* __restrict__ org,
+                   const float* __restrict__ dir,
+                   const float* __restrict__ dist, int n, int rpb,
+                   float* __restrict__ lg_out) {
+  __shared__ TileSmem sm;
+  const int tid = threadIdx.x;
+  const long long i = (long long)blockIdx.x * rpb + tid;
+  const bool has = tid < rpb && i < n;
+  {
+    Ray r = {};
+    float hi = -1.0f;
+    if (has) {
+      r = load_ray(org, dir, i);
+      hi = shadow_hi(dist[i]);
+    }
+    put_segment(sm, tid, r, hi);
+  }
+  // a dead lane (dist < 0) has an empty interval and enters nothing
+  bool open = has && SHADOW_LO <= sm.hi[tid];  // live and not yet opaque
+  const TileSrc ts{s.pack, logf, s.pack_w, s.n_tris};
   const int spc = s.n_sc / s.n_cl;
   const int sc_real = (s.n_tris + SUB_BT - 1) / SUB_BT;
-  float lr = 0.0f, lg = 0.0f, lb = 0.0f;
-  for (int c = 0; c < s.n_cl && c * spc < sc_real; ++c) {
-    if (!box_entered(s.cl8, s.n_cl, c, r, lo, hi)) continue;
+  // a block of dead rays ends at this vote, a block whose rays have all
+  // turned opaque at the vote after the cluster that closed the last one
+  bool any_open = __syncthreads_or(open);
+  for (int c = 0; any_open && c < s.n_cl && c * spc < sc_real; ++c) {
+    const bool in_c = open && box_entered(s.cl8, s.n_cl, c,
+                                          get_segment(sm, tid), SHADOW_LO,
+                                          sm.hi[tid]);
+    if (!__syncthreads_or(in_c)) continue;
     const int s1 = min((c + 1) * spc, sc_real);
-    for (int j = c * spc; j < s1; ++j) {
-      if (!box_entered(s.sub8, s.n_sc, j, r, lo, hi)) continue;
-      const int k1 = min((j + 1) * SUB_BT, s.n_tris);
-      for (int k = j * SUB_BT; k < k1; ++k) {
-        float t;
-        const bool ok = mt_test(s.pack, s.pack_w, k, r, &t);
-        if (ok && t > lo && t < hi) {
-          lr += logf[k];
-          lg += logf[logf_w + k];
-          lb += logf[2 * logf_w + k];
-        }
-      }
-      // opaque in every channel: the floored result is -80 already
-      if (lr <= floor_ && lg <= floor_ && lb <= floor_) goto done;
+    for (int j0 = c * spc; j0 < s1; j0 += GROUP) {
+      const unsigned mask =
+          in_c ? entered_mask(sm, tid, s.sub8, s.n_sc, j0, min(GROUP, s1 - j0))
+               : 0u;
+      tile_group<true>(sm, ts, j0, mask);
     }
+    if (open) open = !opaque(sm, tid);
+    any_open = __syncthreads_or(open);
   }
-done:
-  lg_out[3 * i] = fmaxf(lr, floor_);
-  lg_out[3 * i + 1] = fmaxf(lg, floor_);
-  lg_out[3 * i + 2] = fmaxf(lb, floor_);
+  if (has) {
+    lg_out[3 * i] = fmaxf(sm.acc[0][tid], LOG_FLOOR);
+    lg_out[3 * i + 1] = fmaxf(sm.acc[1][tid], LOG_FLOOR);
+    lg_out[3 * i + 2] = fmaxf(sm.acc[2][tid], LOG_FLOOR);
+  }
 }
 
 int check_scene(const Scene& s) {
@@ -371,12 +316,18 @@ extern "C" int shadow_logsum_fine_launch(
   const Scene s{(const float*)pack, pack_w, (const float*)cl8, n_cl,
                 (const float*)sub8, n_sc, n_tris};
   if (const int bad = check_scene(s)) return bad;
-  if (logf_w < s.n_tris) return (int)cudaErrorInvalidValue;
+  if (logf_w != pack_w || !tiles_ok(pack, logf, pack_w)) {
+    return (int)cudaErrorInvalidValue;
+  }
   if (n > 0) {
-    const int blocks = (n + THREADS - 1) / THREADS;
-    shadow_fine_kernel<<<blocks, THREADS, 0, (cudaStream_t)stream>>>(
-        s, (const float*)logf, logf_w, (const float*)org, (const float*)dir,
-        (const float*)dist, n, (float*)lg_out);
+    // 256 rays a block while that leaves every SM (132 on an H100) two
+    // blocks; fewer rays a block for smaller launches
+    int rpb = SHADOW_THREADS;
+    while (rpb > 32 && (n + rpb - 1) / rpb < 2 * 132) rpb /= 2;
+    const int blocks = (n + rpb - 1) / rpb;
+    shadow_fine_kernel<<<blocks, SHADOW_THREADS, 0, (cudaStream_t)stream>>>(
+        s, (const float*)logf, (const float*)org, (const float*)dir,
+        (const float*)dist, n, rpb, (float*)lg_out);
   }
   return (int)cudaGetLastError();
 }

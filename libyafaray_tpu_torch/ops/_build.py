@@ -1,8 +1,9 @@
 """Build and load the port's CUDA kernels (nvcc -> plain-C-ABI .so -> ctypes).
 
 A library is built at first use into `libyafaray_tpu_torch/_build/`, keyed
-on a hash of its source and flags, so a fresh checkout builds it on the
-first call and later calls in the process reuse the loaded library.
+on a hash of its source, the shared headers and the flags, so a fresh
+checkout builds it on the first call and later calls in the process reuse
+the loaded library.
 Only the package's own `csrc/` sources are compiled; nothing is fetched.
 A failed build raises with nvcc's stderr.
 """
@@ -38,9 +39,13 @@ def _nvcc() -> str:
 
 
 def library_path(name: str) -> str:
-    """Path of the built library for csrc/<name>.cu at its current source."""
-    with open(os.path.join(CSRC, f"{name}.cu"), "rb") as f:
-        key = hashlib.sha256(f.read() + " ".join(NVCC_FLAGS).encode())
+    """Path of the built library for csrc/<name>.cu at its current source
+    (the shared headers csrc/*.cuh included)."""
+    key = hashlib.sha256(" ".join(NVCC_FLAGS).encode())
+    headers = sorted(f for f in os.listdir(CSRC) if f.endswith(".cuh"))
+    for src in (f"{name}.cu", *headers):
+        with open(os.path.join(CSRC, src), "rb") as f:
+            key.update(f.read())
     return os.path.join(BUILD_DIR, f"lib{name}_{key.hexdigest()[:16]}.so")
 
 

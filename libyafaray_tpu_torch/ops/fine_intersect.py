@@ -7,10 +7,15 @@ Port of the gathered-fine section of libyafaray_tpu/ops/pallas_intersect.py
 `_closest_epilogue`).  The kernels live in csrc/fine_intersect.cu and are
 built by ops/_build.py at first use.
 
-The kernels compute the reference's function, not its TPU schedule: one
-thread walks one ray through the cluster and sub-cluster boxes, and the
-plain versions are a brute force over every real pack column in chunks,
-which gives the same answers (the kernels' box skips are conservative).
+The kernels compute the reference's function, not its TPU schedule.  The
+closest hit gives a warp to a ray and walks the cluster and sub-cluster
+boxes nearest entry first; the shadow sum gives a block to a run of up to
+256 rays, stages each 128-column sub-cluster some ray of the run enters in
+shared memory and deals the (ray, sub-cluster) pairs to warps.  The plain
+versions are a brute force over every real pack column in chunks, which
+gives the same hits (the kernels' box skips are conservative) and the same
+sums up to the order of the additions: exactly where every log filter is 0
+or -80, to rounding otherwise.
 Ties go to the lowest pack column in both.  The reference's ray sort, block
 lists and next-group keys (`_ray_sort_perm`, `_entry_sort_perm`,
 `_fine_block_keys`, `_next_group_keys`) schedule the TPU and are not
@@ -204,6 +209,13 @@ def _check_scene(pack10, cluster8, sub8, n_tris: int, device) -> None:
         raise ValueError(f"n_tris={n_tris} outside [0, {tp}]")
 
 
+def _check_aligned(**tensors) -> None:
+    """The shadow kernels copy pack and log-filter rows 16 bytes at a time."""
+    for name, x in tensors.items():
+        if x.data_ptr() % 16:
+            raise ValueError(f"{name}: must start on a 16-byte boundary")
+
+
 def _scene_args(pack10, cluster8, sub8, n_tris: int) -> tuple:
     return (pack10.data_ptr(), pack10.shape[1], cluster8.data_ptr(),
             cluster8.shape[1], sub8.data_ptr(), sub8.shape[1], n_tris)
@@ -248,7 +260,12 @@ def shadow_logsum_fine(pack10, cluster8, sub8, logf, org, dirn, dist,
                        n_tris: int):
     """(N, 3) log transmission of each segment over the first n_tris pack
     columns, floored at -80; logf (>=3, T') holds the per-column log filter
-    rows.  All float32, contiguous, one device."""
+    rows.  All float32, contiguous, one device.  On the card one kernel body
+    serves every batch: a block takes 256 consecutive rays, fewer (down to
+    32) when the batch is too small to give every multiprocessor two
+    blocks; pack10 and logf must start on a 16-byte boundary.  The sums are
+    added sub-cluster by sub-cluster in pack order, the same bits in every
+    call."""
     dev = org.device
     n = org.shape[0]
     _check_scene(pack10, cluster8, sub8, n_tris, dev)
@@ -262,6 +279,7 @@ def shadow_logsum_fine(pack10, cluster8, sub8, logf, org, dirn, dist,
         return shadow_logsum_fine_plain(pack10, logf, org, dirn, dist, n_tris)
     if dev.type != "cuda":
         raise ValueError(f"shadow_logsum_fine: unsupported device {dev}")
+    _check_aligned(pack10=pack10, logf=logf)
     lg = torch.empty((n, 3), dtype=torch.float32, device=dev)
     lib = _lib()
     with torch.cuda.device(dev):

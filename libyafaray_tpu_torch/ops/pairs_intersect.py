@@ -14,7 +14,11 @@ PAIRS_MIN_CLUSTERS clusters.  Each ray's clusters are ordered by the entry
 of its interval into their boxes (the minimum over a cluster's 128-column
 sub-boxes where `pick_nsub` > 1); picked clusters become (ray, cluster)
 slots sorted by cluster, so that neighbouring threads of a kernel test the
-same triangles, and the per-slot results are reduced back to rays.
+same triangles, and the per-slot results are reduced back to rays.  The
+shadow kernel takes the sub-box table too: a block of slots stages its
+cluster's 128-column sub-clusters in shared memory and a slot tests only
+those its segment enters (the plain version tests every column of the
+cluster: the same sums up to the order of the additions).
 - Closest hit: round 1 tests each ray's PAIR_K1 nearest clusters, round 2
   the next PAIR_K2 whose entry is nearer than round 1's hit; a ray with a
   cluster past those still nearer than its best hit is a straggler.
@@ -227,7 +231,8 @@ def _lib() -> ctypes.CDLL:
             _P, _I, _I, _I, _P, _P, _I, _P, _P, _P, _P, _I, _P, _P, _P]
         lib.pairs_closest_launch.restype = _I
         lib.pairs_shadow_launch.argtypes = [
-            _P, _I, _I, _I, _P, _I, _P, _P, _I, _P, _P, _P, _I, _P, _P]
+            _P, _I, _I, _I, _P, _I, _P, _I, _P, _P, _I, _P, _P, _P, _I, _P,
+            _P]
         lib.pairs_shadow_launch.restype = _I
     return lib
 
@@ -294,15 +299,25 @@ def pairs_closest(pack10, n_cl: int, sray, scl, org, dirn, tmin, tmax,
 pairs_closest.launches = 0
 
 
-def pairs_shadow(pack10, n_cl: int, logf, sray, scl, org, dirn, dist,
+def pairs_shadow(pack10, n_cl: int, sub8, logf, sray, scl, org, dirn, dist,
                  n_tris: int):
     """(P, 3) per slot: the sum of the log filters (logf (>=3, T') rows) of
     the slot cluster's real columns its ray's segment org -> org + dirn·dist
-    crosses, not floored.  Float32, contiguous, one device."""
+    crosses, not floored.  sub8 (8, T'/128) holds the boxes of the pack's
+    128-column sub-clusters (clusters are whole sub-clusters): on the card a
+    slot tests only the sub-clusters its segment enters, and the sums are
+    added sub-cluster by sub-cluster, the same bits in every call; pack10
+    and logf must start on a 16-byte boundary there.  Float32, contiguous,
+    one device."""
     dev = org.device
     n = org.shape[0]
     p = _check_slots(pack10, n_cl, sray, scl, n_tris, dev)
-    _check("logf", logf, (None, pack10.shape[1]), dev)
+    tp = pack10.shape[1]
+    if (tp // n_cl) % SUB_BT:
+        raise ValueError(f"clusters of {tp // n_cl} columns are not whole "
+                         f"{SUB_BT}-column sub-clusters")
+    _check("sub8", sub8, (8, tp // SUB_BT), dev)
+    _check("logf", logf, (None, tp), dev)
     if logf.shape[0] < 3:
         raise ValueError(f"logf: needs 3 rgb rows, has {logf.shape[0]}")
     _check("org", org, (n, 3), dev)
@@ -313,6 +328,7 @@ def pairs_shadow(pack10, n_cl: int, logf, sray, scl, org, dirn, dist,
                                   dist, n_tris)
     if dev.type != "cuda":
         raise ValueError(f"pairs_shadow: unsupported device {dev}")
+    fine_intersect._check_aligned(pack10=pack10, logf=logf)
     lg = torch.empty((p, 3), dtype=torch.float32, device=dev)
     if p == 0:
         return lg
@@ -320,9 +336,10 @@ def pairs_shadow(pack10, n_cl: int, logf, sray, scl, org, dirn, dist,
     with torch.cuda.device(dev):
         stream = torch.cuda.current_stream(dev).cuda_stream
         code = lib.pairs_shadow_launch(
-            pack10.data_ptr(), pack10.shape[1], n_cl, n_tris, logf.data_ptr(),
-            logf.shape[1], sray.data_ptr(), scl.data_ptr(), p, org.data_ptr(),
-            dirn.data_ptr(), dist.data_ptr(), n, lg.data_ptr(), stream)
+            pack10.data_ptr(), tp, n_cl, n_tris, sub8.data_ptr(),
+            sub8.shape[1], logf.data_ptr(), logf.shape[1], sray.data_ptr(),
+            scl.data_ptr(), p, org.data_ptr(), dirn.data_ptr(),
+            dist.data_ptr(), n, lg.data_ptr(), stream)
     _WRAPPERS["pairs_shadow"].launches += 1
     _raise_on(code, "pairs_shadow")
     return lg
@@ -409,7 +426,7 @@ def shadow_logsum_pairs(pack10, cluster8, sub8, logf, org, dirn, dist,
     capable = count <= ks
     sray, scl, flat = expand_pairs(
         sidx, torch.isfinite(sent) & capable[:, None], n_cl)
-    lg_s = pairs_shadow(pack10, n_cl, logf, sray, scl, org, dirn, dist,
+    lg_s = pairs_shadow(pack10, n_cl, sub8, logf, sray, scl, org, dirn, dist,
                         n_tris)
     # summed per ray in pick order: the same sum in every run
     lg = _per_pick(lg_s, flat, sidx.shape, 0.0).sum(dim=1)

@@ -1,8 +1,11 @@
-"""Device times of the port's two search kernels at their paths' shapes, for
-one tree of the repository: `closest_hit_fine` on the rays a sample step of
-the 164K-triangle grid scene hands it (the primary rays and each bounce's)
+"""Device times of the port's redesigned kernels at their paths' shapes, for
+one tree of the repository: `closest_hit_fine` and `shadow_logsum_fine` on
+the rays a sample step of the 164K-triangle grid scene hands them (the
+primary rays and each bounce's; the bounce-0 NEE batch and each bounce's
+one-sample launch), `pairs_shadow` on the bounce-0 NEE slots of the same
+step on the pair route and `shadow_logsum_fine` on that pass's stragglers,
 and `nearest_flash` on a photon step's first final-gather lookup; and, of
-one sample step of each of the two paths under `torch.profiler`, the CUDA
+one sample step of each of the three paths under `torch.profiler`, the CUDA
 kernels launched, the device's busy ms and the ms of the ported kernels.
 
     python3 scripts/torch_kernel_times.py [--repo DIR]
@@ -18,12 +21,15 @@ it on both inside one job, in turns (parent, change, change, parent):
     python3 scripts/torch_kernel_times.py
 
 Each kernel is also held to its plain version on a sample (the wrapper's
-CPU route for the photons, `closest_fine_plain` on the card for the rays),
-and the sums printed per call are equal between two trees that give the
-same answers.  Times are device ms per call (a CUDA graph of back-to-back
-calls between CUDA events, `chip_smoke.device_ms`); a step is profiled by
-`chip_smoke.profile_step`.  Prints one line per measurement and a last JSON
-line with all of them; needs one NVIDIA GPU.
+CPU route for the photons, the plain brute force on the card for the rays
+and slots), each shadow kernel is called twice and the answers compared bit
+for bit, and the sums printed per call are equal between two trees that
+give the same answers.  Every call replays the arguments its own tree's
+step recorded, so a tree whose `pairs_shadow` takes no sub-box table is
+called without one.  Times are device ms per call (a CUDA graph of
+back-to-back calls between CUDA events, `chip_smoke.device_ms`); a step is
+profiled by `chip_smoke.profile_step`.  Prints one line per measurement and
+a last JSON line with all of them; needs one NVIDIA GPU.
 """
 from __future__ import annotations
 
@@ -37,6 +43,7 @@ import tempfile
 import torch
 
 PLAIN_RAYS = 16384
+PLAIN_SLOTS = 1 << 18
 PLAIN_QUERIES = 2048
 
 
@@ -50,6 +57,7 @@ def main() -> None:
     sys.path.insert(0, repo)
     import chip_smoke as cs
     from libyafaray_tpu_torch.ops import fine_intersect as fi
+    from libyafaray_tpu_torch.ops import pairs_intersect as pi
     from libyafaray_tpu_torch.ops import photon_flash as pf
 
     smi = subprocess.run(
@@ -57,7 +65,8 @@ def main() -> None:
          "--format=csv,noheader"], capture_output=True, text=True,
         check=True).stdout.strip().splitlines()[0]
     out = dict(repo=os.path.relpath(repo), gpu=smi, closest_hit_fine={},
-               nearest_flash={}, step={})
+               shadow_logsum_fine={}, pairs_shadow={}, nearest_flash={},
+               step={})
 
     def profiled(name, step, arrays, cfg, tags):
         prof = cs.profile_step(step, arrays, cfg, tags)
@@ -68,11 +77,41 @@ def main() -> None:
               + " ".join(f"{k}={v}" for k, v in out["step"][name].items()),
               flush=True)
 
+    def shadow_row(kernel, lg, plain_lg, sample, **counts):
+        """One shadow call's line: sums, the strided sample against the
+        plain version, a second call against the first, device ms."""
+        again = kernel()
+        tr_err = (torch.exp(lg[sample]) - torch.exp(plain_lg)).abs().max()
+        return dict(
+            **counts, lg_sum=float(lg.double().sum()),
+            below_floor=int((lg <= -80.0).all(dim=-1).sum()),
+            differ_from_plain=int((lg[sample] != plain_lg).any(dim=-1).sum()),
+            transmission_max_abs_err=float(tr_err),
+            compared=plain_lg.shape[0],
+            repeat_differ=int((again != lg).any(dim=-1).sum()),
+            ms=cs.device_ms(kernel, calls=3, replays=5))
+
+    def fine_shadow(name, args):
+        pk, _, _, logf, org, dirn, dist, n_tris = args
+        lg = fi.shadow_logsum_fine(*args)
+        sample = slice(None, None, max(1, org.shape[0] // PLAIN_RAYS))
+        plain_lg = fi.shadow_logsum_fine_plain(
+            pk, logf, *(x[sample].contiguous() for x in (org, dirn, dist)),
+            n_tris)
+        row = shadow_row(lambda: fi.shadow_logsum_fine(*args), lg, plain_lg,
+                         sample, rays=org.shape[0],
+                         live=int((dist > 0).sum()))
+        out["shadow_logsum_fine"][name] = row
+        print(f"[shadow_logsum_fine] rays={name!r} "
+              + " ".join(f"{k}={v}" for k, v in row.items()), flush=True)
+
     with tempfile.TemporaryDirectory() as scenes:
         path = cs.make_grid(scenes, cs.GRID["grid"], cs.GRID["subdiv"])
         gscene, gcfg = cs.grid(path, cs.GRID["size"], cs.GRID["spp"], "cuda")
-        step, arrays, calls = cs.step_calls(gscene, gcfg, fi,
-                                            ("closest_hit_fine",))
+        pscene, _ = cs.grid(path, cs.GRID["size"], cs.GRID["spp"], "cuda",
+                            pairs=True)
+    step, arrays, calls = cs.step_calls(
+        gscene, gcfg, fi, ("closest_hit_fine", "shadow_logsum_fine"))
     profiled("grid", step, arrays, gcfg, ("fine_kernel",))
     del step, arrays
     for vertex, args in enumerate(calls["closest_hit_fine"]):
@@ -95,7 +134,34 @@ def main() -> None:
         out["closest_hit_fine"][name] = row
         print(f"[closest_hit_fine] rays={name!r} "
               + " ".join(f"{k}={v}" for k, v in row.items()), flush=True)
+    for vertex, args in enumerate(calls["shadow_logsum_fine"]):
+        fine_shadow(f"bounce-{vertex} NEE", args)
     del calls
+
+    # the pair route: one step, its pair shadow slots and its stragglers
+    (step, arrays, calls), stragglers = cs.record_calls(
+        fi, ("shadow_logsum_fine",), lambda: cs.step_calls(
+            pscene, gcfg, pi, ("pairs_shadow",)))
+    profiled("pairs", step, arrays, gcfg, cs.PAIR_KERNELS)
+    del step, arrays
+    args = calls["pairs_shadow"][0]
+    # (pack, clusters, [sub-boxes,] log filters, slot rays, slot clusters,
+    # origins, directions, lengths, triangles)
+    head, (logf, sray, scl, org, dirn, dist, n_tris) = args[:-7], args[-7:]
+    lg = pi.pairs_shadow(*args)
+    sample = slice(None, None, max(1, sray.shape[0] // PLAIN_SLOTS))
+    plain_lg = pi.pairs_shadow_plain(
+        *head[:2], logf, sray[sample].contiguous(), scl[sample].contiguous(),
+        org, dirn, dist, n_tris)
+    row = shadow_row(lambda: pi.pairs_shadow(*args), lg, plain_lg, sample,
+                     slots=sray.shape[0], rays=org.shape[0])
+    out["pairs_shadow"]["bounce-0 NEE"] = row
+    print("[pairs_shadow] rays='bounce-0 NEE' "
+          + " ".join(f"{k}={v}" for k, v in row.items()), flush=True)
+    del calls, lg, plain_lg
+    for vertex, (_, args) in enumerate(stragglers):
+        fine_shadow(f"pair-route stragglers, bounce-{vertex} NEE", args)
+    del stragglers
 
     pscene, pcfg = cs.photon_scene(cs.PHOTON, "cuda")
     step, arrays, _, step_calls = cs.photon_inputs(pscene, pcfg)

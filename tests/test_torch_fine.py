@@ -323,6 +323,146 @@ def test_shadow_plain_matches_reference_fine(cases, case):
     assert (tr < 1e-30).any() and ((tr > 0.01) & (tr < 0.99)).any()
 
 
+def _lane_tree_sum(terms):
+    """(M, 128, 3) per-column terms of one tile -> (M, 3), added as the card
+    kernels add them: lane l of 32 sums its columns l, l + 32, l + 64,
+    l + 96 in rising order from 0, then the lanes are added by the xor tree
+    (offsets 16, 8, 4, 2, 1) and lane 0 holds the tile's sum."""
+    lanes = torch.zeros((terms.shape[0], 32, 3))
+    for q in range(fi.SUB_BT // 32):
+        lanes = lanes + terms[:, 32 * q:32 * q + 32]
+    idx = torch.arange(32)
+    for off in (16, 8, 4, 2, 1):
+        lanes = lanes + lanes[:, idx ^ off]
+    return lanes[:, 0]
+
+
+def _tile_terms(pk, logf, j, n_tris, o, d, hi):
+    """(M, 128, 3) log-filter terms of tile j's columns for M segments: the
+    column's log filter where the segment crosses its triangle, else 0;
+    columns past n_tris are never tested (0)."""
+    k0, k1 = j * fi.SUB_BT, min((j + 1) * fi.SUB_BT, n_tris)
+    t, _, _, ok = ci._mt_test(pk, slice(k0, k1),
+                              *(o[:, a:a + 1] for a in range(3)),
+                              *(d[:, a:a + 1] for a in range(3)))
+    crossed = ok & (t > ci.SHADOW_TMIN) & (t < hi[:, None])
+    terms = torch.zeros((o.shape[0], fi.SUB_BT, 3))
+    terms[:, :k1 - k0] = torch.where(crossed[..., None],
+                                     logf[:3, k0:k1].T[None], 0.0)
+    return terms, k1 - k0
+
+
+def _walk_shadow(pk, cl8, sub8, logf, o, d, dist, n_tris, floor=True):
+    """The card kernel's shadow walk in plain PyTorch: tiles (128-column
+    sub-clusters) in pack order; a ray takes a tile when its segment enters
+    the tile's cluster box and the tile's own box, both widened by 1e-5;
+    pad tiles are never visited; a ray whose three sums are <= -80 takes no
+    further tile (with `floor`); a tile's sum is `_lane_tree_sum`'s and is
+    added to the ray's running sum.  Returns (sums, floored at -80 with
+    `floor`; pair tests made; (ray, tile) items the opaque exit skipped)."""
+    spc = sub8.shape[1] // cl8.shape[1]
+    sc_real = -(-n_tris // fi.SUB_BT)
+    cl_real = -(-sc_real // spc)
+    lo, hi = ci.SHADOW_TMIN * torch.ones_like(dist), (
+        dist * (1.0 - 1e-4) - ci.SHADOW_TMIN)
+    c_in = torch.isfinite(fi.box_entry(cl8[:, :cl_real], o, d, lo, hi))
+    s_in = torch.isfinite(fi.box_entry(sub8[:, :sc_real], o, d, lo, hi))
+    acc = torch.zeros((o.shape[0], 3))
+    pairs = skipped = 0
+    for j in range(sc_real):
+        takers = c_in[:, j // spc] & s_in[:, j]
+        if floor:
+            done = (acc <= fi.LOG_FLOOR).all(dim=1)
+            skipped += int((takers & done).sum())
+            takers = takers & ~done
+        idx = torch.nonzero(takers).squeeze(1)
+        if idx.numel():
+            terms, ncols = _tile_terms(pk, logf, j, n_tris, o[idx], d[idx],
+                                       hi[idx])
+            acc[idx] = acc[idx] + _lane_tree_sum(terms)
+            pairs += idx.numel() * ncols
+    return (acc.clamp(min=fi.LOG_FLOOR) if floor else acc), pairs, skipped
+
+
+def _regroup(pack, n_tris, spc):
+    """Cluster boxes over spc tiles each (the pack's own clusters are one
+    tile wide below 32,769 triangles): the two-level walk a large pack
+    gets, on a small one."""
+    return ci._column_boxes(pack, n_tris, spc * fi.SUB_BT)
+
+
+def _filters(kind, n_tris, tp, rng):
+    """(4, T') filter rows in pack order: 0 or 1 (`binary`, log filters 0
+    or -80: every sum exact), all 0 (`opaque`), or a random colour on half
+    of the triangles and 0 on the rest (`partial`)."""
+    filt4 = np.zeros((4, tp), np.float32)
+    if kind == "binary":
+        filt4[:3, :n_tris] = rng.random((1, n_tris)) > 0.5
+    elif kind == "partial":
+        filt4[:3, :n_tris] = (rng.random((3, n_tris))
+                              * (rng.random((1, n_tris)) > 0.5))
+    return filt4
+
+
+# (case, triangles counted as real or None for all, tiles per cluster)
+WALKS = [("soup2304", None, 1), ("soup2304", None, 6), ("soup2304", None, 18),
+         ("soup2304", 2000, 6), ("grid2", None, 1), ("grid2", None, 3)]
+
+
+@pytest.mark.parametrize("kind", ["binary", "opaque", "partial"])
+@pytest.mark.parametrize("case, real, spc", WALKS)
+def test_shadow_tile_walk_gives_the_plain_sum(cases, case, real, spc, kind):
+    """The kernel's tile walk (cluster and sub-box skips, pad tiles never
+    visited, the -80 exit, dead lanes, lane-then-tree sums) against the
+    brute force: equal bit for bit where every log filter is 0 or -80,
+    transmission within atol 2e-3 (log sums within 1e-4) otherwise."""
+    pack, _, n_tris, o, d = cases[case]
+    n_tris = real or n_tris
+    rng = np.random.default_rng(5)
+    dist = rng.uniform(0.5, 12.0, o.shape[0]).astype(np.float32)
+    dist[::9] = -1.0  # dead lanes: empty segment
+    pk = _t(pack)
+    logf = ci.log_filter(_t(_filters(kind, n_tris, pack.shape[1], rng)))
+    sub8 = _t(fi.sub_aabbs(pack, n_tris))
+    cl8 = _t(_regroup(pack, n_tris, spc))
+    rays = (_t(o), _t(d), _t(dist))
+    want = fi.shadow_logsum_fine_plain(pk, logf, *rays, n_tris)
+    got, pairs, skipped = _walk_shadow(pk, cl8, sub8, logf, *rays, n_tris)
+    assert (got[::9] == 0.0).all()
+    assert 0 < pairs < 0.5 * o.shape[0] * n_tris
+    if kind == "partial":
+        assert torch.allclose(got, want, atol=1e-4, rtol=1e-6)
+        assert torch.allclose(torch.exp(got), torch.exp(want), atol=2e-3)
+        assert ((got < 0) & (got > -80)).any()
+    else:
+        assert torch.equal(got, want)
+        assert (got == -80.0).any() and skipped > 0
+    # without the exit the walk tests what the bound's count says it needs
+    lo, hi = ci.SHADOW_TMIN * torch.ones_like(rays[2]), (
+        rays[2] * (1.0 - 1e-4) - ci.SHADOW_TMIN)
+    raw, all_pairs, none = _walk_shadow(pk, cl8, sub8, logf, *rays, n_tris,
+                                        floor=False)
+    assert all_pairs == fi.fine_pair_tests(cl8, sub8, rays[0], rays[1], lo,
+                                           hi, n_tris)[0]
+    assert none == 0 and pairs <= all_pairs
+    assert torch.equal(raw.clamp(min=-80.0), got) or kind == "partial"
+
+
+@pytest.mark.parametrize("batch", ["empty", "dead"])
+def test_shadow_tile_walk_takes_empty_and_dead_batches(cases, batch):
+    """No rays, or only dead lanes (dist < 0): nothing is entered, no pair
+    is tested, every sum is 0, in the walk and in the plain version."""
+    pack, cl, n_tris, o, d = cases["soup2304"]
+    n = 0 if batch == "empty" else 40
+    pk, sub8 = _t(pack), _t(fi.sub_aabbs(pack, n_tris))
+    logf = ci.log_filter(torch.zeros((4, pack.shape[1])))
+    rays = (_t(o[:n]), _t(d[:n]), torch.full((n,), -1.0))
+    got, pairs, _ = _walk_shadow(pk, _t(cl), sub8, logf, *rays, n_tris)
+    want = fi.shadow_logsum_fine(pk, _t(cl), sub8, logf, *rays, n_tris)
+    assert got.shape == want.shape == (n, 3) and pairs == 0
+    assert torch.equal(got, want) and not got.any()
+
+
 def test_shadow_plain_floors_at_opaque():
     """Every log filter is <= 0, so one floor at -80 after the sum is the
     reference's per-group floor: three opaque triangles on one segment

@@ -196,6 +196,108 @@ def test_pairs_shadow_plain_matches_reference_kernel(soup, small_caps):
     assert lg.min() < -80  # not floored: two opaque crossings sum
 
 
+def _lane_tree_sum(terms):
+    """(M, 128, 3) per-column terms of one tile -> (M, 3), added as the card
+    kernels add them: lane l of 32 sums its columns l, l + 32, l + 64,
+    l + 96 in rising order from 0, then the lanes are added by the xor tree
+    (offsets 16, 8, 4, 2, 1) and lane 0 holds the tile's sum."""
+    lanes = torch.zeros((terms.shape[0], 32, 3))
+    for q in range(fi.SUB_BT // 32):
+        lanes = lanes + terms[:, 32 * q:32 * q + 32]
+    idx = torch.arange(32)
+    for off in (16, 8, 4, 2, 1):
+        lanes = lanes + lanes[:, idx ^ off]
+    return lanes[:, 0]
+
+
+def _walk_slots(pk, n_cl, sub8, logf, sray, scl, org, dirn, dist, n_tris):
+    """The card kernel's slot sums in plain PyTorch: a slot whose ray or
+    cluster id is out of range tests nothing; the others take their
+    cluster's tiles (128-column sub-clusters) in rising order, a tile only
+    when the segment enters its box (widened by 1e-5) and never a pad tile;
+    a tile's sum is `_lane_tree_sum`'s, added to the slot's running sum,
+    which is not floored.  Returns (sums (P, 3), pair tests made)."""
+    spc = sub8.shape[1] // n_cl
+    sc_real = -(-n_tris // fi.SUB_BT)
+    ok_id = ((sray >= 0) & (sray < org.shape[0]) & (scl >= 0) & (scl < n_cl))
+    acc = torch.zeros((sray.shape[0], 3))
+    keep = torch.nonzero(ok_id).squeeze(1)
+    r, c = sray[keep].long(), scl[keep].long()
+    o, d = org[r], dirn[r]
+    lo = torch.full_like(dist[r], ci.SHADOW_TMIN)
+    hi = dist[r] * (1.0 - 1e-4) - ci.SHADOW_TMIN
+    pairs = 0
+    for b in range(spc):
+        j = c * spc + b
+        real = j < sc_real
+        ent = fi.box_entry(sub8[:, j.clamp(max=sc_real - 1)][:, :, None], o,
+                           d, lo, hi)[0, :, 0]
+        take = torch.nonzero(real & torch.isfinite(ent)).squeeze(1)
+        if not take.numel():
+            continue
+        cols = j[take, None] * fi.SUB_BT + torch.arange(fi.SUB_BT)
+        g = pk[:, cols.clamp(max=pk.shape[1] - 1)]
+        t, _, _, ok = ci._mt_test(
+            g, slice(None), *(o[take, a:a + 1] for a in range(3)),
+            *(d[take, a:a + 1] for a in range(3)))
+        crossed = (ok & (cols < n_tris) & (t > ci.SHADOW_TMIN)
+                   & (t < hi[take, None]))
+        lf = logf[:3, cols.clamp(max=logf.shape[1] - 1)].permute(1, 2, 0)
+        terms = torch.where(crossed[..., None], lf, 0.0)
+        acc[keep[take]] = acc[keep[take]] + _lane_tree_sum(terms)
+        pairs += int((cols < n_tris).sum())
+    return acc, pairs
+
+
+@pytest.mark.parametrize("kind", ["binary", "partial"])
+@pytest.mark.parametrize("spc", [1, 2, 8])
+def test_slot_tile_walk_gives_the_plain_sum(soup, spc, kind):
+    """The kernel's slot walk with the sub-box table (clusters of `spc`
+    tiles) against `pairs_shadow_plain`, which tests every column of a
+    slot's cluster: equal bit for bit where every log filter is 0 or -80,
+    within atol 1e-4 otherwise; not floored; slots with an out-of-range ray
+    or cluster id give 0."""
+    s = soup
+    pk, sub8, org, d, dist = _port(s, "pack", "sub", "org", "dir", "dist")
+    n_cl = s["pack"].shape[1] // (spc * fi.SUB_BT)
+    filt4 = _t(s["filt4"])
+    if kind == "binary":
+        filt4 = (filt4 > 0.5).to(torch.float32)
+    logf = ci.log_filter(filt4)
+    rng = np.random.default_rng(8)
+    p = 3000
+    sray = rng.integers(0, N_RAYS, p).astype(np.int32)
+    scl = np.sort(rng.integers(0, n_cl, p)).astype(np.int32)
+    bad = np.arange(p) % 50 == 7  # out-of-range ids, four kinds in turn
+    which = np.arange(p) % 4
+    sray[bad & (which == 0)] = -1
+    sray[bad & (which == 1)] = N_RAYS
+    scl[bad & (which == 2)] = -1
+    scl[bad & (which == 3)] = n_cl
+    got, pairs = _walk_slots(pk, n_cl, sub8, logf, _t(sray), _t(scl), org, d,
+                             dist, N_TRIS)
+    good = np.nonzero(~bad)[0]
+    want = torch.zeros((p, 3))
+    want[good] = pi.pairs_shadow_plain(pk, n_cl, logf, _t(sray[good]),
+                                       _t(scl[good]), org, d, dist, N_TRIS)
+    assert not got[np.nonzero(bad)[0]].any() and bad.sum() >= 40
+    if kind == "binary":
+        assert torch.equal(got, want)
+    else:
+        assert torch.allclose(got, want, atol=1e-4, rtol=1e-6)
+        assert ((got < 0) & (got > -80)).any()
+    assert got.min() < -80  # not floored: two opaque crossings sum
+    # the sub-boxes spare most of a wide cluster's columns; the count is the
+    # bound's (`slot_pair_tests`)
+    lo = torch.full((good.size,), ci.SHADOW_TMIN)
+    hi = dist[sray[good]] * (1.0 - 1e-4) - ci.SHADOW_TMIN
+    assert pairs == pi.slot_pair_tests(sub8, n_cl, _t(sray[good]),
+                                       _t(scl[good]), org, d, lo, hi,
+                                       N_TRIS)[0]
+    if spc == 8:
+        assert pairs < 0.6 * good.size * spc * fi.SUB_BT
+
+
 def test_slot_pair_tests_count_the_entered_sub_clusters(soup):
     """The pair kernels' work count: with every (ray, cluster) slot, the
     real columns of the sub-clusters each ray enters, counted ray by ray
@@ -221,7 +323,7 @@ def test_slot_pair_tests_count_the_entered_sub_clusters(soup):
 
 
 # the argument whose length a spied call logs: slots or rays
-_COUNTED = {"pairs_closest": 2, "pairs_shadow": 3, "closest_hit_fine": 3,
+_COUNTED = {"pairs_closest": 2, "pairs_shadow": 4, "closest_hit_fine": 3,
             "shadow_logsum_fine": 4}
 
 
@@ -448,11 +550,13 @@ def test_wrappers_run_plain_on_cpu_and_count_nothing(soup):
     got = pi.pairs_closest(pk, n_cl, sray, scl, *rays, N_TRIS)
     want = pi.pairs_closest_plain(pk, n_cl, sray, scl, *rays, N_TRIS)
     assert all(torch.equal(a, b) for a, b in zip(got, want))
-    sh = (pk, n_cl, logf, sray, scl, *_port(s, "org", "dir", "dist"), N_TRIS)
-    assert torch.equal(pi.pairs_shadow(*sh), pi.pairs_shadow_plain(*sh))
+    sub = _t(s["sub"])
+    sh = (logf, sray, scl, *_port(s, "org", "dir", "dist"), N_TRIS)
+    assert torch.equal(pi.pairs_shadow(pk, n_cl, sub, *sh),
+                       pi.pairs_shadow_plain(pk, n_cl, *sh))
     empty = torch.zeros(0, dtype=torch.int32)
     t, col = pi.pairs_closest(pk, n_cl, empty, empty, *rays, N_TRIS)
-    lg = pi.pairs_shadow(pk, n_cl, logf, empty, empty,
+    lg = pi.pairs_shadow(pk, n_cl, sub, logf, empty, empty,
                          *_port(s, "org", "dir", "dist"), N_TRIS)
     assert t.shape == col.shape == (0,) and lg.shape == (0, 3)
     assert (pi.pairs_closest.launches, pi.pairs_shadow.launches) == before
@@ -466,6 +570,8 @@ def test_wrappers_run_plain_on_cpu_and_count_nothing(soup):
     (dict(org="double"), TypeError, "float32"),
     (dict(tmax="short"), ValueError, "shape"),
     (dict(logf="two rows"), ValueError, "rgb rows"),
+    (dict(logf="two rows", sub8="short"), ValueError, "shape"),
+    (dict(logf="two rows", n_cl=48), ValueError, "whole"),
 ])
 def test_wrappers_reject_bad_inputs(soup, bad, err, match):
     s = soup
@@ -476,16 +582,19 @@ def test_wrappers_reject_bad_inputs(soup, bad, err, match):
               tmax=_t(s["tmax"]), n_tris=N_TRIS)
     change = {"int64": lambda x: x.long(), "short": lambda x: x[:-1],
               "double": lambda x: x.double(), 25: lambda x: 25,
-              3073: lambda x: 3073}
+              48: lambda x: 48, 3073: lambda x: 3073}
+    sub8 = _t(s["sub"])
+    if "sub8" in bad:  # a sub-box table of another pack width
+        sub8 = sub8[:, :-1].contiguous()
     for k, how in bad.items():
-        if k != "logf":
+        if k not in ("logf", "sub8"):
             kw[k] = change[how](kw[k])
     with pytest.raises(err, match=match):
         if "logf" in bad:
             kw.pop("tmin")
             kw.pop("tmax")
             pi.pairs_shadow(logf=torch.zeros(2, s["pack"].shape[1]),
-                            dist=_t(s["dist"]), **kw)
+                            sub8=sub8, dist=_t(s["dist"]), **kw)
         else:
             pi.pairs_closest(**kw)
 
