@@ -49,7 +49,14 @@ started together) and drives the ported paths through them:
   `shadow_logsum_fine` is held to its plain version on the grid's bounce-0
   batch and on its bounce-1 launch (rays from scattered bounce points),
   `pairs_shadow` takes the sub-box table, and on the soup, whose filters are
-  not binary, each of the two is called twice and must repeat bit for bit.
+  not binary, each of the two is called twice and must repeat bit for bit;
+- slice 8, `pairs_closest` on the same tile routine (a (t, column) minimum,
+  sub-boxes skipped beyond a slot's best hit) and `density_flash` over
+  Morton-sorted packs (one warp a query, the clusters within its radius):
+  inside the phases above each is held to its plain version, called twice
+  and compared bit for bit, and timed beside the body it replaced on the
+  same inputs (`ms_before`: the one-thread pair body; the brute force over
+  the same photons in their original order), with its registers.
 Each path is rendered with every launch counter set to 0 just before it and
 read just after.  Every kernel's line carries its bound: the larger of its
 FP32 operations over the card's 67 TFLOP/s and its bytes (each input read
@@ -65,6 +72,7 @@ import contextlib
 import io
 import json
 import os
+import re
 import statistics
 import subprocess
 import sys
@@ -132,8 +140,8 @@ SCALE = dict(size=128, aa_samples=1, photons=2_000_000)
 PLAIN_QUERIES = 16384
 PLAIN_CULLED_QUERIES = 8192
 PHOTON_TAGS = ("closest_tiny_kernel", "shadow_tiny_kernel",
-               "density_flash_kernel", "nearest_flash_kernel",
-               "nearest_culled_kernel")
+               "density_flash_kernel", "density_sorted_kernel",
+               "nearest_flash_kernel", "nearest_culled_kernel")
 # slice 4: the generated mid-size scenes at the generator's own settings
 # (512², 16 spp, bounces 3, gauss filter, one area light with 8 samples)
 MID = (("dense", 1), ("stream", 2))  # (kernel pair, --grid), --subdiv 1
@@ -187,6 +195,25 @@ def nbytes(*tensors) -> int:
         elif isinstance(x, torch.Tensor):
             out += x.numel() * x.element_size()
     return out
+
+
+def registers(source: str, kernel: str) -> dict:
+    """Registers a thread of `kernel` (a substring of its mangled name) in
+    csrc/<source>.cu uses and the bytes it spills, from the ptxas report
+    kept beside its library."""
+    name, out = None, {}
+    with open(_build.library_path(source)[:-3] + ".log") as f:
+        for line in f:
+            if "Compiling entry function" in line:
+                name = line
+            elif name and kernel in name and "spill stores" in line:
+                out["spill_stores"] = int(
+                    re.search(r"(\d+) bytes spill stores", line).group(1))
+            elif name and kernel in name and "registers" in line:
+                out["registers"] = int(
+                    re.search(r"Used (\d+) registers", line).group(1))
+                return out
+    raise AssertionError(f"ptxas reports no {kernel} in {source}.cu")
 
 
 def bound(ops: float, moved: int, **work) -> dict:
@@ -705,8 +732,10 @@ def record_calls(module, names, run):
 
 def gather_calls(run):
     """run() with photonmap's gathers (density_auto, nearest_flash) and
-    the function that packs the radiance map recording their arguments."""
+    the functions that pack the maps (the diffuse, then the caustic map;
+    the radiance map) recording their arguments."""
     return record_calls(photonmap, ("density_auto", "nearest_flash",
+                                    "make_photon_pack_auto",
                                     "make_photon_pack_lookup"), run)
 
 
@@ -753,38 +782,88 @@ def valid_photons(pack: dict) -> int:
     return int((pack["pos_t"][0] < 0.5 * pf.SENTINEL).sum())
 
 
+def check_density(what: str, args, photons) -> dict:
+    """density_flash on one of the path's sorted packs (the warp-per-query
+    search) against density_flash_plain on its flash view (every query:
+    counts equal, flux rtol 1e-5), against the brute-force kernel over the
+    same photons in their original order (`photons`, the pack's recorded
+    arguments), and against itself (two calls bit for bit); ms, and
+    ms_before the brute force's.  The bound counts the pairs of the
+    clusters within each query's radius and one box test a cluster;
+    bound_ms_before the brute force's pairs."""
+    pack, qp, qn, r = args
+    if pf.pack_layout(pack) != "sorted":
+        raise AssertionError(f"density_flash ({what}): the path's pack is "
+                             "not the sorted layout")
+    n = qp.shape[0]
+    (kf, kc), differ, err, plain_ms = compare_density(
+        "density_flash", pf.density_flash,
+        lambda p, *a: pf.density_flash_plain(pf.flash_view(p), *a),
+        pack, qp, qn, r, n)
+    af, ac = pf.density_flash(pack, qp, qn, r)
+    brute = pf.make_photon_pack(*photons)
+    bf, bc = pf.density_flash(brute, qp, qn, r)
+    torch.cuda.synchronize()
+    repeat = int(((af != kf).any(dim=1) | (ac != kc)).sum())
+    differ_b = int((bc != kc).sum())
+    err_b = float((bf - kf).abs().max())
+    if brute["pos_t"].shape[1] != pack["tbl"].shape[1] or differ_b or repeat:
+        raise AssertionError(f"density_flash ({what}): {differ_b} counts "
+                             f"differ from the brute force's, {repeat} "
+                             "from a second call")
+    if not torch.allclose(kf, bf, rtol=1e-5, atol=1e-6 * float(
+            bf.abs().max())):
+        raise AssertionError(f"density_flash ({what}): flux beyond rtol 1e-5 "
+                             f"of the brute force's (err {err_b})")
+    kernel = lambda: pf.density_flash(pack, qp, qn, r)  # noqa: E731
+    ms = device_ms(kernel, calls=3, replays=3)
+    ms_before = device_ms(lambda: pf.density_flash(brute, qp, qn, r),
+                          calls=2, replays=3)
+    pairs, boxes = pf.culled_pair_tests(pack, qp, r)
+    bnd = bound(DENSITY_OPS * pairs + BOX_D2_OPS * boxes,
+                nbytes(pack["tbl"][0:9], pack["cl_lo"], pack["cl_hi"], qp,
+                       qn) + 4 * n + 16 * n,
+                pair_tests=pairs, box_tests=boxes)
+    pairs_b = n * valid_photons(brute)
+    bnd_b = bound(DENSITY_OPS * pairs_b,
+                  nbytes(brute, qp, qn) + 4 * n + 16 * n)
+    regs = registers("photon_flash", "density_sorted_kernel")
+    phase("kernel", name="density_flash", gather=what, queries=n,
+          photons=int(pack["n_valid"]), pack=pack["tbl"].shape[1],
+          clusters=pack["cl_lo"].shape[0], radius=r,
+          counted=int(kc.sum()), differ=differ, max_abs_err=err,
+          differ_vs_brute=differ_b, max_abs_err_vs_brute=err_b,
+          repeat_differ=repeat,
+          tolerance="counts equal; flux rtol 1e-5, atol 1e-6*scale",
+          ms=round(ms, 4), ms_before=round(ms_before, 4),
+          call_ms=round(call_ms(kernel, 3), 4),
+          plain_ms=round(plain_ms, 4),
+          plain="density_flash_plain on the flash view, one eager call",
+          **regs, clusters_per_query=round(pairs / pf.BP / n, 3),
+          bound_ms_before=bnd_b["bound_ms"], pair_tests_before=pairs_b,
+          **bnd)
+    return dict(ms=ms, plain_ms=plain_ms, err=err, ms_before=ms_before,
+                bound=bnd, bound_before=bnd_b, regs=regs)
+
+
 def check_photon_kernels(pre_calls, step_calls) -> list:
     """density_flash at both of the path's shapes (the step's caustic
-    gather, the first radiance-map precompute gather) against its plain
-    version, and nearest_flash at the step's first final-gather lookup:
-    the culled search on the path's sorted pack against the brute-force
-    kernel on the same photons in their original order, on every query
-    (found and best d2 equal, values rtol 1e-5), each kernel against its
-    plain version on the first PLAIN_QUERIES queries."""
+    gather, the first radiance-map precompute gather: `check_density`), and
+    nearest_flash at the step's first final-gather lookup: the culled
+    search on the path's sorted pack against the brute-force kernel on the
+    same photons in their original order, on every query (found and best
+    d2 equal, values rtol 1e-5), each kernel against its plain version on
+    the first PLAIN_QUERIES queries."""
     caustic = next(a for name, a in step_calls if name == "density_auto")
     nearest = next(a for name, a in step_calls if name == "nearest_flash")
     radiance = next(a for name, a in pre_calls if name == "density_auto")
+    diffuse_photons, caustic_photons = (
+        a for name, a in pre_calls if name == "make_photon_pack_auto")
     photons = next(a for name, a in pre_calls
                    if name == "make_photon_pack_lookup")
-    out = {}
-    for what, args in (("caustic", caustic), ("radiance", radiance)):
-        pack, qp, qn, r = args
-        n = qp.shape[0]
-        (_, kc), differ, err, plain_ms = compare_density(
-            "density_flash", pf.density_flash, pf.density_flash_plain,
-            pack, qp, qn, r, n)
-        kernel = lambda: pf.density_flash(pack, qp, qn, r)  # noqa: E731
-        ms = device_ms(kernel, calls=3, replays=3)
-        pairs = n * valid_photons(pack)
-        bnd = bound(DENSITY_OPS * pairs,
-                    nbytes(pack, qp, qn) + 4 * n + 16 * n, pair_tests=pairs)
-        phase("kernel", name="density_flash", gather=what, queries=n,
-              photons=pack["pos_t"].shape[1], radius=r,
-              counted=int(kc.sum()), differ=differ, max_abs_err=err,
-              tolerance="counts equal; flux rtol 1e-5, atol 1e-6*scale",
-              ms=round(ms, 4), call_ms=round(call_ms(kernel, 3), 4),
-              plain_ms=round(plain_ms, 4), plain="one eager call", **bnd)
-        out[what] = dict(ms=ms, plain_ms=plain_ms, err=err, bound=bnd)
+    out = {what: check_density(what, args, raw) for what, args, raw in (
+        ("caustic", caustic, caustic_photons),
+        ("radiance", radiance, diffuse_photons))}
 
     pack, qp, r = nearest
     if "tbl" not in pack:
@@ -849,9 +928,13 @@ def check_photon_kernels(pre_calls, step_calls) -> list:
         dict(name="density_flash", route="cuda",
              source=SRC.format("photon_flash"), replaces=FLASH.format(104),
              max_abs_err=max(c["err"], rd["err"]), ms=c["ms"],
-             plain_ms=c["plain_ms"], ms_radiance=rd["ms"],
-             plain_ms_radiance=rd["plain_ms"],
-             bound_ms_radiance=rd["bound"]["bound_ms"], **c["bound"]),
+             plain_ms=c["plain_ms"], ms_before=c["ms_before"],
+             bound_ms_before=c["bound_before"]["bound_ms"],
+             ms_radiance=rd["ms"], plain_ms_radiance=rd["plain_ms"],
+             ms_before_radiance=rd["ms_before"],
+             bound_ms_radiance=rd["bound"]["bound_ms"],
+             bound_ms_before_radiance=rd["bound_before"]["bound_ms"],
+             **c["regs"], **c["bound"]),
         dict(name="nearest_flash", route="cuda",
              source=SRC.format("photon_flash"), replaces=FLASH.format(123),
              max_abs_err=err, ms=ms_n, plain_ms=plain_ms["culled"],
@@ -865,11 +948,12 @@ def check_culled_kernel(calls) -> dict:
     """density_culled on the scale route's culled diffuse pack and its
     radiance-map queries: counts equal to density_flash_plain's and
     density_culled_plain's on the first PLAIN_CULLED_QUERIES queries, and
-    to the flash kernel's over the same sorted photons on all of them; and
-    the culled nearest search over that pack (thousands of clusters) against
-    the brute-force kernel in best d2."""
+    to the flash kernel's over the same sorted photons and density_flash's
+    warp-per-query search over the same pack on all of them; and the culled
+    nearest search over that pack (thousands of clusters) against the
+    brute-force kernel in best d2."""
     pack, qp, qn, r = next(a for name, a in calls if name == "density_auto"
-                           and "tbl" in a[0])
+                           and pf.pack_layout(a[0]) == "culled")
     n = PLAIN_CULLED_QUERIES
     (kf, kc), differ, err, plain_ms = compare_density(
         "density_culled", pf.density_culled, pf.density_culled_plain,
@@ -880,9 +964,11 @@ def check_culled_kernel(calls) -> dict:
                     pack, qp, qn, r, n)
     flat = pf.flash_view(pack)
     (ff, fc), flash_ms = once_ms(lambda: pf.density_flash(flat, qp, qn, r))
-    if not torch.equal(fc, kc):
+    (_, wc), warp_ms = once_ms(lambda: pf.density_flash(pack, qp, qn, r))
+    if not (torch.equal(fc, kc) and torch.equal(wc, kc)):
         raise AssertionError("density_culled: counts differ from the flash "
-                             "kernel's over the same photons")
+                             "kernel's or the warp search's over the same "
+                             "photons")
     # the nearest search over the same pack: thousands of clusters, many
     # sweeps of 256; its best d2 equals the brute force's over the photons
     _, nbest = pf.nearest_flash_best(pack, qp, r)
@@ -907,7 +993,8 @@ def check_culled_kernel(calls) -> dict:
           nearest_differ_vs_brute=int((nbest != fbest).sum()),
           tolerance="counts equal; flux rtol 1e-5, atol 1e-6*scale",
           ms=round(ms, 4), call_ms=round(call_ms(kernel, 3), 4),
-          flash_kernel_ms=round(flash_ms, 4), plain_ms=round(plain_ms, 4),
+          flash_kernel_ms=round(flash_ms, 4),
+          warp_search_ms=round(warp_ms, 4), plain_ms=round(plain_ms, 4),
           plain=f"density_culled_plain, one eager call on the first {n} "
                 "queries", **bnd)
     return dict(name="density_culled", route="cuda",
@@ -1007,16 +1094,20 @@ def photon_scale(cs, cc, smi) -> int:
     """The scale route: 2,000,000 diffuse photons store over
     CULL_MIN_PHOTONS, so the diffuse pack takes the culled layout and the
     radiance-map precompute runs density_culled.  The image is held
-    against the same render forced onto the flash layout."""
+    against the same render with the diffuse and caustic packs forced onto
+    the flash layout (the brute-force kernel)."""
     res, launches = counted(
         lambda: photonmap.render_photonmap(cs, cc, device="cuda"))
     info = res.stats["photon_maps"]["diffuse"]
     cull_min = pf.CULL_MIN_PHOTONS
-    pf.CULL_MIN_PHOTONS = 1 << 62
+    photonmap.make_photon_pack_auto = pf.make_photon_pack
     try:
         flash = photonmap.render_photonmap(cs, cc, device="cuda")
     finally:
-        pf.CULL_MIN_PHOTONS = cull_min
+        photonmap.make_photon_pack_auto = pf.make_photon_pack_auto
+    if {flash.stats["photon_maps"][m]["layout"]
+            for m in ("diffuse", "caustic")} != {"flash"}:
+        raise AssertionError("photon_scale: the forced render is not flash")
     rmse = float(np.sqrt(np.mean((res.image - flash.image) ** 2)))
     phase("photon_scale", size=f"{cc.width}x{cc.height}", spp=cc.aa_samples,
           photons=cc.photons, diffuse=info,
@@ -1264,15 +1355,26 @@ def plain_sample(p: int) -> slice:
     return slice(None, None, -(-p // PLAIN_SLOTS))
 
 
-def check_pairs_closest(args, sub8) -> dict:
+def check_pairs_closest(args) -> dict:
     """pairs_closest against its plain version on recorded slots (the
     grid's bounce-1 rays, round 1): t, col and the hits equal on a strided
-    sample of at most PLAIN_SLOTS slots.  The bound counts, per slot, the
-    columns of its cluster's sub-clusters entered below min(tmax, its t)."""
-    pk, n_cl, sray, scl, org, dirn, tmin, tmax, n_tris = args
+    sample of at most PLAIN_SLOTS slots, and two calls equal bit for bit;
+    ms_before the one-thread body (no sub-box table) on the same slots,
+    whose answers must be the same.  The bound counts, per slot, the
+    columns of its cluster's sub-clusters entered below min(tmax, its t);
+    pair_tests_no_skip the sub-clusters entered below tmax, what the walk
+    would test without its skip; bound_ms_before every real column of each
+    slot's cluster, what the one-thread body tests."""
+    pk, n_cl, sub8, sray, scl, org, dirn, tmin, tmax, n_tris = args
     p = sray.shape[0]
     kt, kcol = pi.pairs_closest(*args)
+    at, acol = pi.pairs_closest(*args)
+    thread = lambda: pi.pairs_closest(pk, n_cl, None,  # noqa: E731
+                                      *args[3:])
+    tt, tcol = thread()
     torch.cuda.synchronize()
+    repeat = int(((at != kt) | (acol != kcol)).sum())
+    differ_thread = int(((tt != kt) | (tcol != kcol)).sum())
     sel = plain_sample(p)
     (pt, pcol), plain_ms = once_ms(lambda: pi.pairs_closest_plain(
         pk, n_cl, sray[sel], scl[sel], org, dirn, tmin, tmax, n_tris))
@@ -1283,28 +1385,46 @@ def check_pairs_closest(args, sub8) -> dict:
             and torch.equal(kt_s, pt) and torch.equal(kcol_s, pcol)):
         raise AssertionError("pairs_closest: t, col or hits differ from "
                              "plain")
+    if repeat or differ_thread:
+        raise AssertionError(f"pairs_closest: {repeat} slots differ from a "
+                             f"second call, {differ_thread} from the "
+                             "one-thread body")
     err = float((kt_s[hit] - pt[hit]).abs().max()) if hit.any() else 0.0
     call = lambda: pi.pairs_closest(*args)  # noqa: E731
     ms = device_ms(call, calls=5, replays=3)
+    ms_before = device_ms(thread, calls=3, replays=3)
     r = sray.long()
     pairs, boxes = pi.slot_pair_tests(sub8, n_cl, sray, scl, org, dirn,
                                       tmin[r], torch.minimum(tmax[r], kt),
                                       n_tris)
+    pairs_ns, _ = pi.slot_pair_tests(sub8, n_cl, sray, scl, org, dirn,
+                                     tmin[r], tmax[r], n_tris)
     bnd = bound(MT_OPS * pairs + BOX_OPS * boxes,
-                nbytes(pk, sray, scl, org, dirn, tmin, tmax, kt, kcol),
+                nbytes(pk, sub8, sray, scl, org, dirn, tmin, tmax, kt, kcol),
                 pair_tests=pairs, box_tests=boxes, slots=p)
+    pairs_b = int(fi.real_columns(pk.shape[1] // n_cl, n_cl, n_tris,
+                                  pk.device)[scl.long()].sum())
+    bnd_b = bound(MT_OPS * pairs_b,
+                  nbytes(pk, sray, scl, org, dirn, tmin, tmax, kt, kcol))
+    regs = registers("pairs_intersect", "pairs_closest_kernel")
     phase("kernel", name="pairs_closest", rays="bounce 1, round 1",
           n=org.shape[0], tris=n_tris, clusters=n_cl, compared_slots=m,
           compared_stride=sel.step, hits=int(torch.isfinite(kt).sum()),
           differ=int(((kt_s != pt) | (kcol_s != pcol)).sum()),
+          repeat_differ=repeat, differ_vs_thread_body=differ_thread,
           max_abs_err=err, tolerance="t, col, hits equal", ms=round(ms, 4),
+          ms_before=round(ms_before, 4),
           call_ms=round(call_ms(call, calls=5), 4),
           plain_ms=round(plain_ms, 4),
-          plain=f"one eager call on every {sel.step}th slot ({m})", **bnd)
+          plain=f"one eager call on every {sel.step}th slot ({m})",
+          **regs, pair_tests_no_skip=pairs_ns,
+          bound_ms_before=bnd_b["bound_ms"], pair_tests_before=pairs_b,
+          **bnd)
     return dict(name="pairs_closest", route="cuda",
                 source=SRC.format("pairs_intersect"),
                 replaces=PALLAS.format(1237), max_abs_err=err, ms=ms,
-                plain_ms=plain_ms, plain_slots=m, **bnd)
+                plain_ms=plain_ms, plain_slots=m, ms_before=ms_before,
+                bound_ms_before=bnd_b["bound_ms"], **regs, **bnd)
 
 
 def check_pairs_shadow(args) -> dict:
@@ -1611,11 +1731,10 @@ def pairs_phases(scenes: str, grid_path: str, gscene, gcfg, fine_res,
                      pairs=True)
     step, arrays, calls = step_calls(pscene, gcfg, pi, ("pairs_closest",
                                                         "pairs_shadow"))
-    rounds = [a[2].shape[0] for a in calls["pairs_closest"]]
+    rounds = [a[3].shape[0] for a in calls["pairs_closest"]]
     phase("pairs_slots", closest_per_round=rounds,
           shadow=[a[4].shape[0] for a in calls["pairs_shadow"]])
-    kernels = [check_pairs_closest(calls["pairs_closest"][2],
-                                   arrays["tri_sub8"]),
+    kernels = [check_pairs_closest(calls["pairs_closest"][2]),
                check_pairs_shadow(calls["pairs_shadow"][0])]
     del calls
 

@@ -247,7 +247,7 @@ shadow_fine_kernel(Scene s, const float* __restrict__ logf,
       r = load_ray(org, dir, i);
       hi = shadow_hi(dist[i]);
     }
-    put_segment(sm, tid, r, hi);
+    put_segment<SUM_FLOORED>(sm, tid, r, SHADOW_LO, hi);
   }
   // a dead lane (dist < 0) has an empty interval and enters nothing
   bool open = has && SHADOW_LO <= sm.hi[tid];  // live and not yet opaque
@@ -267,7 +267,7 @@ shadow_fine_kernel(Scene s, const float* __restrict__ logf,
       const unsigned mask =
           in_c ? entered_mask(sm, tid, s.sub8, s.n_sc, j0, min(GROUP, s1 - j0))
                : 0u;
-      tile_group<true>(sm, ts, j0, mask);
+      tile_group<SUM_FLOORED>(sm, ts, j0, mask);
     }
     if (open) open = !opaque(sm, tid);
     any_open = __syncthreads_or(open);

@@ -19,40 +19,43 @@
 // (no gathered copy of the rays), and the slots arrive sorted by cluster
 // (ops/pairs_intersect.py), so neighbouring slots test the same triangles.
 //
-// pairs_closest_kernel: one thread owns one slot and loops over its
-// cluster's real columns in global memory; the 32 threads of a warp read the
-// same column at the same step, one broadcast served from L1 / L2 (the pack
-// is 6.6 MB at 164K triangles, well inside the 50 MB L2), and a warp diverges
-// only where the cluster id changes inside it.
-//
-// pairs_shadow_kernel: one block owns 256 consecutive slots and meets their
-// cluster as 128-column tiles staged in shared memory (shadow_tile.cuh).  A
-// segment enters about a sixth of its cluster's columns, but which sub-boxes
-// differs from slot to slot, so a thread-per-slot skip would diverge over
-// nearly the whole cluster.  Instead each thread tests its slot's segment
-// against the cluster's sub-boxes, and tile_group lists per tile the slots
-// that enter it and deals them to warps, a (slot, tile) item at a time, 32
-// lanes across the tile's columns.  The block takes its slots' clusters one
-// after the other, the lowest id first: one cluster nearly always (~116 K
-// slots a cluster on the 164K grid), a few where the id changes inside the
-// block, and any number if the slots come unsorted (slower, the same sums).
+// Both kernels: one block owns 256 consecutive slots and meets their cluster
+// as 128-column tiles staged in shared memory (shadow_tile.cuh).  A segment
+// enters a few of its cluster's sub-boxes, but which ones differs from slot
+// to slot, so a thread-per-slot skip would diverge over nearly the whole
+// cluster.  Instead each thread tests its slot's segment against the
+// cluster's sub-boxes, and tile_group lists per tile the slots that enter it
+// and deals them to warps, a (slot, tile) item at a time, 32 lanes across
+// the tile's columns.  The block takes its slots' clusters one after the
+// other, the lowest id first: one cluster nearly always (~116 K slots a
+// cluster on the 164K grid), a few where the id changes inside the block,
+// and any number if the slots come unsorted (slower, the same answers).
+//   pairs_closest_kernel: the running answer is the slot's (t, column); an
+//     item whose sub-box the ray enters beyond that t is skipped, so a slot
+//     tests its entered tiles up to the one that holds its hit, not all
+//     1,024 columns.  Only the 9 pack rows are staged.
+//   pairs_shadow_kernel: the running answer is the three log sums, not
+//     floored; nothing is skipped.
+// pairs_closest_thread_kernel is the body before the tile walk, one thread a
+// slot over every column of its cluster from global memory; it runs only
+// when no sub-box table is given, the yardstick chip_smoke.py times.
 //
 // Exactness against the plain versions of ops/pairs_intersect.py: the closest
-// hit visits columns in rising order with a strict `t < best`, so the lowest
-// column wins among equal t; columns past n_tris are padding and are never
-// tested.  The shadow sums skip a sub-box only when the segment cannot enter
-// it (boxes widened by 1e-5, as in fine_intersect.cu) and are not floored;
-// they are added in the fixed order shadow_tile.cuh states, which is not the
-// plain version's, so non-binary filters agree to rounding and repeat bit for
-// bit.  A slot whose ray or cluster id is out of range tests nothing (inf /
-// 0, or a zero sum): ids are not checked on the host, where reading them
-// would wait for the device.
+// hit visits tiles in rising order with a strict `t < best` and reduces each
+// tile to its lexicographic minimum (t, column), so the lowest column wins
+// among equal t; columns past n_tris are padding and are never tested.  A
+// sub-box is skipped only when the segment cannot enter it before its best
+// hit (boxes widened by 1e-5, as in fine_intersect.cu).  The shadow sums are
+// added in the fixed order shadow_tile.cuh states, which is not the plain
+// version's, so non-binary filters agree to rounding and repeat bit for bit.
+// A slot whose ray or cluster id is out of range tests nothing (inf / 0, or
+// a zero sum): ids are not checked on the host, where reading them would
+// wait for the device.
 //
 // What bounds it on the H100: FP32 instructions of the Moller-Trumbore tests,
-// 45 operations per slot and tested column (-fmad=false, IEEE division).  The
-// bytes are the pack once, 8 B of ids per slot, the rays once and the
-// outputs.  The closest hit still tests every column of a slot's cluster from
-// global memory, with no sub-box skip.
+// 45 operations per slot and tested column (-fmad=false, IEEE division),
+// their operands read from shared memory.  The bytes are the pack once, 8 B
+// of ids per slot, the rays once and the outputs.
 //
 // Built with -fmad=false and IEEE division, so each operation rounds as the
 // plain PyTorch version's float32 op does.
@@ -97,14 +100,12 @@ struct Pack {
   int n_tris;
 };
 
-__global__ void pairs_closest_kernel(Pack pk, const int* __restrict__ sray,
-                                     const int* __restrict__ scl, int n_slots,
-                                     const float* __restrict__ org,
-                                     const float* __restrict__ dir,
-                                     const float* __restrict__ tmin,
-                                     const float* __restrict__ tmax,
-                                     int n_rays, float* __restrict__ t_out,
-                                     int* __restrict__ col_out) {
+__global__ void pairs_closest_thread_kernel(
+    Pack pk, const int* __restrict__ sray, const int* __restrict__ scl,
+    int n_slots, const float* __restrict__ org,
+    const float* __restrict__ dir, const float* __restrict__ tmin,
+    const float* __restrict__ tmax, int n_rays, float* __restrict__ t_out,
+    int* __restrict__ col_out) {
   const long long i = (long long)blockIdx.x * blockDim.x + threadIdx.x;
   if (i >= n_slots) return;
   Slot s;
@@ -128,36 +129,17 @@ __global__ void pairs_closest_kernel(Pack pk, const int* __restrict__ sray,
   col_out[i] = best_k;
 }
 
-__global__ void __launch_bounds__(SHADOW_THREADS, SHADOW_MIN_BLOCKS)
-pairs_shadow_kernel(Pack pk, const float* __restrict__ sub8, int n_sc,
-                    const float* __restrict__ logf,
-                    const int* __restrict__ sray, const int* __restrict__ scl,
-                    int n_slots, const float* __restrict__ org,
-                    const float* __restrict__ dir,
-                    const float* __restrict__ dist, int n_rays,
-                    float* __restrict__ lg_out) {
-  __shared__ TileSmem sm;
-  __shared__ int next_cl;
+// The block's slots against their clusters' tiles, one cluster id at a
+// time, the lowest first; `c` is this thread's slot's cluster (-1: it tests
+// nothing).  Called by every thread of the block.
+template <int OP>
+__device__ __forceinline__ void walk_clusters(TileSmem& sm, int& next_cl,
+                                              const TileSrc& ts,
+                                              const float* __restrict__ sub8,
+                                              int n_sc, int bt, int c) {
   const int tid = threadIdx.x;
-  const long long i = (long long)blockIdx.x * SHADOW_THREADS + tid;
-  int c = -1;  // this slot's cluster while it waits its turn, then -1
-  {
-    Ray r = {};
-    float hi = -1.0f;
-    if (i < n_slots) {
-      const int ray = sray[i], cl = scl[i];
-      if (ray >= 0 && ray < n_rays && cl >= 0 && cl < pk.n_cl) {
-        r = load_ray(org, dir, ray);
-        hi = shadow_hi(dist[ray]);
-        // a dead lane (dist < 0) has an empty interval and enters nothing
-        if (SHADOW_LO <= hi) c = cl;
-      }
-    }
-    put_segment(sm, tid, r, hi);
-  }
-  const TileSrc ts{pk.p, logf, pk.w, pk.n_tris};
-  const int spc = pk.bt / SUB_BT;
-  const int sc_real = (pk.n_tris + SUB_BT - 1) / SUB_BT;
+  const int spc = bt / SUB_BT;
+  const int sc_real = (ts.n_tris + SUB_BT - 1) / SUB_BT;
   for (;;) {
     // the lowest cluster id still waiting in the block
     if (tid == 0) next_cl = INT_MAX;
@@ -174,9 +156,84 @@ pairs_shadow_kernel(Pack pk, const float* __restrict__ sub8, int n_sc,
       const unsigned mask =
           mine ? entered_mask(sm, tid, sub8, n_sc, j0, min(GROUP, s1 - j0))
                : 0u;
-      tile_group<false>(sm, ts, j0, mask);
+      tile_group<OP>(sm, ts, j0, mask);
     }
   }
+}
+
+// Slot i's ray and cluster ids if both are in range: its cluster, else -1.
+__device__ __forceinline__ int slot_cluster(const int* __restrict__ sray,
+                                            const int* __restrict__ scl,
+                                            long long i, int n_slots,
+                                            int n_rays, int n_cl, int* ray) {
+  if (i >= n_slots) return -1;
+  *ray = sray[i];
+  const int cl = scl[i];
+  return *ray >= 0 && *ray < n_rays && cl >= 0 && cl < n_cl ? cl : -1;
+}
+
+__global__ void __launch_bounds__(SHADOW_THREADS, SHADOW_MIN_BLOCKS)
+pairs_closest_kernel(Pack pk, const float* __restrict__ sub8, int n_sc,
+                     const int* __restrict__ sray,
+                     const int* __restrict__ scl, int n_slots,
+                     const float* __restrict__ org,
+                     const float* __restrict__ dir,
+                     const float* __restrict__ tmin,
+                     const float* __restrict__ tmax, int n_rays,
+                     float* __restrict__ t_out, int* __restrict__ col_out) {
+  __shared__ TileSmem sm;
+  __shared__ int next_cl;
+  const int tid = threadIdx.x;
+  const long long i = (long long)blockIdx.x * SHADOW_THREADS + tid;
+  int ray = 0;
+  int c = slot_cluster(sray, scl, i, n_slots, n_rays, pk.n_cl, &ray);
+  {
+    Ray r = {};
+    float lo = 0.0f, hi = -1.0f;
+    if (c >= 0) {
+      r = load_ray(org, dir, ray);
+      lo = tmin[ray];
+      hi = tmax[ray];
+      // an empty interval (tmin >= tmax, or NaN) holds no hit
+      if (!(lo < hi)) c = -1;
+    }
+    put_segment<CLOSEST>(sm, tid, r, lo, hi);
+  }
+  walk_clusters<CLOSEST>(sm, next_cl, TileSrc{pk.p, pk.p, pk.w, pk.n_tris},
+                         sub8, n_sc, pk.bt, c);
+  if (i < n_slots) {
+    t_out[i] = sm.acc[0][tid];
+    col_out[i] = __float_as_int(sm.acc[1][tid]);
+  }
+}
+
+__global__ void __launch_bounds__(SHADOW_THREADS, SHADOW_MIN_BLOCKS)
+pairs_shadow_kernel(Pack pk, const float* __restrict__ sub8, int n_sc,
+                    const float* __restrict__ logf,
+                    const int* __restrict__ sray, const int* __restrict__ scl,
+                    int n_slots, const float* __restrict__ org,
+                    const float* __restrict__ dir,
+                    const float* __restrict__ dist, int n_rays,
+                    float* __restrict__ lg_out) {
+  __shared__ TileSmem sm;
+  __shared__ int next_cl;
+  const int tid = threadIdx.x;
+  const long long i = (long long)blockIdx.x * SHADOW_THREADS + tid;
+  int ray = 0;
+  int c = slot_cluster(sray, scl, i, n_slots, n_rays, pk.n_cl, &ray);
+  {
+    Ray r = {};
+    float hi = -1.0f;
+    if (c >= 0) {
+      r = load_ray(org, dir, ray);
+      hi = shadow_hi(dist[ray]);
+      // a dead lane (dist < 0) has an empty interval and enters nothing
+      if (!(SHADOW_LO <= hi)) c = -1;
+    }
+    put_segment<SUM>(sm, tid, r, SHADOW_LO, hi);
+  }
+  walk_clusters<SUM>(sm, next_cl, TileSrc{pk.p, logf, pk.w, pk.n_tris},
+                     sub8, n_sc, pk.bt, c);
   if (i < n_slots) {
     lg_out[3 * i] = sm.acc[0][tid];
     lg_out[3 * i + 1] = sm.acc[1][tid];
@@ -192,23 +249,43 @@ int check_pack(const Pack& pk) {
   return 0;
 }
 
+// The tile walk's pack and sub-box table: clusters of whole 128-column
+// tiles, one box a tile.
+int check_tiles(const Pack& pk, int n_sc) {
+  return pk.bt % SUB_BT == 0 && n_sc * SUB_BT == pk.w
+             ? 0
+             : (int)cudaErrorInvalidValue;
+}
+
 }  // namespace
 
 // Plain C interface, loaded with ctypes.  Pointers are device pointers;
 // `stream` is a cudaStream_t.  Each returns cudaGetLastError() after the
 // launch (0 = launched); no slots, no launch.
+// sub8 NULL: the one-thread body, which needs no sub-box table.
 extern "C" int pairs_closest_launch(
-    const void* pack, int pack_w, int n_cl, int n_tris, const void* sray,
-    const void* scl, int n_slots, const void* org, const void* dir,
-    const void* tmin, const void* tmax, int n_rays, void* t_out,
-    void* col_out, void* stream) {
+    const void* pack, int pack_w, int n_cl, int n_tris, const void* sub8,
+    int n_sc, const void* sray, const void* scl, int n_slots,
+    const void* org, const void* dir, const void* tmin, const void* tmax,
+    int n_rays, void* t_out, void* col_out, void* stream) {
   const Pack pk{(const float*)pack, pack_w, n_cl,
                 n_cl > 0 ? pack_w / n_cl : 0, n_tris};
   if (const int bad = check_pack(pk)) return bad;
   if (n_slots < 0 || n_rays < 0) return (int)cudaErrorInvalidValue;
-  if (n_slots > 0) {
+  if (sub8 != nullptr && (check_tiles(pk, n_sc) ||
+                          !tiles_ok(pack, pack, pack_w))) {
+    return (int)cudaErrorInvalidValue;
+  }
+  if (n_slots > 0 && sub8 != nullptr) {
+    const int blocks = (n_slots + SHADOW_THREADS - 1) / SHADOW_THREADS;
+    pairs_closest_kernel<<<blocks, SHADOW_THREADS, 0, (cudaStream_t)stream>>>(
+        pk, (const float*)sub8, n_sc, (const int*)sray, (const int*)scl,
+        n_slots, (const float*)org, (const float*)dir, (const float*)tmin,
+        (const float*)tmax, n_rays, (float*)t_out, (int*)col_out);
+  } else if (n_slots > 0) {
     const int blocks = (n_slots + THREADS - 1) / THREADS;
-    pairs_closest_kernel<<<blocks, THREADS, 0, (cudaStream_t)stream>>>(
+    pairs_closest_thread_kernel<<<blocks, THREADS, 0,
+                                  (cudaStream_t)stream>>>(
         pk, (const int*)sray, (const int*)scl, n_slots, (const float*)org,
         (const float*)dir, (const float*)tmin, (const float*)tmax, n_rays,
         (float*)t_out, (int*)col_out);
@@ -225,8 +302,7 @@ extern "C" int pairs_shadow_launch(
                 n_cl > 0 ? pack_w / n_cl : 0, n_tris};
   if (const int bad = check_pack(pk)) return bad;
   if (logf_w != pack_w || !tiles_ok(pack, logf, pack_w) ||
-      pk.bt % SUB_BT != 0 || n_sc * SUB_BT != pack_w || n_slots < 0 ||
-      n_rays < 0) {
+      check_tiles(pk, n_sc) || n_slots < 0 || n_rays < 0) {
     return (int)cudaErrorInvalidValue;
   }
   if (n_slots > 0) {

@@ -1,22 +1,25 @@
 // Photon-gather kernels for Hopper (sm_90a).
 //
 // Replace the TPU kernels of libyafaray_tpu/ops/photon_flash.py:
-//   density_flash_kernel   <- _density_kernel        (wrapper density_flash)
+//   density_flash_kernel,
+//   density_sorted_kernel  <- _density_kernel        (wrapper density_flash:
+//                             flash packs / sorted packs)
 //   nearest_flash_kernel,
 //   nearest_culled_kernel  <- _nearest_kernel        (wrapper nearest_flash:
 //                             flash packs / sorted packs)
 //   density_culled_kernel  <- _density_kernel_culled (wrapper
 //                             density_culled)
 //
-// The flash and density kernels: one thread per query, no reduction across
-// threads.  A CTA of 256 queries walks the photons in 512-photon tiles (the
-// reference's BP blocks, which are also the nearest lookup's tie unit and
-// the sorted pack's clusters), staged once per CTA into shared memory as
-// nine SoA rows (pos xyz, dir xyz, value xyz: 18 KB); every thread then
-// reads each photon as a broadcast.  The TPU kernels compute the (BQ, BP)
-// indicator tile on the VPU and push the flux sum through the MXU; here the
-// indicator is a branch and the sum is kept in registers, one partial per
-// tile added to the running total in photon order.  The culled density
+// density_flash_kernel, nearest_flash_kernel and density_culled_kernel: one
+// thread per query, no reduction across threads.  A CTA of 256 queries
+// walks the photons in 512-photon tiles (the reference's BP blocks, which
+// are also the nearest lookup's tie unit and the sorted pack's clusters),
+// staged once per CTA into shared memory as nine SoA rows (pos xyz, dir
+// xyz, value xyz: 18 KB); every thread then reads each photon as a
+// broadcast.  The TPU kernels compute the (BQ, BP) indicator tile on the
+// VPU and push the flux sum through the MXU; here the indicator is a branch
+// and the sum is kept in registers, one partial per tile added to the
+// running total in photon order.  The culled density
 // kernel scans the cluster boxes in index order: a cluster is staged only
 // if its box lies within the CTA's largest radius of the CTA's query box (a
 // test every thread evaluates alike), and a thread sums it only if the box
@@ -50,6 +53,24 @@
 // rows (6 KB a visit; the pack stays in L2) and the latency of the serial
 // picks; FP32 work is small.
 //
+// density_sorted_kernel: the density over a Morton-sorted pack, one warp a
+// query, the structure of nearest_culled_kernel.  The brute force
+// (density_flash_kernel, kept for flash packs) tests every photon: 20.7 G
+// pairs at the radiance precompute's 58,710 queries x 352,256 photons, in
+// shooting order, whose 512-photon tiles have no box worth testing.  Sorted,
+// a query needs only the clusters whose box lies within its radius.  The
+// precompute's queries are strided photons in shooting order, with no
+// coherence inside a CTA, so each warp culls for its own query: the lanes
+// compute the point-box d2 of 32 x LANE_BOXES clusters, a ballot keeps those
+// with box d2 <= r2, and the warp visits them in rising cluster index (a
+// density needs every such cluster, in a fixed order); inside a cluster the
+// lanes stride its 512 photons, each row read one coalesced 128-byte load
+// of the L2-resident table (rows 0-5; the value rows only for a photon that
+// counts).  Per-lane partial sums, one fixed __shfl_xor_sync tree at the
+// end: the same bits in every call.  What bounds it: L2 reads of the
+// visited clusters' position and direction rows (12 KB a visit) and the
+// FP32 work of their pairs.
+//
 // Built with -fmad=false: d2 = dx*dx + dy*dy + dz*dz and
 // side = nx*ax + ny*ay + nz*az round exactly as the plain PyTorch versions
 // in ops/photon_flash.py do, so the radius and side tests, and hence the
@@ -61,7 +82,7 @@
 
 #define BP 512
 #define THREADS 256
-#define QUERIES_PER_CTA (THREADS / 32)  // nearest_culled: one warp per query
+#define QUERIES_PER_CTA (THREADS / 32)  // the warp kernels: a warp a query
 #define LANE_BOXES 8  // box distances a lane holds: 32 * 8 clusters a sweep
 #define FULL 0xffffffffu
 
@@ -273,6 +294,82 @@ __global__ void density_culled_kernel(
   }
 }
 
+// A warp's query: the density over the clusters of a sorted pack (tbl rows
+// 0:3 pos, 3:6 dir, 6:9 value) whose box lies within its radius.
+__global__ void __launch_bounds__(THREADS) density_sorted_kernel(
+    const float* __restrict__ tbl, int w, const float* __restrict__ cl_lo,
+    const float* __restrict__ cl_hi, int n_cl, const float* __restrict__ qp,
+    const float* __restrict__ qn, const float* __restrict__ r2, int n,
+    float* __restrict__ flux, float* __restrict__ cnt) {
+  const int lane = threadIdx.x & 31;
+  const long long i =
+      (long long)blockIdx.x * QUERIES_PER_CTA + (threadIdx.x >> 5);
+  if (i >= n) return;  // the whole warp
+  const float qx = qp[3 * i], qy = qp[3 * i + 1], qz = qp[3 * i + 2];
+  const float nx = qn[3 * i], ny = qn[3 * i + 1], nz = qn[3 * i + 2];
+  const float rr = r2[i];
+  const float* __restrict__ px = tbl;
+  const float* __restrict__ py = tbl + w;
+  const float* __restrict__ pz = tbl + 2LL * w;
+  const float* __restrict__ ax = tbl + 3LL * w;
+  const float* __restrict__ ay = tbl + 4LL * w;
+  const float* __restrict__ az = tbl + 5LL * w;
+  const float* __restrict__ vx = tbl + 6LL * w;
+  const float* __restrict__ vy = tbl + 7LL * w;
+  const float* __restrict__ vz = tbl + 8LL * w;
+  float fx = 0.0f, fy = 0.0f, fz = 0.0f, c = 0.0f;  // this lane's part
+  for (int c0 = 0; c0 < n_cl; c0 += 32 * LANE_BOXES) {
+    // bit l of near[b]: cluster c0 + 32 b + l lies within the radius
+    unsigned near[LANE_BOXES];
+#pragma unroll
+    for (int b = 0; b < LANE_BOXES; ++b) {
+      const int cl = c0 + 32 * b + lane;
+      near[b] = __ballot_sync(
+          FULL, cl < n_cl &&
+                    box_d2(cl_lo[3 * cl], cl_lo[3 * cl + 1], cl_lo[3 * cl + 2],
+                           cl_hi[3 * cl], cl_hi[3 * cl + 1], cl_hi[3 * cl + 2],
+                           qx, qy, qz) <= rr);
+    }
+#pragma unroll 1
+    for (int b = 0; b < LANE_BOXES; ++b) {
+      unsigned m = 0;  // near[b], picked without indexing the array
+#pragma unroll
+      for (int k = 0; k < LANE_BOXES; ++k) m = k == b ? near[k] : m;
+      while (m) {  // rising cluster index
+        const long long base = (long long)(c0 + 32 * b + __ffs(m) - 1) * BP;
+        m &= m - 1;
+#pragma unroll 4
+        for (int it = 0; it < BP / 32; ++it) {
+          const long long j = base + 32 * it + lane;
+          const float dx = qx - px[j];
+          const float dy = qy - py[j];
+          const float dz = qz - pz[j];
+          const float d2 = dx * dx + dy * dy + dz * dz;
+          const float side = nx * ax[j] + ny * ay[j] + nz * az[j];
+          if (d2 <= rr && side > 0.0f) {
+            fx += vx[j];
+            fy += vy[j];
+            fz += vz[j];
+            c += 1.0f;
+          }
+        }
+      }
+    }
+  }
+  for (int off = 16; off > 0; off >>= 1) {
+    fx += __shfl_xor_sync(FULL, fx, off);
+    fy += __shfl_xor_sync(FULL, fy, off);
+    fz += __shfl_xor_sync(FULL, fz, off);
+    c += __shfl_xor_sync(FULL, c, off);
+  }
+  if (lane == 0) {
+    flux[3 * i] = fx;
+    flux[3 * i + 1] = fy;
+    flux[3 * i + 2] = fz;
+    cnt[i] = c;
+  }
+}
+
 // Non-negative floats order as their bit patterns: the warp-wide minimum
 // of squared distances (and block ids) is one integer reduction.
 __device__ __forceinline__ float warp_min_nonneg(float f) {
@@ -430,6 +527,23 @@ extern "C" int nearest_culled_launch(const void* tbl, int w,
         (const float*)tbl, w, (const float*)cl_lo, (const float*)cl_hi, n_cl,
         (const float*)qp, (const float*)r2, n, (float*)best,
         (float*)val_out);
+  }
+  return (int)cudaGetLastError();
+}
+
+// Sorted pack as for nearest_culled_launch (rows 3:6 dir read too).
+extern "C" int density_sorted_launch(const void* tbl, int w,
+                                     const void* cl_lo, const void* cl_hi,
+                                     int n_cl, const void* qp,
+                                     const void* qn, const void* r2, int n,
+                                     void* flux, void* cnt, void* stream) {
+  if (w < 0 || w != n_cl * BP || n < 0) return (int)cudaErrorInvalidValue;
+  if (n > 0) {
+    const int blocks = (n + QUERIES_PER_CTA - 1) / QUERIES_PER_CTA;
+    density_sorted_kernel<<<blocks, THREADS, 0, (cudaStream_t)stream>>>(
+        (const float*)tbl, w, (const float*)cl_lo, (const float*)cl_hi, n_cl,
+        (const float*)qp, (const float*)qn, (const float*)r2, n,
+        (float*)flux, (float*)cnt);
   }
   return (int)cudaGetLastError();
 }

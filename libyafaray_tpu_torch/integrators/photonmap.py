@@ -33,7 +33,8 @@ from ..materials import bsdf
 from ..materials.base import (MT_COATED_GLOSSY, MT_GLOSSY, MT_SHINYDIFFUSE,
                               gather_rows)
 from ..ops.photon_flash import (density_auto, make_photon_pack_auto,
-                                make_photon_pack_lookup, nearest_flash)
+                                make_photon_pack_lookup, nearest_flash,
+                                pack_layout)
 from .config import RenderConfig
 from .engine import (F32, _direct_lighting, _div, _surface_point,
                      bounce_key, camera_rays, check_arrays, check_supported,
@@ -85,11 +86,10 @@ def photon_radii(cscene, cfg: RenderConfig):
 
 
 def _layout_info(pack: dict) -> dict:
-    """A pack's width and layout (sorted table or flash rows), for
-    reports."""
-    culled = "tbl" in pack
-    return dict(pack=pack["tbl" if culled else "pos_t"].shape[1],
-                layout="culled" if culled else "flash")
+    """A pack's width and layout (`pack_layout`: "flash", "sorted" or
+    "culled"), for reports."""
+    return dict(pack=pack["tbl" if "tbl" in pack else "pos_t"].shape[1],
+                layout=pack_layout(pack))
 
 
 def build_photon_maps(cscene, cfg: RenderConfig, arrays: dict) -> dict:

@@ -14,11 +14,12 @@ PAIRS_MIN_CLUSTERS clusters.  Each ray's clusters are ordered by the entry
 of its interval into their boxes (the minimum over a cluster's 128-column
 sub-boxes where `pick_nsub` > 1); picked clusters become (ray, cluster)
 slots sorted by cluster, so that neighbouring threads of a kernel test the
-same triangles, and the per-slot results are reduced back to rays.  The
-shadow kernel takes the sub-box table too: a block of slots stages its
-cluster's 128-column sub-clusters in shared memory and a slot tests only
-those its segment enters (the plain version tests every column of the
-cluster: the same sums up to the order of the additions).
+same triangles, and the per-slot results are reduced back to rays.  Both
+kernels take the sub-box table too: a block of slots stages its cluster's
+128-column sub-clusters in shared memory and a slot tests only those its
+segment enters, for a closest hit only those it enters before its best hit
+so far (the plain versions test every column of the cluster: the same
+answers, the shadow sums up to the order of the additions).
 - Closest hit: round 1 tests each ray's PAIR_K1 nearest clusters, round 2
   the next PAIR_K2 whose entry is nearer than round 1's hit; a ray with a
   cluster past those still nearer than its best hit is a straggler.
@@ -228,7 +229,8 @@ def _lib() -> ctypes.CDLL:
     lib = _build.load("pairs_intersect")
     if lib.pairs_closest_launch.argtypes is None:
         lib.pairs_closest_launch.argtypes = [
-            _P, _I, _I, _I, _P, _P, _I, _P, _P, _P, _P, _I, _P, _P, _P]
+            _P, _I, _I, _I, _P, _I, _P, _P, _I, _P, _P, _P, _P, _I, _P, _P,
+            _P]
         lib.pairs_closest_launch.restype = _I
         lib.pairs_shadow_launch.argtypes = [
             _P, _I, _I, _I, _P, _I, _P, _I, _P, _P, _I, _P, _P, _P, _I, _P,
@@ -258,18 +260,33 @@ def _check_slots(pack10, n_cl: int, sray, scl, n_tris: int, device) -> int:
     return p
 
 
-def pairs_closest(pack10, n_cl: int, sray, scl, org, dirn, tmin, tmax,
-                  n_tris: int):
+def _check_sub8(sub8, tp: int, n_cl: int, device) -> None:
+    if (tp // n_cl) % SUB_BT:
+        raise ValueError(f"clusters of {tp // n_cl} columns are not whole "
+                         f"{SUB_BT}-column sub-clusters")
+    _check("sub8", sub8, (8, tp // SUB_BT), device)
+
+
+def pairs_closest(pack10, n_cl: int, sub8, sray, scl, org, dirn, tmin,
+                  tmax, n_tris: int):
     """Per slot (ray id sray[i], cluster id scl[i], int32, sorted by
     cluster for speed), the nearest hit of the ray in (tmin, tmax) over the
     cluster's real columns: (t (P,) inf on a miss, pack column (P,) int32,
     0 on a miss), the lowest column on ties.
 
     pack10 (10, T') of n_cl equal clusters, org/dirn (N, 3), tmin/tmax (N,):
-    float32, contiguous, one device."""
+    float32, contiguous, one device.  sub8 (8, T'/128) holds the boxes of
+    the pack's 128-column sub-clusters (clusters are whole sub-clusters): on
+    the card a slot tests only the sub-clusters its ray enters before its
+    best hit so far, and pack10 must start on a 16-byte boundary there.
+    sub8=None launches the body before that walk, one thread a slot over
+    every column (`chip_smoke.py` times it beside the walk)."""
     dev = org.device
     n = org.shape[0]
     p = _check_slots(pack10, n_cl, sray, scl, n_tris, dev)
+    tp = pack10.shape[1]
+    if sub8 is not None:
+        _check_sub8(sub8, tp, n_cl, dev)
     _check("org", org, (n, 3), dev)
     _check("dirn", dirn, (n, 3), dev)
     _check("tmin", tmin, (n,), dev)
@@ -279,6 +296,8 @@ def pairs_closest(pack10, n_cl: int, sray, scl, org, dirn, tmin, tmax,
                                    tmax, n_tris)
     if dev.type != "cuda":
         raise ValueError(f"pairs_closest: unsupported device {dev}")
+    if sub8 is not None:
+        fine_intersect._check_aligned(pack10=pack10)
     t = torch.empty((p,), dtype=torch.float32, device=dev)
     col = torch.empty((p,), dtype=torch.int32, device=dev)
     if p == 0:
@@ -287,7 +306,9 @@ def pairs_closest(pack10, n_cl: int, sray, scl, org, dirn, tmin, tmax,
     with torch.cuda.device(dev):
         stream = torch.cuda.current_stream(dev).cuda_stream
         code = lib.pairs_closest_launch(
-            pack10.data_ptr(), pack10.shape[1], n_cl, n_tris, sray.data_ptr(),
+            pack10.data_ptr(), tp, n_cl, n_tris,
+            None if sub8 is None else sub8.data_ptr(),
+            0 if sub8 is None else sub8.shape[1], sray.data_ptr(),
             scl.data_ptr(), p, org.data_ptr(), dirn.data_ptr(),
             tmin.data_ptr(), tmax.data_ptr(), n, t.data_ptr(), col.data_ptr(),
             stream)
@@ -313,10 +334,7 @@ def pairs_shadow(pack10, n_cl: int, sub8, logf, sray, scl, org, dirn, dist,
     n = org.shape[0]
     p = _check_slots(pack10, n_cl, sray, scl, n_tris, dev)
     tp = pack10.shape[1]
-    if (tp // n_cl) % SUB_BT:
-        raise ValueError(f"clusters of {tp // n_cl} columns are not whole "
-                         f"{SUB_BT}-column sub-clusters")
-    _check("sub8", sub8, (8, tp // SUB_BT), dev)
+    _check_sub8(sub8, tp, n_cl, dev)
     _check("logf", logf, (None, tp), dev)
     if logf.shape[0] < 3:
         raise ValueError(f"logf: needs 3 rgb rows, has {logf.shape[0]}")
@@ -362,14 +380,14 @@ def _per_pick(values, flat, shape, fill):
     return out.view(*shape, *values.shape[1:])
 
 
-def _pair_round(pack10, n_cl, idx, valid, org, dirn, tmin, tmax,
+def _pair_round(pack10, n_cl, sub8, idx, valid, org, dirn, tmin, tmax,
                 n_tris: int):
     """One closest-hit round over each ray's valid picks: per ray (t, col)
     (inf / 0 when none hit), the nearest t, then the lowest column among
     the picks that reach it."""
     sray, scl, flat = expand_pairs(idx, valid, n_cl)
-    t_s, col_s = pairs_closest(pack10, n_cl, sray, scl, org, dirn, tmin,
-                               tmax, n_tris)
+    t_s, col_s = pairs_closest(pack10, n_cl, sub8, sray, scl, org, dirn,
+                               tmin, tmax, n_tris)
     t_k = _per_pick(t_s, flat, idx.shape, float("inf"))
     t_ray = t_k.amin(dim=1)
     win = (t_k == t_ray[:, None]) & torch.isfinite(t_k)
@@ -389,12 +407,12 @@ def closest_hit_pairs(pack10, cluster8, sub8, org, dirn, tmin, tmax,
     k2 = min(PAIR_K1 + PAIR_K2, n_cl)
     sent, sidx, _ = nearest_clusters(cluster8, sub8, org, dirn, tmin, tmax,
                                      n_tris, min(k2 + 1, n_cl))
-    t12, c12 = _pair_round(pack10, n_cl, sidx[:, :k1],
+    t12, c12 = _pair_round(pack10, n_cl, sub8, sidx[:, :k1],
                            torch.isfinite(sent[:, :k1]), org, dirn, tmin,
                            tmax, n_tris)
     if k2 > k1:
         e2 = sent[:, k1:k2]
-        t2, c2 = _pair_round(pack10, n_cl, sidx[:, k1:k2],
+        t2, c2 = _pair_round(pack10, n_cl, sub8, sidx[:, k1:k2],
                              torch.isfinite(e2) & (e2 < t12[:, None]), org,
                              dirn, tmin, tmax, n_tris)
         use2 = t2 < t12

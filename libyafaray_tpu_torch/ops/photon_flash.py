@@ -7,10 +7,10 @@ Port of libyafaray_tpu/ops/photon_flash.py: the flash packs
 (`make_photon_pack_auto`, `density_auto`) and the three TPU kernels
 `_density_kernel`, `_nearest_kernel` and `_density_kernel_culled`, which
 live in csrc/photon_flash.cu and are built by ops/_build.py at first use.
-The nearest lookup has two kernels there: the brute force over a flash pack
-(the reference kernel's counterpart) and, for a sorted pack that carries
-each photon's original block (`make_photon_pack_nearest`), a search that
-visits only the clusters near the query.
+Both gathers have two kernels there: the brute force over a flash pack
+(the reference kernel's counterpart) and, over a sorted pack, one warp a
+query that visits only the clusters near it (the nearest lookup's pack
+also carries each photon's original block, `make_photon_pack_nearest`).
 
     density:  flux_q = sum_p [|q-p|^2 <= r^2] [n_q . dir_p > 0] value_p,
               count_q the number of such photons
@@ -28,9 +28,10 @@ f32).
 
 Each wrapper takes the plain version only for CPU tensors; for CUDA tensors
 it launches its kernel on the current stream or raises, and counts the
-launch in its `launches` attribute.  The culled layout is built only for
-CUDA packs of at least CULL_MIN_PHOTONS photons, as the reference builds it
-only where its Pallas kernels run.
+launch in its `launches` attribute.  The sorted layouts are built only for
+CUDA packs (`sorted_layout`), as the reference builds its culled layout
+only where its Pallas kernels run; from CULL_MIN_PHOTONS photons the
+density gather over a sorted pack is `density_culled`.
 """
 from __future__ import annotations
 
@@ -95,7 +96,9 @@ def _morton_points(p: torch.Tensor, lo: torch.Tensor,
 def _sorted_pack(pos, valid, direction, value) -> tuple:
     """(`make_photon_pack_sorted`'s pack, the (P,) sort permutation)."""
     pos = pos.to(F32)
-    inf = torch.tensor(float("inf"), dtype=F32, device=pos.device)
+    # Python-scalar fills: a 0-d tensor made from the host would be a
+    # blocking copy, a device sync in the middle of the preprocess
+    inf = float("inf")
     lo = torch.where(valid[:, None], pos, inf).amin(dim=0)
     hi = torch.where(valid[:, None], pos, -inf).amax(dim=0)
     key = torch.where(valid, _morton_points(pos, lo, hi), 0xFFFFFFFF)
@@ -139,20 +142,37 @@ def make_photon_pack_nearest(pos, valid, direction, value) -> dict:
     return pack
 
 
+def sorted_layout(device) -> bool:
+    """Whether photon packs on `device` take the Morton-sorted layouts: on
+    CUDA, where the culled kernels read them; on the CPU the flash layout,
+    whose plain sweeps the tests hold to the reference's."""
+    return torch.device(device).type == "cuda"
+
+
 def make_photon_pack_lookup(pos, valid, direction, value) -> dict:
-    """Pack for `nearest_flash`: the sorted layout for CUDA packs, where
-    the culled search runs, the flash layout on the CPU."""
-    if pos.device.type == "cuda":
+    """Pack for `nearest_flash`: `make_photon_pack_nearest` where
+    `sorted_layout`, else the flash layout."""
+    if sorted_layout(pos.device):
         return make_photon_pack_nearest(pos, valid, direction, value)
     return make_photon_pack(pos, valid, direction, value)
 
 
 def make_photon_pack_auto(pos, valid, direction, value) -> dict:
-    """Pack for `density_auto`: the culled layout for CUDA packs of at
-    least CULL_MIN_PHOTONS photons, the flash layout otherwise."""
-    if pos.shape[0] >= CULL_MIN_PHOTONS and pos.device.type == "cuda":
+    """Pack for `density_auto`: `make_photon_pack_sorted` where
+    `sorted_layout`, at every size, else the flash layout."""
+    if sorted_layout(pos.device):
         return make_photon_pack_sorted(pos, valid, direction, value)
     return make_photon_pack(pos, valid, direction, value)
+
+
+def pack_layout(pack: dict) -> str:
+    """The gather a density over `pack` takes (`density_auto`): "flash"
+    (the brute force), "sorted" (`density_flash`'s culled search) or, from
+    CULL_MIN_PHOTONS columns of a sorted pack, "culled"
+    (`density_culled`)."""
+    if "tbl" not in pack:
+        return "flash"
+    return "culled" if pack["tbl"].shape[1] >= CULL_MIN_PHOTONS else "sorted"
 
 
 def flash_view(pack: dict) -> dict:
@@ -369,6 +389,9 @@ def _lib() -> ctypes.CDLL:
         lib.nearest_culled_launch.argtypes = [
             _P, _I, _P, _P, _I, _P, _P, _I, _P, _P, _P]
         lib.nearest_culled_launch.restype = _I
+        lib.density_sorted_launch.argtypes = [
+            _P, _I, _P, _P, _I, _P, _P, _P, _I, _P, _P, _P]
+        lib.density_sorted_launch.restype = _I
     return lib
 
 
@@ -387,16 +410,33 @@ def _stream(dev) -> int:
     return torch.cuda.current_stream(dev).cuda_stream
 
 
+def _check_sorted(pack: dict, dev) -> int:
+    n_cl = pack["cl_lo"].shape[0]
+    _check("tbl", pack["tbl"], (16, n_cl * BP), dev)
+    _check("cl_lo", pack["cl_lo"], (n_cl, 3), dev)
+    _check("cl_hi", pack["cl_hi"], (n_cl, 3), dev)
+    return n_cl
+
+
 def density_flash(pack: dict, query_p, query_n, radius):
     """Σ value over the photons within `radius` (scalar or (N,)) of each
-    query, front side only.  Returns (flux (N,3), count (N,))."""
+    query, front side only.  Returns (flux (N,3), count (N,)).  A flash
+    pack takes the brute-force kernel; a sorted pack
+    (`make_photon_pack_sorted`) one warp a query over the clusters whose
+    box lies within its radius (on the CPU `density_culled_plain`: the same
+    function)."""
     dev = query_p.device
     n = query_p.shape[0]
     _check("query_p", query_p, (n, 3), dev)
     _check("query_n", query_n, (n, 3), dev)
-    w = _check_flash(pack, dev, with_aux=True)
+    culled = "tbl" in pack
+    if culled:
+        n_cl = _check_sorted(pack, dev)
+    else:
+        w = _check_flash(pack, dev, with_aux=True)
     if dev.type == "cpu":
-        return density_flash_plain(pack, query_p, query_n, radius)
+        plain = density_culled_plain if culled else density_flash_plain
+        return plain(pack, query_p, query_n, radius)
     if dev.type != "cuda":
         raise ValueError(f"density_flash: unsupported device {dev}")
     r2 = _r2(radius, n, dev)
@@ -404,25 +444,24 @@ def density_flash(pack: dict, query_p, query_n, radius):
     cnt = torch.empty((n,), dtype=F32, device=dev)
     lib = _lib()
     with torch.cuda.device(dev):
-        code = lib.density_flash_launch(
-            pack["pos_t"].data_ptr(), pack["aux_t"].data_ptr(),
-            pack["val"].data_ptr(), w, query_p.data_ptr(),
-            query_n.data_ptr(), r2.data_ptr(), n, flux.data_ptr(),
-            cnt.data_ptr(), _stream(dev))
+        if culled:
+            code = lib.density_sorted_launch(
+                pack["tbl"].data_ptr(), n_cl * BP, pack["cl_lo"].data_ptr(),
+                pack["cl_hi"].data_ptr(), n_cl, query_p.data_ptr(),
+                query_n.data_ptr(), r2.data_ptr(), n, flux.data_ptr(),
+                cnt.data_ptr(), _stream(dev))
+        else:
+            code = lib.density_flash_launch(
+                pack["pos_t"].data_ptr(), pack["aux_t"].data_ptr(),
+                pack["val"].data_ptr(), w, query_p.data_ptr(),
+                query_n.data_ptr(), r2.data_ptr(), n, flux.data_ptr(),
+                cnt.data_ptr(), _stream(dev))
     density_flash.launches += 1
     _raise_on(code, "density_flash")
     return flux, cnt
 
 
 density_flash.launches = 0
-
-
-def _check_sorted(pack: dict, dev) -> int:
-    n_cl = pack["cl_lo"].shape[0]
-    _check("tbl", pack["tbl"], (16, n_cl * BP), dev)
-    _check("cl_lo", pack["cl_lo"], (n_cl, 3), dev)
-    _check("cl_hi", pack["cl_hi"], (n_cl, 3), dev)
-    return n_cl
 
 
 def nearest_flash_best(pack: dict, query_p, radius):
@@ -530,7 +569,7 @@ density_culled.launches = 0
 
 
 def density_auto(pack: dict, query_p, query_n, radius):
-    """Density gather on the pack's layout (see make_photon_pack_auto)."""
-    if "tbl" in pack:
+    """Density gather on the pack's layout (`pack_layout`)."""
+    if pack_layout(pack) == "culled":
         return density_culled(pack, query_p, query_n, radius)
     return density_flash(pack, query_p, query_n, radius)

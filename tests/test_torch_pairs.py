@@ -298,6 +298,149 @@ def test_slot_tile_walk_gives_the_plain_sum(soup, spc, kind):
         assert pairs < 0.6 * good.size * spc * fi.SUB_BT
 
 
+def _lane_tree_min(t, k):
+    """(M, 128) per-column t (inf where no hit) and tile columns of one tile
+    -> (M,) (t, column) as the card kernel takes them: lane l of 32 keeps
+    the nearest of its columns l, l + 32, l + 64, l + 96 (strict <, in
+    rising order), then the lanes reduce the lexicographic minimum of (t,
+    column) by the xor tree (offsets 16, 8, 4, 2, 1); every lane ends with
+    it, and lane 0's is returned."""
+    lt = torch.full((t.shape[0], 32), float("inf"))
+    lk = torch.full((t.shape[0], 32), fi.SUB_BT)
+    for q in range(fi.SUB_BT // 32):
+        ct, ck = t[:, 32 * q:32 * q + 32], k[:, 32 * q:32 * q + 32]
+        nearer = ct < lt
+        lt, lk = torch.where(nearer, ct, lt), torch.where(nearer, ck, lk)
+    idx = torch.arange(32)
+    for off in (16, 8, 4, 2, 1):
+        ot, ok = lt[:, idx ^ off], lk[:, idx ^ off]
+        take = (ot < lt) | ((ot == lt) & (ok < lk))
+        lt, lk = torch.where(take, ot, lt), torch.where(take, ok, lk)
+    return lt[:, 0], lk[:, 0]
+
+
+def _walk_closest(pk, n_cl, sub8, sray, scl, org, dirn, tmin, tmax, n_tris):
+    """The card kernel's closest hit per slot in plain PyTorch: a slot whose
+    ray or cluster id is out of range, or whose interval is empty, tests
+    nothing (inf, 0); the others take their cluster's tiles in rising
+    order, a tile only when the ray's interval enters its box (widened by
+    1e-5), never a pad tile, and not when it enters it strictly beyond the
+    slot's best t so far; a tile's answer is `_lane_tree_min`'s, kept if
+    strictly nearer.  Returns (t, column, pair tests made)."""
+    spc = sub8.shape[1] // n_cl
+    sc_real = -(-n_tris // fi.SUB_BT)
+    ok_id = ((sray >= 0) & (sray < org.shape[0]) & (scl >= 0) & (scl < n_cl))
+    best_t = torch.full((sray.shape[0],), float("inf"))
+    best_c = torch.zeros(sray.shape[0], dtype=torch.int64)
+    keep = torch.nonzero(ok_id).squeeze(1)
+    r, c = sray[keep].long(), scl[keep].long()
+    o, d, lo, hi = org[r], dirn[r], tmin[r], tmax[r]
+    local = torch.arange(fi.SUB_BT)
+    pairs = 0
+    for b in range(spc):
+        j = c * spc + b
+        ent = fi.box_entry(sub8[:, j.clamp(max=sc_real - 1)][:, :, None], o,
+                           d, lo, hi)[0, :, 0]
+        take = torch.nonzero((lo < hi) & (j < sc_real) & torch.isfinite(ent)
+                             & ~(ent > best_t[keep])).squeeze(1)
+        if not take.numel():
+            continue
+        cols = j[take, None] * fi.SUB_BT + local
+        g = pk[:, cols.clamp(max=pk.shape[1] - 1)]
+        t, _, _, ok = ci._mt_test(
+            g, slice(None), *(o[take, a:a + 1] for a in range(3)),
+            *(d[take, a:a + 1] for a in range(3)))
+        hit = (ok & (cols < n_tris) & (t > lo[take, None])
+               & (t < hi[take, None]))
+        tt, kk = _lane_tree_min(torch.where(hit, t, float("inf")),
+                                local.expand(take.numel(), -1))
+        slot = keep[take]
+        nearer = tt < best_t[slot]
+        best_t[slot] = torch.where(nearer, tt, best_t[slot])
+        best_c[slot] = torch.where(nearer, j[take] * fi.SUB_BT + kk,
+                                   best_c[slot])
+        pairs += int((cols < n_tris).sum())
+    return best_t, best_c.to(torch.int32), pairs
+
+
+# columns of every tile that repeat an earlier column of it (the same lane a
+# round later, a later lane in the same round, an earlier lane a round
+# later): never a winner where the copies tie
+_REPEATS = {32 + m: m for m in range(16)}
+_REPEATS.update({80 + m: 64 + m for m in range(16)})
+_REPEATS.update({96 + m: 16 + m for m in range(16)})
+
+
+def _duplicated_pack(pack):
+    """The soup's pack with exact copies: in every tile the columns of
+    `_REPEATS`, and each odd tile a copy of the tile before it."""
+    dup = pack.copy()
+    for j in range(0, dup.shape[1], fi.SUB_BT):
+        for k, src in _REPEATS.items():
+            dup[:, j + k] = dup[:, j + src]
+    for j in range(fi.SUB_BT, dup.shape[1], 2 * fi.SUB_BT):
+        dup[:, j:j + fi.SUB_BT] = dup[:, j - fi.SUB_BT:j]
+    return dup
+
+
+@pytest.mark.parametrize("kind", ["soup", "duplicated"])
+@pytest.mark.parametrize("spc", [1, 2, 8])
+def test_slot_closest_walk_gives_the_plain_hit(soup, spc, kind):
+    """The closest kernel's slot walk with the sub-box table (clusters of
+    `spc` tiles), its skip and its (t, column) merge, against
+    `pairs_closest_plain`, which tests every column of a slot's cluster: t
+    and column equal bit for bit, the lowest column on exact ties (the
+    `duplicated` pack's copies inside a tile and across tiles); slots with
+    an out-of-range id or an empty interval give (inf, 0).  It tests no
+    fewer pairs than the bound counts and, with more than one tile a
+    cluster, fewer than a walk without the skip (on the soup)."""
+    s = soup
+    pack = _duplicated_pack(s["pack"]) if kind == "duplicated" else s["pack"]
+    pk = _t(pack)
+    sub8 = _t(fi.sub_aabbs(pack, N_TRIS))
+    org, d, tmin, tmax = _port(s, "org", "dir", "tmin", "tmax")
+    tmin = tmin.clone()
+    tmin[::13] = 3.0  # some intervals start far out, some (tmax 2) are empty
+    n_cl = pack.shape[1] // (spc * fi.SUB_BT)
+    rng = np.random.default_rng(8)
+    p = 3000
+    sray = rng.integers(0, N_RAYS, p).astype(np.int32)
+    scl = np.sort(rng.integers(0, n_cl, p)).astype(np.int32)
+    bad = np.arange(p) % 50 == 7  # out-of-range ids, four kinds in turn
+    which = np.arange(p) % 4
+    sray[bad & (which == 0)] = -1
+    sray[bad & (which == 1)] = N_RAYS
+    scl[bad & (which == 2)] = -1
+    scl[bad & (which == 3)] = n_cl
+    t, col, pairs = _walk_closest(pk, n_cl, sub8, _t(sray), _t(scl), org, d,
+                                  tmin, tmax, N_TRIS)
+    good = np.nonzero(~bad)[0]
+    want_t = torch.full((p,), float("inf"))
+    want_c = torch.zeros(p, dtype=torch.int32)
+    want_t[good], want_c[good] = pi.pairs_closest_plain(
+        pk, n_cl, _t(sray[good]), _t(scl[good]), org, d, tmin, tmax, N_TRIS)
+    assert torch.equal(t, want_t) and torch.equal(col, want_c)
+    hit = torch.isfinite(t)
+    assert 50 < int(hit.sum()) < good.size and not (col[~hit]).any()
+    empty = (tmin >= tmax)[_t(sray[good]).long()]
+    assert empty.any() and not hit[good][empty].any()
+    if kind == "duplicated":
+        local = (col[hit] % fi.SUB_BT).numpy()
+        assert not np.isin(local, list(_REPEATS)).any()
+        if spc > 1:  # a tie across tiles keeps the earlier tile's column
+            assert (col[hit] // fi.SUB_BT % 2 == 0).all()
+    r = _t(sray[good]).long()
+    bound, _ = pi.slot_pair_tests(sub8, n_cl, _t(sray[good]), _t(scl[good]),
+                                  org, d, tmin[r],
+                                  torch.minimum(tmax[r], t[good]), N_TRIS)
+    no_skip, _ = pi.slot_pair_tests(sub8, n_cl, _t(sray[good]),
+                                    _t(scl[good]), org, d, tmin[r], tmax[r],
+                                    N_TRIS)
+    assert bound <= pairs <= no_skip
+    if spc > 1 and kind == "soup":  # an odd copy shares its tile's box
+        assert pairs < no_skip
+
+
 def test_slot_pair_tests_count_the_entered_sub_clusters(soup):
     """The pair kernels' work count: with every (ray, cluster) slot, the
     real columns of the sub-clusters each ray enters, counted ray by ray
@@ -546,16 +689,17 @@ def test_wrappers_run_plain_on_cpu_and_count_nothing(soup):
     scl = _t(np.sort(rng.integers(0, n_cl, 300)).astype(np.int32))
     rays = _port(s, "org", "dir", "tmin", "tmax")
     logf = ci.log_filter(_t(s["filt4"]))
-    before = (pi.pairs_closest.launches, pi.pairs_shadow.launches)
-    got = pi.pairs_closest(pk, n_cl, sray, scl, *rays, N_TRIS)
-    want = pi.pairs_closest_plain(pk, n_cl, sray, scl, *rays, N_TRIS)
-    assert all(torch.equal(a, b) for a, b in zip(got, want))
     sub = _t(s["sub"])
+    before = (pi.pairs_closest.launches, pi.pairs_shadow.launches)
+    want = pi.pairs_closest_plain(pk, n_cl, sray, scl, *rays, N_TRIS)
+    for table in (sub, None):  # the tile walk's table, or the thread body
+        got = pi.pairs_closest(pk, n_cl, table, sray, scl, *rays, N_TRIS)
+        assert all(torch.equal(a, b) for a, b in zip(got, want))
     sh = (logf, sray, scl, *_port(s, "org", "dir", "dist"), N_TRIS)
     assert torch.equal(pi.pairs_shadow(pk, n_cl, sub, *sh),
                        pi.pairs_shadow_plain(pk, n_cl, *sh))
     empty = torch.zeros(0, dtype=torch.int32)
-    t, col = pi.pairs_closest(pk, n_cl, empty, empty, *rays, N_TRIS)
+    t, col = pi.pairs_closest(pk, n_cl, sub, empty, empty, *rays, N_TRIS)
     lg = pi.pairs_shadow(pk, n_cl, sub, logf, empty, empty,
                          *_port(s, "org", "dir", "dist"), N_TRIS)
     assert t.shape == col.shape == (0,) and lg.shape == (0, 3)
@@ -572,6 +716,8 @@ def test_wrappers_run_plain_on_cpu_and_count_nothing(soup):
     (dict(logf="two rows"), ValueError, "rgb rows"),
     (dict(logf="two rows", sub8="short"), ValueError, "shape"),
     (dict(logf="two rows", n_cl=48), ValueError, "whole"),
+    (dict(sub8="short"), ValueError, "shape"),
+    (dict(n_cl=48), ValueError, "whole"),
 ])
 def test_wrappers_reject_bad_inputs(soup, bad, err, match):
     s = soup
@@ -583,9 +729,9 @@ def test_wrappers_reject_bad_inputs(soup, bad, err, match):
     change = {"int64": lambda x: x.long(), "short": lambda x: x[:-1],
               "double": lambda x: x.double(), 25: lambda x: 25,
               48: lambda x: 48, 3073: lambda x: 3073}
-    sub8 = _t(s["sub"])
+    kw["sub8"] = _t(s["sub"])
     if "sub8" in bad:  # a sub-box table of another pack width
-        sub8 = sub8[:, :-1].contiguous()
+        kw["sub8"] = kw["sub8"][:, :-1].contiguous()
     for k, how in bad.items():
         if k not in ("logf", "sub8"):
             kw[k] = change[how](kw[k])
@@ -594,7 +740,7 @@ def test_wrappers_reject_bad_inputs(soup, bad, err, match):
             kw.pop("tmin")
             kw.pop("tmax")
             pi.pairs_shadow(logf=torch.zeros(2, s["pack"].shape[1]),
-                            sub8=sub8, dist=_t(s["dist"]), **kw)
+                            dist=_t(s["dist"]), **kw)
         else:
             pi.pairs_closest(**kw)
 

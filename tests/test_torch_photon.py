@@ -309,6 +309,109 @@ def test_density_culled_plain_matches_reference(sorted_photons):
     assert ppf.density_auto(port, _t(qp), _t(qn), _t(radius))[1].equal(pc)
 
 
+@pytest.mark.parametrize("per_query", [True, False])
+def test_density_flash_on_sorted_pack_matches_reference(photons, per_query):
+    """density_flash over a Morton-sorted pack (on the card the warp-per-
+    query search; on the CPU `density_culled_plain`) against the
+    reference's density_flash over its flash pack and the port's flash
+    sweep: counts equal, flux rtol 1e-5."""
+    pos, valid, dirs, power, qp, qn, radius = photons
+    rad = radius if per_query else 0.3
+    ref_pack, flash = _packs(photons)
+    srt = ppf.make_photon_pack_sorted(_t(pos), _t(valid), _t(dirs),
+                                      _t(power))
+    rad_t = _t(rad) if per_query else rad
+    sf, sc = ppf.density_flash(srt, _t(qp), _t(qn), rad_t)
+    rf, rc = rpf.density_flash(ref_pack, jnp.asarray(qp), jnp.asarray(qn),
+                               jnp.asarray(rad))
+    ff, fc = ppf.density_flash_plain(flash, _t(qp), _t(qn), rad_t)
+    assert np.array_equal(np.asarray(rc), sc.numpy()) and torch.equal(fc, sc)
+    assert sc.sum() > 200
+    _close(rf, sf, "flux vs reference", float(np.abs(np.asarray(rf)).max()))
+    _close(ff.numpy(), sf, "flux vs flash", float(ff.abs().max()))
+    assert ppf.pack_layout(srt) == "sorted"
+    assert torch.equal(ppf.density_auto(srt, _t(qp), _t(qn), rad_t)[1], sc)
+
+
+def _warp_density(pack, qp, qn, r2):
+    """The card's density over a sorted pack in plain PyTorch, one warp a
+    query: the clusters whose box lies within the query's radius, in
+    rising index; lane l of 32 sums photons l, l + 32, ... of each (d2 <=
+    r2, front side), then the lanes are added by the xor tree (offsets 16,
+    8, 4, 2, 1).  Returns (flux, count, pair tests: the valid photons of
+    the visited clusters)."""
+    tbl, lo, hi = pack["tbl"], pack["cl_lo"], pack["cl_hi"]
+    valid = tbl[0] < 0.5 * ppf.SENTINEL
+    lanes_f = torch.zeros((qp.shape[0], 32, 3))
+    lanes_c = torch.zeros((qp.shape[0], 32))
+    pairs = 0
+    for c in range(lo.shape[0]):
+        near = ppf._box_d2(qp, lo[c], hi[c]) <= r2
+        pairs += int(near.sum()) * int(valid[c * 512:(c + 1) * 512].sum())
+        for it in range(512 // 32):
+            j = c * 512 + 32 * it + torch.arange(32)
+            dx, dy, dz = (qp[:, a:a + 1] - tbl[a, j][None] for a in range(3))
+            d2 = dx * dx + dy * dy + dz * dz
+            side = (qn[:, 0:1] * tbl[3, j][None] + qn[:, 1:2] * tbl[4, j][None]
+                    + qn[:, 2:3] * tbl[5, j][None])
+            w = near[:, None] & (d2 <= r2[:, None]) & (side > 0.0)
+            lanes_f = lanes_f + torch.where(w[..., None], tbl[6:9, j].T[None],
+                                            0.0)
+            lanes_c = lanes_c + w.to(torch.float32)
+    idx = torch.arange(32)
+    for off in (16, 8, 4, 2, 1):
+        lanes_f = lanes_f + lanes_f[:, idx ^ off]
+        lanes_c = lanes_c + lanes_c[:, idx ^ off]
+    return lanes_f[:, 0], lanes_c[:, 0], pairs
+
+
+def test_warp_density_walk_gives_the_plain_density(sorted_photons):
+    """The card kernel's visit rule and sum order over the sorted pack
+    against `density_culled_plain` and the flash sweep over the same
+    photons: counts equal bit for bit (the radius and side tests keep
+    their operation order), flux rtol 1e-5; its pair tests are
+    `culled_pair_tests`' count, a fraction of the brute force's."""
+    _, port, (qp, qn, radius) = sorted_photons
+    q, n = _t(qp), _t(qn)
+    r2 = _t(radius) * _t(radius)
+    wf, wc, pairs = _warp_density(port, q, n, r2)
+    cf, cc = ppf.density_culled_plain(port, q, n, _t(radius))
+    ff, fc = ppf.density_flash_plain(ppf.flash_view(port), q, n, _t(radius))
+    assert torch.equal(wc, cc) and torch.equal(wc, fc) and wc.sum() > 1000
+    _close(cf.numpy(), wf, "flux vs culled", float(cf.abs().max()))
+    _close(ff.numpy(), wf, "flux vs flash", float(ff.abs().max()))
+    assert pairs == ppf.culled_pair_tests(port, q, _t(radius))[0]
+    assert pairs < 0.5 * len(qp) * int(port["n_valid"])
+
+
+def test_pack_layout_predicates(monkeypatch, photons):
+    """sorted_layout: CUDA packs take the sorted layouts, CPU packs the
+    flash one; make_photon_pack_auto and make_photon_pack_lookup follow it;
+    pack_layout names the gather density_auto takes (the culled kernel
+    from CULL_MIN_PHOTONS columns of a sorted pack)."""
+    assert ppf.sorted_layout("cuda") and ppf.sorted_layout("cuda:1")
+    assert ppf.sorted_layout(torch.device("cuda", 0))
+    assert not ppf.sorted_layout("cpu")
+    assert not ppf.sorted_layout(torch.device("cpu"))
+    args = [_t(a) for a in photons[:4]]
+    flash = ppf.make_photon_pack_auto(*args)
+    assert ppf.pack_layout(flash) == "flash"
+    assert "pos_t" in ppf.make_photon_pack_lookup(*args)
+    monkeypatch.setattr(ppf, "sorted_layout", lambda device: True)
+    srt = ppf.make_photon_pack_auto(*args)
+    assert srt["tbl"].shape == (16, 3072) and ppf.pack_layout(srt) == "sorted"
+    assert "tbl" in ppf.make_photon_pack_lookup(*args)
+    seen = []
+    for name in ("density_flash", "density_culled"):
+        monkeypatch.setattr(ppf, name, lambda *a, name=name: seen.append(name))
+    ppf.density_auto(flash, None, None, 0.3)
+    ppf.density_auto(srt, None, None, 0.3)
+    monkeypatch.setattr(ppf, "CULL_MIN_PHOTONS", 3072)
+    assert ppf.pack_layout(srt) == "culled"
+    ppf.density_auto(srt, None, None, 0.3)
+    assert seen == ["density_flash", "density_flash", "density_culled"]
+
+
 def test_auto_pack_takes_flash_layout_on_cpu(monkeypatch, photons):
     """The culled layout is for CUDA packs only, as the reference builds it
     only where its Pallas kernels run."""
