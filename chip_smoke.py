@@ -56,7 +56,16 @@ started together) and drives the ported paths through them:
   inside the phases above each is held to its plain version, called twice
   and compared bit for bit, and timed beside the body it replaced on the
   same inputs (`ms_before`: the one-thread pair body; the brute force over
-  the same photons in their original order), with its registers.
+  the same photons in their original order), with its registers;
+- slice 10, `shadow_logsum_dense` (two rays a thread over the staged pack)
+  and `closest_hit_stream` (a warp a ray), both skipping by the pack's
+  32-column quarter boxes: inside slice 4's phases each must equal its
+  plain version bit for bit and repeat bit for bit, is timed beside the
+  one-thread body it replaced on the same rays (`ms_before`) and held
+  equal to it on every batch its scene's step records (`[old_body]`), with
+  its registers and the pair tests its walk makes; its bound counts the
+  pairs of the quarter boxes, the old body's bound (`bound_ms_before`) those
+  of the cluster boxes.
 Each path is rendered with every launch counter set to 0 just before it and
 read just after.  Every kernel's line carries its bound: the larger of its
 FP32 operations over the card's 67 TFLOP/s and its bytes (each input read
@@ -1176,13 +1185,49 @@ def step_calls(cscene, cfg, module, names: tuple):
     return step, arrays, {n: [a for k, a in calls if k == n] for n in names}
 
 
+REDESIGNED_MID = ("closest_hit_stream", "shadow_logsum_dense")
+
+
+def old_body(name: str, args: tuple):
+    """The one-thread body that the walk of `name` (one of REDESIGNED_MID)
+    replaced, as a call on a recorded call's arguments less box32 (the
+    third).  Its launches are not counted."""
+    before = getattr(cx, f"_{name}_before")
+    old = args[:2] + args[3:]
+    return lambda: before(*old)
+
+
+def old_body_differ(name: str, calls: list) -> int:
+    """Rays of every recorded call of `name` (one of REDESIGNED_MID) whose
+    answer differs between the walk and the one-thread body it replaced:
+    both give the brute force's bits."""
+    kernel = getattr(cx, name)
+    n = 0
+    for args in calls:
+        a, b = kernel(*args), old_body(name, args)()
+        if isinstance(a, tuple):
+            n += int(((a[0] != b[0]) | (a[1] != b[1])).sum())
+        else:
+            n += int((a != b).any(dim=-1).sum())
+    return n
+
+
 def check_mid_closest(kind: str, args, rays: str) -> dict:
     """closest_hit_<kind> against its plain version on recorded rays: hit
-    and tri equal after the epilogue, t, u, v within rtol 1e-4."""
-    pk, c8, org, dirn, tmin, tmax, n_tris = args
+    and tri equal after the epilogue, t, u, v within rtol 1e-4.  The
+    stream kernel (a warp a ray over the quarter boxes) must also equal
+    the plain version bit for bit (t and column) and repeat bit for bit;
+    ms_before times the one-thread body it replaced on the same rays.  Its
+    bound counts what its walk tests, the real columns of the quarters
+    entered below min(tmax, t) (pair_tests_made), and bound_ms_before the
+    one-thread body's cluster count (pair_tests_before)."""
+    if kind == "stream":
+        pk, c8, box32, org, dirn, tmin, tmax, n_tris = args
+    else:
+        (pk, c8, org, dirn, tmin, tmax, n_tris), box32 = args, None
     kernel = getattr(cx, f"closest_hit_{kind}")
     plain = getattr(cx, f"closest_{kind}_plain")
-    kt, kcol = kernel(pk, c8, org, dirn, tmin, tmax, n_tris)
+    kt, kcol = kernel(*args)
     torch.cuda.synchronize()
     (pt, pcol), plain_ms = once_ms(
         lambda: plain(pk, org, dirn, tmin, tmax, n_tris))
@@ -1199,49 +1244,101 @@ def check_mid_closest(kind: str, args, rays: str) -> dict:
     n_diff = int(((kt != pt) | (kcol != pcol)).sum())
     err = max(float((k_hit[i][phit] - p_hit[i][phit]).abs().max())
               for i in (0, 2, 3))
-    call = lambda: kernel(pk, c8, org, dirn, tmin, tmax, n_tris)  # noqa: E731
+    call = lambda: kernel(*args)  # noqa: E731
     ms = device_ms(call, calls=20, replays=3)
     pairs, boxes = cx.cluster_pair_tests(pk, c8, org, dirn, tmin,
                                          torch.minimum(tmax, kt), n_tris)
-    bnd = bound(MT_OPS * pairs + BOX_OPS * boxes,
-                nbytes(pk, c8, org, dirn, tmin, tmax, kt, kcol),
-                pair_tests=pairs, box_tests=boxes)
+    moved = nbytes(pk, c8, box32, org, dirn, tmin, tmax, kt, kcol)
+    bnd = bound(MT_OPS * pairs + BOX_OPS * boxes, moved, pair_tests=pairs,
+                box_tests=boxes)
+    extra = {}
+    if box32 is not None:
+        at, acol = kernel(*args)
+        made, q_boxes = cx.cluster_pair_tests(
+            pk, box32, org, dirn, tmin, torch.minimum(tmax, kt), n_tris)
+        extra = dict(
+            repeat_differ=int(((at != kt) | (acol != kcol)).sum()),
+            ms_before=device_ms(old_body(name, args), calls=20, replays=3),
+            pair_tests_made=made, bound_ms_before=bnd["bound_ms"],
+            pair_tests_before=pairs, box_tests_before=boxes,
+            **registers("cluster_intersect", "closest_stream_kernel"))
+        bnd = bound(MT_OPS * made + BOX_OPS * q_boxes, moved,
+                    pair_tests=made, box_tests=q_boxes)
+        if n_diff or extra["repeat_differ"]:
+            raise AssertionError(f"{name}: {n_diff} rays differ from plain, "
+                                 f"{extra['repeat_differ']} from a second "
+                                 f"call ({rays})")
     phase("kernel", name=name, rays=rays, n=org.shape[0], tris=n_tris,
           hits=int(phit.sum()), differ=n_diff, max_abs_err=err,
-          tolerance="hit,tri equal; t,u,v rtol 1e-4", ms=round(ms, 4),
+          tolerance="hit,tri equal; t,u,v rtol 1e-4"
+          + ("; t, col equal" if box32 is not None else ""), ms=round(ms, 4),
           call_ms=round(call_ms(call, calls=20), 4),
-          plain_ms=round(plain_ms, 4), plain="one eager call", **bnd)
-    return dict(ms=ms, plain_ms=plain_ms, err=err, bound=bnd)
+          plain_ms=round(plain_ms, 4), plain="one eager call", **extra,
+          **bnd)
+    return dict(ms=ms, plain_ms=plain_ms, err=err, bound=bnd, extra=extra)
 
 
 def check_mid_shadow(kind: str, args) -> dict:
     """shadow_logsum_<kind> against its plain version on the recorded
-    bounce-0 NEE rays: transmission within atol 2e-3."""
-    pk, c8, logf, org, dirn, dist, n_tris = args
+    bounce-0 NEE rays: transmission within atol 2e-3.  The dense kernel
+    (SHADOW_DENSE_RAYS rays a thread over the quarter boxes) must also
+    equal the plain version bit for bit (the scene's filters are binary)
+    and repeat bit for bit; ms_before times the one-thread body it
+    replaced.  Its bound counts what each ray needs: the real columns of
+    the quarters its segment enters, and a test of every real quarter box
+    for each live ray; pair_tests_made counts what its walk tests (a
+    thread's rays share their quarters), and bound_ms_before the one-thread
+    body's cluster count (pair_tests_before)."""
+    if kind == "dense":
+        pk, c8, box32, logf, org, dirn, dist, n_tris = args
+    else:
+        (pk, c8, logf, org, dirn, dist, n_tris), box32 = args, None
     kernel = getattr(cx, f"shadow_logsum_{kind}")
     plain = getattr(cx, f"shadow_logsum_{kind}_plain")
     name = f"shadow_logsum_{kind}"
-    klg = kernel(pk, c8, logf, org, dirn, dist, n_tris)
+    klg = kernel(*args)
     torch.cuda.synchronize()
     plg, plain_ms = once_ms(lambda: plain(pk, logf, org, dirn, dist, n_tris))
     err = float((torch.exp(klg) - torch.exp(plg)).abs().max())
     if err > 2e-3:
         raise AssertionError(f"{name}: transmission off by {err} > 2e-3")
     n_diff = int((klg != plg).any(dim=-1).sum())
-    call = lambda: kernel(pk, c8, logf, org, dirn, dist, n_tris)  # noqa: E731
+    call = lambda: kernel(*args)  # noqa: E731
     ms = device_ms(call, calls=10, replays=3)
     pairs, boxes = cx.cluster_pair_tests(pk, c8, org, dirn,
                                          *cx.shadow_limits(dist), n_tris)
-    bnd = bound(MT_OPS * pairs + BOX_OPS * boxes,
-                nbytes(pk, c8, logf, org, dirn, dist, klg),
-                pair_tests=pairs, box_tests=boxes)
+    moved = nbytes(pk, c8, box32, logf, org, dirn, dist, klg)
+    bnd = bound(MT_OPS * pairs + BOX_OPS * boxes, moved, pair_tests=pairs,
+                box_tests=boxes)
+    extra = {}
+    if box32 is not None:
+        again = kernel(*args)
+        made, q_boxes = cx.quarter_walk_pair_tests(box32, org, dirn, dist,
+                                                   n_tris)
+        need = cx.cluster_pair_tests(pk, box32, org, dirn,
+                                     *cx.shadow_limits(dist), n_tris)[0]
+        extra = dict(
+            repeat_differ=int((again != klg).any(dim=-1).sum()),
+            ms_before=device_ms(old_body(name, args), calls=10, replays=3),
+            rays_per_thread=cx.SHADOW_DENSE_RAYS, pair_tests_made=made,
+            bound_ms_before=bnd["bound_ms"], pair_tests_before=pairs,
+            box_tests_before=boxes,
+            **registers("cluster_intersect", "shadow_dense_kernel"))
+        bnd = bound(MT_OPS * need + BOX_OPS * q_boxes, moved,
+                    pair_tests=need, box_tests=q_boxes)
+        if n_diff or extra["repeat_differ"]:
+            raise AssertionError(f"{name}: {n_diff} rays differ from plain, "
+                                 f"{extra['repeat_differ']} from a second "
+                                 "call")
     phase("kernel", name=name, rays="bounce-0 NEE", n=org.shape[0],
           tris=n_tris, live=int((dist > 0).sum()),
           opaque=int((klg <= -80.0).all(dim=-1).sum()), differ=n_diff,
-          max_abs_err=err, tolerance="transmission atol 2e-3",
+          max_abs_err=err, tolerance="transmission atol 2e-3"
+          + ("; equal" if box32 is not None else ""),
           ms=round(ms, 4), call_ms=round(call_ms(call, calls=10), 4),
-          plain_ms=round(plain_ms, 4), plain="one eager call", **bnd)
-    return dict(ms=ms, plain_ms=plain_ms, err=err, bound=bnd)
+          plain_ms=round(plain_ms, 4), plain="one eager call", **extra,
+          **bnd)
+    return dict(ms=ms, plain_ms=plain_ms, err=err, bound=bnd, extra=extra)
 
 
 def mid_cli(kind: str, path: str, res, smi) -> None:
@@ -1303,6 +1400,14 @@ def mid_phases(scenes: str, smi) -> list:
         prim = check_mid_closest(kind, calls[names[0]][0], "primary")
         bounce = check_mid_closest(kind, calls[names[0]][1], "bounce 1")
         shad = check_mid_shadow(kind, calls[names[1]][0])
+        for name in names:
+            if name in REDESIGNED_MID:
+                n_old = old_body_differ(name, calls[name])
+                phase("old_body", name=name, batches=len(calls[name]),
+                      differ_vs_old_body=n_old)
+                if n_old:
+                    raise AssertionError(f"{name}: {n_old} rays differ from "
+                                         "the one-thread body")
         del calls
 
         res, launches = counted(
@@ -1322,18 +1427,32 @@ def mid_phases(scenes: str, smi) -> list:
 
         src = SRC.format("cluster_intersect")
         line = PALLAS.format(308 if kind == "dense" else 592)
+        before = {}
+        if prim["extra"]:
+            before = dict(
+                ms_before=prim["extra"]["ms_before"],
+                ms_before_bounce=bounce["extra"]["ms_before"],
+                bound_ms_before=prim["extra"]["bound_ms_before"],
+                bound_ms_before_bounce=bounce["extra"]["bound_ms_before"],
+                pair_tests_before=prim["extra"]["pair_tests_before"],
+                registers=prim["extra"]["registers"])
         kernels.append(dict(
             name=names[0], route="cuda", source=src, replaces=line,
             launches=launches[names[0]], max_abs_err=max(prim["err"],
                                                          bounce["err"]),
             ms=prim["ms"], plain_ms=prim["plain_ms"],
             ms_bounce=bounce["ms"], plain_ms_bounce=bounce["plain_ms"],
-            bound_ms_bounce=bounce["bound"]["bound_ms"], **prim["bound"]))
+            bound_ms_bounce=bounce["bound"]["bound_ms"], **before,
+            **prim["bound"]))
+        before = {k: shad["extra"][k] for k in (
+            "ms_before", "bound_ms_before", "pair_tests_before",
+            "pair_tests_made", "registers") if shad["extra"]}
         kernels.append(dict(
             name=names[1], route="cuda", source=src,
             replaces=PALLAS.format(353 if kind == "dense" else 693),
             launches=launches[names[1]], max_abs_err=shad["err"],
-            ms=shad["ms"], plain_ms=shad["plain_ms"], **shad["bound"]))
+            ms=shad["ms"], plain_ms=shad["plain_ms"], **before,
+            **shad["bound"]))
     return kernels
 
 

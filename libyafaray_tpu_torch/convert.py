@@ -20,9 +20,11 @@ import torch
 from .backgrounds.base import BackgroundSpec
 from .cameras.base import Camera
 from .integrators.config import RenderConfig
+from .ops.cluster_intersect import quarter_boxes
 from .ops.fine_intersect import sub_aabbs
-from .scene.scene import (FINE_ARRAY_KEYS, SLICE_ARRAY_KEYS,
-                          SPHERE_ARRAY_KEYS, LightStatic, SceneStatic)
+from .scene.scene import (FINE_ARRAY_KEYS, QUARTER_ARRAY_KEYS,
+                          SLICE_ARRAY_KEYS, SPHERE_ARRAY_KEYS, LightStatic,
+                          SceneStatic)
 
 _DTYPES = {np.dtype(np.float32): torch.float32,
            np.dtype(np.int32): torch.int32,
@@ -52,9 +54,10 @@ def to_tensors(arrays: dict, device) -> dict:
 def arrays_from_reference(arrays: dict, device) -> dict:
     """The reference's CompiledScene.arrays -> the port's scene tensors:
     the keys the port reads (with the sphere pack where the scene has
-    spheres), plus the sub-cluster box tables the port builds once per
-    scene (FINE_ARRAY_KEYS) derived from the reference's packs, whose real
-    width is the triangle count (tri_shade_pack rows)."""
+    spheres), plus the sub-cluster and 32-column box tables the port builds
+    once per scene (FINE_ARRAY_KEYS, QUARTER_ARRAY_KEYS) derived from the
+    reference's packs, whose real width is the triangle count
+    (tri_shade_pack rows)."""
     missing = [k for k in SLICE_ARRAY_KEYS if k not in arrays]
     if missing:
         raise KeyError(f"reference arrays lack {missing}")
@@ -62,11 +65,14 @@ def arrays_from_reference(arrays: dict, device) -> dict:
         raise NotImplementedError(
             "a shadow triangle set other than the scene's (object "
             "visibility) is not ported yet: ROADMAP Queue 1 item 17")
-    sub8 = sub_aabbs(arrays["tri_pack10"], arrays["tri_shade_pack"].shape[0])
+    n_real = arrays["tri_shade_pack"].shape[0]
+    sub8 = sub_aabbs(arrays["tri_pack10"], n_real)
+    box32 = quarter_boxes(arrays["tri_pack10"], n_real)
     keys = SLICE_ARRAY_KEYS + tuple(k for k in SPHERE_ARRAY_KEYS
                                     if k in arrays)
     return to_tensors({**{k: arrays[k] for k in keys},
-                       **dict.fromkeys(FINE_ARRAY_KEYS, sub8)}, device)
+                       **dict.fromkeys(FINE_ARRAY_KEYS, sub8),
+                       **dict.fromkeys(QUARTER_ARRAY_KEYS, box32)}, device)
 
 
 def _copy_fields(cls, ref, **override):

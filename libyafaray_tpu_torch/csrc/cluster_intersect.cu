@@ -16,26 +16,69 @@
 //
 // The function, not the TPU schedule.  The TPU kernels build per-512-ray
 // block cluster lists, sort them by the block's nearest entry and stream
-// (16, 128) tiles through a two-slot DMA pipeline.  Here one thread owns one
-// ray, and a 256-thread block stages the whole pack once into shared memory
-// (9 geometry rows, plus the 3 log-filter rows for shadows: at most 43 KB
-// at 896 columns), so every thread of a warp reads the same column as a
-// broadcast.  Dense kernels visit the clusters in index order and skip one
-// whose box the ray cannot enter nearer than its best hit.  Stream kernels
-// compute the ray's entry into each entered cluster box in registers, sort
-// the entries (insertion sort, at most MAX_CL) and walk them nearest first:
-// the closest hit stops at the first box entered beyond its best t, the
-// shadow sum once all three channels are opaque (<= -80).
+// (16, 128) tiles through a two-slot DMA pipeline.  Here a 256-thread block
+// stages the whole pack once into shared memory (9 geometry rows, plus the 3
+// log-filter rows for shadows: at most 43 KB at 896 columns), and every
+// pack read is a shared-memory read.
+//
+// closest_dense_kernel and shadow_stream_kernel: one thread owns one ray, so
+// every thread of a warp reads the same column as a broadcast.  The dense
+// closest hit visits the clusters in index order and skips one whose box the
+// ray cannot enter nearer than its best hit.  The stream shadow sum computes
+// the ray's entry into each entered cluster box in registers, sorts the
+// entries (insertion sort, at most MAX_CL) and walks them nearest first,
+// stopping once all three channels are opaque (<= -80).
+//
+// shadow_dense_kernel: R = DENSE_RAYS neighbouring rays a thread.  The pack
+// and its log filters are staged column-major, 12 floats a column (v0 | e1 |
+// e2 | log filter rgb), so a thread reads a column with three 16-byte
+// broadcast loads and tests it against all R of its rays: the loads and the
+// loop's overhead are spread over R pairs, and a pair stops once det or u
+// rules it out (mt_core<true>).  R = 2 measured fastest of 1 to 4 on an
+// H100 (PERF.md).  The thread first tests its rays against the
+// 32-column quarter boxes (box32) and walks a quarter only if one of them
+// enters it; inside, each ray adds a column's log filters where its own test
+// passes.  A quarter that a ray's box test would have culled holds no
+// crossing of that ray, so testing it changes nothing: every ray's sum is
+// the brute force's, its terms added in rising column order from 0 with no
+// floor and no early exit, as in the reference's _shadow_kernel.  The walk
+// takes any staged column table and any set of quarters, so the tiny-scene
+// sum (one quarter or two, no boxes) can run on it too.
+//
+// closest_stream_kernel: one warp a ray (the design of closest_fine_kernel
+// in fine_intersect.cu on a pack staged per block, with the warp-walk
+// primitives of warp_walk.cuh).  A stream pack has at most 8 clusters of 128
+// columns, so at most 32 quarter boxes: lane q tests quarter q against the
+// ray's interval [tmin, tmax] and keeps its entry in a register.  The warp visits the entered quarters nearest entry first (one
+// warp-wide minimum a pick, ties to the lower quarter); on a visit lane l
+// tests column 32q + l, so every lane has one pair and reads its own bank.
+// After each visit the lanes' best t is reduced, and the walk stops once the
+// next entry lies strictly beyond min(tmax, best t): a quarter entered at
+// exactly the best t is still visited, so an exact tie keeps the lowest
+// column.  Each lane keeps the lexicographic minimum (t, column) of its
+// hits, reduced over the lanes at the end: the answer does not depend on the
+// visit order.  The blocks loop over the rays (eight at a time, one a warp),
+// so each stages the pack once for many rays.
+//
+// The bodies these replaced are kept, for chip_smoke.py to time beside them
+// on the same inputs (their own entries, *_before_launch, which no path
+// calls):
+//   closest_stream_thread_kernel: one thread a ray over the cluster boxes
+//     sorted by entry (insertion sort, at most MAX_CL), stopping at the first
+//     box entered beyond its best t;
+//   shadow_dense_thread_kernel: one thread a ray over the clusters in index
+//     order, skipping the boxes its segment does not enter.
 //
 // Exactness against the plain brute force of ops/cluster_intersect.py:
 // * Boxes are widened by 1e-5 of the largest magnitude among their faces and
 //   the ray origin on each axis (as in fine_intersect.cu), so a skip never
 //   drops a hit the brute force takes.
 // * The closest hit keeps the lowest pack column among equal t: dense walks
-//   columns in rising order with a strict `<`; stream, whose walk order is
-//   the ray's, replaces an equal t only by a lower column, and continues into
-//   a box whose entry equals its best t.  (The reference's stream kernel
-//   keeps the first-visited column on an exact tie; the t is the same.)
+//   columns in rising order with a strict `<`; the stream walks, whose order
+//   is the ray's, replace an equal t only by a lower column, and continue
+//   into a box whose entry equals their best t.  (The reference's stream
+//   kernel keeps the first-visited column on an exact tie; the t is the
+//   same.)
 // * Shadows: every log filter is <= 0, so the running sum only falls; the
 //   stream kernel's one floor at the end equals the reference's per-cluster
 //   floor, and once all three channels are <= -80 the result is -80.  The
@@ -43,9 +86,10 @@
 //
 // What bounds it on the H100: FP32 instructions of the Moller-Trumbore tests
 // (45 operations per ray-triangle pair, -fmad=false, IEEE division); the
-// bytes are the rays (28-32 B each) and the outputs.  Divergence between the
-// rays of a warp costs on bounce rays.  First, untuned version: no ray
-// sorting, no warp-level cooperation, no register tiling.
+// bytes are the rays (28-32 B each) and the outputs.  shadow_dense_kernel
+// issues little beside the tests.  closest_stream_kernel tests few pairs a
+// ray (two to four quarters), and its per-visit warp minima, integer work,
+// cost about as much as the tests themselves.
 //
 // Built with -fmad=false and IEEE division, so each operation rounds as the
 // plain PyTorch version's float32 op does.
@@ -53,8 +97,15 @@
 #include <cuda_runtime.h>
 #include <math.h>
 
+#include "warp_walk.cuh"
+
 #define THREADS 256
+#define WARPS (THREADS / 32)  // rays a block of closest_stream_kernel holds
 #define MAX_CL 8            // clusters a stream kernel sorts in registers
+#define QUARTER 32          // columns of a quarter box (the box32 table)
+#define MAX_QUARTERS 32     // quarter boxes closest_stream_kernel holds
+#define TAB 12              // floats a staged shadow_dense_kernel column
+#define DENSE_RAYS 2        // rays a thread of shadow_dense_kernel owns
 #define MAX_SMEM 232448     // shared memory a block may use on Hopper
 #define STATIC_SMEM 49152   // above this only after cudaFuncSetAttribute
 
@@ -64,21 +115,27 @@ struct Ray {
   float o[3], d[3], iv[3], pad[3];
 };
 
+__device__ __forceinline__ Ray make_ray(const float (&o)[3],
+                                        const float (&d)[3]) {
+  Ray r;
+  for (int a = 0; a < 3; ++a) {
+    r.o[a] = o[a];
+    r.d[a] = d[a];
+    // _inv_dir: |d| < 1e-12 -> +-1e-12 before inverting
+    const float eps = (float)1e-12;
+    const float dd = fabsf(d[a]) < eps ? (d[a] < 0.0f ? -eps : eps) : d[a];
+    r.iv[a] = 1.0f / dd;
+    r.pad[a] = (float)1e-5 * fabsf(o[a]);
+  }
+  return r;
+}
+
 __device__ __forceinline__ Ray load_ray(const float* __restrict__ org,
                                         const float* __restrict__ dir,
                                         long long i) {
-  Ray r;
-  for (int a = 0; a < 3; ++a) {
-    r.o[a] = org[3 * i + a];
-    r.d[a] = dir[3 * i + a];
-    // _inv_dir: |d| < 1e-12 -> +-1e-12 before inverting
-    const float eps = (float)1e-12;
-    const float dd = fabsf(r.d[a]) < eps ? (r.d[a] < 0.0f ? -eps : eps)
-                                         : r.d[a];
-    r.iv[a] = 1.0f / dd;
-    r.pad[a] = (float)1e-5 * fabsf(r.o[a]);
-  }
-  return r;
+  const float o[3] = {org[3 * i], org[3 * i + 1], org[3 * i + 2]};
+  const float d[3] = {dir[3 * i], dir[3 * i + 1], dir[3 * i + 2]};
+  return make_ray(o, d);
 }
 
 // Entry of the ray's interval [lo, hi] into box j of a row-major (6, w)
@@ -100,15 +157,19 @@ __device__ __forceinline__ float box_entry(const float* box, int w, int j,
   return enter <= exit_ ? enter : INFINITY;
 }
 
-// Moller-Trumbore test of column k of the staged rows (row stride w) in the
-// operation order of _mt_tile; returns det/barycentric validity, t in *t.
-__device__ __forceinline__ bool mt_test(const float* p, int w, int k,
-                                        const Ray& r, float* t) {
-  const float v0x = p[k], v0y = p[w + k], v0z = p[2 * w + k];
-  const float e1x = p[3 * w + k], e1y = p[4 * w + k], e1z = p[5 * w + k];
-  const float e2x = p[6 * w + k], e2y = p[7 * w + k], e2z = p[8 * w + k];
-  const float ox = r.o[0], oy = r.o[1], oz = r.o[2];
-  const float dx = r.d[0], dy = r.d[1], dz = r.d[2];
+// Moller-Trumbore test of one triangle (v0, e1, e2) against a ray (o, d) in
+// the operation order of _mt_tile; returns det/barycentric validity, t in
+// *t.  With kCut it returns false as soon as det or u rules the pair out
+// (u outside [0, 1]: with v >= 0, u + v <= 1 fails too), before q, v and
+// t: the same answer in fewer instructions where most pairs miss.
+template <bool kCut>
+__device__ __forceinline__ bool mt_core(float v0x, float v0y, float v0z,
+                                        float e1x, float e1y, float e1z,
+                                        float e2x, float e2y, float e2z,
+                                        const float (&o)[3],
+                                        const float (&d)[3], float* t) {
+  const float ox = o[0], oy = o[1], oz = o[2];
+  const float dx = d[0], dy = d[1], dz = d[2];
   const float eps = (float)1e-12;
   const float px = dy * e2z - dz * e2y;
   const float py = dz * e2x - dx * e2z;
@@ -119,12 +180,23 @@ __device__ __forceinline__ bool mt_test(const float* p, int w, int k,
   const float ty = oy - v0y;
   const float tz = oz - v0z;
   const float u = (tx * px + ty * py + tz * pz) * inv;
+  if constexpr (kCut) {
+    if (!((fabsf(det) > eps) & (u >= 0.0f) & (u <= 1.0f))) return false;
+  }
   const float qx = ty * e1z - tz * e1y;
   const float qy = tz * e1x - tx * e1z;
   const float qz = tx * e1y - ty * e1x;
   const float v = (dx * qx + dy * qy + dz * qz) * inv;
   *t = (e2x * qx + e2y * qy + e2z * qz) * inv;
   return (fabsf(det) > eps) & (u >= 0.0f) & (v >= 0.0f) & (u + v <= 1.0f);
+}
+
+// mt_core on column k of the staged rows (row stride w).
+__device__ __forceinline__ bool mt_test(const float* p, int w, int k,
+                                        const Ray& r, float* t) {
+  return mt_core<false>(p[k], p[w + k], p[2 * w + k], p[3 * w + k],
+                        p[4 * w + k], p[5 * w + k], p[6 * w + k],
+                        p[7 * w + k], p[8 * w + k], r.o, r.d, t);
 }
 
 struct Scene {
@@ -136,8 +208,9 @@ struct Scene {
   const float* logf;  // (>= 3, pack_w) log filters, shadows only
 };
 
-// Shared-memory layout: geometry rows (9, pack_w), then for shadows the log
-// filter rows (3, pack_w), then the cluster boxes (6, n_cl).
+// Shared-memory layout of the one-thread bodies: geometry rows (9, pack_w),
+// then for shadows the log filter rows (3, pack_w), then the cluster boxes
+// (6, n_cl).
 __host__ __device__ __forceinline__ int smem_floats(const Scene& s,
                                                     bool shadow) {
   return (shadow ? 12 : 9) * s.pack_w + 6 * s.n_cl;
@@ -157,6 +230,13 @@ __device__ __forceinline__ float* stage(float* sm, const Scene& s,
   for (int i = threadIdx.x; i < 6 * s.n_cl; i += blockDim.x)
     sm[off + i] = s.cl8[i];
   return sm + off;
+}
+
+// Copy the (6, n) rows of a box table to shared memory.
+__device__ __forceinline__ void stage_boxes(float* dst,
+                                            const float* __restrict__ box,
+                                            int n) {
+  for (int i = threadIdx.x; i < 6 * n; i += blockDim.x) dst[i] = box[i];
 }
 
 // Sort the ray's entries into the clusters it enters within [lo, hi],
@@ -292,6 +372,180 @@ __device__ __forceinline__ void shadow_body(const Scene& s,
   lg_out[3 * i + 2] = lb;
 }
 
+// ---- shadow_dense_kernel: R rays a thread over the staged columns --------
+
+// Stage the (10, w) pack's geometry rows and the (>= 3, w) log-filter rows
+// column-major: tab[12 k + r] holds row r (0-8 v0 | e1 | e2, 9-11 the log
+// filters r g b) of column k, three 16-byte words a column.
+__device__ __forceinline__ void stage_columns(float* tab,
+                                              const float* __restrict__ pack,
+                                              const float* __restrict__ logf,
+                                              int w) {
+  for (int i = threadIdx.x; i < TAB * w; i += blockDim.x) {
+    const int r = i / w;
+    const int k = i - r * w;
+    tab[TAB * k + r] = r < 9 ? pack[i] : logf[i - 9 * w];
+  }
+}
+
+// Add to each of R segments (origin o[j], direction d[j], interval
+// (SHADOW_LO, hi[j])) the log filters of the columns it crosses among
+// [32 q, min(32 q + 32, n_tris)) for each quarter q = q0 + b whose bit b is
+// set in `quarters`, quarters and columns in rising order.  tab holds the
+// columns as stage_columns lays them out.  Each column is read once (three
+// broadcast 16-byte loads) for all R segments.
+template <int R>
+__device__ __forceinline__ void sum_quarters(const float4* __restrict__ tab,
+                                             int n_tris, int q0,
+                                             unsigned quarters,
+                                             const float (&o)[R][3],
+                                             const float (&d)[R][3],
+                                             const float (&hi)[R],
+                                             float (&acc)[R][3]) {
+  const float lo = (float)5e-4;
+  while (quarters) {
+    const int q = q0 + __ffs(quarters) - 1;
+    quarters &= quarters - 1;
+    const int k1 = min((q + 1) * QUARTER, n_tris);
+    for (int k = q * QUARTER; k < k1; ++k) {
+      const float4 a = tab[3 * k], b = tab[3 * k + 1], c = tab[3 * k + 2];
+#pragma unroll
+      for (int j = 0; j < R; ++j) {
+        float t;
+        const bool ok = mt_core<true>(a.x, a.y, a.z, a.w, b.x, b.y, b.z,
+                                      b.w, c.x, o[j], d[j], &t);
+        if (ok && t > lo && t < hi[j]) {
+          acc[j][0] += c.y;
+          acc[j][1] += c.z;
+          acc[j][2] += c.w;
+        }
+      }
+    }
+  }
+}
+
+// Thread t of block b owns rays (b * THREADS + t) * R + j, j < R.
+__global__ void __launch_bounds__(THREADS)
+shadow_dense_kernel(Scene s, const float* __restrict__ box32, int n_q,
+                    const float* __restrict__ org,
+                    const float* __restrict__ dir,
+                    const float* __restrict__ dist, int n,
+                    float* __restrict__ lg_out) {
+  extern __shared__ float4 sm4[];
+  float* tab = reinterpret_cast<float*>(sm4);
+  float* qbox = tab + TAB * s.pack_w;
+  stage_columns(tab, s.pack, s.logf, s.pack_w);
+  stage_boxes(qbox, box32, n_q);
+  __syncthreads();
+  constexpr int R = DENSE_RAYS;
+  const long long i0 =
+      ((long long)blockIdx.x * blockDim.x + threadIdx.x) * R;
+  if (i0 >= n) return;
+  float o[R][3], d[R][3], hi[R], acc[R][3];
+#pragma unroll
+  for (int j = 0; j < R; ++j) {
+    const long long i = i0 + j;
+    const bool has = i < n;
+    for (int a = 0; a < 3; ++a) {
+      o[j][a] = has ? org[3 * i + a] : 0.0f;
+      d[j][a] = has ? dir[3 * i + a] : 0.0f;
+      acc[j][a] = 0.0f;
+    }
+    // past the batch: an empty interval, as a dead ray (dist < 0) has
+    hi[j] = has ? dist[i] * (float)(1.0 - 1e-4) - (float)5e-4 : -1.0f;
+  }
+  const float lo = (float)5e-4;
+  const int q_real = (s.n_tris + QUARTER - 1) / QUARTER;
+  for (int q0 = 0; q0 < q_real; q0 += 32) {
+    const int nb = min(32, q_real - q0);
+    unsigned quarters = 0;  // the quarters one of the thread's rays enters
+#pragma unroll
+    for (int j = 0; j < R; ++j) {
+      if (!(lo <= hi[j])) continue;
+      const Ray r = make_ray(o[j], d[j]);
+      for (int b = 0; b < nb; ++b) {
+        if (box_entry(qbox, n_q, q0 + b, r, lo, hi[j]) < INFINITY)
+          quarters |= 1u << b;
+      }
+    }
+    sum_quarters<R>(sm4, s.n_tris, q0, quarters, o, d, hi, acc);
+  }
+#pragma unroll
+  for (int j = 0; j < R; ++j) {
+    const long long i = i0 + j;
+    if (i < n) {
+      lg_out[3 * i] = acc[j][0];
+      lg_out[3 * i + 1] = acc[j][1];
+      lg_out[3 * i + 2] = acc[j][2];
+    }
+  }
+}
+
+// ---- closest_stream_kernel: one warp a ray over the quarter boxes --------
+
+// The nearest hit of the warp's ray among the real columns of the quarters
+// its interval [lo, hi] enters (qbox: the (6, n_q) quarter boxes in shared
+// memory, geo: the staged geometry rows): (t, column) with the lowest column
+// on ties, in every lane.
+__device__ __forceinline__ void closest_quarters(const float* geo, int w,
+                                                 int n_tris, const float* qbox,
+                                                 int n_q, const Ray& r,
+                                                 float lo, float hi, int lane,
+                                                 float* best_t, int* best_k) {
+  const int q_real = (n_tris + QUARTER - 1) / QUARTER;
+  float ent = lane < q_real ? box_entry(qbox, n_q, lane, r, lo, hi)
+                            : INFINITY;  // this lane's quarter
+  float lt = INFINITY;  // this lane's best hit
+  int lcol = 0x7fffffff;
+  float lim = hi;  // min(tmax, the warp's best t): no box beyond it matters
+  for (;;) {
+    float e;
+    const int q = nearest_within(ent, lim, &e);  // nearest not yet visited
+    if (q < 0) break;
+    if (lane == q) ent = INFINITY;
+    const int k = q * QUARTER + lane;
+    if (k < n_tris) {
+      float t;
+      const bool ok = mt_test(geo, w, k, r, &t);
+      keep_nearest(ok && t > lo && t < hi, t, k, &lt, &lcol);
+    }
+    lim = fminf(hi, warp_min(lt));
+  }
+  warp_nearest(lt, lcol, best_t, best_k);
+}
+
+// Warp w of block b takes rays b * WARPS + w, then every gridDim.x * WARPS
+// further on.
+__global__ void __launch_bounds__(THREADS)
+closest_stream_kernel(Scene s, const float* __restrict__ box32, int n_q,
+                      const float* __restrict__ org,
+                      const float* __restrict__ dir,
+                      const float* __restrict__ tmin,
+                      const float* __restrict__ tmax, int n,
+                      float* __restrict__ t_out, int* __restrict__ col_out) {
+  extern __shared__ float sm[];
+  const int geo = 9 * s.pack_w;
+  for (int i = threadIdx.x; i < geo; i += blockDim.x) sm[i] = s.pack[i];
+  float* qbox = sm + geo;
+  stage_boxes(qbox, box32, n_q);
+  __syncthreads();
+  const int lane = threadIdx.x & 31;
+  for (long long i = (long long)blockIdx.x * WARPS + (threadIdx.x >> 5);
+       i < n; i += (long long)gridDim.x * WARPS) {
+    const Ray r = load_ray(org, dir, i);
+    float best;
+    int col;
+    closest_quarters(sm, s.pack_w, s.n_tris, qbox, n_q, r, tmin[i], tmax[i],
+                     lane, &best, &col);
+    if (lane == 0) {
+      t_out[i] = best;
+      col_out[i] = best < INFINITY ? col : 0;
+    }
+  }
+}
+
+// ---- the one-thread bodies -------------------------------------------------
+
 __global__ void closest_dense_kernel(Scene s, const float* __restrict__ org,
                                      const float* __restrict__ dir,
                                      const float* __restrict__ tmin,
@@ -301,19 +555,18 @@ __global__ void closest_dense_kernel(Scene s, const float* __restrict__ org,
   closest_body<false>(s, org, dir, tmin, tmax, n, t_out, col_out);
 }
 
-__global__ void closest_stream_kernel(Scene s, const float* __restrict__ org,
-                                      const float* __restrict__ dir,
-                                      const float* __restrict__ tmin,
-                                      const float* __restrict__ tmax, int n,
-                                      float* __restrict__ t_out,
-                                      int* __restrict__ col_out) {
+__global__ void closest_stream_thread_kernel(
+    Scene s, const float* __restrict__ org, const float* __restrict__ dir,
+    const float* __restrict__ tmin, const float* __restrict__ tmax, int n,
+    float* __restrict__ t_out, int* __restrict__ col_out) {
   closest_body<true>(s, org, dir, tmin, tmax, n, t_out, col_out);
 }
 
-__global__ void shadow_dense_kernel(Scene s, const float* __restrict__ org,
-                                    const float* __restrict__ dir,
-                                    const float* __restrict__ dist, int n,
-                                    float* __restrict__ lg_out) {
+__global__ void shadow_dense_thread_kernel(Scene s,
+                                           const float* __restrict__ org,
+                                           const float* __restrict__ dir,
+                                           const float* __restrict__ dist,
+                                           int n, float* __restrict__ lg_out) {
   shadow_body<false>(s, org, dir, dist, n, lg_out);
 }
 
@@ -329,6 +582,16 @@ int check_scene(const Scene& s, bool stream, bool shadow) {
   if (s.pack_w <= 0 || s.n_cl <= 0 || s.pack_w % s.n_cl != 0 ||
       s.n_tris < 0 || s.n_tris > s.pack_w || (stream && s.n_cl > MAX_CL) ||
       smem_floats(s, shadow) * (int)sizeof(float) > MAX_SMEM) {
+    return (int)cudaErrorInvalidValue;
+  }
+  return 0;
+}
+
+// 0 if box32 is the scene's quarter-box table and `floats` of shared memory
+// fit a block, else a cudaError value.
+int check_quarters(const Scene& s, const void* box32, int n_q, int floats) {
+  if (box32 == nullptr || n_q * QUARTER != s.pack_w ||
+      floats * (int)sizeof(float) > MAX_SMEM) {
     return (int)cudaErrorInvalidValue;
   }
   return 0;
@@ -376,12 +639,60 @@ int launch_shadow(K kernel, bool stream, const Scene& s, int logf_w,
   return (int)cudaGetLastError();
 }
 
+int launch_closest_stream(const Scene& s, const void* box32, int n_q,
+                          const void* org, const void* dir, const void* tmin,
+                          const void* tmax, int n, void* t_out, void* col_out,
+                          void* st) {
+  const int floats = 9 * s.pack_w + 6 * n_q;
+  if (const int bad = check_scene(s, true, false)) return bad;
+  if (const int bad = check_quarters(s, box32, n_q, floats)) return bad;
+  if (n_q > MAX_QUARTERS) return (int)cudaErrorInvalidValue;
+  const int bytes = floats * (int)sizeof(float);
+  if (const int bad = prepare(closest_stream_kernel, bytes)) return bad;
+  if (n > 0) {
+    // as many blocks as the card holds at once, each looping over rays, so
+    // a block stages the pack once for many rays
+    int dev = 0, sms = 0, per_sm = 0;
+    cudaGetDevice(&dev);
+    cudaDeviceGetAttribute(&sms, cudaDevAttrMultiProcessorCount, dev);
+    cudaOccupancyMaxActiveBlocksPerMultiprocessor(
+        &per_sm, closest_stream_kernel, THREADS, bytes);
+    const long long want = ((long long)n + WARPS - 1) / WARPS;
+    const int full = per_sm * sms > 0 ? per_sm * sms : 1;
+    const int blocks = want < full ? (int)want : full;
+    closest_stream_kernel<<<blocks, THREADS, bytes, (cudaStream_t)st>>>(
+        s, (const float*)box32, n_q, (const float*)org, (const float*)dir,
+        (const float*)tmin, (const float*)tmax, n, (float*)t_out,
+        (int*)col_out);
+  }
+  return (int)cudaGetLastError();
+}
+
+int launch_shadow_dense(const Scene& s, int logf_w, const void* box32,
+                        int n_q, const void* org, const void* dir,
+                        const void* dist, int n, void* lg_out, void* st) {
+  const int floats = TAB * s.pack_w + 6 * n_q;
+  if (const int bad = check_scene(s, false, true)) return bad;
+  if (const int bad = check_quarters(s, box32, n_q, floats)) return bad;
+  if (logf_w != s.pack_w) return (int)cudaErrorInvalidValue;
+  const int bytes = floats * (int)sizeof(float);
+  if (const int bad = prepare(shadow_dense_kernel, bytes)) return bad;
+  if (n > 0) {
+    const long long per_block = (long long)THREADS * DENSE_RAYS;
+    const int blocks = (int)((n + per_block - 1) / per_block);
+    shadow_dense_kernel<<<blocks, THREADS, bytes, (cudaStream_t)st>>>(
+        s, (const float*)box32, n_q, (const float*)org, (const float*)dir,
+        (const float*)dist, n, (float*)lg_out);
+  }
+  return (int)cudaGetLastError();
+}
+
 }  // namespace
 
 // Plain C interface, loaded with ctypes.  Pointers are device pointers;
 // `stream` is a cudaStream_t.  Each returns cudaGetLastError() after the
 // launch (0 = launched), or cudaErrorInvalidValue for a scene it does not
-// take.
+// take.  box32 (8, n_q) is the pack's quarter-box table.
 extern "C" int closest_hit_dense_launch(const void* pack, int pack_w,
                                         const void* cl8, int n_cl, int n_tris,
                                         const void* org, const void* dir,
@@ -395,27 +706,27 @@ extern "C" int closest_hit_dense_launch(const void* pack, int pack_w,
 }
 
 extern "C" int closest_hit_stream_launch(const void* pack, int pack_w,
-                                         const void* cl8, int n_cl, int n_tris,
-                                         const void* org, const void* dir,
-                                         const void* tmin, const void* tmax,
-                                         int n, void* t_out, void* col_out,
-                                         void* stream) {
+                                         const void* cl8, int n_cl,
+                                         const void* box32, int n_q,
+                                         int n_tris, const void* org,
+                                         const void* dir, const void* tmin,
+                                         const void* tmax, int n, void* t_out,
+                                         void* col_out, void* stream) {
   const Scene s{(const float*)pack, pack_w, (const float*)cl8, n_cl, n_tris,
                 nullptr};
-  return launch_closest(closest_stream_kernel, true, s, org, dir, tmin, tmax,
-                        n, t_out, col_out, stream);
+  return launch_closest_stream(s, box32, n_q, org, dir, tmin, tmax, n, t_out,
+                               col_out, stream);
 }
 
-extern "C" int shadow_logsum_dense_launch(const void* pack, int pack_w,
-                                          const void* cl8, int n_cl,
-                                          int n_tris, const void* logf,
-                                          int logf_w, const void* org,
-                                          const void* dir, const void* dist,
-                                          int n, void* lg_out, void* stream) {
+extern "C" int shadow_logsum_dense_launch(
+    const void* pack, int pack_w, const void* cl8, int n_cl,
+    const void* box32, int n_q, int n_tris, const void* logf, int logf_w,
+    const void* org, const void* dir, const void* dist, int n, void* lg_out,
+    void* stream) {
   const Scene s{(const float*)pack, pack_w, (const float*)cl8, n_cl, n_tris,
                 (const float*)logf};
-  return launch_shadow(shadow_dense_kernel, false, s, logf_w, org, dir, dist,
-                       n, lg_out, stream);
+  return launch_shadow_dense(s, logf_w, box32, n_q, org, dir, dist, n, lg_out,
+                             stream);
 }
 
 extern "C" int shadow_logsum_stream_launch(const void* pack, int pack_w,
@@ -428,4 +739,26 @@ extern "C" int shadow_logsum_stream_launch(const void* pack, int pack_w,
                 (const float*)logf};
   return launch_shadow(shadow_stream_kernel, true, s, logf_w, org, dir, dist,
                        n, lg_out, stream);
+}
+
+// The one-thread bodies closest_hit_stream_launch and
+// shadow_logsum_dense_launch replaced, over the cluster boxes alone.
+extern "C" int closest_hit_stream_before_launch(
+    const void* pack, int pack_w, const void* cl8, int n_cl, int n_tris,
+    const void* org, const void* dir, const void* tmin, const void* tmax,
+    int n, void* t_out, void* col_out, void* stream) {
+  const Scene s{(const float*)pack, pack_w, (const float*)cl8, n_cl, n_tris,
+                nullptr};
+  return launch_closest(closest_stream_thread_kernel, true, s, org, dir, tmin,
+                        tmax, n, t_out, col_out, stream);
+}
+
+extern "C" int shadow_logsum_dense_before_launch(
+    const void* pack, int pack_w, const void* cl8, int n_cl, int n_tris,
+    const void* logf, int logf_w, const void* org, const void* dir,
+    const void* dist, int n, void* lg_out, void* stream) {
+  const Scene s{(const float*)pack, pack_w, (const float*)cl8, n_cl, n_tris,
+                (const float*)logf};
+  return launch_shadow(shadow_dense_thread_kernel, false, s, logf_w, org, dir,
+                       dist, n, lg_out, stream);
 }

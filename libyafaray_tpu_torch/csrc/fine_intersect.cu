@@ -84,6 +84,7 @@
 // operation rounds as the plain PyTorch version's float32 op does.
 
 #include "shadow_tile.cuh"
+#include "warp_walk.cuh"
 
 #define RAYS_PER_CTA (THREADS / 32)  // closest hit: one warp per ray
 #define LANE_BOXES 8  // cluster entries a lane holds: 32 * 8 clusters a sweep
@@ -97,30 +98,6 @@ __device__ __forceinline__ float box_entry(const float* __restrict__ tab,
   float enter, exit_;
   slab(tab, w, j, r, lo, hi, &enter, &exit_);
   return enter <= exit_ ? enter : INFINITY;
-}
-
-// Floats as unsigned keys of the same order (any sign), for the warp-wide
-// integer minimum, and back.
-__device__ __forceinline__ unsigned ordered(float f) {
-  const unsigned u = __float_as_uint(f);
-  return (u & 0x80000000u) ? ~u : (u | 0x80000000u);
-}
-
-__device__ __forceinline__ float unordered(unsigned u) {
-  return __uint_as_float((u & 0x80000000u) ? (u & 0x7fffffffu) : ~u);
-}
-
-__device__ __forceinline__ float warp_min(float f) {
-  return unordered(__reduce_min_sync(FULL, ordered(f)));
-}
-
-// The lane holding the warp's smallest `f` (the lowest such lane) and, in
-// *m, that value.
-__device__ __forceinline__ int warp_argmin(float f, float* m) {
-  const unsigned key = ordered(f);
-  const unsigned best = __reduce_min_sync(FULL, key);
-  *m = unordered(best);
-  return __ffs(__ballot_sync(FULL, key == best)) - 1;
 }
 
 struct Scene {
@@ -145,11 +122,7 @@ __device__ __forceinline__ void closest_sub(const Scene& s, int j,
     if (k < k1) {
       float t;
       const bool ok = mt_test(s.pack, s.pack_w, k, r, &t);
-      // the walk is not in column order: on equal t the lower column wins
-      if (ok && t > lo && t < hi && (t < *lt || (t == *lt && k < *lcol))) {
-        *lt = t;
-        *lcol = k;
-      }
+      keep_nearest(ok && t > lo && t < hi, t, k, lt, lcol);
     }
   }
 }
@@ -186,8 +159,8 @@ closest_fine_kernel(Scene s, const float* __restrict__ org,
 #pragma unroll
       for (int b = 1; b < LANE_BOXES; ++b) mine = fminf(mine, ent[b]);
       float e;
-      const int src = warp_argmin(mine, &e);
-      if (!(e <= lim) || e == INFINITY) break;
+      const int src = nearest_within(mine, lim, &e);
+      if (src < 0) break;
       int c = 0;
       if (lane == src) {
         bool taken = false;
@@ -210,8 +183,8 @@ closest_fine_kernel(Scene s, const float* __restrict__ org,
                         : INFINITY;
         for (;;) {
           float se;
-          const int sl = warp_argmin(sub, &se);
-          if (!(se <= lim) || se == INFINITY) break;
+          const int sl = nearest_within(sub, lim, &se);
+          if (sl < 0) break;
           if (lane == sl) sub = INFINITY;
           closest_sub(s, j0 + s0 + sl, r, lo, hi, lane, &lt, &lcol);
           lim = fminf(hi, warp_min(lt));
@@ -219,12 +192,12 @@ closest_fine_kernel(Scene s, const float* __restrict__ org,
       }
     }
   }
-  const float best = warp_min(lt);
-  const unsigned col = __reduce_min_sync(
-      FULL, lt == best ? (unsigned)lcol : 0x7fffffffu);
+  float best;
+  int col;
+  warp_nearest(lt, lcol, &best, &col);
   if (lane == 0) {
     t_out[i] = best;
-    col_out[i] = best < INFINITY ? (int)col : 0;
+    col_out[i] = best < INFINITY ? col : 0;
   }
 }
 

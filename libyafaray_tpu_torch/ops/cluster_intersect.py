@@ -19,6 +19,15 @@ dense sum has no floor on its total (as the reference's `_shadow_kernel`),
 the stream sum is floored at -80.  The reference's block lists, ray sort
 and DMA pipeline schedule the TPU and are not ported.
 
+`closest_hit_stream` and `shadow_logsum_dense` skip by the pack's 32-column
+quarter boxes (`quarter_boxes`, built once per scene at compile): the
+stream closest hit gives a warp to a ray and visits its entered quarters
+nearest first, the dense shadow sum gives a thread SHADOW_DENSE_RAYS
+neighbouring rays and walks the quarters one of them enters.  The
+one-thread bodies those walks replaced are launched only by
+`_closest_hit_stream_before` and `_shadow_logsum_dense_before`, which no
+path calls: `chip_smoke.py` times them beside the walks.
+
 Each wrapper takes the plain version only for CPU tensors; for CUDA tensors
 it launches its kernel on the current stream or raises, and counts the
 launch in its `launches` attribute.
@@ -27,16 +36,29 @@ from __future__ import annotations
 
 import ctypes
 
+import numpy as np
 import torch
 
 from . import _build
-from .cuda_intersect import (LOG_FLOOR, SHADOW_TMIN, _check, _raise_on,
-                             log_filter)
+from .cuda_intersect import (LOG_FLOOR, SHADOW_TMIN, _check, _column_boxes,
+                             _raise_on, log_filter)
 from .fine_intersect import (box_entry, closest_fine_plain, real_columns,
                              shadow_sum_plain)
 
 MAX_STREAM_CLUSTERS = 8  # clusters a stream kernel sorts in registers
+QUARTER = 32  # columns of a quarter box
+MAX_QUARTERS = 32  # quarter boxes closest_hit_stream's warp holds, one a lane
+# rays a thread of shadow_logsum_dense's kernel owns (DENSE_RAYS in
+# csrc/cluster_intersect.cu), for counting its pair tests
+SHADOW_DENSE_RAYS = 2
 _MAX_SMEM = 232448  # shared memory a block may use on Hopper
+
+
+def quarter_boxes(pack10: np.ndarray, n_tris: int) -> np.ndarray:
+    """(8, T'/32) boxes of the pack's 32-column quarters over its real
+    columns (rows lo xyz | hi xyz | 0 0); all-pad quarters get the inverted
+    box (+inf, -inf).  Built once per scene at compile."""
+    return _column_boxes(pack10, n_tris, QUARTER)
 
 
 # ---- plain PyTorch versions ---------------------------------------------
@@ -74,14 +96,46 @@ def cluster_pair_tests(pack10, cluster8, org, dirn, lo, hi,
     per ray, the real columns of every cluster whose box its interval
     [lo, hi] enters, and one box test per real cluster.  For the closest
     hit pass hi = min(tmax, the hit's t): the boxes a ray enters before
-    its hit.  Counts what the inputs need, for a kernel's bound; not a
-    kernel path."""
+    its hit.  Any table of boxes over equal groups of columns takes the
+    place of the cluster boxes: with the quarter boxes (box32) and
+    hi = min(tmax, t) it counts what `closest_hit_stream`'s walk tests.
+    Counts what the inputs need, for a kernel's bound; not a kernel
+    path."""
     bt = pack10.shape[1] // cluster8.shape[1]
     cl_real = -(-n_tris // bt)
     cols = real_columns(bt, cl_real, n_tris, org.device)
     ent = box_entry(cluster8[:, :cl_real], org, dirn, lo, hi)
     pairs = int((torch.isfinite(ent).to(torch.int64) * cols).sum())
     return pairs, org.shape[0] * cl_real
+
+
+def quarter_walk_pair_tests(box32, org, dirn, dist, n_tris: int,
+                            rays_per_thread: int = SHADOW_DENSE_RAYS,
+                            chunk: int = 1 << 18) -> tuple:
+    """(pair tests, box tests) `shadow_logsum_dense`'s walk makes: a thread
+    holds rays_per_thread consecutive rays (the last thread those left),
+    tests each live ray's segment against every real quarter box, and
+    tests all its rays against the real columns of each quarter that one
+    of its segments enters.  Counts what the kernel does on these inputs,
+    not a kernel path."""
+    r = rays_per_thread
+    lo, hi = shadow_limits(dist)
+    q_real = -(-n_tris // QUARTER)
+    cols = real_columns(QUARTER, q_real, n_tris, org.device)
+    n = org.shape[0]
+    pairs = 0
+    for r0 in range(0, n, chunk * r):
+        sl = slice(r0, r0 + chunk * r)
+        ent = torch.isfinite(box_entry(box32[:, :q_real], org[sl], dirn[sl],
+                                       lo[sl], hi[sl]))
+        m = ent.shape[0]
+        ent = torch.cat([ent, ent.new_zeros(((-m) % r, q_real))])
+        taken = ent.reshape(-1, r, q_real).any(dim=1).to(torch.int64)
+        rays = torch.full((taken.shape[0],), r, dtype=torch.int64,
+                          device=org.device)
+        rays[-1] = m - r * (taken.shape[0] - 1)
+        pairs += int(((taken * cols).sum(dim=1) * rays).sum())
+    return pairs, int((lo <= hi).sum()) * q_real
 
 
 def shadow_limits(dist):
@@ -94,23 +148,36 @@ def shadow_limits(dist):
 
 _P = ctypes.c_void_p
 _I = ctypes.c_int
-_CLOSEST_ARGS = [_P, _I, _P, _I, _I, _P, _P, _P, _P, _I, _P, _P, _P]
-_SHADOW_ARGS = [_P, _I, _P, _I, _I, _P, _I, _P, _P, _P, _I, _P, _P]
+_ARGS = {
+    "closest_hit_dense": [_P, _I, _P, _I, _I, _P, _P, _P, _P, _I, _P, _P, _P],
+    "closest_hit_stream": [_P, _I, _P, _I, _P, _I, _I, _P, _P, _P, _P, _I, _P,
+                           _P, _P],
+    "shadow_logsum_dense": [_P, _I, _P, _I, _P, _I, _I, _P, _I, _P, _P, _P,
+                            _I, _P, _P],
+    "shadow_logsum_stream": [_P, _I, _P, _I, _I, _P, _I, _P, _P, _P, _I, _P,
+                             _P],
+    "closest_hit_stream_before": [_P, _I, _P, _I, _I, _P, _P, _P, _P, _I, _P,
+                                  _P, _P],
+    "shadow_logsum_dense_before": [_P, _I, _P, _I, _I, _P, _I, _P, _P, _P,
+                                   _I, _P, _P],
+}
 
 
 def _lib() -> ctypes.CDLL:
     lib = _build.load("cluster_intersect")
     if lib.closest_hit_dense_launch.argtypes is None:
-        for kind in ("dense", "stream"):
-            fn = getattr(lib, f"closest_hit_{kind}_launch")
-            fn.argtypes, fn.restype = _CLOSEST_ARGS, _I
-            fn = getattr(lib, f"shadow_logsum_{kind}_launch")
-            fn.argtypes, fn.restype = _SHADOW_ARGS, _I
+        for name, args in _ARGS.items():
+            fn = getattr(lib, f"{name}_launch")
+            fn.argtypes, fn.restype = args, _I
     return lib
 
 
-def _check_scene(what: str, pack10, cluster8, n_tris: int, device,
+def _check_scene(what: str, pack10, cluster8, box32, n_tris: int, device,
                  shadow: bool) -> None:
+    """Checks the scene tensors.  The stream closest hit and the dense
+    shadow sum require the quarter boxes; the other kernels, and the
+    one-thread bodies (what "stream_before" / "dense_before"), take
+    none."""
     _check("pack10", pack10, (10, None), device)
     _check("cluster8", cluster8, (8, None), device)
     tp, n_cl = pack10.shape[1], cluster8.shape[1]
@@ -118,20 +185,39 @@ def _check_scene(what: str, pack10, cluster8, n_tris: int, device,
         raise ValueError(f"pack width {tp} is not {n_cl} equal clusters")
     if not 0 <= n_tris <= tp:
         raise ValueError(f"n_tris={n_tris} outside [0, {tp}]")
-    if what == "stream" and n_cl > MAX_STREAM_CLUSTERS:
+    if what.startswith("stream") and n_cl > MAX_STREAM_CLUSTERS:
         raise ValueError(f"{n_cl} clusters: the stream kernels take at most "
                          f"{MAX_STREAM_CLUSTERS}")
     smem = 4 * ((12 if shadow else 9) * tp + 6 * n_cl)
+    if what == ("dense" if shadow else "stream"):
+        if box32 is None:
+            raise ValueError("box32: the pack's quarter boxes are required "
+                             "(quarter_boxes)")
+        _check("box32", box32, (8, tp // QUARTER), device)
+        smem = max(smem, 4 * ((12 if shadow else 9) * tp + 6 * tp // QUARTER))
+        if not shadow and tp // QUARTER > MAX_QUARTERS:
+            raise ValueError(f"{tp // QUARTER} quarter boxes: the stream "
+                             f"walk takes at most {MAX_QUARTERS}")
     if smem > _MAX_SMEM:
         raise ValueError(f"a pack of {tp} columns needs {smem} B of shared "
                          f"memory, more than a block's {_MAX_SMEM}")
 
 
-def _closest(what: str, pack10, cluster8, org, dirn, tmin, tmax,
+def _launch(name: str, dev, *args) -> None:
+    launch = getattr(_lib(), f"{name}_launch")
+    with torch.cuda.device(dev):
+        stream = torch.cuda.current_stream(dev).cuda_stream
+        code = launch(*args, stream)
+    if name in _WRAPPERS:  # the one-thread bodies are off every path
+        _WRAPPERS[name].launches += 1
+    _raise_on(code, name)
+
+
+def _closest(what: str, pack10, cluster8, box32, org, dirn, tmin, tmax,
              n_tris: int):
     dev = org.device
     n = org.shape[0]
-    _check_scene(what, pack10, cluster8, n_tris, dev, shadow=False)
+    _check_scene(what, pack10, cluster8, box32, n_tris, dev, shadow=False)
     _check("org", org, (n, 3), dev)
     _check("dirn", dirn, (n, 3), dev)
     _check("tmin", tmin, (n,), dev)
@@ -144,23 +230,21 @@ def _closest(what: str, pack10, cluster8, org, dirn, tmin, tmax,
         raise ValueError(f"closest_hit_{what}: unsupported device {dev}")
     t = torch.empty((n,), dtype=torch.float32, device=dev)
     col = torch.empty((n,), dtype=torch.int32, device=dev)
-    launch = getattr(_lib(), f"closest_hit_{what}_launch")
-    with torch.cuda.device(dev):
-        stream = torch.cuda.current_stream(dev).cuda_stream
-        code = launch(pack10.data_ptr(), pack10.shape[1], cluster8.data_ptr(),
-                      cluster8.shape[1], n_tris, org.data_ptr(),
-                      dirn.data_ptr(), tmin.data_ptr(), tmax.data_ptr(), n,
-                      t.data_ptr(), col.data_ptr(), stream)
-    _WRAPPERS[f"closest_hit_{what}"].launches += 1
-    _raise_on(code, f"closest_hit_{what}")
+    scene = [pack10.data_ptr(), pack10.shape[1], cluster8.data_ptr(),
+             cluster8.shape[1]]
+    if what == "stream":
+        scene += [box32.data_ptr(), box32.shape[1]]
+    _launch(f"closest_hit_{what}", dev, *scene, n_tris, org.data_ptr(),
+            dirn.data_ptr(), tmin.data_ptr(), tmax.data_ptr(), n,
+            t.data_ptr(), col.data_ptr())
     return t, col
 
 
-def _shadow(what: str, pack10, cluster8, logf, org, dirn, dist,
+def _shadow(what: str, pack10, cluster8, box32, logf, org, dirn, dist,
             n_tris: int):
     dev = org.device
     n = org.shape[0]
-    _check_scene(what, pack10, cluster8, n_tris, dev, shadow=True)
+    _check_scene(what, pack10, cluster8, box32, n_tris, dev, shadow=True)
     _check("logf", logf, (None, pack10.shape[1]), dev)
     if logf.shape[0] < 3:
         raise ValueError(f"logf: needs 3 rgb rows, has {logf.shape[0]}")
@@ -168,21 +252,19 @@ def _shadow(what: str, pack10, cluster8, logf, org, dirn, dist,
     _check("dirn", dirn, (n, 3), dev)
     _check("dist", dist, (n,), dev)
     if dev.type == "cpu":
-        plain = (shadow_logsum_dense_plain if what == "dense"
+        plain = (shadow_logsum_dense_plain if what.startswith("dense")
                  else shadow_logsum_stream_plain)
         return plain(pack10, logf, org, dirn, dist, n_tris)
     if dev.type != "cuda":
         raise ValueError(f"shadow_logsum_{what}: unsupported device {dev}")
     lg = torch.empty((n, 3), dtype=torch.float32, device=dev)
-    launch = getattr(_lib(), f"shadow_logsum_{what}_launch")
-    with torch.cuda.device(dev):
-        stream = torch.cuda.current_stream(dev).cuda_stream
-        code = launch(pack10.data_ptr(), pack10.shape[1], cluster8.data_ptr(),
-                      cluster8.shape[1], n_tris, logf.data_ptr(),
-                      logf.shape[1], org.data_ptr(), dirn.data_ptr(),
-                      dist.data_ptr(), n, lg.data_ptr(), stream)
-    _WRAPPERS[f"shadow_logsum_{what}"].launches += 1
-    _raise_on(code, f"shadow_logsum_{what}")
+    scene = [pack10.data_ptr(), pack10.shape[1], cluster8.data_ptr(),
+             cluster8.shape[1]]
+    if what == "dense":
+        scene += [box32.data_ptr(), box32.shape[1]]
+    _launch(f"shadow_logsum_{what}", dev, *scene, n_tris, logf.data_ptr(),
+            logf.shape[1], org.data_ptr(), dirn.data_ptr(), dist.data_ptr(),
+            n, lg.data_ptr())
     return lg
 
 
@@ -193,28 +275,36 @@ def closest_hit_dense(pack10, cluster8, org, dirn, tmin, tmax, n_tris: int):
 
     pack10 (10, T'), cluster8 (8, n_cl), org/dirn (N, 3), tmin/tmax (N,):
     float32, contiguous, one device."""
-    return _closest("dense", pack10, cluster8, org, dirn, tmin, tmax,
+    return _closest("dense", pack10, cluster8, None, org, dirn, tmin, tmax,
                     n_tris)
 
 
 closest_hit_dense.launches = 0
 
 
-def closest_hit_stream(pack10, cluster8, org, dirn, tmin, tmax, n_tris: int):
-    """As `closest_hit_dense`, each ray walking the (at most
-    MAX_STREAM_CLUSTERS) cluster boxes it enters nearest first."""
-    return _closest("stream", pack10, cluster8, org, dirn, tmin, tmax,
+def closest_hit_stream(pack10, cluster8, box32, org, dirn, tmin, tmax,
+                       n_tris: int):
+    """As `closest_hit_dense`, over a pack of at most MAX_STREAM_CLUSTERS
+    clusters: on the card a warp takes a ray and visits the 32-column
+    quarters whose boxes (box32 (8, T'/32), `quarter_boxes`) it enters,
+    nearest entry first, until the next lies beyond its best hit."""
+    return _closest("stream", pack10, cluster8, box32, org, dirn, tmin, tmax,
                     n_tris)
 
 
 closest_hit_stream.launches = 0
 
 
-def shadow_logsum_dense(pack10, cluster8, logf, org, dirn, dist, n_tris: int):
+def shadow_logsum_dense(pack10, cluster8, box32, logf, org, dirn, dist,
+                        n_tris: int):
     """(N, 3) log transmission of each segment over the first n_tris pack
     columns, not floored; logf (>=3, T') holds the per-column log filter
-    rows.  All float32, contiguous, one device."""
-    return _shadow("dense", pack10, cluster8, logf, org, dirn, dist,
+    rows, box32 (8, T'/32) the quarter boxes (`quarter_boxes`).  All
+    float32, contiguous, one device.  On the card a thread takes
+    SHADOW_DENSE_RAYS neighbouring rays and the quarters one of them
+    enters; each ray's terms are added in rising column order, the same
+    bits in every call."""
+    return _shadow("dense", pack10, cluster8, box32, logf, org, dirn, dist,
                    n_tris)
 
 
@@ -223,13 +313,33 @@ shadow_logsum_dense.launches = 0
 
 def shadow_logsum_stream(pack10, cluster8, logf, org, dirn, dist,
                          n_tris: int):
-    """As `shadow_logsum_dense`, floored at -80, each segment walking its
-    boxes nearest first and stopping once opaque in every channel."""
-    return _shadow("stream", pack10, cluster8, logf, org, dirn, dist,
+    """(N, 3) log transmission as `shadow_logsum_dense`'s, floored at -80,
+    each segment walking its cluster boxes nearest first and stopping once
+    opaque in every channel."""
+    return _shadow("stream", pack10, cluster8, None, logf, org, dirn, dist,
                    n_tris)
 
 
 shadow_logsum_stream.launches = 0
+
+
+def _closest_hit_stream_before(pack10, cluster8, org, dirn, tmin, tmax,
+                               n_tris: int):
+    """`closest_hit_stream`'s function by the body its walk replaced, one
+    thread a ray over the cluster boxes sorted by entry.  For timing beside
+    the walk; no path calls it and its launches are not counted."""
+    return _closest("stream_before", pack10, cluster8, None, org, dirn,
+                    tmin, tmax, n_tris)
+
+
+def _shadow_logsum_dense_before(pack10, cluster8, logf, org, dirn, dist,
+                                n_tris: int):
+    """`shadow_logsum_dense`'s function by the body its walk replaced, one
+    thread a ray over the clusters in index order.  For timing beside the
+    walk; no path calls it and its launches are not counted."""
+    return _shadow("dense_before", pack10, cluster8, None, logf, org, dirn,
+                   dist, n_tris)
+
 # the wrappers whose launches _closest / _shadow count, bound here so a
 # caller that wraps a module attribute (to record calls) keeps the counts
 _WRAPPERS = {f.__name__: f for f in (closest_hit_dense, closest_hit_stream,
@@ -237,12 +347,13 @@ _WRAPPERS = {f.__name__: f for f in (closest_hit_dense, closest_hit_stream,
                                      shadow_logsum_stream)}
 
 
-def shadow_transmission_dense(pack10, cluster8, filt4, org, dirn, dist,
-                              n_tris: int):
+def shadow_transmission_dense(pack10, cluster8, box32, filt4, org, dirn,
+                              dist, n_tris: int):
     """(N, 3) transmission = exp(log sum), filt4 (4, T') rgb filter rows in
     pack order (0 = opaque)."""
-    return torch.exp(shadow_logsum_dense(pack10, cluster8, log_filter(filt4),
-                                         org, dirn, dist, n_tris))
+    return torch.exp(shadow_logsum_dense(pack10, cluster8, box32,
+                                         log_filter(filt4), org, dirn, dist,
+                                         n_tris))
 
 
 def shadow_transmission_stream(pack10, cluster8, filt4, org, dirn, dist,

@@ -111,9 +111,13 @@ def closest_hit(arrays: dict, static, org, dirn, tmin, tmax) -> Hit:
                   else pairs_intersect.closest_hit_pairs)
         t, col = kernel(pack, cl, arrays["tri_sub8"], org, dirn, tmin, tmax,
                         n_tris=n_tris)
+    elif kind == "stream":
+        t, col = cluster_intersect.closest_hit_stream(
+            pack, cl, arrays["tri_box32"], org, dirn, tmin, tmax,
+            n_tris=n_tris)
     else:
-        kernel = getattr(cluster_intersect, f"closest_hit_{kind}")
-        t, col = kernel(pack, cl, org, dirn, tmin, tmax, n_tris=n_tris)
+        t, col = cluster_intersect.closest_hit_dense(pack, cl, org, dirn,
+                                                     tmin, tmax, n_tris=n_tris)
     return Hit(*fine_intersect.closest_epilogue(pack, org, dirn, t, col,
                                                 n_tris))
 
@@ -135,5 +139,9 @@ def shadow_transmission(arrays: dict, static, transp_shad: bool, org, dirn,
                   else pairs_intersect.shadow_transmission_pairs)
         return kernel(pack, cl, arrays["stri_sub8"], filt4, org, dirn, dist,
                       n_tris=n_tris)
-    kernel = getattr(cluster_intersect, f"shadow_transmission_{kind}")
-    return kernel(pack, cl, filt4, org, dirn, dist, n_tris=n_tris)
+    if kind == "dense":
+        return cluster_intersect.shadow_transmission_dense(
+            pack, cl, arrays["stri_box32"], filt4, org, dirn, dist,
+            n_tris=n_tris)
+    return cluster_intersect.shadow_transmission_stream(
+        pack, cl, filt4, org, dirn, dist, n_tris=n_tris)

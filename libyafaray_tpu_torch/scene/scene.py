@@ -23,6 +23,7 @@ from ..materials.base import MT_LIGHT, build_material_table, default_row
 from ..materials.bsdf import check_families
 from ..materials.factory import material_row_from_params
 from ..materials.host import shadow_filter_np
+from ..ops.cluster_intersect import quarter_boxes
 from ..ops.cuda_intersect import build_tri_pack, morton_order
 from ..ops.fine_intersect import sub_aabbs
 from ..ops.intersect import intersector_for, pad_triangles
@@ -38,6 +39,9 @@ SLICE_ARRAY_KEYS = (
 # the sub-cluster box tables the port adds to them (the reference derives
 # its own inside every intersection call)
 FINE_ARRAY_KEYS = ("tri_sub8", "stri_sub8")
+# the 32-column box tables the mid-size kernels skip by (closest_hit_stream,
+# shadow_logsum_dense)
+QUARTER_ARRAY_KEYS = ("tri_box32", "stri_box32")
 # the analytic sphere pack [cx cy cz r mat] and its shadow filters, present
 # only in scenes with <sphere> elements
 SPHERE_ARRAY_KEYS = ("spheres", "sphere_filt", "sphere_filt_binary")
@@ -78,8 +82,8 @@ class SceneStatic:
 
 @dataclass
 class CompiledScene:
-    # numpy arrays, SLICE_ARRAY_KEYS + FINE_ARRAY_KEYS (+ SPHERE_ARRAY_KEYS
-    # in a scene with spheres)
+    # numpy arrays, SLICE_ARRAY_KEYS + FINE_ARRAY_KEYS + QUARTER_ARRAY_KEYS
+    # (+ SPHERE_ARRAY_KEYS in a scene with spheres)
     arrays: dict
     static: SceneStatic
     camera: Camera
@@ -322,11 +326,13 @@ class Scene:
              np.asarray(e2, np.float32)], axis=1)
         # (10, T') v0|e1|e2|orig_id pack of the intersection kernels, in
         # Morton order above 1024 triangles (column = triangle id below),
-        # with its cluster boxes and the 128-column sub-cluster boxes the
-        # large-scene kernels walk
+        # with its cluster boxes, the 128-column sub-cluster boxes the
+        # large-scene kernels walk and the 32-column boxes the mid-size ones
+        # skip by
         t_order = morton_order(v0, e1, e2) if n_real > 1024 else None
         tri_pack10, tri_cluster8, s_ord = build_tri_pack(v0, e1, e2, t_order)
         tri_sub8 = sub_aabbs(tri_pack10, n_real)
+        tri_box32 = quarter_boxes(tri_pack10, n_real)
         # shadow filters in pack order (padded entries alias tri 0 — they
         # are degenerate and never hit)
         sfilt_pk = filt_m[mat][s_ord]
@@ -346,6 +352,8 @@ class Scene:
             stri_pack10=tri_pack10,
             stri_cluster8=tri_cluster8,
             stri_sub8=tri_sub8,
+            tri_box32=tri_box32,
+            stri_box32=tri_box32,
             sfilt4=np.concatenate(
                 [sfilt_pk.T.astype(np.float32),
                  np.zeros((1, sfilt_pk.shape[0]), np.float32)]),

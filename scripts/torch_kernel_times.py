@@ -6,16 +6,22 @@ one-sample launch), `pairs_closest` on the bounce-1 slots of round 1 and
 `pairs_shadow` on the bounce-0 NEE slots of the same step on the pair route
 and `shadow_logsum_fine` on that pass's stragglers, `density_flash` on a
 photon step's caustic gather and on the radiance-map precompute's first
-gather, and `nearest_flash` on the step's first final-gather lookup; and,
-of one sample step of each of the three paths under `torch.profiler`, the
-CUDA kernels launched, the device's busy ms and the ms of the ported
-kernels, and the photon maps' build (the preprocess of a photon image:
-host ms between synchronizes, the median of five builds, and in one more
-under `torch.profiler` the device's busy ms, the host's waits on the device
-and its costliest ops).
+gather, and `nearest_flash` on the step's first final-gather lookup; the
+four mid-size kernels (`closest_hit_dense` / `shadow_logsum_dense` on the
+172-triangle scene, `closest_hit_stream` / `shadow_logsum_stream` on the
+652-triangle one) on every call one sample step of their scene makes; and,
+of one sample step of each of the five paths under `torch.profiler`, the CUDA
+kernels launched, the device's busy ms and the ms of the ported kernels,
+and the photon maps' build (the preprocess of a photon image: host ms
+between synchronizes, the median of five builds, and in one more under
+`torch.profiler` the device's busy ms, the host's waits on the device and
+its costliest ops).
 
     python3 scripts/torch_kernel_times.py [--repo DIR] [--out FILE]
-                                          [--same-as FILE]
+                                          [--same-as FILE] [--paths P,...]
+
+--paths takes a comma-separated subset of grid, pairs, photon and mid
+(default: all four); two runs compared by --same-as take the same paths.
 
 DIR (default: the tree this script lies in) is the root of a checkout that
 holds `chip_smoke.py` and `libyafaray_tpu_torch/`; its kernels are built
@@ -65,7 +71,10 @@ EXACT = ("rays", "slots", "queries", "live", "hits", "t_sum", "col_sum",
          "lg_sum", "below_floor", "counted", "found")
 CLOSE = ("flux_sum", "value_sum")
 KERNELS = ("closest_hit_fine", "shadow_logsum_fine", "pairs_closest",
-           "pairs_shadow", "density_flash", "nearest_flash")
+           "pairs_shadow", "density_flash", "nearest_flash",
+           "closest_hit_dense", "shadow_logsum_dense", "closest_hit_stream",
+           "shadow_logsum_stream")
+PATHS = ("grid", "pairs", "photon", "mid")
 
 
 def profiled_ms(fn) -> dict:
@@ -124,12 +133,18 @@ def main() -> None:
     ap.add_argument("--out", help="write the last JSON line to this file")
     ap.add_argument("--same-as", help="fail unless the answers equal those "
                     "of this --out file")
+    ap.add_argument("--paths", default=",".join(PATHS),
+                    help="comma-separated subset of " + ", ".join(PATHS))
     opts = ap.parse_args()
+    paths = opts.paths.split(",")
+    if not set(paths) <= set(PATHS):
+        raise SystemExit(f"torch_kernel_times: --paths takes {PATHS}")
     repo = os.path.abspath(opts.repo)
     if not torch.cuda.is_available():
         raise SystemExit("torch_kernel_times: no CUDA device")
     sys.path.insert(0, repo)
     import chip_smoke as cs
+    from libyafaray_tpu_torch.ops import cluster_intersect as cx
     from libyafaray_tpu_torch.ops import fine_intersect as fi
     from libyafaray_tpu_torch.ops import pairs_intersect as pi
     from libyafaray_tpu_torch.ops import photon_flash as pf
@@ -138,7 +153,7 @@ def main() -> None:
         ["nvidia-smi", "--query-gpu=name,power.limit",
          "--format=csv,noheader"], capture_output=True, text=True,
         check=True).stdout.strip().splitlines()[0]
-    out = dict(repo=os.path.relpath(repo), gpu=smi, step={},
+    out = dict(repo=os.path.relpath(repo), gpu=smi, paths=paths, step={},
                **{k: {} for k in KERNELS})
 
     def profiled(name, step, arrays, cfg, tags):
@@ -180,140 +195,202 @@ def main() -> None:
             lambda: fi.shadow_logsum_fine(*args), lg, plain_lg, sample,
             rays=org.shape[0], live=int((dist > 0).sum())))
 
-    with tempfile.TemporaryDirectory() as scenes:
-        path = cs.make_grid(scenes, cs.GRID["grid"], cs.GRID["subdiv"])
-        gscene, gcfg = cs.grid(path, cs.GRID["size"], cs.GRID["spp"], "cuda")
-        pscene, _ = cs.grid(path, cs.GRID["size"], cs.GRID["spp"], "cuda",
-                            pairs=True)
-    step, arrays, calls = cs.step_calls(
-        gscene, gcfg, fi, ("closest_hit_fine", "shadow_logsum_fine"))
-    profiled("grid", step, arrays, gcfg, ("fine_kernel",))
-    del step, arrays
-    for vertex, args in enumerate(calls["closest_hit_fine"]):
-        pk, _, _, org, dirn, tmin, tmax, n_tris = args
-        t, col = fi.closest_hit_fine(*args)
+    def closest_row(kernel, args, t, col, **counts):
+        """One closest-hit call's line: sums, a strided sample against the
+        plain version, a second call against the first, device ms."""
+        pk, (org, dirn, tmin, tmax, n_tris) = args[0], args[-5:]
+        again = kernel(*args)
         stride = max(1, org.shape[0] // PLAIN_RAYS)
         pt, pcol = fi.closest_fine_plain(
             pk, *(x[::stride].contiguous() for x in (org, dirn, tmin, tmax)),
             n_tris)
         hit = torch.isfinite(t)
-        row = dict(
-            rays=org.shape[0], hits=int(hit.sum()),
+        return dict(
+            **counts, rays=org.shape[0], hits=int(hit.sum()),
             t_sum=float(t[hit].double().sum()), col_sum=int(col.long().sum()),
             differ_from_plain=int(((t[::stride] != pt)
                                    | (col[::stride] != pcol)).sum()),
             compared=pt.shape[0],
-            ms=cs.device_ms(lambda: fi.closest_hit_fine(*args), calls=3,
-                            replays=5))
-        report("closest_hit_fine",
-               "primary" if vertex == 0 else f"bounce {vertex}", row)
-    for vertex, args in enumerate(calls["shadow_logsum_fine"]):
-        fine_shadow(f"bounce-{vertex} NEE", args)
-    del calls
+            repeat_differ=int(((again[0] != t) | (again[1] != col)).sum()),
+            ms=cs.device_ms(lambda: kernel(*args), calls=3, replays=5))
 
-    # the pair route: one step, its pair slots and its stragglers
-    (step, arrays, calls), stragglers = cs.record_calls(
-        fi, ("shadow_logsum_fine",), lambda: cs.step_calls(
-            pscene, gcfg, pi, ("pairs_closest", "pairs_shadow")))
-    profiled("pairs", step, arrays, gcfg, cs.PAIR_KERNELS)
-    del step, arrays
-    # bounce 1, round 1: (pack, clusters, [sub-boxes,] slot rays, slot
-    # clusters, origins, directions, tmin, tmax, triangles)
-    args = calls["pairs_closest"][2]
-    (pk, n_cl), (sray, scl, org, dirn, tmin, tmax, n_tris) = (args[:2],
-                                                              args[-7:])
-    t, col = pi.pairs_closest(*args)
-    again = pi.pairs_closest(*args)
-    sample = slice(None, None, max(1, sray.shape[0] // PLAIN_SLOTS))
-    pt, pcol = pi.pairs_closest_plain(
-        pk, n_cl, sray[sample].contiguous(), scl[sample].contiguous(), org,
-        dirn, tmin, tmax, n_tris)
-    hit = torch.isfinite(t)
-    report("pairs_closest", "bounce 1, round 1", dict(
-        slots=sray.shape[0], rays=org.shape[0], hits=int(hit.sum()),
-        t_sum=float(t[hit].double().sum()), col_sum=int(col.long().sum()),
-        differ_from_plain=int(((t[sample] != pt) | (col[sample] != pcol))
-                              .sum()),
-        compared=pt.shape[0],
-        repeat_differ=int(((again[0] != t) | (again[1] != col)).sum()),
-        ms=cs.device_ms(lambda: pi.pairs_closest(*args), calls=3,
-                        replays=5)))
-    args = calls["pairs_shadow"][0]
-    # (pack, clusters, [sub-boxes,] log filters, slot rays, slot clusters,
-    # origins, directions, lengths, triangles)
-    head, (logf, sray, scl, org, dirn, dist, n_tris) = args[:-7], args[-7:]
-    lg = pi.pairs_shadow(*args)
-    sample = slice(None, None, max(1, sray.shape[0] // PLAIN_SLOTS))
-    plain_lg = pi.pairs_shadow_plain(
-        *head[:2], logf, sray[sample].contiguous(), scl[sample].contiguous(),
-        org, dirn, dist, n_tris)
-    report("pairs_shadow", "bounce-0 NEE", shadow_row(
-        lambda: pi.pairs_shadow(*args), lg, plain_lg, sample,
-        slots=sray.shape[0], rays=org.shape[0]))
-    del calls, lg, plain_lg, t, col, again
-    for vertex, (_, args) in enumerate(stragglers):
-        fine_shadow(f"pair-route stragglers, bounce-{vertex} NEE", args)
-    del stragglers
+    def mid_scene(scenes, kind, g):
+        """One sample step of a generated mid-size scene (its own settings):
+        profiled, and every call of its two kernels timed."""
+        from libyafaray_tpu_torch.scene.session import build_config
+        from libyafaray_tpu_torch.scene.xml_parser import parse_xml_file
 
-    pscene, pcfg = cs.photon_scene(cs.PHOTON, "cuda")
-    step, arrays, pre_calls, step_calls = cs.photon_inputs(pscene, pcfg)
-    profiled("photon", step, arrays, pcfg, cs.PHOTON_TAGS)
-    build = lambda: cs.photonmap.build_photon_maps(  # noqa: E731
-        pscene, pcfg, arrays)
-    builds = []
-    for _ in range(5):
-        torch.cuda.synchronize()
-        t0 = time.perf_counter()
-        build()
-        torch.cuda.synchronize()
-        builds.append(1e3 * (time.perf_counter() - t0))
-    prof = profiled_ms(build)
-    out["step"]["photon"].update(preprocess_ms=statistics.median(builds),
-                                 preprocess_busy_ms=prof["busy_ms"])
-    print(f"[preprocess] build_photon_maps_ms={builds} "
-          + " ".join(f"{k}={v}" for k, v in prof.items()), flush=True)
-    del step, arrays
-    for name, args in (
-            ("caustic", next(a for n, a in step_calls if n == "density_auto")),
-            ("radiance precompute",
-             next(a for n, a in pre_calls if n == "density_auto"))):
-        pack, qp, qn, r = args
-        flux, cnt = pf.density_flash(*args)
-        again = pf.density_flash(*args)
-        m = min(qp.shape[0], 8 * PLAIN_QUERIES)
-        pflux, pcnt = pf.density_flash_plain(
-            pf.flash_view(pack) if "tbl" in pack else pack, qp[:m], qn[:m],
-            r)
-        report("density_flash", name, dict(
-            queries=qp.shape[0],
-            layout="sorted" if "tbl" in pack else "flash",
-            counted=int(cnt.sum()), flux_sum=float(flux.double().sum()),
-            count_differ_from_plain=int((cnt[:m] != pcnt).sum()),
-            flux_max_abs_err=float((flux[:m] - pflux).abs().max()),
-            compared=m,
-            repeat_differ=int(((again[0] != flux).any(dim=1)
-                               | (again[1] != cnt)).sum()),
-            ms=cs.device_ms(lambda: pf.density_flash(*args), calls=3,
+        scene = parse_xml_file(cs.make_grid(scenes, g, 1))
+        cfg = build_config(scene)
+        names = (f"closest_hit_{kind}", f"shadow_logsum_{kind}")
+        step, arrays, calls = cs.step_calls(scene.compile(device="cuda"),
+                                            cfg, cx, names)
+        profiled(kind, step, arrays, cfg,
+                 (f"closest_{kind}_kernel", f"shadow_{kind}_kernel"))
+        del step, arrays
+        closest, shadow = (getattr(cx, n) for n in names)
+        for vertex, args in enumerate(calls[names[0]]):
+            t, col = closest(*args)
+            report(names[0], "primary" if vertex == 0 else f"bounce {vertex}",
+                   closest_row(closest, args, t, col))
+        for vertex, args in enumerate(calls[names[1]]):
+            pk, (logf, org, dirn, dist, n_tris) = args[0], args[-5:]
+            lg = shadow(*args)
+            sample = slice(None, None, max(1, org.shape[0] // PLAIN_RAYS))
+            plain = getattr(cx, f"{names[1]}_plain")
+            plain_lg = plain(pk, logf, *(x[sample].contiguous()
+                                         for x in (org, dirn, dist)), n_tris)
+            report(names[1], f"bounce-{vertex} NEE", shadow_row(
+                lambda: shadow(*args), lg, plain_lg, sample,
+                rays=org.shape[0], live=int((dist > 0).sum())))
+
+    with tempfile.TemporaryDirectory() as scenes:
+        if "mid" in paths:
+            for kind, g in cs.MID:
+                mid_scene(scenes, kind, g)
+        if {"grid", "pairs"} & set(paths):
+            path = cs.make_grid(scenes, cs.GRID["grid"], cs.GRID["subdiv"])
+            gscene, gcfg = cs.grid(path, cs.GRID["size"], cs.GRID["spp"],
+                                   "cuda")
+            pscene, _ = cs.grid(path, cs.GRID["size"], cs.GRID["spp"], "cuda",
+                                pairs=True)
+    if "grid" in paths:
+        step, arrays, calls = cs.step_calls(
+            gscene, gcfg, fi, ("closest_hit_fine", "shadow_logsum_fine"))
+        profiled("grid", step, arrays, gcfg, ("fine_kernel",))
+        del step, arrays
+        for vertex, args in enumerate(calls["closest_hit_fine"]):
+            pk, _, _, org, dirn, tmin, tmax, n_tris = args
+            t, col = fi.closest_hit_fine(*args)
+            stride = max(1, org.shape[0] // PLAIN_RAYS)
+            pt, pcol = fi.closest_fine_plain(
+                pk, *(x[::stride].contiguous()
+                      for x in (org, dirn, tmin, tmax)), n_tris)
+            hit = torch.isfinite(t)
+            row = dict(
+                rays=org.shape[0], hits=int(hit.sum()),
+                t_sum=float(t[hit].double().sum()),
+                col_sum=int(col.long().sum()),
+                differ_from_plain=int(((t[::stride] != pt)
+                                       | (col[::stride] != pcol)).sum()),
+                compared=pt.shape[0],
+                ms=cs.device_ms(lambda: fi.closest_hit_fine(*args), calls=3,
+                                replays=5))
+            report("closest_hit_fine",
+                   "primary" if vertex == 0 else f"bounce {vertex}", row)
+        for vertex, args in enumerate(calls["shadow_logsum_fine"]):
+            fine_shadow(f"bounce-{vertex} NEE", args)
+        del calls
+
+    if "pairs" in paths:
+        # the pair route: one step, its pair slots and its stragglers
+        (step, arrays, calls), stragglers = cs.record_calls(
+            fi, ("shadow_logsum_fine",), lambda: cs.step_calls(
+                pscene, gcfg, pi, ("pairs_closest", "pairs_shadow")))
+        profiled("pairs", step, arrays, gcfg, cs.PAIR_KERNELS)
+        del step, arrays
+        # bounce 1, round 1: (pack, clusters, [sub-boxes,] slot rays, slot
+        # clusters, origins, directions, tmin, tmax, triangles)
+        args = calls["pairs_closest"][2]
+        (pk, n_cl), (sray, scl, org, dirn, tmin, tmax, n_tris) = (args[:2],
+                                                                  args[-7:])
+        t, col = pi.pairs_closest(*args)
+        again = pi.pairs_closest(*args)
+        sample = slice(None, None, max(1, sray.shape[0] // PLAIN_SLOTS))
+        pt, pcol = pi.pairs_closest_plain(
+            pk, n_cl, sray[sample].contiguous(), scl[sample].contiguous(), org,
+            dirn, tmin, tmax, n_tris)
+        hit = torch.isfinite(t)
+        report("pairs_closest", "bounce 1, round 1", dict(
+            slots=sray.shape[0], rays=org.shape[0], hits=int(hit.sum()),
+            t_sum=float(t[hit].double().sum()), col_sum=int(col.long().sum()),
+            differ_from_plain=int(((t[sample] != pt) | (col[sample] != pcol))
+                                  .sum()),
+            compared=pt.shape[0],
+            repeat_differ=int(((again[0] != t) | (again[1] != col)).sum()),
+            ms=cs.device_ms(lambda: pi.pairs_closest(*args), calls=3,
                             replays=5)))
-    del pre_calls
-    pack, qp, r = next(a for name, a in step_calls if name == "nearest_flash")
-    val, found = pf.nearest_flash(pack, qp, r)
-    cpu_pack = {k: v.cpu() for k, v in pack.items()}
-    pv, pfound = pf.nearest_flash(cpu_pack, qp[:PLAIN_QUERIES].cpu(), r)
-    report("nearest_flash", "final gather", dict(
-        queries=qp.shape[0], layout="sorted" if "tbl" in pack else "flash",
-        found=int(found.sum()), value_sum=float(val.double().sum()),
-        found_differ_from_plain=int((found[:PLAIN_QUERIES].cpu()
-                                     != pfound).sum()),
-        value_max_abs_err=float((val[:PLAIN_QUERIES].cpu() - pv).abs().max()),
-        compared=PLAIN_QUERIES,
-        ms=cs.device_ms(lambda: pf.nearest_flash(pack, qp, r), calls=3,
-                        replays=5)))
+        args = calls["pairs_shadow"][0]
+        # (pack, clusters, [sub-boxes,] log filters, slot rays, slot clusters,
+        # origins, directions, lengths, triangles)
+        head, (logf, sray, scl, org, dirn, dist, n_tris) = args[:-7], args[-7:]
+        lg = pi.pairs_shadow(*args)
+        sample = slice(None, None, max(1, sray.shape[0] // PLAIN_SLOTS))
+        plain_lg = pi.pairs_shadow_plain(
+            *head[:2], logf, sray[sample].contiguous(),
+            scl[sample].contiguous(), org, dirn, dist, n_tris)
+        report("pairs_shadow", "bounce-0 NEE", shadow_row(
+            lambda: pi.pairs_shadow(*args), lg, plain_lg, sample,
+            slots=sray.shape[0], rays=org.shape[0]))
+        del calls, lg, plain_lg, t, col, again
+        for vertex, (_, args) in enumerate(stragglers):
+            fine_shadow(f"pair-route stragglers, bounce-{vertex} NEE", args)
+        del stragglers
+
+    if "photon" in paths:
+        pscene, pcfg = cs.photon_scene(cs.PHOTON, "cuda")
+        step, arrays, pre_calls, step_calls = cs.photon_inputs(pscene, pcfg)
+        profiled("photon", step, arrays, pcfg, cs.PHOTON_TAGS)
+        build = lambda: cs.photonmap.build_photon_maps(  # noqa: E731
+            pscene, pcfg, arrays)
+        builds = []
+        for _ in range(5):
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            build()
+            torch.cuda.synchronize()
+            builds.append(1e3 * (time.perf_counter() - t0))
+        prof = profiled_ms(build)
+        out["step"]["photon"].update(preprocess_ms=statistics.median(builds),
+                                     preprocess_busy_ms=prof["busy_ms"])
+        print(f"[preprocess] build_photon_maps_ms={builds} "
+              + " ".join(f"{k}={v}" for k, v in prof.items()), flush=True)
+        del step, arrays
+        for name, args in (
+                ("caustic", next(a for n, a in step_calls
+                                 if n == "density_auto")),
+                ("radiance precompute",
+                 next(a for n, a in pre_calls if n == "density_auto"))):
+            pack, qp, qn, r = args
+            flux, cnt = pf.density_flash(*args)
+            again = pf.density_flash(*args)
+            m = min(qp.shape[0], 8 * PLAIN_QUERIES)
+            pflux, pcnt = pf.density_flash_plain(
+                pf.flash_view(pack) if "tbl" in pack else pack, qp[:m], qn[:m],
+                r)
+            report("density_flash", name, dict(
+                queries=qp.shape[0],
+                layout="sorted" if "tbl" in pack else "flash",
+                counted=int(cnt.sum()), flux_sum=float(flux.double().sum()),
+                count_differ_from_plain=int((cnt[:m] != pcnt).sum()),
+                flux_max_abs_err=float((flux[:m] - pflux).abs().max()),
+                compared=m,
+                repeat_differ=int(((again[0] != flux).any(dim=1)
+                                   | (again[1] != cnt)).sum()),
+                ms=cs.device_ms(lambda: pf.density_flash(*args), calls=3,
+                                replays=5)))
+        del pre_calls
+        pack, qp, r = next(a for name, a in step_calls
+                           if name == "nearest_flash")
+        val, found = pf.nearest_flash(pack, qp, r)
+        cpu_pack = {k: v.cpu() for k, v in pack.items()}
+        pv, pfound = pf.nearest_flash(cpu_pack, qp[:PLAIN_QUERIES].cpu(), r)
+        report("nearest_flash", "final gather", dict(
+            queries=qp.shape[0], layout="sorted" if "tbl" in pack else "flash",
+            found=int(found.sum()), value_sum=float(val.double().sum()),
+            found_differ_from_plain=int((found[:PLAIN_QUERIES].cpu()
+                                         != pfound).sum()),
+            value_max_abs_err=float((val[:PLAIN_QUERIES].cpu()
+                                     - pv).abs().max()),
+            compared=PLAIN_QUERIES,
+            ms=cs.device_ms(lambda: pf.nearest_flash(pack, qp, r), calls=3,
+                            replays=5)))
     build = os.path.join(repo, "libyafaray_tpu_torch", "_build")
     for log in sorted(f for f in os.listdir(build) if f.endswith(".log")):
         with open(os.path.join(build, log)) as f:
             for line in f:
-                if "registers" in line or "spill" in line:
+                if any(w in line for w in ("Compiling entry", "registers",
+                                           "spill")):
                     print(f"  ptxas {log.split('_')[0]}: {line.strip()}",
                           flush=True)
     print(json.dumps(out), flush=True)

@@ -16,7 +16,10 @@ reference's own (tests/test_accel.py): hit and tri equal, t within rtol
 triangles give exactly equal t may differ in tri (the reference keeps the
 first visited cluster's column, the port the lowest column), and nowhere
 else.  The kernels themselves run only on the card; chip_smoke.py holds
-them to these plain versions there."""
+them to these plain versions there.  Here the walks of the two kernels
+that skip by the 32-column quarter boxes (`shadow_logsum_dense`: several
+rays a thread, `closest_hit_stream`: a warp a ray) are emulated in plain
+PyTorch and held to the plain versions bit for bit."""
 import numpy as np
 import pytest
 import torch
@@ -102,11 +105,31 @@ def cases(scenes):
     return out
 
 
+def _box32(pack, n_tris):
+    return _t(cl.quarter_boxes(pack, n_tris))
+
+
+def _closest_scene(kind, pack, c8, n_tris):
+    """The scene arguments closest_hit_<kind> takes before the rays."""
+    if kind == "stream":
+        return _t(pack), _t(c8), _box32(pack, n_tris)
+    return _t(pack), _t(c8)
+
+
+def _shadow_scene(kind, pack, c8, n_tris):
+    """The scene arguments shadow_logsum_<kind> (and shadow_transmission_
+    <kind>) take before the filters."""
+    if kind == "dense":
+        return _t(pack), _t(c8), _box32(pack, n_tris)
+    return _t(pack), _t(c8)
+
+
 @pytest.mark.parametrize("grid, pack_w, n_cl", [(1, 256, 2), (2, 768, 6)])
 def test_compile_packs_generated_scene_like_reference(scenes, grid, pack_w,
                                                       n_cl):
     """The port's compile of a generated mid-size scene gives the
-    reference's pack, cluster boxes and shadow filters."""
+    reference's pack, cluster boxes and shadow filters, and the quarter
+    boxes of its pack."""
     ref = scenes[f"grid{grid}"]
     port = parse_xml_string(grid_spheres_xml(grid, 1, 2, 16)).compile(
         device="cpu")
@@ -116,6 +139,11 @@ def test_compile_packs_generated_scene_like_reference(scenes, grid, pack_w,
     for k in ("tri_pack10", "tri_cluster8", "stri_pack10", "stri_cluster8",
               "sfilt4", "sfilt4_binary"):
         assert np.array_equal(port.arrays[k], ref.arrays[k]), k
+    box32 = port.arrays["tri_box32"]
+    assert box32.shape == (8, pack_w // 32)
+    assert np.array_equal(box32, cl.quarter_boxes(ref.arrays["tri_pack10"],
+                                                  ref.static.n_tris_real))
+    assert port.arrays["stri_box32"] is box32
 
 
 def _limits(n):
@@ -133,8 +161,8 @@ def test_closest_plain_matches_reference(cases, case):
     assert isect.route(pack, c8, n_tris) == kind
     tmin, tmax = _limits(o.shape[0])
     wrapper = getattr(cl, f"closest_hit_{kind}")
-    tc, col = wrapper(_t(pack), _t(c8), _t(o), _t(d), _t(tmin), _t(tmax),
-                      n_tris)
+    tc, col = wrapper(*_closest_scene(kind, pack, c8, n_tris), _t(o), _t(d),
+                      _t(tmin), _t(tmax), n_tris)
     t, tri, u, v, hit = (x.numpy() for x in fi.closest_epilogue(
         _t(pack), _t(o), _t(d), tc, col, n_tris))
     assert np.array_equal(t, tc.numpy())  # the epilogue keeps the t
@@ -183,8 +211,8 @@ def test_shadow_plain_matches_reference(cases, case):
     filt4[:3, :n_tris] = (rng.random((3, n_tris))
                           * (rng.random((1, n_tris)) > 0.5))
     wrapper = getattr(cl, f"shadow_transmission_{kind}")
-    tr = wrapper(_t(pack), _t(c8), _t(filt4), _t(o), _t(d), _t(dist),
-                 n_tris).numpy()
+    tr = wrapper(*_shadow_scene(kind, pack, c8, n_tris), _t(filt4), _t(o),
+                 _t(d), _t(dist), n_tris).numpy()
     pli.INTERPRET = True
     try:
         rtr = np.asarray(pli.shadow_transmission_pallas(
@@ -213,30 +241,39 @@ def test_dense_sum_has_no_floor_and_stream_sum_floors_at_opaque():
                        torch.full((1, 3), -240.0))
     assert torch.equal(cl.shadow_logsum_stream_plain(*args),
                        torch.full((1, 3), -80.0))
-    lg = cl.shadow_logsum_dense(args[0], _t(c8), *args[1:])
+    lg = cl.shadow_logsum_dense(args[0], _t(c8), _box32(pack, 3),
+                                *args[1:])
     assert torch.equal(lg, torch.full((1, 3), -240.0))
 
 
-def test_box_entry_never_skips_a_hit(cases):
-    """The widened boxes the kernels skip by: every hit's cluster is
-    entered no further than the hit, so a ray never skips the box of its
-    hit; the pair counts of chip_smoke.py's bounds lie between the hits'
-    clusters and the brute force."""
+@pytest.mark.parametrize("table", ["clusters", "quarters"])
+def test_box_entry_never_skips_a_hit(cases, table):
+    """The widened boxes the kernels skip by (the 128-column cluster boxes
+    and the 32-column quarter boxes): every hit's box is entered no further
+    than the hit, so a ray never skips the box of its hit; the pair counts
+    of chip_smoke.py's bounds lie between the hits' boxes and the brute
+    force, and the quarter boxes need fewer pairs than the clusters."""
     pack, c8, n_tris, o, d = cases["grid2"]
     n = o.shape[0]
     org, dirn = _t(o), _t(d)
+    boxes8 = _t(c8) if table == "clusters" else _box32(pack, n_tris)
     lo, hi = torch.full((n,), 5e-5), torch.full((n,), float("inf"))
     t, col = cl.closest_stream_plain(_t(pack), org, dirn, lo, hi, n_tris)
     hit = torch.isfinite(t)
-    bt = pack.shape[1] // c8.shape[1]
-    ent = fi.box_entry(_t(c8), org, dirn, lo, hi)
+    bt = pack.shape[1] // boxes8.shape[1]
+    ent = fi.box_entry(boxes8, org, dirn, lo, hi)
     own = ent[hit, col[hit].long() // bt]
     assert (own <= t[hit]).all()
     before_hit = torch.minimum(hi, t)
-    pairs, boxes = cl.cluster_pair_tests(_t(pack), _t(c8), org, dirn, lo,
+    pairs, boxes = cl.cluster_pair_tests(_t(pack), boxes8, org, dirn, lo,
                                          before_hit, n_tris)
     assert int(hit.sum()) <= pairs < n * n_tris
-    assert boxes == n * c8.shape[1]
+    assert boxes == n * -(-n_tris // bt)
+    if table == "quarters":
+        cluster_pairs, _ = cl.cluster_pair_tests(_t(pack), _t(c8), org, dirn,
+                                                 lo, before_hit, n_tris)
+        assert pairs < 0.6 * cluster_pairs, (pairs, cluster_pairs)
+        return
     # 128-column clusters: each is its own single sub-cluster, so the fine
     # count finds the same pairs and adds one box test per entered cluster
     entered = int(torch.isfinite(fi.box_entry(_t(c8), org, dirn, lo,
@@ -247,25 +284,231 @@ def test_box_entry_never_skips_a_hit(cases):
     assert (f_pairs, f_boxes) == (pairs, boxes + entered)
 
 
+def _edge_rays(pack, n_tris, n, rng):
+    """Rays from inside the room through a point of an edge (v0, v0 + e1)
+    of n random triangles, the vertex v0 for every other one: where
+    triangles of a sphere mesh share it, each gives a hit there."""
+    k = rng.choice(n_tris, n, replace=False)
+    mid = (pack[0:3, k] + 0.5 * (np.arange(n) % 2) * pack[3:6, k]).T
+    org = np.tile(np.float32([2.75, 2.75, 2.75]), (n, 1))
+    org += rng.uniform(-0.2, 0.2, (n, 3)).astype(np.float32)
+    d = mid - org
+    return org, (d / np.linalg.norm(d, axis=1, keepdims=True)).astype(
+        np.float32)
+
+
+def _walk_quarters(pk, box32, n_tris, o, d, lo, hi):
+    """One ray (1-row tensors) through closest_hit_stream's warp walk, in
+    plain PyTorch: lane q holds quarter q's entry into [tmin, tmax]; the
+    warp picks the nearest quarter not yet visited (the lowest lane on equal
+    entries) and stops once it lies strictly beyond min(tmax, best t); on a
+    visit lane l tests column 32 q + l (none past n_tris) and keeps its own
+    lexicographic minimum (t, column); the lanes' best t is reduced after
+    every visit and the (t, column) minimum at the end.  Returns (t, col,
+    quarters visited, pair tests made)."""
+    q_real = -(-n_tris // cl.QUARTER)
+    inf = float("inf")
+    ent = [float(e) for e in fi.box_entry(box32[:, :q_real], o, d, lo,
+                                          hi)[0]]
+    lane_t = torch.full((32,), inf)
+    lane_c = torch.full((32,), 2 ** 31 - 1, dtype=torch.int64)
+    lim, visits, pairs = float(hi), 0, 0
+    while ent:
+        e = min(ent)
+        q = ent.index(e)
+        if not e <= lim or e == inf:
+            break
+        ent[q] = inf
+        visits += 1
+        k0 = cl.QUARTER * q
+        pairs += min(k0 + cl.QUARTER, n_tris) - k0
+        k = torch.arange(k0, k0 + cl.QUARTER)
+        t, _, _, ok = ci._mt_test(pk, slice(k0, k0 + cl.QUARTER), *o[0],
+                                  *d[0])
+        t = torch.where(ok & (t > lo) & (t < hi) & (k < n_tris), t, inf)
+        better = (t < lane_t) | ((t == lane_t) & (k < lane_c) & (t < inf))
+        lane_t = torch.where(better, t, lane_t)
+        lane_c = torch.where(better, k, lane_c)
+        lim = min(float(hi), float(lane_t.amin()))
+    best = float(lane_t.amin())
+    if best == inf:
+        return best, 0, visits, pairs
+    return best, int(lane_c[lane_t == best].amin()), visits, pairs
+
+
+@pytest.mark.parametrize("case", ["grid2", "soup400"])
+def test_quarter_walk_gives_the_plain_answer(cases, case):
+    """closest_hit_stream's walk over the quarter boxes, nearest entry
+    first with its stopping rule and the lexicographic (t, column) minimum,
+    gives closest_stream_plain's (t, col) exactly, exact ties on shared
+    edges included; it visits fewer than half of the real quarters, and it
+    tests the pairs cluster_pair_tests counts on the quarter boxes below
+    min(tmax, t)."""
+    pack, c8, n_tris, o, d = cases[case]
+    rng = np.random.default_rng(29)
+    keep = rng.choice(o.shape[0], 160, replace=False)
+    o, d = o[keep], d[keep]
+    if case == "grid2":
+        eo, ed = _edge_rays(pack, n_tris, 240, rng)
+        o, d = np.concatenate([o, eo]), np.concatenate([d, ed])
+    n = o.shape[0]
+    tmin, tmax = _limits(n)
+    pk, box32 = _t(pack), _box32(pack, n_tris)
+    args = [_t(x) for x in (o, d, tmin, tmax)]
+    pt, pcol = cl.closest_stream_plain(pk, *args, n_tris)
+    visits = pairs = 0
+    for i in range(n):
+        t, col, v, p = _walk_quarters(pk, box32, n_tris,
+                                      *(x[i:i + 1] for x in args))
+        assert (t, col) == (float(pt[i]), int(pcol[i])), i
+        visits += v
+        pairs += p
+    hit = torch.isfinite(pt)
+    assert hit.any() and not hit.all()
+    assert visits < 0.5 * n * -(-n_tris // cl.QUARTER)
+    assert pairs == cl.cluster_pair_tests(
+        pk, box32, args[0], args[1], args[2], torch.minimum(args[3], pt),
+        n_tris)[0]
+    if case == "grid2":
+        # some of the edge rays are exact ties between two columns
+        ox, oy, oz = (x[:, None] for x in args[0].unbind(-1))
+        dx, dy, dz = (x[:, None] for x in args[1].unbind(-1))
+        t_all, _, _, ok = ci._mt_test(pk, slice(0, n_tris), ox, oy, oz, dx,
+                                      dy, dz)
+        tied = (ok & (t_all == pt[:, None])).sum(dim=1) > 1
+        assert int((tied & hit).sum()) >= 3, int((tied & hit).sum())
+
+
+def _walk_dense_shadow(pk, box32, logf, o, d, dist, n_tris, r):
+    """shadow_logsum_dense's walk in plain PyTorch: a thread holds r
+    consecutive rays (the last one those left); it tests each live segment
+    against the real quarter boxes and walks, in rising order, the quarters
+    one of its segments enters; on a column every ray of the thread adds
+    the column's log filters where its own test passes, columns in rising
+    order from 0, no floor.  Returns (sums, pair tests made)."""
+    n = o.shape[0]
+    q_real = -(-n_tris // cl.QUARTER)
+    lo, hi = cl.shadow_limits(dist)
+    ent = torch.isfinite(fi.box_entry(box32[:, :q_real], o, d, lo, hi))
+    thread = torch.arange(n) // r
+    taken = torch.zeros((-(-n // r), q_real), dtype=torch.bool)
+    for j in range(r):
+        taken[thread[j::r]] |= ent[j::r]
+    walked = taken[thread]
+    acc = torch.zeros((n, 3))
+    pairs = 0
+    for q in range(q_real):
+        idx = torch.nonzero(walked[:, q]).squeeze(1)
+        if not idx.numel():
+            continue
+        k0, k1 = cl.QUARTER * q, min(cl.QUARTER * (q + 1), n_tris)
+        t, _, _, ok = ci._mt_test(pk, slice(k0, k1),
+                                  *(o[idx, a:a + 1] for a in range(3)),
+                                  *(d[idx, a:a + 1] for a in range(3)))
+        crossed = ok & (t > ci.SHADOW_TMIN) & (t < hi[idx, None])
+        part = acc[idx]
+        for c in range(k1 - k0):
+            part = part + torch.where(crossed[:, c:c + 1],
+                                      logf[:3, k0 + c][None], 0.0)
+        acc[idx] = part
+        pairs += idx.numel() * (k1 - k0)
+    return acc, pairs
+
+
+def _column_sum(pk, logf, o, d, dist, n_tris):
+    """Each segment's log-filter sum over every real column in rising
+    order from 0, nothing skipped: the order the kernel adds in."""
+    _, hi = cl.shadow_limits(dist)
+    t, _, _, ok = ci._mt_test(pk, slice(0, n_tris),
+                              *(o[:, a:a + 1] for a in range(3)),
+                              *(d[:, a:a + 1] for a in range(3)))
+    crossed = ok & (t > ci.SHADOW_TMIN) & (t < hi[:, None])
+    acc = torch.zeros((o.shape[0], 3))
+    for c in range(n_tris):
+        acc = acc + torch.where(crossed[:, c:c + 1], logf[:3, c][None], 0.0)
+    return acc
+
+
+def _filters(kind, n_tris, tp, rng):
+    """(4, T') filter rows in pack order: 0 or 1 (`binary`, log filters 0
+    or -80: every sum exact), all 0 (`opaque`), or a random colour on half
+    of the triangles and 0 on the rest (`partial`)."""
+    filt4 = np.zeros((4, tp), np.float32)
+    if kind == "binary":
+        filt4[:3, :n_tris] = rng.random((1, n_tris)) > 0.5
+    elif kind == "partial":
+        filt4[:3, :n_tris] = (rng.random((3, n_tris))
+                              * (rng.random((1, n_tris)) > 0.5))
+    return filt4
+
+
+@pytest.mark.parametrize("r", [2, 4])
+@pytest.mark.parametrize("kind", ["binary", "opaque", "partial"])
+@pytest.mark.parametrize("case", ["grid1", "soup300"])
+def test_dense_shadow_walk_gives_the_plain_sum(cases, case, kind, r):
+    """shadow_logsum_dense's walk (r rays a thread, the quarter skip, each
+    ray's terms in rising column order, dead rays) against the brute force:
+    bit for bit equal to the column-order sum with nothing skipped for
+    every filter, to the plain version where every log filter is 0 or -80,
+    transmission within atol 2e-3 of it otherwise; dead rays sum to 0; the
+    pair tests it makes are quarter_walk_pair_tests' count, fewer than
+    the brute force's."""
+    pack, _, n_tris, o, d = cases[case]
+    n = o.shape[0] - 3  # a last thread of fewer than r rays
+    rng = np.random.default_rng(5)
+    dist = rng.uniform(0.5, 12.0, n).astype(np.float32)
+    dist[::9] = -1.0  # dead lanes: empty segment
+    pk, box32 = _t(pack), _box32(pack, n_tris)
+    logf = ci.log_filter(_t(_filters(kind, n_tris, pack.shape[1], rng)))
+    rays = (_t(o[:n]), _t(d[:n]), _t(dist))
+    got, pairs = _walk_dense_shadow(pk, box32, logf, *rays, n_tris, r)
+    want = cl.shadow_logsum_dense_plain(pk, logf, *rays, n_tris)
+    assert torch.equal(got, _column_sum(pk, logf, *rays, n_tris))
+    assert (got[::9] == 0.0).all()
+    if kind == "partial":
+        assert torch.allclose(torch.exp(got), torch.exp(want), atol=2e-3)
+        assert ((got < 0) & (got > -80)).any()
+    else:
+        assert torch.equal(got, want)
+        assert (got <= -80.0).any()
+    assert pairs == cl.quarter_walk_pair_tests(box32, *rays, n_tris, r)[0]
+    assert 0 < pairs < 0.9 * n * n_tris
+
+
 def test_cluster_wrappers_route_cpu_to_plain_and_count_nothing(cases):
+    """On CPU tensors every wrapper (and the private entries of the
+    one-thread bodies that the two quarter walks replaced) runs its plain
+    version and launches nothing."""
     pack, c8, n_tris, o, d = cases["grid2"]
     n = o.shape[0]
     lim = (torch.full((n,), 5e-5), torch.full((n,), float("inf")))
     wrappers = (cl.closest_hit_dense, cl.closest_hit_stream,
                 cl.shadow_logsum_dense, cl.shadow_logsum_stream)
     before = [w.launches for w in wrappers]
+    box32 = _box32(pack, n_tris)
+    logf = torch.full((3, pack.shape[1]), -1.0)
+    dist = torch.full((n,), 3.0)
     for kind in ("dense", "stream"):
-        got = getattr(cl, f"closest_hit_{kind}")(
-            _t(pack), _t(c8), _t(o), _t(d), *lim, n_tris)
         want = getattr(cl, f"closest_{kind}_plain")(
             _t(pack), _t(o), _t(d), *lim, n_tris)
-        for a, b in zip(got, want):
-            assert torch.equal(a, b)
-        logf = torch.full((3, pack.shape[1]), -1.0)
-        got = getattr(cl, f"shadow_logsum_{kind}")(
-            _t(pack), _t(c8), logf, _t(o), _t(d), torch.full((n,), 3.0),
-            n_tris)
-        assert got.shape == (n, 3)
+        calls = [(getattr(cl, f"closest_hit_{kind}"),
+                  _closest_scene(kind, pack, c8, n_tris))]
+        if kind == "stream":
+            calls.append((cl._closest_hit_stream_before, (_t(pack), _t(c8))))
+        for fn, scene in calls:
+            got = fn(*scene, _t(o), _t(d), *lim, n_tris)
+            for a, b in zip(got, want):
+                assert torch.equal(a, b)
+        want = getattr(cl, f"shadow_logsum_{kind}_plain")(
+            _t(pack), logf, _t(o), _t(d), dist, n_tris)
+        calls = [(getattr(cl, f"shadow_logsum_{kind}"),
+                  _shadow_scene(kind, pack, c8, n_tris))]
+        if kind == "dense":
+            calls.append((cl._shadow_logsum_dense_before, (_t(pack), _t(c8))))
+        for fn, scene in calls:
+            got = fn(*scene, logf, _t(o), _t(d), dist, n_tris)
+            assert got.shape == (n, 3) and torch.equal(got, want)
+    assert box32.shape == (8, pack.shape[1] // 32)
     assert [w.launches for w in wrappers] == before
 
 
@@ -273,20 +516,38 @@ def test_cluster_wrappers_reject_bad_inputs(cases):
     pack, c8, n_tris, o, d = cases["grid2"]
     n = o.shape[0]
     pk, c, org, dirn = _t(pack), _t(c8), _t(o), _t(d)
+    box32 = _box32(pack, n_tris)
     lim = torch.zeros(n)
     with pytest.raises(ValueError, match="equal clusters"):
         cl.closest_hit_dense(pk, torch.zeros((8, 5)), org, dirn, lim, lim,
                              n_tris)
     with pytest.raises(ValueError, match="at most"):  # 12 clusters of 64
-        cl.closest_hit_stream(pk, torch.zeros((8, 12)), org, dirn, lim, lim,
-                              n_tris)
+        cl.closest_hit_stream(pk, torch.zeros((8, 12)), box32, org, dirn,
+                              lim, lim, n_tris)
     with pytest.raises(ValueError, match="n_tris"):
-        cl.closest_hit_stream(pk, c, org, dirn, lim, lim, pack.shape[1] + 1)
+        cl.closest_hit_stream(pk, c, box32, org, dirn, lim, lim,
+                              pack.shape[1] + 1)
     with pytest.raises(TypeError):
         cl.closest_hit_dense(pk, c, org.double(), dirn, lim, lim, n_tris)
     with pytest.raises(ValueError, match="rgb rows"):
         cl.shadow_logsum_stream(pk, c, torch.zeros(2, pack.shape[1]), org,
                                 dirn, lim, n_tris)
     with pytest.raises(ValueError, match="shared"):  # 6 x 1,024 columns
-        cl.shadow_logsum_dense(torch.zeros((10, 6144)), c, torch.zeros(
-            (3, 6144)), org, dirn, lim, n_tris)
+        cl.shadow_logsum_dense(torch.zeros((10, 6144)), c,
+                               torch.zeros((8, 192)), torch.zeros(
+                                   (3, 6144)), org, dirn, lim, n_tris)
+    # the quarter boxes: required, (8, T'/32), float32, and at most 32 for
+    # the warp
+    for bad in (None, box32[:, :-1].contiguous(), box32[:6].contiguous()):
+        with pytest.raises(ValueError, match="box32"):
+            cl.closest_hit_stream(pk, c, bad, org, dirn, lim, lim, n_tris)
+        with pytest.raises(ValueError, match="box32"):
+            cl.shadow_logsum_dense(pk, c, bad, torch.zeros((3, 768)), org,
+                                   dirn, lim, n_tris)
+    with pytest.raises(TypeError):
+        cl.closest_hit_stream(pk, c, box32.double(), org, dirn, lim, lim,
+                              n_tris)
+    with pytest.raises(ValueError, match="at most 32"):  # 64 quarters
+        cl.closest_hit_stream(torch.zeros((10, 2048)), torch.zeros((8, 8)),
+                              torch.zeros((8, 64)), org, dirn, lim, lim,
+                              n_tris)

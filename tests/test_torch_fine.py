@@ -493,9 +493,11 @@ def test_dispatch_boundaries(monkeypatch, n_tris, route):
     v0, e1, e2 = (x[:n_tris] for x in _soup())
     pack, cl, _ = ci.build_tri_pack(v0, e1, e2)
     sub8 = fi.sub_aabbs(pack, n_tris)
+    box32 = cx.quarter_boxes(pack, n_tris)
     arrays = {"tri_pack10": _t(pack), "stri_pack10": _t(pack),
               "tri_cluster8": _t(cl), "stri_cluster8": _t(cl),
               "tri_sub8": _t(sub8), "stri_sub8": _t(sub8),
+              "tri_box32": _t(box32), "stri_box32": _t(box32),
               "sfilt4": torch.zeros((4, pack.shape[1])),
               "sfilt4_binary": torch.zeros((4, pack.shape[1]))}
     static = SceneStatic(n_tris_real=n_tris, n_stris_real=n_tris, lights=(),
