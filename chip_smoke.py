@@ -65,7 +65,14 @@ started together) and drives the ported paths through them:
   equal to it on every batch its scene's step records (`[old_body]`), with
   its registers and the pair tests its walk makes; its bound counts the
   pairs of the quarter boxes, the old body's bound (`bound_ms_before`) those
-  of the cluster boxes.
+  of the cluster boxes;
+- slice 11, `shadow_logsum_stream` and `shadow_logsum_tiny` on the column
+  walk that `shadow_logsum_dense` takes (csrc/column_walk.cuh): the stream
+  sum over the quarter boxes, each ray until all three of its channels are
+  opaque; the tiny sum over 2-column boxes its kernel builds per block.
+  Each is held to its plain version and to the body it replaced, repeats
+  bit for bit, and is timed beside that body on its bounce-0 and bounce-1
+  launches, as slice 10's kernels are.
 Each path is rendered with every launch counter set to 0 just before it and
 read just after.  Every kernel's line carries its bound: the larger of its
 FP32 operations over the card's 67 TFLOP/s and its bytes (each input read
@@ -393,30 +400,15 @@ def check_kernels(cscene, cfg, arrays) -> list:
           plain_ms=round(plain_ms_c, 4),
           bit_equal_expected=n_diff <= 1e-4 * n_rays, **bound_c)
 
-    klg = ci.shadow_logsum_tiny(pack, logf, *shadow, st.n_stris_real)
-    torch.cuda.synchronize()
-    plg = ci.shadow_logsum_tiny_plain(pack, logf, *shadow, st.n_stris_real)
-    torch.cuda.synchronize()
-    err_s = float((torch.exp(klg) - torch.exp(plg)).abs().max())
-    if err_s > 2e-3:
-        raise AssertionError(f"shadow_logsum_tiny: transmission off by "
-                             f"{err_s} > 2e-3")
-    n_diff_s = int((klg != plg).any(dim=-1).sum())
-    kernel_s = lambda: ci.shadow_logsum_tiny(  # noqa: E731
-        pack, logf, *shadow, st.n_stris_real)
-    ms_s = device_ms(kernel_s, calls=20)
-    call_ms_s = call_ms(kernel_s, calls=20)
-    plain_ms_s = device_ms(lambda: ci.shadow_logsum_tiny_plain(
-        pack, logf, *shadow, st.n_stris_real), calls=2)
-    n_sh = shadow[0].shape[0]
-    pairs_s = n_sh * st.n_stris_real
-    bound_s = bound(MT_OPS * pairs_s, nbytes(pack, logf, *shadow, klg),
-                    pair_tests=pairs_s)
-    phase("kernel", name="shadow_logsum_tiny", rays=n_sh,
-          live=int((shadow[2] > 0).sum()), differ=n_diff_s,
-          max_abs_err=err_s, tolerance="transmission atol 2e-3",
-          ms=round(ms_s, 4), call_ms=round(call_ms_s, 4),
-          plain_ms=round(plain_ms_s, 4), **bound_s)
+    tiny = check_tiny_shadow(pack, logf, shadow, st.n_stris_real)
+    # one step's shadow_logsum_tiny calls, recorded through the module
+    # attribute the engine calls, shadow_transmission_tiny
+    trans = step_calls(cscene, cfg, ci, ("shadow_transmission_tiny",))[2]
+    calls = [(pk, ci.log_filter(f4), *rays) for pk, f4, *rays in
+             trans["shadow_transmission_tiny"]]
+    bounce = check_tiny_shadow(*calls[1][:2], calls[1][2:5], calls[1][5],
+                               rays="bounce-1 NEE")
+    check_old_body("shadow_logsum_tiny", calls)
     return [
         dict(name="closest_hit_tiny", route="cuda",
              source=SRC.format("tiny_intersect"),
@@ -424,9 +416,86 @@ def check_kernels(cscene, cfg, arrays) -> list:
              plain_ms=plain_ms_c, **bound_c),
         dict(name="shadow_logsum_tiny", route="cuda",
              source=SRC.format("tiny_intersect"),
-             replaces=PALLAS.format(2281), max_abs_err=err_s, ms=ms_s,
-             plain_ms=plain_ms_s, **bound_s),
+             replaces=PALLAS.format(2281),
+             max_abs_err=max(tiny["err"], bounce["err"]), **before_keys(
+                 tiny, bounce), **tiny["bound"]),
     ]
+
+
+def check_tiny_shadow(pack, logf, shadow, n_tris: int,
+                      rays: str = "bounce-0 NEE") -> dict:
+    """shadow_logsum_tiny against its plain version (transmission atol
+    2e-3; bit for bit, and again on a second call: the sum adds in the
+    plain version's order) and beside the one-thread body it replaced on
+    the same rays (ms_before).  Its bound counts what each ray needs on the
+    2-column boxes its kernel builds (ci.tiny_boxes): the real columns of
+    the groups its segment enters and a test of every real box for each
+    live ray; pair_tests_made counts what its walk tests (a thread's rays
+    share their groups), bound_ms_before every column for every ray (the
+    one-thread body's work)."""
+    kernel = lambda: ci.shadow_logsum_tiny(  # noqa: E731
+        pack, logf, *shadow, n_tris)
+    klg = kernel()
+    torch.cuda.synchronize()
+    plg = ci.shadow_logsum_tiny_plain(pack, logf, *shadow, n_tris)
+    torch.cuda.synchronize()
+    err = float((torch.exp(klg) - torch.exp(plg)).abs().max())
+    if err > 2e-3:
+        raise AssertionError(f"shadow_logsum_tiny: transmission off by "
+                             f"{err} > 2e-3 ({rays})")
+    n_diff = int((klg != plg).any(dim=-1).sum())
+    repeat = int((kernel() != klg).any(dim=-1).sum())
+    if n_diff or repeat:
+        raise AssertionError(f"shadow_logsum_tiny: {n_diff} rays differ from "
+                             f"plain, {repeat} from a second call ({rays})")
+    ms = device_ms(kernel, calls=20)
+    plain_ms = device_ms(lambda: ci.shadow_logsum_tiny_plain(
+        pack, logf, *shadow, n_tris), calls=2)
+    ms_before = device_ms(old_body("shadow_logsum_tiny", (
+        pack, logf, *shadow, n_tris)), calls=20)
+    org, dirn, dist = shadow
+    boxes = torch.from_numpy(ci.tiny_boxes(pack.cpu().numpy(), n_tris)).to(
+        pack.device)
+    need = cx.cluster_pair_tests(pack, boxes, org, dirn,
+                                 *cx.shadow_limits(dist), n_tris)[0]
+    made, box_tests = cx.group_walk_pair_tests(
+        boxes, org, dirn, dist, n_tris, width=ci.TINY_GROUP,
+        rays_per_thread=ci.TINY_RAYS)
+    moved = nbytes(pack, logf, *shadow, klg)
+    n = org.shape[0]
+    before = bound(MT_OPS * n * n_tris, moved, pair_tests=n * n_tris)
+    bnd = bound(MT_OPS * need + BOX_OPS * box_tests, moved, pair_tests=need,
+                box_tests=box_tests)
+    extra = dict(repeat_differ=repeat, ms_before=ms_before,
+                 rays_per_thread=ci.TINY_RAYS, group=ci.TINY_GROUP,
+                 pair_tests_made=made, bound_ms_before=before["bound_ms"],
+                 pair_tests_before=n * n_tris,
+                 **registers("tiny_intersect", "shadow_tiny_kernel"))
+    phase("kernel", name="shadow_logsum_tiny", rays=rays, n=n,
+          live=int((dist > 0).sum()),
+          opaque=int((klg <= -80.0).all(dim=-1).sum()), differ=n_diff,
+          max_abs_err=err, tolerance="transmission atol 2e-3; equal",
+          ms=round(ms, 4), call_ms=round(call_ms(kernel, calls=20), 4),
+          plain_ms=round(plain_ms, 4), **extra, **bnd)
+    return dict(ms=ms, plain_ms=plain_ms, err=err, bound=bnd, extra=extra)
+
+
+def before_keys(first: dict, bounce: dict) -> dict:
+    """The keys of a redesigned kernel's `kernels` entry beyond the common
+    ones, from its bounce-0 and bounce-1 checks: the time of its first
+    launch, of the old body on the same rays, both on the bounce-1 launch,
+    the bounds of the two bodies, and the walk's work and registers."""
+    ex, bx = first["extra"], bounce["extra"]
+    return dict(
+        ms=first["ms"], plain_ms=first["plain_ms"], ms_bounce=bounce["ms"],
+        plain_ms_bounce=bounce["plain_ms"],
+        bound_ms_bounce=bounce["bound"]["bound_ms"],
+        ms_before=ex["ms_before"], ms_before_bounce=bx["ms_before"],
+        bound_ms_before=ex["bound_ms_before"],
+        bound_ms_before_bounce=bx["bound_ms_before"],
+        pair_tests_before=ex["pair_tests_before"],
+        pair_tests_made=ex["pair_tests_made"],
+        registers=ex["registers"])
 
 
 def check_fine_kernels(cscene, cfg, arrays) -> list:
@@ -1185,23 +1254,27 @@ def step_calls(cscene, cfg, module, names: tuple):
     return step, arrays, {n: [a for k, a in calls if k == n] for n in names}
 
 
-REDESIGNED_MID = ("closest_hit_stream", "shadow_logsum_dense")
+# the redesigned kernels, by name: the module of the wrapper and of the
+# private entry (_<name>_before) of the body its walk replaced
+REDESIGNED = {"closest_hit_stream": cx, "shadow_logsum_dense": cx,
+              "shadow_logsum_stream": cx, "shadow_logsum_tiny": ci}
 
 
 def old_body(name: str, args: tuple):
-    """The one-thread body that the walk of `name` (one of REDESIGNED_MID)
-    replaced, as a call on a recorded call's arguments less box32 (the
-    third).  Its launches are not counted."""
-    before = getattr(cx, f"_{name}_before")
-    old = args[:2] + args[3:]
+    """The body that the walk of `name` (one of REDESIGNED) replaced, as a
+    call on a recorded call's arguments (less box32, the third, for the
+    mid-size kernels).  Its launches are not counted."""
+    module = REDESIGNED[name]
+    before = getattr(module, f"_{name}_before")
+    old = args if module is ci else args[:2] + args[3:]
     return lambda: before(*old)
 
 
-def old_body_differ(name: str, calls: list) -> int:
-    """Rays of every recorded call of `name` (one of REDESIGNED_MID) whose
-    answer differs between the walk and the one-thread body it replaced:
-    both give the brute force's bits."""
-    kernel = getattr(cx, name)
+def check_old_body(name: str, calls: list) -> None:
+    """The `old_body` phase: rays of every recorded call of `name` (one of
+    REDESIGNED) whose answer differs between the walk and the body it
+    replaced, which must be 0: both give the brute force's bits."""
+    kernel = getattr(REDESIGNED[name], name)
     n = 0
     for args in calls:
         a, b = kernel(*args), old_body(name, args)()
@@ -1209,7 +1282,10 @@ def old_body_differ(name: str, calls: list) -> int:
             n += int(((a[0] != b[0]) | (a[1] != b[1])).sum())
         else:
             n += int((a != b).any(dim=-1).sum())
-    return n
+    phase("old_body", name=name, batches=len(calls), differ_vs_old_body=n)
+    if n:
+        raise AssertionError(f"{name}: {n} rays differ from the body it "
+                             "replaced")
 
 
 def check_mid_closest(kind: str, args, rays: str) -> dict:
@@ -1278,21 +1354,19 @@ def check_mid_closest(kind: str, args, rays: str) -> dict:
     return dict(ms=ms, plain_ms=plain_ms, err=err, bound=bnd, extra=extra)
 
 
-def check_mid_shadow(kind: str, args) -> dict:
-    """shadow_logsum_<kind> against its plain version on the recorded
-    bounce-0 NEE rays: transmission within atol 2e-3.  The dense kernel
-    (SHADOW_DENSE_RAYS rays a thread over the quarter boxes) must also
-    equal the plain version bit for bit (the scene's filters are binary)
-    and repeat bit for bit; ms_before times the one-thread body it
-    replaced.  Its bound counts what each ray needs: the real columns of
-    the quarters its segment enters, and a test of every real quarter box
-    for each live ray; pair_tests_made counts what its walk tests (a
-    thread's rays share their quarters), and bound_ms_before the one-thread
-    body's cluster count (pair_tests_before)."""
-    if kind == "dense":
-        pk, c8, box32, logf, org, dirn, dist, n_tris = args
-    else:
-        (pk, c8, logf, org, dirn, dist, n_tris), box32 = args, None
+def check_mid_shadow(kind: str, args, rays: str = "bounce-0 NEE") -> dict:
+    """shadow_logsum_<kind> (SHADOW_DENSE_RAYS or SHADOW_STREAM_RAYS rays a
+    thread over the quarter boxes) against its plain version on recorded
+    NEE rays: transmission within atol 2e-3, and bit for bit (the scene's
+    filters are binary), and again on a second call; ms_before times the
+    one-thread body it replaced.  Its bound counts what each ray needs:
+    the real columns of the quarters its segment enters (for the stream
+    sum, up to the one after which all three channels are opaque) and a
+    test of every real quarter box for each live ray; pair_tests_made
+    counts what its walk tests (a dense thread's rays share their
+    quarters; a stream ray tests what it needs), and bound_ms_before the
+    one-thread body's cluster count (pair_tests_before)."""
+    pk, c8, box32, logf, org, dirn, dist, n_tris = args
     kernel = getattr(cx, f"shadow_logsum_{kind}")
     plain = getattr(cx, f"shadow_logsum_{kind}_plain")
     name = f"shadow_logsum_{kind}"
@@ -1301,40 +1375,41 @@ def check_mid_shadow(kind: str, args) -> dict:
     plg, plain_ms = once_ms(lambda: plain(pk, logf, org, dirn, dist, n_tris))
     err = float((torch.exp(klg) - torch.exp(plg)).abs().max())
     if err > 2e-3:
-        raise AssertionError(f"{name}: transmission off by {err} > 2e-3")
+        raise AssertionError(f"{name}: transmission off by {err} > 2e-3 "
+                             f"({rays})")
     n_diff = int((klg != plg).any(dim=-1).sum())
+    repeat = int((kernel(*args) != klg).any(dim=-1).sum())
+    if n_diff or repeat:
+        raise AssertionError(f"{name}: {n_diff} rays differ from plain, "
+                             f"{repeat} from a second call ({rays})")
     call = lambda: kernel(*args)  # noqa: E731
     ms = device_ms(call, calls=10, replays=3)
-    pairs, boxes = cx.cluster_pair_tests(pk, c8, org, dirn,
-                                         *cx.shadow_limits(dist), n_tris)
+    lims = cx.shadow_limits(dist)
+    pairs, boxes = cx.cluster_pair_tests(pk, c8, org, dirn, *lims, n_tris)
+    if kind == "dense":
+        made, q_boxes = cx.group_walk_pair_tests(box32, org, dirn, dist,
+                                                 n_tris)
+        need = cx.cluster_pair_tests(pk, box32, org, dirn, *lims, n_tris)[0]
+    else:
+        made, q_boxes = cx.stop_walk_pair_tests(pk, box32, logf, org, dirn,
+                                                dist, n_tris)
+        need = made
     moved = nbytes(pk, c8, box32, logf, org, dirn, dist, klg)
-    bnd = bound(MT_OPS * pairs + BOX_OPS * boxes, moved, pair_tests=pairs,
-                box_tests=boxes)
-    extra = {}
-    if box32 is not None:
-        again = kernel(*args)
-        made, q_boxes = cx.quarter_walk_pair_tests(box32, org, dirn, dist,
-                                                   n_tris)
-        need = cx.cluster_pair_tests(pk, box32, org, dirn,
-                                     *cx.shadow_limits(dist), n_tris)[0]
-        extra = dict(
-            repeat_differ=int((again != klg).any(dim=-1).sum()),
-            ms_before=device_ms(old_body(name, args), calls=10, replays=3),
-            rays_per_thread=cx.SHADOW_DENSE_RAYS, pair_tests_made=made,
-            bound_ms_before=bnd["bound_ms"], pair_tests_before=pairs,
-            box_tests_before=boxes,
-            **registers("cluster_intersect", "shadow_dense_kernel"))
-        bnd = bound(MT_OPS * need + BOX_OPS * q_boxes, moved,
-                    pair_tests=need, box_tests=q_boxes)
-        if n_diff or extra["repeat_differ"]:
-            raise AssertionError(f"{name}: {n_diff} rays differ from plain, "
-                                 f"{extra['repeat_differ']} from a second "
-                                 "call")
-    phase("kernel", name=name, rays="bounce-0 NEE", n=org.shape[0],
-          tris=n_tris, live=int((dist > 0).sum()),
+    before = bound(MT_OPS * pairs + BOX_OPS * boxes, moved)
+    bnd = bound(MT_OPS * need + BOX_OPS * q_boxes, moved, pair_tests=need,
+                box_tests=q_boxes)
+    extra = dict(
+        repeat_differ=repeat,
+        ms_before=device_ms(old_body(name, args), calls=10, replays=3),
+        rays_per_thread=getattr(cx, f"SHADOW_{kind.upper()}_RAYS"),
+        pair_tests_made=made,
+        bound_ms_before=before["bound_ms"], pair_tests_before=pairs,
+        box_tests_before=boxes,
+        **registers("cluster_intersect", f"shadow_{kind}_kernel"))
+    phase("kernel", name=name, rays=rays, n=org.shape[0], tris=n_tris,
+          live=int((dist > 0).sum()),
           opaque=int((klg <= -80.0).all(dim=-1).sum()), differ=n_diff,
-          max_abs_err=err, tolerance="transmission atol 2e-3"
-          + ("; equal" if box32 is not None else ""),
+          max_abs_err=err, tolerance="transmission atol 2e-3; equal",
           ms=round(ms, 4), call_ms=round(call_ms(call, calls=10), 4),
           plain_ms=round(plain_ms, 4), plain="one eager call", **extra,
           **bnd)
@@ -1400,14 +1475,10 @@ def mid_phases(scenes: str, smi) -> list:
         prim = check_mid_closest(kind, calls[names[0]][0], "primary")
         bounce = check_mid_closest(kind, calls[names[0]][1], "bounce 1")
         shad = check_mid_shadow(kind, calls[names[1]][0])
+        shad_b = check_mid_shadow(kind, calls[names[1]][1], "bounce-1 NEE")
         for name in names:
-            if name in REDESIGNED_MID:
-                n_old = old_body_differ(name, calls[name])
-                phase("old_body", name=name, batches=len(calls[name]),
-                      differ_vs_old_body=n_old)
-                if n_old:
-                    raise AssertionError(f"{name}: {n_old} rays differ from "
-                                         "the one-thread body")
+            if name in REDESIGNED:
+                check_old_body(name, calls[name])
         del calls
 
         res, launches = counted(
@@ -1427,32 +1498,21 @@ def mid_phases(scenes: str, smi) -> list:
 
         src = SRC.format("cluster_intersect")
         line = PALLAS.format(308 if kind == "dense" else 592)
-        before = {}
-        if prim["extra"]:
-            before = dict(
-                ms_before=prim["extra"]["ms_before"],
-                ms_before_bounce=bounce["extra"]["ms_before"],
-                bound_ms_before=prim["extra"]["bound_ms_before"],
-                bound_ms_before_bounce=bounce["extra"]["bound_ms_before"],
-                pair_tests_before=prim["extra"]["pair_tests_before"],
-                registers=prim["extra"]["registers"])
+        times = (before_keys(prim, bounce) if prim["extra"] else dict(
+            ms=prim["ms"], plain_ms=prim["plain_ms"], ms_bounce=bounce["ms"],
+            plain_ms_bounce=bounce["plain_ms"],
+            bound_ms_bounce=bounce["bound"]["bound_ms"]))
         kernels.append(dict(
             name=names[0], route="cuda", source=src, replaces=line,
             launches=launches[names[0]], max_abs_err=max(prim["err"],
                                                          bounce["err"]),
-            ms=prim["ms"], plain_ms=prim["plain_ms"],
-            ms_bounce=bounce["ms"], plain_ms_bounce=bounce["plain_ms"],
-            bound_ms_bounce=bounce["bound"]["bound_ms"], **before,
-            **prim["bound"]))
-        before = {k: shad["extra"][k] for k in (
-            "ms_before", "bound_ms_before", "pair_tests_before",
-            "pair_tests_made", "registers") if shad["extra"]}
+            **times, **prim["bound"]))
         kernels.append(dict(
             name=names[1], route="cuda", source=src,
             replaces=PALLAS.format(353 if kind == "dense" else 693),
-            launches=launches[names[1]], max_abs_err=shad["err"],
-            ms=shad["ms"], plain_ms=shad["plain_ms"], **before,
-            **shad["bound"]))
+            launches=launches[names[1]],
+            max_abs_err=max(shad["err"], shad_b["err"]),
+            **before_keys(shad, shad_b), **shad["bound"]))
     return kernels
 
 

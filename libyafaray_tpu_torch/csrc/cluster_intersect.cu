@@ -11,63 +11,64 @@
 //                            than 8 sub-clusters): the same function, walked
 //                            front to back
 //   shadow_stream_kernel  <- _shadow_kernel_stream: the same sum floored at
-//                            -80, with the opaque early exit
+//                            -80
 // with the per-pair math of _mt_tile (Moller-Trumbore, its operation order).
 //
 // The function, not the TPU schedule.  The TPU kernels build per-512-ray
 // block cluster lists, sort them by the block's nearest entry and stream
 // (16, 128) tiles through a two-slot DMA pipeline.  Here a 256-thread block
-// stages the whole pack once into shared memory (9 geometry rows, plus the 3
-// log-filter rows for shadows: at most 43 KB at 896 columns), and every
-// pack read is a shared-memory read.
+// stages the whole pack once into shared memory (at most 43 KB at 896
+// columns), and every pack read is a shared-memory read.
 //
-// closest_dense_kernel and shadow_stream_kernel: one thread owns one ray, so
-// every thread of a warp reads the same column as a broadcast.  The dense
-// closest hit visits the clusters in index order and skips one whose box the
-// ray cannot enter nearer than its best hit.  The stream shadow sum computes
-// the ray's entry into each entered cluster box in registers, sorts the
-// entries (insertion sort, at most MAX_CL) and walks them nearest first,
-// stopping once all three channels are opaque (<= -80).
+// closest_dense_kernel: one thread owns one ray, so every thread of a warp
+// reads the same column as a broadcast; it visits the clusters in index
+// order and skips one whose box the ray cannot enter nearer than its best
+// hit.
 //
-// shadow_dense_kernel: R = DENSE_RAYS neighbouring rays a thread.  The pack
-// and its log filters are staged column-major, 12 floats a column (v0 | e1 |
-// e2 | log filter rgb), so a thread reads a column with three 16-byte
-// broadcast loads and tests it against all R of its rays: the loads and the
-// loop's overhead are spread over R pairs, and a pair stops once det or u
-// rules it out (mt_core<true>).  R = 2 measured fastest of 1 to 4 on an
-// H100 (PERF.md).  The thread first tests its rays against the
-// 32-column quarter boxes (box32) and walks a quarter only if one of them
-// enters it; inside, each ray adds a column's log filters where its own test
-// passes.  A quarter that a ray's box test would have culled holds no
-// crossing of that ray, so testing it changes nothing: every ray's sum is
-// the brute force's, its terms added in rising column order from 0 with no
-// floor and no early exit, as in the reference's _shadow_kernel.  The walk
-// takes any staged column table and any set of quarters, so the tiny-scene
-// sum (one quarter or two, no boxes) can run on it too.
+// shadow_dense_kernel and shadow_stream_kernel: the column walk of
+// column_walk.cuh over the pack staged column-major and its 32-column
+// quarter boxes (box32), R neighbouring rays a thread.  The thread tests
+// each ray against the quarter boxes and walks the quarters in rising
+// order; each ray adds a column's log filters where its own test passes, so
+// every sum is the brute force's with its terms in rising column order.
+// The dense sum has no floor and no early exit, as in the reference's
+// _shadow_kernel: a thread walks the quarters one of its rays enters, every
+// ray testing each; R = DENSE_RAYS = 2 measured fastest of 1 to 4 on an
+// H100 (PERF.md).  The stream sum is floored at -80 once, at the end, which
+// equals the reference's floor after each cluster because every log filter
+// is <= 0; a ray tests only the quarters it enters, and stops once all
+// three of its channels are <= -80 (its floored result is then fixed).  One
+// channel at -80 stops nothing.  Its rays enter more of their pack's 13-28
+// quarters, and differently, than the dense rays do the 3-12 of theirs:
+// with R = STREAM_RAYS = 1 a thread walks one ray's quarters, not the union
+// of two, and the warp's threads diverge less (faster than R = 2 on an
+// H100, PERF.md).
 //
 // closest_stream_kernel: one warp a ray (the design of closest_fine_kernel
 // in fine_intersect.cu on a pack staged per block, with the warp-walk
 // primitives of warp_walk.cuh).  A stream pack has at most 8 clusters of 128
 // columns, so at most 32 quarter boxes: lane q tests quarter q against the
-// ray's interval [tmin, tmax] and keeps its entry in a register.  The warp visits the entered quarters nearest entry first (one
-// warp-wide minimum a pick, ties to the lower quarter); on a visit lane l
-// tests column 32q + l, so every lane has one pair and reads its own bank.
-// After each visit the lanes' best t is reduced, and the walk stops once the
-// next entry lies strictly beyond min(tmax, best t): a quarter entered at
-// exactly the best t is still visited, so an exact tie keeps the lowest
-// column.  Each lane keeps the lexicographic minimum (t, column) of its
-// hits, reduced over the lanes at the end: the answer does not depend on the
-// visit order.  The blocks loop over the rays (eight at a time, one a warp),
-// so each stages the pack once for many rays.
+// ray's interval [tmin, tmax] and keeps its entry in a register.  The warp
+// visits the entered quarters nearest entry first (one warp-wide minimum a
+// pick, ties to the lower quarter); on a visit lane l tests column 32q + l,
+// so every lane has one pair and reads its own bank.  After each visit the
+// lanes' best t is reduced, and the walk stops once the next entry lies
+// strictly beyond min(tmax, best t): a quarter entered at exactly the best
+// t is still visited, so an exact tie keeps the lowest column.  Each lane
+// keeps the lexicographic minimum (t, column) of its hits, reduced over the
+// lanes at the end: the answer does not depend on the visit order.  The
+// blocks loop over the rays (eight at a time, one a warp), so each stages
+// the pack once for many rays.
 //
 // The bodies these replaced are kept, for chip_smoke.py to time beside them
 // on the same inputs (their own entries, *_before_launch, which no path
-// calls):
-//   closest_stream_thread_kernel: one thread a ray over the cluster boxes
-//     sorted by entry (insertion sort, at most MAX_CL), stopping at the first
-//     box entered beyond its best t;
-//   shadow_dense_thread_kernel: one thread a ray over the clusters in index
-//     order, skipping the boxes its segment does not enter.
+// calls), one thread a ray over the cluster boxes (cl8):
+//   closest_stream_thread_kernel: the boxes sorted by entry (insertion sort,
+//     at most MAX_CL), stopping at the first box entered beyond its best t;
+//   shadow_dense_thread_kernel: the clusters in index order, skipping the
+//     boxes its segment does not enter;
+//   shadow_stream_thread_kernel: the entered boxes sorted by entry, stopping
+//     once all three channels are opaque (<= -80).
 //
 // Exactness against the plain brute force of ops/cluster_intersect.py:
 // * Boxes are widened by 1e-5 of the largest magnitude among their faces and
@@ -80,14 +81,13 @@
 //   kernel keeps the first-visited column on an exact tie; the t is the
 //   same.)
 // * Shadows: every log filter is <= 0, so the running sum only falls; the
-//   stream kernel's one floor at the end equals the reference's per-cluster
-//   floor, and once all three channels are <= -80 the result is -80.  The
-//   dense sum has no floor and no early exit, as in the reference.
+//   stream sum's one floor at the end equals the reference's per-cluster
+//   floor, and once all three channels are <= -80 the result is -80.
 //
 // What bounds it on the H100: FP32 instructions of the Moller-Trumbore tests
 // (45 operations per ray-triangle pair, -fmad=false, IEEE division); the
-// bytes are the rays (28-32 B each) and the outputs.  shadow_dense_kernel
-// issues little beside the tests.  closest_stream_kernel tests few pairs a
+// bytes are the rays (28-32 B each) and the outputs.  The shadow walks
+// run little beside the tests.  closest_stream_kernel tests few pairs a
 // ray (two to four quarters), and its per-visit warp minima, integer work,
 // cost about as much as the tests themselves.
 //
@@ -97,6 +97,7 @@
 #include <cuda_runtime.h>
 #include <math.h>
 
+#include "column_walk.cuh"
 #include "warp_walk.cuh"
 
 #define THREADS 256
@@ -104,31 +105,12 @@
 #define MAX_CL 8            // clusters a stream kernel sorts in registers
 #define QUARTER 32          // columns of a quarter box (the box32 table)
 #define MAX_QUARTERS 32     // quarter boxes closest_stream_kernel holds
-#define TAB 12              // floats a staged shadow_dense_kernel column
 #define DENSE_RAYS 2        // rays a thread of shadow_dense_kernel owns
+#define STREAM_RAYS 1       // rays a thread of shadow_stream_kernel owns
 #define MAX_SMEM 232448     // shared memory a block may use on Hopper
 #define STATIC_SMEM 49152   // above this only after cudaFuncSetAttribute
 
 namespace {
-
-struct Ray {
-  float o[3], d[3], iv[3], pad[3];
-};
-
-__device__ __forceinline__ Ray make_ray(const float (&o)[3],
-                                        const float (&d)[3]) {
-  Ray r;
-  for (int a = 0; a < 3; ++a) {
-    r.o[a] = o[a];
-    r.d[a] = d[a];
-    // _inv_dir: |d| < 1e-12 -> +-1e-12 before inverting
-    const float eps = (float)1e-12;
-    const float dd = fabsf(d[a]) < eps ? (d[a] < 0.0f ? -eps : eps) : d[a];
-    r.iv[a] = 1.0f / dd;
-    r.pad[a] = (float)1e-5 * fabsf(o[a]);
-  }
-  return r;
-}
 
 __device__ __forceinline__ Ray load_ray(const float* __restrict__ org,
                                         const float* __restrict__ dir,
@@ -136,59 +118,6 @@ __device__ __forceinline__ Ray load_ray(const float* __restrict__ org,
   const float o[3] = {org[3 * i], org[3 * i + 1], org[3 * i + 2]};
   const float d[3] = {dir[3 * i], dir[3 * i + 1], dir[3 * i + 2]};
   return make_ray(o, d);
-}
-
-// Entry of the ray's interval [lo, hi] into box j of a row-major (6, w)
-// table (rows lo xyz | hi xyz), widened as the header says; +inf if the
-// interval misses it.
-__device__ __forceinline__ float box_entry(const float* box, int w, int j,
-                                           const Ray& r, float lo, float hi) {
-  float enter = lo, exit_ = hi;
-  for (int a = 0; a < 3; ++a) {
-    const float bl = box[a * w + j];
-    const float bh = box[(a + 3) * w + j];
-    const float pad = fmaxf(r.pad[a],
-                            (float)1e-5 * fmaxf(fabsf(bl), fabsf(bh)));
-    const float t0 = (bl - pad - r.o[a]) * r.iv[a];
-    const float t1 = (bh + pad - r.o[a]) * r.iv[a];
-    enter = fmaxf(enter, fminf(t0, t1));
-    exit_ = fminf(exit_, fmaxf(t0, t1));
-  }
-  return enter <= exit_ ? enter : INFINITY;
-}
-
-// Moller-Trumbore test of one triangle (v0, e1, e2) against a ray (o, d) in
-// the operation order of _mt_tile; returns det/barycentric validity, t in
-// *t.  With kCut it returns false as soon as det or u rules the pair out
-// (u outside [0, 1]: with v >= 0, u + v <= 1 fails too), before q, v and
-// t: the same answer in fewer instructions where most pairs miss.
-template <bool kCut>
-__device__ __forceinline__ bool mt_core(float v0x, float v0y, float v0z,
-                                        float e1x, float e1y, float e1z,
-                                        float e2x, float e2y, float e2z,
-                                        const float (&o)[3],
-                                        const float (&d)[3], float* t) {
-  const float ox = o[0], oy = o[1], oz = o[2];
-  const float dx = d[0], dy = d[1], dz = d[2];
-  const float eps = (float)1e-12;
-  const float px = dy * e2z - dz * e2y;
-  const float py = dz * e2x - dx * e2z;
-  const float pz = dx * e2y - dy * e2x;
-  const float det = px * e1x + py * e1y + pz * e1z;
-  const float inv = 1.0f / (fabsf(det) < eps ? 1.0f : det);
-  const float tx = ox - v0x;
-  const float ty = oy - v0y;
-  const float tz = oz - v0z;
-  const float u = (tx * px + ty * py + tz * pz) * inv;
-  if constexpr (kCut) {
-    if (!((fabsf(det) > eps) & (u >= 0.0f) & (u <= 1.0f))) return false;
-  }
-  const float qx = ty * e1z - tz * e1y;
-  const float qy = tz * e1x - tx * e1z;
-  const float qz = tx * e1y - ty * e1x;
-  const float v = (dx * qx + dy * qy + dz * qz) * inv;
-  *t = (e2x * qx + e2y * qy + e2z * qz) * inv;
-  return (fabsf(det) > eps) & (u >= 0.0f) & (v >= 0.0f) & (u + v <= 1.0f);
 }
 
 // mt_core on column k of the staged rows (row stride w).
@@ -372,113 +301,61 @@ __device__ __forceinline__ void shadow_body(const Scene& s,
   lg_out[3 * i + 2] = lb;
 }
 
-// ---- shadow_dense_kernel: R rays a thread over the staged columns --------
+// ---- shadow_dense_kernel, shadow_stream_kernel: R rays a thread ----------
 
-// Stage the (10, w) pack's geometry rows and the (>= 3, w) log-filter rows
-// column-major: tab[12 k + r] holds row r (0-8 v0 | e1 | e2, 9-11 the log
-// filters r g b) of column k, three 16-byte words a column.
-__device__ __forceinline__ void stage_columns(float* tab,
-                                              const float* __restrict__ pack,
-                                              const float* __restrict__ logf,
-                                              int w) {
-  for (int i = threadIdx.x; i < TAB * w; i += blockDim.x) {
-    const int r = i / w;
-    const int k = i - r * w;
-    tab[TAB * k + r] = r < 9 ? pack[i] : logf[i - 9 * w];
+// The column walk over the staged pack and its quarter boxes (box32, n_q
+// of them), R rays a thread; with kStop the stream sum's opaque stop and
+// its floor.  Thread t of block b owns rays (b * THREADS + t) * R + j,
+// j < R.
+template <int R, bool kStop>
+__device__ __forceinline__ void shadow_quarters(
+    const Scene& s, const float* __restrict__ box32, int n_q,
+    const float* __restrict__ org, const float* __restrict__ dir,
+    const float* __restrict__ dist, int n, float* __restrict__ lg_out) {
+  extern __shared__ float4 sm4[];
+  float* tab = reinterpret_cast<float*>(sm4);
+  float* qbox = tab + TAB * s.pack_w;
+  stage_columns(tab, s.pack, s.pack_w, s.logf, s.pack_w, s.pack_w);
+  stage_boxes(qbox, box32, n_q);
+  __syncthreads();
+  const long long i0 =
+      ((long long)blockIdx.x * blockDim.x + threadIdx.x) * R;
+  if (i0 >= n) return;
+  float o[R][3], d[R][3], hi[R], acc[R][3];
+  load_segments<R>(org, dir, dist, i0, n, o, d, hi, acc);
+  const int q_real = (s.n_tris + QUARTER - 1) / QUARTER;
+  for (int q0 = 0; q0 < q_real; q0 += 32) {
+    unsigned enter[R];
+    enter_groups<R>(qbox, n_q, q0, min(32, q_real - q0), o, d, hi, enter);
+    sum_groups<R, QUARTER, kStop>(sm4, s.n_tris, q0, enter, o, d, hi, acc);
   }
-}
-
-// Add to each of R segments (origin o[j], direction d[j], interval
-// (SHADOW_LO, hi[j])) the log filters of the columns it crosses among
-// [32 q, min(32 q + 32, n_tris)) for each quarter q = q0 + b whose bit b is
-// set in `quarters`, quarters and columns in rising order.  tab holds the
-// columns as stage_columns lays them out.  Each column is read once (three
-// broadcast 16-byte loads) for all R segments.
-template <int R>
-__device__ __forceinline__ void sum_quarters(const float4* __restrict__ tab,
-                                             int n_tris, int q0,
-                                             unsigned quarters,
-                                             const float (&o)[R][3],
-                                             const float (&d)[R][3],
-                                             const float (&hi)[R],
-                                             float (&acc)[R][3]) {
-  const float lo = (float)5e-4;
-  while (quarters) {
-    const int q = q0 + __ffs(quarters) - 1;
-    quarters &= quarters - 1;
-    const int k1 = min((q + 1) * QUARTER, n_tris);
-    for (int k = q * QUARTER; k < k1; ++k) {
-      const float4 a = tab[3 * k], b = tab[3 * k + 1], c = tab[3 * k + 2];
+  if constexpr (kStop) {
 #pragma unroll
-      for (int j = 0; j < R; ++j) {
-        float t;
-        const bool ok = mt_core<true>(a.x, a.y, a.z, a.w, b.x, b.y, b.z,
-                                      b.w, c.x, o[j], d[j], &t);
-        if (ok && t > lo && t < hi[j]) {
-          acc[j][0] += c.y;
-          acc[j][1] += c.z;
-          acc[j][2] += c.w;
-        }
-      }
+    for (int j = 0; j < R; ++j) {
+      for (int a = 0; a < 3; ++a) acc[j][a] = fmaxf(acc[j][a], LOG_FLOOR);
     }
   }
+  store_sums<R>(lg_out, i0, n, acc);
 }
 
-// Thread t of block b owns rays (b * THREADS + t) * R + j, j < R.
 __global__ void __launch_bounds__(THREADS)
 shadow_dense_kernel(Scene s, const float* __restrict__ box32, int n_q,
                     const float* __restrict__ org,
                     const float* __restrict__ dir,
                     const float* __restrict__ dist, int n,
                     float* __restrict__ lg_out) {
-  extern __shared__ float4 sm4[];
-  float* tab = reinterpret_cast<float*>(sm4);
-  float* qbox = tab + TAB * s.pack_w;
-  stage_columns(tab, s.pack, s.logf, s.pack_w);
-  stage_boxes(qbox, box32, n_q);
-  __syncthreads();
-  constexpr int R = DENSE_RAYS;
-  const long long i0 =
-      ((long long)blockIdx.x * blockDim.x + threadIdx.x) * R;
-  if (i0 >= n) return;
-  float o[R][3], d[R][3], hi[R], acc[R][3];
-#pragma unroll
-  for (int j = 0; j < R; ++j) {
-    const long long i = i0 + j;
-    const bool has = i < n;
-    for (int a = 0; a < 3; ++a) {
-      o[j][a] = has ? org[3 * i + a] : 0.0f;
-      d[j][a] = has ? dir[3 * i + a] : 0.0f;
-      acc[j][a] = 0.0f;
-    }
-    // past the batch: an empty interval, as a dead ray (dist < 0) has
-    hi[j] = has ? dist[i] * (float)(1.0 - 1e-4) - (float)5e-4 : -1.0f;
-  }
-  const float lo = (float)5e-4;
-  const int q_real = (s.n_tris + QUARTER - 1) / QUARTER;
-  for (int q0 = 0; q0 < q_real; q0 += 32) {
-    const int nb = min(32, q_real - q0);
-    unsigned quarters = 0;  // the quarters one of the thread's rays enters
-#pragma unroll
-    for (int j = 0; j < R; ++j) {
-      if (!(lo <= hi[j])) continue;
-      const Ray r = make_ray(o[j], d[j]);
-      for (int b = 0; b < nb; ++b) {
-        if (box_entry(qbox, n_q, q0 + b, r, lo, hi[j]) < INFINITY)
-          quarters |= 1u << b;
-      }
-    }
-    sum_quarters<R>(sm4, s.n_tris, q0, quarters, o, d, hi, acc);
-  }
-#pragma unroll
-  for (int j = 0; j < R; ++j) {
-    const long long i = i0 + j;
-    if (i < n) {
-      lg_out[3 * i] = acc[j][0];
-      lg_out[3 * i + 1] = acc[j][1];
-      lg_out[3 * i + 2] = acc[j][2];
-    }
-  }
+  shadow_quarters<DENSE_RAYS, false>(s, box32, n_q, org, dir, dist, n,
+                                     lg_out);
+}
+
+__global__ void __launch_bounds__(THREADS)
+shadow_stream_kernel(Scene s, const float* __restrict__ box32, int n_q,
+                     const float* __restrict__ org,
+                     const float* __restrict__ dir,
+                     const float* __restrict__ dist, int n,
+                     float* __restrict__ lg_out) {
+  shadow_quarters<STREAM_RAYS, true>(s, box32, n_q, org, dir, dist, n,
+                                     lg_out);
 }
 
 // ---- closest_stream_kernel: one warp a ray over the quarter boxes --------
@@ -570,10 +447,12 @@ __global__ void shadow_dense_thread_kernel(Scene s,
   shadow_body<false>(s, org, dir, dist, n, lg_out);
 }
 
-__global__ void shadow_stream_kernel(Scene s, const float* __restrict__ org,
-                                     const float* __restrict__ dir,
-                                     const float* __restrict__ dist, int n,
-                                     float* __restrict__ lg_out) {
+__global__ void shadow_stream_thread_kernel(Scene s,
+                                            const float* __restrict__ org,
+                                            const float* __restrict__ dir,
+                                            const float* __restrict__ dist,
+                                            int n,
+                                            float* __restrict__ lg_out) {
   shadow_body<true>(s, org, dir, dist, n, lg_out);
 }
 
@@ -668,19 +547,22 @@ int launch_closest_stream(const Scene& s, const void* box32, int n_q,
   return (int)cudaGetLastError();
 }
 
-int launch_shadow_dense(const Scene& s, int logf_w, const void* box32,
-                        int n_q, const void* org, const void* dir,
-                        const void* dist, int n, void* lg_out, void* st) {
+// shadow_dense_kernel or shadow_stream_kernel (stream), `rays` a thread.
+template <typename K>
+int launch_shadow_quarters(K kernel, bool stream, int rays, const Scene& s,
+                           int logf_w, const void* box32, int n_q,
+                           const void* org, const void* dir, const void* dist,
+                           int n, void* lg_out, void* st) {
   const int floats = TAB * s.pack_w + 6 * n_q;
-  if (const int bad = check_scene(s, false, true)) return bad;
+  if (const int bad = check_scene(s, stream, true)) return bad;
   if (const int bad = check_quarters(s, box32, n_q, floats)) return bad;
   if (logf_w != s.pack_w) return (int)cudaErrorInvalidValue;
   const int bytes = floats * (int)sizeof(float);
-  if (const int bad = prepare(shadow_dense_kernel, bytes)) return bad;
+  if (const int bad = prepare(kernel, bytes)) return bad;
   if (n > 0) {
-    const long long per_block = (long long)THREADS * DENSE_RAYS;
+    const long long per_block = (long long)THREADS * rays;
     const int blocks = (int)((n + per_block - 1) / per_block);
-    shadow_dense_kernel<<<blocks, THREADS, bytes, (cudaStream_t)st>>>(
+    kernel<<<blocks, THREADS, bytes, (cudaStream_t)st>>>(
         s, (const float*)box32, n_q, (const float*)org, (const float*)dir,
         (const float*)dist, n, (float*)lg_out);
   }
@@ -725,24 +607,26 @@ extern "C" int shadow_logsum_dense_launch(
     void* stream) {
   const Scene s{(const float*)pack, pack_w, (const float*)cl8, n_cl, n_tris,
                 (const float*)logf};
-  return launch_shadow_dense(s, logf_w, box32, n_q, org, dir, dist, n, lg_out,
-                             stream);
+  return launch_shadow_quarters(shadow_dense_kernel, false, DENSE_RAYS, s,
+                                logf_w, box32, n_q, org, dir, dist, n, lg_out,
+                                stream);
 }
 
-extern "C" int shadow_logsum_stream_launch(const void* pack, int pack_w,
-                                           const void* cl8, int n_cl,
-                                           int n_tris, const void* logf,
-                                           int logf_w, const void* org,
-                                           const void* dir, const void* dist,
-                                           int n, void* lg_out, void* stream) {
+extern "C" int shadow_logsum_stream_launch(
+    const void* pack, int pack_w, const void* cl8, int n_cl,
+    const void* box32, int n_q, int n_tris, const void* logf, int logf_w,
+    const void* org, const void* dir, const void* dist, int n, void* lg_out,
+    void* stream) {
   const Scene s{(const float*)pack, pack_w, (const float*)cl8, n_cl, n_tris,
                 (const float*)logf};
-  return launch_shadow(shadow_stream_kernel, true, s, logf_w, org, dir, dist,
-                       n, lg_out, stream);
+  return launch_shadow_quarters(shadow_stream_kernel, true, STREAM_RAYS, s,
+                                logf_w, box32, n_q, org, dir, dist, n, lg_out,
+                                stream);
 }
 
-// The one-thread bodies closest_hit_stream_launch and
-// shadow_logsum_dense_launch replaced, over the cluster boxes alone.
+// The one-thread bodies closest_hit_stream_launch,
+// shadow_logsum_dense_launch and shadow_logsum_stream_launch replaced, over
+// the cluster boxes alone.
 extern "C" int closest_hit_stream_before_launch(
     const void* pack, int pack_w, const void* cl8, int n_cl, int n_tris,
     const void* org, const void* dir, const void* tmin, const void* tmax,
@@ -760,5 +644,15 @@ extern "C" int shadow_logsum_dense_before_launch(
   const Scene s{(const float*)pack, pack_w, (const float*)cl8, n_cl, n_tris,
                 (const float*)logf};
   return launch_shadow(shadow_dense_thread_kernel, false, s, logf_w, org, dir,
+                       dist, n, lg_out, stream);
+}
+
+extern "C" int shadow_logsum_stream_before_launch(
+    const void* pack, int pack_w, const void* cl8, int n_cl, int n_tris,
+    const void* logf, int logf_w, const void* org, const void* dir,
+    const void* dist, int n, void* lg_out, void* stream) {
+  const Scene s{(const float*)pack, pack_w, (const float*)cl8, n_cl, n_tris,
+                (const float*)logf};
+  return launch_shadow(shadow_stream_thread_kernel, true, s, logf_w, org, dir,
                        dist, n, lg_out, stream);
 }

@@ -6,20 +6,34 @@
 //   shadow_tiny_kernel   <- _shadow_kernel_tiny  (wrapper
 //                           _shadow_transmission_tiny)
 // with the per-pair math of _mt_test_scalar (Moller-Trumbore).
-//
-// Design: one thread per ray, no reduction across threads.  Each block
-// stages the n_tris x 9 floats of the (10, T) pack (rows v0|e1|e2), plus
-// the 3 log-filter rows for the shadow kernel, into shared memory once
-// (at most 3 KB), then every thread walks the triangles in column order.
 // Rays come as the engine holds them: (N, 3) contiguous org / dir and
 // (N,) tmin / tmax / dist; the TPU's (3, M, 128) tiling is not reproduced.
 //
+// closest_tiny_kernel: one thread per ray, no reduction across threads.
+// Each block stages the n_tris x 9 floats of the (10, T) pack (rows
+// v0|e1|e2) into shared memory once (at most 2.3 KB), then every thread
+// walks the triangles in column order.
+//
+// shadow_tiny_kernel: the column walk of column_walk.cuh with R = TINY_RAYS
+// neighbouring rays a thread.  A block stages the n_tris real columns
+// column-major (12 floats a column, at most 3 KB) and builds the boxes of
+// the TINY_GROUP-column groups (one box a quad of the Cornell box, at most
+// 32), each the min / max over its real columns of v0, v0 + e1 and v0 + e2
+// in float32: the table _column_boxes(pack, n_tris, TINY_GROUP) of
+// ops/cuda_intersect.py gives, built where the pack already is, so the
+// wrapper and the scene need nothing new.  A thread tests its live rays
+// against the boxes, ORs the groups they enter into one mask and walks it:
+// each ray adds a column's log filters where its own test passes, columns
+// in rising order, no floor and no early exit, as in the reference.  The
+// one-thread body it replaced stays, launched only by
+// shadow_logsum_tiny_before_launch for chip_smoke.py to time beside it.
+//
 // What bounds it on the H100: FP32 compute.  A ray-triangle test is about
-// 40 flops; the Cornell scene has 32 triangles, so a ray costs ~1300 flops
-// against 32 B read (org, dir, tmin, tmax) and 16 B written by the closest
-// kernel, far above the card's flop-per-byte balance.  This is the first,
-// untuned version: no early exit, no register tiling of several rays per
-// thread, no use of the triangle count at compile time.
+// 45 operations; a box test about 39.  The one-thread body tests every
+// column (32 on the Cornell box: ~1,400 operations a ray against 28 B read
+// and 12 B written).  A room's quads are small against its segments, so a
+// ray enters about one of the 16 quad boxes: 16 box tests and ~2 pair tests
+// in place of 32 pair tests.
 //
 // Built with -fmad=false and IEEE division (no --use_fast_math) on
 // purpose: no product is contracted into an FMA and 1/det is the correctly
@@ -33,8 +47,13 @@
 #include <cuda_runtime.h>
 #include <math.h>
 
+#include "column_walk.cuh"
+
 #define TINY_TRIS 64
 #define THREADS 256
+#define TINY_GROUP 2  // columns of a box of shadow_tiny_kernel
+#define TINY_BOXES (TINY_TRIS / TINY_GROUP)
+#define TINY_RAYS 2   // rays a thread of shadow_tiny_kernel owns
 
 namespace {
 
@@ -110,7 +129,59 @@ __global__ void closest_tiny_kernel(
   v_out[i] = best_v;
 }
 
-__global__ void shadow_tiny_kernel(
+// Box b of the (6, TINY_BOXES) table `box`: lo xyz | hi xyz of v0, v0 + e1
+// and v0 + e2 over the real columns of group b (columns TINY_GROUP b on,
+// below n_tris), in float32 as _column_boxes rounds them; one box a thread.
+__device__ __forceinline__ void build_boxes(float* box,
+                                            const float* __restrict__ pack,
+                                            int w, int n_tris) {
+  const int b = threadIdx.x;
+  if (b >= (n_tris + TINY_GROUP - 1) / TINY_GROUP) return;
+  const int k1 = min((b + 1) * TINY_GROUP, n_tris);
+  for (int a = 0; a < 3; ++a) {
+    float lo = INFINITY, hi = -INFINITY;
+    for (int k = b * TINY_GROUP; k < k1; ++k) {
+      const float v0 = pack[a * w + k];
+      const float p1 = v0 + pack[(a + 3) * w + k];
+      const float p2 = v0 + pack[(a + 6) * w + k];
+      lo = fminf(lo, fminf(fminf(v0, p1), p2));
+      hi = fmaxf(hi, fmaxf(fmaxf(v0, p1), p2));
+    }
+    box[a * TINY_BOXES + b] = lo;
+    box[(a + 3) * TINY_BOXES + b] = hi;
+  }
+}
+
+// Thread t of block b owns rays (b * THREADS + t) * R + j, j < R.
+__global__ void __launch_bounds__(THREADS)
+shadow_tiny_kernel(const float* __restrict__ pack, int pack_w,
+                   const float* __restrict__ logf, int logf_w, int n_tris,
+                   const float* __restrict__ org,
+                   const float* __restrict__ dir,
+                   const float* __restrict__ dist, int n,
+                   float* __restrict__ lg_out) {
+  __shared__ float4 tab[3 * TINY_TRIS];
+  __shared__ float box[6 * TINY_BOXES];
+  stage_columns(reinterpret_cast<float*>(tab), pack, pack_w, logf, logf_w,
+                n_tris);
+  build_boxes(box, pack, pack_w, n_tris);
+  __syncthreads();
+  constexpr int R = TINY_RAYS;
+  const long long i0 =
+      ((long long)blockIdx.x * blockDim.x + threadIdx.x) * R;
+  if (i0 >= n) return;
+  float o[R][3], d[R][3], hi[R], acc[R][3];
+  load_segments<R>(org, dir, dist, i0, n, o, d, hi, acc);
+  unsigned enter[R];
+  enter_groups<R>(box, TINY_BOXES, 0, (n_tris + TINY_GROUP - 1) / TINY_GROUP,
+                  o, d, hi, enter);
+  sum_groups<R, TINY_GROUP, false>(tab, n_tris, 0, enter, o, d, hi, acc);
+  store_sums<R>(lg_out, i0, n, acc);
+}
+
+// ---- the one-thread body shadow_tiny_kernel replaced ----------------------
+
+__global__ void shadow_tiny_thread_kernel(
     const float* __restrict__ pack, int pack_w, const float* __restrict__ logf,
     int logf_w, int n_tris, const float* __restrict__ org,
     const float* __restrict__ dir, const float* __restrict__ dist, int n,
@@ -175,8 +246,29 @@ extern "C" int shadow_logsum_tiny_launch(const void* pack, int pack_w,
     return (int)cudaErrorInvalidValue;
   }
   if (n > 0) {
-    const int blocks = (n + THREADS - 1) / THREADS;
+    const long long per_block = (long long)THREADS * TINY_RAYS;
+    const int blocks = (int)((n + per_block - 1) / per_block);
     shadow_tiny_kernel<<<blocks, THREADS, 0, (cudaStream_t)stream>>>(
+        (const float*)pack, pack_w, (const float*)logf, logf_w, n_tris,
+        (const float*)org, (const float*)dir, (const float*)dist, n,
+        (float*)lg_out);
+  }
+  return (int)cudaGetLastError();
+}
+
+// The one-thread body shadow_logsum_tiny_launch replaced, every column for
+// every ray.
+extern "C" int shadow_logsum_tiny_before_launch(
+    const void* pack, int pack_w, const void* logf, int logf_w, int n_tris,
+    const void* org, const void* dir, const void* dist, int n, void* lg_out,
+    void* stream) {
+  if (n_tris < 0 || n_tris > TINY_TRIS || n_tris > pack_w ||
+      n_tris > logf_w) {
+    return (int)cudaErrorInvalidValue;
+  }
+  if (n > 0) {
+    const int blocks = (n + THREADS - 1) / THREADS;
+    shadow_tiny_thread_kernel<<<blocks, THREADS, 0, (cudaStream_t)stream>>>(
         (const float*)pack, pack_w, (const float*)logf, logf_w, n_tris,
         (const float*)org, (const float*)dir, (const float*)dist, n,
         (float*)lg_out);

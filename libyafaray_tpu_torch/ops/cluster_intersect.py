@@ -19,14 +19,18 @@ dense sum has no floor on its total (as the reference's `_shadow_kernel`),
 the stream sum is floored at -80.  The reference's block lists, ray sort
 and DMA pipeline schedule the TPU and are not ported.
 
-`closest_hit_stream` and `shadow_logsum_dense` skip by the pack's 32-column
+`closest_hit_stream` and the two shadow sums skip by the pack's 32-column
 quarter boxes (`quarter_boxes`, built once per scene at compile): the
 stream closest hit gives a warp to a ray and visits its entered quarters
-nearest first, the dense shadow sum gives a thread SHADOW_DENSE_RAYS
-neighbouring rays and walks the quarters one of them enters.  The
-one-thread bodies those walks replaced are launched only by
-`_closest_hit_stream_before` and `_shadow_logsum_dense_before`, which no
-path calls: `chip_smoke.py` times them beside the walks.
+nearest first; the shadow sums give a thread SHADOW_DENSE_RAYS (dense) or
+SHADOW_STREAM_RAYS (stream) neighbouring rays and walk, in rising order,
+the quarters one of them enters (the column walk of csrc/column_walk.cuh).
+The stream sum's rays test only the quarters they enter and stop once
+opaque in all three channels.  The one-thread
+bodies those walks replaced are launched only by
+`_closest_hit_stream_before`, `_shadow_logsum_dense_before` and
+`_shadow_logsum_stream_before`, which no path calls: `chip_smoke.py` times
+them beside the walks.
 
 Each wrapper takes the plain version only for CPU tensors; for CUDA tensors
 it launches its kernel on the current stream or raises, and counts the
@@ -41,16 +45,17 @@ import torch
 
 from . import _build
 from .cuda_intersect import (LOG_FLOOR, SHADOW_TMIN, _check, _column_boxes,
-                             _raise_on, log_filter)
+                             _mt_test, _raise_on, log_filter)
 from .fine_intersect import (box_entry, closest_fine_plain, real_columns,
                              shadow_sum_plain)
 
 MAX_STREAM_CLUSTERS = 8  # clusters a stream kernel sorts in registers
 QUARTER = 32  # columns of a quarter box
 MAX_QUARTERS = 32  # quarter boxes closest_hit_stream's warp holds, one a lane
-# rays a thread of shadow_logsum_dense's kernel owns (DENSE_RAYS in
-# csrc/cluster_intersect.cu), for counting its pair tests
+# rays a thread of the shadow walks owns (DENSE_RAYS, STREAM_RAYS in
+# csrc/cluster_intersect.cu), for counting their pair tests
 SHADOW_DENSE_RAYS = 2
+SHADOW_STREAM_RAYS = 1
 _MAX_SMEM = 232448  # shared memory a block may use on Hopper
 
 
@@ -109,32 +114,71 @@ def cluster_pair_tests(pack10, cluster8, org, dirn, lo, hi,
     return pairs, org.shape[0] * cl_real
 
 
-def quarter_walk_pair_tests(box32, org, dirn, dist, n_tris: int,
-                            rays_per_thread: int = SHADOW_DENSE_RAYS,
-                            chunk: int = 1 << 18) -> tuple:
-    """(pair tests, box tests) `shadow_logsum_dense`'s walk makes: a thread
-    holds rays_per_thread consecutive rays (the last thread those left),
-    tests each live ray's segment against every real quarter box, and
-    tests all its rays against the real columns of each quarter that one
-    of its segments enters.  Counts what the kernel does on these inputs,
-    not a kernel path."""
+def group_walk_pair_tests(boxes, org, dirn, dist, n_tris: int,
+                          width: int = QUARTER,
+                          rays_per_thread: int = SHADOW_DENSE_RAYS,
+                          chunk: int = 1 << 18) -> tuple:
+    """(pair tests, box tests) the column walk without its stop makes over
+    the boxes (8, T'/width) of the pack's width-column groups
+    (`shadow_logsum_dense` on the quarter boxes, `shadow_logsum_tiny` on
+    `cuda_intersect.tiny_boxes`): a thread holds rays_per_thread
+    consecutive rays (the last thread those left), tests each live ray's
+    segment against every real box, and tests all its rays against the
+    real columns of each group that one of its segments enters.  Counts
+    what the kernel does on these inputs, not a kernel path."""
     r = rays_per_thread
     lo, hi = shadow_limits(dist)
-    q_real = -(-n_tris // QUARTER)
-    cols = real_columns(QUARTER, q_real, n_tris, org.device)
+    g_real = -(-n_tris // width)
+    cols = real_columns(width, g_real, n_tris, org.device)
     n = org.shape[0]
     pairs = 0
     for r0 in range(0, n, chunk * r):
         sl = slice(r0, r0 + chunk * r)
-        ent = torch.isfinite(box_entry(box32[:, :q_real], org[sl], dirn[sl],
+        ent = torch.isfinite(box_entry(boxes[:, :g_real], org[sl], dirn[sl],
                                        lo[sl], hi[sl]))
         m = ent.shape[0]
-        ent = torch.cat([ent, ent.new_zeros(((-m) % r, q_real))])
-        taken = ent.reshape(-1, r, q_real).any(dim=1).to(torch.int64)
+        ent = torch.cat([ent, ent.new_zeros(((-m) % r, g_real))])
+        taken = ent.reshape(-1, r, g_real).any(dim=1).to(torch.int64)
         rays = torch.full((taken.shape[0],), r, dtype=torch.int64,
                           device=org.device)
         rays[-1] = m - r * (taken.shape[0] - 1)
         pairs += int(((taken * cols).sum(dim=1) * rays).sum())
+    return pairs, int((lo <= hi).sum()) * g_real
+
+
+def stop_walk_pair_tests(pack10, box32, logf, org, dirn, dist, n_tris: int,
+                         chunk: int = 1 << 20) -> tuple:
+    """(pair tests, box tests) `shadow_logsum_stream`'s walk makes, which is
+    also what each ray needs: per ray, the real columns of the quarters its
+    segment enters, in rising order, up to and including the quarter after
+    which all three channels of its running sum (its crossings' log
+    filters, added in rising column order from 0) are <= -80; one box test
+    per real quarter for each live ray.  Counts what the kernel does on
+    these inputs, not a kernel path."""
+    lo, hi = shadow_limits(dist)
+    q_real = -(-n_tris // QUARTER)
+    cols = real_columns(QUARTER, q_real, n_tris, org.device).tolist()
+    pairs = 0
+    for r0 in range(0, org.shape[0], chunk):
+        o, d, h = org[r0:r0 + chunk], dirn[r0:r0 + chunk], hi[r0:r0 + chunk]
+        ent = torch.isfinite(box_entry(box32[:, :q_real], o, d,
+                                       lo[r0:r0 + chunk], h))
+        acc = torch.zeros((o.shape[0], 3), dtype=torch.float32,
+                          device=o.device)
+        done = torch.zeros(o.shape[0], dtype=torch.bool, device=o.device)
+        for q in range(q_real):
+            walks = ent[:, q] & ~done
+            pairs += int(walks.sum()) * cols[q]
+            k0 = QUARTER * q
+            t, _, _, ok = _mt_test(pack10, slice(k0, k0 + cols[q]),
+                                   *(o[:, a:a + 1] for a in range(3)),
+                                   *(d[:, a:a + 1] for a in range(3)))
+            crossed = (ok & (t > SHADOW_TMIN) & (t < h[:, None])
+                       & walks[:, None])
+            for c in range(cols[q]):
+                acc = acc + torch.where(crossed[:, c:c + 1],
+                                        logf[:3, k0 + c][None], 0.0)
+            done |= (acc <= LOG_FLOOR).all(dim=1)
     return pairs, int((lo <= hi).sum()) * q_real
 
 
@@ -154,12 +198,14 @@ _ARGS = {
                            _P, _P],
     "shadow_logsum_dense": [_P, _I, _P, _I, _P, _I, _I, _P, _I, _P, _P, _P,
                             _I, _P, _P],
-    "shadow_logsum_stream": [_P, _I, _P, _I, _I, _P, _I, _P, _P, _P, _I, _P,
-                             _P],
+    "shadow_logsum_stream": [_P, _I, _P, _I, _P, _I, _I, _P, _I, _P, _P, _P,
+                             _I, _P, _P],
     "closest_hit_stream_before": [_P, _I, _P, _I, _I, _P, _P, _P, _P, _I, _P,
                                   _P, _P],
     "shadow_logsum_dense_before": [_P, _I, _P, _I, _I, _P, _I, _P, _P, _P,
                                    _I, _P, _P],
+    "shadow_logsum_stream_before": [_P, _I, _P, _I, _I, _P, _I, _P, _P, _P,
+                                    _I, _P, _P],
 }
 
 
@@ -174,8 +220,8 @@ def _lib() -> ctypes.CDLL:
 
 def _check_scene(what: str, pack10, cluster8, box32, n_tris: int, device,
                  shadow: bool) -> None:
-    """Checks the scene tensors.  The stream closest hit and the dense
-    shadow sum require the quarter boxes; the other kernels, and the
+    """Checks the scene tensors.  The stream closest hit and both shadow
+    sums require the quarter boxes; the dense closest hit, and the
     one-thread bodies (what "stream_before" / "dense_before"), take
     none."""
     _check("pack10", pack10, (10, None), device)
@@ -189,7 +235,7 @@ def _check_scene(what: str, pack10, cluster8, box32, n_tris: int, device,
         raise ValueError(f"{n_cl} clusters: the stream kernels take at most "
                          f"{MAX_STREAM_CLUSTERS}")
     smem = 4 * ((12 if shadow else 9) * tp + 6 * n_cl)
-    if what == ("dense" if shadow else "stream"):
+    if what == "stream" or (shadow and what == "dense"):
         if box32 is None:
             raise ValueError("box32: the pack's quarter boxes are required "
                              "(quarter_boxes)")
@@ -260,7 +306,7 @@ def _shadow(what: str, pack10, cluster8, box32, logf, org, dirn, dist,
     lg = torch.empty((n, 3), dtype=torch.float32, device=dev)
     scene = [pack10.data_ptr(), pack10.shape[1], cluster8.data_ptr(),
              cluster8.shape[1]]
-    if what == "dense":
+    if what in ("dense", "stream"):
         scene += [box32.data_ptr(), box32.shape[1]]
     _launch(f"shadow_logsum_{what}", dev, *scene, n_tris, logf.data_ptr(),
             logf.shape[1], org.data_ptr(), dirn.data_ptr(), dist.data_ptr(),
@@ -301,9 +347,9 @@ def shadow_logsum_dense(pack10, cluster8, box32, logf, org, dirn, dist,
     columns, not floored; logf (>=3, T') holds the per-column log filter
     rows, box32 (8, T'/32) the quarter boxes (`quarter_boxes`).  All
     float32, contiguous, one device.  On the card a thread takes
-    SHADOW_DENSE_RAYS neighbouring rays and the quarters one of them
-    enters; each ray's terms are added in rising column order, the same
-    bits in every call."""
+    SHADOW_DENSE_RAYS neighbouring rays and the quarters one of them enters;
+    each ray's terms are added in rising column order, the same bits in
+    every call."""
     return _shadow("dense", pack10, cluster8, box32, logf, org, dirn, dist,
                    n_tris)
 
@@ -311,12 +357,16 @@ def shadow_logsum_dense(pack10, cluster8, box32, logf, org, dirn, dist,
 shadow_logsum_dense.launches = 0
 
 
-def shadow_logsum_stream(pack10, cluster8, logf, org, dirn, dist,
+def shadow_logsum_stream(pack10, cluster8, box32, logf, org, dirn, dist,
                          n_tris: int):
     """(N, 3) log transmission as `shadow_logsum_dense`'s, floored at -80,
-    each segment walking its cluster boxes nearest first and stopping once
-    opaque in every channel."""
-    return _shadow("stream", pack10, cluster8, None, logf, org, dirn, dist,
+    over a pack of at most MAX_STREAM_CLUSTERS clusters.  On the card a
+    thread takes SHADOW_STREAM_RAYS rays; each ray adds, in rising
+    column order, the crossings of the quarters (box32, `quarter_boxes`)
+    it enters, until all three of its channels are <= -80; the floor is
+    taken once at the end.  The same bits in every call; on filters of 0
+    or 1 the plain version's bits."""
+    return _shadow("stream", pack10, cluster8, box32, logf, org, dirn, dist,
                    n_tris)
 
 
@@ -340,6 +390,16 @@ def _shadow_logsum_dense_before(pack10, cluster8, logf, org, dirn, dist,
     return _shadow("dense_before", pack10, cluster8, None, logf, org, dirn,
                    dist, n_tris)
 
+
+def _shadow_logsum_stream_before(pack10, cluster8, logf, org, dirn, dist,
+                                 n_tris: int):
+    """`shadow_logsum_stream`'s function by the body its walk replaced, one
+    thread a ray over the entered cluster boxes sorted by entry, stopping
+    once opaque.  For timing beside the walk; no path calls it and its
+    launches are not counted."""
+    return _shadow("stream_before", pack10, cluster8, None, logf, org, dirn,
+                   dist, n_tris)
+
 # the wrappers whose launches _closest / _shadow count, bound here so a
 # caller that wraps a module attribute (to record calls) keeps the counts
 _WRAPPERS = {f.__name__: f for f in (closest_hit_dense, closest_hit_stream,
@@ -356,9 +416,9 @@ def shadow_transmission_dense(pack10, cluster8, box32, filt4, org, dirn,
                                          n_tris))
 
 
-def shadow_transmission_stream(pack10, cluster8, filt4, org, dirn, dist,
-                               n_tris: int):
+def shadow_transmission_stream(pack10, cluster8, box32, filt4, org, dirn,
+                               dist, n_tris: int):
     """(N, 3) transmission = exp(floored log sum)."""
-    return torch.exp(shadow_logsum_stream(pack10, cluster8,
+    return torch.exp(shadow_logsum_stream(pack10, cluster8, box32,
                                           log_filter(filt4), org, dirn, dist,
                                           n_tris))

@@ -6,6 +6,13 @@ Port of the tiny-scene section of libyafaray_tpu/ops/pallas_intersect.py
 the host-side pack build (`build_tri_pack`, `_pick_bt`).  The kernels live
 in csrc/tiny_intersect.cu and are built by ops/_build.py at first use.
 
+On the card the shadow sum gives a thread TINY_RAYS neighbouring rays and
+walks the TINY_GROUP-column groups whose boxes (`tiny_boxes`, which its
+kernel builds from the pack in each block) one of them enters.  The
+one-thread body that walk replaced is launched only by
+`_shadow_logsum_tiny_before`, which no path calls: `chip_smoke.py` times
+it beside the walk.
+
 Each wrapper takes the plain version only for CPU tensors; for CUDA tensors
 it launches its kernel on the current stream or raises.  Each wrapper keeps
 a plain integer `launches` counter that rises by one per kernel launch, so
@@ -24,6 +31,10 @@ TINY_TRIS = 64
 NEG_EPS = 1e-12
 SHADOW_TMIN = 5e-4
 LOG_FLOOR = -80.0  # log filter of an opaque triangle (exp -> ~1.8e-35)
+# columns of a box of the tiny shadow sum's walk and rays a thread of it owns
+# (TINY_GROUP, TINY_RAYS in csrc/tiny_intersect.cu), for counting its tests
+TINY_GROUP = 2
+TINY_RAYS = 2
 
 
 # ---- host-side pack ------------------------------------------------------
@@ -108,6 +119,14 @@ def _column_boxes(pack10: np.ndarray, n_tris: int, width: int) -> np.ndarray:
     out[0:3] = lo.reshape(3, c, width).min(axis=2)
     out[3:6] = hi.reshape(3, c, width).max(axis=2)
     return out
+
+
+def tiny_boxes(pack10: np.ndarray, n_tris: int) -> np.ndarray:
+    """(8, T'/TINY_GROUP) boxes of the pack's TINY_GROUP-column groups over
+    its real columns, as `shadow_logsum_tiny`'s kernel builds them in each
+    block (the same float32 sums, minima and maxima): for counting its
+    tests."""
+    return _column_boxes(pack10, n_tris, TINY_GROUP)
 
 
 def log_filter(filt4: torch.Tensor) -> torch.Tensor:
@@ -195,9 +214,10 @@ def _lib() -> ctypes.CDLL:
         lib.closest_hit_tiny_launch.argtypes = [
             _P, _I, _I, _P, _P, _P, _P, _I, _P, _P, _P, _P, _P]
         lib.closest_hit_tiny_launch.restype = _I
-        lib.shadow_logsum_tiny_launch.argtypes = [
-            _P, _I, _P, _I, _I, _P, _P, _P, _I, _P, _P]
-        lib.shadow_logsum_tiny_launch.restype = _I
+        for fn in (lib.shadow_logsum_tiny_launch,
+                   lib.shadow_logsum_tiny_before_launch):
+            fn.argtypes = [_P, _I, _P, _I, _I, _P, _P, _P, _I, _P, _P]
+            fn.restype = _I
     return lib
 
 
@@ -261,10 +281,7 @@ def closest_hit_tiny(pack10, org, dirn, tmin, tmax, n_tris: int):
 closest_hit_tiny.launches = 0
 
 
-def shadow_logsum_tiny(pack10, logf, org, dirn, dist, n_tris: int):
-    """(N, 3) log transmission of each segment over the first n_tris (<= 64)
-    pack columns; logf (>=3, T) holds the per-column log filter rows.
-    All float32, contiguous, one device."""
+def _shadow_tiny(entry: str, pack10, logf, org, dirn, dist, n_tris: int):
     dev = org.device
     n = org.shape[0]
     _check_pack(pack10, n_tris, dev)
@@ -280,19 +297,36 @@ def shadow_logsum_tiny(pack10, logf, org, dirn, dist, n_tris: int):
     if dev.type != "cuda":
         raise ValueError(f"shadow_logsum_tiny: unsupported device {dev}")
     lg = torch.empty((n, 3), dtype=torch.float32, device=dev)
-    lib = _lib()
+    launch = getattr(_lib(), f"{entry}_launch")
     with torch.cuda.device(dev):
         stream = torch.cuda.current_stream(dev).cuda_stream
-        code = lib.shadow_logsum_tiny_launch(
-            pack10.data_ptr(), pack10.shape[1], logf.data_ptr(),
-            logf.shape[1], n_tris, org.data_ptr(), dirn.data_ptr(),
-            dist.data_ptr(), n, lg.data_ptr(), stream)
-    shadow_logsum_tiny.launches += 1
-    _raise_on(code, "shadow_logsum_tiny")
+        code = launch(pack10.data_ptr(), pack10.shape[1], logf.data_ptr(),
+                      logf.shape[1], n_tris, org.data_ptr(), dirn.data_ptr(),
+                      dist.data_ptr(), n, lg.data_ptr(), stream)
+    if entry == "shadow_logsum_tiny":  # the one-thread body is off every path
+        shadow_logsum_tiny.launches += 1
+    _raise_on(code, entry)
     return lg
 
 
+def shadow_logsum_tiny(pack10, logf, org, dirn, dist, n_tris: int):
+    """(N, 3) log transmission of each segment over the first n_tris (<= 64)
+    pack columns; logf (>=3, T) holds the per-column log filter rows.
+    All float32, contiguous, one device.  On the card each ray's terms are
+    added in rising column order, the same bits in every call."""
+    return _shadow_tiny("shadow_logsum_tiny", pack10, logf, org, dirn, dist,
+                        n_tris)
+
+
 shadow_logsum_tiny.launches = 0
+
+
+def _shadow_logsum_tiny_before(pack10, logf, org, dirn, dist, n_tris: int):
+    """`shadow_logsum_tiny`'s function by the body its walk replaced, one
+    thread a ray over every column.  For timing beside the walk; no path
+    calls it and its launches are not counted."""
+    return _shadow_tiny("shadow_logsum_tiny_before", pack10, logf, org, dirn,
+                        dist, n_tris)
 
 
 def shadow_transmission_tiny(pack10, filt4, org, dirn, dist, n_tris: int):

@@ -144,4 +144,4 @@ def shadow_transmission(arrays: dict, static, transp_shad: bool, org, dirn,
             pack, cl, arrays["stri_box32"], filt4, org, dirn, dist,
             n_tris=n_tris)
     return cluster_intersect.shadow_transmission_stream(
-        pack, cl, filt4, org, dirn, dist, n_tris=n_tris)
+        pack, cl, arrays["stri_box32"], filt4, org, dirn, dist, n_tris=n_tris)

@@ -9,8 +9,10 @@ photon step's caustic gather and on the radiance-map precompute's first
 gather, and `nearest_flash` on the step's first final-gather lookup; the
 four mid-size kernels (`closest_hit_dense` / `shadow_logsum_dense` on the
 172-triangle scene, `closest_hit_stream` / `shadow_logsum_stream` on the
-652-triangle one) on every call one sample step of their scene makes; and,
-of one sample step of each of the five paths under `torch.profiler`, the CUDA
+652-triangle one) on every call one sample step of their scene makes, and
+beside them `shadow_logsum_tiny` on every call of one step of the Cornell
+main path (512², 64 spp); and, of one sample step of each of the six
+paths under `torch.profiler` (Cornell with the mid-size ones), the CUDA
 kernels launched, the device's busy ms and the ms of the ported kernels,
 and the photon maps' build (the preprocess of a photon image: host ms
 between synchronizes, the median of five builds, and in one more under
@@ -21,7 +23,8 @@ its costliest ops).
                                           [--same-as FILE] [--paths P,...]
 
 --paths takes a comma-separated subset of grid, pairs, photon and mid
-(default: all four); two runs compared by --same-as take the same paths.
+(default: all four; mid includes the Cornell step); two runs compared by
+--same-as take the same paths.
 
 DIR (default: the tree this script lies in) is the root of a checkout that
 holds `chip_smoke.py` and `libyafaray_tpu_torch/`; its kernels are built
@@ -73,7 +76,7 @@ CLOSE = ("flux_sum", "value_sum")
 KERNELS = ("closest_hit_fine", "shadow_logsum_fine", "pairs_closest",
            "pairs_shadow", "density_flash", "nearest_flash",
            "closest_hit_dense", "shadow_logsum_dense", "closest_hit_stream",
-           "shadow_logsum_stream")
+           "shadow_logsum_stream", "shadow_logsum_tiny")
 PATHS = ("grid", "pairs", "photon", "mid")
 
 
@@ -145,6 +148,7 @@ def main() -> None:
     sys.path.insert(0, repo)
     import chip_smoke as cs
     from libyafaray_tpu_torch.ops import cluster_intersect as cx
+    from libyafaray_tpu_torch.ops import cuda_intersect as ci
     from libyafaray_tpu_torch.ops import fine_intersect as fi
     from libyafaray_tpu_torch.ops import pairs_intersect as pi
     from libyafaray_tpu_torch.ops import photon_flash as pf
@@ -244,8 +248,34 @@ def main() -> None:
                 lambda: shadow(*args), lg, plain_lg, sample,
                 rays=org.shape[0], live=int((dist > 0).sum())))
 
+    def cornell_step():
+        """One sample step of the Cornell main path: profiled, and every
+        call of shadow_logsum_tiny timed (recorded through
+        shadow_transmission_tiny, which every tree calls by its module
+        attribute)."""
+        cscene, cfg = cs.cornell(device="cuda", **cs.MAIN)
+        name = "shadow_logsum_tiny"
+        step, arrays, calls = cs.step_calls(cscene, cfg, ci,
+                                            ("shadow_transmission_tiny",))
+        profiled("cornell", step, arrays, cfg, ("closest_tiny_kernel",
+                                                "shadow_tiny_kernel"))
+        del step, arrays
+        for vertex, (pk, filt4, org, dirn, dist, n_tris) in enumerate(
+                calls["shadow_transmission_tiny"]):
+            logf = ci.log_filter(filt4)
+            args = (pk, logf, org, dirn, dist, n_tris)
+            lg = ci.shadow_logsum_tiny(*args)
+            sample = slice(None, None, max(1, org.shape[0] // PLAIN_RAYS))
+            plain_lg = ci.shadow_logsum_tiny_plain(
+                pk, logf, *(x[sample].contiguous() for x in (org, dirn, dist)),
+                n_tris)
+            report(name, f"bounce-{vertex} NEE", shadow_row(
+                lambda: ci.shadow_logsum_tiny(*args), lg, plain_lg, sample,
+                rays=org.shape[0], live=int((dist > 0).sum())))
+
     with tempfile.TemporaryDirectory() as scenes:
         if "mid" in paths:
+            cornell_step()
             for kind, g in cs.MID:
                 mid_scene(scenes, kind, g)
         if {"grid", "pairs"} & set(paths):

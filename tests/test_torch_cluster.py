@@ -16,10 +16,14 @@ reference's own (tests/test_accel.py): hit and tri equal, t within rtol
 triangles give exactly equal t may differ in tri (the reference keeps the
 first visited cluster's column, the port the lowest column), and nowhere
 else.  The kernels themselves run only on the card; chip_smoke.py holds
-them to these plain versions there.  Here the walks of the two kernels
-that skip by the 32-column quarter boxes (`shadow_logsum_dense`: several
-rays a thread, `closest_hit_stream`: a warp a ray) are emulated in plain
-PyTorch and held to the plain versions bit for bit."""
+them to these plain versions there.  Here the walks of the kernels that
+skip by boxes of column groups are emulated in plain PyTorch and held to
+the plain versions bit for bit: `closest_hit_stream` (a warp a ray over
+the 32-column quarter boxes) and the column walk of the three shadow sums
+(csrc/column_walk.cuh: several rays a thread; `shadow_logsum_dense` and
+`shadow_logsum_stream` over the quarter boxes, the latter with its opaque
+stop, and `shadow_logsum_tiny` over 2-column boxes on the Cornell box's
+pack and a 64-triangle soup)."""
 import numpy as np
 import pytest
 import torch
@@ -33,7 +37,8 @@ from libyafaray_tpu_torch.ops import cuda_intersect as ci
 from libyafaray_tpu_torch.ops import fine_intersect as fi
 from libyafaray_tpu_torch.ops import intersect as isect
 from libyafaray_tpu_torch.scene.generate import grid_spheres_xml
-from libyafaray_tpu_torch.scene.xml_parser import parse_xml_string
+from libyafaray_tpu_torch.scene.xml_parser import (parse_xml_file,
+                                                   parse_xml_string)
 
 N_RAYS = 1024
 ROOM = 5.5
@@ -116,12 +121,10 @@ def _closest_scene(kind, pack, c8, n_tris):
     return _t(pack), _t(c8)
 
 
-def _shadow_scene(kind, pack, c8, n_tris):
+def _shadow_scene(pack, c8, n_tris):
     """The scene arguments shadow_logsum_<kind> (and shadow_transmission_
     <kind>) take before the filters."""
-    if kind == "dense":
-        return _t(pack), _t(c8), _box32(pack, n_tris)
-    return _t(pack), _t(c8)
+    return _t(pack), _t(c8), _box32(pack, n_tris)
 
 
 @pytest.mark.parametrize("grid, pack_w, n_cl", [(1, 256, 2), (2, 768, 6)])
@@ -211,7 +214,7 @@ def test_shadow_plain_matches_reference(cases, case):
     filt4[:3, :n_tris] = (rng.random((3, n_tris))
                           * (rng.random((1, n_tris)) > 0.5))
     wrapper = getattr(cl, f"shadow_transmission_{kind}")
-    tr = wrapper(*_shadow_scene(kind, pack, c8, n_tris), _t(filt4), _t(o),
+    tr = wrapper(*_shadow_scene(pack, c8, n_tris), _t(filt4), _t(o),
                  _t(d), _t(dist), n_tris).numpy()
     pli.INTERPRET = True
     try:
@@ -379,39 +382,48 @@ def test_quarter_walk_gives_the_plain_answer(cases, case):
         assert int((tied & hit).sum()) >= 3, int((tied & hit).sum())
 
 
-def _walk_dense_shadow(pk, box32, logf, o, d, dist, n_tris, r):
-    """shadow_logsum_dense's walk in plain PyTorch: a thread holds r
-    consecutive rays (the last one those left); it tests each live segment
-    against the real quarter boxes and walks, in rising order, the quarters
-    one of its segments enters; on a column every ray of the thread adds
-    the column's log filters where its own test passes, columns in rising
-    order from 0, no floor.  Returns (sums, pair tests made)."""
+def _walk_shadow(pk, boxes, width, logf, o, d, dist, n_tris, r, stop):
+    """The column walk of the shadow kernels (csrc/column_walk.cuh) in plain
+    PyTorch, over the boxes (8, T'/width) of the pack's width-column
+    groups: a thread holds r consecutive rays (the last one those left) and
+    tests each live segment against the real boxes; it walks, in rising
+    order, the groups one of its segments enters, columns in rising order,
+    and a ray adds a column's log filters where its own test passes, from 0.
+    Without `stop` every ray of the thread tests each walked group, and
+    there is no floor.  With `stop` (the stream sum) a ray tests only the
+    groups it enters; after each group a ray whose three channels are all
+    <= -80 is dropped, so a thread walks a group only if one of its rays
+    still in the walk entered it; the sum is floored at -80 at the end.
+    Returns (sums, pair tests made)."""
     n = o.shape[0]
-    q_real = -(-n_tris // cl.QUARTER)
+    g_real = -(-n_tris // width)
     lo, hi = cl.shadow_limits(dist)
-    ent = torch.isfinite(fi.box_entry(box32[:, :q_real], o, d, lo, hi))
+    ent = torch.isfinite(fi.box_entry(boxes[:, :g_real], o, d, lo, hi))
     thread = torch.arange(n) // r
-    taken = torch.zeros((-(-n // r), q_real), dtype=torch.bool)
-    for j in range(r):
-        taken[thread[j::r]] |= ent[j::r]
-    walked = taken[thread]
     acc = torch.zeros((n, 3))
+    walking = torch.ones(n, dtype=torch.bool)  # not dropped by the stop
     pairs = 0
-    for q in range(q_real):
-        idx = torch.nonzero(walked[:, q]).squeeze(1)
-        if not idx.numel():
-            continue
-        k0, k1 = cl.QUARTER * q, min(cl.QUARTER * (q + 1), n_tris)
-        t, _, _, ok = ci._mt_test(pk, slice(k0, k1),
-                                  *(o[idx, a:a + 1] for a in range(3)),
-                                  *(d[idx, a:a + 1] for a in range(3)))
-        crossed = ok & (t > ci.SHADOW_TMIN) & (t < hi[idx, None])
-        part = acc[idx]
-        for c in range(k1 - k0):
-            part = part + torch.where(crossed[:, c:c + 1],
-                                      logf[:3, k0 + c][None], 0.0)
-        acc[idx] = part
-        pairs += idx.numel() * (k1 - k0)
+    for g in range(g_real):
+        own = ent[:, g] & walking
+        walks = torch.zeros(n // r + 1, dtype=torch.int64).index_add_(
+            0, thread, own.to(torch.int64))[thread] > 0
+        idx = torch.nonzero(own if stop else walks).squeeze(1)
+        k0, k1 = width * g, min(width * (g + 1), n_tris)
+        if idx.numel():
+            t, _, _, ok = ci._mt_test(pk, slice(k0, k1),
+                                      *(o[idx, a:a + 1] for a in range(3)),
+                                      *(d[idx, a:a + 1] for a in range(3)))
+            crossed = ok & (t > ci.SHADOW_TMIN) & (t < hi[idx, None])
+            part = acc[idx]
+            for c in range(k1 - k0):
+                part = part + torch.where(crossed[:, c:c + 1],
+                                          logf[:3, k0 + c][None], 0.0)
+            acc[idx] = part
+            pairs += idx.numel() * (k1 - k0)
+        if stop:
+            walking &= ~(acc <= ci.LOG_FLOOR).all(dim=1)
+    if stop:
+        acc = torch.clamp(acc, min=ci.LOG_FLOOR)
     return acc, pairs
 
 
@@ -431,19 +443,39 @@ def _column_sum(pk, logf, o, d, dist, n_tris):
 
 def _filters(kind, n_tris, tp, rng):
     """(4, T') filter rows in pack order: 0 or 1 (`binary`, log filters 0
-    or -80: every sum exact), all 0 (`opaque`), or a random colour on half
-    of the triangles and 0 on the rest (`partial`)."""
+    or -80: every sum exact), all 0 (`opaque`), a random colour on half of
+    the triangles and 0 on the rest (`partial`), or red 0 and a random
+    green and blue on every triangle (`channel`: a segment is opaque in red
+    at its first crossing and not in the other two, so a stop on one
+    channel would drop its later crossings)."""
     filt4 = np.zeros((4, tp), np.float32)
     if kind == "binary":
         filt4[:3, :n_tris] = rng.random((1, n_tris)) > 0.5
     elif kind == "partial":
         filt4[:3, :n_tris] = (rng.random((3, n_tris))
                               * (rng.random((1, n_tris)) > 0.5))
+    elif kind == "channel":
+        filt4[1:3, :n_tris] = rng.uniform(0.3, 1.0, (2, n_tris))
     return filt4
 
 
+FILTERS = ("binary", "opaque", "partial", "channel")
+
+
+def _shadow_walk_case(pack, n_tris, o, d, kind, seed=5):
+    """Segments of the case's rays (the last 3 dropped, so a last thread
+    holds fewer than r of them; every 9th dead: an empty segment) and log
+    filters of `kind`."""
+    n = o.shape[0] - 3
+    rng = np.random.default_rng(seed)
+    dist = rng.uniform(0.5, 12.0, n).astype(np.float32)
+    dist[::9] = -1.0
+    logf = ci.log_filter(_t(_filters(kind, n_tris, pack.shape[1], rng)))
+    return logf, (_t(o[:n]), _t(d[:n]), _t(dist))
+
+
 @pytest.mark.parametrize("r", [2, 4])
-@pytest.mark.parametrize("kind", ["binary", "opaque", "partial"])
+@pytest.mark.parametrize("kind", FILTERS)
 @pytest.mark.parametrize("case", ["grid1", "soup300"])
 def test_dense_shadow_walk_gives_the_plain_sum(cases, case, kind, r):
     """shadow_logsum_dense's walk (r rays a thread, the quarter skip, each
@@ -451,33 +483,114 @@ def test_dense_shadow_walk_gives_the_plain_sum(cases, case, kind, r):
     bit for bit equal to the column-order sum with nothing skipped for
     every filter, to the plain version where every log filter is 0 or -80,
     transmission within atol 2e-3 of it otherwise; dead rays sum to 0; the
-    pair tests it makes are quarter_walk_pair_tests' count, fewer than
+    pair tests it makes are group_walk_pair_tests' count, fewer than
     the brute force's."""
     pack, _, n_tris, o, d = cases[case]
-    n = o.shape[0] - 3  # a last thread of fewer than r rays
-    rng = np.random.default_rng(5)
-    dist = rng.uniform(0.5, 12.0, n).astype(np.float32)
-    dist[::9] = -1.0  # dead lanes: empty segment
     pk, box32 = _t(pack), _box32(pack, n_tris)
-    logf = ci.log_filter(_t(_filters(kind, n_tris, pack.shape[1], rng)))
-    rays = (_t(o[:n]), _t(d[:n]), _t(dist))
-    got, pairs = _walk_dense_shadow(pk, box32, logf, *rays, n_tris, r)
+    logf, rays = _shadow_walk_case(pack, n_tris, o, d, kind)
+    n = rays[0].shape[0]
+    got, pairs = _walk_shadow(pk, box32, cl.QUARTER, logf, *rays, n_tris, r,
+                              stop=False)
     want = cl.shadow_logsum_dense_plain(pk, logf, *rays, n_tris)
     assert torch.equal(got, _column_sum(pk, logf, *rays, n_tris))
     assert (got[::9] == 0.0).all()
-    if kind == "partial":
+    if kind in ("partial", "channel"):
         assert torch.allclose(torch.exp(got), torch.exp(want), atol=2e-3)
         assert ((got < 0) & (got > -80)).any()
     else:
         assert torch.equal(got, want)
         assert (got <= -80.0).any()
-    assert pairs == cl.quarter_walk_pair_tests(box32, *rays, n_tris, r)[0]
+    assert pairs == cl.group_walk_pair_tests(box32, *rays, n_tris,
+                                             rays_per_thread=r)[0]
     assert 0 < pairs < 0.9 * n * n_tris
+
+
+@pytest.mark.parametrize("r", [1, 2])
+@pytest.mark.parametrize("kind", FILTERS)
+@pytest.mark.parametrize("case", ["grid2", "soup400"])
+def test_stream_shadow_walk_gives_the_floored_plain_sum(cases, case, kind,
+                                                        r):
+    """shadow_logsum_stream's walk (r rays a thread, each ray over the
+    quarters it enters until all three of its channels are <= -80, the
+    floor once at the end) against the brute force: bit for bit equal to
+    the floored column-order sum for every filter, to the plain version
+    where every log filter is 0 or -80, transmission within atol 2e-3 of it
+    otherwise; dead rays give 0; a ray opaque in one channel walks on.  Its
+    pair tests are stop_walk_pair_tests' count: no more than the quarters a
+    ray enters hold, fewer once rays turn opaque."""
+    pack, _, n_tris, o, d = cases[case]
+    pk, box32 = _t(pack), _box32(pack, n_tris)
+    logf, rays = _shadow_walk_case(pack, n_tris, o, d, kind)
+    got, pairs = _walk_shadow(pk, box32, cl.QUARTER, logf, *rays, n_tris, r,
+                              stop=True)
+    want = cl.shadow_logsum_stream_plain(pk, logf, *rays, n_tris)
+    full = _column_sum(pk, logf, *rays, n_tris)
+    assert torch.equal(got, torch.clamp(full, min=ci.LOG_FLOOR))
+    assert (got[::9] == 0.0).all()
+    if kind in ("partial", "channel"):
+        assert torch.allclose(torch.exp(got), torch.exp(want), atol=2e-3)
+        assert ((got < 0) & (got > -80)).any()
+    else:
+        assert torch.equal(got, want)
+    assert (got <= -80.0).all(dim=1).any() == (kind != "channel")
+    made, boxes = cl.stop_walk_pair_tests(pk, box32, logf, *rays, n_tris)
+    assert pairs == made
+    entered = cl.cluster_pair_tests(pk, box32, rays[0], rays[1],
+                                    *cl.shadow_limits(rays[2]), n_tris)[0]
+    assert 0 < pairs <= entered
+    if kind in ("binary", "opaque"):
+        assert pairs < entered
+    live = int((rays[2] > 0).sum())
+    assert boxes == live * -(-n_tris // cl.QUARTER)
+
+
+@pytest.fixture(scope="module")
+def tiny_cases():
+    """name -> (pack10, n_tris, org, dir): the Cornell box's shadow pack
+    (32 triangles, the port's compile) with rays through the room, and a
+    64-triangle soup (TINY_TRIS: 32 boxes, a full 32-bit mask)."""
+    rng = np.random.default_rng(23)
+    cs = parse_xml_file("scenes/cornell.xml").compile(device="cpu")
+    out = {"cornell": (cs.arrays["stri_pack10"], cs.static.n_stris_real,
+                       *_scene_rays(rng))}
+    v0 = rng.uniform(-2.0, 2.0, (ci.TINY_TRIS, 3)).astype(np.float32)
+    e1 = rng.normal(0, 0.5, (ci.TINY_TRIS, 3)).astype(np.float32)
+    e2 = rng.normal(0, 0.5, (ci.TINY_TRIS, 3)).astype(np.float32)
+    o = (rng.random((N_RAYS, 3)) - 0.5) * 6.0
+    out["soup64"] = (ci.build_tri_pack(v0, e1, e2)[0], ci.TINY_TRIS,
+                     o.astype(np.float32), _unit(rng, N_RAYS))
+    return out
+
+
+@pytest.mark.parametrize("r", [2, 4])
+@pytest.mark.parametrize("kind", FILTERS)
+@pytest.mark.parametrize("case", ["cornell", "soup64"])
+def test_tiny_shadow_walk_gives_the_plain_sum(tiny_cases, case, kind, r):
+    """shadow_logsum_tiny's walk (r rays a thread over the 2-column boxes
+    its kernel builds, tiny_boxes; no floor, no stop) against the brute
+    force: bit for bit equal to the plain version, which adds its terms in
+    rising column order too, for every filter; dead rays sum to 0; its
+    pair tests are group_walk_pair_tests' count, a fraction of the brute
+    force's."""
+    pack, n_tris, o, d = tiny_cases[case]
+    pk, boxes = _t(pack), _t(ci.tiny_boxes(pack, n_tris))
+    assert boxes.shape == (8, pack.shape[1] // ci.TINY_GROUP)
+    logf, rays = _shadow_walk_case(pack, n_tris, o, d, kind)
+    n = rays[0].shape[0]
+    got, pairs = _walk_shadow(pk, boxes, ci.TINY_GROUP, logf, *rays, n_tris,
+                              r, stop=False)
+    want = ci.shadow_logsum_tiny_plain(pk, logf, *rays, n_tris)
+    assert torch.equal(got, want)
+    assert torch.equal(got, _column_sum(pk, logf, *rays, n_tris))
+    assert (got[::9] == 0.0).all() and (got < 0).any()
+    assert pairs == cl.group_walk_pair_tests(
+        boxes, *rays, n_tris, width=ci.TINY_GROUP, rays_per_thread=r)[0]
+    assert 0 < pairs < (0.25 if case == "cornell" else 0.5) * n * n_tris
 
 
 def test_cluster_wrappers_route_cpu_to_plain_and_count_nothing(cases):
     """On CPU tensors every wrapper (and the private entries of the
-    one-thread bodies that the two quarter walks replaced) runs its plain
+    one-thread bodies that the three quarter walks replaced) runs its plain
     version and launches nothing."""
     pack, c8, n_tris, o, d = cases["grid2"]
     n = o.shape[0]
@@ -502,9 +615,9 @@ def test_cluster_wrappers_route_cpu_to_plain_and_count_nothing(cases):
         want = getattr(cl, f"shadow_logsum_{kind}_plain")(
             _t(pack), logf, _t(o), _t(d), dist, n_tris)
         calls = [(getattr(cl, f"shadow_logsum_{kind}"),
-                  _shadow_scene(kind, pack, c8, n_tris))]
-        if kind == "dense":
-            calls.append((cl._shadow_logsum_dense_before, (_t(pack), _t(c8))))
+                  _shadow_scene(pack, c8, n_tris)),
+                 (getattr(cl, f"_shadow_logsum_{kind}_before"),
+                  (_t(pack), _t(c8)))]
         for fn, scene in calls:
             got = fn(*scene, logf, _t(o), _t(d), dist, n_tris)
             assert got.shape == (n, 3) and torch.equal(got, want)
@@ -530,8 +643,8 @@ def test_cluster_wrappers_reject_bad_inputs(cases):
     with pytest.raises(TypeError):
         cl.closest_hit_dense(pk, c, org.double(), dirn, lim, lim, n_tris)
     with pytest.raises(ValueError, match="rgb rows"):
-        cl.shadow_logsum_stream(pk, c, torch.zeros(2, pack.shape[1]), org,
-                                dirn, lim, n_tris)
+        cl.shadow_logsum_stream(pk, c, box32, torch.zeros(2, pack.shape[1]),
+                                org, dirn, lim, n_tris)
     with pytest.raises(ValueError, match="shared"):  # 6 x 1,024 columns
         cl.shadow_logsum_dense(torch.zeros((10, 6144)), c,
                                torch.zeros((8, 192)), torch.zeros(
@@ -541,9 +654,10 @@ def test_cluster_wrappers_reject_bad_inputs(cases):
     for bad in (None, box32[:, :-1].contiguous(), box32[:6].contiguous()):
         with pytest.raises(ValueError, match="box32"):
             cl.closest_hit_stream(pk, c, bad, org, dirn, lim, lim, n_tris)
-        with pytest.raises(ValueError, match="box32"):
-            cl.shadow_logsum_dense(pk, c, bad, torch.zeros((3, 768)), org,
-                                   dirn, lim, n_tris)
+        for shadow in (cl.shadow_logsum_dense, cl.shadow_logsum_stream):
+            with pytest.raises(ValueError, match="box32"):
+                shadow(pk, c, bad, torch.zeros((3, 768)), org, dirn, lim,
+                       n_tris)
     with pytest.raises(TypeError):
         cl.closest_hit_stream(pk, c, box32.double(), org, dirn, lim, lim,
                               n_tris)

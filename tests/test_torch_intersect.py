@@ -172,6 +172,25 @@ def test_wrapper_routes_cpu_to_plain_and_counts_nothing(cases):
     assert ci.closest_hit_tiny.launches == before  # no kernel launched
 
 
+def test_shadow_wrapper_routes_cpu_to_plain_and_counts_nothing(cases):
+    """On CPU tensors shadow_logsum_tiny, and the private entry of the
+    one-thread body its walk replaced, run the plain version and launch
+    nothing."""
+    pack, n_tris, _, filt, o, d = cases["cornell-random"]
+    n = o.shape[0]
+    filt4 = np.zeros((4, pack.shape[1]), np.float32)
+    filt4[:3, :n_tris] = filt.T
+    args = (torch.from_numpy(pack), ci.log_filter(torch.from_numpy(filt4)),
+            torch.from_numpy(o), torch.from_numpy(d), torch.full((n,), 3.0))
+    before = ci.shadow_logsum_tiny.launches
+    want = ci.shadow_logsum_tiny_plain(*args, n_tris)
+    for fn in (ci.shadow_logsum_tiny, ci._shadow_logsum_tiny_before):
+        got = fn(*args, n_tris)
+        assert got.shape == (n, 3) and torch.equal(got, want)
+    assert (want < 0).any()
+    assert ci.shadow_logsum_tiny.launches == before  # no kernel launched
+
+
 def test_wrapper_rejects_bad_inputs(cases):
     pack, n_tris, _, _, o, d = cases["soup48"]
     n = o.shape[0]
