@@ -72,7 +72,14 @@ started together) and drives the ported paths through them:
   opaque; the tiny sum over 2-column boxes its kernel builds per block.
   Each is held to its plain version and to the body it replaced, repeats
   bit for bit, and is timed beside that body on its bounce-0 and bounce-1
-  launches, as slice 10's kernels are.
+  launches, as slice 10's kernels are;
+- slice 12, `closest_hit_tiny` and `closest_hit_dense` on the closest walk
+  of csrc/column_walk.cuh over boxes of 2 and 16 columns their kernels
+  build per block (a ray's nearest box by its own thread, its other boxes
+  as items the block's threads share): each is held to its plain version
+  bit for bit (t, tri, u, v; t, column) and to the body it replaced on
+  every call of one step of its scene, repeats bit for bit, and is timed
+  beside that body on its primary and bounce-1 calls.
 Each path is rendered with every launch counter set to 0 just before it and
 read just after.  Every kernel's line carries its bound: the larger of its
 FP32 operations over the card's 67 TFLOP/s and its bytes (each input read
@@ -366,60 +373,110 @@ def check_kernels(cscene, cfg, arrays) -> list:
     logf = ci.log_filter(arrays["sfilt4_binary"])
     primary, shadow = main_path_rays(cscene, cfg, arrays)
 
-    kt, ktri, ku, kv, khit = ci.closest_hit_tiny(pack, *primary,
-                                                 st.n_tris_real)
-    torch.cuda.synchronize()
-    pt, ptri, pu, pv, phit = ci.closest_hit_tiny_plain(pack, *primary,
-                                                       st.n_tris_real)
-    torch.cuda.synchronize()
-    if not torch.equal(khit, phit) or not torch.equal(ktri[phit],
-                                                      ptri[phit]):
-        raise AssertionError("closest_hit_tiny: hit/tri differ from plain")
-    for name, a, b in (("t", kt, pt), ("u", ku, pu), ("v", kv, pv)):
-        if not torch.allclose(a[phit], b[phit], rtol=1e-4):
-            raise AssertionError(f"closest_hit_tiny: {name} beyond rtol 1e-4")
-    differ = (kt != pt) | (ktri != ptri) | (ku != pu) | (kv != pv)
-    n_diff = int(differ.sum())
-    n_rays = kt.shape[0]
-    err_c = max(float((a[phit] - b[phit]).abs().max())
-                for a, b in ((kt, pt), (ku, pu), (kv, pv)))
-    kernel_c = lambda: ci.closest_hit_tiny(  # noqa: E731
-        pack, *primary, st.n_tris_real)
-    ms_c = device_ms(kernel_c, calls=20)
-    call_ms_c = call_ms(kernel_c, calls=20)
-    plain_ms_c = device_ms(lambda: ci.closest_hit_tiny_plain(
-        pack, *primary, st.n_tris_real), calls=2)
-    pairs_c = n_rays * st.n_tris_real
-    bound_c = bound(MT_OPS * pairs_c, nbytes(pack, *primary, kt, ktri, ku,
-                                             kv), pair_tests=pairs_c)
-    phase("kernel", name="closest_hit_tiny", rays=n_rays,
-          hits=int(phit.sum()), differ=n_diff,
-          differ_share=n_diff / n_rays, max_abs_err=err_c,
-          tolerance="hit,tri equal; t,u,v rtol 1e-4",
-          ms=round(ms_c, 4), call_ms=round(call_ms_c, 4),
-          plain_ms=round(plain_ms_c, 4),
-          bit_equal_expected=n_diff <= 1e-4 * n_rays, **bound_c)
-
+    closest = check_tiny_closest(pack, primary, st.n_tris_real)
     tiny = check_tiny_shadow(pack, logf, shadow, st.n_stris_real)
-    # one step's shadow_logsum_tiny calls, recorded through the module
-    # attribute the engine calls, shadow_transmission_tiny
-    trans = step_calls(cscene, cfg, ci, ("shadow_transmission_tiny",))[2]
+    # one step's calls of the two kernels, recorded through the module
+    # attributes the engine calls (closest_hit_tiny, and for
+    # shadow_logsum_tiny shadow_transmission_tiny)
+    rec = step_calls(cscene, cfg, ci, ("closest_hit_tiny",
+                                       "shadow_transmission_tiny"))[2]
+    c_calls = rec["closest_hit_tiny"]
+    bounce_c = check_tiny_closest(c_calls[1][0], c_calls[1][1:5],
+                                  c_calls[1][5], rays_name="bounce 1")
+    check_old_body("closest_hit_tiny", c_calls)
     calls = [(pk, ci.log_filter(f4), *rays) for pk, f4, *rays in
-             trans["shadow_transmission_tiny"]]
+             rec["shadow_transmission_tiny"]]
     bounce = check_tiny_shadow(*calls[1][:2], calls[1][2:5], calls[1][5],
                                rays="bounce-1 NEE")
     check_old_body("shadow_logsum_tiny", calls)
     return [
         dict(name="closest_hit_tiny", route="cuda",
              source=SRC.format("tiny_intersect"),
-             replaces=PALLAS.format(2259), max_abs_err=err_c, ms=ms_c,
-             plain_ms=plain_ms_c, **bound_c),
+             replaces=PALLAS.format(2259),
+             max_abs_err=max(closest["err"], bounce_c["err"]),
+             **before_keys(closest, bounce_c), **closest["bound"]),
         dict(name="shadow_logsum_tiny", route="cuda",
              source=SRC.format("tiny_intersect"),
              replaces=PALLAS.format(2281),
              max_abs_err=max(tiny["err"], bounce["err"]), **before_keys(
                  tiny, bounce), **tiny["bound"]),
     ]
+
+
+def check_tiny_closest(pack, rays, n_tris: int,
+                       rays_name: str = "primary") -> dict:
+    """closest_hit_tiny against its plain version (hit, tri equal, t, u, v
+    within rtol 1e-4; and bit for bit in t, tri, u and v, again on a second
+    call) and beside the one-thread body it replaced on the same rays
+    (ms_before).  Its bound counts what each ray needs on the 2-column
+    boxes its kernel builds (ci.tiny_boxes): a test of every real box for
+    each live ray and the real columns of the groups its interval enters
+    below min(tmax, t); pair_tests_made counts the pairs its walk lists
+    (cx.closest_walk_pair_tests: it skips a listed item whose entry lies
+    beyond the ray's best t when taken, so it makes at most these),
+    box_tests_made its box tests, bound_ms_before every column for every
+    ray (the one-thread body's work)."""
+    org, dirn, tmin, tmax = rays
+    kernel = lambda: ci.closest_hit_tiny(  # noqa: E731
+        pack, *rays, n_tris)
+    got = kernel()
+    torch.cuda.synchronize()
+    want = ci.closest_hit_tiny_plain(pack, *rays, n_tris)
+    torch.cuda.synchronize()
+    kt, ktri, ku, kv, khit = got
+    pt, ptri, pu, pv, phit = want
+    if not torch.equal(khit, phit) or not torch.equal(ktri[phit],
+                                                      ptri[phit]):
+        raise AssertionError(f"closest_hit_tiny: hit/tri differ from plain "
+                             f"({rays_name})")
+    for name, a, b in (("t", kt, pt), ("u", ku, pu), ("v", kv, pv)):
+        if not torch.allclose(a[phit], b[phit], rtol=1e-4):
+            raise AssertionError(f"closest_hit_tiny: {name} beyond rtol 1e-4 "
+                                 f"({rays_name})")
+    n_diff = differ(got[:4], want[:4])
+    repeat = differ(kernel()[:4], got[:4])
+    if n_diff or repeat:
+        raise AssertionError(f"closest_hit_tiny: {n_diff} rays differ from "
+                             f"plain, {repeat} from a second call "
+                             f"({rays_name})")
+    err = max(float((a[phit] - b[phit]).abs().max())
+              for a, b in ((kt, pt), (ku, pu), (kv, pv)))
+    ms = device_ms(kernel, calls=20)
+    plain_ms = device_ms(lambda: ci.closest_hit_tiny_plain(
+        pack, *rays, n_tris), calls=2)
+    ms_before = device_ms(old_body("closest_hit_tiny", (
+        pack, *rays, n_tris)), calls=20)
+    boxes = torch.from_numpy(ci.tiny_boxes(pack.cpu().numpy(), n_tris)).to(
+        pack.device)
+    need = cx.cluster_pair_tests(pack, boxes, org, dirn, tmin,
+                                 torch.minimum(tmax, kt), n_tris)[0]
+    made, made_boxes = cx.closest_walk_pair_tests(pack, boxes, *rays, n_tris)
+    box_tests = int((tmin <= tmax).sum()) * -(-n_tris // ci.TINY_GROUP)
+    moved = nbytes(pack, *rays, kt, ktri, ku, kv)
+    n = org.shape[0]
+    before = bound(MT_OPS * n * n_tris, moved, pair_tests=n * n_tris)
+    bnd = bound(MT_OPS * need + BOX_OPS * box_tests, moved, pair_tests=need,
+                box_tests=box_tests)
+    extra = dict(repeat_differ=repeat, ms_before=ms_before,
+                 group=ci.TINY_GROUP, box_tests_made=made_boxes,
+                 pair_tests_made=made, bound_ms_before=before["bound_ms"],
+                 pair_tests_before=n * n_tris,
+                 **registers("tiny_intersect", "closest_tiny_kernel"))
+    phase("kernel", name="closest_hit_tiny", rays=rays_name, n=n,
+          hits=int(phit.sum()), differ=n_diff, max_abs_err=err,
+          tolerance="hit,tri equal; t,u,v rtol 1e-4; t,tri,u,v equal",
+          ms=round(ms, 4), call_ms=round(call_ms(kernel, calls=20), 4),
+          plain_ms=round(plain_ms, 4), **extra, **bnd)
+    return dict(ms=ms, plain_ms=plain_ms, err=err, bound=bnd, extra=extra)
+
+
+def differ(a: tuple, b: tuple) -> int:
+    """Rays (entries of equal-shaped tensors) where any tensor of a differs
+    from its counterpart in b."""
+    out = torch.zeros_like(a[0], dtype=torch.bool)
+    for x, y in zip(a, b):
+        out |= x != y
+    return int(out.sum())
 
 
 def check_tiny_shadow(pack, logf, shadow, n_tris: int,
@@ -1256,30 +1313,34 @@ def step_calls(cscene, cfg, module, names: tuple):
 
 # the redesigned kernels, by name: the module of the wrapper and of the
 # private entry (_<name>_before) of the body its walk replaced
-REDESIGNED = {"closest_hit_stream": cx, "shadow_logsum_dense": cx,
+REDESIGNED = {"closest_hit_tiny": ci, "closest_hit_dense": cx,
+              "closest_hit_stream": cx, "shadow_logsum_dense": cx,
               "shadow_logsum_stream": cx, "shadow_logsum_tiny": ci}
+# those that take the quarter boxes (box32, their third argument), which the
+# bodies they replaced do not
+TAKES_BOX32 = ("closest_hit_stream", "shadow_logsum_dense",
+               "shadow_logsum_stream")
 
 
 def old_body(name: str, args: tuple):
     """The body that the walk of `name` (one of REDESIGNED) replaced, as a
-    call on a recorded call's arguments (less box32, the third, for the
-    mid-size kernels).  Its launches are not counted."""
-    module = REDESIGNED[name]
-    before = getattr(module, f"_{name}_before")
-    old = args if module is ci else args[:2] + args[3:]
+    call on a recorded call's arguments (less box32 where `name` takes it).
+    Its launches are not counted."""
+    before = getattr(REDESIGNED[name], f"_{name}_before")
+    old = args[:2] + args[3:] if name in TAKES_BOX32 else args
     return lambda: before(*old)
 
 
 def check_old_body(name: str, calls: list) -> None:
     """The `old_body` phase: rays of every recorded call of `name` (one of
-    REDESIGNED) whose answer differs between the walk and the body it
-    replaced, which must be 0: both give the brute force's bits."""
+    REDESIGNED) where any returned tensor differs between the walk and the
+    body it replaced, which must be 0: both give the brute force's bits."""
     kernel = getattr(REDESIGNED[name], name)
     n = 0
     for args in calls:
         a, b = kernel(*args), old_body(name, args)()
         if isinstance(a, tuple):
-            n += int(((a[0] != b[0]) | (a[1] != b[1])).sum())
+            n += differ(a, b)
         else:
             n += int((a != b).any(dim=-1).sum())
     phase("old_body", name=name, batches=len(calls), differ_vs_old_body=n)
@@ -1290,13 +1351,18 @@ def check_old_body(name: str, calls: list) -> None:
 
 def check_mid_closest(kind: str, args, rays: str) -> dict:
     """closest_hit_<kind> against its plain version on recorded rays: hit
-    and tri equal after the epilogue, t, u, v within rtol 1e-4.  The
-    stream kernel (a warp a ray over the quarter boxes) must also equal
-    the plain version bit for bit (t and column) and repeat bit for bit;
-    ms_before times the one-thread body it replaced on the same rays.  Its
-    bound counts what its walk tests, the real columns of the quarters
-    entered below min(tmax, t) (pair_tests_made), and bound_ms_before the
-    one-thread body's cluster count (pair_tests_before)."""
+    and tri equal after the epilogue, t, u, v within rtol 1e-4, and bit for
+    bit (t and column), again on a second call; ms_before times the
+    one-thread body it replaced on the same rays.  Its bound counts what
+    each ray needs on its walk's boxes: the real columns of the boxes
+    entered below min(tmax, t) and a test of every real box (the stream
+    walk's warp, a lane a quarter box (box32), tests what it needs; the
+    dense walk tests each live ray against the 16-column boxes its kernel
+    builds, cx.dense_boxes, and lists pairs as the tiny walk does:
+    pair_tests_made, the pairs listed (it makes at most these), and
+    box_tests_made);
+    bound_ms_before the one-thread body's cluster count
+    (pair_tests_before)."""
     if kind == "stream":
         pk, c8, box32, org, dirn, tmin, tmax, n_tris = args
     else:
@@ -1317,38 +1383,50 @@ def check_mid_closest(kind: str, args, rays: str) -> dict:
     for what, i in (("t", 0), ("u", 2), ("v", 3)):
         if not torch.allclose(k_hit[i][phit], p_hit[i][phit], rtol=1e-4):
             raise AssertionError(f"{name}: {what} beyond rtol 1e-4 ({rays})")
-    n_diff = int(((kt != pt) | (kcol != pcol)).sum())
+    n_diff = differ((kt, kcol), (pt, pcol))
+    repeat = differ(kernel(*args), (kt, kcol))
+    if n_diff or repeat:
+        raise AssertionError(f"{name}: {n_diff} rays differ from plain, "
+                             f"{repeat} from a second call ({rays})")
     err = max(float((k_hit[i][phit] - p_hit[i][phit]).abs().max())
               for i in (0, 2, 3))
     call = lambda: kernel(*args)  # noqa: E731
     ms = device_ms(call, calls=20, replays=3)
-    pairs, boxes = cx.cluster_pair_tests(pk, c8, org, dirn, tmin,
-                                         torch.minimum(tmax, kt), n_tris)
+    before_pairs, before_boxes = cx.cluster_pair_tests(
+        pk, c8, org, dirn, tmin, torch.minimum(tmax, kt), n_tris)
     moved = nbytes(pk, c8, box32, org, dirn, tmin, tmax, kt, kcol)
-    bnd = bound(MT_OPS * pairs + BOX_OPS * boxes, moved, pair_tests=pairs,
-                box_tests=boxes)
-    extra = {}
-    if box32 is not None:
-        at, acol = kernel(*args)
-        made, q_boxes = cx.cluster_pair_tests(
+    if kind == "stream":
+        made, boxes = cx.cluster_pair_tests(
             pk, box32, org, dirn, tmin, torch.minimum(tmax, kt), n_tris)
-        extra = dict(
-            repeat_differ=int(((at != kt) | (acol != kcol)).sum()),
-            ms_before=device_ms(old_body(name, args), calls=20, replays=3),
-            pair_tests_made=made, bound_ms_before=bnd["bound_ms"],
-            pair_tests_before=pairs, box_tests_before=boxes,
-            **registers("cluster_intersect", "closest_stream_kernel"))
-        bnd = bound(MT_OPS * made + BOX_OPS * q_boxes, moved,
-                    pair_tests=made, box_tests=q_boxes)
-        if n_diff or extra["repeat_differ"]:
-            raise AssertionError(f"{name}: {n_diff} rays differ from plain, "
-                                 f"{extra['repeat_differ']} from a second "
-                                 f"call ({rays})")
+        need, walk = made, {}
+        kernel_name = "closest_stream_kernel"
+    else:
+        dboxes = torch.from_numpy(cx.dense_boxes(pk.cpu().numpy(),
+                                                 n_tris)).to(pk.device)
+        made, made_boxes = cx.closest_walk_pair_tests(
+            pk, dboxes, org, dirn, tmin, tmax, n_tris)
+        need = cx.cluster_pair_tests(pk, dboxes, org, dirn, tmin,
+                                     torch.minimum(tmax, kt), n_tris)[0]
+        groups = -(-n_tris // cx.DENSE_GROUP)
+        boxes = int((tmin <= tmax).sum()) * groups
+        walk = dict(group=cx.DENSE_GROUP, box_tests_made=made_boxes)
+        # the instance of the kernel the launch takes: the fewest 32-bit
+        # masks that hold the pack's groups
+        kernel_name = "closest_dense_kernelILi{}E".format(
+            1 if groups <= 32 else 2)
+    before = bound(MT_OPS * before_pairs + BOX_OPS * before_boxes, moved)
+    bnd = bound(MT_OPS * need + BOX_OPS * boxes, moved, pair_tests=need,
+                box_tests=boxes)
+    extra = dict(
+        repeat_differ=repeat,
+        ms_before=device_ms(old_body(name, args), calls=20, replays=3),
+        **walk, pair_tests_made=made, bound_ms_before=before["bound_ms"],
+        pair_tests_before=before_pairs, box_tests_before=before_boxes,
+        **registers("cluster_intersect", kernel_name))
     phase("kernel", name=name, rays=rays, n=org.shape[0], tris=n_tris,
           hits=int(phit.sum()), differ=n_diff, max_abs_err=err,
-          tolerance="hit,tri equal; t,u,v rtol 1e-4"
-          + ("; t, col equal" if box32 is not None else ""), ms=round(ms, 4),
-          call_ms=round(call_ms(call, calls=20), 4),
+          tolerance="hit,tri equal; t,u,v rtol 1e-4; t, col equal",
+          ms=round(ms, 4), call_ms=round(call_ms(call, calls=20), 4),
           plain_ms=round(plain_ms, 4), plain="one eager call", **extra,
           **bnd)
     return dict(ms=ms, plain_ms=plain_ms, err=err, bound=bnd, extra=extra)
@@ -1498,15 +1576,11 @@ def mid_phases(scenes: str, smi) -> list:
 
         src = SRC.format("cluster_intersect")
         line = PALLAS.format(308 if kind == "dense" else 592)
-        times = (before_keys(prim, bounce) if prim["extra"] else dict(
-            ms=prim["ms"], plain_ms=prim["plain_ms"], ms_bounce=bounce["ms"],
-            plain_ms_bounce=bounce["plain_ms"],
-            bound_ms_bounce=bounce["bound"]["bound_ms"]))
         kernels.append(dict(
             name=names[0], route="cuda", source=src, replaces=line,
             launches=launches[names[0]], max_abs_err=max(prim["err"],
                                                          bounce["err"]),
-            **times, **prim["bound"]))
+            **before_keys(prim, bounce), **prim["bound"]))
         kernels.append(dict(
             name=names[1], route="cuda", source=src,
             replaces=PALLAS.format(353 if kind == "dense" else 693),

@@ -20,10 +20,21 @@
 // stages the whole pack once into shared memory (at most 43 KB at 896
 // columns), and every pack read is a shared-memory read.
 //
-// closest_dense_kernel: one thread owns one ray, so every thread of a warp
-// reads the same column as a broadcast; it visits the clusters in index
-// order and skips one whose box the ray cannot enter nearer than its best
-// hit.
+// closest_dense_kernel: the closest walk of column_walk.cuh (closest_items)
+// over the pack's real columns staged column-major and the boxes of its
+// DENSE_GROUP-column groups, which each block builds from the staged
+// columns (at most DENSE_MAX_GROUPS, two 32-bit masks: every pack of the
+// dense and stream routes).  A ray's thread box-tests every group and
+// walks the group the ray enters nearest; the ray's other entered groups
+// go to a list of (ray, group) items that the block's threads take in
+// turn, each skipped once the ray's best t lies before its entry.  The
+// bounce rays of a warp scatter: walked by their own threads, a warp waits
+// on the ray among them that enters the most groups (~2x a ray's mean on
+// the 172-triangle scene); the list spreads that work over the block.
+// 16-column groups measured faster than 8 and 32, and a one-thread walk
+// (nearest group first, then the rest in rising order), a full
+// nearest-first order, two rays a thread and sorting a block's rays by the
+// groups they enter all slower on an H100 (PERF.md).
 //
 // shadow_dense_kernel and shadow_stream_kernel: the column walk of
 // column_walk.cuh over the pack staged column-major and its 32-column
@@ -63,6 +74,8 @@
 // The bodies these replaced are kept, for chip_smoke.py to time beside them
 // on the same inputs (their own entries, *_before_launch, which no path
 // calls), one thread a ray over the cluster boxes (cl8):
+//   closest_dense_thread_kernel: the clusters in index order, skipping one
+//     whose box the ray cannot enter nearer than its best hit;
 //   closest_stream_thread_kernel: the boxes sorted by entry (insertion sort,
 //     at most MAX_CL), stopping at the first box entered beyond its best t;
 //   shadow_dense_thread_kernel: the clusters in index order, skipping the
@@ -74,12 +87,12 @@
 // * Boxes are widened by 1e-5 of the largest magnitude among their faces and
 //   the ray origin on each axis (as in fine_intersect.cu), so a skip never
 //   drops a hit the brute force takes.
-// * The closest hit keeps the lowest pack column among equal t: dense walks
-//   columns in rising order with a strict `<`; the stream walks, whose order
-//   is the ray's, replace an equal t only by a lower column, and continue
-//   into a box whose entry equals their best t.  (The reference's stream
-//   kernel keeps the first-visited column on an exact tie; the t is the
-//   same.)
+// * The closest hit keeps the lowest pack column among equal t: the
+//   one-thread dense body walks columns in rising order with a strict `<`;
+//   the other walks, whose order is the ray's, replace an equal t only by a
+//   lower column, and continue into a box whose entry equals their best t.
+//   (The reference's stream kernel keeps the first-visited column on an
+//   exact tie; the t is the same.)
 // * Shadows: every log filter is <= 0, so the running sum only falls; the
 //   stream sum's one floor at the end equals the reference's per-cluster
 //   floor, and once all three channels are <= -80 the result is -80.
@@ -87,7 +100,10 @@
 // What bounds it on the H100: FP32 instructions of the Moller-Trumbore tests
 // (45 operations per ray-triangle pair, -fmad=false, IEEE division); the
 // bytes are the rays (28-32 B each) and the outputs.  The shadow walks
-// run little beside the tests.  closest_stream_kernel tests few pairs a
+// run little beside the tests.  closest_dense_kernel trades pair tests for
+// box tests (39 operations): on the 172-triangle scene a camera ray enters
+// ~52 columns of 16-column groups below its hit against 151 of the cluster
+// boxes, for 11 box tests.  closest_stream_kernel tests few pairs a
 // ray (two to four quarters), and its per-visit warp minima, integer work,
 // cost about as much as the tests themselves.
 //
@@ -106,6 +122,9 @@
 #define QUARTER 32          // columns of a quarter box (the box32 table)
 #define MAX_QUARTERS 32     // quarter boxes closest_stream_kernel holds
 #define DENSE_RAYS 2        // rays a thread of shadow_dense_kernel owns
+#define DENSE_GROUP 16      // columns of a box of closest_dense_kernel
+#define DENSE_MAX_GROUPS 64  // boxes closest_dense_kernel holds (two masks)
+#define DENSE_ITEMS 2048    // (ray, group) items closest_dense_kernel lists
 #define STREAM_RAYS 1       // rays a thread of shadow_stream_kernel owns
 #define MAX_SMEM 232448     // shared memory a block may use on Hopper
 #define STATIC_SMEM 49152   // above this only after cudaFuncSetAttribute
@@ -421,14 +440,44 @@ closest_stream_kernel(Scene s, const float* __restrict__ box32, int n_q,
   }
 }
 
+// ---- closest_dense_kernel: the closest walk (closest_items) --------------
+
+// Thread t of block b owns ray b * THREADS + t; it holds the groups it
+// enters in NW 32-bit masks (the launch takes the fewest that hold the
+// pack's groups).  Dynamic shared memory: item_smem_bytes(n_tris, groups,
+// DENSE_ITEMS, THREADS).
+template <int NW>
+__global__ void __launch_bounds__(THREADS, ITEM_MIN_BLOCKS)
+closest_dense_kernel(Scene s, const float* __restrict__ org,
+                     const float* __restrict__ dir,
+                     const float* __restrict__ tmin,
+                     const float* __restrict__ tmax, int n,
+                     float* __restrict__ t_out, int* __restrict__ col_out) {
+  extern __shared__ float4 sm4[];
+  const int groups = (s.n_tris + DENSE_GROUP - 1) / DENSE_GROUP;
+  float4* tab;
+  float* box;
+  const ItemSmem m =
+      item_smem(sm4, s.n_tris, groups, DENSE_ITEMS, &tab, &box);
+  stage_columns(reinterpret_cast<float*>(tab), s.pack, s.pack_w, nullptr, 0,
+                s.n_tris);
+  __syncthreads();
+  build_group_boxes<DENSE_GROUP>(box, groups,
+                                 reinterpret_cast<const float*>(tab),
+                                 s.n_tris);
+  __syncthreads();
+  closest_items<DENSE_GROUP, NW, false>(
+      tab, box, groups, groups, s.n_tris, m, org, dir, tmin, tmax,
+      (long long)blockIdx.x * blockDim.x, n, t_out, col_out, nullptr,
+      nullptr);
+}
+
 // ---- the one-thread bodies -------------------------------------------------
 
-__global__ void closest_dense_kernel(Scene s, const float* __restrict__ org,
-                                     const float* __restrict__ dir,
-                                     const float* __restrict__ tmin,
-                                     const float* __restrict__ tmax, int n,
-                                     float* __restrict__ t_out,
-                                     int* __restrict__ col_out) {
+__global__ void closest_dense_thread_kernel(
+    Scene s, const float* __restrict__ org, const float* __restrict__ dir,
+    const float* __restrict__ tmin, const float* __restrict__ tmax, int n,
+    float* __restrict__ t_out, int* __restrict__ col_out) {
   closest_body<false>(s, org, dir, tmin, tmax, n, t_out, col_out);
 }
 
@@ -518,6 +567,37 @@ int launch_shadow(K kernel, bool stream, const Scene& s, int logf_w,
   return (int)cudaGetLastError();
 }
 
+template <int NW>
+int launch_closest_dense(const Scene& s, int bytes, const void* org,
+                         const void* dir, const void* tmin, const void* tmax,
+                         int n, void* t_out, void* col_out, void* st) {
+  if (const int bad = prepare(closest_dense_kernel<NW>, bytes)) return bad;
+  if (n > 0) {
+    const int blocks = (n + THREADS - 1) / THREADS;
+    closest_dense_kernel<NW><<<blocks, THREADS, bytes, (cudaStream_t)st>>>(
+        s, (const float*)org, (const float*)dir, (const float*)tmin,
+        (const float*)tmax, n, (float*)t_out, (int*)col_out);
+  }
+  return (int)cudaGetLastError();
+}
+
+int launch_closest_dense(const Scene& s, const void* org, const void* dir,
+                         const void* tmin, const void* tmax, int n,
+                         void* t_out, void* col_out, void* st) {
+  if (const int bad = check_scene(s, false, false)) return bad;
+  const int groups = (s.n_tris + DENSE_GROUP - 1) / DENSE_GROUP;
+  const int bytes = item_smem_bytes(s.n_tris, groups, DENSE_ITEMS, THREADS);
+  if (groups > DENSE_MAX_GROUPS || bytes > MAX_SMEM) {
+    return (int)cudaErrorInvalidValue;
+  }
+  if (groups <= 32) {
+    return launch_closest_dense<1>(s, bytes, org, dir, tmin, tmax, n, t_out,
+                                   col_out, st);
+  }
+  return launch_closest_dense<DENSE_MAX_GROUPS / 32>(
+      s, bytes, org, dir, tmin, tmax, n, t_out, col_out, st);
+}
+
 int launch_closest_stream(const Scene& s, const void* box32, int n_q,
                           const void* org, const void* dir, const void* tmin,
                           const void* tmax, int n, void* t_out, void* col_out,
@@ -583,8 +663,8 @@ extern "C" int closest_hit_dense_launch(const void* pack, int pack_w,
                                         void* stream) {
   const Scene s{(const float*)pack, pack_w, (const float*)cl8, n_cl, n_tris,
                 nullptr};
-  return launch_closest(closest_dense_kernel, false, s, org, dir, tmin, tmax,
-                        n, t_out, col_out, stream);
+  return launch_closest_dense(s, org, dir, tmin, tmax, n, t_out, col_out,
+                              stream);
 }
 
 extern "C" int closest_hit_stream_launch(const void* pack, int pack_w,
@@ -624,9 +704,19 @@ extern "C" int shadow_logsum_stream_launch(
                                 stream);
 }
 
-// The one-thread bodies closest_hit_stream_launch,
+// The one-thread bodies closest_hit_dense_launch, closest_hit_stream_launch,
 // shadow_logsum_dense_launch and shadow_logsum_stream_launch replaced, over
 // the cluster boxes alone.
+extern "C" int closest_hit_dense_before_launch(
+    const void* pack, int pack_w, const void* cl8, int n_cl, int n_tris,
+    const void* org, const void* dir, const void* tmin, const void* tmax,
+    int n, void* t_out, void* col_out, void* stream) {
+  const Scene s{(const float*)pack, pack_w, (const float*)cl8, n_cl, n_tris,
+                nullptr};
+  return launch_closest(closest_dense_thread_kernel, false, s, org, dir, tmin,
+                        tmax, n, t_out, col_out, stream);
+}
+
 extern "C" int closest_hit_stream_before_launch(
     const void* pack, int pack_w, const void* cl8, int n_cl, int n_tris,
     const void* org, const void* dir, const void* tmin, const void* tmax,

@@ -9,31 +9,43 @@
 // Rays come as the engine holds them: (N, 3) contiguous org / dir and
 // (N,) tmin / tmax / dist; the TPU's (3, M, 128) tiling is not reproduced.
 //
-// closest_tiny_kernel: one thread per ray, no reduction across threads.
-// Each block stages the n_tris x 9 floats of the (10, T) pack (rows
-// v0|e1|e2) into shared memory once (at most 2.3 KB), then every thread
-// walks the triangles in column order.
+// Both are walks of column_walk.cuh over the boxes of the pack's
+// TINY_GROUP-column groups (one box a quad of the Cornell box, at most 32).
+// A block stages the n_tris real columns column-major (at most 3 KB) and
+// builds the boxes from them, each the min / max over its real columns of
+// v0, v0 + e1 and v0 + e2 in float32: the table _column_boxes(pack, n_tris,
+// TINY_GROUP) of ops/cuda_intersect.py gives (tiny_boxes), built where the
+// pack already is, so the wrappers and the scene need nothing new.
 //
-// shadow_tiny_kernel: the column walk of column_walk.cuh with R = TINY_RAYS
-// neighbouring rays a thread.  A block stages the n_tris real columns
-// column-major (12 floats a column, at most 3 KB) and builds the boxes of
-// the TINY_GROUP-column groups (one box a quad of the Cornell box, at most
-// 32), each the min / max over its real columns of v0, v0 + e1 and v0 + e2
-// in float32: the table _column_boxes(pack, n_tris, TINY_GROUP) of
-// ops/cuda_intersect.py gives, built where the pack already is, so the
-// wrapper and the scene need nothing new.  A thread tests its live rays
-// against the boxes, ORs the groups they enter into one mask and walks it:
-// each ray adds a column's log filters where its own test passes, columns
-// in rising order, no floor and no early exit, as in the reference.  The
-// one-thread body it replaced stays, launched only by
-// shadow_logsum_tiny_before_launch for chip_smoke.py to time beside it.
+// closest_tiny_kernel: the closest walk (closest_items).  A ray's thread
+// box-tests the 16 quads and tests the quad it enters nearest; its other
+// entered quads go to a list of (ray, quad) items the block's threads take
+// in turn, and each ray's (t, column) minimum is kept as one 64-bit key
+// lowered with an atomic minimum: the first column wins ties, as in the
+// reference.  u and v are computed again for the winning column at the
+// end.  Walked by its own thread, each ray of a warp would wait on the
+// others: the rays that bounce off the walls scatter, and a warp tested
+// the columns of the union of its rays' quads (about nine of 16 where a ray
+// needs ~1.3), slower than every column on the photon path's final-gather
+// calls (PERF.md).
 //
-// What bounds it on the H100: FP32 compute.  A ray-triangle test is about
-// 45 operations; a box test about 39.  The one-thread body tests every
-// column (32 on the Cornell box: ~1,400 operations a ray against 28 B read
-// and 12 B written).  A room's quads are small against its segments, so a
-// ray enters about one of the 16 quad boxes: 16 box tests and ~2 pair tests
-// in place of 32 pair tests.
+// shadow_tiny_kernel: TINY_RAYS neighbouring rays a thread.  A thread tests
+// its live rays against the boxes, ORs the groups they enter into one mask
+// and walks it: each ray adds a column's log filters where its own test
+// passes, columns in rising order, no floor and no early exit, as in the
+// reference.
+//
+// The one-thread bodies the walks replaced stay, launched only by
+// closest_hit_tiny_before_launch and shadow_logsum_tiny_before_launch for
+// chip_smoke.py to time beside them.
+//
+// What bounds them on the H100.  A ray-triangle test is about 45 FP32
+// operations; a box test about 39.  The one-thread bodies test every column
+// (32 on the Cornell box: ~1,400 operations a ray against 28-44 B of rays
+// and outputs).  A room's quads are small against its rays, so a camera
+// ray enters about three of the 16 quad boxes below its hit and a shadow
+// segment about one: 16 box tests and ~2 pair tests in place of 32 pair
+// tests, and both kernels are bound by their bytes.
 //
 // Built with -fmad=false and IEEE division (no --use_fast_math) on
 // purpose: no product is contracted into an FMA and 1/det is the correctly
@@ -54,6 +66,7 @@
 #define TINY_GROUP 2  // columns of a box of shadow_tiny_kernel
 #define TINY_BOXES (TINY_TRIS / TINY_GROUP)
 #define TINY_RAYS 2   // rays a thread of shadow_tiny_kernel owns
+#define TINY_ITEMS 1024  // (ray, group) items closest_tiny_kernel lists
 
 namespace {
 
@@ -96,7 +109,64 @@ __device__ __forceinline__ void stage(float* s, const float* src, int w,
   }
 }
 
-__global__ void closest_tiny_kernel(
+// Thread t of block b owns ray b * THREADS + t.  Dynamic shared memory:
+// item_smem_bytes(n_tris, groups, TINY_ITEMS, THREADS).
+__global__ void __launch_bounds__(THREADS, ITEM_MIN_BLOCKS)
+closest_tiny_kernel(const float* __restrict__ pack, int pack_w, int n_tris,
+                    const float* __restrict__ org,
+                    const float* __restrict__ dir,
+                    const float* __restrict__ tmin,
+                    const float* __restrict__ tmax, int n,
+                    float* __restrict__ t_out, int* __restrict__ tri_out,
+                    float* __restrict__ u_out, float* __restrict__ v_out) {
+  extern __shared__ float4 sm4[];
+  const int groups = (n_tris + TINY_GROUP - 1) / TINY_GROUP;
+  float4* tab;
+  float* box;
+  const ItemSmem m = item_smem(sm4, n_tris, groups, TINY_ITEMS, &tab, &box);
+  stage_columns(reinterpret_cast<float*>(tab), pack, pack_w, nullptr, 0,
+                n_tris);
+  __syncthreads();
+  build_group_boxes<TINY_GROUP>(box, groups,
+                                reinterpret_cast<const float*>(tab), n_tris);
+  __syncthreads();
+  closest_items<TINY_GROUP, 1, true>(
+      tab, box, groups, groups, n_tris, m, org, dir, tmin, tmax,
+      (long long)blockIdx.x * blockDim.x, n, t_out, tri_out, u_out, v_out);
+}
+
+// Thread t of block b owns rays (b * THREADS + t) * R + j, j < R.
+__global__ void __launch_bounds__(THREADS)
+shadow_tiny_kernel(const float* __restrict__ pack, int pack_w,
+                   const float* __restrict__ logf, int logf_w, int n_tris,
+                   const float* __restrict__ org,
+                   const float* __restrict__ dir,
+                   const float* __restrict__ dist, int n,
+                   float* __restrict__ lg_out) {
+  __shared__ float4 tab[3 * TINY_TRIS];
+  __shared__ float box[6 * TINY_BOXES];
+  stage_columns(reinterpret_cast<float*>(tab), pack, pack_w, logf, logf_w,
+                n_tris);
+  __syncthreads();
+  build_group_boxes<TINY_GROUP>(box, TINY_BOXES,
+                                reinterpret_cast<const float*>(tab), n_tris);
+  __syncthreads();
+  constexpr int R = TINY_RAYS;
+  const long long i0 =
+      ((long long)blockIdx.x * blockDim.x + threadIdx.x) * R;
+  if (i0 >= n) return;
+  float o[R][3], d[R][3], hi[R], acc[R][3];
+  load_segments<R>(org, dir, dist, i0, n, o, d, hi, acc);
+  unsigned enter[R];
+  enter_groups<R>(box, TINY_BOXES, 0, (n_tris + TINY_GROUP - 1) / TINY_GROUP,
+                  o, d, hi, enter);
+  sum_groups<R, TINY_GROUP, false>(tab, n_tris, 0, enter, o, d, hi, acc);
+  store_sums<R>(lg_out, i0, n, acc);
+}
+
+// ---- the one-thread bodies the walks replaced -----------------------------
+
+__global__ void closest_tiny_thread_kernel(
     const float* __restrict__ pack, int pack_w, int n_tris,
     const float* __restrict__ org, const float* __restrict__ dir,
     const float* __restrict__ tmin, const float* __restrict__ tmax, int n,
@@ -129,58 +199,6 @@ __global__ void closest_tiny_kernel(
   v_out[i] = best_v;
 }
 
-// Box b of the (6, TINY_BOXES) table `box`: lo xyz | hi xyz of v0, v0 + e1
-// and v0 + e2 over the real columns of group b (columns TINY_GROUP b on,
-// below n_tris), in float32 as _column_boxes rounds them; one box a thread.
-__device__ __forceinline__ void build_boxes(float* box,
-                                            const float* __restrict__ pack,
-                                            int w, int n_tris) {
-  const int b = threadIdx.x;
-  if (b >= (n_tris + TINY_GROUP - 1) / TINY_GROUP) return;
-  const int k1 = min((b + 1) * TINY_GROUP, n_tris);
-  for (int a = 0; a < 3; ++a) {
-    float lo = INFINITY, hi = -INFINITY;
-    for (int k = b * TINY_GROUP; k < k1; ++k) {
-      const float v0 = pack[a * w + k];
-      const float p1 = v0 + pack[(a + 3) * w + k];
-      const float p2 = v0 + pack[(a + 6) * w + k];
-      lo = fminf(lo, fminf(fminf(v0, p1), p2));
-      hi = fmaxf(hi, fmaxf(fmaxf(v0, p1), p2));
-    }
-    box[a * TINY_BOXES + b] = lo;
-    box[(a + 3) * TINY_BOXES + b] = hi;
-  }
-}
-
-// Thread t of block b owns rays (b * THREADS + t) * R + j, j < R.
-__global__ void __launch_bounds__(THREADS)
-shadow_tiny_kernel(const float* __restrict__ pack, int pack_w,
-                   const float* __restrict__ logf, int logf_w, int n_tris,
-                   const float* __restrict__ org,
-                   const float* __restrict__ dir,
-                   const float* __restrict__ dist, int n,
-                   float* __restrict__ lg_out) {
-  __shared__ float4 tab[3 * TINY_TRIS];
-  __shared__ float box[6 * TINY_BOXES];
-  stage_columns(reinterpret_cast<float*>(tab), pack, pack_w, logf, logf_w,
-                n_tris);
-  build_boxes(box, pack, pack_w, n_tris);
-  __syncthreads();
-  constexpr int R = TINY_RAYS;
-  const long long i0 =
-      ((long long)blockIdx.x * blockDim.x + threadIdx.x) * R;
-  if (i0 >= n) return;
-  float o[R][3], d[R][3], hi[R], acc[R][3];
-  load_segments<R>(org, dir, dist, i0, n, o, d, hi, acc);
-  unsigned enter[R];
-  enter_groups<R>(box, TINY_BOXES, 0, (n_tris + TINY_GROUP - 1) / TINY_GROUP,
-                  o, d, hi, enter);
-  sum_groups<R, TINY_GROUP, false>(tab, n_tris, 0, enter, o, d, hi, acc);
-  store_sums<R>(lg_out, i0, n, acc);
-}
-
-// ---- the one-thread body shadow_tiny_kernel replaced ----------------------
-
 __global__ void shadow_tiny_thread_kernel(
     const float* __restrict__ pack, int pack_w, const float* __restrict__ logf,
     int logf_w, int n_tris, const float* __restrict__ org,
@@ -212,6 +230,28 @@ __global__ void shadow_tiny_thread_kernel(
   lg_out[3 * i + 2] = lb;
 }
 
+// closest_tiny_kernel (walk) or the one-thread body, one thread a ray.
+template <typename K>
+int launch_closest(K kernel, bool walk, const void* pack, int pack_w,
+                   int n_tris, const void* org, const void* dir,
+                   const void* tmin, const void* tmax, int n, void* t_out,
+                   void* tri_out, void* u_out, void* v_out, void* stream) {
+  if (n_tris < 0 || n_tris > TINY_TRIS || n_tris > pack_w) {
+    return (int)cudaErrorInvalidValue;
+  }
+  const int groups = (n_tris + TINY_GROUP - 1) / TINY_GROUP;
+  const int bytes =
+      walk ? item_smem_bytes(n_tris, groups, TINY_ITEMS, THREADS) : 0;
+  if (n > 0) {
+    const int blocks = (n + THREADS - 1) / THREADS;
+    kernel<<<blocks, THREADS, bytes, (cudaStream_t)stream>>>(
+        (const float*)pack, pack_w, n_tris, (const float*)org,
+        (const float*)dir, (const float*)tmin, (const float*)tmax, n,
+        (float*)t_out, (int*)tri_out, (float*)u_out, (float*)v_out);
+  }
+  return (int)cudaGetLastError();
+}
+
 }  // namespace
 
 // Plain C interface, loaded with ctypes.  Pointers are device pointers;
@@ -223,17 +263,9 @@ extern "C" int closest_hit_tiny_launch(const void* pack, int pack_w,
                                        const void* tmax, int n, void* t_out,
                                        void* tri_out, void* u_out,
                                        void* v_out, void* stream) {
-  if (n_tris < 0 || n_tris > TINY_TRIS || n_tris > pack_w) {
-    return (int)cudaErrorInvalidValue;
-  }
-  if (n > 0) {
-    const int blocks = (n + THREADS - 1) / THREADS;
-    closest_tiny_kernel<<<blocks, THREADS, 0, (cudaStream_t)stream>>>(
-        (const float*)pack, pack_w, n_tris, (const float*)org,
-        (const float*)dir, (const float*)tmin, (const float*)tmax, n,
-        (float*)t_out, (int*)tri_out, (float*)u_out, (float*)v_out);
-  }
-  return (int)cudaGetLastError();
+  return launch_closest(closest_tiny_kernel, true, pack, pack_w, n_tris, org,
+                        dir, tmin, tmax, n, t_out, tri_out, u_out, v_out,
+                        stream);
 }
 
 extern "C" int shadow_logsum_tiny_launch(const void* pack, int pack_w,
@@ -256,8 +288,17 @@ extern "C" int shadow_logsum_tiny_launch(const void* pack, int pack_w,
   return (int)cudaGetLastError();
 }
 
-// The one-thread body shadow_logsum_tiny_launch replaced, every column for
-// every ray.
+// The one-thread bodies closest_hit_tiny_launch and
+// shadow_logsum_tiny_launch replaced, every column for every ray.
+extern "C" int closest_hit_tiny_before_launch(
+    const void* pack, int pack_w, int n_tris, const void* org,
+    const void* dir, const void* tmin, const void* tmax, int n, void* t_out,
+    void* tri_out, void* u_out, void* v_out, void* stream) {
+  return launch_closest(closest_tiny_thread_kernel, false, pack, pack_w,
+                        n_tris, org, dir, tmin, tmax, n, t_out, tri_out,
+                        u_out, v_out, stream);
+}
+
 extern "C" int shadow_logsum_tiny_before_launch(
     const void* pack, int pack_w, const void* logf, int logf_w, int n_tris,
     const void* org, const void* dir, const void* dist, int n, void* lg_out,

@@ -26,11 +26,15 @@ nearest first; the shadow sums give a thread SHADOW_DENSE_RAYS (dense) or
 SHADOW_STREAM_RAYS (stream) neighbouring rays and walk, in rising order,
 the quarters one of them enters (the column walk of csrc/column_walk.cuh).
 The stream sum's rays test only the quarters they enter and stop once
-opaque in all three channels.  The one-thread
-bodies those walks replaced are launched only by
-`_closest_hit_stream_before`, `_shadow_logsum_dense_before` and
-`_shadow_logsum_stream_before`, which no path calls: `chip_smoke.py` times
-them beside the walks.
+opaque in all three channels.  `closest_hit_dense` skips by the boxes of
+the pack's DENSE_GROUP-column groups (`dense_boxes`), which its kernel
+builds in each block (the closest walk of csrc/column_walk.cuh): a ray's
+thread box-tests every group and walks the group it enters nearest; the
+other groups it enters go to a list the block's threads share.  The
+one-thread bodies those walks replaced are launched only by
+`_closest_hit_dense_before`, `_closest_hit_stream_before`,
+`_shadow_logsum_dense_before` and `_shadow_logsum_stream_before`, which no
+path calls: `chip_smoke.py` times them beside the walks.
 
 Each wrapper takes the plain version only for CPU tensors; for CUDA tensors
 it launches its kernel on the current stream or raises, and counts the
@@ -56,6 +60,13 @@ MAX_QUARTERS = 32  # quarter boxes closest_hit_stream's warp holds, one a lane
 # csrc/cluster_intersect.cu), for counting their pair tests
 SHADOW_DENSE_RAYS = 2
 SHADOW_STREAM_RAYS = 1
+# columns of a box of closest_hit_dense's walk, the boxes it holds and the
+# items its block lists (DENSE_GROUP, DENSE_MAX_GROUPS, DENSE_ITEMS in
+# csrc/cluster_intersect.cu), and a block's threads
+DENSE_GROUP = 16
+DENSE_MAX_GROUPS = 64
+DENSE_ITEMS = 2048
+_THREADS = 256
 _MAX_SMEM = 232448  # shared memory a block may use on Hopper
 
 
@@ -64,6 +75,14 @@ def quarter_boxes(pack10: np.ndarray, n_tris: int) -> np.ndarray:
     columns (rows lo xyz | hi xyz | 0 0); all-pad quarters get the inverted
     box (+inf, -inf).  Built once per scene at compile."""
     return _column_boxes(pack10, n_tris, QUARTER)
+
+
+def dense_boxes(pack10: np.ndarray, n_tris: int) -> np.ndarray:
+    """(8, T'/DENSE_GROUP) boxes of the pack's DENSE_GROUP-column groups
+    over its real columns, as `closest_hit_dense`'s kernel builds them in
+    each block (the same float32 sums, minima and maxima): for counting
+    its tests."""
+    return _column_boxes(pack10, n_tris, DENSE_GROUP)
 
 
 # ---- plain PyTorch versions ---------------------------------------------
@@ -182,6 +201,51 @@ def stop_walk_pair_tests(pack10, box32, logf, org, dirn, dist, n_tris: int,
     return pairs, int((lo <= hi).sum()) * q_real
 
 
+def closest_walk_pair_tests(pack10, boxes, org, dirn, tmin, tmax,
+                            n_tris: int, chunk: int = 1 << 16) -> tuple:
+    """(pair tests listed, box tests) of the closest walk of
+    csrc/column_walk.cuh (closest_items: `closest_hit_tiny` on
+    `cuda_intersect.tiny_boxes`, `closest_hit_dense` on `dense_boxes`) over
+    the boxes (8, T'/width) of the pack's width-column groups.  A live ray
+    (tmin <= tmax) tests every real box against its whole interval and the
+    real columns of the group it enters nearest (the lower group on equal
+    entries); each other group it entered takes one more box test, against
+    its interval cut at that first group's best t, and goes to the block's
+    list where the cut interval enters it.  The kernel skips a listed item
+    whose entry lies beyond the ray's best t when a thread takes it, which
+    depends on the order the threads take the items: it tests at most the
+    listed pairs.  Counts what the kernel does on these inputs, not a
+    kernel path."""
+    width = pack10.shape[1] // boxes.shape[1]
+    g_real = -(-n_tris // width)
+    cols = real_columns(width, g_real, n_tris, org.device)
+    inf = float("inf")
+    pairs = box_tests = 0
+    for r0 in range(0, org.shape[0], chunk):
+        o, d = org[r0:r0 + chunk], dirn[r0:r0 + chunk]
+        lo, hi = tmin[r0:r0 + chunk], tmax[r0:r0 + chunk]
+        live = lo <= hi
+        ent = box_entry(boxes[:, :g_real], o, d, lo, hi)
+        entered = torch.isfinite(ent) & live[:, None]
+        first = torch.argmin(ent, dim=1)
+        has = entered.any(dim=1)
+        listed = (torch.arange(g_real, device=o.device)[None]
+                  == first[:, None]) & has[:, None]
+        # the first group's best t: its columns' nearest hit in (lo, hi)
+        k = first[:, None] * width + torch.arange(width, device=o.device)
+        t, _, _, ok = _mt_test(pack10[:, k.clamp(max=n_tris - 1)],
+                               slice(None), *(o[:, a:a + 1] for a in range(3)),
+                               *(d[:, a:a + 1] for a in range(3)))
+        ok = ok & (k < n_tris) & (t > lo[:, None]) & (t < hi[:, None])
+        t_first = torch.where(ok & has[:, None], t, inf).amin(dim=1)
+        again = entered & ~listed
+        listed |= again & torch.isfinite(box_entry(
+            boxes[:, :g_real], o, d, lo, torch.minimum(hi, t_first)))
+        pairs += int((listed.to(torch.int64) * cols).sum())
+        box_tests += int(live.sum()) * g_real + int(again.sum())
+    return pairs, box_tests
+
+
 def shadow_limits(dist):
     """The interval (lo, hi) a shadow kernel tests along each segment."""
     return (torch.full_like(dist, SHADOW_TMIN),
@@ -200,6 +264,8 @@ _ARGS = {
                             _I, _P, _P],
     "shadow_logsum_stream": [_P, _I, _P, _I, _P, _I, _I, _P, _I, _P, _P, _P,
                              _I, _P, _P],
+    "closest_hit_dense_before": [_P, _I, _P, _I, _I, _P, _P, _P, _P, _I, _P,
+                                 _P, _P],
     "closest_hit_stream_before": [_P, _I, _P, _I, _I, _P, _P, _P, _P, _I, _P,
                                   _P, _P],
     "shadow_logsum_dense_before": [_P, _I, _P, _I, _I, _P, _I, _P, _P, _P,
@@ -221,9 +287,9 @@ def _lib() -> ctypes.CDLL:
 def _check_scene(what: str, pack10, cluster8, box32, n_tris: int, device,
                  shadow: bool) -> None:
     """Checks the scene tensors.  The stream closest hit and both shadow
-    sums require the quarter boxes; the dense closest hit, and the
-    one-thread bodies (what "stream_before" / "dense_before"), take
-    none."""
+    sums require the quarter boxes; the dense closest hit (which builds
+    its own boxes, at most DENSE_MAX_GROUPS) and the one-thread bodies
+    (what "*_before") take none."""
     _check("pack10", pack10, (10, None), device)
     _check("cluster8", cluster8, (8, None), device)
     tp, n_cl = pack10.shape[1], cluster8.shape[1]
@@ -235,6 +301,14 @@ def _check_scene(what: str, pack10, cluster8, box32, n_tris: int, device,
         raise ValueError(f"{n_cl} clusters: the stream kernels take at most "
                          f"{MAX_STREAM_CLUSTERS}")
     smem = 4 * ((12 if shadow else 9) * tp + 6 * n_cl)
+    if what == "dense" and not shadow:
+        groups = -(-n_tris // DENSE_GROUP)
+        if groups > DENSE_MAX_GROUPS:
+            raise ValueError(f"{n_tris} triangles: the dense closest hit "
+                             f"holds at most {DENSE_MAX_GROUPS} boxes of "
+                             f"{DENSE_GROUP} columns")
+        smem = 8 * _THREADS + 4 * (12 * n_tris + 6 * groups + 8 * _THREADS
+                                   + 2 * DENSE_ITEMS + 1)
     if what == "stream" or (shadow and what == "dense"):
         if box32 is None:
             raise ValueError("box32: the pack's quarter boxes are required "
@@ -269,7 +343,7 @@ def _closest(what: str, pack10, cluster8, box32, org, dirn, tmin, tmax,
     _check("tmin", tmin, (n,), dev)
     _check("tmax", tmax, (n,), dev)
     if dev.type == "cpu":
-        plain = (closest_dense_plain if what == "dense"
+        plain = (closest_dense_plain if what.startswith("dense")
                  else closest_stream_plain)
         return plain(pack10, org, dirn, tmin, tmax, n_tris)
     if dev.type != "cuda":
@@ -316,11 +390,15 @@ def _shadow(what: str, pack10, cluster8, box32, logf, org, dirn, dist,
 
 def closest_hit_dense(pack10, cluster8, org, dirn, tmin, tmax, n_tris: int):
     """(best t, best pack column (int32)) of each ray over the first n_tris
-    pack columns, clusters in index order; `fine_intersect.
-    closest_epilogue` turns them into a hit record.
+    pack columns, the lowest column on ties; `fine_intersect.
+    closest_epilogue` turns them into a hit record.  On the card a ray's
+    thread walks the DENSE_GROUP-column group whose box (`dense_boxes`) it
+    enters nearest; the other groups it enters below that group's best t go
+    to a list of (ray, group) items that the block's threads take in turn.
 
     pack10 (10, T'), cluster8 (8, n_cl), org/dirn (N, 3), tmin/tmax (N,):
-    float32, contiguous, one device."""
+    float32, contiguous, one device; at most DENSE_GROUP x DENSE_MAX_GROUPS
+    triangles."""
     return _closest("dense", pack10, cluster8, None, org, dirn, tmin, tmax,
                     n_tris)
 
@@ -371,6 +449,15 @@ def shadow_logsum_stream(pack10, cluster8, box32, logf, org, dirn, dist,
 
 
 shadow_logsum_stream.launches = 0
+
+
+def _closest_hit_dense_before(pack10, cluster8, org, dirn, tmin, tmax,
+                              n_tris: int):
+    """`closest_hit_dense`'s function by the body its walk replaced, one
+    thread a ray over the clusters in index order.  For timing beside the
+    walk; no path calls it and its launches are not counted."""
+    return _closest("dense_before", pack10, cluster8, None, org, dirn, tmin,
+                    tmax, n_tris)
 
 
 def _closest_hit_stream_before(pack10, cluster8, org, dirn, tmin, tmax,

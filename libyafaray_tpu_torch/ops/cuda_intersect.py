@@ -6,12 +6,15 @@ Port of the tiny-scene section of libyafaray_tpu/ops/pallas_intersect.py
 the host-side pack build (`build_tri_pack`, `_pick_bt`).  The kernels live
 in csrc/tiny_intersect.cu and are built by ops/_build.py at first use.
 
-On the card the shadow sum gives a thread TINY_RAYS neighbouring rays and
-walks the TINY_GROUP-column groups whose boxes (`tiny_boxes`, which its
-kernel builds from the pack in each block) one of them enters.  The
-one-thread body that walk replaced is launched only by
-`_shadow_logsum_tiny_before`, which no path calls: `chip_smoke.py` times
-it beside the walk.
+On the card both kernels walk the boxes of the pack's TINY_GROUP-column
+groups (`tiny_boxes`, which each kernel builds from the pack in each
+block; csrc/column_walk.cuh).  The closest hit gives a thread one ray and
+the group it enters nearest, and lists the ray's other entered groups for
+the block's threads to take in turn; the shadow sum gives a thread
+TINY_RAYS neighbouring rays and walks the groups one of them enters.  The
+one-thread bodies those walks replaced are launched only by
+`_closest_hit_tiny_before` and `_shadow_logsum_tiny_before`, which no path
+calls: `chip_smoke.py` times them beside the walks.
 
 Each wrapper takes the plain version only for CPU tensors; for CUDA tensors
 it launches its kernel on the current stream or raises.  Each wrapper keeps
@@ -31,8 +34,9 @@ TINY_TRIS = 64
 NEG_EPS = 1e-12
 SHADOW_TMIN = 5e-4
 LOG_FLOOR = -80.0  # log filter of an opaque triangle (exp -> ~1.8e-35)
-# columns of a box of the tiny shadow sum's walk and rays a thread of it owns
-# (TINY_GROUP, TINY_RAYS in csrc/tiny_intersect.cu), for counting its tests
+# columns of a box of the tiny kernels' walks and rays a thread of the shadow
+# sum owns (TINY_GROUP, TINY_RAYS in csrc/tiny_intersect.cu), for counting
+# their tests
 TINY_GROUP = 2
 TINY_RAYS = 2
 
@@ -123,9 +127,8 @@ def _column_boxes(pack10: np.ndarray, n_tris: int, width: int) -> np.ndarray:
 
 def tiny_boxes(pack10: np.ndarray, n_tris: int) -> np.ndarray:
     """(8, T'/TINY_GROUP) boxes of the pack's TINY_GROUP-column groups over
-    its real columns, as `shadow_logsum_tiny`'s kernel builds them in each
-    block (the same float32 sums, minima and maxima): for counting its
-    tests."""
+    its real columns, as the tiny kernels build them in each block (the
+    same float32 sums, minima and maxima): for counting their tests."""
     return _column_boxes(pack10, n_tris, TINY_GROUP)
 
 
@@ -211,9 +214,11 @@ _I = ctypes.c_int
 def _lib() -> ctypes.CDLL:
     lib = _build.load("tiny_intersect")
     if lib.closest_hit_tiny_launch.argtypes is None:
-        lib.closest_hit_tiny_launch.argtypes = [
-            _P, _I, _I, _P, _P, _P, _P, _I, _P, _P, _P, _P, _P]
-        lib.closest_hit_tiny_launch.restype = _I
+        for fn in (lib.closest_hit_tiny_launch,
+                   lib.closest_hit_tiny_before_launch):
+            fn.argtypes = [_P, _I, _I, _P, _P, _P, _P, _I, _P, _P, _P, _P,
+                           _P]
+            fn.restype = _I
         for fn in (lib.shadow_logsum_tiny_launch,
                    lib.shadow_logsum_tiny_before_launch):
             fn.argtypes = [_P, _I, _P, _I, _I, _P, _P, _P, _I, _P, _P]
@@ -246,11 +251,7 @@ def _raise_on(code: int, what: str) -> None:
         raise RuntimeError(f"{what}: CUDA launch failed with cudaError {code}")
 
 
-def closest_hit_tiny(pack10, org, dirn, tmin, tmax, n_tris: int):
-    """Nearest hit of each ray over the first n_tris (<= 64) pack columns.
-
-    pack10 (10, T), org/dirn (N, 3), tmin/tmax (N,): float32, contiguous,
-    one device.  Returns (t, tri (int32 pack column), u, v, hit)."""
+def _closest_tiny(entry: str, pack10, org, dirn, tmin, tmax, n_tris: int):
     dev = org.device
     n = org.shape[0]
     _check_pack(pack10, n_tris, dev)
@@ -266,19 +267,39 @@ def closest_hit_tiny(pack10, org, dirn, tmin, tmax, n_tris: int):
     tri = torch.empty((n,), dtype=torch.int32, device=dev)
     u = torch.empty((n,), dtype=torch.float32, device=dev)
     v = torch.empty((n,), dtype=torch.float32, device=dev)
-    lib = _lib()
+    launch = getattr(_lib(), f"{entry}_launch")
     with torch.cuda.device(dev):
         stream = torch.cuda.current_stream(dev).cuda_stream
-        code = lib.closest_hit_tiny_launch(
-            pack10.data_ptr(), pack10.shape[1], n_tris, org.data_ptr(),
-            dirn.data_ptr(), tmin.data_ptr(), tmax.data_ptr(), n,
-            t.data_ptr(), tri.data_ptr(), u.data_ptr(), v.data_ptr(), stream)
-    closest_hit_tiny.launches += 1
-    _raise_on(code, "closest_hit_tiny")
+        code = launch(pack10.data_ptr(), pack10.shape[1], n_tris,
+                      org.data_ptr(), dirn.data_ptr(), tmin.data_ptr(),
+                      tmax.data_ptr(), n, t.data_ptr(), tri.data_ptr(),
+                      u.data_ptr(), v.data_ptr(), stream)
+    if entry in _WRAPPERS:  # the one-thread body is off every path
+        _WRAPPERS[entry].launches += 1
+    _raise_on(code, entry)
     return t, tri, u, v, torch.isfinite(t)
 
 
+def closest_hit_tiny(pack10, org, dirn, tmin, tmax, n_tris: int):
+    """Nearest hit of each ray over the first n_tris (<= 64) pack columns.
+
+    pack10 (10, T), org/dirn (N, 3), tmin/tmax (N,): float32, contiguous,
+    one device.  Returns (t, tri (int32 pack column), u, v, hit); the first
+    column wins ties.  On the card a ray tests the columns of the groups
+    whose boxes (`tiny_boxes`) it enters at or below its best t."""
+    return _closest_tiny("closest_hit_tiny", pack10, org, dirn, tmin, tmax,
+                         n_tris)
+
+
 closest_hit_tiny.launches = 0
+
+
+def _closest_hit_tiny_before(pack10, org, dirn, tmin, tmax, n_tris: int):
+    """`closest_hit_tiny`'s function by the body its walk replaced, one
+    thread a ray over every column.  For timing beside the walk; no path
+    calls it and its launches are not counted."""
+    return _closest_tiny("closest_hit_tiny_before", pack10, org, dirn, tmin,
+                         tmax, n_tris)
 
 
 def _shadow_tiny(entry: str, pack10, logf, org, dirn, dist, n_tris: int):
@@ -303,8 +324,8 @@ def _shadow_tiny(entry: str, pack10, logf, org, dirn, dist, n_tris: int):
         code = launch(pack10.data_ptr(), pack10.shape[1], logf.data_ptr(),
                       logf.shape[1], n_tris, org.data_ptr(), dirn.data_ptr(),
                       dist.data_ptr(), n, lg.data_ptr(), stream)
-    if entry == "shadow_logsum_tiny":  # the one-thread body is off every path
-        shadow_logsum_tiny.launches += 1
+    if entry in _WRAPPERS:  # the one-thread body is off every path
+        _WRAPPERS[entry].launches += 1
     _raise_on(code, entry)
     return lg
 
@@ -327,6 +348,12 @@ def _shadow_logsum_tiny_before(pack10, logf, org, dirn, dist, n_tris: int):
     calls it and its launches are not counted."""
     return _shadow_tiny("shadow_logsum_tiny_before", pack10, logf, org, dirn,
                         dist, n_tris)
+
+
+# the wrappers whose launches _closest_tiny / _shadow_tiny count, bound here
+# so a caller that wraps a module attribute (to record calls) keeps the
+# counts
+_WRAPPERS = {f.__name__: f for f in (closest_hit_tiny, shadow_logsum_tiny)}
 
 
 def shadow_transmission_tiny(pack10, filt4, org, dirn, dist, n_tris: int):

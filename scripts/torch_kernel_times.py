@@ -10,8 +10,10 @@ gather, and `nearest_flash` on the step's first final-gather lookup; the
 four mid-size kernels (`closest_hit_dense` / `shadow_logsum_dense` on the
 172-triangle scene, `closest_hit_stream` / `shadow_logsum_stream` on the
 652-triangle one) on every call one sample step of their scene makes, and
-beside them `shadow_logsum_tiny` on every call of one step of the Cornell
-main path (512², 64 spp); and, of one sample step of each of the six
+beside them `closest_hit_tiny` and `shadow_logsum_tiny` on every call of
+one step of the Cornell main path (512², 64 spp), and `closest_hit_tiny`
+on the first and the last call of a photon step; and, of one sample step
+of each of the six
 paths under `torch.profiler` (Cornell with the mid-size ones), the CUDA
 kernels launched, the device's busy ms and the ms of the ported kernels,
 and the photon maps' build (the preprocess of a photon image: host ms
@@ -71,12 +73,12 @@ PLAIN_QUERIES = 2048
 # what two trees that give the same answers print alike: exactly, and the
 # float32 sums whose order a redesign may change, within rtol 1e-5
 EXACT = ("rays", "slots", "queries", "live", "hits", "t_sum", "col_sum",
-         "lg_sum", "below_floor", "counted", "found")
+         "u_sum", "v_sum", "lg_sum", "below_floor", "counted", "found")
 CLOSE = ("flux_sum", "value_sum")
 KERNELS = ("closest_hit_fine", "shadow_logsum_fine", "pairs_closest",
            "pairs_shadow", "density_flash", "nearest_flash",
            "closest_hit_dense", "shadow_logsum_dense", "closest_hit_stream",
-           "shadow_logsum_stream", "shadow_logsum_tiny")
+           "shadow_logsum_stream", "shadow_logsum_tiny", "closest_hit_tiny")
 PATHS = ("grid", "pairs", "photon", "mid")
 
 
@@ -150,6 +152,7 @@ def main() -> None:
     from libyafaray_tpu_torch.ops import cluster_intersect as cx
     from libyafaray_tpu_torch.ops import cuda_intersect as ci
     from libyafaray_tpu_torch.ops import fine_intersect as fi
+    from libyafaray_tpu_torch.ops import intersect as isect
     from libyafaray_tpu_torch.ops import pairs_intersect as pi
     from libyafaray_tpu_torch.ops import photon_flash as pf
 
@@ -218,6 +221,34 @@ def main() -> None:
             repeat_differ=int(((again[0] != t) | (again[1] != col)).sum()),
             ms=cs.device_ms(lambda: kernel(*args), calls=3, replays=5))
 
+    def tiny_closest(name, call):
+        """closest_hit_tiny on the arguments of a recorded
+        `intersect.closest_hit` call (which every tree's engine makes by its
+        module attribute): sums, a strided sample against the plain
+        version, a second call against the first, device ms."""
+        arrays, static, *rays = call
+        org, dirn, tmin, tmax = (x.contiguous() for x in rays)
+        args = (arrays["tri_pack10"], org, dirn, tmin, tmax,
+                static.n_tris_real)
+        t, tri, u, v, hit = ci.closest_hit_tiny(*args)
+        again = ci.closest_hit_tiny(*args)
+        stride = max(1, org.shape[0] // PLAIN_RAYS)
+        plain = ci.closest_hit_tiny_plain(
+            args[0], *(x[::stride].contiguous()
+                       for x in (org, dirn, tmin, tmax)), args[5])
+        got = (t, tri, u, v)
+        report("closest_hit_tiny", name, dict(
+            rays=org.shape[0], hits=int(hit.sum()),
+            t_sum=float(t[hit].double().sum()), col_sum=int(tri.long().sum()),
+            u_sum=float(u.double().sum()), v_sum=float(v.double().sum()),
+            differ_from_plain=int(sum((a[::stride] != b) for a, b in zip(
+                got, plain[:4])).bool().sum()),
+            compared=plain[0].shape[0],
+            repeat_differ=int(sum((a != b) for a, b in zip(
+                got, again[:4])).bool().sum()),
+            ms=cs.device_ms(lambda: ci.closest_hit_tiny(*args), calls=3,
+                            replays=5)))
+
     def mid_scene(scenes, kind, g):
         """One sample step of a generated mid-size scene (its own settings):
         profiled, and every call of its two kernels timed."""
@@ -255,11 +286,15 @@ def main() -> None:
         attribute)."""
         cscene, cfg = cs.cornell(device="cuda", **cs.MAIN)
         name = "shadow_logsum_tiny"
-        step, arrays, calls = cs.step_calls(cscene, cfg, ci,
-                                            ("shadow_transmission_tiny",))
+        (step, arrays, calls), closest = cs.record_calls(
+            isect, ("closest_hit",), lambda: cs.step_calls(
+                cscene, cfg, ci, ("shadow_transmission_tiny",)))
         profiled("cornell", step, arrays, cfg, ("closest_tiny_kernel",
                                                 "shadow_tiny_kernel"))
         del step, arrays
+        for vertex, (_, call) in enumerate(closest):
+            tiny_closest("primary" if vertex == 0 else f"bounce {vertex}",
+                         call)
         for vertex, (pk, filt4, org, dirn, dist, n_tris) in enumerate(
                 calls["shadow_transmission_tiny"]):
             logf = ci.log_filter(filt4)
@@ -361,6 +396,14 @@ def main() -> None:
         pscene, pcfg = cs.photon_scene(cs.PHOTON, "cuda")
         step, arrays, pre_calls, step_calls = cs.photon_inputs(pscene, pcfg)
         profiled("photon", step, arrays, pcfg, cs.PHOTON_TAGS)
+        flags = torch.ones((pcfg.height, pcfg.width), dtype=torch.bool,
+                           device="cuda")
+        _, closest = cs.record_calls(isect, ("closest_hit",), lambda: step(
+            arrays, cs._fresh_film(pcfg, "cuda"), flags))
+        for name, (_, call) in (("photon step, first", closest[0]),
+                                ("photon step, last", closest[-1])):
+            tiny_closest(f"{name} of {len(closest)}", call)
+        del closest
         build = lambda: cs.photonmap.build_photon_maps(  # noqa: E731
             pscene, pcfg, arrays)
         builds = []

@@ -19,11 +19,14 @@ else.  The kernels themselves run only on the card; chip_smoke.py holds
 them to these plain versions there.  Here the walks of the kernels that
 skip by boxes of column groups are emulated in plain PyTorch and held to
 the plain versions bit for bit: `closest_hit_stream` (a warp a ray over
-the 32-column quarter boxes) and the column walk of the three shadow sums
+the 32-column quarter boxes), the column walk of the three shadow sums
 (csrc/column_walk.cuh: several rays a thread; `shadow_logsum_dense` and
 `shadow_logsum_stream` over the quarter boxes, the latter with its opaque
 stop, and `shadow_logsum_tiny` over 2-column boxes on the Cornell box's
-pack and a 64-triangle soup)."""
+pack and a 64-triangle soup) and the closest walk of the same header
+(`closest_hit_tiny` over the 2-column boxes, `closest_hit_dense` over
+16-column boxes: a ray's nearest group by its thread, its other groups as
+items the block's threads share)."""
 import numpy as np
 import pytest
 import torch
@@ -588,10 +591,163 @@ def test_tiny_shadow_walk_gives_the_plain_sum(tiny_cases, case, kind, r):
     assert 0 < pairs < (0.25 if case == "cornell" else 0.5) * n * n_tris
 
 
+def _walk_closest(pk, boxes, o, d, tmin, tmax, n_tris):
+    """The closest walk of csrc/column_walk.cuh (closest_items) in plain
+    PyTorch over the boxes (8, T'/width) of the pack's width-column groups.
+    A live ray (tmin <= tmax) tests every real box against its whole
+    interval and walks the group it enters nearest (the lower one on equal
+    entries); each other group it entered takes one more box test, against
+    its interval cut at the best t found so far, and is listed where the
+    cut interval enters it.  The listed (ray, group) items are then taken
+    one group after another, each skipped where its entry lies beyond the
+    ray's best t by then (the kernel's threads take them in an order of
+    their own).  A pair replaces the best on a smaller t or an equal t at a
+    lower column.  Returns ((t, column (int64), u, v), pair tests made,
+    pair tests listed, box tests); a ray that hits nothing keeps t = inf,
+    column 0, u = v = 0."""
+    n = o.shape[0]
+    width = pk.shape[1] // boxes.shape[1]
+    g_real = -(-n_tris // width)
+    inf = float("inf")
+    live = tmin <= tmax
+    best = [torch.full((n,), inf), torch.zeros(n, dtype=torch.int64),
+            torch.zeros(n), torch.zeros(n)]
+    cols = torch.clamp(n_tris - torch.arange(g_real) * width, 0, width)
+    made = [0]
+
+    def visit(group, on):
+        idx = torch.nonzero(on).squeeze(1)
+        k = group[idx, None] * width + torch.arange(width)
+        real = k < n_tris
+        made[0] += int(real.sum())
+        t, u, v, ok = ci._mt_test(pk[:, k.clamp(max=n_tris - 1)], slice(None),
+                                  *(o[idx, a:a + 1] for a in range(3)),
+                                  *(d[idx, a:a + 1] for a in range(3)))
+        ok = ok & real & (t > tmin[idx, None]) & (t < tmax[idx, None])
+        bt, bk, bu, bv = (b[idx] for b in best)
+        for c in range(width):
+            tc, kc = t[:, c], k[:, c]
+            win = ok[:, c] & ((tc < bt) | ((tc == bt) & (kc < bk)))
+            bt, bk = torch.where(win, tc, bt), torch.where(win, kc, bk)
+            bu = torch.where(win, u[:, c], bu)
+            bv = torch.where(win, v[:, c], bv)
+        for b, x in zip(best, (bt, bk, bu, bv)):
+            b[idx] = x
+
+    ent = fi.box_entry(boxes[:, :g_real], o, d, tmin, tmax)
+    entered = torch.isfinite(ent) & live[:, None]
+    first, has = torch.argmin(ent, dim=1), entered.any(dim=1)
+    visit(first, has)
+    again = entered & ~((torch.arange(g_real)[None] == first[:, None])
+                        & has[:, None])
+    cut = torch.minimum(tmax, best[0])
+    item = fi.box_entry(boxes[:, :g_real], o, d, tmin, cut)
+    listed = again & torch.isfinite(item)
+    for g in range(g_real):
+        visit(torch.full((n,), g, dtype=torch.int64),
+              listed[:, g] & (item[:, g] <= torch.minimum(tmax, best[0])))
+    pairs_listed = int((cols[first] * has).sum()) + int(
+        (listed.to(torch.int64) * cols).sum())
+    box_tests = int(live.sum()) * g_real + int(again.sum())
+    return best, made[0], pairs_listed, box_tests
+
+
+def _closest_walk_case(pack, n_tris, o, d, rays, seed):
+    """200 of the case's rays (`rays`: "first" from its first half, the
+    camera's rays in the generated scenes and the Cornell box, "second"
+    from its second half, rays from points inside the room in random
+    directions, as bounce rays are) and 200 edge rays (exact ties where
+    triangles share the aimed-at edge or vertex), with the limits of
+    `_limits` (every 11th ray dead)."""
+    rng = np.random.default_rng(seed)
+    h = o.shape[0] // 2
+    keep = rng.choice(h, 200, replace=False) + (h if rays == "second" else 0)
+    edges = [_edge_rays(pack, n_tris, min(200, n_tris), rng)
+             for _ in range(-(-200 // n_tris))]
+    o = np.concatenate([o[keep]] + [eo for eo, _ in edges])
+    d = np.concatenate([d[keep]] + [ed for _, ed in edges])
+    return [_t(x) for x in (o, d, *_limits(o.shape[0]))]
+
+
+def _ties(pk, org, dirn, t, n_tris):
+    """Rays whose nearest t two or more columns give exactly."""
+    ox, oy, oz = (x[:, None] for x in org.unbind(-1))
+    dx, dy, dz = (x[:, None] for x in dirn.unbind(-1))
+    t_all, _, _, ok = ci._mt_test(pk, slice(0, n_tris), ox, oy, oz, dx, dy,
+                                  dz)
+    return int(((ok & (t_all == t[:, None])).sum(dim=1) > 1)[
+        torch.isfinite(t)].sum())
+
+
+def _check_closest_walk(pk, boxes, rays, n_tris, want, brute_share):
+    """The walk on `rays` against the plain answer `want` (t, column[, u,
+    v]) bit for bit, dead rays (every 11th) missing at column 0; its
+    listed pairs and box tests are closest_walk_pair_tests' count, the
+    pairs it makes lie between what the groups entered below min(tmax, t)
+    hold and what it listed, no more than the groups its whole interval
+    enters hold, and under brute_share of the brute force's pairs."""
+    org, dirn, tmin, tmax = rays
+    got, made, listed, box_tests = _walk_closest(pk, boxes, *rays, n_tris)
+    for a, b in zip(got, want):
+        assert torch.equal(a, b.to(a.dtype))
+    hit = torch.isfinite(want[0])
+    assert hit.any() and not hit[::11].any() and (got[1][::11] == 0).all()
+    assert (listed, box_tests) == cl.closest_walk_pair_tests(pk, boxes,
+                                                             *rays, n_tris)
+    need = cl.cluster_pair_tests(pk, boxes, org, dirn, tmin,
+                                 torch.minimum(tmax, want[0]), n_tris)[0]
+    entered = cl.cluster_pair_tests(pk, boxes, *rays, n_tris)[0]
+    assert 0 < need <= made <= listed <= entered
+    assert listed < brute_share * org.shape[0] * n_tris
+    return listed
+
+
+@pytest.mark.parametrize("rays", ["first", "second"])
+@pytest.mark.parametrize("case", ["cornell", "soup64"])
+def test_tiny_closest_walk_gives_the_plain_answer(tiny_cases, case, rays):
+    """closest_hit_tiny's walk (the 2-column boxes its kernel builds,
+    tiny_boxes; each ray's nearest group by its own thread, its other
+    entered groups as items listed for the block) gives
+    closest_hit_tiny_plain's (t, tri, u, v) bit for bit, exact ties on
+    shared edges and dead rays (t = inf, column 0) included; it lists
+    under a quarter of the brute force's pairs on the Cornell box."""
+    pack, n_tris, o, d = tiny_cases[case]
+    pk = _t(pack)
+    rays_ = _closest_walk_case(pack, n_tris, o, d, rays, 31)
+    want = ci.closest_hit_tiny_plain(pk, *rays_, n_tris)[:4]
+    if case == "cornell":
+        assert _ties(pk, *rays_[:2], want[0], n_tris) >= 3
+    _check_closest_walk(pk, _t(ci.tiny_boxes(pack, n_tris)), rays_, n_tris,
+                        want, 0.25 if case == "cornell" else 0.5)
+
+
+@pytest.mark.parametrize("rays", ["first", "second"])
+@pytest.mark.parametrize("case", ["grid1", "soup300"])
+def test_dense_closest_walk_gives_the_plain_answer(cases, case, rays):
+    """closest_hit_dense's walk (the 16-column boxes its kernel builds,
+    dense_boxes, walked as the tiny one is, the lexicographic (t, column)
+    minimum) gives closest_dense_plain's (t, col) exactly, exact ties on
+    shared edges and dead rays included; it lists fewer pairs than the
+    quarter boxes need and than the brute force's half."""
+    pack, _, n_tris, o, d = cases[case]
+    pk, boxes = _t(pack), _t(cl.dense_boxes(pack, n_tris))
+    assert boxes.shape == (8, pack.shape[1] // cl.DENSE_GROUP)
+    rays_ = _closest_walk_case(pack, n_tris, o, d, rays, 37)
+    org, dirn, tmin, tmax = rays_
+    want = cl.closest_dense_plain(pk, *rays_, n_tris)
+    if case == "grid1":
+        assert _ties(pk, org, dirn, want[0], n_tris) >= 3
+    listed = _check_closest_walk(pk, boxes, rays_, n_tris, want, 0.9)
+    quarters = cl.cluster_pair_tests(pk, _box32(pack, n_tris), org, dirn,
+                                     tmin, torch.minimum(tmax, want[0]),
+                                     n_tris)[0]
+    assert listed < quarters
+
+
 def test_cluster_wrappers_route_cpu_to_plain_and_count_nothing(cases):
     """On CPU tensors every wrapper (and the private entries of the
-    one-thread bodies that the three quarter walks replaced) runs its plain
-    version and launches nothing."""
+    one-thread bodies that the four walks replaced) runs its plain version
+    and launches nothing."""
     pack, c8, n_tris, o, d = cases["grid2"]
     n = o.shape[0]
     lim = (torch.full((n,), 5e-5), torch.full((n,), float("inf")))
@@ -605,9 +761,9 @@ def test_cluster_wrappers_route_cpu_to_plain_and_count_nothing(cases):
         want = getattr(cl, f"closest_{kind}_plain")(
             _t(pack), _t(o), _t(d), *lim, n_tris)
         calls = [(getattr(cl, f"closest_hit_{kind}"),
-                  _closest_scene(kind, pack, c8, n_tris))]
-        if kind == "stream":
-            calls.append((cl._closest_hit_stream_before, (_t(pack), _t(c8))))
+                  _closest_scene(kind, pack, c8, n_tris)),
+                 (getattr(cl, f"_closest_hit_{kind}_before"),
+                  (_t(pack), _t(c8)))]
         for fn, scene in calls:
             got = fn(*scene, _t(o), _t(d), *lim, n_tris)
             for a, b in zip(got, want):
@@ -642,6 +798,14 @@ def test_cluster_wrappers_reject_bad_inputs(cases):
                               pack.shape[1] + 1)
     with pytest.raises(TypeError):
         cl.closest_hit_dense(pk, c, org.double(), dirn, lim, lim, n_tris)
+    # the dense walk holds at most 64 boxes of 16 columns (1,024 triangles);
+    # the one-thread body it replaced takes no boxes
+    with pytest.raises(ValueError, match="at most 64 boxes"):
+        cl.closest_hit_dense(torch.zeros((10, 1152)), torch.zeros((8, 9)),
+                             org, dirn, lim, lim, 1025)
+    with pytest.raises(ValueError, match="n_tris"):
+        cl._closest_hit_dense_before(pk, c, org, dirn, lim, lim,
+                                     pack.shape[1] + 1)
     with pytest.raises(ValueError, match="rgb rows"):
         cl.shadow_logsum_stream(pk, c, box32, torch.zeros(2, pack.shape[1]),
                                 org, dirn, lim, n_tris)

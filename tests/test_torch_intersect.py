@@ -160,15 +160,20 @@ def test_shadow_plain_matches_pallas_tiny_and_brute(cases, case):
 
 
 def test_wrapper_routes_cpu_to_plain_and_counts_nothing(cases):
+    """On CPU tensors closest_hit_tiny, and the private entry of the
+    one-thread body its walk replaced, run the plain version and launch
+    nothing."""
     pack, n_tris, _, _, o, d = cases["cornell-camera"]
     n = o.shape[0]
     args = (torch.from_numpy(pack), torch.from_numpy(o), torch.from_numpy(d),
             torch.full((n,), 5e-5), torch.full((n,), float("inf")))
     before = ci.closest_hit_tiny.launches
-    got = ci.closest_hit_tiny(*args, n_tris)
     want = ci.closest_hit_tiny_plain(*args, n_tris)
-    for a, b in zip(got, want):
-        assert torch.equal(a, b)
+    for fn in (ci.closest_hit_tiny, ci._closest_hit_tiny_before):
+        got = fn(*args, n_tris)
+        for a, b in zip(got, want):
+            assert torch.equal(a, b)
+    assert want[4].any()
     assert ci.closest_hit_tiny.launches == before  # no kernel launched
 
 
@@ -206,6 +211,12 @@ def test_wrapper_rejects_bad_inputs(cases):
         ci.closest_hit_tiny(pk, org, dirn, lim[:-1], lim, n_tris)
     with pytest.raises(ValueError):
         ci.closest_hit_tiny(pk, org, dirn, lim, lim, ci.TINY_TRIS + 1)
+    with pytest.raises(ValueError):
+        ci._closest_hit_tiny_before(pk, org, dirn, lim, lim,
+                                    ci.TINY_TRIS + 1)
+    with pytest.raises(TypeError):
+        ci._closest_hit_tiny_before(pk, org, dirn, lim.double(), lim,
+                                    n_tris)
     with pytest.raises(ValueError):
         ci.shadow_logsum_tiny(pk, torch.zeros(2, pack.shape[1]), org, dirn,
                               lim, n_tris)
