@@ -31,7 +31,10 @@ it launches its kernel on the current stream or raises, and counts the
 launch in its `launches` attribute.  The sorted layouts are built only for
 CUDA packs (`sorted_layout`), as the reference builds its culled layout
 only where its Pallas kernels run; from CULL_MIN_PHOTONS photons the
-density gather over a sorted pack is `density_culled`.
+density gather over a sorted pack is `density_culled`, whose kernel takes
+the queries along the pack's Morton curve in tiles of CULL_QUERIES, lists
+for each tile the clusters some query of it needs (`culled_tile_lists`
+counts them), and stages those two deep in shared memory.
 """
 from __future__ import annotations
 
@@ -42,7 +45,10 @@ import torch
 from . import _build
 from .cuda_intersect import _check, _raise_on
 
-BQ = 256  # queries per block of the culled kernel
+BQ = 256  # queries per block of the culled kernel's old body
+CULL_QUERIES = 32  # queries a tile (a CTA) of the culled kernel
+CULL_TPQ = 16  # threads a query there
+CULL_WINDOW = 8192  # clusters the culled kernel lists at a time
 BP = 512  # photons per block (the tie and cluster unit)
 SENTINEL = 1.0e9  # invalid-photon position -> d2 ~ 1e18 fails any r2
 CULL_MIN_PHOTONS = 1 << 20  # packs >= ~1M photons take the culled layout
@@ -384,8 +390,11 @@ def _lib() -> ctypes.CDLL:
             _P, _P, _I, _P, _P, _I, _P, _P, _P]
         lib.nearest_flash_launch.restype = _I
         lib.density_culled_launch.argtypes = [
-            _P, _I, _P, _P, _I, _P, _P, _P, _P, _I, _P, _P, _P]
+            _P, _I, _P, _P, _I, _P, _P, _P, _P, _P, _I, _P, _P, _P]
         lib.density_culled_launch.restype = _I
+        lib.density_culled_before_launch.argtypes = [
+            _P, _I, _P, _P, _I, _P, _P, _P, _P, _I, _P, _P, _P]
+        lib.density_culled_before_launch.restype = _I
         lib.nearest_culled_launch.argtypes = [
             _P, _I, _P, _P, _I, _P, _P, _I, _P, _P, _P]
         lib.nearest_culled_launch.restype = _I
@@ -528,11 +537,78 @@ def _query_blocks(qp, r2):
                       torch.zeros_like(rr[:, :1])], dim=1).contiguous()
 
 
-def density_culled(pack: dict, query_p, query_n, radius):
-    """density_flash over a sorted pack, visiting per query only the
-    clusters whose box lies within its radius.  On the card the queries
-    are sorted along the pack's Morton curve first, so the 256 queries of
-    a CTA share clusters, and un-permuted at the end."""
+def cull_order(pack: dict, query_p) -> torch.Tensor:
+    """(N,) int64: the queries sorted along the pack's Morton curve (a
+    stable sort), the order in which `density_culled` tiles them."""
+    lo, hi = pack["cl_lo"], pack["cl_hi"]
+    return torch.argsort(_morton_points(query_p, lo.amin(0), hi.amax(0)),
+                         stable=True)
+
+
+def _word_boxes(lo, hi) -> torch.Tensor:
+    """(ceil(C / 32), 6) rows [lo xyz, hi xyz]: the union box of each 32
+    clusters (+inf / -inf where none of them holds a photon)."""
+    pad = (-lo.shape[0]) % 32
+    inf = float("inf")
+    lo32 = torch.cat([lo, lo.new_full((pad, 3), inf)]).reshape(-1, 32, 3)
+    hi32 = torch.cat([hi, hi.new_full((pad, 3), -inf)]).reshape(-1, 32, 3)
+    return torch.cat([lo32.amin(1), hi32.amax(1)], dim=1).contiguous()
+
+
+def _gap2(lo, hi, blo, bhi):
+    """Squared gaps between boxes [lo, hi] (..., 3) and [blo, bhi] (..., 3),
+    broadcast: per axis the larger one-sided gap, clamped at 0."""
+    gap = torch.maximum(torch.clamp(lo - bhi, min=0.0),
+                        torch.clamp(blo - hi, min=0.0))
+    return (gap[..., 0] * gap[..., 0] + gap[..., 1] * gap[..., 1]
+            + gap[..., 2] * gap[..., 2])
+
+
+def culled_tile_lists(pack: dict, query_p, radius, tile: int = CULL_QUERIES,
+                      chunk: int = 4096) -> tuple:
+    """The cluster lists of `density_culled`'s tiles: the queries in
+    `cull_order`, `tile` at a time.  Returns (words (T, ceil(C / 32)),
+    candidates (T, C), listed (T, C)), bool: a word of 32 clusters is near
+    a tile if its union box lies within the tile's largest radius of the
+    tile's query box, a cluster is a candidate if it lies in a near word
+    and its own box passes the same test, and listed if some query of the
+    tile needs it (its point-box d2 <= its r2).  Counts what the kernel's
+    inputs give, for its bound and its report; not a kernel path."""
+    n = query_p.shape[0]
+    lo, hi = pack["cl_lo"], pack["cl_hi"]
+    n_cl = lo.shape[0]
+    perm = cull_order(pack, query_p)
+    qp = query_p[perm].to(F32)
+    r2 = _r2(radius, n, query_p.device)[perm]
+    pad = (-n) % tile
+    inf = float("inf")
+    blo = torch.cat([qp, qp.new_full((pad, 3), inf)]).reshape(
+        -1, tile, 3).amin(1)[:, None]
+    bhi = torch.cat([qp, qp.new_full((pad, 3), -inf)]).reshape(
+        -1, tile, 3).amax(1)[:, None]
+    rmax = _pad_rows(r2, pad).reshape(-1, tile).amax(1)[:, None]
+    wb = _word_boxes(lo, hi)
+    words = _gap2(wb[None, :, :3], wb[None, :, 3:], blo, bhi) <= rmax
+    near = torch.repeat_interleave(words, 32, dim=1)[:, :n_cl]
+    cand = near & (_gap2(lo[None], hi[None], blo, bhi) <= rmax)
+    listed = torch.zeros_like(cand)
+    qp = torch.cat([qp, qp.new_zeros((pad, 3))])
+    r2 = torch.cat([r2, r2.new_full((pad,), -1.0)])
+    chunk = max(tile, chunk // tile * tile)
+    for q0 in range(0, n + pad, chunk):
+        q = qp[q0:q0 + chunk, None, :]
+        dd = torch.maximum(torch.clamp(lo[None] - q, min=0.0),
+                           torch.clamp(q - hi[None], min=0.0))
+        d2 = (dd[..., 0] * dd[..., 0] + dd[..., 1] * dd[..., 1]
+              + dd[..., 2] * dd[..., 2])
+        need = (d2 <= r2[q0:q0 + chunk, None]).reshape(-1, tile, n_cl)
+        listed[q0 // tile:q0 // tile + need.shape[0]] = need.any(dim=1)
+    return words, cand, listed
+
+
+def _culled(before: bool, pack: dict, query_p, query_n, radius):
+    """`density_culled` (before=False) or `_density_culled_before`."""
+    name = "_density_culled_before" if before else "density_culled"
     dev = query_p.device
     n = query_p.shape[0]
     _check("query_p", query_p, (n, 3), dev)
@@ -542,27 +618,47 @@ def density_culled(pack: dict, query_p, query_n, radius):
     if dev.type == "cpu":
         return density_culled_plain(pack, query_p, query_n, radius)
     if dev.type != "cuda":
-        raise ValueError(f"density_culled: unsupported device {dev}")
+        raise ValueError(f"{name}: unsupported device {dev}")
     r2 = _r2(radius, n, dev)
-    perm = torch.argsort(_morton_points(query_p, lo.amin(0), hi.amax(0)),
-                         stable=True)
-    qp, qn, r2s = (x[perm].contiguous() for x in (query_p, query_n, r2))
-    blk = _query_blocks(qp, r2s)
+    perm = cull_order(pack, query_p)
     flux = torch.empty((n, 3), dtype=F32, device=dev)
     cnt = torch.empty((n,), dtype=F32, device=dev)
-    lib = _lib()
+    if before:  # the old body reads sorted copies and its blocks' boxes
+        qp, qn, r2 = (x[perm].contiguous() for x in (query_p, query_n, r2))
+        args = (qp, qn, r2, _query_blocks(qp, r2))
+    else:
+        args = (query_p, query_n, r2, perm, _word_boxes(lo, hi))
     with torch.cuda.device(dev):
-        code = lib.density_culled_launch(
+        code = getattr(_lib(), f"{name.lstrip('_')}_launch")(
             tbl.data_ptr(), tbl.shape[1], lo.data_ptr(), hi.data_ptr(), n_cl,
-            qp.data_ptr(), qn.data_ptr(), r2s.data_ptr(), blk.data_ptr(), n,
-            flux.data_ptr(), cnt.data_ptr(), _stream(dev))
-    density_culled.launches += 1
-    _raise_on(code, "density_culled")
-    out_f = torch.empty_like(flux)
-    out_c = torch.empty_like(cnt)
-    out_f[perm] = flux
-    out_c[perm] = cnt
-    return out_f, out_c
+            *(x.data_ptr() for x in args), n, flux.data_ptr(),
+            cnt.data_ptr(), _stream(dev))
+    if not before:  # the old body is off every path
+        density_culled.launches += 1
+    _raise_on(code, name)
+    if before:
+        out_f, out_c = torch.empty_like(flux), torch.empty_like(cnt)
+        out_f[perm], out_c[perm] = flux, cnt
+        return out_f, out_c
+    return flux, cnt
+
+
+def density_culled(pack: dict, query_p, query_n, radius):
+    """density_flash over a sorted pack, visiting per query only the
+    clusters whose box lies within its radius.  On the card the queries
+    are taken along the pack's Morton curve (`cull_order`), 64 to a tile:
+    a tile sums the clusters some query of it needs, in rising index, each
+    query's photons split over four threads; the same bits in every
+    call."""
+    return _culled(False, pack, query_p, query_n, radius)
+
+
+def _density_culled_before(pack: dict, query_p, query_n, radius):
+    """`density_culled`'s function by the body its kernel replaced (one
+    thread a query, 256 sorted queries a CTA, every cluster within the
+    CTA's query box staged in turn).  For timing beside the kernel; no path
+    calls it and its launches are not counted."""
+    return _culled(True, pack, query_p, query_n, radius)
 
 
 density_culled.launches = 0

@@ -19,14 +19,23 @@ kernels launched, the device's busy ms and the ms of the ported kernels,
 and the photon maps' build (the preprocess of a photon image: host ms
 between synchronizes, the median of five builds, and in one more under
 `torch.profiler` the device's busy ms, the host's waits on the device and
-its costliest ops).
+its costliest ops); and the scale route, `cornell_photon.xml` at its own
+512², 16 spp and raydepth with 2,000,000 photons (the diffuse map over
+2^20 stored photons takes `density_culled`), rendered with its final
+gather and without: the preprocess split into photon shooting, pack
+building, the radiance precompute's gathers and the rest, its device busy
+ms, `render_s` and Mrays/s, one profiled step, and `density_culled` on
+that image's gathers (the precompute's queries, or one step's hit points)
+timed, with its launches and its share of the image's device time (the
+`culled` path: only `density_culled` at those two shapes, beside the body
+it replaced where the tree has it, `_density_culled_before`).
 
     python3 scripts/torch_kernel_times.py [--repo DIR] [--out FILE]
                                           [--same-as FILE] [--paths P,...]
 
---paths takes a comma-separated subset of grid, pairs, photon and mid
-(default: all four; mid includes the Cornell step); two runs compared by
---same-as take the same paths.
+--paths takes a comma-separated subset of grid, pairs, photon, mid, scale
+and culled (default: the first five; mid includes the Cornell step; scale
+includes culled); two runs compared by --same-as take the same paths.
 
 DIR (default: the tree this script lies in) is the root of a checkout that
 holds `chip_smoke.py` and `libyafaray_tpu_torch/`; its kernels are built
@@ -57,6 +66,7 @@ line with all of them; needs one NVIDIA GPU.
 from __future__ import annotations
 
 import argparse
+import collections
 import json
 import os
 import statistics
@@ -78,8 +88,10 @@ CLOSE = ("flux_sum", "value_sum")
 KERNELS = ("closest_hit_fine", "shadow_logsum_fine", "pairs_closest",
            "pairs_shadow", "density_flash", "nearest_flash",
            "closest_hit_dense", "shadow_logsum_dense", "closest_hit_stream",
-           "shadow_logsum_stream", "shadow_logsum_tiny", "closest_hit_tiny")
-PATHS = ("grid", "pairs", "photon", "mid")
+           "shadow_logsum_stream", "shadow_logsum_tiny", "closest_hit_tiny",
+           "density_culled")
+PATHS = ("grid", "pairs", "photon", "mid", "scale", "culled")
+SCALE_PHOTONS = 2_000_000
 
 
 def profiled_ms(fn) -> dict:
@@ -114,6 +126,46 @@ def profiled_ms(fn) -> dict:
                   for e in ops})
 
 
+def split_build(photonmap, build) -> dict:
+    """build() (a photon-map build) with photonmap's shooting, compaction,
+    pack and gather functions timed on the host between synchronizes:
+    ms of the photon passes and compaction (shoot_ms), the packs
+    (packs_ms), the radiance precompute's gathers (precompute_ms), the
+    rest (other_ms) and in all (total_ms)."""
+    spans = collections.defaultdict(float)
+
+    def timed(key, fn):
+        def call(*args, **kwargs):
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            out = fn(*args, **kwargs)
+            torch.cuda.synchronize()
+            spans[key] += 1e3 * (time.perf_counter() - t0)
+            return out
+        return call
+
+    keys = dict(compact_photons_device="shoot_ms",
+                make_photon_pack_auto="packs_ms",
+                make_photon_pack_lookup="packs_ms",
+                density_auto="precompute_ms")
+    saved = {k: getattr(photonmap, k) for k in (*keys, "make_photon_pass")}
+    for k, key in keys.items():
+        setattr(photonmap, k, timed(key, saved[k]))
+    photonmap.make_photon_pass = lambda *a, **k: timed(
+        "shoot_ms", saved["make_photon_pass"](*a, **k))
+    try:
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        build()
+        torch.cuda.synchronize()
+        total = 1e3 * (time.perf_counter() - t0)
+    finally:
+        for k, fn in saved.items():
+            setattr(photonmap, k, fn)
+    out = {k: spans[k] for k in ("shoot_ms", "packs_ms", "precompute_ms")}
+    return dict(out, other_ms=total - sum(out.values()), total_ms=total)
+
+
 def answers_differ(a: dict, b: dict) -> list:
     """The (kernel, call, key) whose answers differ between two runs."""
     bad = []
@@ -138,7 +190,7 @@ def main() -> None:
     ap.add_argument("--out", help="write the last JSON line to this file")
     ap.add_argument("--same-as", help="fail unless the answers equal those "
                     "of this --out file")
-    ap.add_argument("--paths", default=",".join(PATHS),
+    ap.add_argument("--paths", default=",".join(PATHS[:-1]),
                     help="comma-separated subset of " + ", ".join(PATHS))
     opts = ap.parse_args()
     paths = opts.paths.split(",")
@@ -308,6 +360,97 @@ def main() -> None:
                 lambda: ci.shadow_logsum_tiny(*args), lg, plain_lg, sample,
                 rays=org.shape[0], live=int((dist > 0).sum())))
 
+    def scale_image(fg: bool, full: bool):
+        """The scale route at full size, with (fg) or without final
+        gather.  With `full`: the preprocess split (one instrumented build;
+        the host ms of three more, their median; one under the profiler:
+        busy ms), the timed render (render_s, Mrays/s, launches) and one
+        profiled step.  Always: density_culled on this image's culled
+        gather (the precompute's queries, or one step's hit points), device
+        ms a call, sums, a second call, and where the tree has it the body
+        it replaced (ms_before, queries whose counts differ or whose flux
+        is beyond rtol 1e-5); with `full` its launches and share of the
+        image's device time (preprocess busy + spp x step busy)."""
+        from libyafaray_tpu_torch.convert import to_tensors
+
+        name = "scale, final gather" if fg else "scale, no final gather"
+        scene, cfg = cs.photon_scene(cs.PHOTON, "cuda", photons=SCALE_PHOTONS,
+                                     final_gather=fg)
+        step, arrays, pre_calls, step_calls = cs.photon_inputs(scene, cfg)
+        culled = [a for n, a in (pre_calls if fg else step_calls)
+                  if n == "density_auto" and pf.pack_layout(a[0]) == "culled"]
+        del pre_calls, step_calls
+        shares = {}
+        if full:
+            build = lambda: cs.photonmap.build_photon_maps(  # noqa: E731
+                scene, cfg, to_tensors(scene.arrays, "cuda"))
+            split = split_build(cs.photonmap, build)
+            builds = []
+            for _ in range(3):
+                torch.cuda.synchronize()
+                t0 = time.perf_counter()
+                build()
+                torch.cuda.synchronize()
+                builds.append(1e3 * (time.perf_counter() - t0))
+            busy_pre = profiled_ms(build)["busy_ms"]
+            res, launches = cs.counted(
+                lambda: cs.photonmap.render_photonmap_timed(scene, cfg,
+                                                            device="cuda"))
+            prof = cs.profile_step(step, arrays, cfg,
+                                   (*cs.PHOTON_TAGS, "density_culled"))
+            out["step"][name] = {k: prof[k] for k in (
+                "kernel_launches", "device_busy_ms", "ported_ms",
+                "ported_by_kernel")}
+            image_ms = busy_pre + cfg.aa_samples * prof["device_busy_ms"]
+            info = res.stats["photon_maps"]
+            per_image = launches["density_culled"] - (0 if fg else 1)
+            row = dict(
+                size=f"{cfg.width}x{cfg.height}", spp=cfg.aa_samples,
+                raydepth=cfg.raydepth, photons=cfg.photons,
+                fg_samples=cfg.fg_samples if fg else 0,
+                stored_diffuse=info["diffuse"]["stored"],
+                diffuse_layout=info["diffuse"]["layout"],
+                preprocess_ms_median=statistics.median(builds),
+                preprocess_ms=builds, preprocess_busy_ms=busy_pre,
+                **{f"split_{k}": v for k, v in split.items()},
+                render_s=res.stats["render_s"], rays=res.stats["rays"],
+                mrays_per_s=res.mrays_per_sec,
+                preprocess_s=res.stats["preprocess_s"],
+                step_busy_ms=prof["device_busy_ms"],
+                step_launches=prof["kernel_launches"],
+                step_ported=prof["ported_by_kernel"],
+                image_device_ms=image_ms, launches=launches,
+                density_culled_per_image=per_image)
+            print(f"[scale] image={name!r} "
+                  + " ".join(f"{k}={v}" for k, v in row.items()), flush=True)
+            shares = dict(launches_per_image=per_image, image_ms=image_ms)
+        del step, arrays
+        args = culled[0]
+        flux, cnt = pf.density_culled(*args)
+        again = pf.density_culled(*args)
+        row = dict(
+            queries=args[1].shape[0], clusters=args[0]["cl_lo"].shape[0],
+            calls_recorded=len(culled), counted=int(cnt.sum()),
+            flux_sum=float(flux.double().sum()),
+            repeat_differ=int(((again[0] != flux).any(dim=1)
+                               | (again[1] != cnt)).sum()),
+            ms=cs.device_ms(lambda: pf.density_culled(*args), calls=3,
+                            replays=3))
+        before = getattr(pf, "_density_culled_before", None)
+        if before is not None:
+            bf, bc = before(*args)
+            far = ~torch.isclose(flux, bf, rtol=1e-5, atol=1e-6 * float(
+                bf.abs().max())).all(dim=1)
+            row.update(differ_vs_before=int(((cnt != bc) | far).sum()),
+                       ms_before=cs.device_ms(lambda: before(*args), calls=2,
+                                              replays=3))
+        if shares:
+            row.update(launches_per_image=shares["launches_per_image"],
+                       share_of_image_device_ms=row["ms"]
+                       * shares["launches_per_image"] / shares["image_ms"])
+        report("density_culled", name, row)
+        del culled, args, flux, cnt, again
+
     with tempfile.TemporaryDirectory() as scenes:
         if "mid" in paths:
             cornell_step()
@@ -458,6 +601,9 @@ def main() -> None:
             compared=PLAIN_QUERIES,
             ms=cs.device_ms(lambda: pf.nearest_flash(pack, qp, r), calls=3,
                             replays=5)))
+    if {"scale", "culled"} & set(paths):
+        for fg in (True, False):
+            scale_image(fg, full="scale" in paths)
     build = os.path.join(repo, "libyafaray_tpu_torch", "_build")
     for log in sorted(f for f in os.listdir(build) if f.endswith(".log")):
         with open(os.path.join(build, log)) as f:

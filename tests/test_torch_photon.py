@@ -384,6 +384,178 @@ def test_warp_density_walk_gives_the_plain_density(sorted_photons):
     assert pairs < 0.5 * len(qp) * int(port["n_valid"])
 
 
+def test_culled_constants_are_the_kernels():
+    """CULL_QUERIES, CULL_TPQ and CULL_WINDOW, which the tile lists and the
+    tests use, are the values csrc/photon_flash.cu is built with."""
+    import re
+
+    with open(os.path.join(REPO, "libyafaray_tpu_torch", "csrc",
+                           "photon_flash.cu")) as f:
+        src = f.read()
+    d = {k: int(v) for k, v in re.findall(r"#define (\w+) (\d+)\b", src)}
+    assert ppf.CULL_TPQ == d["CULL_TPQ"]
+    assert ppf.CULL_QUERIES == d["THREADS"] // d["CULL_TPQ"] * d["CULL_QPT"]
+    assert ppf.CULL_WINDOW == 32 * d["CULL_MASK_WORDS"]
+    assert ppf.BP == d["BP"]
+
+
+@pytest.fixture(scope="module")
+def clumps():
+    """30,000 photons (10% invalid) in two clumps 10 apart on every axis,
+    as a sorted pack (59 clusters), and 600 queries with radii 0.1-0.5:
+    most on photons of either clump, a tenth anywhere in the box that
+    holds both, so Morton runs of queries jump and tile boxes grow."""
+    rng = np.random.default_rng(23)
+    p, nq = 30_000, 600
+    centre = np.where(rng.random(p)[:, None] < 0.5, 0.0, 10.0)
+    pos = (centre + rng.normal(0.0, 1.0, (p, 3))).astype(np.float32)
+    valid = rng.random(p) > 0.1
+    pack = ppf.make_photon_pack_sorted(_t(pos), _t(valid), _t(_unit(rng, p)),
+                                       _t(rng.random((p, 3)).astype(
+                                           np.float32)))
+    qp = (pos[rng.integers(0, p, nq)]
+          + rng.normal(0.0, 0.05, (nq, 3))).astype(np.float32)
+    qp[::10] = rng.uniform(-3.0, 13.0, (nq // 10, 3))
+    radius = rng.uniform(0.1, 0.5, nq).astype(np.float32)
+    return pack, _t(qp), _t(_unit(rng, nq)), _t(radius)
+
+
+def _tile_walk(pack, qp, qn, radius, window=ppf.CULL_WINDOW, reverse=False):
+    """`density_culled_kernel` in plain PyTorch.  The queries in
+    `cull_order`, CULL_QUERIES to a tile.  Per tile and window of `window`
+    clusters, the words of 32 clusters whose union box lies within the
+    tile's largest radius of its query box, in rising or (reverse) falling
+    order (warps take them in turn): the clusters of such a word whose own
+    box passes the same test are candidates, and a candidate is listed if
+    some query's point-box d2 <= its r2.  Then thread j of a query sums
+    photons k = j mod CULL_TPQ of each listed cluster one by one into a
+    partial, added to its total cluster by cluster in rising index, and
+    the CULL_TPQ totals are added by the xor tree.  Returns (flux, count,
+    each tile's listed clusters in visit order)."""
+    tbl, lo, hi = pack["tbl"], pack["cl_lo"], pack["cl_hi"]
+    n, n_cl = qp.shape[0], lo.shape[0]
+    tile, tpq = ppf.CULL_QUERIES, ppf.CULL_TPQ
+    perm = ppf.cull_order(pack, qp)
+    pad = (-n) % tile
+    q = torch.cat([qp[perm], torch.zeros((pad, 3))])
+    qn_s = torch.cat([qn[perm], torch.zeros((pad, 3))])
+    r2 = torch.cat([(radius * radius)[perm], torch.full((pad,), -1.0)])
+    wbox = ppf._word_boxes(lo, hi)
+    visits = []
+    for t in range(q.shape[0] // tile):
+        tq, tr = q[t * tile:(t + 1) * tile], r2[t * tile:(t + 1) * tile]
+        live = (tr >= 0.0)[:, None]
+        blo = torch.where(live, tq, float("inf")).amin(0)
+        bhi = torch.where(live, tq, -float("inf")).amax(0)
+        rmax = tr.amax()
+        seen = []
+        for c0 in range(0, n_cl, window):
+            keep = torch.zeros(n_cl, dtype=torch.bool)
+            words = [w0 for w0 in range(c0, min(c0 + window, n_cl), 32)
+                     if ppf._gap2(wbox[w0 // 32, :3], wbox[w0 // 32, 3:],
+                                  blo, bhi) <= rmax]
+            for w0 in reversed(words) if reverse else words:
+                for c in range(w0, min(w0 + 32, n_cl)):
+                    if ppf._gap2(lo[c], hi[c], blo, bhi) <= rmax:
+                        keep[c] = bool(
+                            (ppf._box_d2(tq, lo[c], hi[c]) <= tr).any())
+            seen += [int(c) for c in torch.nonzero(keep)[:, 0]]
+        visits.append(seen)
+    lanes_f = torch.zeros((q.shape[0], tpq, 3))
+    lanes_c = torch.zeros((q.shape[0], tpq))
+    tile_of = torch.arange(q.shape[0]) // tile
+    for c in range(n_cl):
+        on = torch.tensor([c in v for v in visits])[tile_of][:, None]
+        if not on.any():
+            continue
+        # a cluster's partial sums, added to the totals after it
+        part_f, part_c = torch.zeros_like(lanes_f), torch.zeros_like(lanes_c)
+        for it in range(ppf.BP // tpq):
+            k = c * ppf.BP + tpq * it + torch.arange(tpq)
+            dx, dy, dz = (q[:, a:a + 1] - tbl[a, k][None] for a in range(3))
+            d2 = dx * dx + dy * dy + dz * dz
+            side = (qn_s[:, 0:1] * tbl[3, k][None]
+                    + qn_s[:, 1:2] * tbl[4, k][None]
+                    + qn_s[:, 2:3] * tbl[5, k][None])
+            w = on & (d2 <= r2[:, None]) & (side > 0.0)
+            part_f = part_f + torch.where(w[..., None], tbl[6:9, k].T[None],
+                                          0.0)
+            part_c = part_c + w.to(torch.float32)
+        lanes_f, lanes_c = lanes_f + part_f, lanes_c + part_c
+    idx = torch.arange(tpq)
+    off = tpq // 2
+    while off:
+        lanes_f = lanes_f + lanes_f[:, idx ^ off]
+        lanes_c = lanes_c + lanes_c[:, idx ^ off]
+        off //= 2
+    flux, cnt = torch.empty((n, 3)), torch.empty(n)
+    flux[perm], cnt[perm] = lanes_f[:n, 0], lanes_c[:n, 0]
+    return flux, cnt, visits
+
+
+@pytest.fixture(scope="module")
+def clumps_walk(clumps):
+    return _tile_walk(*clumps)
+
+
+def test_culled_tile_walk_gives_the_plain_density(clumps, clumps_walk):
+    """The card kernel's tile lists and sum order against
+    `density_culled_plain`: counts equal bit for bit, flux rtol 1e-5.  Each
+    tile lists, in rising index, exactly the clusters some query of it
+    needs (`culled_tile_lists`, by brute force over the tile's queries),
+    a subset of its tile-box candidates, and less than half of them where
+    a tile spans both clumps."""
+    pack, qp, qn, radius = clumps
+    wf, wc, visits = clumps_walk
+    cf, cc = ppf.density_culled_plain(pack, qp, qn, radius)
+    assert torch.equal(wc, cc) and wc.sum() > 5000
+    _close(cf.numpy(), wf, "flux vs culled plain", float(cf.abs().max()))
+    words, cand, listed = ppf.culled_tile_lists(pack, qp, radius)
+    perm = ppf.cull_order(pack, qp)
+    lo, hi = pack["cl_lo"], pack["cl_hi"]
+    n_cl = lo.shape[0]
+    r2 = (radius * radius)[perm]
+    tile = ppf.CULL_QUERIES
+    for t, seen in enumerate(visits):
+        q, rr = qp[perm][t * tile:(t + 1) * tile], r2[t * tile:(t + 1) * tile]
+        need = [c for c in range(n_cl)
+                if bool((ppf._box_d2(q, lo[c], hi[c]) <= rr).any())]
+        assert seen == need == sorted(set(seen)), t
+        assert seen == torch.nonzero(listed[t])[:, 0].tolist(), t
+    near = torch.repeat_interleave(words, 32, dim=1)[:, :n_cl]
+    assert bool((listed <= cand).all()) and bool((cand <= near).all())
+    assert int(words.sum()) < words.numel()
+    assert bool((cand.sum(1) > 2 * listed.sum(1)).any())
+    assert n_cl > 32  # more than one window of 32 clusters
+
+
+@pytest.mark.parametrize("window,reverse", [(ppf.CULL_WINDOW, True),
+                                            (32, False), (32, True)])
+def test_culled_tile_walk_bits_are_order_and_window_free(clumps, clumps_walk,
+                                                         window, reverse):
+    """The words of a window taken in falling order (warps finish their
+    words in any order), and lists capped at a window of 32 clusters (the
+    overflow path: two windows here, one after the other), give the same
+    lists and the same bits."""
+    wf, wc, visits = clumps_walk
+    f, c, v = _tile_walk(*clumps, window=window, reverse=reverse)
+    assert v == visits and torch.equal(c, wc) and torch.equal(f, wf)
+
+
+def test_culled_wrappers_route_cpu_to_plain(clumps):
+    """On CPU tensors `density_culled` and the private old body run
+    `density_culled_plain` and count no launch."""
+    pack, qp, qn, radius = clumps
+    want = ppf.density_culled_plain(pack, qp, qn, radius)
+    before = ppf.density_culled.launches
+    for fn in (ppf.density_culled, ppf._density_culled_before):
+        got = fn(pack, qp, qn, radius)
+        assert all(torch.equal(a, b) for a, b in zip(got, want))
+    assert ppf.density_culled.launches == before
+    with pytest.raises(ValueError, match="shape"):
+        ppf._density_culled_before(pack, qp, qn[:5], radius)
+
+
 def test_pack_layout_predicates(monkeypatch, photons):
     """sorted_layout: CUDA packs take the sorted layouts, CPU packs the
     flash one; make_photon_pack_auto and make_photon_pack_lookup follow it;
@@ -556,6 +728,29 @@ def test_render_photonmap_matches_reference(ref_slice, port_render):
                                   - np.asarray(ref.image)) ** 2)))
     assert rmse <= 1e-4, rmse
     r_ref, r_port = ref.stats["rays"], port_render.stats["rays"]
+    assert abs(r_port - r_ref) <= 1e-4 * r_ref, (r_ref, r_port)
+
+
+def test_render_photonmap_without_final_gather_matches_reference(
+        ref_slice, port_slice):
+    """The slice with finalGather off: every stored hit point takes the
+    diffuse map's density (the path of `density_culled` on the card from
+    2^20 stored photons), no NEE, no caustic map.  Image RMSE <= 1e-4,
+    rays within 0.01%."""
+    rcs, rcfg = ref_slice[:2]
+    pcs, pcfg, _ = port_slice
+    ref = rpm.render_photonmap(rcs, RefConfig(**{**rcfg.__dict__,
+                                                 "final_gather": False}))
+    port = ppm.render_photonmap(pcs, RenderConfig(**{
+        **pcfg.__dict__, "final_gather": False}), device="cpu")
+    img = port.image
+    assert img.shape == (16, 16, 3) and np.isfinite(img).all()
+    assert img.mean() > 0.02
+    assert port.stats["photon_maps"].get("radiance") is None
+    rmse = float(np.sqrt(np.mean((img.astype(np.float64)
+                                  - np.asarray(ref.image)) ** 2)))
+    assert rmse <= 1e-4, rmse
+    r_ref, r_port = ref.stats["rays"], port.stats["rays"]
     assert abs(r_port - r_ref) <= 1e-4 * r_ref, (r_ref, r_port)
 
 
