@@ -79,7 +79,21 @@ started together) and drives the ported paths through them:
   as items the block's threads share): each is held to its plain version
   bit for bit (t, tri, u, v; t, column) and to the body it replaced on
   every call of one step of its scene, repeats bit for bit, and is timed
-  beside that body on its primary and bounce-1 calls.
+  beside that body on its primary and bounce-1 calls;
+- slice 14, the three scenes the port renders now at their own settings,
+  each through the entry point `render_scene`: scenes/cornell.xml
+  (directlighting, raydepth 3, 512², 64 spp; also through the CLI, one
+  profiled step, the card against the CPU at 64², 4 spp);
+  scenes/cornell_path.xml (pathtracing with a Beer glass sphere, bench.py
+  config 2's 512², 16 spp: the tiny kernels against their plain versions
+  on this path's recorded rays, one profiled step, the card against the
+  CPU), the same with caustic_type=both at 4 spp (the caustic map's
+  gather against density_flash_plain and the brute force); and
+  scenes/cornell_sppm.xml (SPPM, 512², 16 passes, 200,000 photons: the
+  first and last passes' gathers with per-hit-point radii against
+  density_flash_plain, one profiled pass, the card against the CPU at 32²,
+  2 passes, 16,384 photons, and cornell.xml with the golden's SPPM
+  overrides against scenes/goldens/cornell_SPPM.exr).
 Each path is rendered with every launch counter set to 0 just before it and
 read just after.  Every kernel's line carries its bound: the larger of its
 FP32 operations over the card's 67 TFLOP/s and its bytes (each input read
@@ -125,6 +139,8 @@ from libyafaray_tpu_torch.ops import intersect as isect  # noqa: E402
 from libyafaray_tpu_torch.ops import pairs_intersect as pi  # noqa: E402
 from libyafaray_tpu_torch.ops import photon_flash as pf  # noqa: E402
 from libyafaray_tpu_torch.integrators import photonmap  # noqa: E402
+from libyafaray_tpu_torch.integrators import render as rmod  # noqa: E402
+from libyafaray_tpu_torch.integrators import sppm  # noqa: E402
 from libyafaray_tpu_torch.scene.generate import (  # noqa: E402
     make_rays, make_soup, write_grid_spheres)
 from libyafaray_tpu_torch.scene.session import (  # noqa: E402
@@ -134,6 +150,9 @@ from libyafaray_tpu_torch.scene.xml_parser import parse_xml_file  # noqa: E402
 CORNELL = os.path.join(REPO, "scenes", "cornell.xml")
 GOLDEN = os.path.join(REPO, "scenes", "goldens", "cornell_pathtracing.exr")
 PHOTON = os.path.join(REPO, "scenes", "cornell_photon.xml")
+CORNELL_PATH = os.path.join(REPO, "scenes", "cornell_path.xml")
+CORNELL_SPPM = os.path.join(REPO, "scenes", "cornell_sppm.xml")
+SPPM_GOLDEN = os.path.join(REPO, "scenes", "goldens", "cornell_SPPM.exr")
 PHOTON_GOLDEN = os.path.join(REPO, "scenes", "goldens",
                              "cornell_photonmapping.exr")
 SOURCES = ("tiny_intersect", "fine_intersect", "photon_flash",
@@ -158,6 +177,14 @@ CARD_VS_CPU_PHOTON = dict(size=32, aa_samples=2, photons=16_384,
                           caustic_photons=8_192, fg_samples=4)
 # the scale route: diffuse stores above CULL_MIN_PHOTONS
 SCALE = dict(size=128, aa_samples=1, photons=2_000_000)
+# slice 14: cornell_path.xml at bench.py config 2's 16 spp, its caustic map
+# at 4 spp; the card against the CPU at 64², 4 spp (SPPM: 32², 2 passes,
+# 16,384 photons); the SPPM golden's overrides (as the golden was made)
+GLASS_SPP, CAUSTIC_SPP = 16, 4
+CARD_VS_CPU_SPPM = dict(size=32, sppm_passes=2, sppm_photons=16_384)
+GOLDEN_SPPM = dict(integrator="SPPM", sppm_photons=100_000, sppm_passes=48,
+                   raydepth=4)
+TINY = ("closest_hit_tiny", "shadow_logsum_tiny")
 # queries the plain gathers are compared and timed on (bounds their time);
 # the culled kernel's two plain versions over 3.68 M photons take half
 PLAIN_QUERIES = 16384
@@ -359,10 +386,10 @@ def main_path_rays(cscene, cfg, arrays):
     hit = isect.closest_hit(arrays, st, *primary)
     sp = engine._surface_point(arrays, hit)
     n_sh, ng_sh = engine.shading_frame(sp, -dirn)
-    ns = engine.nee_count(st.lights[0], cfg, first=True)
+    ns = engine.nee_count(st.lights[0], cfg, full=True)
     smp, _, org_s, dist = engine.shadow_rays(
         arrays, st, 0, ns, sp["p"], n_sh, ng_sh, alive & hit.hit, s_idx,
-        engine.bounce_key(ph, 0), qmc.bounce_dim(0, 0), first=True)
+        engine.bounce_key(ph, 0), qmc.bounce_dim(0, 0), static_dims=True)
     shadow = (org_s.contiguous(), smp["wi"].contiguous(), dist.contiguous())
     return primary, shadow
 
@@ -912,6 +939,14 @@ def compare_density(what, kernel, plain, pack, qp, qn, r, sample):
     return (kf, kc), differ, err, plain_ms
 
 
+def radius_text(r) -> str:
+    """A gather's radius for a phase line: the scalar, or the range of the
+    per-query radii."""
+    if isinstance(r, torch.Tensor):
+        return f"per query {float(r.min()):.6g}-{float(r.max()):.6g}"
+    return f"{r:.6g}"
+
+
 def valid_photons(pack: dict) -> int:
     """Photons of a flash pack not at the sentinel (the pairs the brute
     force needs per query)."""
@@ -966,7 +1001,7 @@ def check_density(what: str, args, photons) -> dict:
     regs = registers("photon_flash", "density_sorted_kernel")
     phase("kernel", name="density_flash", gather=what, queries=n,
           photons=int(pack["n_valid"]), pack=pack["tbl"].shape[1],
-          clusters=pack["cl_lo"].shape[0], radius=r,
+          clusters=pack["cl_lo"].shape[0], radius=radius_text(r),
           counted=int(kc.sum()), differ=differ, max_abs_err=err,
           differ_vs_brute=differ_b, max_abs_err_vs_brute=err_b,
           repeat_differ=repeat,
@@ -1601,12 +1636,13 @@ def check_mid_shadow(kind: str, args, rays: str = "bounce-0 NEE") -> dict:
     return dict(ms=ms, plain_ms=plain_ms, err=err, bound=bnd, extra=extra)
 
 
-def mid_cli(kind: str, path: str, res, smi) -> None:
-    """The scene through the port's CLI to an .exr at its own settings: the
-    image read back, its --json-stats rays equal to the entry point's
-    render's (the CLI's render is untimed, the same steps without the
-    warm-up) and its image within RMSE 1e-4 of it."""
-    out = os.path.join(os.path.dirname(path), f"{kind}.exr")
+def mid_cli(kind: str, path: str, res, smi, out_dir: str = "") -> None:
+    """The scene through the port's CLI to an .exr at its own settings (in
+    out_dir, default the scene's): the image read back, its --json-stats
+    rays equal to the entry point's render's (the CLI's render is untimed,
+    the same steps without the warm-up) and its image within RMSE 1e-4 of
+    it."""
+    out = os.path.join(out_dir or os.path.dirname(path), f"{kind}.exr")
     buf = io.StringIO()
     with contextlib.redirect_stdout(buf):
         rc = cli_main([path, out, "--json-stats", "-vl", "warning"])
@@ -2124,6 +2160,256 @@ def pairs_phases(scenes: str, grid_path: str, gscene, gcfg, fine_res,
     return kernels
 
 
+# ---- slice 14: directlighting, Beer glass, caustic map, SPPM --------------
+
+
+def scene_at(path: str, render_params=None, integrator=None):
+    """A scene of the repository, parsed, with render and integrator
+    parameters set as its XML would set them."""
+    scene = parse_xml_file(path)
+    scene.render_params.update(render_params or {})
+    scene.integrator_params["default"].update(integrator or {})
+    return scene
+
+
+def entry_counted(scene, names: tuple):
+    """render_scene(timed=True) on the card, counted; returns the launches
+    of `names` and raises if any other kernel launched."""
+    res, launches = counted(
+        lambda: render_scene(scene, device="cuda", timed=True))
+    others = {k: v for k, v in launches.items() if k not in names and v}
+    if others:
+        raise AssertionError(f"kernels off the path launched: {others}")
+    return res, {k: launches[k] for k in names}
+
+
+def path_line(tag, res, cfg, launches, want, smi, **extra) -> None:
+    """A slice-14 path's phase line and its checks: a finite image >= 0,
+    lit, and each kernel launched as often as the path's vertices ask."""
+    img = res.image
+    phase(tag, size=f"{cfg.width}x{cfg.height}", integrator=cfg.integrator,
+          **extra, render_s=round(res.stats["render_s"], 4),
+          rays=res.stats["rays"], mrays_per_s=round(res.mrays_per_sec, 3),
+          launches=launches, expected_launches=want,
+          image_mean=float(img.mean()), gpu=repr(smi))
+    if not (np.all(np.isfinite(img)) and img.min() >= 0.0
+            and img.mean() > 0.0):
+        raise AssertionError(f"{tag}: image is not finite, >= 0 and lit")
+    if launches != want:
+        raise AssertionError(f"{tag}: launches {launches}, expected {want}")
+
+
+def direct_phases(smi, out_dir: str) -> dict:
+    """cornell.xml at its own settings (directlighting, raydepth 3, 512²,
+    64 spp) through render_scene and the CLI, one profiled step, and the
+    card against the CPU at 64², 4 spp.  Returns the path's launches."""
+    scene = scene_at(CORNELL)
+    cfg = build_config(scene)
+    res, launches = entry_counted(scene, TINY)
+    want = dict.fromkeys(TINY, (cfg.raydepth + 1) * (cfg.aa_samples + 1))
+    path_line("direct_path", res, cfg, launches, want, smi,
+              spp=cfg.aa_samples, raydepth=cfg.raydepth)
+    mid_cli("direct", CORNELL, res, smi, out_dir)
+    profile("direct_profile", res, *path_step(scene.compile(device="cuda"),
+                                              cfg), cfg, ("tiny_kernel",),
+            smi)
+    card_vs_cpu("direct_card_vs_cpu", lambda dev: photon_scene(
+        CORNELL, dev, size=64, aa_samples=4), 64, 4)
+    return launches
+
+
+def glass_phases(smi) -> tuple:
+    """cornell_path.xml at its own settings and bench.py config 2's 16 spp
+    (512²): the tiny kernels against their plain versions on this path's
+    recorded primary rays and bounce-0 NEE rays (their sphere roots merged
+    in torch: the segments end at the absorbing glass or pass it), the
+    render through render_scene, one profiled step, and the card against
+    the CPU at 64², 4 spp.  Returns (launches, closest check, shadow
+    check)."""
+    scene = scene_at(CORNELL_PATH, dict(AA_minsamples=GLASS_SPP))
+    cfg = build_config(scene)
+    cs = scene.compile(device="cuda")
+    step, arrays, rec = step_calls(cs, cfg, ci, ("closest_hit_tiny",
+                                                 "shadow_transmission_tiny"))
+    c = rec["closest_hit_tiny"][0]
+    closest = check_tiny_closest(c[0], c[1:5], c[5],
+                                 rays_name="cornell_path primary")
+    sh = rec["shadow_transmission_tiny"][0]
+    shadow = check_tiny_shadow(sh[0], ci.log_filter(sh[1]), sh[2:5], sh[5],
+                               rays="cornell_path bounce-0 NEE")
+    del rec
+    res, launches = entry_counted(scene, TINY)
+    want = dict.fromkeys(TINY, (cfg.bounces + 1) * (cfg.aa_samples + 1))
+    path_line("path_glass", res, cfg, launches, want, smi,
+              spp=cfg.aa_samples, bounces=cfg.bounces,
+              rr_min_bounces=cfg.rr_min_bounces)
+    profile("path_glass_profile", res, step, arrays, cfg, ("tiny_kernel",),
+            smi)
+    del step, arrays
+    card_vs_cpu("path_glass_card_vs_cpu", lambda dev: photon_scene(
+        CORNELL_PATH, dev, size=64, aa_samples=4), 64, 4)
+    return launches, closest, shadow
+
+
+def caustic_phases(smi) -> tuple:
+    """cornell_path.xml with caustic_type=both, 512², 4 spp: the caustic
+    map's gather at the first vertex (`density_flash`'s warp search over
+    the map's sorted pack) held to density_flash_plain on every query and
+    to the brute force (`check_density`), then the render through
+    render_scene.  Returns (launches, the gather's check)."""
+    scene = scene_at(CORNELL_PATH, dict(AA_minsamples=CAUSTIC_SPP),
+                     dict(caustic_type="both"))
+    cfg = build_config(scene)
+    cs = scene.compile(device="cuda")
+    (dev, arrays, step, stats), pre = record_calls(
+        photonmap, ("make_photon_pack_auto",),
+        lambda: rmod._setup(cs, cfg, "cuda"))
+    flags = torch.ones((cfg.height, cfg.width), dtype=torch.bool, device=dev)
+    _, calls = record_calls(engine, ("density_auto",), lambda: step(
+        arrays, _fresh_film(cfg, dev), flags))
+    torch.cuda.synchronize()
+    dens = check_density("caustic path", calls[0][1], pre[0][1])
+    del arrays, step, calls, pre
+    names = TINY + ("density_flash",)
+    res, launches = entry_counted(scene, names)
+    steps = cfg.aa_samples + 1
+    want = dict(closest_hit_tiny=(cfg.bounces + 1) * steps
+                + cfg.photon_bounces + 1,
+                shadow_logsum_tiny=(cfg.bounces + 1) * steps,
+                density_flash=steps)
+    path_line("caustic_path", res, cfg, launches, want, smi,
+              spp=cfg.aa_samples, caustic_type=cfg.caustic_type,
+              caustic_map=res.stats["photon_maps"]["caustic"],
+              preprocess_s=round(res.stats["preprocess_s"], 4))
+    return launches, dens
+
+
+def sppm_profile(cs, cfg, smi, render_s: float) -> dict:
+    """One SPPM pass (eye pass, photon pass, compaction, pack, gather and
+    update) under torch.profiler, after an unprofiled one."""
+    dev = engine.resolve_device("cuda")
+    fresh, one = sppm.make_sppm_pass(cs, cfg, dev)
+    arrays = to_tensors(cs.arrays, dev)
+    one(arrays, fresh(), 0)  # the compaction's capacity
+    prof = profile_step(lambda a, film, flags: one(a, fresh(), 1)[0]["film"],
+                        arrays, cfg, ("tiny_kernel", "density_sorted"))
+    pass_ms = 1e3 * render_s / cfg.sppm_passes
+    busy = prof["device_busy_ms"]
+    phase("sppm_profile", pass_ms=round(pass_ms, 3), **prof,
+          busy_share=(busy / pass_ms if isinstance(busy, float)
+                      else "not measured"), gpu=repr(smi))
+    return prof
+
+
+def sppm_phases(smi) -> tuple:
+    """cornell_sppm.xml at its own settings (512², 16 passes, 200,000
+    photons a pass, raydepth 5) through render_scene: every pass's gather
+    recorded, the first timed pass's and the last one's held to
+    density_flash_plain (the last also to the brute force: `check_density`);
+    one profiled pass; the card against the CPU at 32², 2 passes, 16,384
+    photons; the golden.  Returns (launches, the last gather's check, the
+    first gather's (kernel ms, plain ms, max abs err))."""
+    scene = scene_at(CORNELL_SPPM)
+    cfg = build_config(scene)
+    names = TINY + ("density_flash",)
+    (res, launches), calls = record_calls(
+        sppm, ("density_auto", "make_photon_pack_auto"),
+        lambda: entry_counted(scene, names))
+    passes = cfg.sppm_passes + 1  # the warm-up pass
+    want = dict(closest_hit_tiny=passes * (cfg.raydepth + cfg.photon_bounces
+                                           + 2),
+                shadow_logsum_tiny=passes * (cfg.raydepth + 1),
+                density_flash=passes)
+    ph = res.stats["photons"]
+    path_line("sppm_path", res, cfg, launches, want, smi,
+              passes=cfg.sppm_passes, raydepth=cfg.raydepth,
+              photons=cfg.sppm_photons, lanes=ph["lanes"], cap=ph["cap"],
+              stored_per_pass=ph["stored"])
+    gathers = [a for k, a in calls if k == "density_auto"]
+    packs = [a for k, a in calls if k == "make_photon_pack_auto"]
+    if len(gathers) != passes or len(packs) != passes:
+        raise AssertionError("sppm_path: not one gather a pass")
+    pack, qp, qn, r = gathers[1]
+    (_, kc), differ, err, plain_ms = compare_density(
+        "density_flash (SPPM first pass)", pf.density_flash,
+        lambda p, *a: pf.density_flash_plain(pf.flash_view(p), *a),
+        pack, qp, qn, r, slice(None))
+    first_ms = device_ms(lambda: pf.density_flash(pack, qp, qn, r), calls=3,
+                         replays=3)
+    phase("kernel", name="density_flash", gather="SPPM pass 1 of 16",
+          queries=qp.shape[0], photons=int(pack["n_valid"]),
+          radius=radius_text(r),
+          counted=int(kc.sum()), differ=differ, max_abs_err=err,
+          tolerance="counts equal; flux rtol 1e-5, atol 1e-6*scale",
+          ms=round(first_ms, 4), plain_ms=round(plain_ms, 4))
+    last = check_density("SPPM pass 16 of 16", gathers[-1], packs[-1])
+    del calls, gathers, packs, pack, qp, qn, r
+    sppm_profile(scene.compile(device="cuda"), cfg, smi,
+                 res.stats["render_s"])
+
+    out = {}
+    for dev in ("cuda", "cpu"):
+        cs, cc = photon_scene(CORNELL_SPPM, dev,
+                              size=CARD_VS_CPU_SPPM["size"],
+                              **{k: v for k, v in CARD_VS_CPU_SPPM.items()
+                                 if k != "size"})
+        out[dev] = sppm.render_sppm(cs, cc, device=dev)
+    rmse = float(np.sqrt(np.mean((out["cuda"].image
+                                  - out["cpu"].image) ** 2)))
+    r_gpu, r_cpu = out["cuda"].stats["rays"], out["cpu"].stats["rays"]
+    rel = abs(r_gpu - r_cpu) / max(r_cpu, 1.0)
+    phase("sppm_card_vs_cpu", **CARD_VS_CPU_SPPM, rmse=rmse, bound=1e-3,
+          rays_gpu=r_gpu, rays_cpu=r_cpu, rays_rel=rel, rel_bound=1e-3,
+          stored_gpu=out["cuda"].stats["photons"]["stored"],
+          stored_cpu=out["cpu"].stats["photons"]["stored"])
+    if not (rmse <= 1e-3 and rel <= 1e-3):
+        raise AssertionError("sppm_card_vs_cpu: card and CPU disagree")
+
+    golden = read_exr(SPPM_GOLDEN)
+    gs = golden.shape[0]
+    cs, cc = photon_scene(CORNELL, "cuda", size=gs, **GOLDEN_SPPM)
+    gres = sppm.render_sppm(cs, cc, device="cuda")
+    rmse = float(np.sqrt(np.mean((gres.image - golden) ** 2)))
+    phase("sppm_golden", size=f"{gs}x{gs}", passes=cc.sppm_passes,
+          photons=cc.sppm_photons, raydepth=cc.raydepth,
+          render_s=round(gres.stats["render_s"], 4), rmse=rmse, bound=0.02)
+    if not rmse < 0.02:
+        raise AssertionError(f"SPPM golden RMSE {rmse} >= 0.02")
+    return launches, last, dict(ms=first_ms, plain_ms=plain_ms, err=err)
+
+
+def slice14_phases(smi, out_dir: str, kernels: list) -> None:
+    """The slice-14 paths; their launches and the new shapes' checks go
+    into the `kernels` entries of the tiny kernels and density_flash
+    (each entry's `launches` stays its first path's)."""
+    by_name = {k["name"]: k for k in kernels}
+    direct = direct_phases(smi, out_dir)
+    glass, closest, shadow = glass_phases(smi)
+    caustic, dens_c = caustic_phases(smi)
+    sppm_l, dens_s, first = sppm_phases(smi)
+    for name in TINY:
+        by_name[name].update({
+            "launches_direct": direct[name],
+            "launches_path_glass": glass[name],
+            "launches_caustic_path": caustic[name],
+            "launches_sppm": sppm_l[name]})
+    for key, chk in (("closest_hit_tiny", closest),
+                     ("shadow_logsum_tiny", shadow)):
+        by_name[key].update(ms_path_glass=chk["ms"],
+                            plain_ms_path_glass=chk["plain_ms"],
+                            bound_ms_path_glass=chk["bound"]["bound_ms"],
+                            max_abs_err_path_glass=chk["err"])
+    by_name["density_flash"].update(
+        launches_caustic_path=caustic["density_flash"],
+        launches_sppm=sppm_l["density_flash"],
+        ms_caustic_path=dens_c["ms"], plain_ms_caustic_path=dens_c[
+            "plain_ms"], bound_ms_caustic_path=dens_c["bound"]["bound_ms"],
+        ms_sppm=dens_s["ms"], plain_ms_sppm=dens_s["plain_ms"],
+        bound_ms_sppm=dens_s["bound"]["bound_ms"],
+        ms_sppm_first=first["ms"], plain_ms_sppm_first=first["plain_ms"],
+        max_abs_err_sppm=max(dens_s["err"], first["err"], dens_c["err"]))
+
+
 def main() -> None:
     # 1. device
     if not torch.cuda.is_available():
@@ -2226,6 +2512,10 @@ def main() -> None:
 
     # 12. slice 3: photon mapping on cornell_photon.xml
     photon = photon_phases(smi)
+
+    # 13. slice 14: directlighting, Beer glass, the caustic map and SPPM
+    with tempfile.TemporaryDirectory() as out_dir:
+        slice14_phases(smi, out_dir, kernels + photon)
 
     print(json.dumps({"kernels": kernels + fine + photon + mid + pairs}),
           flush=True)

@@ -7,9 +7,10 @@ and never jax, and nothing from `libyafaray_tpu`.
 
 The entry points are `scene/session.py` `render_scene` and the CLI
 `python -m libyafaray_tpu_torch.cli.yafaray_xml scene.xml out.exr`: XML
-parse -> scene compile -> `integrators/render.py` (pathtracing) or
-`integrators/photonmap.py` (photon mapping) -> wavefront sample step ->
-film -> image.  They run on the card ("cuda") unless the caller passes
+parse -> scene compile -> `integrators/render.py` (pathtracing,
+directlighting), `integrators/photonmap.py` (photon mapping) or
+`integrators/sppm.py` (SPPM) -> wavefront sample step or pass -> film ->
+image.  They run on the card ("cuda") unless the caller passes
 device="cpu".  Every Pallas kernel of the reference on these paths is
 hand-written CUDA for Hopper under `csrc/`, with a plain PyTorch version
 beside its wrapper in `ops/`.  Every feature outside the ported slices
@@ -24,8 +25,10 @@ raises NotImplementedError naming its ROADMAP item.
   backgrounds/  constant background
   ops/          intersection dispatch, photon gathers: CUDA wrappers and
                 plain versions
-  film/         filters, scatter-free splat, film image
-  integrators/  the wavefront engine, photon mapping, the render loops
+  film/         filters, scatter-free splat, film image, density layer
+  integrators/  the wavefront engine (path and direct modes), photon
+                mapping and the path tracer's caustic map, SPPM, the
+                render loops
   io/           EXR, RGBE and 8-bit image output, EXR reading
   utils/        render logs and the parameter badge
   cli/          the yafaray-xml command line

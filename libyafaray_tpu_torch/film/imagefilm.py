@@ -1,6 +1,7 @@
 """Image film — weighted accumulation and scatter-free splatting (port of
-libyafaray_tpu/film/imagefilm.py: film_init, film_splat, film_image; the
-AOV, alpha and variance planes wait for ROADMAP Queue 1 items 16-17).
+libyafaray_tpu/film/imagefilm.py: film_init, film_splat, film_image and
+SPPM's density layer; the AOV, alpha and variance planes wait for ROADMAP
+Queue 1 items 16-17).
 
 The lanes are pixel-ordered, one sample per pixel per step, so splatting a
 filter of radius R is (2R+1)² dense shifted plane-adds, never a scatter.
@@ -12,12 +13,16 @@ import torch
 from .filters import eval_filter_2d, filter_radius
 
 
-def film_init(h: int, w: int, device) -> dict:
-    return dict(
+def film_init(h: int, w: int, device, with_density: bool = False) -> dict:
+    film = dict(
         wsum=torch.zeros((h, w, 3), dtype=torch.float32, device=device),
         w=torch.zeros((h, w), dtype=torch.float32, device=device),
         nsamples=torch.zeros((h, w), dtype=torch.int32, device=device),
     )
+    if with_density:
+        film["density"] = torch.zeros((h, w, 3), dtype=torch.float32,
+                                      device=device)
+    return film
 
 
 def _shift2d(a: torch.Tensor, oy: int, ox: int) -> torch.Tensor:
@@ -65,5 +70,15 @@ def film_splat(film: dict, color, sx, sy, active, filter_type: str,
 
 
 def film_image(film: dict) -> torch.Tensor:
-    """Current weighted-mean image (H,W,3), linear RGB."""
-    return film["wsum"] / torch.clamp(film["w"], min=1e-8)[..., None]
+    """Current weighted-mean image (H,W,3), linear RGB, plus the density
+    layer where the film has one."""
+    img = film["wsum"] / torch.clamp(film["w"], min=1e-8)[..., None]
+    if "density" in film:
+        img = img + film["density"]
+    return img
+
+
+def add_density(film: dict, contrib: torch.Tensor) -> dict:
+    """SPPM's density layer accumulation (reference addDensitySample)."""
+    base = film.get("density")
+    return dict(film, density=contrib if base is None else base + contrib)

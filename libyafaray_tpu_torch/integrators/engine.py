@@ -1,5 +1,6 @@
-"""The wavefront render engine, path mode (port of
-libyafaray_tpu/integrators/engine.py `make_sample_step`).
+"""The wavefront render engine (port of libyafaray_tpu/integrators/
+engine.py `make_sample_step`), in its two modes: "path" (pathtracing) and
+"direct" (directlighting).
 
 `make_sample_step` builds a function that advances every pixel of the
 film by one sample:
@@ -7,9 +8,17 @@ film by one sample:
     sample_step : (scene tensors, film, flags) -> film'
       generate rays   (camera.shoot_rays over pixel lanes, QMC dims 0,1)
       bounce 0        static QMC dims; every light's full sample count
-                      for NEE, batched block-major over ns·N lanes
+                      for NEE, batched block-major over ns·N lanes; in
+                      direct mode ambient occlusion, and with a caustic
+                      photon map its density at the hit
       bounces 1..B    hash-keyed dynamic QMC dims; 1 NEE sample per light
       splat           into a fresh film fragment, added once to the film
+
+B is `bounces` in path mode and `raydepth` in direct mode, where a path
+continues only through specular vertices, takes no Russian roulette and
+weighs its NEE samples 1.  A lane inside a glass with absorption carries
+the glass's Beer coefficient (`medium_sigma`) and loses exp(-sigma·t) of
+its throughput over each segment.
 
 Everything is SoA over N = H·W lanes; dead lanes are masked, not
 compacted, exactly as in the reference, so the same QMC stream gives the
@@ -18,13 +27,14 @@ keeps its split between static and dynamic dims.  Features outside the
 ported slices raise NotImplementedError naming their ROADMAP item.
 
 The intersection, surface-point and NEE functions here are shared with the
-photon-mapping integrator (`integrators/photonmap.py`), which also renders
-analytic spheres and glass: `closest_hit` and `shadow_transmission` merge
+photon-mapping and SPPM integrators (`integrators/photonmap.py`,
+`integrators/sppm.py`): `closest_hit` and `shadow_transmission` merge
 the reference's exact quadric pass (plain torch) into the triangle kernels'
 answers, and `_surface_point` decodes sphere hits (tri = -2 - sphere).
 """
 from __future__ import annotations
 
+import numpy as np
 import torch
 
 from ..backgrounds.base import check_supported as check_background
@@ -32,34 +42,30 @@ from ..backgrounds.base import eval_background
 from ..cameras.base import shoot_rays
 from ..core import math as vmath
 from ..core import qmc
-from ..core.sampling import power_heuristic
+from ..core.sampling import INV_PI, power_heuristic, sample_cos_hemisphere
 from ..film.imagefilm import film_splat
 from ..lights import base as lightmod
 from ..materials import bsdf
-from ..materials.base import MT_GLASS, gather_rows
+from ..materials.base import (MT_COATED_GLOSSY, MT_GLASS, MT_GLOSSY,
+                              MT_SHINYDIFFUSE, gather_rows)
 from ..ops import intersect as isect
+from ..ops.photon_flash import density_auto
 from .config import RenderConfig
 
 F32 = torch.float32
 
 
+PORTED_INTEGRATORS = ("directlighting", "pathtracing", "photonmapping",
+                      "SPPM")
+
+
 def check_supported(static, cfg: RenderConfig) -> None:
     """Raise for any part of (scene, config) that the port does not render
-    with cfg.integrator (pathtracing or photonmapping)."""
-    if cfg.integrator not in ("pathtracing", "photonmapping"):
+    with cfg.integrator."""
+    if cfg.integrator not in PORTED_INTEGRATORS:
         raise NotImplementedError(
             f"integrator {cfg.integrator!r} is not ported yet: ROADMAP "
-            "Queue 1 items 12-14 and 18 (the port renders pathtracing and, "
-            "of item 13, photonmapping)")
-    if cfg.integrator == "pathtracing":
-        if cfg.caustic_type in ("photon", "both"):
-            raise NotImplementedError(
-                "photon caustics in pathtracing (build_caustic_map) are not "
-                "ported yet: ROADMAP Queue 1 item 13")
-        if static.n_spheres or MT_GLASS in static.mat_families:
-            raise NotImplementedError(
-                "spheres and glass in pathtracing need its Beer medium "
-                "tracking, not ported yet: ROADMAP Queue 1 item 10")
+            "Queue 1 item 18 (bidirectional, DebugIntegrator)")
     if cfg.aa_passes > 1:
         raise NotImplementedError(
             "adaptive AA (aa_passes > 1) is not ported yet: ROADMAP Queue 1 "
@@ -167,21 +173,21 @@ def shading_frame(sp: dict, wo: torch.Tensor):
             torch.where(backface, -sp["ng"], sp["ng"]))
 
 
-def nee_count(ls, cfg: RenderConfig, first: bool) -> int:
-    """NEE samples per lane of one light: its full `samples` count at the
-    first vertex, one deeper."""
-    if first:
+def nee_count(ls, cfg: RenderConfig, full: bool) -> int:
+    """NEE samples per lane of one light: its full `samples` count, or one
+    (the path engines' vertices past the first)."""
+    if full:
         return max(1, int(round(ls.samples * cfg.light_ns_mult)))
     return max(1, int(round(cfg.indirect_ns_mult)))
 
 
 def shadow_rays(arrays, static, li: int, ns: int, p, n, ng, alive, s_idx,
-                skey, bounce_dim, first: bool):
+                skey, bounce_dim, static_dims: bool):
     """Light li's NEE samples and their shadow rays, ns per lane, batched
     block-major over ns·N lanes (lane s·N + i is sample s of lane i).
-    bounce_dim is a static int (static QMC dims at the first vertex,
-    dynamic ones deeper) or an (N,) int32 tensor of per-lane dim bases
-    (always dynamic dims).
+    bounce_dim is a static int or an (N,) int32 tensor of per-lane dim
+    bases; static_dims draws the pair of the reference's static QMC dims
+    (a static int bounce_dim only), else its dynamic hash dims.
     Returns (smp, cos_i, org, dist): the area-light sample record, the
     cosine at the shading normal, and the segments; dead lanes get a
     negative dist, an empty segment."""
@@ -194,7 +200,9 @@ def shadow_rays(arrays, static, li: int, ns: int, p, n, ng, alive, s_idx,
     skey_v, p_, n_, ng_, alive_ = (_tile(x, ns)
                                    for x in (skey_l, p, n, ng, alive))
     per_lane = isinstance(bounce_dim, torch.Tensor)
-    if first and not per_lane:
+    if static_dims:
+        if per_lane:
+            raise ValueError("shadow_rays: static dims need an int bounce_dim")
         u1, u2 = qmc.sample_dim_pair(sub_idx, bounce_dim + qmc.SLOT_LIGHT_U,
                                      skey_v)
     else:
@@ -209,14 +217,25 @@ def shadow_rays(arrays, static, li: int, ns: int, p, n, ng, alive, s_idx,
     return smp, cos_i, org, dist
 
 
+def _fma(a: torch.Tensor, b: torch.Tensor, c: torch.Tensor) -> torch.Tensor:
+    """a·b + c in float32, rounded once (the product is exact in
+    float64)."""
+    return (a.double() * b.double() + c.double()).float()
+
+
 def _sphere_roots(spheres, org, dirn):
     """The rays against the (S, 5) analytic sphere pack [cx cy cz r mat]:
     (disc, t0, t1), each (N, S), the quadric's discriminant and its two
-    roots (no hit where disc < 0)."""
+    roots (no hit where disc < 0).  b = oc·d and b² - c are multiply-adds
+    rounded once, as the reference's compiled step computes them: near a
+    sphere's silhouette b² - c cancels, and one more rounding there moves
+    t by up to ~4e-4 of itself."""
     oc = org[:, None, :] - spheres[None, :, 0:3]
+    d = dirn[:, None, :]
     r = spheres[:, 3]
-    b = vmath.dot(oc, dirn[:, None, :])
-    disc = b * b - (vmath.dot(oc, oc) - r[None] * r[None])
+    b = _fma(oc[..., 2], d[..., 2],
+             _fma(oc[..., 1], d[..., 1], oc[..., 0] * d[..., 0]))
+    disc = _fma(b, b, -(vmath.dot(oc, oc) - r[None] * r[None]))
     sq = torch.sqrt(torch.clamp(disc, min=0.0))
     return disc, -b - sq, -b + sq
 
@@ -309,13 +328,17 @@ def _surface_point(arrays: dict, hit: isect.Hit, org=None,
 
 
 def _direct_lighting(arrays, static, cfg, p, n, ng, row, wo, s_idx, skey,
-                     bounce_dim, first: bool, alive, mis_with_bsdf=True):
+                     bounce_dim, full_count: bool, static_dims: bool, alive,
+                     mis_with_bsdf=True):
     """NEE with two-strategy MIS over the enabled lights (reference
-    estimateAllDirectLight).  At the first vertex every light takes its
-    full `samples` count, all ns samples batched block-major over ns·N
-    lanes (`shadow_rays`); deeper vertices take one.  bounce_dim as in
-    `shadow_rays`.  mis_with_bsdf=False weighs the light samples 1 (the
-    photon step never takes the BSDF-sampled counterpart).
+    estimateAllDirectLight).  full_count gives every light its full
+    `samples` count (else one sample), all ns samples batched block-major
+    over ns·N lanes (`shadow_rays`); bounce_dim and static_dims as there.
+    The reference ties neither choice to the other: its path step takes
+    both at the first vertex, its SPPM eye pass the full count and static
+    dims at every vertex, its photon step the full count over per-lane
+    dynamic dims.  mis_with_bsdf=False weighs the light samples 1 (for
+    callers that never take the BSDF-sampled counterpart).
     Returns (L (N,3), shadow rays per live lane)."""
     L = torch.zeros_like(p)
     nrays = 0
@@ -323,11 +346,11 @@ def _direct_lighting(arrays, static, cfg, p, n, ng, row, wo, s_idx, skey,
     for li, ls in enumerate(static.lights):
         if not ls.enabled or ls.photon_only:
             continue
-        ns = nee_count(ls, cfg, first)
+        ns = nee_count(ls, cfg, full_count)
         n0 = p.shape[0]
         smp, cos_i, org_s, d_ = shadow_rays(
             arrays, static, li, ns, p, n, ng, alive, s_idx, skey, bounce_dim,
-            first)
+            static_dims)
         n_, ng_, wo_ = (_tile(x, ns) for x in (n, ng, wo))
         row_ = {k: _tile(row[k], ns) for k in bsdf.eval_keys(families)}
         f = bsdf.eval_bsdf(row_, n_, ng_, wo_, smp["wi"], families)
@@ -352,15 +375,61 @@ def _direct_lighting(arrays, static, cfg, p, n, ng, row, wo, s_idx, skey,
     return L, nrays
 
 
-def make_sample_step(static, camera, cfg: RenderConfig, device):
+def _ambient_occlusion(arrays, static, cfg, p, n_f, diffuse_color, s_idx,
+                       skey, alive):
+    """Ambient occlusion at a vertex (reference _ambient_occlusion,
+    sampleAmbientOcclusion): ao_samples cosine rays about n_f up to
+    ao_distance in one batched shadow pass over ao_samples·N lanes (sample
+    k keyed by skey ⊕ 0xA0A0 + k at the first bounce dims), their mean
+    transmission times the diffuse color and ao_color.  Dead lanes trace
+    an empty segment."""
+    ns = cfg.ao_samples
+    n0 = p.shape[0]
+    k = torch.arange(ns, dtype=torch.int32, device=p.device)
+    salt = (k + 0xA0A0).repeat_interleave(n0)
+    skey_a = qmc.hash_combine(_tile(skey, ns), salt)
+    u1, u2 = qmc.sample_dim_pair(_tile(s_idx, ns), qmc.BOUNCE_DIMS_START,
+                                 skey_a)
+    nf_t = _tile(n_f, ns)
+    d, _ = sample_cos_hemisphere(nf_t, u1, u2)
+    org = _tile(p, ns) + nf_t * static.shadow_bias
+    dist = torch.where(_tile(alive, ns), float(cfg.ao_distance), -1.0)
+    tr = shadow_transmission(arrays, static, cfg.transp_shad, org, d, dist)
+    ao = tr[:n0]
+    for j in range(1, ns):
+        ao = ao + tr[j * n0:(j + 1) * n0]
+    ao_col = torch.tensor(cfg.ao_color, dtype=F32, device=p.device)
+    return _div(ao * diffuse_color * ao_col, ns)
+
+
+def is_diffuse_family(mtype: torch.Tensor) -> torch.Tensor:
+    """Materials with a diffuse lobe (shinydiffuse, glossy, coated
+    glossy): where photons are stored and gathered."""
+    return ((mtype == MT_SHINYDIFFUSE) | (mtype == MT_GLOSSY)
+            | (mtype == MT_COATED_GLOSSY))
+
+
+def make_sample_step(static, camera, cfg: RenderConfig, device,
+                     caustic=None):
     """Builds the one-sample-per-pixel step on `device`:
     sample_step(arrays, film, flags) -> film, with `arrays` the scene
-    tensors on `device` (convert.to_tensors) and flags (H, W) bool."""
+    tensors on `device` (convert.to_tensors) and flags (H, W) bool.
+    pathtracing takes path mode, directlighting direct mode.  caustic:
+    (radius, photons emitted) of a caustic photon map whose pack rides in
+    arrays["pm_caustic"] (photonmap.build_caustic_map): the first vertex
+    then adds its density on the diffuse families (reference caustic_type
+    photon / both)."""
     check_supported(static, cfg)
-    if cfg.integrator != "pathtracing":
-        raise ValueError(f"make_sample_step renders pathtracing, not "
-                         f"{cfg.integrator!r} (scene.session.render_scene "
-                         "dispatches on the integrator)")
+    if cfg.integrator not in ("pathtracing", "directlighting"):
+        raise ValueError(f"make_sample_step renders pathtracing and "
+                         f"directlighting, not {cfg.integrator!r} "
+                         "(scene.session.render_scene dispatches on the "
+                         "integrator)")
+    path_mode = cfg.integrator == "pathtracing"
+    n_bounces = cfg.bounces if path_mode else cfg.raydepth
+    # absorption lives on glass rows only: without glass no lane ever
+    # enters a medium
+    media = MT_GLASS in static.mat_families
     dev = resolve_device(device)
     h, w = cfg.height, cfg.width
     n = h * w
@@ -370,8 +439,9 @@ def make_sample_step(static, camera, cfg: RenderConfig, device):
          for ls in static.lights] or [0.0], dtype=F32, device=dev)
 
     def shade_vertex(arrays, st, bounce_idx: int, s_idx, first: bool):
-        """One path vertex: intersect, add background/emission (MIS), NEE,
-        sample the continuation."""
+        """One path vertex: intersect, attenuate by the medium, add
+        background/emission (MIS), NEE, AO and caustics at the first
+        vertex, sample the continuation."""
         bounce_dim = qmc.bounce_dim(bounce_idx, 0)
         throughput, alive = st["throughput"], st["alive"]
         spec_mask, prev_pdf = st["spec_mask"], st["prev_pdf"]
@@ -381,6 +451,12 @@ def make_sample_step(static, camera, cfg: RenderConfig, device):
 
         hit = closest_hit(arrays, static, org, dirn,
                           *ray_bounds(static, alive))
+        if media:
+            # Beer's law over the segment (a miss travels 0), before the
+            # background and emission terms
+            seg = torch.where(hit.hit, hit.t, 0.0)
+            throughput = throughput * torch.exp(-st["medium_sigma"]
+                                                * seg[..., None])
 
         # escaped rays: constant background
         escape = alive & ~hit.hit
@@ -389,7 +465,7 @@ def make_sample_step(static, camera, cfg: RenderConfig, device):
                             0.0)
         alive = alive & hit.hit
 
-        sp = _surface_point(arrays, hit)
+        sp = _surface_point(arrays, hit, org, dirn)
         wo = -dirn
         row = gather_rows(mats, sp["mat"].long())
 
@@ -421,12 +497,28 @@ def make_sample_step(static, camera, cfg: RenderConfig, device):
         n_sh, ng_sh = shading_frame(sp, wo)
         skey_b = bounce_key(pixel_hash, bounce_idx)
 
-        # ---- NEE ----
+        # ---- NEE (single-strategy in direct mode) ----
         Ld, sh_rays = _direct_lighting(
             arrays, static, cfg, sp["p"], n_sh, ng_sh, row, wo, s_idx,
-            skey_b, bounce_dim, first, alive)
+            skey_b, bounce_dim, first, first, alive, mis_with_bsdf=path_mode)
         L = L + torch.where(alive[..., None], throughput * Ld, 0.0)
         nrays = nrays + sh_rays * alive.to(F32).sum()
+
+        if first and cfg.do_ao and not path_mode:
+            ao = _ambient_occlusion(arrays, static, cfg, sp["p"], ng_sh,
+                                    row["diffuse_color"], s_idx, skey_b,
+                                    alive)
+            L = L + torch.where(alive[..., None], throughput * ao, 0.0)
+
+        if first and caustic is not None:
+            c_radius, c_nem = caustic
+            cflux, _ = density_auto(arrays["pm_caustic"], sp["p"], n_sh,
+                                    c_radius)
+            lc = _div(_div(cflux, np.pi * c_radius * c_radius), c_nem)
+            f_c = (row["diffuse_reflect"][..., None] * row["diffuse_color"]
+                   * INV_PI)
+            on = alive & is_diffuse_family(row["mtype"])
+            L = L + torch.where(on[..., None], throughput * f_c * lc, 0.0)
 
         # ---- continuation ----
         if first:
@@ -442,14 +534,23 @@ def make_sample_step(static, camera, cfg: RenderConfig, device):
         smp = bsdf.sample_bsdf(row, n_sh, ng_sh, wo, u1, u2, ul,
                                static.mat_families)
         alive = alive & smp["valid"]
+        if not path_mode:  # direct mode follows specular vertices only
+            alive = alive & smp["specular"]
         throughput = throughput * smp["tp"]
 
-        # Russian roulette (reference: survival = max component)
-        if bounce_idx >= cfg.rr_min_bounces:
+        # Russian roulette, path mode (reference: survival = max component)
+        if path_mode and bounce_idx >= cfg.rr_min_bounces:
             q = torch.clamp(throughput.amax(dim=-1), 0.05, 1.0)
             alive = alive & ~(u_rr > q)
             throughput = throughput / q[..., None]
 
+        out = {}
+        if media:
+            # entering a glass takes its coefficient, leaving one clears it
+            leave = smp["transmit"] & ~smp["entering"]
+            out["medium_sigma"] = torch.where(
+                smp["entering"][..., None], row["absorption_sigma"],
+                torch.where(leave[..., None], 0.0, st["medium_sigma"]))
         off = torch.where(smp["transmit"], -1.0, 1.0)[..., None]
         org = sp["p"] + ng_sh * off * static.shadow_bias
         # null pass-through keeps the MIS state of the last real vertex
@@ -457,7 +558,7 @@ def make_sample_step(static, camera, cfg: RenderConfig, device):
         spec_mask = torch.where(pt, spec_mask, smp["specular"])
         prev_pdf = torch.where(pt, prev_pdf, smp["pdf"])
         nrays = nrays + alive.to(F32).sum()
-        return dict(org=org, dirn=smp["wi"], throughput=throughput,
+        return dict(out, org=org, dirn=smp["wi"], throughput=throughput,
                     alive=alive, spec_mask=spec_mask, prev_pdf=prev_pdf,
                     L=L, nrays=nrays)
 
@@ -480,8 +581,10 @@ def make_sample_step(static, camera, cfg: RenderConfig, device):
             L=torch.zeros((n, 3), dtype=F32, device=dev),
             nrays=alive.to(F32).sum(),
         )
+        if media:
+            st["medium_sigma"] = torch.zeros((n, 3), dtype=F32, device=dev)
         st = shade_vertex(arrays, st, 0, s_idx, first=True)
-        for b in range(1, cfg.bounces + 1):
+        for b in range(1, n_bounces + 1):
             st = shade_vertex(arrays, st, b, s_idx, first=False)
         L = st["L"] * wt[..., None]
         # two-level accumulation: splat into a fresh fragment, then add it

@@ -18,11 +18,11 @@ from ..core import qmc
 from ..core.sampling import PI, sample_cos_hemisphere
 from ..lights import base as lightmod
 from ..materials import bsdf
-from ..materials.base import (MT_COATED_GLOSSY, MT_GLOSSY, MT_SHINYDIFFUSE,
-                              gather_rows)
-from .engine import F32, _div, _surface_point, closest_hit, shading_frame
+from ..materials.base import gather_rows
+from .engine import (F32, _div, _surface_point, closest_hit,
+                     is_diffuse_family, shading_frame)
 
-PHOTON_MODES = ("diffuse", "caustic")
+PHOTON_MODES = ("diffuse", "caustic", "indirect")
 
 
 def _check_area_lights(static) -> None:
@@ -67,7 +67,9 @@ def make_photon_pass(static, cfg, n_lanes: int, max_bounces: int,
     the surface the photon came from), power, mat, normal, valid.
     light_cdf is the (L+1,) numpy CDF of `light_flux`.
     mode: 'diffuse' stores every diffuse hit; 'caustic' stores diffuse hits
-    reached through a specular-only chain of at least one bounce."""
+    reached through a specular-only chain of at least one bounce;
+    'indirect' stores diffuse hits from the first bounce on (none straight
+    from the light: SPPM's eye pass adds direct light by NEE)."""
     if mode not in PHOTON_MODES:
         raise ValueError(f"photon mode {mode!r} is not one of {PHOTON_MODES}")
     _check_area_lights(static)
@@ -114,14 +116,13 @@ def make_photon_pass(static, cfg, n_lanes: int, max_bounces: int,
             wo = -dirn
             row = gather_rows(mats, sp["mat"].long())
             n_sh, ng_sh = shading_frame(sp, wo)
-            mt = row["mtype"]
             # surfaces with a diffuse lobe store photons (BSDF_DIFFUSE)
-            diffuse_surf = ((mt == MT_SHINYDIFFUSE) | (mt == MT_GLOSSY)
-                            | (mt == MT_COATED_GLOSSY)) \
-                & (row["diffuse_reflect"] > 1e-5)
-            store = alive & diffuse_surf
+            store = (alive & is_diffuse_family(row["mtype"])
+                     & (row["diffuse_reflect"] > 1e-5))
             if mode == "caustic":
                 store = store & had_spec & spec_only
+            elif mode == "indirect" and bounce == 0:
+                store = torch.zeros_like(store)
             for k, v in (("pos", sp["p"]), ("dir", wo), ("power", pcol),
                          ("mat", sp["mat"]), ("normal", n_sh),
                          ("valid", store)):

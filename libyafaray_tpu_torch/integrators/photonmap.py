@@ -1,6 +1,6 @@
 """Photon-mapping integrator (port of libyafaray_tpu/integrators/
-photonmap.py for one AA pass, without the caustic map of the path tracer,
-film save/load and the device mesh).
+photonmap.py for one AA pass, without film save/load and the device mesh),
+and the path tracer's caustic photon map (`build_caustic_map`).
 
     preprocess  wavefront photon passes (photon_shoot), device-side
                 compaction, photon packs (ops/photon_flash) and the
@@ -30,15 +30,15 @@ from ..core import qmc
 from ..core.sampling import INV_PI, sample_cos_hemisphere
 from ..film.imagefilm import film_splat
 from ..materials import bsdf
-from ..materials.base import (MT_COATED_GLOSSY, MT_GLOSSY, MT_SHINYDIFFUSE,
-                              gather_rows)
+from ..materials.base import gather_rows
 from ..ops.photon_flash import (density_auto, make_photon_pack_auto,
                                 make_photon_pack_lookup, nearest_flash,
                                 pack_layout)
 from .config import RenderConfig
 from .engine import (F32, _direct_lighting, _div, _surface_point,
                      bounce_key, camera_rays, check_arrays, check_supported,
-                     closest_hit, resolve_device, shading_frame)
+                     closest_hit, is_diffuse_family, resolve_device,
+                     shading_frame)
 from .photon_shoot import light_flux, make_photon_pass
 from .render import RenderResult, _fresh_film, _sync
 
@@ -90,6 +90,32 @@ def _layout_info(pack: dict) -> dict:
     "culled"), for reports."""
     return dict(pack=pack["tbl" if "tbl" in pack else "pos_t"].shape[1],
                 layout=pack_layout(pack))
+
+
+def build_caustic_map(cscene, cfg: RenderConfig, arrays: dict):
+    """The path tracer's caustic map (reference build_caustic_map, the
+    createCausticMap that directlight and the path tracer share): one
+    caustic photon pass of caustic_photons lanes (rounded to 4096, at most
+    MAX_PHOTON_LANES) seeded 777, compacted and packed.  Returns (pack,
+    radius, photons emitted, photons stored), or None when no light emits
+    or no photon is stored.  Reads the stored count once."""
+    static = cscene.static
+    cdf, total_flux = _light_cdf(static, cscene.arrays["lights"])
+    if total_flux <= 0:
+        return None
+    _, c_radius = photon_radii(cscene, cfg)
+    lanes = min(MAX_PHOTON_LANES,
+                max(4096, -(-cfg.caustic_photons // 4096) * 4096))
+    shoot = make_photon_pass(static, cfg, lanes, cfg.photon_bounces,
+                             "caustic")
+    rec = shoot(arrays, cdf, 777)
+    n_stored = int(rec["valid"].sum())
+    if n_stored == 0:
+        return None
+    rec = compact_photons_device(rec, max(4096, -(-n_stored // 4096) * 4096))
+    pack = make_photon_pack_auto(rec["pos"], rec["valid"], rec["dir"],
+                                 rec["power"])
+    return pack, c_radius, lanes, n_stored
 
 
 def build_photon_maps(cscene, cfg: RenderConfig, arrays: dict) -> dict:
@@ -207,10 +233,7 @@ def make_photon_sample_step(cscene, cfg: RenderConfig, maps: dict, device):
                                 throughput * bsdf.emission(row, sp["ng"], wo),
                                 0.0)
             n_sh, ng_sh = shading_frame(sp, wo)
-            mt = row["mtype"]
-            is_diffuse = ((mt == MT_SHINYDIFFUSE) | (mt == MT_GLOSSY)
-                          | (mt == MT_COATED_GLOSSY))
-            here = alive & is_diffuse & ~done
+            here = alive & is_diffuse_family(row["mtype"]) & ~done
             bdim = qmc.bounce_dim(bounce, 0)
             skey_b = bounce_key(pixel_hash, bounce)
             m3 = here[..., None]
@@ -247,8 +270,8 @@ def make_photon_sample_step(cscene, cfg: RenderConfig, maps: dict, device):
         if not show_map:
             Ld, sh_rays = _direct_lighting(
                 arrays, static, cfg, hp["p"], hp["n"], hp["ng"], row,
-                hp["wo"], s_idx, hp["skey"], hp["bdim"], True, stored,
-                mis_with_bsdf=False)
+                hp["wo"], s_idx, hp["skey"], hp["bdim"], True, False,
+                stored, mis_with_bsdf=False)
             L = L + torch.where(m3, hp["tp"] * Ld, 0.0)
             nrays = nrays + sh_rays * n_stored
         if has_caustic and not show_map:

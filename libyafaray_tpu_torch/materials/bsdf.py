@@ -137,7 +137,9 @@ def sample_bsdf(row, n, ng, wo, u1, u2, u_lobe, families) -> dict:
 
     Returns dict with wi (N,3), tp (N,3) throughput multiplier (f·|cos|/pdf,
     delta lobes pre-folded), pdf (N,) solid-angle pdf for MIS (0 = delta),
-    specular, transmit, entering, valid and passthrough (N,) bools."""
+    specular, transmit, entering (a transmission into the object: the
+    front of its geometric normal faces wo), valid, passthrough and chain
+    (N,) bools."""
     check_families(families)
     cos_o = vmath.dot(n, wo)
     nf = vmath.face_forward(n, wo)
@@ -271,6 +273,9 @@ def sample_bsdf(row, n, ng, wo, u1, u2, u_lobe, families) -> dict:
         # null transmission is not a scattering event: callers keep their
         # MIS state (spec_mask/prev_pdf) across it
         passthrough=is_null & transmit,
+        # the vertices SPPM's eye pass follows before the first storable
+        # hit: specular, and rough glass (non-delta, not diffuse)
+        chain=specular | (mtype == MT_ROUGH_GLASS),
     )
 
 

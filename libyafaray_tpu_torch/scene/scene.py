@@ -220,6 +220,10 @@ class Scene:
             raise NotImplementedError("an empty scene is not ported")
         families = tuple(sorted({r["mtype"] for r in materials}))
         check_families(families)
+        if any(r.get("dispersion_power", 0.0) > 1e-6 for r in materials):
+            raise NotImplementedError(
+                "dispersive glass (dispersion_power > 0) is not ported yet: "
+                "ROADMAP Queue 1 item 10 (dispersion)")
 
         def cat(key):
             return np.concatenate([b[key] for b in blocks], axis=0)

@@ -39,13 +39,13 @@ def render_scene(scene: Scene, *, device="cuda", timed: bool = False,
                  pairs: bool = False) -> RenderResult:
     """The entry point: build the config, compile for `device` (default
     the card; it raises without one, device="cpu" renders on the CPU) and
-    render with the scene's integrator (pathtracing -> integrators.render,
-    photonmapping -> integrators.photonmap).  timed=True takes the
-    benchmark variants, which run one warm-up step outside the timed
-    steps.  pairs=True asks for the pair-granular intersection route (packs
-    of 64 or more clusters take it).  Every other integrator raises naming
-    its ROADMAP item."""
-    from ..integrators import photonmap, render
+    render with the scene's integrator (pathtracing and directlighting ->
+    integrators.render, photonmapping -> integrators.photonmap, SPPM ->
+    integrators.sppm).  timed=True takes the benchmark variants, which run
+    one warm-up step (SPPM: pass) outside the timed ones.  pairs=True asks
+    for the pair-granular intersection route (packs of 64 or more clusters
+    take it).  Every other integrator raises naming its ROADMAP item."""
+    from ..integrators import photonmap, render, sppm
     from ..integrators.engine import resolve_device
 
     resolve_device(device)  # no card, no render: raise before compiling
@@ -53,13 +53,14 @@ def render_scene(scene: Scene, *, device="cuda", timed: bool = False,
     cfg = build_config(scene)
     runners = {
         "pathtracing": (render.render, render.render_timed),
+        "directlighting": (render.render, render.render_timed),
         "photonmapping": (photonmap.render_photonmap,
                           photonmap.render_photonmap_timed),
+        "SPPM": (sppm.render_sppm, sppm.render_sppm_timed),
     }
     if cfg.integrator not in runners:
         raise NotImplementedError(
             f"integrator {cfg.integrator!r} is not ported yet: ROADMAP Queue "
-            "1 items 12 (directlighting), 14 (SPPM) and 18 (bidirectional, "
-            "DebugIntegrator)")
+            "1 item 18 (bidirectional, DebugIntegrator)")
     return runners[cfg.integrator][timed](
         scene.compile(device=device, pairs=pairs), cfg, device=device)

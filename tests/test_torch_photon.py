@@ -774,31 +774,42 @@ def test_radiance_pack_keeps_the_flash_layout_on_cpu(port_render):
 
 
 def test_render_scene_dispatches_on_the_integrator(monkeypatch):
-    """render_scene: pathtracing -> render, photonmapping ->
-    render_photonmap, every other integrator raises."""
-    from libyafaray_tpu_torch.integrators import photonmap, render
+    """render_scene: pathtracing and directlighting -> render,
+    photonmapping -> render_photonmap, SPPM -> render_sppm; bidirectional
+    raises, naming ROADMAP item 18."""
+    from libyafaray_tpu_torch.integrators import photonmap, render, sppm
 
     calls = []
     monkeypatch.setattr(render, "render",
                         lambda cs, cfg, device: calls.append(cfg.integrator))
     monkeypatch.setattr(photonmap, "render_photonmap_timed",
                         lambda cs, cfg, device: calls.append(cfg.integrator))
-    for name in ("pathtracing", "photonmapping", "SPPM", "directlighting"):
+    monkeypatch.setattr(sppm, "render_sppm",
+                        lambda cs, cfg, device: calls.append(cfg.integrator))
+    for name in ("pathtracing", "photonmapping", "SPPM", "directlighting",
+                 "bidirectional"):
         s = _scene(parse_xml_file)
         s.integrator_params["default"]["type"] = name
-        if name in ("pathtracing", "photonmapping"):
+        if name == "bidirectional":
+            with pytest.raises(NotImplementedError, match="Queue 1 item 18"):
+                session.render_scene(s, device="cpu")
+        else:
             session.render_scene(s, device="cpu",
                                  timed=name == "photonmapping")
-        else:
-            with pytest.raises(NotImplementedError, match="Queue 1 item"):
-                session.render_scene(s, device="cpu")
-    assert calls == ["pathtracing", "photonmapping"]
+    assert calls == ["pathtracing", "photonmapping", "SPPM", "directlighting"]
 
 
-def test_pathtracing_raises_on_spheres_and_glass(port_slice):
-    from libyafaray_tpu_torch.integrators.render import render
+def test_pathtracing_raises_on_spheres_and_glass():
+    """Spheres and smooth glass render in pathtracing now (Beer media:
+    tests/test_torch_direct.py holds cornell_path.xml to the reference);
+    rough glass still raises, naming ROADMAP item 10, and so does a
+    dispersive glass."""
+    from libyafaray_tpu_torch.scene.params import ParamMap
 
-    pcs, pcfg, _ = port_slice
-    cfg = RenderConfig(**{**pcfg.__dict__, "integrator": "pathtracing"})
-    with pytest.raises(NotImplementedError, match="item 10"):
-        render(pcs, cfg, device="cpu")
+    for glass in (dict(type="rough_glass", IOR=1.5),
+                  dict(type="glass", IOR=1.5, dispersion_power=0.5)):
+        s = _scene(parse_xml_file)
+        s.integrator_params["default"]["type"] = "pathtracing"
+        s.create_material("glass", ParamMap(glass))
+        with pytest.raises(NotImplementedError, match="item 10"):
+            session.render_scene(s, device="cpu")

@@ -90,9 +90,9 @@ def test_render_timed_counts_the_same_rays():
 
 
 @pytest.mark.parametrize("over, item", [
-    (dict(integrator="directlighting"), "items 12-14"),
+    (dict(integrator="bidirectional"), "item 18"),
     (dict(aa_passes=2), "item 16"),
-    (dict(caustic_type="photon"), "item 13"),
+    (dict(transp_background=True), "item 17"),
 ])
 def test_unported_config_raises(over, item):
     s, cfg = _setup(parse_xml_file, build_config, RenderConfig, 8, 1, **over)

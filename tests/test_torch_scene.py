@@ -153,7 +153,8 @@ _SCENE = """<scene type="triangle">{body}
 
 
 @pytest.mark.parametrize("body, item", [
-    ('<material name="m"><type sval="glass"/></material>', "item 10"),
+    ('<material name="m"><type sval="glass"/>'
+     '<dispersion_power fval="0.5"/></material>', "item 10"),
     ('<material name="m"><type sval="rough_glass"/></material>', "item 10"),
     ('<material name="m"><type sval="shinydiffusemat"/></material>'
      '<texture name="t"><type sval="clouds"/></texture>', "item 15"),
@@ -161,8 +162,9 @@ _SCENE = """<scene type="triangle">{body}
     ('<background name="b"><type sval="gradient"/></background>', "items 15"),
 ])
 def test_unsupported_features_raise(body, item):
-    """Raised at compile, or, for what only photon mapping renders (glass),
-    when pathtracing checks the compiled scene."""
+    """Raised at compile (glass renders in every ported integrator now, a
+    dispersive one raises), or when pathtracing checks the compiled
+    scene."""
     from libyafaray_tpu_torch.integrators.config import RenderConfig
     from libyafaray_tpu_torch.integrators.engine import check_supported
 

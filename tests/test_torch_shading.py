@@ -13,6 +13,7 @@ import numpy as np
 import pytest
 import torch
 
+import jax
 import jax.numpy as jnp
 
 from libyafaray_tpu.backgrounds import base as rbg
@@ -379,7 +380,10 @@ def _sphere_rays(rng, n=N):
 
 def test_sphere_hit_and_surface_point(photon_scene, rng):
     """The merged triangle + analytic sphere closest hit and its shading
-    record (sphere hits: tri = -2 - sphere) against the reference."""
+    record (sphere hits: tri = -2 - sphere) against the reference's, both
+    compiled as its render step compiles them: XLA contracts the quadric's
+    multiply-adds there, and the port's `_sphere_roots` rounds them once
+    too (near a silhouette the op-by-op reference's t moves by ~1e-5)."""
     from libyafaray_tpu.integrators import engine as reng
     from libyafaray_tpu_torch.integrators import engine as peng
 
@@ -389,9 +393,9 @@ def test_sphere_hit_and_surface_point(photon_scene, rng):
     ra = jax_tree(photon_scene.arrays)
     pa = convert.arrays_from_reference(photon_scene.arrays, "cpu")
     ps = convert.static_from_reference(photon_scene.static)
-    rh = reng._closest_hit(ra, photon_scene.static, jnp.asarray(org),
-                           jnp.asarray(d), jnp.asarray(tmin),
-                           jnp.asarray(tmax))
+    rh = jax.jit(lambda *a: reng._closest_hit(ra, photon_scene.static, *a))(
+        jnp.asarray(org), jnp.asarray(d), jnp.asarray(tmin),
+        jnp.asarray(tmax))
     ph = peng.closest_hit(pa, ps, *(torch.from_numpy(x)
                                     for x in (org, d, tmin, tmax)))
     hit = np.array(rh.hit)
@@ -399,7 +403,8 @@ def test_sphere_hit_and_surface_point(photon_scene, rng):
     _close(rh.hit, ph.hit, "hit")
     assert np.array_equal(np.asarray(rh.tri)[hit], ph.tri.numpy()[hit])
     _close(np.asarray(rh.t)[hit], ph.t[torch.from_numpy(hit)], "t", 1e-4)
-    rs = reng._surface_point(ra, rh, jnp.asarray(org), jnp.asarray(d))
+    rs = jax.jit(lambda h, o, d_: reng._surface_point(ra, h, o, d_))(
+        rh, jnp.asarray(org), jnp.asarray(d))
     pt = peng._surface_point(pa, ph, torch.from_numpy(org),
                              torch.from_numpy(d))
     for k in ("p", "n", "ng"):
