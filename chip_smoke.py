@@ -93,7 +93,16 @@ started together) and drives the ported paths through them:
   first and last passes' gathers with per-hit-point radii against
   density_flash_plain, one profiled pass, the card against the CPU at 32²,
   2 passes, 16,384 photons, and cornell.xml with the golden's SPPM
-  overrides against scenes/goldens/cornell_SPPM.exr).
+  overrides against scenes/goldens/cornell_SPPM.exr);
+- slice 15, scenes/ibl_spheres.xml (BASELINE config 5: a textureback
+  env.hdr with its importance-sampled IBL light, 8 samples, a mipmapped
+  checker.png floor, glass and glossy spheres; pathtracing, bounces 5,
+  512², 64 spp) through `render_scene` and the CLI: its two assets loaded
+  from their files (not the reference's stand-ins), the tiny kernels
+  against their plain versions on the IBL step's recorded primary rays and
+  bounce-0 NEE rays (8 samples a pixel, segments of 1e8 toward the
+  environment), one profiled step, the card against the CPU at 64², 4 spp,
+  and 96², 48 spp against scenes/goldens/ibl_spheres.exr.
 Each path is rendered with every launch counter set to 0 just before it and
 read just after.  Every kernel's line carries its bound: the larger of its
 FP32 operations over the card's 67 TFLOP/s and its bytes (each input read
@@ -153,6 +162,8 @@ PHOTON = os.path.join(REPO, "scenes", "cornell_photon.xml")
 CORNELL_PATH = os.path.join(REPO, "scenes", "cornell_path.xml")
 CORNELL_SPPM = os.path.join(REPO, "scenes", "cornell_sppm.xml")
 SPPM_GOLDEN = os.path.join(REPO, "scenes", "goldens", "cornell_SPPM.exr")
+IBL = os.path.join(REPO, "scenes", "ibl_spheres.xml")
+IBL_GOLDEN = os.path.join(REPO, "scenes", "goldens", "ibl_spheres.exr")
 PHOTON_GOLDEN = os.path.join(REPO, "scenes", "goldens",
                              "cornell_photonmapping.exr")
 SOURCES = ("tiny_intersect", "fine_intersect", "photon_flash",
@@ -184,6 +195,12 @@ GLASS_SPP, CAUSTIC_SPP = 16, 4
 CARD_VS_CPU_SPPM = dict(size=32, sppm_passes=2, sppm_photons=16_384)
 GOLDEN_SPPM = dict(integrator="SPPM", sppm_photons=100_000, sppm_passes=48,
                    raydepth=4)
+# slice 15: ibl_spheres.xml's assets as its textures must hold them (a
+# failed load leaves a 16 x 16 stand-in), and the golden's sample count
+# (tests/test_golden.py's: RMSE < 0.05 against the 192 spp golden)
+IBL_ASSETS = {"tex_0": ("scenes/assets/env.hdr", (64, 128, 3)),
+              "tex_1": ("scenes/assets/checker.png", (128, 128, 3))}
+IBL_GOLDEN_SPP = 48
 TINY = ("closest_hit_tiny", "shadow_logsum_tiny")
 # queries the plain gathers are compared and timed on (bounds their time);
 # the culled kernel's two plain versions over 3.68 M photons take half
@@ -555,13 +572,15 @@ def check_tiny_shadow(pack, logf, shadow, n_tris: int,
                  pair_tests_made=made, bound_ms_before=before["bound_ms"],
                  pair_tests_before=n * n_tris,
                  **registers("tiny_intersect", "shadow_tiny_kernel"))
-    phase("kernel", name="shadow_logsum_tiny", rays=rays, n=n,
-          live=int((dist > 0).sum()),
-          opaque=int((klg <= -80.0).all(dim=-1).sum()), differ=n_diff,
+    live = int((dist > 0).sum())
+    opaque = int((klg <= -80.0).all(dim=-1).sum())
+    phase("kernel", name="shadow_logsum_tiny", rays=rays, n=n, live=live,
+          opaque=opaque, differ=n_diff,
           max_abs_err=err, tolerance="transmission atol 2e-3; equal",
           ms=round(ms, 4), call_ms=round(call_ms(kernel, calls=20), 4),
           plain_ms=round(plain_ms, 4), **extra, **bnd)
-    return dict(ms=ms, plain_ms=plain_ms, err=err, bound=bnd, extra=extra)
+    return dict(ms=ms, plain_ms=plain_ms, err=err, bound=bnd, extra=extra,
+                live=live, opaque=opaque)
 
 
 def before_keys(first: dict, bounce: dict) -> dict:
@@ -2410,11 +2429,92 @@ def slice14_phases(smi, out_dir: str, kernels: list) -> None:
         max_abs_err_sppm=max(dens_s["err"], first["err"], dens_c["err"]))
 
 
+# ---- slice 15: IBL and textures --------------------------------------------
+
+
+def check_assets(cs) -> dict:
+    """ibl_spheres.xml's textures hold its two assets, loaded from their
+    files: equal to load_image of each (the reference's stand-in for a
+    failed load is a 16 x 16 checker).  Returns their shapes."""
+    from libyafaray_tpu_torch.io.image import load_image
+
+    shapes = {}
+    for key, (path, shape) in IBL_ASSETS.items():
+        got = np.asarray(cs.arrays[key])
+        if got.shape != shape or not np.array_equal(
+                got, load_image(os.path.join(REPO, path))[..., :3]):
+            raise AssertionError(f"{key} is not {path} ({got.shape})")
+        shapes[key] = f"{os.path.basename(path)}:{shape[0]}x{shape[1]}"
+    return shapes
+
+
+def ibl_phases(smi, out_dir: str) -> tuple:
+    """ibl_spheres.xml at its own settings (pathtracing, bounces 5, RR from
+    3, 512², 64 spp, IBL light with 8 samples): its assets, the tiny
+    kernels against their plain versions on one step's recorded primary
+    rays and bounce-0 NEE rays (2,097,152 segments of 1e8 toward the
+    environment), the render through render_scene and the CLI, one
+    profiled step, the card against the CPU at 64², 4 spp, and the golden
+    at 96², 48 spp.  Returns (launches, closest check, shadow check)."""
+    scene = scene_at(IBL)
+    cfg = build_config(scene)
+    cs = scene.compile(device="cuda")
+    assets = check_assets(cs)
+    step, arrays, rec = step_calls(cs, cfg, ci, ("closest_hit_tiny",
+                                                 "shadow_transmission_tiny"))
+    c = rec["closest_hit_tiny"][0]
+    closest = check_tiny_closest(c[0], c[1:5], c[5],
+                                 rays_name="ibl_spheres primary")
+    sh = rec["shadow_transmission_tiny"][0]
+    shadow = check_tiny_shadow(sh[0], ci.log_filter(sh[1]), sh[2:5], sh[5],
+                               rays="ibl_spheres bounce-0 NEE")
+    del rec
+    res, launches = entry_counted(scene, TINY)
+    want = dict.fromkeys(TINY, (cfg.bounces + 1) * (cfg.aa_samples + 1))
+    path_line("ibl_path", res, cfg, launches, want, smi,
+              spp=cfg.aa_samples, bounces=cfg.bounces,
+              rr_min_bounces=cfg.rr_min_bounces,
+              ibl_samples=cs.static.bg.ibl_samples, assets=assets)
+    mid_cli("ibl", IBL, res, smi, out_dir)
+    profile("ibl_profile", res, step, arrays, cfg, ("tiny_kernel",), smi)
+    del step, arrays
+    card_vs_cpu("ibl_card_vs_cpu", lambda dev: photon_scene(
+        IBL, dev, size=64, aa_samples=4), 64, 4)
+    golden = read_exr(IBL_GOLDEN)
+    gs = golden.shape[0]
+    gcs, gcc = photon_scene(IBL, "cuda", size=gs, aa_samples=IBL_GOLDEN_SPP,
+                            aa_passes=1)
+    gres = render(gcs, gcc, device="cuda")
+    rmse = float(np.sqrt(np.mean((gres.image - golden) ** 2)))
+    phase("ibl_golden", size=f"{gs}x{gs}", spp=gcc.aa_samples,
+          render_s=round(gres.stats["render_s"], 4), rmse=rmse, bound=0.05)
+    if not rmse < 0.05:
+        raise AssertionError(f"IBL golden RMSE {rmse} >= 0.05")
+    return launches, closest, shadow
+
+
+def slice15_phases(smi, out_dir: str, kernels: list) -> None:
+    """The IBL path; its launches and the tiny kernels' checks on its rays
+    go into their `kernels` entries (`*_ibl`)."""
+    by_name = {k["name"]: k for k in kernels}
+    launches, closest, shadow = ibl_phases(smi, out_dir)
+    for key, chk in (("closest_hit_tiny", closest),
+                     ("shadow_logsum_tiny", shadow)):
+        by_name[key].update(launches_ibl=launches[key], ms_ibl=chk["ms"],
+                            plain_ms_ibl=chk["plain_ms"],
+                            bound_ms_ibl=chk["bound"]["bound_ms"],
+                            max_abs_err_ibl=chk["err"])
+    by_name["shadow_logsum_tiny"].update(live_ibl=shadow["live"],
+                                         opaque_ibl=shadow["opaque"])
+
+
 def main() -> None:
     # 1. device
     if not torch.cuda.is_available():
         raise SystemExit("chip_smoke: no CUDA device (torch.cuda."
                          "is_available() is False); nothing was run")
+    # scenes name their assets relative to the repository root
+    os.chdir(REPO)
     kind = torch.cuda.get_device_name(0)
     smi = subprocess.run(
         ["nvidia-smi", "--query-gpu=name,power.limit",
@@ -2516,6 +2616,8 @@ def main() -> None:
     # 13. slice 14: directlighting, Beer glass, the caustic map and SPPM
     with tempfile.TemporaryDirectory() as out_dir:
         slice14_phases(smi, out_dir, kernels + photon)
+        # 14. slice 15: IBL and textures on ibl_spheres.xml
+        slice15_phases(smi, out_dir, kernels)
 
     print(json.dumps({"kernels": kernels + fine + photon + mid + pairs}),
           flush=True)

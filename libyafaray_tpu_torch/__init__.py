@@ -19,17 +19,21 @@ raises NotImplementedError naming its ROADMAP item.
   core/         math, color, QMC, sampling warps
   scene/        params, meshes, XML parser, scene compile, session, the
                 grid-spheres scene generator
-  cameras/      perspective shoot_rays
-  materials/    material table and the ported BSDFs
-  lights/       light table, area-light sampling
-  backgrounds/  constant background
+  cameras/      perspective shoot_rays, pixel cone, projection
+  materials/    material table, the ported BSDFs, blend and mask
+  lights/       light table, area-light sampling, the IBL light (alias
+                table over the environment map)
+  backgrounds/  constant and texture backgrounds, the env-map blur
+  textures/     image textures (mip atlas, nearest / bilinear / bicubic /
+                trilinear / EWA), procedural textures, node programs
   ops/          intersection dispatch, photon gathers: CUDA wrappers and
                 plain versions
   film/         filters, scatter-free splat, film image, density layer
   integrators/  the wavefront engine (path and direct modes), photon
                 mapping and the path tracer's caustic map, SPPM, the
                 render loops
-  io/           EXR, RGBE and 8-bit image output, EXR reading
+  io/           EXR, RGBE and 8-bit image output; EXR, RGBE and PNG
+                reading (PNG without Pillow)
   utils/        render logs and the parameter badge
   cli/          the yafaray-xml command line
   convert.py    reference compiled scene -> port tensors

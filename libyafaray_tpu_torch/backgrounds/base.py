@@ -1,10 +1,15 @@
-"""Backgrounds (port of libyafaray_tpu/backgrounds/base.py: the spec record
-and the none/constant branches of `eval_background`)."""
+"""Backgrounds (port of libyafaray_tpu/backgrounds/base.py: the spec record,
+the none / constant / texture branches of `eval_background`, and the
+lat-long and angular-probe direction <-> uv maps the IBL light shares).
+Gradient, sunsky and darksky raise (ROADMAP Queue 1 item 17)."""
 from __future__ import annotations
 
+import math
 from dataclasses import dataclass
 
 import torch
+
+from ..core.math import div
 
 BG_NONE = -1
 BG_CONSTANT = 0
@@ -12,6 +17,8 @@ BG_GRADIENT = 1
 BG_TEXTURE = 2
 BG_SUNSKY = 3
 BG_DARKSKY = 4
+
+PORTED_BACKGROUNDS = (BG_NONE, BG_CONSTANT, BG_TEXTURE)
 
 
 @dataclass(frozen=True)
@@ -23,32 +30,61 @@ class BackgroundSpec:
     zenith_color: tuple = (0.0, 0.0, 0.0)
     horizon_ground_color: tuple = (0.0, 0.0, 0.0)
     zenith_ground_color: tuple = (0.0, 0.0, 0.0)
-    mapping: str = "sphere"
+    mapping: str = "sphere"  # sphere (lat-long) | probe (angular)
     rotation: float = 0.0
     ibl: bool = False
     ibl_samples: int = 16
+    # the IBL light's lookups (NEE, its sampling table) read a gaussian-
+    # blurred copy of the map; the visible background stays sharp
     ibl_blur: float = 0.0
     with_caustic: bool = True
     with_diffuse: bool = True
 
 
 def check_supported(spec: BackgroundSpec) -> None:
-    if spec.bg_type not in (BG_NONE, BG_CONSTANT):
+    if spec.bg_type not in PORTED_BACKGROUNDS:
         raise NotImplementedError(
             f"background type {spec.bg_type} is not ported yet: ROADMAP "
-            "Queue 1 items 15 and 17")
-    if spec.ibl:
-        raise NotImplementedError(
-            "background IBL lighting is not ported yet: ROADMAP Queue 1 "
-            "item 15")
+            "Queue 1 item 17 (gradient, sunsky, darksky)")
 
 
-def eval_background(spec: BackgroundSpec, d: torch.Tensor) -> torch.Tensor:
-    """Radiance of escaping rays with direction d (N,3)."""
+def eval_background(spec: BackgroundSpec, bg_image, d: torch.Tensor):
+    """Radiance of escaping rays with direction d (N, 3).  bg_image: the
+    (Hb, Wb, 3) map of a texture background (None otherwise), read at the
+    nearest texel."""
     check_supported(spec)
     if spec.bg_type == BG_NONE:
         return torch.zeros(d.shape[:-1] + (3,), dtype=torch.float32,
                            device=d.device)
-    c = torch.tensor(spec.color, dtype=torch.float32, device=d.device) \
-        * spec.power
-    return c.expand(d.shape[:-1] + (3,))
+    if spec.bg_type == BG_CONSTANT:
+        c = torch.tensor(spec.color, dtype=torch.float32, device=d.device) \
+            * spec.power
+        return c.expand(d.shape[:-1] + (3,))
+    u, v = dir_to_uv(spec, d)
+    hb, wb = bg_image.shape[0], bg_image.shape[1]
+    x = torch.clamp((u * wb).to(torch.int32), 0, wb - 1)
+    y = torch.clamp((v * hb).to(torch.int32), 0, hb - 1)
+    return bg_image[y.long(), x.long()] * spec.power
+
+
+def dir_to_uv(spec: BackgroundSpec, d: torch.Tensor):
+    """Direction -> texture uv: lat-long with z up (sphere) or the angular
+    probe map, rotated `rotation` degrees about z."""
+    if spec.mapping == "probe":
+        dx, dy, dz = d[..., 0], d[..., 1], d[..., 2]
+        r = div(torch.acos(torch.clamp(-dy, -1.0, 1.0)), math.pi)
+        denom = torch.clamp(torch.sqrt(dx * dx + dz * dz), min=1e-9)
+        return 0.5 + 0.5 * r * dx / denom, 0.5 + 0.5 * r * dz / denom
+    phi = torch.atan2(d[..., 1], d[..., 0]) + spec.rotation * math.pi / 180.0
+    u = div(phi, 2.0 * math.pi) % 1.0
+    v = div(torch.acos(torch.clamp(d[..., 2], -1.0, 1.0)), math.pi)
+    return u, v
+
+
+def uv_to_dir(spec: BackgroundSpec, u: torch.Tensor, v: torch.Tensor):
+    """The inverse of dir_to_uv for lat-long maps (IBL sampling)."""
+    phi = u * 2.0 * math.pi - spec.rotation * math.pi / 180.0
+    theta = v * math.pi
+    st = torch.sin(theta)
+    return torch.stack([st * torch.cos(phi), st * torch.sin(phi),
+                        torch.cos(theta)], dim=-1)

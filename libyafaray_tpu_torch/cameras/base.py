@@ -1,6 +1,6 @@
 """Cameras — batched shootRay over pixel lanes (port of
-libyafaray_tpu/cameras/base.py: the Camera record, the perspective branch of
-`shoot_rays` and `pixel_cone`)."""
+libyafaray_tpu/cameras/base.py: the Camera record, the perspective branches
+of `shoot_rays`, `pixel_cone` and `project_to_camera`)."""
 from __future__ import annotations
 
 from dataclasses import dataclass
@@ -113,3 +113,26 @@ def pixel_cone(cam: Camera) -> tuple:
     the perspective camera."""
     check_supported(cam)
     return 1.0 / (cam.resx * max(cam.focal, 1e-6)), 0.0
+
+
+def project_to_camera(cam: Camera, p: torch.Tensor):
+    """World points (N, 3) -> (px, py, cos_cam, dist, valid) through the
+    perspective camera, the inverse of shoot_rays (texco "window" reads
+    px / resx, py / resy)."""
+    check_supported(cam)
+    dev = p.device
+    right, up, fwd, org0 = (torch.tensor(a, dtype=torch.float32, device=dev)
+                            for a in (cam.right, cam.up, cam.fwd,
+                                      cam.origin))
+    aspect = cam.resy / cam.resx * cam.aspect_ratio
+    v = p - org0
+    dist = torch.sqrt(torch.clamp(vmath.dot(v, v), min=1e-12))
+    z = vmath.dot(v, fwd)
+    safe_z = torch.clamp(z, min=1e-6)
+    u = cam.focal * vmath.dot(v, right) / safe_z
+    w = cam.focal * vmath.dot(v, up) / (safe_z * aspect)
+    px = (u + 0.5) * cam.resx
+    py = (0.5 - w) * cam.resy
+    valid = ((z > 1e-4) & (px >= 0) & (px < cam.resx) & (py >= 0)
+             & (py < cam.resy))
+    return px, py, z / dist, dist, valid

@@ -22,9 +22,11 @@ from .cameras.base import Camera
 from .integrators.config import RenderConfig
 from .ops.cluster_intersect import quarter_boxes
 from .ops.fine_intersect import sub_aabbs
-from .scene.scene import (FINE_ARRAY_KEYS, QUARTER_ARRAY_KEYS,
-                          SLICE_ARRAY_KEYS, SPHERE_ARRAY_KEYS, LightStatic,
-                          SceneStatic)
+from .scene.scene import (BACKGROUND_ARRAY_KEYS, FINE_ARRAY_KEYS,
+                          ORCO_ARRAY_KEY, QUARTER_ARRAY_KEYS,
+                          SLICE_ARRAY_KEYS, SPHERE_ARRAY_KEYS,
+                          TEXTURE_ARRAY_PREFIXES, LightStatic, SceneStatic)
+from .textures.nodes import NodeProgram, NodeSpec
 
 _DTYPES = {np.dtype(np.float32): torch.float32,
            np.dtype(np.int32): torch.int32,
@@ -53,8 +55,9 @@ def to_tensors(arrays: dict, device) -> dict:
 
 def arrays_from_reference(arrays: dict, device) -> dict:
     """The reference's CompiledScene.arrays -> the port's scene tensors:
-    the keys the port reads (with the sphere pack where the scene has
-    spheres), plus the sub-cluster and 32-column box tables the port builds
+    the keys the port reads (with the sphere pack, the textures, the orco
+    pack and the background's map and IBL tables where the scene has
+    them), plus the sub-cluster and 32-column box tables the port builds
     once per scene (FINE_ARRAY_KEYS, QUARTER_ARRAY_KEYS) derived from the
     reference's packs, whose real width is the triangle count
     (tri_shade_pack rows)."""
@@ -68,8 +71,10 @@ def arrays_from_reference(arrays: dict, device) -> dict:
     n_real = arrays["tri_shade_pack"].shape[0]
     sub8 = sub_aabbs(arrays["tri_pack10"], n_real)
     box32 = quarter_boxes(arrays["tri_pack10"], n_real)
-    keys = SLICE_ARRAY_KEYS + tuple(k for k in SPHERE_ARRAY_KEYS
-                                    if k in arrays)
+    keys = SLICE_ARRAY_KEYS + tuple(
+        k for k in arrays
+        if k in SPHERE_ARRAY_KEYS + BACKGROUND_ARRAY_KEYS + (ORCO_ARRAY_KEY,)
+        or k.startswith(TEXTURE_ARRAY_PREFIXES))
     return to_tensors({**{k: arrays[k] for k in keys},
                        **dict.fromkeys(FINE_ARRAY_KEYS, sub8),
                        **dict.fromkeys(QUARTER_ARRAY_KEYS, box32)}, device)
@@ -84,8 +89,6 @@ def static_from_reference(static) -> SceneStatic:
     """The reference's SceneStatic -> the port's (the fields the port reads).
     Raises for reference features the port does not render."""
     for name, what, item in (("volumes", "volumes", "17"),
-                             ("textures", "textures", "15"),
-                             ("node_programs", "shader nodes", "15"),
                              ("max_additional_depth", "additionalDepth",
                               "16")):
         if getattr(static, name, 0):
@@ -97,7 +100,11 @@ def static_from_reference(static) -> SceneStatic:
         SceneStatic, static, pairs=False,
         lights=tuple(_copy_fields(LightStatic, ls) for ls in static.lights),
         bg=_copy_fields(BackgroundSpec, static.bg),
-        mat_families=tuple(int(c) for c in static.mat_families))
+        mat_families=tuple(int(c) for c in static.mat_families),
+        node_programs=tuple(
+            NodeProgram(nodes=tuple(NodeSpec(*nd) for nd in prog.nodes),
+                        slots=tuple(prog.slots))
+            for prog in static.node_programs))
 
 
 def camera_from_reference(camera) -> Camera:

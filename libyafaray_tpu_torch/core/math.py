@@ -10,6 +10,12 @@ from __future__ import annotations
 import torch
 
 
+def div(x: torch.Tensor, s: float) -> torch.Tensor:
+    """x / s as a true float32 division (a Python-scalar divisor may become
+    a multiply by its reciprocal on the GPU)."""
+    return x / torch.full((), float(s), dtype=x.dtype, device=x.device)
+
+
 def dot(a: torch.Tensor, b: torch.Tensor) -> torch.Tensor:
     """Batched 3-vector dot product -> (...,) scalar."""
     p = a * b

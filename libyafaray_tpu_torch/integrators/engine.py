@@ -20,6 +20,14 @@ weighs its NEE samples 1.  A lane inside a glass with absorption carries
 the glass's Beer coefficient (`medium_sigma`) and loses exp(-sigma·t) of
 its throughput over each segment.
 
+In a scene with textures every vertex applies them to its material row
+and bumps its normal (textures/eval.py), the mip LOD read from a ray cone
+(`cone_w`, `cone_spread`, started at the camera's pixel cone and widened
+at every non-specular scatter).  Blend and mask materials resolve through
+materials/blend.py.  Escaped rays see the background (a texture
+background's map); with an `ibl` background its light joins NEE
+(lights/bglight.py) and the escape is MIS-weighted against it.
+
 Everything is SoA over N = H·W lanes; dead lanes are masked, not
 compacted, exactly as in the reference, so the same QMC stream gives the
 same image.  The reference's `lax.scan` over bounces is a Python loop that
@@ -39,17 +47,20 @@ import torch
 
 from ..backgrounds.base import check_supported as check_background
 from ..backgrounds.base import eval_background
-from ..cameras.base import shoot_rays
+from ..cameras.base import pixel_cone, project_to_camera, shoot_rays
 from ..core import math as vmath
 from ..core import qmc
 from ..core.sampling import INV_PI, power_heuristic, sample_cos_hemisphere
 from ..film.imagefilm import film_splat
 from ..lights import base as lightmod
+from ..lights.bglight import pdf_bg_dir, sample_bg_light
+from ..materials import blend as blendmod
 from ..materials import bsdf
 from ..materials.base import (MT_COATED_GLOSSY, MT_GLASS, MT_GLOSSY,
                               MT_SHINYDIFFUSE, gather_rows)
 from ..ops import intersect as isect
 from ..ops.photon_flash import density_auto
+from ..textures.eval import apply_textures, bump_normal
 from .config import RenderConfig
 
 F32 = torch.float32
@@ -57,6 +68,7 @@ F32 = torch.float32
 
 PORTED_INTEGRATORS = ("directlighting", "pathtracing", "photonmapping",
                       "SPPM")
+PORTED_LIGHTS = (lightmod.LT_AREA, lightmod.LT_BACKGROUND)
 
 
 def check_supported(static, cfg: RenderConfig) -> None:
@@ -80,12 +92,9 @@ def check_supported(static, cfg: RenderConfig) -> None:
         raise NotImplementedError(
             "render passes / AOVs and alpha are not ported yet: ROADMAP "
             "Queue 1 item 17")
-    if static.has_blend:
-        raise NotImplementedError(
-            "blend/mask materials are not ported yet: ROADMAP Queue 1 item 15")
     check_background(static.bg)
     for ls in static.lights:
-        if ls.ltype != lightmod.LT_AREA:
+        if ls.ltype not in PORTED_LIGHTS:
             raise NotImplementedError(
                 f"light type {ls.ltype} is not ported yet: ROADMAP Queue 1 "
                 "item 17")
@@ -118,12 +127,6 @@ def resolve_device(device) -> torch.device:
     if dev.type == "cuda" and dev.index is None:
         dev = torch.device("cuda", torch.cuda.current_device())
     return dev
-
-
-def _div(x: torch.Tensor, s: float) -> torch.Tensor:
-    """x / s as a true float32 division (a Python-scalar divisor may become
-    a multiply by its reciprocal on the GPU)."""
-    return x / torch.full((), float(s), dtype=F32, device=x.device)
 
 
 def _tile(x: torch.Tensor, ns: int) -> torch.Tensor:
@@ -181,6 +184,25 @@ def nee_count(ls, cfg: RenderConfig, full: bool) -> int:
     return max(1, int(round(cfg.indirect_ns_mult)))
 
 
+def uses_textures(static) -> bool:
+    """Whether the scene's vertices apply textures or node programs."""
+    return bool(static.textures or static.node_programs)
+
+
+def has_bg_light(static) -> bool:
+    return any(ls.ltype == lightmod.LT_BACKGROUND and ls.enabled
+               for ls in static.lights)
+
+
+def sample_light(arrays, static, li: int, p, u1, u2) -> dict:
+    """One NEE sample of light li per lane: an area light's point, or the
+    IBL light's direction from the environment table."""
+    if static.lights[li].ltype == lightmod.LT_BACKGROUND:
+        return sample_bg_light(arrays, static.bg, p, u1, u2)
+    return lightmod.sample_area(lightmod.light_row(arrays["lights"], li), p,
+                                u1, u2)
+
+
 def shadow_rays(arrays, static, li: int, ns: int, p, n, ng, alive, s_idx,
                 skey, bounce_dim, static_dims: bool):
     """Light li's NEE samples and their shadow rays, ns per lane, batched
@@ -188,7 +210,7 @@ def shadow_rays(arrays, static, li: int, ns: int, p, n, ng, alive, s_idx,
     bounce_dim is a static int or an (N,) int32 tensor of per-lane dim
     bases; static_dims draws the pair of the reference's static QMC dims
     (a static int bounce_dim only), else its dynamic hash dims.
-    Returns (smp, cos_i, org, dist): the area-light sample record, the
+    Returns (smp, cos_i, org, dist): the light's sample record, the
     cosine at the shading normal, and the segments; dead lanes get a
     negative dist, an empty segment."""
     skey_l = qmc.hash_combine(skey, qmc.word_like(skey, 0xABCD01 + 131 * li))
@@ -209,8 +231,7 @@ def shadow_rays(arrays, static, li: int, ns: int, p, n, ng, alive, s_idx,
         dims = _tile(bounce_dim, ns) if per_lane else bounce_dim
         u1 = qmc.dynamic_sample_dim(sub_idx, dims + qmc.SLOT_LIGHT_U, skey_v)
         u2 = qmc.dynamic_sample_dim(sub_idx, dims + qmc.SLOT_LIGHT_V, skey_v)
-    smp = lightmod.sample_area(lightmod.light_row(arrays["lights"], li), p_,
-                               u1, u2)
+    smp = sample_light(arrays, static, li, p_, u1, u2)
     cos_i = vmath.dot(n_, smp["wi"])
     org = p_ + ng_ * torch.sign(cos_i)[..., None] * static.shadow_bias
     dist = torch.where(alive_, smp["dist"], -1.0)
@@ -293,25 +314,40 @@ def shadow_transmission(arrays: dict, static, transp_shad: bool, org, dirn,
     return tr * tr_sph
 
 
-def _surface_point(arrays: dict, hit: isect.Hit, org=None,
-                   dirn=None) -> dict:
+def _surface_point(arrays: dict, hit: isect.Hit, org=None, dirn=None,
+                   fp=None, tex: bool = False) -> dict:
     """Hit -> shading record from one packed gather of tri_shade_pack
-    (pos 0:9, normal 9:18, geo_n 24:27, mat 27, light_id 28).  In a scene
-    with spheres, sphere hits (tri < -1) take the exact point org + t·dirn
-    and its radial normal."""
+    (pos 0:9, normal 9:18, uv 18:24, geo_n 24:27, mat 27, light_id 28,
+    uv_density 29, dPdU 30:33, dPdV 33:36).  In a scene with spheres,
+    sphere hits (tri < -1) take the exact point org + t·dirn and its radial
+    normal.  tex=True adds what textures read: uv, uv_density, dpdu, dpdv
+    (a sphere's lat-long uv and its analytic derivatives), view, t, tri,
+    fp (the ray-cone footprint, or None), and orco / local where the scene
+    carries tri_orco_pack."""
     pack = arrays["tri_shade_pack"]
     tri = torch.clamp(hit.tri, 0, pack.shape[0] - 1)
     b1, b2 = hit.u, hit.v
     b0 = 1.0 - b1 - b2
+
+    def lerp(c0, c1, c2):
+        return (b0[..., None] * c0 + b1[..., None] * c1
+                + b2[..., None] * c2)
+
     pk = pack[tri.long()]  # (N, 36)
-    p = (b0[..., None] * pk[:, 0:3] + b1[..., None] * pk[:, 3:6]
-         + b2[..., None] * pk[:, 6:9])
-    n = vmath.normalize(b0[..., None] * pk[:, 9:12]
-                        + b1[..., None] * pk[:, 12:15]
-                        + b2[..., None] * pk[:, 15:18])
+    p = lerp(pk[:, 0:3], pk[:, 3:6], pk[:, 6:9])
+    n = vmath.normalize(lerp(pk[:, 9:12], pk[:, 12:15], pk[:, 15:18]))
     ng = pk[:, 24:27]
     mat = pk[:, 27].to(torch.int32)
     light_id = pk[:, 28].to(torch.int32)
+    out = {}
+    if tex:
+        out = dict(uv=lerp(pk[:, 18:20], pk[:, 20:22], pk[:, 22:24]),
+                   uv_density=pk[:, 29], dpdu=pk[:, 30:33],
+                   dpdv=pk[:, 33:36], view=dirn, t=hit.t, tri=tri, fp=fp)
+        if "tri_orco_pack" in arrays:
+            ok = arrays["tri_orco_pack"][tri.long()]  # (N, 18)
+            out["orco"] = lerp(ok[:, 0:3], ok[:, 3:6], ok[:, 6:9])
+            out["local"] = lerp(ok[:, 9:12], ok[:, 12:15], ok[:, 15:18])
     if "spheres" in arrays:
         is_sph = hit.tri < -1
         sph = arrays["spheres"]
@@ -324,12 +360,56 @@ def _surface_point(arrays: dict, hit: isect.Hit, org=None,
         ng = torch.where(m3, n_s, ng)
         mat = torch.where(is_sph, srow[:, 4].to(torch.int32), mat)
         light_id = torch.where(is_sph, -1, light_id)
-    return dict(p=p, n=n, ng=ng, mat=mat, light_id=light_id)
+        if tex:
+            nx, ny, nz = n_s[..., 0:1], n_s[..., 1:2], n_s[..., 2:3]
+            # lat-long uv: u = 0.5 + atan2(ny, nx)/2pi, v = 0.5 - asin(nz)/pi
+            uv_s = torch.stack([
+                0.5 + vmath.div(torch.atan2(n_s[..., 1], n_s[..., 0]),
+                                2.0 * np.pi),
+                0.5 - vmath.div(torch.asin(torch.clamp(n_s[..., 2], -1.0,
+                                                       1.0)), np.pi)], dim=-1)
+            r_s = srow[:, 3:4]
+            cos_lat = torch.sqrt(torch.clamp(1.0 - nz * nz, min=1e-12))
+            dpdu_s = 2.0 * np.pi * r_s * torch.cat(
+                [-ny, nx, torch.zeros_like(nx)], dim=-1)
+            dpdv_s = np.pi * r_s * torch.cat(
+                [nx * nz / cos_lat, ny * nz / cos_lat, -cos_lat], dim=-1)
+            out["uv"] = torch.where(m3, uv_s, out["uv"])
+            out["uv_density"] = torch.where(
+                is_sph, 1.0 / torch.clamp(np.pi * srow[:, 3], min=1e-6),
+                out["uv_density"])
+            out["dpdu"] = torch.where(m3, dpdu_s, out["dpdu"])
+            out["dpdv"] = torch.where(m3, dpdv_s, out["dpdv"])
+            if "orco" in out:
+                out["orco"] = torch.where(m3, n_s, out["orco"])
+                out["local"] = torch.where(m3, p_s - srow[:, 0:3],
+                                           out["local"])
+    return dict(out, p=p, n=n, ng=ng, mat=mat, light_id=light_id)
+
+
+def _make_mat_resolve(arrays, static, sp: dict):
+    """The callback with which materials/blend.py re-applies textures to a
+    composite's gathered child rows, or None when no composite child is
+    textured.  Child rows over ns·N NEE lanes see sp tiled block-major."""
+    if not (static.has_blend and static.blend_child_textured
+            and uses_textures(static)):
+        return None
+    base = sp["p"].shape[0]
+
+    def resolve(r):
+        k = r["mtype"].shape[0] // base
+        spr = sp if k == 1 else {
+            kk: (_tile(v, k) if isinstance(v, torch.Tensor)
+                 and v.shape[:1] == (base,) else v)
+            for kk, v in sp.items()}
+        return apply_textures(arrays, static, r, spr)
+
+    return resolve
 
 
 def _direct_lighting(arrays, static, cfg, p, n, ng, row, wo, s_idx, skey,
                      bounce_dim, full_count: bool, static_dims: bool, alive,
-                     mis_with_bsdf=True):
+                     mis_with_bsdf=True, resolve=None):
     """NEE with two-strategy MIS over the enabled lights (reference
     estimateAllDirectLight).  full_count gives every light its full
     `samples` count (else one sample), all ns samples batched block-major
@@ -338,7 +418,8 @@ def _direct_lighting(arrays, static, cfg, p, n, ng, row, wo, s_idx, skey,
     both at the first vertex, its SPPM eye pass the full count and static
     dims at every vertex, its photon step the full count over per-lane
     dynamic dims.  mis_with_bsdf=False weighs the light samples 1 (for
-    callers that never take the BSDF-sampled counterpart).
+    callers that never take the BSDF-sampled counterpart).  Blend and
+    mask rows evaluate through materials/blend.py, `resolve` as there.
     Returns (L (N,3), shadow rays per live lane)."""
     L = torch.zeros_like(p)
     nrays = 0
@@ -353,7 +434,9 @@ def _direct_lighting(arrays, static, cfg, p, n, ng, row, wo, s_idx, skey,
             static_dims)
         n_, ng_, wo_ = (_tile(x, ns) for x in (n, ng, wo))
         row_ = {k: _tile(row[k], ns) for k in bsdf.eval_keys(families)}
-        f = bsdf.eval_bsdf(row_, n_, ng_, wo_, smp["wi"], families)
+        f = blendmod.eval_bsdf(arrays["materials"], row_, n_, ng_, wo_,
+                               smp["wi"], static.has_blend, families,
+                               resolve)
         contrib_w = cos_i.abs() / torch.clamp(smp["pdf"], min=1e-9)
         ok = smp["valid"] & (smp["pdf"] > 1e-9)
         if ls.cast_shadows:
@@ -363,7 +446,9 @@ def _direct_lighting(arrays, static, cfg, p, n, ng, row, wo, s_idx, skey,
             tr = torch.ones_like(f)
         term = f * smp["li"] * tr * contrib_w[..., None]
         if mis_with_bsdf and (not ls.is_delta) and ls.intersectable:
-            bpdf = bsdf.pdf_bsdf(row_, n_, ng_, wo_, smp["wi"], families)
+            bpdf = blendmod.pdf_bsdf(arrays["materials"], row_, n_, ng_,
+                                     wo_, smp["wi"], static.has_blend,
+                                     families, resolve)
             term = term * power_heuristic(smp["pdf"], bpdf)[..., None]
         term = torch.where(ok[..., None], term, 0.0)
         accum = term[:n0]
@@ -371,7 +456,7 @@ def _direct_lighting(arrays, static, cfg, p, n, ng, row, wo, s_idx, skey,
             accum = accum + term[k * n0:(k + 1) * n0]
         if ls.cast_shadows:
             nrays += ns
-        L = L + _div(accum, ns)
+        L = L + vmath.div(accum, ns)
     return L, nrays
 
 
@@ -399,7 +484,7 @@ def _ambient_occlusion(arrays, static, cfg, p, n_f, diffuse_color, s_idx,
     for j in range(1, ns):
         ao = ao + tr[j * n0:(j + 1) * n0]
     ao_col = torch.tensor(cfg.ao_color, dtype=F32, device=p.device)
-    return _div(ao * diffuse_color * ao_col, ns)
+    return vmath.div(ao * diffuse_color * ao_col, ns)
 
 
 def is_diffuse_family(mtype: torch.Tensor) -> torch.Tensor:
@@ -437,11 +522,17 @@ def make_sample_step(static, camera, cfg: RenderConfig, device,
     nee_on_table = torch.tensor(
         [1.0 if (ls.enabled and not ls.photon_only) else 0.0
          for ls in static.lights] or [0.0], dtype=F32, device=dev)
+    tex = uses_textures(static)
+    if tex:
+        cone0_s, cone0_w = pixel_cone(camera)
+    bg_light = has_bg_light(static)
+    families, depth = static.mat_families, static.has_blend
 
     def shade_vertex(arrays, st, bounce_idx: int, s_idx, first: bool):
         """One path vertex: intersect, attenuate by the medium, add
-        background/emission (MIS), NEE, AO and caustics at the first
-        vertex, sample the continuation."""
+        background (MIS against the IBL light) and emission (MIS), apply
+        textures, NEE, AO and caustics at the first vertex, sample the
+        continuation."""
         bounce_dim = qmc.bounce_dim(bounce_idx, 0)
         throughput, alive = st["throughput"], st["alive"]
         spec_mask, prev_pdf = st["spec_mask"], st["prev_pdf"]
@@ -458,19 +549,35 @@ def make_sample_step(static, camera, cfg: RenderConfig, device,
             throughput = throughput * torch.exp(-st["medium_sigma"]
                                                 * seg[..., None])
 
-        # escaped rays: constant background
+        # escaped rays: the background, MIS-weighted against the IBL
+        # light's NEE where it has one
         escape = alive & ~hit.hit
-        L = L + torch.where(escape[..., None],
-                            throughput * eval_background(static.bg, dirn),
-                            0.0)
+        bg = eval_background(static.bg, arrays.get("bg_image"), dirn)
+        if bg_light:
+            w_bg = torch.where(spec_mask, 1.0, power_heuristic(
+                prev_pdf, pdf_bg_dir(arrays, static.bg, dirn)))
+            bg = bg * w_bg[..., None]
+        L = L + torch.where(escape[..., None], throughput * bg, 0.0)
         alive = alive & hit.hit
 
-        sp = _surface_point(arrays, hit, org, dirn)
+        fp = None
+        if tex:  # the ray cone's footprint at the hit (mip LOD)
+            fp = st["cone_w"] + st["cone_spread"] * torch.where(
+                hit.hit, hit.t, 0.0)
+        sp = _surface_point(arrays, hit, org, dirn, fp=fp, tex=tex)
         wo = -dirn
         row = gather_rows(mats, sp["mat"].long())
+        if tex:
+            if static.need_window:  # texco "window": the hit's raster uv
+                pxw, pyw, _, _, _ = project_to_camera(camera, sp["p"])
+                sp["win"] = torch.stack([vmath.div(pxw, w),
+                                         vmath.div(pyw, h)], dim=-1)
+            row = apply_textures(arrays, static, row, sp)
+            sp["n"] = bump_normal(arrays, static, row, sp)
+        resolve = _make_mat_resolve(arrays, static, sp)
 
         # ---- emission with MIS against NEE ----
-        emit = bsdf.emission(row, sp["ng"], wo)
+        emit = blendmod.emission(mats, row, sp["ng"], wo, depth, resolve)
         li_id = sp["light_id"]
         is_light_tri = li_id >= 0
         if static.lights:
@@ -500,7 +607,8 @@ def make_sample_step(static, camera, cfg: RenderConfig, device,
         # ---- NEE (single-strategy in direct mode) ----
         Ld, sh_rays = _direct_lighting(
             arrays, static, cfg, sp["p"], n_sh, ng_sh, row, wo, s_idx,
-            skey_b, bounce_dim, first, first, alive, mis_with_bsdf=path_mode)
+            skey_b, bounce_dim, first, first, alive, mis_with_bsdf=path_mode,
+            resolve=resolve)
         L = L + torch.where(alive[..., None], throughput * Ld, 0.0)
         nrays = nrays + sh_rays * alive.to(F32).sum()
 
@@ -514,7 +622,8 @@ def make_sample_step(static, camera, cfg: RenderConfig, device,
             c_radius, c_nem = caustic
             cflux, _ = density_auto(arrays["pm_caustic"], sp["p"], n_sh,
                                     c_radius)
-            lc = _div(_div(cflux, np.pi * c_radius * c_radius), c_nem)
+            lc = vmath.div(vmath.div(cflux, np.pi * c_radius * c_radius),
+                           c_nem)
             f_c = (row["diffuse_reflect"][..., None] * row["diffuse_color"]
                    * INV_PI)
             on = alive & is_diffuse_family(row["mtype"])
@@ -531,8 +640,8 @@ def make_sample_step(static, camera, cfg: RenderConfig, device,
                 qmc.dynamic_sample_dim(s_idx, bounce_dim + slot, skey_b)
                 for slot in (qmc.SLOT_BSDF_U, qmc.SLOT_BSDF_V,
                              qmc.SLOT_LIGHT_PICK, qmc.SLOT_RR))
-        smp = bsdf.sample_bsdf(row, n_sh, ng_sh, wo, u1, u2, ul,
-                               static.mat_families)
+        smp = blendmod.sample_bsdf(mats, row, n_sh, ng_sh, wo, u1, u2, ul,
+                                   depth, families, resolve)
         alive = alive & smp["valid"]
         if not path_mode:  # direct mode follows specular vertices only
             alive = alive & smp["specular"]
@@ -557,6 +666,14 @@ def make_sample_step(static, camera, cfg: RenderConfig, device,
         pt = smp["passthrough"]
         spec_mask = torch.where(pt, spec_mask, smp["specular"])
         prev_pdf = torch.where(pt, prev_pdf, smp["pdf"])
+        if tex:
+            # the cone widens at non-specular scatters by the lobe's spread
+            # (~2/sqrt(e+2) for a Blinn-e lobe, at most 0.6)
+            out["cone_w"] = fp
+            spread = torch.clamp(2.0 * torch.rsqrt(row["exponent"] + 2.0),
+                                 max=0.6)
+            out["cone_spread"] = st["cone_spread"] + torch.where(
+                smp["specular"] | pt, 0.0, spread)
         nrays = nrays + alive.to(F32).sum()
         return dict(out, org=org, dirn=smp["wi"], throughput=throughput,
                     alive=alive, spec_mask=spec_mask, prev_pdf=prev_pdf,
@@ -583,6 +700,10 @@ def make_sample_step(static, camera, cfg: RenderConfig, device,
         )
         if media:
             st["medium_sigma"] = torch.zeros((n, 3), dtype=F32, device=dev)
+        if tex:
+            st["cone_w"] = torch.full((n,), cone0_w, dtype=F32, device=dev)
+            st["cone_spread"] = torch.full((n,), cone0_s, dtype=F32,
+                                           device=dev)
         st = shade_vertex(arrays, st, 0, s_idx, first=True)
         for b in range(1, n_bounces + 1):
             st = shade_vertex(arrays, st, b, s_idx, first=False)

@@ -6,7 +6,9 @@ lane picks a light by the power CDF, emits from it, then intersects and
 scatters with Russian roulette by albedo; every qualifying hit records a
 photon into a (bounce slot, lane) row: no append, no atomics; invalid rows
 carry valid=False.  Emitted flux of an area light: color·power (radiance
-L = Φ/(πA)).  Other light types raise (ROADMAP Queue 1 item 17).
+L = Φ/(πA)); the IBL light emits no photons (zero flux, as the
+reference's light_flux gives it).  Other light types raise (ROADMAP Queue
+1 item 17).
 """
 from __future__ import annotations
 
@@ -15,11 +17,12 @@ import torch
 
 from ..core import math as vmath
 from ..core import qmc
+from ..core.math import div
 from ..core.sampling import PI, sample_cos_hemisphere
 from ..lights import base as lightmod
 from ..materials import bsdf
 from ..materials.base import gather_rows
-from .engine import (F32, _div, _surface_point, closest_hit,
+from .engine import (F32, _surface_point, closest_hit,
                      is_diffuse_family, shading_frame)
 
 PHOTON_MODES = ("diffuse", "caustic", "indirect")
@@ -27,7 +30,7 @@ PHOTON_MODES = ("diffuse", "caustic", "indirect")
 
 def _check_area_lights(static) -> None:
     for ls in static.lights:
-        if ls.ltype != lightmod.LT_AREA:
+        if ls.ltype not in (lightmod.LT_AREA, lightmod.LT_BACKGROUND):
             raise NotImplementedError(
                 f"photons from light type {ls.ltype} are not ported yet: "
                 "ROADMAP Queue 1 item 17")
@@ -39,7 +42,7 @@ def light_flux(static, lights: dict) -> np.ndarray:
     _check_area_lights(static)
     flux = []
     for li, ls in enumerate(static.lights):
-        if not ls.enabled:
+        if not ls.enabled or ls.ltype == lightmod.LT_BACKGROUND:
             flux.append(0.0)
             continue
         # the reference's scalar types: a float32 area keeps the product
@@ -93,14 +96,19 @@ def make_photon_pass(static, cfg, n_lanes: int, max_bounces: int,
         org = torch.zeros((n, 3), dtype=F32, device=dev)
         dirn = torch.zeros((n, 3), dtype=F32, device=dev)
         pcol = torch.zeros((n, 3), dtype=F32, device=dev)
-        for li in range(len(static.lights)):
-            o_l, d_l, f_l = _emit_area(
-                lightmod.light_row(arrays["lights"], li), n, u1, u2, u3, u4)
+        for li, ls in enumerate(static.lights):
+            if ls.ltype == lightmod.LT_AREA:
+                o_l, d_l, f_l = _emit_area(
+                    lightmod.light_row(arrays["lights"], li), n, u1, u2, u3,
+                    u4)
+            else:  # the IBL light: a zero photon from the origin along +z
+                o_l = f_l = torch.zeros((n, 3), dtype=F32, device=dev)
+                d_l = o_l + torch.tensor([0.0, 0.0, 1.0], device=dev)
             sel = (li_pick == li)[..., None]
             prob = max(cdf[li + 1] - cdf[li], np.float32(1e-9))
             org = torch.where(sel, o_l, org)
             dirn = torch.where(sel, d_l, dirn)
-            pcol = torch.where(sel, _div(f_l, prob), pcol)
+            pcol = torch.where(sel, div(f_l, prob), pcol)
 
         alive = pcol.amax(dim=-1) > 0.0
         spec_only = torch.ones((n,), dtype=torch.bool, device=dev)

@@ -27,6 +27,7 @@ import torch
 from ..backgrounds.base import eval_background
 from ..convert import to_tensors
 from ..core import qmc
+from ..core.math import div
 from ..core.sampling import INV_PI, sample_cos_hemisphere
 from ..film.imagefilm import film_splat
 from ..materials import bsdf
@@ -35,10 +36,10 @@ from ..ops.photon_flash import (density_auto, make_photon_pack_auto,
                                 make_photon_pack_lookup, nearest_flash,
                                 pack_layout)
 from .config import RenderConfig
-from .engine import (F32, _direct_lighting, _div, _surface_point,
+from .engine import (F32, _direct_lighting, _surface_point,
                      bounce_key, camera_rays, check_arrays, check_supported,
                      closest_hit, is_diffuse_family, resolve_device,
-                     shading_frame)
+                     shading_frame, uses_textures)
 from .photon_shoot import light_flux, make_photon_pass
 from .render import RenderResult, _fresh_film, _sync
 
@@ -162,7 +163,7 @@ def build_photon_maps(cscene, cfg: RenderConfig, arrays: dict) -> dict:
             density_auto(out["diffuse"], qp[c0:c0 + RADIANCE_QUERIES],
                          qn[c0:c0 + RADIANCE_QUERIES], r_q)[0]
             for c0 in range(0, qp.shape[0], RADIANCE_QUERIES)])
-        e_irr = _div(_div(flux, np.pi * r_q ** 2), out["n_em_d"])
+        e_irr = div(div(flux, np.pi * r_q ** 2), out["n_em_d"])
         rows = gather_rows(arrays["materials"],
                            rec_d["mat"][::stride].long())
         lo = (e_irr * rows["diffuse_color"]
@@ -183,6 +184,13 @@ def make_photon_sample_step(cscene, cfg: RenderConfig, maps: dict, device):
     if cfg.integrator != "photonmapping":
         raise ValueError(f"make_photon_sample_step renders photonmapping, "
                          f"not {cfg.integrator!r}")
+    if (static.has_blend and static.blend_child_textured
+            and uses_textures(static)):
+        # the reference shades stored hit points from (p, n, ng) alone, so
+        # its NEE cannot texture a composite's child (ROADMAP Queue 3)
+        raise NotImplementedError(
+            "photon mapping with textured blend / mask children: the "
+            "reference's hit-point shading has no texture coordinates")
     dev = resolve_device(device)
     h, w = cfg.height, cfg.width
     n = h * w
@@ -223,8 +231,9 @@ def make_photon_sample_step(cscene, cfg: RenderConfig, maps: dict, device):
             hit = closest_hit(arrays, static, org, dirn, tmin, no_tmax)
             escape = alive & ~hit.hit
             L = L + torch.where(escape[..., None],
-                                throughput * eval_background(static.bg,
-                                                             dirn), 0.0)
+                                throughput * eval_background(
+                                    static.bg, arrays.get("bg_image"), dirn),
+                                0.0)
             alive = alive & hit.hit
             sp = _surface_point(arrays, hit, org, dirn)
             wo = -dirn
@@ -277,7 +286,7 @@ def make_photon_sample_step(cscene, cfg: RenderConfig, maps: dict, device):
         if has_caustic and not show_map:
             cflux, _ = density_auto(arrays["pm_caustic"], hp["p"], hp["n"],
                                     c_radius)
-            lc = _div(_div(cflux, np.pi * c_radius * c_radius),
+            lc = div(div(cflux, np.pi * c_radius * c_radius),
                       maps["n_em_c"])
             L = L + torch.where(m3, hp["tp"] * f_diff * lc, 0.0)
         if has_radiance:
@@ -298,17 +307,18 @@ def make_photon_sample_step(cscene, cfg: RenderConfig, maps: dict, device):
                                            d_radius * 4.0)
                 li = torch.where(ghit.hit[..., None],
                                  torch.where(found[..., None], rad, 0.0),
-                                 eval_background(static.bg, gd))
+                                 eval_background(static.bg,
+                                                 arrays.get("bg_image"), gd))
                 ind = ind + li
             # cosine sampling of a Lambertian: f·cos/pdf = ρ
-            ind = (_div(ind, cfg.fg_samples) * row["diffuse_color"]
+            ind = (div(ind, cfg.fg_samples) * row["diffuse_color"]
                    * row["diffuse_reflect"][..., None])
             L = L + torch.where(m3, hp["tp"] * ind, 0.0)
             nrays = nrays + cfg.fg_samples * n_stored
         elif has_diffuse:
             dflux, _ = density_auto(arrays["pm_diffuse"], hp["p"], hp["n"],
                                     d_radius)
-            ld = _div(_div(dflux, np.pi * d_radius * d_radius),
+            ld = div(div(dflux, np.pi * d_radius * d_radius),
                       maps["n_em_d"])
             L = L + torch.where(m3, hp["tp"] * f_diff * ld, 0.0)
         return L * wt[..., None], dx, dy, nrays

@@ -36,10 +36,11 @@ from ..materials import bsdf
 from ..materials.base import gather_rows
 from ..ops.photon_flash import density_auto, make_photon_pack_auto
 from .config import RenderConfig
-from .engine import (F32, _direct_lighting, _surface_point, bounce_key,
-                     camera_rays, check_arrays, check_supported, closest_hit,
-                     is_diffuse_family, pixel_lanes, ray_bounds,
-                     resolve_device, shading_frame)
+from .engine import (F32, _direct_lighting, _make_mat_resolve,
+                     _surface_point, bounce_key, camera_rays, check_arrays,
+                     check_supported, closest_hit, is_diffuse_family,
+                     pixel_lanes, ray_bounds, resolve_device, shading_frame,
+                     uses_textures)
 from .photon_shoot import make_photon_pass
 from .photonmap import MAX_PHOTON_LANES, _light_cdf, compact_photons_device
 from .render import RenderResult, _sync
@@ -56,6 +57,10 @@ def make_eye_pass(cscene, cfg: RenderConfig, device):
     n = h * w
     px, py, pixel_hash = pixel_lanes(h, w, 0, dev)  # no qmc_seed
     ones = torch.ones((h, w), dtype=F32, device=dev)
+    # textures apply only to the children of composites, inside NEE (as
+    # in the reference's eye pass)
+    child_tex = bool(static.has_blend and static.blend_child_textured
+                     and uses_textures(static))
 
     def eye_pass(arrays: dict, film: dict):
         check_arrays(arrays, dev)
@@ -75,10 +80,11 @@ def make_eye_pass(cscene, cfg: RenderConfig, device):
                               *ray_bounds(static, alive))
             escape = alive & ~hit.hit
             L = L + torch.where(escape[..., None],
-                                throughput * eval_background(static.bg,
-                                                             dirn), 0.0)
+                                throughput * eval_background(
+                                    static.bg, arrays.get("bg_image"), dirn),
+                                0.0)
             alive = alive & hit.hit
-            sp = _surface_point(arrays, hit, org, dirn)
+            sp = _surface_point(arrays, hit, org, dirn, tex=child_tex)
             wo = -dirn
             row = gather_rows(mats, sp["mat"].long())
             L = L + torch.where(alive[..., None],
@@ -91,7 +97,9 @@ def make_eye_pass(cscene, cfg: RenderConfig, device):
             skey_b = bounce_key(pixel_hash, bounce)
             Ld, sh_rays = _direct_lighting(
                 arrays, static, cfg, sp["p"], n_sh, ng_sh, row, wo, s_idx,
-                skey_b, bdim, True, True, here, mis_with_bsdf=False)
+                skey_b, bdim, True, True, here, mis_with_bsdf=False,
+                resolve=_make_mat_resolve(arrays, static,
+                                          dict(sp, n=n_sh, ng=ng_sh)))
             L = L + torch.where(here[..., None], throughput * Ld, 0.0)
             nrays = nrays + sh_rays * here.to(F32).sum()
 

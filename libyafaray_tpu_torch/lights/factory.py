@@ -1,6 +1,8 @@
 """Light factory: ParamMap -> light table row + emissive geometry (port of the
-`arealight` branch of libyafaray_tpu/lights/factory.py; the other light
-types raise until ROADMAP Queue 1 item 17 ports them)."""
+`arealight` and `bglight` branches of libyafaray_tpu/lights/factory.py;
+the other light types raise until ROADMAP Queue 1 item 17 ports them).
+A scene makes its bglight itself from an `ibl` background
+(scene/scene.py); the factory's branch is the same row."""
 from __future__ import annotations
 
 import math
@@ -8,7 +10,17 @@ import math
 import numpy as np
 
 from ..scene.params import ParamMap
-from .base import LT_AREA, default_light_row
+from .base import LT_AREA, LT_BACKGROUND, default_light_row
+
+
+def bg_light_row(samples: int) -> dict:
+    """The IBL light's row: `samples` NEE samples a first vertex,
+    intersectable (its MIS counterpart is the background escape)."""
+    row = default_light_row()
+    row["ltype"] = LT_BACKGROUND
+    row["samples"] = max(1, samples)
+    row["intersectable"] = True
+    return row
 
 
 def light_from_params(params: ParamMap):
@@ -16,6 +28,13 @@ def light_from_params(params: ParamMap):
     triangles `pos` (2,3,3) and its emitted `radiance`, which the scene
     attaches with a light_mat row so BSDF-sampled hits see the light."""
     lt = params.get_str("type", "pointlight")
+    if lt == "bglight":
+        row = bg_light_row(params.get_int("ibl_samples",
+                                          params.get_int("samples", 16)))
+        row["enabled"] = params.get_bool("light_enabled", True)
+        row["cast_shadows"] = params.get_bool("cast_shadows", True)
+        row["photon_only"] = params.get_bool("photon_only", False)
+        return row, None
     if lt != "arealight":
         raise NotImplementedError(
             f"light type {lt!r} is not ported yet: ROADMAP Queue 1 item 17")

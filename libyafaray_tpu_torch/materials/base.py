@@ -37,9 +37,10 @@ MATERIAL_TYPE_NAMES = {
     "light_mat": MT_LIGHT,
 }
 
-# the families the port renders; the rest raise at scene compile
+# the families the port renders (blend and mask through
+# materials/blend.py); the rest raise at scene compile
 SUPPORTED_FAMILIES = (MT_NULL, MT_SHINYDIFFUSE, MT_GLOSSY, MT_COATED_GLOSSY,
-                      MT_GLASS, MT_LIGHT)
+                      MT_GLASS, MT_BLEND, MT_MASK, MT_LIGHT)
 
 _SCALAR_COLS = [
     "diffuse_reflect", "specular_reflect", "transparency", "translucency",

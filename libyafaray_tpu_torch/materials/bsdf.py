@@ -4,9 +4,9 @@ Port of libyafaray_tpu/materials/bsdf.py for the families the port
 renders: null (pass-through), shinydiffuse, glossy and coated-glossy
 (Ashikhmin-Shirley under an optional dielectric coat), smooth glass
 (sample only, without dispersion: delta lobes, so eval and pdf are 0) and
-light.  Rough glass raises (ROADMAP Queue 1 item 10); blend and mask
-composites raise too, since `materials/blend.py` is only needed as the
-`has_blend == 0` pass-through these functions already are.
+light.  Rough glass raises (ROADMAP Queue 1 item 10).  Blend and mask
+composites have no lobe of their own here: `materials/blend.py` resolves
+them into their children's rows and calls these functions on those.
 """
 from __future__ import annotations
 
@@ -25,18 +25,18 @@ from .base import (
 _MIN_PDF = 1e-6
 _ROADMAP = {
     MT_ROUGH_GLASS: "ROADMAP Queue 1 item 10 (rough glass)",
-    MT_BLEND: "ROADMAP Queue 1 item 15 (materials/blend.py)",
-    MT_MASK: "ROADMAP Queue 1 item 15 (materials/blend.py)",
 }
 
 
 # the row entries eval_bsdf / pdf_bsdf read (the engine tiles only these
-# for the batched NEE lanes), and those the glossy families add
+# for the batched NEE lanes), those the glossy families add, and those
+# materials/blend.py reads at a composite
 EVAL_KEYS = ("mtype", "diffuse_color", "sigma", "fresnel_effect", "ior",
              "specular_reflect", "transparency", "translucency",
              "diffuse_reflect")
 GLOSSY_EVAL_KEYS = ("glossy_reflect", "glossy_color", "exponent", "exp_u",
                     "exp_v", "anisotropic")
+BLEND_EVAL_KEYS = ("sub_mat1", "sub_mat2", "blend_value", "mask_threshold")
 
 
 def check_families(families) -> None:
@@ -53,8 +53,12 @@ def _has_glossy(families) -> bool:
 
 
 def eval_keys(families) -> tuple:
-    """The row entries eval_bsdf and pdf_bsdf read for these families."""
-    return EVAL_KEYS + (GLOSSY_EVAL_KEYS if _has_glossy(families) else ())
+    """The row entries eval_bsdf and pdf_bsdf (and blend.py's composites)
+    read for these families."""
+    keys = EVAL_KEYS + (GLOSSY_EVAL_KEYS if _has_glossy(families) else ())
+    if MT_BLEND in families or MT_MASK in families:
+        keys += BLEND_EVAL_KEYS
+    return keys
 
 
 def _is_glossy(mtype: torch.Tensor) -> torch.Tensor:

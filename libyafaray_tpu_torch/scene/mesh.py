@@ -1,7 +1,8 @@
 """Host-side triangle meshes (port of libyafaray_tpu/scene/mesh.py: TriMesh and
-`finalize_mesh` for faceted meshes with optional per-vertex normals and
-UVs, and `make_sphere_mesh`, the icosphere that scene/generate.py
-tessellates).  Scene.compile flattens them into SoA triangle arrays."""
+`finalize_mesh` for faceted meshes with optional per-vertex normals, UVs
+and orco coordinates, and `make_sphere_mesh`, the icosphere that
+scene/generate.py tessellates).  Scene.compile flattens them into SoA
+triangle arrays."""
 from __future__ import annotations
 
 from dataclasses import dataclass, field
@@ -15,7 +16,9 @@ class TriMesh:
 
     mesh_id: int
     has_uv: bool = False
+    has_orco: bool = False
     vertices: list = field(default_factory=list)  # (x,y,z)
+    orcos: list = field(default_factory=list)  # explicit orco coords
     normals: list = field(default_factory=list)  # explicit addNormal calls
     faces: list = field(default_factory=list)  # (a,b,c, mat_id)
     face_uvs: list = field(default_factory=list)  # (uva, uvb, uvc) uv indices
@@ -23,8 +26,11 @@ class TriMesh:
     light_id: int = -1  # meshlight association
     visibility: str = "normal"  # normal|invisible|shadow_only|no_shadows
 
-    def add_vertex(self, x, y, z):
+    def add_vertex(self, x, y, z, ox=None, oy=None, oz=None):
+        """Append a vertex, with its orco coordinates when given."""
         self.vertices.append((float(x), float(y), float(z)))
+        if ox is not None:
+            self.orcos.append((float(ox), float(oy), float(oz)))
 
     def add_normal(self, x, y, z):
         self.normals.append((float(x), float(y), float(z)))
@@ -40,7 +46,10 @@ class TriMesh:
 
 def finalize_mesh(mesh: TriMesh):
     """-> dict of numpy arrays: pos (T,3,3) corners, normal (T,3,3),
-    geo_n (T,3), uv (T,3,2), mat (T,), light_id (T,); None if empty."""
+    geo_n (T,3), uv (T,3,2), mat (T,), light_id (T,), local (T,3,3) and
+    orco (T,3,3); None if empty.  orco is the streamed orco where every
+    vertex has one, else the local corners normalised to [-1, 1] over the
+    mesh's bounding box."""
     verts = np.asarray(mesh.vertices, np.float64).reshape(-1, 3)
     if len(mesh.faces) == 0:
         return None
@@ -77,14 +86,28 @@ def finalize_mesh(mesh: TriMesh):
     else:
         corner_uv = np.zeros((len(faces), 3, 2), np.float32)
 
+    local = np.stack([p0, p1, p2], axis=1)
+    if mesh.has_orco and len(mesh.orcos) == len(verts):
+        ov = np.asarray(mesh.orcos, np.float64)
+        orco = np.stack([ov[faces[:, 0]], ov[faces[:, 1]],
+                         ov[faces[:, 2]]], axis=1)
+    else:
+        bmin = verts.min(axis=0)
+        bmax = verts.max(axis=0)
+        ctr = 0.5 * (bmin + bmax)
+        ext = np.maximum(0.5 * (bmax - bmin), 1e-12)
+        orco = (local - ctr) / ext
+
     return dict(
-        pos=np.stack([p0, p1, p2], axis=1).astype(np.float32),
+        pos=local.astype(np.float32).copy(),
         normal=corner_n.astype(np.float32),
         geo_n=gn_unit.astype(np.float32),
         uv=corner_uv.astype(np.float32),
         mat=mats,
         light_id=np.full(len(faces), mesh.light_id, np.int32),
         visibility=mesh.visibility,
+        local=local.astype(np.float32),
+        orco=orco.astype(np.float32),
     )
 
 

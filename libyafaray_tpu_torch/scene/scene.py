@@ -4,8 +4,11 @@ render).
 
 `compile()` stays numpy and yields the reference's `CompiledScene.arrays`
 keys that the slice reads, with equal values; `convert.to_tensors` moves
-them to a torch device once per render.  Features outside the slice raise
-NotImplementedError naming their ROADMAP item.
+them to a torch device once per render.  Textures and their mip atlases,
+the orco pack, the background map and the IBL light's alias tables ride
+in the same dict (TEXTURE_ARRAY_PREFIXES, BACKGROUND_ARRAY_KEYS).
+Features outside the slice raise NotImplementedError naming their ROADMAP
+item.
 """
 from __future__ import annotations
 
@@ -14,12 +17,15 @@ from dataclasses import dataclass, replace
 import numpy as np
 
 from ..backgrounds.base import BackgroundSpec
-from ..backgrounds.factory import background_from_params
+from ..backgrounds.factory import background_from_params, blur_env_map
+from ..backgrounds.host import bake_background_np
 from ..cameras.base import Camera
 from ..cameras.factory import camera_from_params
 from ..lights.base import build_light_table
-from ..lights.factory import light_from_params
-from ..materials.base import MT_LIGHT, build_material_table, default_row
+from ..lights.bglight import build_bg_cdf
+from ..lights.factory import bg_light_row, light_from_params
+from ..materials.base import (MT_BLEND, MT_LIGHT, MT_MASK,
+                              build_material_table, default_row)
 from ..materials.bsdf import check_families
 from ..materials.factory import material_row_from_params
 from ..materials.host import shadow_filter_np
@@ -27,6 +33,8 @@ from ..ops.cluster_intersect import quarter_boxes
 from ..ops.cuda_intersect import build_tri_pack, morton_order
 from ..ops.fine_intersect import sub_aabbs
 from ..ops.intersect import intersector_for, pad_triangles
+from ..textures.eval import DEFAULT_MAPPING
+from ..textures.factory import build_mip_atlas, texture_from_params
 from .mesh import TriMesh, finalize_mesh
 from .params import ParamMap
 
@@ -45,6 +53,17 @@ QUARTER_ARRAY_KEYS = ("tri_box32", "stri_box32")
 # the analytic sphere pack [cx cy cz r mat] and its shadow filters, present
 # only in scenes with <sphere> elements
 SPHERE_ARRAY_KEYS = ("spheres", "sphere_filt", "sphere_filt_binary")
+# per-texture arrays (image tex_{i}, mip atlas mip_{i}) and the orco pack
+# of a scene whose textures read orco / object coordinates
+TEXTURE_ARRAY_PREFIXES = ("tex_", "mip_")
+ORCO_ARRAY_KEY = "tri_orco_pack"
+# a texture background's map, its blurred copy (ibl_blur) and the IBL
+# light's alias tables
+BACKGROUND_ARRAY_KEYS = ("bg_image", "bg_image_ibl", "bg_alias_prob",
+                         "bg_alias", "bg_pdf_grid")
+_TEX_COLS = ("tex_diffuse", "tex_glossy", "tex_mirror", "tex_transparency",
+             "tex_translucency", "tex_blend", "tex_mask", "tex_sigma_oren",
+             "tex_ior", "node_prog")
 
 
 @dataclass(frozen=True)
@@ -78,6 +97,14 @@ class SceneStatic:
     # the caller asked for the pair-granular intersection route (packs of
     # PAIRS_MIN_CLUSTERS clusters or more take it; ops/intersect.py)
     pairs: bool = False
+    textures: tuple = ()  # texture specs (textures/factory.py HostTexture)
+    texture_mappings: tuple = ()  # per texture (texco, mapping, scale, off)
+    node_programs: tuple = ()  # compiled shader DAGs (textures/nodes.py)
+    # some composite child carries a texture slot or node program: blend.py
+    # re-resolves child textures at every nesting level
+    blend_child_textured: bool = False
+    need_orco: bool = False  # some texco is orco / object: tri_orco_pack
+    need_window: bool = False  # some texco is window: raster projection
 
 
 @dataclass
@@ -93,6 +120,50 @@ class CompiledScene:
     bound_max: tuple
 
 
+def _is_composite(row: dict) -> bool:
+    return row["mtype"] in (MT_BLEND, MT_MASK)
+
+
+def _blend_depth(materials: list) -> int:
+    """Maximum blend / mask nesting depth of the material table (0 without
+    composites).  A composite met twice on one chain counts once; capped at
+    4 levels."""
+
+    def depth(i, seen):
+        if i < 0 or i >= len(materials) or i in seen or len(seen) >= 4:
+            return 0
+        r = materials[i]
+        if not _is_composite(r):
+            return 0
+        s = seen | {i}
+        return 1 + max(depth(int(r.get("sub_mat1", 0)), s),
+                       depth(int(r.get("sub_mat2", 0)), s))
+
+    return max((depth(i, frozenset()) for i in range(len(materials))),
+               default=0)
+
+
+def _blend_child_textured(materials: list) -> bool:
+    """Whether any material reachable as a composite's child carries a
+    texture slot or a node program."""
+    stack = []
+    for r in materials:
+        if _is_composite(r):
+            stack += [int(r.get("sub_mat1", -1)), int(r.get("sub_mat2", -1))]
+    seen = set()
+    while stack:
+        i = stack.pop()
+        if i < 0 or i >= len(materials) or i in seen:
+            continue
+        seen.add(i)
+        r = materials[i]
+        if any(int(r.get(c, -1)) >= 0 for c in _TEX_COLS):
+            return True
+        if _is_composite(r):
+            stack += [int(r.get("sub_mat1", -1)), int(r.get("sub_mat2", -1))]
+    return False
+
+
 class Scene:
     """Host scene under construction through the flat API."""
 
@@ -104,7 +175,11 @@ class Scene:
         self.light_geometry: list = []  # parallel: geometry or None
         self.analytic_spheres: list = []  # (center, radius, mat_id)
         self.cameras: dict[str, Camera] = {}
-        self.background = BackgroundSpec()
+        self.textures: dict = {}  # name -> HostTexture, in creation order
+        self.texture_mappers: dict[int, tuple] = {}
+        self.node_programs: list = []
+        # (spec, lat-long map of a texture background or None)
+        self.background: tuple = (BackgroundSpec(), None)
         self.render_params = ParamMap()
         self.integrator_params: dict[str, ParamMap] = {}
         self._cur_mesh: TriMesh | None = None
@@ -115,13 +190,14 @@ class Scene:
     # ---- geometry streaming (yafrayInterface parity) -------------------
 
     def start_tri_mesh(self, mesh_id: int, has_uv: bool,
-                       visibility: str) -> int:
+                       visibility: str, has_orco: bool = False) -> int:
         self._next_mesh_id = max(self._next_mesh_id, mesh_id + 1)
         if visibility != "normal":
             raise NotImplementedError(
                 f"object visibility {visibility!r} is not ported yet: "
                 "ROADMAP Queue 1 item 17")
-        self._cur_mesh = TriMesh(mesh_id=mesh_id, has_uv=bool(has_uv))
+        self._cur_mesh = TriMesh(mesh_id=mesh_id, has_uv=bool(has_uv),
+                                 has_orco=bool(has_orco))
         self.meshes[mesh_id] = self._cur_mesh
         return mesh_id
 
@@ -152,7 +228,10 @@ class Scene:
     # ---- factories (renderEnvironment_t::create*) ----------------------
 
     def create_material(self, name: str, params: ParamMap) -> int:
-        row = material_row_from_params(params, self.material_names)
+        row = material_row_from_params(
+            params, self.material_names,
+            {n: i for i, n in enumerate(self.textures)},
+            self.texture_mappers, node_programs=self.node_programs)
         if name in self.material_names:
             self.materials[self.material_names[name]] = row
             return self.material_names[name]
@@ -171,8 +250,12 @@ class Scene:
         self.cameras[name] = cam
         return cam
 
+    def create_texture(self, name: str, params: ParamMap):
+        self.textures[name] = texture_from_params(params)
+        return self.textures[name]
+
     def create_background(self, name: str, params: ParamMap):
-        self.background = background_from_params(params)
+        self.background = background_from_params(params, self.textures)
         return self.background
 
     def create_integrator(self, name: str, params: ParamMap):
@@ -218,12 +301,27 @@ class Scene:
             ))
         if not blocks:
             raise NotImplementedError("an empty scene is not ported")
+        # blocks without object coordinates (light panels) take local = pos
+        # and orco = local normalised over the block's bounding box
+        for b in blocks:
+            if "local" not in b:
+                b["local"] = b["pos"]
+            if "orco" not in b:
+                lp = b["local"].reshape(-1, 3)
+                ctr = 0.5 * (lp.min(axis=0) + lp.max(axis=0))
+                ext = np.maximum(0.5 * (lp.max(axis=0) - lp.min(axis=0)),
+                                 1e-12)
+                b["orco"] = ((b["local"] - ctr) / ext).astype(np.float32)
         families = tuple(sorted({r["mtype"] for r in materials}))
         check_families(families)
         if any(r.get("dispersion_power", 0.0) > 1e-6 for r in materials):
             raise NotImplementedError(
                 "dispersive glass (dispersion_power > 0) is not ported yet: "
                 "ROADMAP Queue 1 item 10 (dispersion)")
+        if int(max(r["additional_depth"] for r in materials)) > 0:
+            raise NotImplementedError(
+                "per-material additionalDepth is not ported yet: ROADMAP "
+                "Queue 1 item 16")
 
         def cat(key):
             return np.concatenate([b[key] for b in blocks], axis=0)
@@ -255,12 +353,20 @@ class Scene:
             np.min(sfilt, axis=-1, keepdims=True) >= 1.0 - 1e-6, 1.0, 0.0
         ).astype(np.float32)
 
+        # an `ibl` background adds the IBL light; a constant background is
+        # baked to a small lat-long map so both sample one way
+        bg_spec, bg_img = self.background
+        all_lights = list(self.lights)
+        if bg_spec.ibl:
+            if bg_img is None:
+                bg_img = bake_background_np(bg_spec, 32, 64)
+            all_lights.append(bg_light_row(bg_spec.ibl_samples))
         lights_table = build_light_table(
             [{k: v for k, v in r.items() if not k.startswith("_")}
-             for r in self.lights])
+             for r in all_lights])
         # emission radiance for BSDF hits on meshlights (area lights emit
         # through their synthetic light_mat instead)
-        hit_rad = np.zeros((len(self.lights), 3), np.float32)
+        hit_rad = np.zeros((len(all_lights), 3), np.float32)
         lights_table["hit_radiance"] = hit_rad
         # per-light emission-hit attributes, one gather in the engine:
         # [area, double_sided, hit_radiance rgb, ltype, center xyz, radius]
@@ -271,7 +377,7 @@ class Scene:
             lights_table["ltype"][:, None].astype(np.float32),
             lights_table["p0"].astype(np.float32),
             lights_table["radius"][:, None].astype(np.float32),
-        ], axis=1) if self.lights else np.zeros((0, 10), np.float32)
+        ], axis=1) if all_lights else np.zeros((0, 10), np.float32)
         light_statics = tuple(
             LightStatic(
                 ltype=int(r["ltype"]), samples=int(r["samples"]),
@@ -283,7 +389,7 @@ class Scene:
                 tri_start=int(r["tri_start"]),
                 tri_count=int(r["tri_count"]),
             )
-            for r in self.lights
+            for r in all_lights
         )
 
         # per-triangle uv density sqrt(uv_area / world_area)
@@ -370,6 +476,37 @@ class Scene:
             materials=mats,
             lights=lights_table,
         )
+        # the texture coordinate spaces the shading needs: orco / object
+        # read the per-corner orco pack, window the raster projection.  (As
+        # in the reference, only the textures' registered mappers count,
+        # not the mappers inside node programs: ROADMAP Queue 3.)
+        texcos = {self.texture_mappers.get(i, ("uv",))[0]
+                  for i in range(len(self.textures))}
+        need_orco = bool(texcos & {"orco", "object"})
+        need_window = "window" in texcos
+        if need_orco:
+            # (T, 18): orco corners 0:9, local corners 9:18
+            arrays[ORCO_ARRAY_KEY] = np.concatenate([
+                cat("orco").reshape(n_real, 9).astype(np.float32),
+                cat("local").reshape(n_real, 9).astype(np.float32)], axis=1)
+        for ti, tex in enumerate(self.textures.values()):
+            if tex.tex_type != "image":
+                continue  # procedurals evaluate from their spec
+            arrays[f"tex_{ti}"] = np.ascontiguousarray(tex.image[..., :3],
+                                                       np.float32)
+            if tex.interpolate.startswith("mipmap"):
+                arrays[f"mip_{ti}"] = build_mip_atlas(tex.image[..., :3])
+        if bg_img is not None:
+            arrays["bg_image"] = np.asarray(bg_img, np.float32)
+            if bg_spec.ibl_blur > 0.0:
+                # the IBL light reads a blurred copy; the visible
+                # background stays sharp
+                arrays["bg_image_ibl"] = blur_env_map(bg_img,
+                                                      bg_spec.ibl_blur)
+            if bg_spec.ibl:
+                arrays.update(build_bg_cdf(arrays.get("bg_image_ibl",
+                                                      bg_img)))
+
         if self.analytic_spheres:
             sp_rows = np.asarray([[c[0], c[1], c[2], r, float(m)]
                                   for (c, r, m) in self.analytic_spheres],
@@ -392,11 +529,18 @@ class Scene:
 
         static = SceneStatic(
             n_tris_real=n_real, n_stris_real=n_real,
-            lights=light_statics, bg=self.background,
-            mat_families=families, has_blend=0,
+            lights=light_statics, bg=bg_spec,
+            mat_families=families, has_blend=_blend_depth(materials),
             ray_min_dist=self.ray_min_dist, shadow_bias=self.shadow_bias,
             intersector=intersector, chunk=chunk,
             n_spheres=len(self.analytic_spheres), pairs=bool(pairs),
+            textures=tuple(t.spec for t in self.textures.values()),
+            texture_mappings=tuple(
+                self.texture_mappers.get(i, DEFAULT_MAPPING)
+                for i in range(len(self.textures))),
+            node_programs=tuple(self.node_programs),
+            blend_child_textured=_blend_child_textured(materials),
+            need_orco=need_orco, need_window=need_window,
         )
         cam = next(iter(self.cameras.values())) if self.cameras else Camera()
         cam_name = self.render_params.get_str("camera_name", "")

@@ -1,10 +1,11 @@
 """XML scene parser (port of libyafaray_tpu/scene/xml_parser.py).
 
 stdlib ElementTree; typed leaf params (ival/fval/bval/sval attributes,
-colors as r/g/b/a, points as x/y/z), meshes streamed via
-<p>/<n>/<uv>/<set_material>/<f>, analytic <sphere>s, and the closing
-<render> block.  Elements outside the ported slices (textures, volumes,
-smoothing, instances) raise NotImplementedError naming their ROADMAP item.
+colors as r/g/b/a, points as x/y/z), <texture>s, meshes streamed via
+<p>/<n>/<uv>/<set_material>/<f> (has_uv, has_orco), analytic <sphere>s,
+and the closing <render> block.  Elements outside the ported slices
+(volumes, smoothing, instances) raise NotImplementedError naming their
+ROADMAP item.
 """
 from __future__ import annotations
 
@@ -17,7 +18,6 @@ from .scene import Scene
 log = logging.getLogger("libyafaray_tpu_torch")
 
 _NOT_PORTED = {
-    "texture": "ROADMAP Queue 1 item 15",
     "volumeregion": "ROADMAP Queue 1 item 17",
     "smooth": "ROADMAP Queue 1 item 10",
     "instance": "ROADMAP Queue 1 item 11",
@@ -73,11 +73,8 @@ def _parse_params(el: ET.Element) -> ParamMap:
 def _parse_mesh(el: ET.Element, scene: Scene):
     mesh_id = int(el.attrib.get("id", scene._next_mesh_id))
     has_uv = el.attrib.get("has_uv", "false").lower() in ("true", "1")
-    if el.attrib.get("has_orco", "false").lower() in ("true", "1"):
-        raise NotImplementedError(
-            "orco coordinates feed textures, not ported yet: ROADMAP Queue 1 "
-            "item 15")
-    scene.start_tri_mesh(mesh_id, has_uv=has_uv,
+    has_orco = el.attrib.get("has_orco", "false").lower() in ("true", "1")
+    scene.start_tri_mesh(mesh_id, has_uv=has_uv, has_orco=has_orco,
                          visibility=el.attrib.get("visibility", "normal"))
     cur_mat = 0
     for child in el:
@@ -120,7 +117,9 @@ def parse_xml_string(text: str) -> Scene:
         if tag in _NOT_PORTED:
             raise NotImplementedError(
                 f"<{tag}> is not ported yet: {_NOT_PORTED[tag]}")
-        if tag == "material":
+        if tag == "texture":
+            scene.create_texture(name, _parse_params(el))
+        elif tag == "material":
             scene.create_material(name, _parse_params(el))
         elif tag == "light":
             scene.create_light(name, _parse_params(el))

@@ -157,9 +157,12 @@ _SCENE = """<scene type="triangle">{body}
      '<dispersion_power fval="0.5"/></material>', "item 10"),
     ('<material name="m"><type sval="rough_glass"/></material>', "item 10"),
     ('<material name="m"><type sval="shinydiffusemat"/></material>'
-     '<texture name="t"><type sval="clouds"/></texture>', "item 15"),
+     '<volumeregion name="v"><type sval="UniformVolume"/></volumeregion>',
+     "item 17"),
     ('<light name="l"><type sval="pointlight"/></light>', "item 17"),
-    ('<background name="b"><type sval="gradient"/></background>', "items 15"),
+    ('<background name="b"><type sval="gradient"/></background>', "item 17"),
+    ('<material name="m"><type sval="shinydiffusemat"/>'
+     '<additionaldepth ival="2"/></material>', "item 16"),
 ])
 def test_unsupported_features_raise(body, item):
     """Raised at compile (glass renders in every ported integrator now, a
@@ -176,7 +179,8 @@ def test_unsupported_features_raise(body, item):
 
 def test_port_imports_no_jax_and_no_reference(tmp_path):
     """In a fresh interpreter, importing the port (and chip_smoke.py),
-    rendering 8x8 on the CPU, and generating a scene and rendering it
+    rendering 8x8 on the CPU (Cornell, and ibl_spheres.xml with its
+    textures and IBL light), and generating a scene and rendering it
     through the port's CLI leave jax and libyafaray_tpu out of
     sys.modules; and chip_smoke.py's text names neither the JAX package's
     modules nor the repository's scripts (it runs no subprocess of them)."""
@@ -196,6 +200,10 @@ def test_port_imports_no_jax_and_no_reference(tmp_path):
         from libyafaray_tpu_torch.scene.generate import write_grid_spheres
         from libyafaray_tpu_torch.cli.yafaray_xml import main
         import libyafaray_tpu_torch.convert, libyafaray_tpu_torch.io.exr
+        import libyafaray_tpu_torch.textures.procedural
+        import libyafaray_tpu_torch.textures.nodes
+        import libyafaray_tpu_torch.lights.bglight
+        import libyafaray_tpu_torch.backgrounds.host
         import chip_smoke  # the on-card script imports no jax either
         xml = write_grid_spheres({str(tmp_path / "g.xml")!r}, 1, 1, 1, 8)
         assert main([xml, {str(tmp_path / "g.exr")!r}, "--device", "cpu",
@@ -207,6 +215,13 @@ def test_port_imports_no_jax_and_no_reference(tmp_path):
         c = RenderConfig(**{{**c.__dict__, "integrator": "pathtracing",
                             "aa_samples": 1, "width": 8, "height": 8}})
         img = render(s.compile(device="cpu"), c, device="cpu").image
+        assert img.shape == (8, 8, 3) and img.mean() > 0
+        # textures, the IBL light and the texture background (slice 15)
+        s = parse_xml_file({os.path.join(REPO, "scenes",
+                                         "ibl_spheres.xml")!r})
+        s.render_params.update(width=8, height=8, AA_minsamples=1)
+        img = render(s.compile(device="cpu"), build_config(s),
+                     device="cpu").image
         assert img.shape == (8, 8, 3) and img.mean() > 0
         bad = [m for m in sys.modules if m == "jax" or m.startswith("jax.")
                or m == "libyafaray_tpu" or m.startswith("libyafaray_tpu.")]

@@ -276,11 +276,12 @@ def test_eval_background_constant(cornell, rng):
     d = _unit(rng, N)
     _close(rbg.eval_background(spec_r, None, jnp.asarray(d)),
            pbg.eval_background(pbg.BackgroundSpec(**spec_r.__dict__),
-                               torch.from_numpy(d)), "constant")
+                               None, torch.from_numpy(d)), "constant")
     # the Cornell scene's own (black) background
     spec_c = convert.static_from_reference(cornell.static).bg
     _close(rbg.eval_background(cornell.static.bg, None, jnp.asarray(d)),
-           pbg.eval_background(spec_c, torch.from_numpy(d)), "cornell")
+           pbg.eval_background(spec_c, None, torch.from_numpy(d)),
+           "cornell")
 
 
 def test_film_splat_box_and_image(rng):
