@@ -102,7 +102,19 @@ started together) and drives the ported paths through them:
   against their plain versions on the IBL step's recorded primary rays and
   bounce-0 NEE rays (8 samples a pixel, segments of 1e8 toward the
   environment), one profiled step, the card against the CPU at 64², 4 spp,
-  and 96², 48 spp against scenes/goldens/ibl_spheres.exr.
+  and 96², 48 spp against scenes/goldens/ibl_spheres.exr;
+- slice 16, adaptive AA on the main path: scenes/cornell.xml as
+  pathtracing at 512² with AA_passes 4 on the scene's own AA settings
+  (64 spp, then 16 a pass over the pixels the contrast estimator flags)
+  through `render_scene`, a line per pass (flagged pixels, lanes, compact
+  or dense, steps, wall), the same render with compact=False (films and
+  rays equal), the tiny kernels against their plain versions on a compact
+  pass's rays (dead lanes included), one dense and one compact step
+  profiled, 96² against the stored golden and the card against the CPU at
+  64²; then the time-to-RMSE protocol's step (128², 64 samples a pixel in
+  one step of 1,048,576 lanes), the tiny kernels on its primary rays and
+  its 16,777,216 bounce-0 NEE rays, and the main path timed at spp_batch
+  1, 4 and 16.
 Each path is rendered with every launch counter set to 0 just before it and
 read just after.  Every kernel's line carries its bound: the larger of its
 FP32 operations over the card's 67 TFLOP/s and its bytes (each input read
@@ -201,6 +213,12 @@ GOLDEN_SPPM = dict(integrator="SPPM", sppm_photons=100_000, sppm_passes=48,
 IBL_ASSETS = {"tex_0": ("scenes/assets/env.hdr", (64, 128, 3)),
               "tex_1": ("scenes/assets/checker.png", (128, 128, 3))}
 IBL_GOLDEN_SPP = 48
+# slice 16: the adaptive path (cornell.xml as pathtracing at 512², 4 passes
+# on the scene's AA settings) and the time-to-RMSE protocol's step (128²,
+# 64 samples a step; the plain shadow sum on every 4th of its 16,777,216
+# NEE rays), then the main path at spp_batch 1, 4 and 16
+ADAPTIVE_SIZE, ADAPTIVE_PASSES = 512, 4
+SPB = dict(size=128, spb=64, plain_stride=4, sweep=(1, 4, 16))
 TINY = ("closest_hit_tiny", "shadow_logsum_tiny")
 # queries the plain gathers are compared and timed on (bounds their time);
 # the culled kernel's two plain versions over 3.68 M photons take half
@@ -524,11 +542,13 @@ def differ(a: tuple, b: tuple) -> int:
 
 
 def check_tiny_shadow(pack, logf, shadow, n_tris: int,
-                      rays: str = "bounce-0 NEE") -> dict:
+                      rays: str = "bounce-0 NEE", plain_stride: int = 1
+                      ) -> dict:
     """shadow_logsum_tiny against its plain version (transmission atol
     2e-3; bit for bit, and again on a second call: the sum adds in the
-    plain version's order) and beside the one-thread body it replaced on
-    the same rays (ms_before).  Its bound counts what each ray needs on the
+    plain version's order; the plain version on every plain_stride-th ray
+    where the batch is too large for its memory) and beside the one-thread
+    body it replaced on the same rays (ms_before).  Its bound counts what each ray needs on the
     2-column boxes its kernel builds (ci.tiny_boxes): the real columns of
     the groups its segment enters and a test of every real box for each
     live ray; pair_tests_made counts what its walk tests (a thread's rays
@@ -538,20 +558,24 @@ def check_tiny_shadow(pack, logf, shadow, n_tris: int,
         pack, logf, *shadow, n_tris)
     klg = kernel()
     torch.cuda.synchronize()
-    plg = ci.shadow_logsum_tiny_plain(pack, logf, *shadow, n_tris)
+    sub = shadow if plain_stride == 1 else tuple(
+        x[::plain_stride].contiguous() for x in shadow)
+    plg = ci.shadow_logsum_tiny_plain(pack, logf, *sub, n_tris)
     torch.cuda.synchronize()
-    err = float((torch.exp(klg) - torch.exp(plg)).abs().max())
+    klg_sub = klg[::plain_stride]
+    err = float((torch.exp(klg_sub) - torch.exp(plg)).abs().max())
     if err > 2e-3:
         raise AssertionError(f"shadow_logsum_tiny: transmission off by "
                              f"{err} > 2e-3 ({rays})")
-    n_diff = int((klg != plg).any(dim=-1).sum())
+    n_diff = int((klg_sub != plg).any(dim=-1).sum())
+    del plg
     repeat = int((kernel() != klg).any(dim=-1).sum())
     if n_diff or repeat:
         raise AssertionError(f"shadow_logsum_tiny: {n_diff} rays differ from "
                              f"plain, {repeat} from a second call ({rays})")
     ms = device_ms(kernel, calls=20)
     plain_ms = device_ms(lambda: ci.shadow_logsum_tiny_plain(
-        pack, logf, *shadow, n_tris), calls=2)
+        pack, logf, *sub, n_tris), calls=2)
     ms_before = device_ms(old_body("shadow_logsum_tiny", (
         pack, logf, *shadow, n_tris)), calls=20)
     org, dirn, dist = shadow
@@ -575,7 +599,7 @@ def check_tiny_shadow(pack, logf, shadow, n_tris: int,
     live = int((dist > 0).sum())
     opaque = int((klg <= -80.0).all(dim=-1).sum())
     phase("kernel", name="shadow_logsum_tiny", rays=rays, n=n, live=live,
-          opaque=opaque, differ=n_diff,
+          opaque=opaque, plain_rays=sub[0].shape[0], differ=n_diff,
           max_abs_err=err, tolerance="transmission atol 2e-3; equal",
           ms=round(ms, 4), call_ms=round(call_ms(kernel, calls=20), 4),
           plain_ms=round(plain_ms, 4), **extra, **bnd)
@@ -791,7 +815,7 @@ def _stage_ms(events, stages) -> dict:
 
 
 def profile_step(step, arrays, cfg, kernel_tags: tuple,
-                 stages: dict | None = None) -> dict:
+                 stages: dict | None = None, arg=None) -> dict:
     """One sample step under torch.profiler, after an unprofiled one: its
     kernel launches, the device's busy milliseconds (the union of its
     kernel and copy intervals), the milliseconds of the ported kernels
@@ -799,12 +823,15 @@ def profile_step(step, arrays, cfg, kernel_tags: tuple,
     order, and per tag as ms / launches), and the aten ops with the most
     device time (ms / calls).  `stages` ({range name: (module, function
     name)}) wraps those functions in profiler ranges for the profiled step
-    and adds the device ms of the aten kernels inside each."""
+    and adds the device ms of the aten kernels inside each.  arg: the
+    step's third argument (a compact step's lane list; default every
+    pixel's flag)."""
     from torch.autograd import DeviceType
     from torch.profiler import ProfilerActivity, profile, record_function
 
     dev = engine.resolve_device("cuda")
-    flags = torch.ones((cfg.height, cfg.width), dtype=torch.bool, device=dev)
+    flags = (torch.ones((cfg.height, cfg.width), dtype=torch.bool, device=dev)
+             if arg is None else arg)
     film = step(arrays, _fresh_film(cfg, dev), flags)
     torch.cuda.synchronize()
     saved = {}
@@ -2280,9 +2307,10 @@ def caustic_phases(smi) -> tuple:
                      dict(caustic_type="both"))
     cfg = build_config(scene)
     cs = scene.compile(device="cuda")
-    (dev, arrays, step, stats), pre = record_calls(
+    (dev, arrays, make_step, stats), pre = record_calls(
         photonmap, ("make_photon_pack_auto",),
         lambda: rmod._setup(cs, cfg, "cuda"))
+    step = make_step(cfg)
     flags = torch.ones((cfg.height, cfg.width), dtype=torch.bool, device=dev)
     _, calls = record_calls(engine, ("density_auto",), lambda: step(
         arrays, _fresh_film(cfg, dev), flags))
@@ -2508,6 +2536,236 @@ def slice15_phases(smi, out_dir: str, kernels: list) -> None:
                                          opaque_ibl=shadow["opaque"])
 
 
+# ---- slice 16: adaptive AA and the sampling controls ------------------------
+
+
+def adaptive_scene(size: int, bounces: int = MAIN["bounces"], **render_params):
+    """cornell.xml as pathtracing (the main path's bounces and RR) at
+    size², AA_passes 4 on the scene's own AA settings (64 spp, then 16 a
+    pass over the pixels the contrast estimator flags at 0.05), with
+    `render_params` set on top."""
+    return scene_at(
+        CORNELL, dict(width=size, height=size, AA_passes=ADAPTIVE_PASSES,
+                      **render_params),
+        dict(type="pathtracing", bounces=bounces,
+             russian_roulette_min_bounces=MAIN["rr_min_bounces"]))
+
+
+def pass_lines(tag: str, res) -> list:
+    """One line per pass of an adaptive render (flagged pixels, lanes,
+    compact or dense, steps, wall).  Returns its pass log."""
+    log = res.stats["pass_log"]
+    for p, e in enumerate(log):
+        phase(f"{tag}_pass", **{"pass": p}, flagged=e["flagged"],
+              lanes=e["lanes"], mode=e["mode"], steps=e["steps"],
+              wall_s=round(e["wall_s"], 4),
+              step_ms=round(1e3 * e["wall_s"] / e["steps"], 3))
+    return log
+
+
+def compact_inputs(cs, cfg, film: dict):
+    """The next adaptive pass of a rendered film as a compact step: (step,
+    scene tensors, lane list), the lanes those compute_aa_flags flags."""
+    dev = engine.resolve_device("cuda")
+    flags = rmod.adaptive_flags(film, cfg)
+    pix = rmod.compact_lanes(flags, int(flags.sum()))
+    step = engine.make_sample_step(cs.static, cs.camera, cfg, dev,
+                                   compact_n=pix.shape[0])
+    return step, to_tensors(cs.arrays, dev), pix
+
+
+def adaptive_path(smi) -> tuple:
+    """The slice's path at 512² through render_scene (its adaptive passes,
+    compact where few pixels are flagged), counted; the same render with
+    compact=False (films and rays equal); the tiny kernels against their
+    plain versions on the rays of a compact pass (dead lanes included);
+    one dense and one compact step profiled.  Returns (launches, closest
+    check, shadow check)."""
+    scene = adaptive_scene(ADAPTIVE_SIZE)
+    cfg = build_config(scene)
+    res, launches = counted(lambda: render_scene(scene, device="cuda"))
+    log = pass_lines("adaptive", res)
+    steps = sum(e["steps"] for e in log)
+    want = dict.fromkeys(TINY, (cfg.bounces + 1) * steps)
+    others = {k: v for k, v in launches.items() if k not in TINY and v}
+    launches = {k: launches[k] for k in TINY}
+    compact_thr = cfg.aa_threshold
+    if not any(e["mode"] == "compact" for e in log):
+        # the scene's threshold flags too many pixels for a compact pass:
+        # one more render at a threshold whose passes run compact
+        compact_thr = 0.3
+        extra = render_scene(adaptive_scene(ADAPTIVE_SIZE,
+                                            AA_threshold=compact_thr),
+                             device="cuda")
+        if not any(e["mode"] == "compact"
+                   for e in pass_lines("adaptive_compact", extra)):
+            raise AssertionError("adaptive_path: no pass ran compact")
+    path_line("adaptive_path", res, cfg, launches, want, smi,
+              passes=len(log), spp_pass0=cfg.aa_samples,
+              spp_per_pass=cfg.aa_inc_samples, threshold=cfg.aa_threshold,
+              compact_threshold=compact_thr, steps=steps,
+              compact_passes=sum(e["mode"] == "compact" for e in log),
+              samples=int(res.film["nsamples"].sum()))
+    if others:
+        raise AssertionError(f"adaptive_path: kernels off the path {others}")
+
+    dense = render_scene(scene, device="cuda", compact=False)
+    equal = {k: bool(torch.equal(res.film[k], dense.film[k]))
+             for k in ("wsum", "w", "nsamples")}
+    diff = max(float((res.film[k] - dense.film[k]).abs().max())
+               for k in ("wsum", "w"))
+    phase("adaptive_compact_vs_dense", equal=equal, max_abs_diff=diff,
+          rays_compact=res.stats["rays"], rays_dense=dense.stats["rays"],
+          render_s_compact=round(res.stats["render_s"], 4),
+          render_s_dense=round(dense.stats["render_s"], 4),
+          passes_dense=[(e["flagged"], e["mode"], e["steps"])
+                        for e in dense.stats["pass_log"]])
+    if not all(equal.values()) or res.stats["rays"] != dense.stats["rays"]:
+        raise AssertionError("adaptive_compact_vs_dense: films or rays "
+                             "differ")
+    del dense
+
+    cs = scene.compile(device="cuda")
+    step, arrays, pix = compact_inputs(cs, cfg, res.film)
+    _, calls = record_calls(ci, ("closest_hit_tiny",
+                                 "shadow_transmission_tiny"),
+                            lambda: step(arrays, dict(res.film), pix))
+    torch.cuda.synchronize()
+    c = next(a for k, a in calls if k == "closest_hit_tiny")
+    dead = int((pix < 0).sum())
+    closest = check_tiny_closest(c[0], c[1:5], c[5], rays_name=(
+        f"compact pass primary ({pix.shape[0]} lanes, {dead} dead)"))
+    sh = next(a for k, a in calls if k == "shadow_transmission_tiny")
+    shadow = check_tiny_shadow(sh[0], ci.log_filter(sh[1]), sh[2:5], sh[5],
+                               rays="compact pass bounce-0 NEE")
+    del calls, c, sh
+    flags = torch.ones((cfg.height, cfg.width), dtype=torch.bool,
+                       device=pix.device)
+    dense_step = engine.make_sample_step(cs.static, cs.camera, cfg,
+                                         pix.device)
+    for kind, st, arg, wall in (
+            ("dense", dense_step, flags, log[0]["wall_s"] / log[0]["steps"]),
+            ("compact", step, pix, next(
+                (e["wall_s"] / e["steps"] for e in log
+                 if e["mode"] == "compact"), float("nan")))):
+        prof = profile_step(st, arrays, cfg, ("tiny_kernel",), arg=arg)
+        busy = prof["device_busy_ms"]
+        phase("adaptive_profile", step=kind, lanes=int(arg.numel()),
+              step_ms=round(1e3 * wall, 3), **prof,
+              busy_share=(busy / (1e3 * wall) if isinstance(busy, float)
+                          else "not measured"), gpu=repr(smi))
+    return launches, closest, shadow
+
+
+def adaptive_checks() -> None:
+    """The physics against the stored golden (96², bounces 6, 4 passes),
+    and the card against the CPU at 64² (4 spp, then 2 a pass; the
+    scene's threshold, whose passes run dense, and 0.3, whose run
+    compact)."""
+    golden = read_exr(GOLDEN)
+    gs = golden.shape[0]
+    gres = render_scene(adaptive_scene(gs, bounces=6), device="cuda")
+    rmse = float(np.sqrt(np.mean((gres.image - golden) ** 2)))
+    phase("adaptive_golden", size=f"{gs}x{gs}", bounces=6,
+          passes=[(e["flagged"], e["mode"], e["steps"])
+                  for e in gres.stats["pass_log"]],
+          render_s=round(gres.stats["render_s"], 4), rmse=rmse, bound=0.02)
+    if not rmse < 0.02:
+        raise AssertionError(f"adaptive golden RMSE {rmse} >= 0.02")
+    for thr in (None, 0.3):
+        over = dict(AA_minsamples=4, AA_inc_samples=2)
+        if thr is not None:
+            over["AA_threshold"] = thr
+        scene = adaptive_scene(64, **over)
+        out = {dev: render_scene(scene, device=dev) for dev in ("cuda",
+                                                                 "cpu")}
+        rmse = float(np.sqrt(np.mean((out["cuda"].image
+                                      - out["cpu"].image) ** 2)))
+        r_gpu, r_cpu = out["cuda"].stats["rays"], out["cpu"].stats["rays"]
+        rel = abs(r_gpu - r_cpu) / max(r_cpu, 1.0)
+        ns_equal = bool(torch.equal(out["cuda"].film["nsamples"].cpu(),
+                                    out["cpu"].film["nsamples"]))
+        phase("adaptive_card_vs_cpu", size="64x64", threshold=thr or 0.05,
+              passes=[(e["flagged"], e["mode"]) for e in
+                      out["cuda"].stats["pass_log"]], rmse=rmse, bound=1e-4,
+              rays_gpu=r_gpu, rays_cpu=r_cpu, rays_rel=rel,
+              nsamples_equal=ns_equal)
+        if not (rmse <= 1e-4 and rel <= 1e-4 and ns_equal):
+            raise AssertionError("adaptive_card_vs_cpu: card and CPU "
+                                 "disagree")
+
+
+def spb_phases(smi) -> tuple:
+    """The time-to-RMSE protocol's step: Cornell as pathtracing at 128²,
+    64 samples a pixel in one step (1,048,576 lanes), counted; the tiny
+    kernels against their plain versions on its primary rays and its
+    16,777,216 bounce-0 NEE rays (the plain sum on every 4th); then the
+    main path (512², 64 spp) timed at spp_batch 1, 4 and 16, one step of
+    each profiled.  Returns (launches, closest check, shadow check)."""
+    cs, cfg = cornell(SPB["size"], SPB["spb"], MAIN["bounces"],
+                      MAIN["rr_min_bounces"], "cuda")
+    cfg = RenderConfig(**{**cfg.__dict__, "spp_batch": SPB["spb"]})
+    torch.cuda.reset_peak_memory_stats()
+    res, launches = counted(lambda: render(cs, cfg, device="cuda"))
+    peak = torch.cuda.max_memory_allocated() / 2 ** 30
+    launches = {k: launches[k] for k in TINY}
+    want = dict.fromkeys(TINY, cfg.bounces + 1)
+    path_line("spp_batch", res, cfg, launches, want, smi,
+              spb=cfg.spp_batch, lanes=cfg.width * cfg.height * cfg.spp_batch,
+              steps=len(res.stats["pass_log"]), peak_gib=round(peak, 3))
+    if not (res.film["nsamples"] == SPB["spb"]).all():
+        raise AssertionError("spp_batch: not 64 samples a pixel")
+    step, arrays, rec = step_calls(cs, cfg, ci, ("closest_hit_tiny",
+                                                 "shadow_transmission_tiny"))
+    c = rec["closest_hit_tiny"][0]
+    closest = check_tiny_closest(c[0], c[1:5], c[5],
+                                 rays_name="spb 64 primary")
+    sh = rec["shadow_transmission_tiny"][0]
+    shadow = check_tiny_shadow(sh[0], ci.log_filter(sh[1]), sh[2:5], sh[5],
+                               rays="spb 64 bounce-0 NEE",
+                               plain_stride=SPB["plain_stride"])
+    del rec, c, sh, step, arrays
+    torch.cuda.empty_cache()
+    mcs, mcfg = cornell(device="cuda", **MAIN)
+    for spb in SPB["sweep"]:
+        c_spb = RenderConfig(**{**mcfg.__dict__, "spp_batch": spb})
+        r, n = counted(lambda: render_timed(mcs, c_spb, device="cuda"))
+        prof = profile_step(*path_step(mcs, c_spb), c_spb, ("tiny_kernel",))
+        steps = -(-mcfg.aa_samples // spb)
+        step_ms = 1e3 * r.stats["render_s"] / steps
+        busy = prof["device_busy_ms"]
+        phase("spp_batch_sweep", size=f"{mcfg.width}x{mcfg.height}",
+              spp=mcfg.aa_samples, spb=spb, steps=steps,
+              render_s=round(r.stats["render_s"], 4), rays=r.stats["rays"],
+              mrays_per_s=round(r.mrays_per_sec, 3),
+              step_ms=round(step_ms, 3),
+              kernel_launches=prof.get("kernel_launches"),
+              device_busy_ms=busy,
+              busy_share=(busy / step_ms if isinstance(busy, float)
+                          else "not measured"),
+              tiny_launches={k: n[k] for k in TINY}, gpu=repr(smi))
+    return launches, closest, shadow
+
+
+def slice16_phases(smi, kernels: list) -> None:
+    """The adaptive path, its checks and the spp_batch step; their launches
+    and the tiny kernels' checks on a compact pass's rays and on the spb
+    step's go into the tiny kernels' `kernels` entries (`*_adaptive`,
+    `*_spb`)."""
+    by_name = {k["name"]: k for k in kernels}
+    launches, closest, shadow = adaptive_path(smi)
+    adaptive_checks()
+    l_spb, c_spb, s_spb = spb_phases(smi)
+    for tag, n, checks in (("adaptive", launches, (closest, shadow)),
+                           ("spb", l_spb, (c_spb, s_spb))):
+        for key, chk in zip(TINY, checks):
+            by_name[key].update({
+                f"launches_{tag}": n[key], f"ms_{tag}": chk["ms"],
+                f"plain_ms_{tag}": chk["plain_ms"],
+                f"bound_ms_{tag}": chk["bound"]["bound_ms"],
+                f"max_abs_err_{tag}": chk["err"]})
+
+
 def main() -> None:
     # 1. device
     if not torch.cuda.is_available():
@@ -2618,6 +2876,9 @@ def main() -> None:
         slice14_phases(smi, out_dir, kernels + photon)
         # 14. slice 15: IBL and textures on ibl_spheres.xml
         slice15_phases(smi, out_dir, kernels)
+
+    # 15. slice 16: adaptive AA and spp_batch on the Cornell main path
+    slice16_phases(smi, kernels)
 
     print(json.dumps({"kernels": kernels + fine + photon + mid + pairs}),
           flush=True)

@@ -88,12 +88,9 @@ def _copy_fields(cls, ref, **override):
 def static_from_reference(static) -> SceneStatic:
     """The reference's SceneStatic -> the port's (the fields the port reads).
     Raises for reference features the port does not render."""
-    for name, what, item in (("volumes", "volumes", "17"),
-                             ("max_additional_depth", "additionalDepth",
-                              "16")):
-        if getattr(static, name, 0):
-            raise NotImplementedError(
-                f"{what} are not ported yet: ROADMAP Queue 1 item {item}")
+    if static.volumes:
+        raise NotImplementedError(
+            "volumes are not ported yet: ROADMAP Queue 1 item 17")
     # the reference takes its pair route from an environment flag, not its
     # static: a converted static asks for the default routes
     return _copy_fields(

@@ -2,23 +2,30 @@
 engine.py `make_sample_step`), in its two modes: "path" (pathtracing) and
 "direct" (directlighting).
 
-`make_sample_step` builds a function that advances every pixel of the
-film by one sample:
+`make_sample_step` builds a function that advances the film by one step
+of spp_batch samples per pixel:
 
     sample_step : (scene tensors, film, flags) -> film'
-      generate rays   (camera.shoot_rays over pixel lanes, QMC dims 0,1)
+      generate rays   (camera.shoot_rays over n = H·W·spb lanes, QMC dims
+                      0,1; lane k·H·W + i is sample nsamples[i] + k of
+                      pixel i)
       bounce 0        static QMC dims; every light's full sample count
-                      for NEE, batched block-major over ns·N lanes; in
+                      for NEE, batched block-major over ns·n lanes; in
                       direct mode ambient occlusion, and with a caustic
                       photon map its density at the hit
       bounces 1..B    hash-keyed dynamic QMC dims; 1 NEE sample per light
-      splat           into a fresh film fragment, added once to the film
+                      (AA_clamp_indirect clamps that term)
+      splat           spb plane splats into a fresh film fragment, added
+                      once to the film (and the m2 and samp_factor planes
+                      where the film has them)
 
-B is `bounces` in path mode and `raydepth` in direct mode, where a path
-continues only through specular vertices, takes no Russian roulette and
-weighs its NEE samples 1.  A lane inside a glass with absorption carries
-the glass's Beer coefficient (`medium_sigma`) and loses exp(-sigma·t) of
-its throughput over each segment.
+B is `bounces` in path mode and `raydepth` in direct mode, plus the scene's
+largest per-material additionalDepth: a lane's depth budget rises where it
+meets such a material, and a lane past its budget dies.  In direct mode a
+path continues only through specular vertices, takes no Russian roulette
+and weighs its NEE samples 1.  A lane inside a glass with absorption
+carries the glass's Beer coefficient (`medium_sigma`) and loses
+exp(-sigma·t) of its throughput over each segment.
 
 In a scene with textures every vertex applies them to its material row
 and bumps its normal (textures/eval.py), the mip LOD read from a ray cone
@@ -28,11 +35,14 @@ materials/blend.py.  Escaped rays see the background (a texture
 background's map); with an `ibl` background its light joins NEE
 (lights/bglight.py) and the escape is MIS-weighted against it.
 
-Everything is SoA over N = H·W lanes; dead lanes are masked, not
-compacted, exactly as in the reference, so the same QMC stream gives the
-same image.  The reference's `lax.scan` over bounces is a Python loop that
-keeps its split between static and dynamic dims.  Features outside the
-ported slices raise NotImplementedError naming their ROADMAP item.
+Everything is SoA over the lanes; dead lanes are masked, exactly as in
+the reference, so the same QMC stream gives the same image.  The compact
+variant (`compact_n`, the adaptive passes of integrators/render.py) takes
+its lanes' pixels as a step input, one lane per flagged pixel and sample,
+and runs the same wavefront (`run_wavefront`).  The reference's `lax.scan`
+over bounces is a Python loop that keeps its split between static and
+dynamic dims.  Features outside the ported slices raise
+NotImplementedError naming their ROADMAP item.
 
 The intersection, surface-point and NEE functions here are shared with the
 photon-mapping and SPPM integrators (`integrators/photonmap.py`,
@@ -51,7 +61,8 @@ from ..cameras.base import pixel_cone, project_to_camera, shoot_rays
 from ..core import math as vmath
 from ..core import qmc
 from ..core.sampling import INV_PI, power_heuristic, sample_cos_hemisphere
-from ..film.imagefilm import film_splat
+from ..film.imagefilm import (clamp_sample, film_splat, film_splat_compact,
+                              splat_plane, splat_plane_compact)
 from ..lights import base as lightmod
 from ..lights.bglight import pdf_bg_dir, sample_bg_light
 from ..materials import blend as blendmod
@@ -78,16 +89,6 @@ def check_supported(static, cfg: RenderConfig) -> None:
         raise NotImplementedError(
             f"integrator {cfg.integrator!r} is not ported yet: ROADMAP "
             "Queue 1 item 18 (bidirectional, DebugIntegrator)")
-    if cfg.aa_passes > 1:
-        raise NotImplementedError(
-            "adaptive AA (aa_passes > 1) is not ported yet: ROADMAP Queue 1 "
-            "item 16")
-    if cfg.aa_clamp_indirect > 0.0:
-        raise NotImplementedError(
-            "AA_clamp_indirect is not ported yet: ROADMAP Queue 1 item 16")
-    if cfg.spp_batch != 1:
-        raise NotImplementedError(
-            "spp_batch > 1 is not ported yet: ROADMAP Queue 1 item 16")
     if cfg.passes or cfg.transp_background:
         raise NotImplementedError(
             "render passes / AOVs and alpha are not ported yet: ROADMAP "
@@ -137,13 +138,18 @@ def _tile(x: torch.Tensor, ns: int) -> torch.Tensor:
                                                    + x.shape[1:])
 
 
-def pixel_lanes(h: int, w: int, qmc_seed: int, device):
-    """The N = H·W pixel lanes, row-major: (px, py) int32 and each lane's
-    QMC pixel hash."""
-    lane = torch.arange(h * w, dtype=torch.int32, device=device)
+def pixel_of(lane: torch.Tensor, w: int, qmc_seed: int):
+    """(px, py) int32 of flat pixel ids and each one's QMC pixel hash."""
     py = torch.div(lane, w, rounding_mode="floor")
     px = lane - py * w
     return px, py, qmc.hash_u32(px ^ (py << 16) ^ qmc.i32(qmc_seed))
+
+
+def pixel_lanes(h: int, w: int, qmc_seed: int, device):
+    """The N = H·W pixel lanes, row-major: (px, py) int32 and each lane's
+    QMC pixel hash."""
+    return pixel_of(torch.arange(h * w, dtype=torch.int32, device=device), w,
+                    qmc_seed)
 
 
 def camera_rays(camera, px, py, pixel_hash, s_idx):
@@ -495,15 +501,22 @@ def is_diffuse_family(mtype: torch.Tensor) -> torch.Tensor:
 
 
 def make_sample_step(static, camera, cfg: RenderConfig, device,
-                     caustic=None):
-    """Builds the one-sample-per-pixel step on `device`:
+                     caustic=None, compact_n: int = 0):
+    """Builds the step of spp_batch samples per pixel on `device`:
     sample_step(arrays, film, flags) -> film, with `arrays` the scene
     tensors on `device` (convert.to_tensors) and flags (H, W) bool.
     pathtracing takes path mode, directlighting direct mode.  caustic:
     (radius, photons emitted) of a caustic photon map whose pack rides in
     arrays["pm_caustic"] (photonmap.build_caustic_map): the first vertex
     then adds its density on the diffuse families (reference caustic_type
-    photon / both)."""
+    photon / both).
+
+    compact_n > 0 builds the compact variant of an adaptive pass instead:
+    sample_step(arrays, film, pix) with pix a (compact_n,) int32 tensor of
+    flat pixel ids, -1 for a dead lane.  Each lane's pixel hash and sample
+    index come from its pixel id and the film's nsamples, so a compact pass
+    draws the samples the dense masked pass would, over compact_n·spb lanes
+    instead of H·W·spb."""
     check_supported(static, cfg)
     if cfg.integrator not in ("pathtracing", "directlighting"):
         raise ValueError(f"make_sample_step renders pathtracing and "
@@ -511,14 +524,25 @@ def make_sample_step(static, camera, cfg: RenderConfig, device,
                          "(scene.session.render_scene dispatches on the "
                          "integrator)")
     path_mode = cfg.integrator == "pathtracing"
-    n_bounces = cfg.bounces if path_mode else cfg.raydepth
+    base_bounces = cfg.bounces if path_mode else cfg.raydepth
+    # per-material additionalDepth: the loop runs the table's largest extra
+    # vertices more, each lane gated on its own budget (no depth lanes in a
+    # scene without it)
+    extra_depth = int(static.max_additional_depth)
+    n_bounces = base_bounces + extra_depth
     # absorption lives on glass rows only: without glass no lane ever
     # enters a medium
     media = MT_GLASS in static.mat_families
     dev = resolve_device(device)
     h, w = cfg.height, cfg.width
-    n = h * w
-    px, py, pixel_hash = pixel_lanes(h, w, cfg.qmc_seed, dev)
+    spb = max(1, cfg.spp_batch)
+    n_pix = compact_n or h * w
+    n = n_pix * spb  # lane k·n_pix + i: sample k of lane i's pixel
+    lane_k = (torch.div(torch.arange(n, dtype=torch.int32, device=dev), n_pix,
+                        rounding_mode="floor") if spb > 1 else None)
+    if not compact_n:
+        px, py, pixel_hash = (_tile(x, spb) for x in pixel_lanes(
+            h, w, cfg.qmc_seed, dev))
     nee_on_table = torch.tensor(
         [1.0 if (ls.enabled and not ls.photon_only) else 0.0
          for ls in static.lights] or [0.0], dtype=F32, device=dev)
@@ -528,11 +552,13 @@ def make_sample_step(static, camera, cfg: RenderConfig, device,
     bg_light = has_bg_light(static)
     families, depth = static.mat_families, static.has_blend
 
-    def shade_vertex(arrays, st, bounce_idx: int, s_idx, first: bool):
+    def shade_vertex(arrays, st, bounce_idx: int, s_idx, ph, first: bool,
+                     samp_factor: bool):
         """One path vertex: intersect, attenuate by the medium, add
         background (MIS against the IBL light) and emission (MIS), apply
         textures, NEE, AO and caustics at the first vertex, sample the
-        continuation."""
+        continuation.  ph: the lanes' QMC pixel hashes; samp_factor: the
+        first vertex records its material's samplingFactor."""
         bounce_dim = qmc.bounce_dim(bounce_idx, 0)
         throughput, alive = st["throughput"], st["alive"]
         spec_mask, prev_pdf = st["spec_mask"], st["prev_pdf"]
@@ -567,6 +593,13 @@ def make_sample_step(static, camera, cfg: RenderConfig, device,
         sp = _surface_point(arrays, hit, org, dirn, fp=fp, tex=tex)
         wo = -dirn
         row = gather_rows(mats, sp["mat"].long())
+        out = {}
+        if extra_depth:
+            # a material with additionalDepth raises the lane's budget to
+            # base + its extra vertices
+            out["depth_limit"] = torch.where(alive, torch.maximum(
+                st["depth_limit"], base_bounces + row["additional_depth"]),
+                st["depth_limit"])
         if tex:
             if static.need_window:  # texco "window": the hit's raster uv
                 pxw, pyw, _, _, _ = project_to_camera(camera, sp["p"])
@@ -602,13 +635,15 @@ def make_sample_step(static, camera, cfg: RenderConfig, device,
 
         # ---- shading frame ----
         n_sh, ng_sh = shading_frame(sp, wo)
-        skey_b = bounce_key(pixel_hash, bounce_idx)
+        skey_b = bounce_key(ph, bounce_idx)
 
         # ---- NEE (single-strategy in direct mode) ----
         Ld, sh_rays = _direct_lighting(
             arrays, static, cfg, sp["p"], n_sh, ng_sh, row, wo, s_idx,
             skey_b, bounce_dim, first, first, alive, mis_with_bsdf=path_mode,
             resolve=resolve)
+        if not first:  # AA_clamp_indirect, on the NEE term past the first
+            Ld = clamp_sample(Ld, cfg.aa_clamp_indirect)
         L = L + torch.where(alive[..., None], throughput * Ld, 0.0)
         nrays = nrays + sh_rays * alive.to(F32).sum()
 
@@ -628,6 +663,9 @@ def make_sample_step(static, camera, cfg: RenderConfig, device,
                    * INV_PI)
             on = alive & is_diffuse_family(row["mtype"])
             L = L + torch.where(on[..., None], throughput * f_c * lc, 0.0)
+        if first and samp_factor:
+            out["samp_factor"] = torch.where(hit.hit, row["sampling_factor"],
+                                             1.0)
 
         # ---- continuation ----
         if first:
@@ -653,7 +691,6 @@ def make_sample_step(static, camera, cfg: RenderConfig, device,
             alive = alive & ~(u_rr > q)
             throughput = throughput / q[..., None]
 
-        out = {}
         if media:
             # entering a glass takes its coefficient, leaving one clears it
             leave = smp["transmit"] & ~smp["entering"]
@@ -674,19 +711,17 @@ def make_sample_step(static, camera, cfg: RenderConfig, device,
                                  max=0.6)
             out["cone_spread"] = st["cone_spread"] + torch.where(
                 smp["specular"] | pt, 0.0, spread)
+        if extra_depth:  # the next vertex must fit the lane's budget
+            alive = alive & (bounce_idx + 1.0 <= out["depth_limit"])
         nrays = nrays + alive.to(F32).sum()
-        return dict(out, org=org, dirn=smp["wi"], throughput=throughput,
-                    alive=alive, spec_mask=spec_mask, prev_pdf=prev_pdf,
-                    L=L, nrays=nrays)
+        return dict(st, **out, org=org, dirn=smp["wi"],
+                    throughput=throughput, alive=alive, spec_mask=spec_mask,
+                    prev_pdf=prev_pdf, L=L, nrays=nrays)
 
-    def sample_step(arrays: dict, film: dict, flags: torch.Tensor) -> dict:
-        check_arrays(arrays, dev)
-        # film sample counters are the QMC sample index (int32 = uint32
-        # bits for the non-negative counts)
-        s_idx = film["nsamples"].reshape(-1)
-        active = flags.reshape(-1)
-        dx, dy, org, dirn, wt = camera_rays(camera, px, py, pixel_hash,
-                                            s_idx)
+    def run_wavefront(arrays, s_idx, ph, org, dirn, wt, active,
+                      samp_factor: bool) -> dict:
+        """The first vertex and the bounce loop, shared by the dense and
+        compact steps: the final lane state (L, nrays, samp_factor)."""
         alive = active & (wt > 0.0)
         st = dict(
             org=org, dirn=dirn,
@@ -704,23 +739,84 @@ def make_sample_step(static, camera, cfg: RenderConfig, device,
             st["cone_w"] = torch.full((n,), cone0_w, dtype=F32, device=dev)
             st["cone_spread"] = torch.full((n,), cone0_s, dtype=F32,
                                            device=dev)
-        st = shade_vertex(arrays, st, 0, s_idx, first=True)
+        if extra_depth:
+            st["depth_limit"] = torch.full((n,), float(base_bounces),
+                                           dtype=F32, device=dev)
+        st = shade_vertex(arrays, st, 0, s_idx, ph, True, samp_factor)
         for b in range(1, n_bounces + 1):
-            st = shade_vertex(arrays, st, b, s_idx, first=False)
+            st = shade_vertex(arrays, st, b, s_idx, ph, False, False)
+        return st
+
+    def splat(acc, val, dx, dy, act, pix):
+        """The step's spb samples a pixel splatted in order into acc: the
+        film planes (wsum, w, nsamples) when acc is a dict, else one plane.
+        pix: the compact lanes' pixel ids, None on the dense step."""
+        film_planes = isinstance(acc, dict)
+        kw = dict(clamp_samples=cfg.aa_clamp_samples) if film_planes else {}
+        if pix is None:
+            shape = (spb, h, w)
+            fn = film_splat if film_planes else splat_plane
+            return fn(acc, val.reshape(shape + (-1,)), dx.reshape(shape),
+                      dy.reshape(shape), act.reshape(shape), cfg.filter_type,
+                      cfg.aa_pixelwidth, **kw)
+        shape = (spb, n_pix)
+        fn = film_splat_compact if film_planes else splat_plane_compact
+        return fn(acc, val.reshape(shape + (-1,)), pix[:n_pix],
+                  dx.reshape(shape), dy.reshape(shape), act.reshape(shape),
+                  cfg.filter_type, cfg.aa_pixelwidth, **kw)
+
+    def advance(arrays, film, lpx, lpy, ph, base_idx, active, pix) -> dict:
+        """Trace the lanes (pixels (lpx, lpy), hashes ph, first sample
+        index base_idx, resample flags active) and accumulate them."""
+        check_arrays(arrays, dev)
+        s_idx = base_idx if lane_k is None else base_idx + lane_k
+        dx, dy, org, dirn, wt = camera_rays(camera, lpx, lpy, ph, s_idx)
+        st = run_wavefront(arrays, s_idx, ph, org, dirn, wt, active,
+                           "aov_samp_factor" in film)
         L = st["L"] * wt[..., None]
+        act = active.to(F32)
         # two-level accumulation: splat into a fresh fragment, then add it
         # once (splatting straight into the long-run sums stagnates in f32)
-        frag = film_splat(
-            dict(wsum=torch.zeros_like(film["wsum"]),
-                 w=torch.zeros_like(film["w"]),
-                 nsamples=torch.zeros_like(film["nsamples"])),
-            L.reshape(h, w, 3), dx.reshape(h, w), dy.reshape(h, w),
-            flags.to(F32), cfg.filter_type, cfg.aa_pixelwidth,
-            clamp_samples=cfg.aa_clamp_samples)
-        return dict(film,
-                    wsum=film["wsum"] + frag["wsum"],
-                    w=film["w"] + frag["w"],
-                    nsamples=film["nsamples"] + frag["nsamples"],
-                    rays=film["rays"] + st["nrays"])
+        frag = splat(dict(wsum=torch.zeros_like(film["wsum"]),
+                          w=torch.zeros_like(film["w"]),
+                          nsamples=torch.zeros_like(film["nsamples"])),
+                     L, dx, dy, act, pix)
+        out = dict(film,
+                   wsum=film["wsum"] + frag["wsum"],
+                   w=film["w"] + frag["w"],
+                   nsamples=film["nsamples"] + frag["nsamples"],
+                   rays=film["rays"] + st["nrays"])
+        if "m2" in film:  # the variance estimator's second moments
+            L2 = clamp_sample(L, cfg.aa_clamp_samples)
+            out["m2"] = film["m2"] + splat(torch.zeros_like(film["m2"]),
+                                           L2 * L2, dx, dy, act, pix)
+        if "aov_samp_factor" in film:  # a plain per-sample sum
+            val = (st["samp_factor"] * act)[:, None]
+            plane = film["aov_samp_factor"]
+            out["aov_samp_factor"] = (
+                plane + val.reshape(spb, h, w, 1).sum(dim=0) if pix is None
+                else plane.reshape(-1, 1).index_add(
+                    0, torch.clamp(pix, min=0).long(), val).reshape(
+                        plane.shape))
+        return out
+
+    if compact_n:
+        def sample_step_compact(arrays: dict, film: dict,
+                                pix: torch.Tensor) -> dict:
+            lane_pix = _tile(pix, spb)
+            lanep = torch.clamp(lane_pix, min=0)
+            lpx, lpy, ph = pixel_of(lanep, w, cfg.qmc_seed)
+            base_idx = film["nsamples"].reshape(-1)[lanep.long()]
+            return advance(arrays, film, lpx, lpy, ph, base_idx,
+                           lane_pix >= 0, lane_pix)
+
+        return sample_step_compact
+
+    def sample_step(arrays: dict, film: dict, flags: torch.Tensor) -> dict:
+        # film sample counters are the QMC sample index (int32 = uint32
+        # bits for the non-negative counts)
+        return advance(arrays, film, px, py, pixel_hash,
+                       _tile(film["nsamples"].reshape(-1), spb),
+                       _tile(flags.reshape(-1), spb), None)
 
     return sample_step

@@ -29,7 +29,7 @@ from ..convert import to_tensors
 from ..core import qmc
 from ..core.math import div
 from ..core.sampling import INV_PI, sample_cos_hemisphere
-from ..film.imagefilm import film_splat
+from ..film.imagefilm import compute_aa_flags, film_splat
 from ..materials import bsdf
 from ..materials.base import gather_rows
 from ..ops.photon_flash import (density_auto, make_photon_pack_auto,
@@ -364,8 +364,14 @@ def _render(cscene, cfg: RenderConfig, device, warmup: bool) -> RenderResult:
         _sync(dev)
     film = _fresh_film(cfg, dev)
     t1 = time.perf_counter()
-    for _ in range(cfg.aa_samples):
-        film = step(arrays, film, flags)
+    for p in range(cfg.aa_passes):
+        # adaptive passes as the reference runs them: the contrast
+        # estimator, dense steps masked by its flags
+        fl = flags if p == 0 else compute_aa_flags(
+            film, cfg.aa_threshold, cfg.aa_dark_detection,
+            cfg.aa_dark_factor, cfg.aa_detect_color_noise)
+        for _ in range(cfg.aa_samples if p == 0 else cfg.aa_inc_samples):
+            film = step(arrays, film, fl)
     _sync(dev)
     return RenderResult(film, dict(
         render_s=time.perf_counter() - t1, preprocess_s=preprocess_s,
@@ -374,7 +380,8 @@ def _render(cscene, cfg: RenderConfig, device, warmup: bool) -> RenderResult:
 
 def render_photonmap(cscene, cfg: RenderConfig, *,
                      device="cuda") -> RenderResult:
-    """Full photon-mapping render: preprocess, then aa_samples steps.
+    """Full photon-mapping render: preprocess, then AA_minsamples steps
+    and, where aa_passes > 1, adaptive passes of AA_inc_samples steps.
     stats: render_s (the steps), preprocess_s (photon shooting, packs and
     the radiance map), rays, photon_maps (counts per map)."""
     return _render(cscene, cfg, device, warmup=False)

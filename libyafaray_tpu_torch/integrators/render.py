@@ -1,7 +1,7 @@
 """Render orchestration (port of libyafaray_tpu/integrators/render.py:
-`render` for one pass without mesh or film save, and `render_timed`), for
-pathtracing, with its caustic photon map when caustic_type is photon or
-both, and directlighting.
+`render`, the adaptive pass loop with its compact passes, without mesh or
+film save / load, and `render_timed`), for pathtracing, with its caustic
+photon map when caustic_type is photon or both, and directlighting.
 
 `device` (default "cuda", which raises without a card) threads from here
 down: the scene tensors, the film and every lane live on it.  Timing
@@ -10,12 +10,15 @@ synchronizes the device before the clock is read.
 from __future__ import annotations
 
 import time
+from dataclasses import replace
+from functools import partial
 
 import numpy as np
 import torch
 
 from ..convert import to_tensors
-from ..film.imagefilm import film_image, film_init
+from ..film.imagefilm import (compute_aa_flags, compute_stderr_flags,
+                              film_image, film_init)
 from ..scene.scene import CompiledScene
 from .config import RenderConfig
 from .engine import check_supported, make_sample_step, resolve_device
@@ -47,17 +50,20 @@ def _sync(device: torch.device) -> None:
         torch.cuda.synchronize(device)
 
 
-def _fresh_film(cfg: RenderConfig, device) -> dict:
-    f = film_init(cfg.height, cfg.width, device)
+def _fresh_film(cfg: RenderConfig, device,
+                with_variance: bool = False) -> dict:
+    f = film_init(cfg.height, cfg.width, device,
+                  with_variance=with_variance)
     f["rays"] = torch.zeros((), dtype=torch.float32, device=device)
     return f
 
 
 def _setup(cscene: CompiledScene, cfg: RenderConfig, device):
-    """(device, scene tensors, sample step, stats): the path tracer's
-    caustic map, when its caustic_type asks for one, is built here and
-    rides in the tensors as pm_caustic (stats: preprocess_s and
-    photon_maps)."""
+    """(device, scene tensors, make_step, stats): the path tracer's caustic
+    map, when its caustic_type asks for one, is built here and rides in the
+    tensors as pm_caustic (stats: preprocess_s and photon_maps);
+    make_step(cfg, compact_n=0) builds a sample step of the scene that
+    adds the map's term."""
     dev = resolve_device(device)
     check_supported(cscene.static, cfg)
     arrays = to_tensors(cscene.arrays, dev)
@@ -76,34 +82,140 @@ def _setup(cscene: CompiledScene, cfg: RenderConfig, device):
             caustic = (c_radius, c_nem)
             stats["photon_maps"] = dict(caustic=dict(
                 emitted=c_nem, stored=stored, radius=c_radius))
-    step = make_sample_step(cscene.static, cscene.camera, cfg, dev,
-                            caustic=caustic)
-    return dev, arrays, step, stats
+    return dev, arrays, partial(make_sample_step, cscene.static,
+                                cscene.camera, device=dev,
+                                caustic=caustic), stats
 
 
-def _render(cscene, cfg: RenderConfig, device, warmup: bool) -> RenderResult:
-    dev, arrays, step, stats = _setup(cscene, cfg, device)
-    flags = torch.ones((cfg.height, cfg.width), dtype=torch.bool, device=dev)
-    if warmup:
-        step(arrays, _fresh_film(cfg, dev), flags)
-        _sync(dev)
-    film = _fresh_film(cfg, dev)
+def _pass_steps(cfg: RenderConfig, p: int) -> int:
+    """Steps of pass p: ceil(AA_minsamples / spb) in pass 0, then
+    ceil(AA_inc_samples / spb) scaled by AA_sample_multiplier_factor^p."""
+    spb = max(1, cfg.spp_batch)
+    if p == 0:
+        return -(-cfg.aa_samples // spb)
+    return max(1, round(-(-cfg.aa_inc_samples // spb)
+                        * cfg.aa_sample_multiplier_factor ** p))
+
+
+def pass_config(cfg: RenderConfig, p: int) -> RenderConfig:
+    """Pass p's config: the NEE sample counts of adaptive pass p scaled by
+    the light and indirect multiplier factors^p (reference
+    setSampleMultiplier)."""
+    f_light = cfg.aa_light_sample_multiplier_factor
+    f_ind = cfg.aa_indirect_sample_multiplier_factor
+    if p == 0 or (f_light == 1.0 and f_ind == 1.0):
+        return cfg
+    return replace(cfg, light_ns_mult=f_light ** p,
+                   indirect_ns_mult=f_ind ** p)
+
+
+def adaptive_flags(film: dict, cfg: RenderConfig) -> torch.Tensor:
+    """(H, W) bool pixels the next adaptive pass resamples: the variance
+    or the contrast estimator, its threshold scaled by 1 / the mean primary
+    samplingFactor where the film records it."""
+    scale = None
+    if "aov_samp_factor" in film:
+        sfac = film["aov_samp_factor"][..., 0] / torch.clamp(
+            film["nsamples"], min=1).to(torch.float32)
+        scale = 1.0 / torch.clamp(sfac, min=1e-3)
+    if cfg.aa_estimator == "variance":
+        return compute_stderr_flags(film, cfg.aa_threshold,
+                                    threshold_scale=scale)
+    return compute_aa_flags(film, cfg.aa_threshold, cfg.aa_dark_detection,
+                            cfg.aa_dark_factor, cfg.aa_detect_color_noise,
+                            threshold_scale=scale)
+
+
+def compact_bucket(nf: int) -> int:
+    """Lanes of the compact pass over nf flagged pixels: 512·2^k >= nf."""
+    nc = 512
+    while nc < nf:
+        nc *= 2
+    return nc
+
+
+def compact_lanes(flags: torch.Tensor, nf: int) -> torch.Tensor:
+    """The compact pass's lane list: the nf flagged pixels' flat ids, padded
+    with -1 (dead lanes) to its bucket."""
+    pix = torch.full((compact_bucket(nf),), -1, dtype=torch.int32,
+                     device=flags.device)
+    pix[:nf] = torch.nonzero(flags.reshape(-1))[:, 0].to(torch.int32)
+    return pix
+
+
+def render(cscene: CompiledScene, cfg: RenderConfig, *, device="cuda",
+           compact: bool = True) -> RenderResult:
+    """Full render: aa_passes passes (reference imagefilm adaptive AA).
+    Pass 0 runs ceil(AA_minsamples / spp_batch) steps over every pixel;
+    each later pass flags pixels by the estimator (`adaptive_flags`),
+    stops the render when none is flagged, and runs its steps over the
+    flagged pixels: with compact=True, while the bucket of nc >= flagged
+    lanes is at most half the pixels, through the compact step (one built
+    per bucket, and per pass where the multipliers change the NEE counts),
+    else the dense step masked by the flags.  stats: render_s, rays,
+    passes, and pass_log, a (flagged, lanes, "compact" or "dense", steps,
+    wall_s) entry per pass run."""
+    dev, arrays, make_step, stats = _setup(cscene, cfg, device)
+    step = make_step(cfg)
+    film = _fresh_film(cfg, dev, with_variance=(
+        cfg.aa_passes > 1 and cfg.aa_estimator == "variance"))
+    if cfg.aa_passes > 1 and cscene.static.has_sampling_factor:
+        # the primary hit's samplingFactor, summed per sample, scales the
+        # adaptive threshold
+        film["aov_samp_factor"] = torch.zeros((cfg.height, cfg.width, 1),
+                                              dtype=torch.float32, device=dev)
+    n_px = cfg.height * cfg.width
+    compact_steps: dict = {}
+    log = []
     t0 = time.perf_counter()
-    for _ in range(cfg.aa_samples):
-        film = step(arrays, film, flags)
-    _sync(dev)
-    return RenderResult(film, dict(stats, render_s=time.perf_counter() - t0,
-                                   rays=float(film["rays"])), cfg)
-
-
-def render(cscene: CompiledScene, cfg: RenderConfig, *,
-           device="cuda") -> RenderResult:
-    """Full render: aa_samples one-sample steps over every pixel."""
-    return _render(cscene, cfg, device, warmup=False)
+    for p in range(cfg.aa_passes):
+        cfg_p = pass_config(cfg, p)
+        if p > 0 and cfg_p is not cfg:
+            step = make_step(cfg_p)
+        flags = (torch.ones((cfg.height, cfg.width), dtype=torch.bool,
+                            device=dev) if p == 0
+                 else adaptive_flags(film, cfg))
+        run, arg, nf, lanes = step, flags, n_px, n_px
+        if p > 0:
+            nf = int(flags.sum())
+            if nf == 0:
+                break  # nothing left to resample
+            nc = compact_bucket(nf)
+            if compact and nc <= n_px // 2:
+                key = (nc, p if cfg_p is not cfg else 0)
+                if key not in compact_steps:
+                    compact_steps[key] = make_step(cfg_p, compact_n=nc)
+                run, arg, lanes = (compact_steps[key],
+                                   compact_lanes(flags, nf), nc)
+        t_p = time.perf_counter()
+        n_steps = _pass_steps(cfg, p)
+        for _ in range(n_steps):
+            film = run(arrays, film, arg)
+        _sync(dev)
+        log.append(dict(flagged=nf, lanes=lanes,
+                        mode="compact" if run is not step else "dense",
+                        steps=n_steps, wall_s=time.perf_counter() - t_p))
+    return RenderResult(film, dict(
+        stats, render_s=time.perf_counter() - t0, rays=float(film["rays"]),
+        passes=cfg.aa_passes, pass_log=log), cfg)
 
 
 def render_timed(cscene: CompiledScene, cfg: RenderConfig, *,
                  device="cuda") -> RenderResult:
-    """Benchmark render: one warm-up step on a throw-away film, then the
-    timed steps (the Mrays/s metric)."""
-    return _render(cscene, cfg, device, warmup=True)
+    """Benchmark render: one warm-up step on a throw-away film, then
+    ceil(AA_minsamples·AA_passes / spp_batch) timed steps over every pixel
+    (the Mrays/s metric; adaptive passes run uniform, as the reference's
+    benchmark render runs them)."""
+    dev, arrays, make_step, stats = _setup(cscene, cfg, device)
+    step = make_step(cfg)
+    flags = torch.ones((cfg.height, cfg.width), dtype=torch.bool, device=dev)
+    step(arrays, _fresh_film(cfg, dev), flags)
+    _sync(dev)
+    film = _fresh_film(cfg, dev)
+    t0 = time.perf_counter()
+    for _ in range(-(-cfg.aa_samples * cfg.aa_passes
+                     // max(1, cfg.spp_batch))):
+        film = step(arrays, film, flags)
+    _sync(dev)
+    return RenderResult(film, dict(stats, render_s=time.perf_counter() - t0,
+                                   rays=float(film["rays"]), passes=1), cfg)

@@ -105,6 +105,8 @@ class SceneStatic:
     blend_child_textured: bool = False
     need_orco: bool = False  # some texco is orco / object: tri_orco_pack
     need_window: bool = False  # some texco is window: raster projection
+    max_additional_depth: int = 0  # the largest material additionalDepth
+    has_sampling_factor: bool = False  # some material samplingFactor != 1
 
 
 @dataclass
@@ -318,10 +320,6 @@ class Scene:
             raise NotImplementedError(
                 "dispersive glass (dispersion_power > 0) is not ported yet: "
                 "ROADMAP Queue 1 item 10 (dispersion)")
-        if int(max(r["additional_depth"] for r in materials)) > 0:
-            raise NotImplementedError(
-                "per-material additionalDepth is not ported yet: ROADMAP "
-                "Queue 1 item 16")
 
         def cat(key):
             return np.concatenate([b[key] for b in blocks], axis=0)
@@ -541,6 +539,12 @@ class Scene:
             node_programs=tuple(self.node_programs),
             blend_child_textured=_blend_child_textured(materials),
             need_orco=need_orco, need_window=need_window,
+            max_additional_depth=int(max(
+                (r.get("additional_depth", 0.0) for r in materials),
+                default=0)),
+            has_sampling_factor=any(
+                abs(r.get("sampling_factor", 1.0) - 1.0) > 1e-9
+                for r in materials),
         )
         cam = next(iter(self.cameras.values())) if self.cameras else Camera()
         cam_name = self.render_params.get_str("camera_name", "")

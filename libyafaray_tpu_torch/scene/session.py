@@ -36,7 +36,7 @@ def build_config(scene: Scene) -> RenderConfig:
 
 
 def render_scene(scene: Scene, *, device="cuda", timed: bool = False,
-                 pairs: bool = False) -> RenderResult:
+                 pairs: bool = False, compact: bool = True) -> RenderResult:
     """The entry point: build the config, compile for `device` (default
     the card; it raises without one, device="cpu" renders on the CPU) and
     render with the scene's integrator (pathtracing and directlighting ->
@@ -44,7 +44,10 @@ def render_scene(scene: Scene, *, device="cuda", timed: bool = False,
     integrators.sppm).  timed=True takes the benchmark variants, which run
     one warm-up step (SPPM: pass) outside the timed ones.  pairs=True asks
     for the pair-granular intersection route (packs of 64 or more clusters
-    take it).  Every other integrator raises naming its ROADMAP item."""
+    take it).  compact=False runs the adaptive passes of pathtracing and
+    directlighting dense and masked instead of over compact lane lists (the
+    reference's photon mapping has no compact passes).  Every other
+    integrator raises naming its ROADMAP item."""
     from ..integrators import photonmap, render, sppm
     from ..integrators.engine import resolve_device
 
@@ -62,5 +65,9 @@ def render_scene(scene: Scene, *, device="cuda", timed: bool = False,
         raise NotImplementedError(
             f"integrator {cfg.integrator!r} is not ported yet: ROADMAP Queue "
             "1 item 18 (bidirectional, DebugIntegrator)")
-    return runners[cfg.integrator][timed](
-        scene.compile(device=device, pairs=pairs), cfg, device=device)
+    run = runners[cfg.integrator][timed]
+    # only the adaptive pass loop takes the keyword, and only to turn
+    # compaction off
+    kw = {} if compact or run is not render.render else dict(compact=False)
+    return run(scene.compile(device=device, pairs=pairs), cfg, device=device,
+               **kw)

@@ -91,7 +91,7 @@ def test_render_timed_counts_the_same_rays():
 
 @pytest.mark.parametrize("over, item", [
     (dict(integrator="bidirectional"), "item 18"),
-    (dict(aa_passes=2), "item 16"),
+    (dict(passes=("z-depth-norm",)), "item 17"),
     (dict(transp_background=True), "item 17"),
 ])
 def test_unported_config_raises(over, item):

@@ -161,8 +161,8 @@ _SCENE = """<scene type="triangle">{body}
      "item 17"),
     ('<light name="l"><type sval="pointlight"/></light>', "item 17"),
     ('<background name="b"><type sval="gradient"/></background>', "item 17"),
-    ('<material name="m"><type sval="shinydiffusemat"/>'
-     '<additionaldepth ival="2"/></material>', "item 16"),
+    ('<material name="m"><type sval="shinydiffusemat"/></material>'
+     '<background name="b"><type sval="sunsky"/></background>', "item 17"),
 ])
 def test_unsupported_features_raise(body, item):
     """Raised at compile (glass renders in every ported integrator now, a
