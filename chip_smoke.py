@@ -114,9 +114,22 @@ started together) and drives the ported paths through them:
   64²; then the time-to-RMSE protocol's step (128², 64 samples a pixel in
   one step of 1,048,576 lanes), the tiny kernels on its primary rays and
   its 16,777,216 bounce-0 NEE rays, and the main path timed at spp_batch
-  1, 4 and 16.
-Each path is rendered with every launch counter set to 0 just before it and
-read just after.  Every kernel's line carries its bound: the larger of its
+  1, 4 and 16;
+- slice 17, bidirectional path tracing on scenes/cornell_bidir.xml at its
+  own settings (raydepth 3, 512², 64 spp, a Beer glass and a glossy
+  chrome sphere, one area light) through `render_scene(timed=True)`, each
+  tiny kernel launched as often a step as the BDPT step's loops ask (5
+  closest hits, 8 shadow batches), every call of one step held to its
+  plain version, one profiled step, 96², 48 spp against
+  scenes/goldens/cornell_bidir.exr, the card against the CPU at 32², 4
+  spp (the t=1 density plane on its own, and the card against itself:
+  that plane adds through atomics), the CLI at 64²; and the
+  DebugIntegrator's normals of cornell.xml at 512² (one closest hit)
+  against the CPU.
+`python3 chip_smoke.py --only slice17` builds the kernels and runs slice
+17's phases alone (an iteration run: no result line).  Each path is
+rendered with every launch counter set to 0 just before it and read just
+after.  Every kernel's line carries its bound: the larger of its
 FP32 operations over the card's 67 TFLOP/s and its bytes (each input read
 once, each output written once) over 3.35 TB/s, with the pair tests counted
 from this run's rays.  Every phase prints one line; any failure raises and
@@ -162,6 +175,7 @@ from libyafaray_tpu_torch.ops import photon_flash as pf  # noqa: E402
 from libyafaray_tpu_torch.integrators import photonmap  # noqa: E402
 from libyafaray_tpu_torch.integrators import render as rmod  # noqa: E402
 from libyafaray_tpu_torch.integrators import sppm  # noqa: E402
+from libyafaray_tpu_torch.integrators import veach  # noqa: E402
 from libyafaray_tpu_torch.scene.generate import (  # noqa: E402
     make_rays, make_soup, write_grid_spheres)
 from libyafaray_tpu_torch.scene.session import (  # noqa: E402
@@ -176,6 +190,8 @@ CORNELL_SPPM = os.path.join(REPO, "scenes", "cornell_sppm.xml")
 SPPM_GOLDEN = os.path.join(REPO, "scenes", "goldens", "cornell_SPPM.exr")
 IBL = os.path.join(REPO, "scenes", "ibl_spheres.xml")
 IBL_GOLDEN = os.path.join(REPO, "scenes", "goldens", "ibl_spheres.exr")
+BIDIR = os.path.join(REPO, "scenes", "cornell_bidir.xml")
+BIDIR_GOLDEN = os.path.join(REPO, "scenes", "goldens", "cornell_bidir.exr")
 PHOTON_GOLDEN = os.path.join(REPO, "scenes", "goldens",
                              "cornell_photonmapping.exr")
 SOURCES = ("tiny_intersect", "fine_intersect", "photon_flash",
@@ -218,6 +234,10 @@ IBL_GOLDEN_SPP = 48
 # 64 samples a step; the plain shadow sum on every 4th of its 16,777,216
 # NEE rays), then the main path at spp_batch 1, 4 and 16
 ADAPTIVE_SIZE, ADAPTIVE_PASSES = 512, 4
+# slice 17: the golden's spp (the reference's own gate), the card-vs-CPU
+# render and the CLI's size
+BIDIR_GOLDEN_SPP = 48
+BIDIR_SMALL = dict(size=32, spp=4, cli_size=64, cli_spp=16)
 SPB = dict(size=128, spb=64, plain_stride=4, sweep=(1, 4, 16))
 TINY = ("closest_hit_tiny", "shadow_logsum_tiny")
 # queries the plain gathers are compared and timed on (bounds their time);
@@ -2766,7 +2786,285 @@ def slice16_phases(smi, kernels: list) -> None:
                 f"max_abs_err_{tag}": chk["err"]})
 
 
-def main() -> None:
+# ---- slice 17: BDPT and the DebugIntegrator ---------------------------------
+
+
+def bdpt_step_launches(cfg) -> dict:
+    """The two tiny kernels' launches in one BDPT step on a scene whose
+    lights all start light subpaths (veach.make_bdpt_step's loops): a
+    closest hit per eye vertex (T = min(raydepth, 6)) and per light walk
+    vertex (S - 1, S = T); a shadow batch per s=1 strategy (t = 2 ..
+    min(T + 1, raydepth + 1)), per inner (s, t) with s, t >= 2 and s + t
+    <= raydepth + 2, and per t=1 strategy (s = 2 .. min(S, raydepth + 1));
+    the eye-only NEE adds none where every light has flux."""
+    t_max = s_max = max(1, min(cfg.raydepth, 6))
+    cap = cfg.raydepth + 2
+    s1 = len(range(2, min(t_max + 1, cap - 1) + 1))
+    inner = sum(len(range(2, min(t_max + 1, cap - s) + 1))
+                for s in range(2, s_max + 1))
+    t1 = len(range(2, min(s_max, cap - 1) + 1))
+    return {"closest_hit_tiny": t_max + s_max - 1,
+            "shadow_logsum_tiny": s1 + inner + t1}
+
+
+def bdpt_step(cs, cfg):
+    """A BDPT sample step on the card and its scene tensors."""
+    dev = engine.resolve_device("cuda")
+    return veach.make_bdpt_step(cs, cfg, dev), to_tensors(cs.arrays, dev)
+
+
+def bidir_path(smi) -> tuple:
+    """cornell_bidir.xml at its own settings (bidirectional, raydepth 3,
+    512², 64 spp, box filter 1.5) through render_scene(timed=True),
+    counted: each tiny kernel launched bdpt_step_launches a step, the
+    warm-up step included, and no other kernel.  Returns (scene, config,
+    result, launches a step)."""
+    scene = scene_at(BIDIR)
+    cfg = build_config(scene)
+    torch.cuda.reset_peak_memory_stats()
+    res, launches = entry_counted(scene, TINY)
+    peak = torch.cuda.max_memory_allocated() / 2 ** 30
+    per_step = bdpt_step_launches(cfg)
+    steps = cfg.aa_samples * cfg.aa_passes
+    want = {k: v * (steps + 1) for k, v in per_step.items()}
+    dens = res.film["density"]
+    path_line("bidir_path", res, cfg, launches, want, smi,
+              spp=cfg.aa_samples, raydepth=cfg.raydepth,
+              filter=f"{cfg.filter_type}:{cfg.aa_pixelwidth}",
+              steps=res.stats["bdpt_steps"], launches_per_step=per_step,
+              step_ms=round(1e3 * res.stats["render_s"] / steps, 3),
+              peak_gib=round(peak, 3),
+              density_mean=float(dens.mean()),
+              density_max=float(dens.max()))
+    if not float(dens.mean()) > 0.0:
+        raise AssertionError("bidir_path: the t=1 splats left no density")
+    return scene, cfg, res, per_step
+
+
+def bidir_kernels(cs, cfg) -> tuple:
+    """One BDPT step at 512² with the tiny wrappers recording their
+    arguments: every call held to its plain version (closest hit: hit and
+    tri equal, t/u/v within rtol 1e-4 and bit-equal; transmission within
+    atol 2e-3 and bit-equal), its shape and live lanes printed; the
+    light walk's first closest hit (rays leaving the emitter) and the
+    first inner connection's shadow batch (segments of any length, dead
+    lanes at dist -1) also timed with their bounds (check_tiny_closest /
+    check_tiny_shadow).  Returns (closest check, shadow check, calls)."""
+    step, arrays = bdpt_step(cs, cfg)
+    dev = engine.resolve_device("cuda")
+    flags = torch.ones((cfg.height, cfg.width), dtype=torch.bool, device=dev)
+    _, calls = record_calls(ci, ("closest_hit_tiny",
+                                 "shadow_transmission_tiny"),
+                            lambda: step(arrays, _fresh_film(cfg, dev),
+                                         flags))
+    torch.cuda.synchronize()
+    closest = [a for k, a in calls if k == "closest_hit_tiny"]
+    shadow = [a for k, a in calls if k == "shadow_transmission_tiny"]
+    t_max = max(1, min(cfg.raydepth, 6))
+    for i, a in enumerate(closest):
+        got = ci.closest_hit_tiny(*a)
+        want = ci.closest_hit_tiny_plain(*a)
+        torch.cuda.synchronize()
+        hit = want[4]
+        ok = (torch.equal(got[4], hit)
+              and torch.equal(got[1][hit], want[1][hit])
+              and all(torch.allclose(got[j][hit], want[j][hit], rtol=1e-4)
+                      for j in (0, 2, 3)))  # t, u, v
+        n_diff = differ(got[:4], want[:4])
+        phase("bidir_call", kernel="closest_hit_tiny", call=i,
+              walk="eye" if i < t_max else "light", n=a[1].shape[0],
+              live=int((a[3] <= a[4]).sum()), hits=int(hit.sum()),
+              differ=n_diff)
+        if not ok or n_diff:
+            raise AssertionError(f"bidir closest_hit_tiny call {i} differs "
+                                 "from its plain version")
+    for i, (pk, f4, org, dirn, dist, n_tris) in enumerate(shadow):
+        logf = ci.log_filter(f4)
+        got = ci.shadow_logsum_tiny(pk, logf, org, dirn, dist, n_tris)
+        want = ci.shadow_logsum_tiny_plain(pk, logf, org, dirn, dist, n_tris)
+        torch.cuda.synchronize()
+        err = float((torch.exp(got) - torch.exp(want)).abs().max())
+        n_diff = int((got != want).any(dim=-1).sum())
+        phase("bidir_call", kernel="shadow_logsum_tiny", call=i,
+              n=org.shape[0], live=int((dist > 0).sum()),
+              opaque=int((got <= -80.0).all(dim=-1).sum()),
+              max_abs_err=err, differ=n_diff)
+        if err > 2e-3 or n_diff:
+            raise AssertionError(f"bidir shadow_logsum_tiny call {i} "
+                                 "differs from its plain version")
+    c = closest[t_max]
+    c_chk = check_tiny_closest(c[0], c[1:5], c[5],
+                               rays_name="bidir light walk 1")
+    s1 = len(range(2, min(t_max + 1, cfg.raydepth + 1) + 1))
+    sh = shadow[s1]
+    s_chk = check_tiny_shadow(sh[0], ci.log_filter(sh[1]), sh[2:5], sh[5],
+                              rays="bidir inner (2,2)")
+    return c_chk, s_chk, (len(closest), len(shadow))
+
+
+def bidir_golden() -> None:
+    """cornell_bidir.xml at the golden's 96², 48 spp against
+    scenes/goldens/cornell_bidir.exr: RMSE < 0.035, the reference's own
+    bound (its test_render_matches_golden_bidir)."""
+    golden = read_exr(BIDIR_GOLDEN)
+    gs = golden.shape[0]
+    res = render_scene(scene_at(BIDIR, dict(
+        width=gs, height=gs, AA_minsamples=BIDIR_GOLDEN_SPP, AA_passes=1)),
+        device="cuda")
+    rmse = float(np.sqrt(np.mean((res.image - golden) ** 2)))
+    phase("bidir_golden", size=f"{gs}x{gs}", spp=BIDIR_GOLDEN_SPP,
+          render_s=round(res.stats["render_s"], 4), rmse=rmse, bound=0.035)
+    if not rmse < 0.035:
+        raise AssertionError(f"bidir golden RMSE {rmse} >= 0.035")
+
+
+def bidir_card_vs_cpu() -> None:
+    """The same render on the card and on the CPU at 32², 4 spp: image RMSE
+    <= 1e-4, the density plane RMSE <= 1e-5, rays equal; and the card
+    twice, whose density planes may differ in their last bits (the t=1
+    splat adds through atomics) while the eye-side film planes may not."""
+    scene = scene_at(BIDIR, dict(width=BIDIR_SMALL["size"],
+                                 height=BIDIR_SMALL["size"],
+                                 AA_minsamples=BIDIR_SMALL["spp"]))
+    out = {dev: render_scene(scene, device=dev) for dev in ("cuda", "cpu")}
+    again = render_scene(scene, device="cuda")
+    gpu, cpu = out["cuda"], out["cpu"]
+    rmse = float(np.sqrt(np.mean((gpu.image - cpu.image) ** 2)))
+    dg, dc = gpu.film["density"].cpu().numpy(), cpu.film["density"].numpy()
+    d_rmse = float(np.sqrt(np.mean((dg - dc) ** 2)))
+    d_again = (again.film["density"] - gpu.film["density"]).abs()
+    eye_equal = all(torch.equal(again.film[k], gpu.film[k])
+                    for k in ("wsum", "w", "nsamples"))
+    phase("bidir_card_vs_cpu", size=f"{BIDIR_SMALL['size']}x"
+          f"{BIDIR_SMALL['size']}", spp=BIDIR_SMALL["spp"], rmse=rmse,
+          bound=1e-4, density_rmse=d_rmse, density_bound=1e-5,
+          density_max_abs=float(np.abs(dg - dc).max()),
+          density_mean=float(dc.mean()), rays_gpu=gpu.stats["rays"],
+          rays_cpu=cpu.stats["rays"],
+          repeat_density_differ=int((d_again > 0).any(dim=-1).sum()),
+          repeat_density_max_abs=float(d_again.max()),
+          repeat_eye_planes_equal=eye_equal)
+    if not (rmse <= 1e-4 and d_rmse <= 1e-5
+            and gpu.stats["rays"] == cpu.stats["rays"] and eye_equal):
+        raise AssertionError("bidir_card_vs_cpu: card and CPU disagree")
+
+
+def bidir_cli(smi, out_dir: str) -> None:
+    """cornell_bidir.xml through the port's CLI at 64² with --json-stats,
+    its samples cut to 16 a pixel in a copy of the scene (the CLI has no
+    samples option; a BDPT step is host-paced at ~0.4 s at any size): the
+    .exr read back equal to the image of the render_scene call the CLI
+    made (recorded), and the --json-stats rays to its rays."""
+    from libyafaray_tpu_torch.scene import session
+
+    size = BIDIR_SMALL["cli_size"]
+    xml = os.path.join(out_dir, "cornell_bidir_cli.xml")
+    with open(BIDIR) as f:
+        text = f.read()
+    spp = '<AA_minsamples ival="{}"/>'
+    if spp.format(64) not in text:
+        raise AssertionError("cornell_bidir.xml: no AA_minsamples 64")
+    with open(xml, "w") as f:
+        f.write(text.replace(spp.format(64),
+                             spp.format(BIDIR_SMALL["cli_spp"])))
+    out = os.path.join(out_dir, "bidir.exr")
+    real, results = session.render_scene, []
+
+    def recorded(*args, **kwargs):
+        results.append(real(*args, **kwargs))
+        return results[-1]
+
+    buf = io.StringIO()
+    session.render_scene = recorded
+    try:
+        with contextlib.redirect_stdout(buf):
+            rc = cli_main([xml, out, "--json-stats", "-vl", "warning",
+                           "--width", str(size), "--height", str(size)])
+    finally:
+        session.render_scene = real
+    stats = json.loads([line for line in buf.getvalue().splitlines()
+                        if line.startswith("{")][-1])
+    img = read_exr(out)
+    res = results[0]
+    rmse = float(np.sqrt(np.mean((img - res.image) ** 2)))
+    phase("bidir_cli", rc=rc, output=os.path.basename(out), shape=img.shape,
+          spp=res.cfg.aa_samples, wall_s=round(stats["wall_s"], 4),
+          render_s=round(stats["render_s"], 4), rays=stats["rays"],
+          rays_render_scene=res.stats["rays"],
+          mrays_per_s=round(stats["mrays_per_sec"], 3), rmse_vs_path=rmse,
+          bound=1e-4, gpu=repr(smi))
+    if rc != 0 or len(results) != 1 or img.shape != (size, size, 3):
+        raise AssertionError("bidir_cli: no image of the path's shape")
+    if not (np.all(np.isfinite(img)) and stats["rays"] == res.stats["rays"]
+            and rmse <= 1e-4 and res.cfg.integrator == "bidirectional"):
+        raise AssertionError("bidir_cli: the CLI's output disagrees with "
+                             "its render")
+
+
+def debug_path(smi) -> dict:
+    """The DebugIntegrator on cornell.xml at 512² through render_scene,
+    counted (one closest_hit_tiny launch, nothing else), its N image
+    against the CPU's within atol 1e-6."""
+    scene = scene_at(CORNELL, integrator=dict(type="DebugIntegrator"))
+    res, launches = counted(lambda: render_scene(scene, device="cuda"))
+    want = {"closest_hit_tiny": 1}
+    got = {k: v for k, v in launches.items() if v}
+    cpu = render_scene(scene, device="cpu")
+    err = float(np.abs(res.image - cpu.image).max())
+    hit = int((res.image.max(axis=-1) > 0.0).sum())
+    phase("debug_path", size=f"{res.cfg.width}x{res.cfg.height}",
+          image="N", render_s=round(res.stats["render_s"], 4),
+          rays=res.stats["rays"], hit_pixels=hit, launches=got,
+          expected_launches=want, max_abs_err_vs_cpu=err, bound=1e-6,
+          gpu=repr(smi))
+    if got != want or not err <= 1e-6 or hit == 0:
+        raise AssertionError("debug_path: launches or image off")
+    return got
+
+
+def slice17_phases(smi, out_dir: str, kernels: list) -> None:
+    """BDPT on cornell_bidir.xml (path, kernels on its recorded calls, a
+    profiled step, golden, card vs CPU, CLI) and the DebugIntegrator; the
+    BDPT launches and the tiny kernels' checks on its rays go into their
+    `kernels` entries (`*_bidir`)."""
+    scene, cfg, res, per_step = bidir_path(smi)
+    cs = scene.compile(device="cuda")
+    closest, shadow, n_calls = bidir_kernels(cs, cfg)
+    if n_calls != (per_step["closest_hit_tiny"],
+                   per_step["shadow_logsum_tiny"]):
+        raise AssertionError(f"bidir step recorded {n_calls} calls, "
+                             f"expected {per_step}")
+    step, arrays = bdpt_step(cs, cfg)
+    profile("bidir_profile", res, lambda a, f, fl: step(a, f, fl)[0],
+            arrays, cfg, ("tiny_kernel",), smi)
+    del step, arrays
+    bidir_golden()
+    bidir_card_vs_cpu()
+    bidir_cli(smi, out_dir)
+    debug = debug_path(smi)
+    by_name = {k["name"]: k for k in kernels}
+    for key, chk in (("closest_hit_tiny", closest),
+                     ("shadow_logsum_tiny", shadow)):
+        if key not in by_name:  # a run of --only slice17
+            continue
+        by_name[key].update(
+            launches_bidir_step=per_step[key], ms_bidir=chk["ms"],
+            plain_ms_bidir=chk["plain_ms"],
+            bound_ms_bidir=chk["bound"]["bound_ms"],
+            max_abs_err_bidir=chk["err"])
+    if "closest_hit_tiny" in by_name:
+        by_name["closest_hit_tiny"]["launches_debug"] = debug[
+            "closest_hit_tiny"]
+
+
+def main(argv=None) -> None:
+    import argparse
+
+    ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
+    ap.add_argument("--only", choices=("slice17",), default=None,
+                    help="run only this slice's phases after the build (an "
+                         "iteration run: it prints no result line)")
+    only = ap.parse_args(argv).only
     # 1. device
     if not torch.cuda.is_available():
         raise SystemExit("chip_smoke: no CUDA device (torch.cuda."
@@ -2797,6 +3095,13 @@ def main() -> None:
             for line in f:
                 if "registers" in line or "spill" in line:
                     print("  ptxas: " + line.strip(), flush=True)
+
+    if only == "slice17":
+        with tempfile.TemporaryDirectory() as out_dir:
+            slice17_phases(smi, out_dir, [])
+        print(smi, flush=True)
+        print("chip_smoke: --only slice17 ran; no result line", flush=True)
+        return
 
     # 3. kernels vs plain at the main path's shapes
     cscene, cfg = cornell(device="cuda", **MAIN)
@@ -2879,6 +3184,10 @@ def main() -> None:
 
     # 15. slice 16: adaptive AA and spp_batch on the Cornell main path
     slice16_phases(smi, kernels)
+
+    # 16. slice 17: BDPT on cornell_bidir.xml and the DebugIntegrator
+    with tempfile.TemporaryDirectory() as out_dir:
+        slice17_phases(smi, out_dir, kernels)
 
     print(json.dumps({"kernels": kernels + fine + photon + mid + pairs}),
           flush=True)

@@ -1,6 +1,7 @@
 """Cameras — batched shootRay over pixel lanes (port of
 libyafaray_tpu/cameras/base.py: the Camera record, the perspective branches
-of `shoot_rays`, `pixel_cone` and `project_to_camera`)."""
+of `shoot_rays`, `pixel_cone`, `project_to_camera` and
+`pixel_plane_area`)."""
 from __future__ import annotations
 
 from dataclasses import dataclass
@@ -136,3 +137,10 @@ def project_to_camera(cam: Camera, p: torch.Tensor):
     valid = ((z > 1e-4) & (px >= 0) & (px < cam.resx) & (py >= 0)
              & (py < cam.resy))
     return px, py, z / dist, dist, valid
+
+
+def pixel_plane_area(cam: Camera) -> float:
+    """Area of one pixel on the image plane at distance `focal` (the
+    measure of BDPT's t=1 splats)."""
+    aspect = cam.resy / cam.resx * cam.aspect_ratio
+    return (1.0 / cam.resx) * (aspect / cam.resy)

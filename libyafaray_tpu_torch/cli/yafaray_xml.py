@@ -5,7 +5,9 @@ libyafaray_tpu/cli/yafaray_xml.py, reference src/xml_loader/yafaray_xml.cc).
         --json-stats [--device cpu]
 
 It parses the scene, renders it through `scene/session.py` `render_scene`
-on `--device` (default the card) and writes the image; `--json-stats`
+on `--device` (default the card) with the scene's integrator
+(pathtracing, directlighting, photonmapping, SPPM, bidirectional, or the
+DebugIntegrator's normals image) and writes the image; `--json-stats`
 prints one JSON line (output, wall_s, render_s, rays, mrays_per_sec).
 The z-buffer pass, film save/load and more than one device raise, naming
 their ROADMAP items.
@@ -27,7 +29,9 @@ def main(argv=None) -> int:
     ap = argparse.ArgumentParser(
         prog="yafaray-xml-torch",
         description="PyTorch + CUDA renderer with libYafaRay scene "
-                    "compatibility")
+                    "compatibility (every surface integrator of the "
+                    "reference: pathtracing, directlighting, photonmapping, "
+                    "SPPM, bidirectional, DebugIntegrator)")
     ap.add_argument("input", help="scene XML file")
     ap.add_argument("output", nargs="?", default=None,
                     help="output image (default: <input>.png)")

@@ -41,14 +41,16 @@ def render_scene(scene: Scene, *, device="cuda", timed: bool = False,
     the card; it raises without one, device="cpu" renders on the CPU) and
     render with the scene's integrator (pathtracing and directlighting ->
     integrators.render, photonmapping -> integrators.photonmap, SPPM ->
-    integrators.sppm).  timed=True takes the benchmark variants, which run
-    one warm-up step (SPPM: pass) outside the timed ones.  pairs=True asks
-    for the pair-granular intersection route (packs of 64 or more clusters
-    take it).  compact=False runs the adaptive passes of pathtracing and
-    directlighting dense and masked instead of over compact lane lists (the
-    reference's photon mapping has no compact passes).  Every other
-    integrator raises naming its ROADMAP item."""
-    from ..integrators import photonmap, render, sppm
+    integrators.sppm, bidirectional -> integrators.veach, DebugIntegrator
+    -> integrators.debug with its default "N" image).  timed=True takes
+    the benchmark variants, which run one warm-up step (SPPM: pass)
+    outside the timed ones (the DebugIntegrator has one variant).
+    pairs=True asks for the pair-granular intersection route (packs of 64
+    or more clusters take it).  compact=False runs the adaptive passes of
+    pathtracing and directlighting dense and masked instead of over
+    compact lane lists (the reference's photon mapping has no compact
+    passes)."""
+    from ..integrators import debug, photonmap, render, sppm, veach
     from ..integrators.engine import resolve_device
 
     resolve_device(device)  # no card, no render: raise before compiling
@@ -60,11 +62,11 @@ def render_scene(scene: Scene, *, device="cuda", timed: bool = False,
         "photonmapping": (photonmap.render_photonmap,
                           photonmap.render_photonmap_timed),
         "SPPM": (sppm.render_sppm, sppm.render_sppm_timed),
+        "bidirectional": (veach.render_bdpt, veach.render_bdpt_timed),
+        "DebugIntegrator": (debug.render_debug, debug.render_debug),
     }
     if cfg.integrator not in runners:
-        raise NotImplementedError(
-            f"integrator {cfg.integrator!r} is not ported yet: ROADMAP Queue "
-            "1 item 18 (bidirectional, DebugIntegrator)")
+        raise ValueError(f"unknown integrator {cfg.integrator!r}")
     run = runners[cfg.integrator][timed]
     # only the adaptive pass loop takes the keyword, and only to turn
     # compaction off

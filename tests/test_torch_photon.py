@@ -775,9 +775,11 @@ def test_radiance_pack_keeps_the_flash_layout_on_cpu(port_render):
 
 def test_render_scene_dispatches_on_the_integrator(monkeypatch):
     """render_scene: pathtracing and directlighting -> render,
-    photonmapping -> render_photonmap, SPPM -> render_sppm; bidirectional
-    raises, naming ROADMAP item 18."""
-    from libyafaray_tpu_torch.integrators import photonmap, render, sppm
+    photonmapping -> render_photonmap, SPPM -> render_sppm, bidirectional
+    -> render_bdpt (render_bdpt_timed when timed), DebugIntegrator ->
+    render_debug."""
+    from libyafaray_tpu_torch.integrators import (debug, photonmap, render,
+                                                  sppm, veach)
 
     calls = []
     monkeypatch.setattr(render, "render",
@@ -786,17 +788,22 @@ def test_render_scene_dispatches_on_the_integrator(monkeypatch):
                         lambda cs, cfg, device: calls.append(cfg.integrator))
     monkeypatch.setattr(sppm, "render_sppm",
                         lambda cs, cfg, device: calls.append(cfg.integrator))
-    for name in ("pathtracing", "photonmapping", "SPPM", "directlighting",
-                 "bidirectional"):
+    monkeypatch.setattr(veach, "render_bdpt",
+                        lambda cs, cfg, device: calls.append(cfg.integrator))
+    monkeypatch.setattr(veach, "render_bdpt_timed", lambda cs, cfg, device:
+                        calls.append(cfg.integrator + " timed"))
+    monkeypatch.setattr(debug, "render_debug",
+                        lambda cs, cfg, device: calls.append(cfg.integrator))
+    for name, timed in (("pathtracing", False), ("photonmapping", True),
+                        ("SPPM", False), ("directlighting", False),
+                        ("bidirectional", False), ("bidirectional", True),
+                        ("DebugIntegrator", False)):
         s = _scene(parse_xml_file)
         s.integrator_params["default"]["type"] = name
-        if name == "bidirectional":
-            with pytest.raises(NotImplementedError, match="Queue 1 item 18"):
-                session.render_scene(s, device="cpu")
-        else:
-            session.render_scene(s, device="cpu",
-                                 timed=name == "photonmapping")
-    assert calls == ["pathtracing", "photonmapping", "SPPM", "directlighting"]
+        session.render_scene(s, device="cpu", timed=timed)
+    assert calls == ["pathtracing", "photonmapping", "SPPM", "directlighting",
+                     "bidirectional", "bidirectional timed",
+                     "DebugIntegrator"]
 
 
 def test_pathtracing_raises_on_spheres_and_glass():

@@ -26,6 +26,7 @@ from libyafaray_tpu.scene.session import build_config as ref_build
 from libyafaray_tpu.scene.xml_parser import parse_xml_file as ref_parse
 from libyafaray_tpu_torch.integrators.config import RenderConfig
 from libyafaray_tpu_torch.integrators.render import render, render_timed
+from libyafaray_tpu_torch.scene.params import ParamMap
 from libyafaray_tpu_torch.scene.session import build_config
 from libyafaray_tpu_torch.scene.xml_parser import parse_xml_file
 
@@ -90,13 +91,19 @@ def test_render_timed_counts_the_same_rays():
 
 
 @pytest.mark.parametrize("over, item", [
-    (dict(integrator="bidirectional"), "item 18"),
+    (dict(integrator="bidirectional", point_light=True), "item 17"),
     (dict(passes=("z-depth-norm",)), "item 17"),
     (dict(transp_background=True), "item 17"),
 ])
 def test_unported_config_raises(over, item):
+    """Passes and alpha raise; so does BDPT with a point light (the light,
+    and BDPT's point emitter branch, wait for item 17)."""
+    over = dict(over)
+    point = over.pop("point_light", False)
     s, cfg = _setup(parse_xml_file, build_config, RenderConfig, 8, 1, **over)
     with pytest.raises(NotImplementedError, match=item):
+        if point:  # raised by the light factory, before any render
+            s.create_light("point", ParamMap({"type": "pointlight"}))
         render(s.compile(device="cpu"), cfg, device="cpu")
 
 
