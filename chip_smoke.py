@@ -181,6 +181,10 @@ from libyafaray_tpu_torch.scene.generate import (  # noqa: E402
 from libyafaray_tpu_torch.scene.session import (  # noqa: E402
     build_config, render_scene)
 from libyafaray_tpu_torch.scene.xml_parser import parse_xml_file  # noqa: E402
+from libyafaray_tpu_torch.lights import base as lightmod  # noqa: E402
+from libyafaray_tpu_torch.lights.ies import parse_ies  # noqa: E402
+from libyafaray_tpu_torch.scene.params import ParamMap  # noqa: E402
+from libyafaray_tpu_torch.scene.scene import Scene  # noqa: E402
 
 CORNELL = os.path.join(REPO, "scenes", "cornell.xml")
 GOLDEN = os.path.join(REPO, "scenes", "goldens", "cornell_pathtracing.exr")
@@ -238,6 +242,15 @@ ADAPTIVE_SIZE, ADAPTIVE_PASSES = 512, 4
 # render and the CLI's size
 BIDIR_GOLDEN_SPP = 48
 BIDIR_SMALL = dict(size=32, spp=4, cli_size=64, cli_spp=16)
+LIGHTS = os.path.join(REPO, "scenes", "cornell_lights.xml")
+LIGHTS_IES = "scenes/assets/cornell_lights.ies"  # as the scene names it
+DENSE = ("closest_hit_dense", "shadow_logsum_dense")
+LIGHTS_BIDIR_SPP = 16
+# the photon variant: 200,000 + 100,000 photons, final gather 16, 16 spp
+LIGHTS_PHOTON = dict(type="photonmapping", photons=200_000,
+                     cPhotons=100_000, fg_samples=16)
+LIGHTS_PHOTON_SPP = 16
+LIGHTS_PHYSICS_RES = 128
 SPB = dict(size=128, spb=64, plain_stride=4, sweep=(1, 4, 16))
 TINY = ("closest_hit_tiny", "shadow_logsum_tiny")
 # queries the plain gathers are compared and timed on (bounds their time);
@@ -1083,25 +1096,13 @@ def check_density(what: str, args, photons) -> dict:
                 bound=bnd, bound_before=bnd_b, regs=regs)
 
 
-def check_photon_kernels(pre_calls, step_calls) -> list:
-    """density_flash at both of the path's shapes (the step's caustic
-    gather, the first radiance-map precompute gather: `check_density`), and
-    nearest_flash at the step's first final-gather lookup: the culled
-    search on the path's sorted pack against the brute-force kernel on the
-    same photons in their original order, on every query (found and best
-    d2 equal, values rtol 1e-5), each kernel against its plain version on
-    the first PLAIN_QUERIES queries."""
-    caustic = next(a for name, a in step_calls if name == "density_auto")
-    nearest = next(a for name, a in step_calls if name == "nearest_flash")
-    radiance = next(a for name, a in pre_calls if name == "density_auto")
-    diffuse_photons, caustic_photons = (
-        a for name, a in pre_calls if name == "make_photon_pack_auto")
-    photons = next(a for name, a in pre_calls
-                   if name == "make_photon_pack_lookup")
-    out = {what: check_density(what, args, raw) for what, args, raw in (
-        ("caustic", caustic, caustic_photons),
-        ("radiance", radiance, diffuse_photons))}
-
+def check_nearest(nearest, photons, label: str = "") -> dict:
+    """nearest_flash at a step's final-gather lookup (`nearest`, its
+    recorded arguments): the culled search on the path's sorted pack
+    against the brute-force kernel on the same photons in their original
+    order (`photons`, the radiance pack's recorded arguments), on every
+    query (found and best d2 equal, values rtol 1e-5), each kernel against
+    its plain version on the first PLAIN_QUERIES queries."""
     pack, qp, r = nearest
     if "tbl" not in pack:
         raise AssertionError("nearest_flash: the path's radiance pack is "
@@ -1146,7 +1147,9 @@ def check_photon_kernels(pre_calls, step_calls) -> list:
     pairs_b = nq * valid_photons(flash)
     bnd_b = bound(NEAREST_OPS * pairs_b,
                   nbytes(flash["pos_t"], flash["val"], qp) + 4 * nq + 16 * nq)
-    phase("kernel", name="nearest_flash", queries=nq,
+    phase("kernel", name="nearest_flash",
+          **({"gather": label} if label else {}),
+          queries=nq,
           photons=pack["tbl"].shape[1], clusters=pack["cl_lo"].shape[0],
           radius=r, compared_queries=n, found=int(kfound.sum()),
           differ=differ_p, differ_vs_brute=differ_b, max_abs_err=err,
@@ -1160,6 +1163,32 @@ def check_photon_kernels(pre_calls, step_calls) -> list:
           plain=f"one eager call on the first {n} queries",
           bound_ms_before=bnd_b["bound_ms"], pair_tests_before=pairs_b,
           clusters_per_query=round(pairs / pf.BP / nq, 3), **bnd)
+    return dict(err=err, ms=ms_n, plain_ms=plain_ms["culled"],
+                plain_queries=n, ms_on_plain_queries=ms_n_sub,
+                ms_brute=ms_brute, bound_brute=bnd_b,
+                pair_tests_brute=pairs_b, bound=bnd)
+
+
+def check_photon_kernels(pre_calls, step_calls) -> list:
+    """density_flash at both of the path's shapes (the step's caustic
+    gather, the first radiance-map precompute gather: `check_density`), and
+    nearest_flash at the step's first final-gather lookup: the culled
+    search on the path's sorted pack against the brute-force kernel on the
+    same photons in their original order, on every query (found and best
+    d2 equal, values rtol 1e-5), each kernel against its plain version on
+    the first PLAIN_QUERIES queries."""
+    caustic = next(a for name, a in step_calls if name == "density_auto")
+    nearest = next(a for name, a in step_calls if name == "nearest_flash")
+    radiance = next(a for name, a in pre_calls if name == "density_auto")
+    diffuse_photons, caustic_photons = (
+        a for name, a in pre_calls if name == "make_photon_pack_auto")
+    photons = next(a for name, a in pre_calls
+                   if name == "make_photon_pack_lookup")
+    out = {what: check_density(what, args, raw) for what, args, raw in (
+        ("caustic", caustic, caustic_photons),
+        ("radiance", radiance, diffuse_photons))}
+
+    nr = check_nearest(nearest, photons)
     c, rd = out["caustic"], out["radiance"]
     return [
         dict(name="density_flash", route="cuda",
@@ -1174,10 +1203,12 @@ def check_photon_kernels(pre_calls, step_calls) -> list:
              **c["regs"], **c["bound"]),
         dict(name="nearest_flash", route="cuda",
              source=SRC.format("photon_flash"), replaces=FLASH.format(123),
-             max_abs_err=err, ms=ms_n, plain_ms=plain_ms["culled"],
-             plain_queries=n, ms_on_plain_queries=ms_n_sub,
-             ms_brute=ms_brute, bound_ms_brute=bnd_b["bound_ms"],
-             pair_tests_brute=pairs_b, **bnd),
+             max_abs_err=nr["err"], ms=nr["ms"], plain_ms=nr["plain_ms"],
+             plain_queries=nr["plain_queries"],
+             ms_on_plain_queries=nr["ms_on_plain_queries"],
+             ms_brute=nr["ms_brute"],
+             bound_ms_brute=nr["bound_brute"]["bound_ms"],
+             pair_tests_brute=nr["pair_tests_brute"], **nr["bound"]),
     ]
 
 
@@ -1290,21 +1321,21 @@ def check_culled_kernel(what: str, args, nearest: bool) -> dict:
                 bound_before=before, regs=regs, per_tile=per_tile)
 
 
-def photon_launch_counts(cfg, maps_info) -> dict:
+def photon_launch_counts(cfg, maps_info, pair=TINY, n_nee: int = 1) -> dict:
     """Launches a timed photon render makes (its warm-up step included):
     per step fg_samples nearest lookups, one caustic density, raydepth + 1
-    + fg_samples closest hits and one NEE shadow batch per light; at
-    preprocess one density per 65,536 radiance queries and one closest
-    hit per bounce slot of every photon pass."""
+    + fg_samples closest hits and one NEE shadow batch per light (n_nee
+    lights that cast shadows); at preprocess one density per 65,536
+    radiance queries and one closest hit per bounce slot of every photon
+    pass.  pair: the scene's (closest hit, shadow sum) kernels."""
     steps = cfg.aa_samples + 1
     passes = sum(maps_info[m]["passes"] for m in ("diffuse", "caustic"))
-    return dict(
-        density_flash=steps + -(-maps_info["radiance"]["queries"]
-                                // photonmap.RADIANCE_QUERIES),
-        nearest_flash=steps * cfg.fg_samples,
-        closest_hit_tiny=steps * (cfg.raydepth + 1 + cfg.fg_samples)
-        + passes * (cfg.photon_bounces + 1),
-        shadow_logsum_tiny=steps)
+    return {"density_flash": steps + -(-maps_info["radiance"]["queries"]
+                                       // photonmap.RADIANCE_QUERIES),
+            "nearest_flash": steps * cfg.fg_samples,
+            pair[0]: steps * (cfg.raydepth + 1 + cfg.fg_samples)
+            + passes * (cfg.photon_bounces + 1),
+            pair[1]: steps * n_nee}
 
 
 def photon_path(smi) -> dict:
@@ -2789,22 +2820,23 @@ def slice16_phases(smi, kernels: list) -> None:
 # ---- slice 17: BDPT and the DebugIntegrator ---------------------------------
 
 
-def bdpt_step_launches(cfg) -> dict:
-    """The two tiny kernels' launches in one BDPT step on a scene whose
-    lights all start light subpaths (veach.make_bdpt_step's loops): a
-    closest hit per eye vertex (T = min(raydepth, 6)) and per light walk
-    vertex (S - 1, S = T); a shadow batch per s=1 strategy (t = 2 ..
-    min(T + 1, raydepth + 1)), per inner (s, t) with s, t >= 2 and s + t
-    <= raydepth + 2, and per t=1 strategy (s = 2 .. min(S, raydepth + 1));
-    the eye-only NEE adds none where every light has flux."""
+def bdpt_step_launches(cfg, pair=TINY, eye_only: int = 0) -> dict:
+    """The (closest hit, shadow sum) kernels' launches in one BDPT step
+    (veach.make_bdpt_step's loops): a closest hit per eye vertex (T =
+    min(raydepth, 6)) and per light walk vertex (S - 1, S = T); a shadow
+    batch per s=1 strategy (t = 2 .. min(T + 1, raydepth + 1)), per inner
+    (s, t) with s, t >= 2 and s + t <= raydepth + 2, and per t=1 strategy
+    (s = 2 .. min(S, raydepth + 1)); and for each of the eye_only lights
+    that cast shadows (outside the strategy set: sun, directional, IES,
+    zero flux) one per s=1 vertex of its weight-1 NEE."""
     t_max = s_max = max(1, min(cfg.raydepth, 6))
     cap = cfg.raydepth + 2
     s1 = len(range(2, min(t_max + 1, cap - 1) + 1))
     inner = sum(len(range(2, min(t_max + 1, cap - s) + 1))
                 for s in range(2, s_max + 1))
     t1 = len(range(2, min(s_max, cap - 1) + 1))
-    return {"closest_hit_tiny": t_max + s_max - 1,
-            "shadow_logsum_tiny": s1 + inner + t1}
+    return {pair[0]: t_max + s_max - 1,
+            pair[1]: s1 + inner + t1 + eye_only * s1}
 
 
 def bdpt_step(cs, cfg):
@@ -2949,25 +2981,24 @@ def bidir_card_vs_cpu() -> None:
         raise AssertionError("bidir_card_vs_cpu: card and CPU disagree")
 
 
-def bidir_cli(smi, out_dir: str) -> None:
-    """cornell_bidir.xml through the port's CLI at 64² with --json-stats,
-    its samples cut to 16 a pixel in a copy of the scene (the CLI has no
-    samples option; a BDPT step is host-paced at ~0.4 s at any size): the
-    .exr read back equal to the image of the render_scene call the CLI
-    made (recorded), and the --json-stats rays to its rays."""
+def cli_copy(tag: str, path: str, spp_from: int, size: int, spp: int,
+             smi, out_dir: str) -> None:
+    """A scene of the repository through the port's CLI at size² with
+    --json-stats, its samples cut from spp_from to spp a pixel in a copy
+    of the scene (the CLI has no samples option): the .exr read back equal
+    to the image of the render_scene call the CLI made (recorded), and the
+    --json-stats rays to its rays."""
     from libyafaray_tpu_torch.scene import session
 
-    size = BIDIR_SMALL["cli_size"]
-    xml = os.path.join(out_dir, "cornell_bidir_cli.xml")
-    with open(BIDIR) as f:
+    xml = os.path.join(out_dir, f"{tag}.xml")
+    with open(path) as f:
         text = f.read()
-    spp = '<AA_minsamples ival="{}"/>'
-    if spp.format(64) not in text:
-        raise AssertionError("cornell_bidir.xml: no AA_minsamples 64")
+    key = '<AA_minsamples ival="{}"/>'
+    if key.format(spp_from) not in text:
+        raise AssertionError(f"{path}: no AA_minsamples {spp_from}")
     with open(xml, "w") as f:
-        f.write(text.replace(spp.format(64),
-                             spp.format(BIDIR_SMALL["cli_spp"])))
-    out = os.path.join(out_dir, "bidir.exr")
+        f.write(text.replace(key.format(spp_from), key.format(spp)))
+    out = os.path.join(out_dir, f"{tag}.exr")
     real, results = session.render_scene, []
 
     def recorded(*args, **kwargs):
@@ -2987,18 +3018,26 @@ def bidir_cli(smi, out_dir: str) -> None:
     img = read_exr(out)
     res = results[0]
     rmse = float(np.sqrt(np.mean((img - res.image) ** 2)))
-    phase("bidir_cli", rc=rc, output=os.path.basename(out), shape=img.shape,
-          spp=res.cfg.aa_samples, wall_s=round(stats["wall_s"], 4),
+    phase(tag, rc=rc, output=os.path.basename(out), shape=img.shape,
+          integrator=res.cfg.integrator, spp=res.cfg.aa_samples,
+          wall_s=round(stats["wall_s"], 4),
           render_s=round(stats["render_s"], 4), rays=stats["rays"],
           rays_render_scene=res.stats["rays"],
           mrays_per_s=round(stats["mrays_per_sec"], 3), rmse_vs_path=rmse,
           bound=1e-4, gpu=repr(smi))
     if rc != 0 or len(results) != 1 or img.shape != (size, size, 3):
-        raise AssertionError("bidir_cli: no image of the path's shape")
+        raise AssertionError(f"{tag}: no image of the path's shape")
     if not (np.all(np.isfinite(img)) and stats["rays"] == res.stats["rays"]
-            and rmse <= 1e-4 and res.cfg.integrator == "bidirectional"):
-        raise AssertionError("bidir_cli: the CLI's output disagrees with "
-                             "its render")
+            and rmse <= 1e-4 and res.cfg.aa_samples == spp):
+        raise AssertionError(f"{tag}: the CLI's output disagrees with its "
+                             "render")
+
+
+def bidir_cli(smi, out_dir: str) -> None:
+    """cornell_bidir.xml through the port's CLI at 64², 16 spp (a BDPT
+    step is host-paced at ~0.4 s at any size)."""
+    cli_copy("bidir_cli", BIDIR, 64, BIDIR_SMALL["cli_size"],
+             BIDIR_SMALL["cli_spp"], smi, out_dir)
 
 
 def debug_path(smi) -> dict:
@@ -3057,11 +3096,526 @@ def slice17_phases(smi, out_dir: str, kernels: list) -> None:
             "closest_hit_tiny"]
 
 
+# ---- slice 18: every light type on scenes/cornell_lights.xml -------------
+
+
+LT_NAMES = {lightmod.LT_POINT: "point", lightmod.LT_AREA: "area",
+            lightmod.LT_SPHERE: "sphere", lightmod.LT_SPOT: "spot",
+            lightmod.LT_SUN: "sun", lightmod.LT_DIRECTIONAL: "directional",
+            lightmod.LT_MESH: "mesh", lightmod.LT_BACKGROUND: "ibl",
+            lightmod.LT_IES: "ies", lightmod.LT_PORTAL: "portal"}
+
+
+def nee_lights(static) -> int:
+    """Lights whose NEE traces a shadow batch at every path vertex."""
+    return sum(ls.enabled and not ls.photon_only and ls.cast_shadows
+               for ls in static.lights)
+
+
+def lights_scene() -> tuple:
+    """cornell_lights.xml compiled for the card: 352 triangles, both packs
+    on the dense route, the IES light's profile equal to parse_ies of its
+    file (not the isotropic fallback), the meshlight enabled on mesh 4's 2
+    triangles.  Returns (scene, config, compiled scene)."""
+    t0 = time.perf_counter()
+    scene = scene_at(LIGHTS)
+    cfg = build_config(scene)
+    cs = scene.compile(device="cuda")
+    a, st = cs.arrays, cs.static
+    routes = (isect.route(a["tri_pack10"], a["tri_cluster8"],
+                          st.n_tris_real),
+              isect.route(a["stri_pack10"], a["stri_cluster8"],
+                          st.n_stris_real))
+    ies_keys = [k for k in a if k.startswith("ies_")]
+    ies_equal = bool(ies_keys) and all(
+        np.array_equal(a[k], parse_ies(LIGHTS_IES)) for k in ies_keys)
+    mesh = [ls for ls in st.lights if ls.ltype == lightmod.LT_MESH]
+    phase("lights_scene", tris=st.n_tris_real, routes=routes,
+          lights=[LT_NAMES[ls.ltype] for ls in st.lights],
+          nee_samples=[ls.samples for ls in st.lights],
+          ies=f"{LIGHTS_IES} {a[ies_keys[0]].shape if ies_keys else None}",
+          ies_equal_parse=ies_equal,
+          meshlight=[(ls.enabled, ls.tri_start, ls.tri_count)
+                     for ls in mesh],
+          integrator=cfg.integrator, bounces=cfg.bounces,
+          size=f"{cfg.width}x{cfg.height}", spp=cfg.aa_samples,
+          compile_s=round(time.perf_counter() - t0, 3))
+    if routes != ("dense", "dense") or st.n_tris_real != 352:
+        raise AssertionError(f"lights_scene: {st.n_tris_real} triangles "
+                             f"routed {routes}")
+    if not ies_equal or len(mesh) != 1 or not mesh[0].enabled \
+            or mesh[0].tri_count != 2:
+        raise AssertionError("lights_scene: the IES profile or the "
+                             "meshlight did not load")
+    return scene, cfg, cs
+
+
+def lights_kernels(cs, cfg) -> dict:
+    """The dense kernels against their plain versions on one 512² step's
+    recorded calls: the primary rays, and the bounce-0 NEE batches of the
+    point light (finite segments) and of the sun (segments of 1e8)."""
+    _, _, calls = step_calls(cs, cfg, cx, DENSE)
+    types = [ls.ltype for ls in cs.static.lights]
+    shadow = calls[DENSE[1]]
+    point = shadow[types.index(lightmod.LT_POINT)]
+    sun = shadow[types.index(lightmod.LT_SUN)]
+    if not float(sun[6].max()) == 1e8 or float(point[6].max()) >= 1e8:
+        raise AssertionError("lights_kernels: the recorded NEE batches are "
+                             "not the point light's and the sun's")
+    out = dict(closest=check_mid_closest("dense", calls[DENSE[0]][0],
+                                         "lights primary"),
+               point=check_mid_shadow("dense", point,
+                                      "lights bounce-0 NEE point"),
+               sun=check_mid_shadow("dense", sun,
+                                    "lights bounce-0 NEE sun (1e8)"))
+    del calls, shadow
+    return out
+
+
+def lights_path(smi, cs, cfg) -> dict:
+    """cornell_lights.xml at its own settings (pathtracing, bounces 4,
+    512², 64 spp) through render_scene(timed=True), counted: per step a
+    closest hit per vertex and a shadow batch per vertex and light, the
+    warm-up step included, nothing else; one profiled step."""
+    scene = scene_at(LIGHTS)
+    res, launches = entry_counted(scene, DENSE)
+    verts = cfg.bounces + 1
+    per_step = {DENSE[0]: verts, DENSE[1]: verts * nee_lights(cs.static)}
+    steps = cfg.aa_samples + 1
+    path_line("lights_path", res, cfg, launches,
+              {k: v * steps for k, v in per_step.items()}, smi,
+              spp=cfg.aa_samples, bounces=cfg.bounces,
+              launches_per_step=per_step,
+              step_ms=round(1e3 * res.stats["render_s"] / cfg.aa_samples,
+                            3))
+    profile("lights_profile", res, *path_step(cs, cfg), cfg,
+            ("closest_dense_kernel", "shadow_dense_kernel"), smi)
+    return launches
+
+
+def lights_bidir(smi) -> dict:
+    """The scene as bidirectional at 512², 16 spp through
+    render_scene(timed=True), counted: bdpt_step_launches a step (the
+    sun, directional and IES lights through the eye-side NEE)."""
+    scene = scene_at(LIGHTS, dict(AA_minsamples=LIGHTS_BIDIR_SPP),
+                     dict(type="bidirectional"))
+    cfg = build_config(scene)
+    st = scene.compile(device="cuda").static
+    eye = sum(ls.enabled and ls.cast_shadows
+              and ls.ltype not in veach._BD_LIGHT_TYPES
+              for ls in st.lights)
+    res, launches = entry_counted(scene, DENSE)
+    per_step = bdpt_step_launches(cfg, DENSE, eye_only=eye)
+    steps = cfg.aa_samples * cfg.aa_passes
+    dens = res.film["density"]
+    path_line("lights_bidir", res, cfg, launches,
+              {k: v * (steps + 1) for k, v in per_step.items()}, smi,
+              spp=cfg.aa_samples, raydepth=cfg.raydepth,
+              launches_per_step=per_step, eye_only_lights=eye,
+              step_ms=round(1e3 * res.stats["render_s"] / steps, 3),
+              density_mean=float(dens.mean()),
+              density_max=float(dens.max()))
+    if not float(dens.mean()) > 0.0:
+        raise AssertionError("lights_bidir: the t=1 splats left no density")
+    return launches
+
+
+def photons_by_light(cs, cfg, info, device="cuda") -> dict:
+    """The stored photons of each map by the type of the light that
+    emitted them: each map's passes shot again as build_photon_maps shoots
+    them (lanes, seeds 1000 + p and 9000 + p), each lane's light picked
+    again from the power CDF as make_photon_pass picks it.  The totals
+    must equal the render's stored counts."""
+    from libyafaray_tpu_torch.integrators.photon_shoot import \
+        make_photon_pass
+
+    arrays = to_tensors(cs.arrays, device)
+    cdf, _ = photonmap._light_cdf(cs.static, cs.arrays["lights"])
+    cdf = np.asarray(cdf, np.float32)
+    out = {}
+    for m, seed0 in (("diffuse", 1000), ("caustic", 9000)):
+        lanes, passes = info[m]["lanes"], info[m]["passes"]
+        shoot = make_photon_pass(cs.static, cfg, lanes, cfg.photon_bounces,
+                                 m)
+        counts = {}
+        for p in range(passes):
+            rec = shoot(arrays, cdf, seed0 + p)
+            lane = torch.arange(lanes, dtype=torch.int32, device=device)
+            skey = qmc.hash_combine(lane, qmc.word_like(lane, seed0 + p))
+            u = qmc.sample_dim(torch.zeros_like(lane), 0, skey)
+            pick = torch.zeros_like(lane)
+            for li in range(len(cs.static.lights)):
+                pick = torch.where(u >= float(cdf[li]), li, pick)
+            stored = rec["valid"].reshape(-1, lanes).sum(dim=0)
+            for li, ls in enumerate(cs.static.lights):
+                name = LT_NAMES[ls.ltype]
+                counts[name] = counts.get(name, 0) + int(
+                    stored[pick == li].sum())
+        if sum(counts.values()) != info[m]["stored"]:
+            raise AssertionError(f"photons_by_light ({m}): {counts} do not "
+                                 f"add up to {info[m]['stored']}")
+        out[m] = counts
+    return out
+
+
+def lights_photon(smi) -> tuple:
+    """The scene as photonmapping at 512², 16 spp, 200,000 + 100,000
+    photons, final gather 16, through render_scene(timed=True), counted
+    (photon_launch_counts on the dense kernels); the stored photons by
+    light type (the meshlight's flux enters the power CDF, its photons
+    leave with none, as the reference's do; sun, directional and IES emit
+    none); the gathers against their plain versions at this variant's
+    shapes (the radiance precompute's first density gather, the step's
+    first final-gather lookup; its caustic map is empty: no specular
+    surface).  Returns (launches, density check, nearest check)."""
+    scene = scene_at(LIGHTS, dict(AA_minsamples=LIGHTS_PHOTON_SPP),
+                     LIGHTS_PHOTON)
+    cfg = build_config(scene)
+    cs = scene.compile(device="cuda")
+    names = DENSE + ("density_flash", "nearest_flash")
+    res, launches = entry_counted(scene, names)
+    info = res.stats["photon_maps"]
+    by_light = photons_by_light(cs, cfg, info)
+    want = photon_launch_counts(cfg, info, DENSE, nee_lights(cs.static))
+    path_line("lights_photon", res, cfg, launches, want, smi,
+              spp=cfg.aa_samples, photons=cfg.photons,
+              caustic_photons=cfg.caustic_photons,
+              fg_samples=cfg.fg_samples,
+              preprocess_s=round(res.stats["preprocess_s"], 4),
+              stored={m: info[m]["stored"] for m in ("diffuse", "caustic")},
+              stored_by_light=by_light)
+    d = by_light["diffuse"]
+    if not (d["point"] and d["spot"] and d["sphere"]) or any(
+            d[k] for k in ("mesh", "sun", "directional", "ies")):
+        raise AssertionError(f"lights_photon: stores by light {d}")
+    _, _, pre, step = photon_inputs(cs, cfg)
+    radiance = next(a for n, a in pre if n == "density_auto")
+    diffuse = next(a for n, a in pre if n == "make_photon_pack_auto")
+    photons = next(a for n, a in pre if n == "make_photon_pack_lookup")
+    nearest = next(a for n, a in step if n == "nearest_flash")
+    dens = check_density("lights radiance", radiance, diffuse)
+    near = check_nearest(nearest, photons, "lights final gather")
+    return launches, dens, near
+
+
+def entry_vs_cpu(what, make, bound_img, **kw) -> None:
+    """make() -> a fresh scene, rendered through render_scene on the card
+    and on the CPU: image RMSE <= bound_img, rays within rays_rel (default
+    1e-4), the density layer RMSE <= density (where given), the photon
+    maps' stored counts within stored_rel (where given)."""
+    g = render_scene(make(), device="cuda")
+    c = render_scene(make(), device="cpu")
+    rmse = float(np.sqrt(np.mean((g.image - c.image) ** 2)))
+    rel = abs(g.stats["rays"] - c.stats["rays"]) / max(c.stats["rays"], 1.0)
+    extra, ok = {}, rmse <= bound_img and rel <= kw.get("rays_rel", 1e-4)
+    if "density" in kw:
+        dg, dc = g.film["density"].cpu().numpy(), c.film["density"].numpy()
+        extra["density_rmse"] = float(np.sqrt(np.mean((dg - dc) ** 2)))
+        extra["density_bound"] = kw["density"]
+        ok = ok and extra["density_rmse"] <= kw["density"]
+    if "stored_rel" in kw:
+        for m in ("diffuse", "caustic"):
+            a = g.stats["photon_maps"][m]["stored"]
+            b = c.stats["photon_maps"][m]["stored"]
+            extra[f"stored_{m}"] = f"{a}/{b}"
+            ok = ok and abs(a - b) <= kw["stored_rel"] * max(b, 1)
+    phase("lights_card_vs_cpu", scene=what,
+          size=f"{g.cfg.width}x{g.cfg.height}",
+          integrator=g.cfg.integrator, spp=g.cfg.aa_samples, rmse=rmse,
+          bound=bound_img, rays_gpu=g.stats["rays"],
+          rays_cpu=c.stats["rays"], rays_rel=rel, **extra)
+    if not ok:
+        raise AssertionError(f"lights_card_vs_cpu ({what}, "
+                             f"{g.cfg.integrator}): card and CPU disagree")
+
+
+def quad_mesh(s, mesh_id, corners, mat, tris=((0, 1, 2), (0, 2, 3))):
+    s.start_tri_mesh(mesh_id, has_uv=False, visibility="normal")
+    for p in corners:
+        s.add_vertex(*(float(x) for x in p))
+    for a, b, c in tris:
+        s.add_triangle(a, b, c, mat)
+    s.end_tri_mesh()
+
+
+def flat_scene(s, integrator, res, spp, cam, **integ):
+    """Camera, integrator and render block of a scene built through the
+    flat API (the reference tests' scenes)."""
+    s.create_camera("cam", ParamMap(dict(type="perspective", resx=res,
+                                         resy=res, **cam)))
+    s.create_integrator("default", ParamMap(dict(type=integrator, **integ)))
+    s.render_params = ParamMap({"width": res, "height": res,
+                                "AA_minsamples": spp,
+                                "integrator_name": "default",
+                                "camera_name": "cam"})
+    return s
+
+
+def portal_room(res, spp):
+    """The reference's bgPortalLight room: an open-top box lit by a
+    constant background through a portal over its top, directlighting."""
+    s = Scene()
+    white = s.create_material("white", ParamMap(
+        type="shinydiffusemat", color=(0.7, 0.7, 0.7)))
+    hole = s.create_material("hole", ParamMap(type="null"))
+    s.create_background("bg", ParamMap(type="constant",
+                                       color=(2.0, 2.0, 2.0)))
+    quad_mesh(s, 1, ((-1, -1, 0), (1, -1, 0), (1, 1, 0), (-1, 1, 0),
+                     (-1, -1, 2), (1, -1, 2), (1, 1, 2), (-1, 1, 2)), white,
+              tris=[t for a, b, c, d in ((0, 1, 2, 3), (0, 1, 5, 4),
+                                         (1, 2, 6, 5), (2, 3, 7, 6),
+                                         (3, 0, 4, 7))
+                    for t in ((a, b, c), (a, c, d))])
+    quad_mesh(s, 2, ((-1, -1, 2), (1, -1, 2), (1, 1, 2), (-1, 1, 2)), hole,
+              tris=((0, 2, 1), (0, 3, 2)))
+    s.create_light("P", ParamMap(type="bgPortalLight", object_name="2",
+                                 samples=8))
+    return flat_scene(s, "directlighting", res, spp, {
+        "from": (0.0, -0.8, 1.0), "to": (0.0, 0.5, 0.6),
+        "up": (0.0, -0.8, 2.0), "focal": 0.8}, raydepth=1)
+
+
+def lights_card_vs_cpu() -> None:
+    """The card against the CPU within PERF.md §2's bounds: the scene as
+    pathtracing and directlighting at 64², 4 spp, BDPT at 32², 4 spp,
+    photonmapping at 32², 2 spp with 16,384 photons, SPPM at 32², 2
+    passes, and the portal room at 64², 4 spp."""
+    small = dict(width=64, height=64, AA_minsamples=4)
+    tiny = dict(width=32, height=32, AA_minsamples=4)
+    for integ in ("pathtracing", "directlighting"):
+        entry_vs_cpu("cornell_lights", lambda: scene_at(
+            LIGHTS, small, dict(type=integ)), 1e-4)
+    entry_vs_cpu("cornell_lights", lambda: scene_at(
+        LIGHTS, tiny, dict(type="bidirectional")), 1e-4, density=1e-5)
+    entry_vs_cpu("cornell_lights", lambda: scene_at(
+        LIGHTS, dict(tiny, AA_minsamples=2), dict(
+            type="photonmapping", photons=16_384, cPhotons=8192,
+            fg_samples=4)), 1e-3, rays_rel=1e-3, stored_rel=1e-3)
+    entry_vs_cpu("cornell_lights", lambda: scene_at(
+        LIGHTS, dict(tiny, AA_minsamples=1), dict(
+            type="SPPM", photons=16_384, passNums=2)), 1e-3, rays_rel=1e-3,
+        density=1e-3)
+    entry_vs_cpu("portal_room", lambda: portal_room(64, 4), 1e-4)
+
+
+def box_light(kind: str, res: int):
+    """A floor under an arealight or an equal double-sided meshlight
+    quad, directlighting raydepth 2, 16 spp (the reference's
+    test_meshlight_matches_arealight)."""
+    s = Scene()
+    white = s.create_material("white", ParamMap(
+        type="shinydiffusemat", color=(0.7, 0.7, 0.7)))
+    s.create_background("bg", ParamMap(type="constant", color=(0, 0, 0)))
+    quad_mesh(s, 1, ((-2, -2, 0), (2, -2, 0), (2, 2, 0), (-2, 2, 0)), white)
+    c = np.array([-0.5, -0.5, 2.0])
+    e1, e2 = np.array([1.0, 0.0, 0.0]), np.array([0.0, 1.0, 0.0])
+    if kind == "area":
+        s.create_light("L", ParamMap(
+            type="arealight", corner=tuple(c), point1=tuple(c + e2),
+            point2=tuple(c + e1), color=(1.0, 1.0, 1.0), power=10.0,
+            samples=8))
+    else:
+        quad_mesh(s, 2, (c, c + e2, c + e1 + e2, c + e1), white)
+        s.create_light("L", ParamMap(
+            type="meshlight", object_name="2", color=(1.0, 1.0, 1.0),
+            power=10.0, samples=8, double_sided=True))
+    return flat_scene(s, "directlighting", res, 16, {
+        "from": (0.0, -5.0, 1.0), "to": (0.0, 0.0, 0.5),
+        "up": (0.0, -5.0, 2.0), "focal": 1.2}, raydepth=2)
+
+
+def sphere_light(integrator: str, res: int):
+    s = Scene()
+    floor = s.create_material("floor", ParamMap(
+        type="shinydiffusemat", color=(0.8, 0.8, 0.8), diffuse_reflect=0.9))
+    s.create_light("L", ParamMap(type="spherelight", radius=0.7, power=30.0,
+                                 color=(1.0, 1.0, 1.0), samples=8,
+                                 **{"from": (0.0, 0.0, 2.0)}))
+    quad_mesh(s, 1, ((-4, -4, 0), (4, -4, 0), (4, 4, 0), (-4, 4, 0)), floor)
+    return flat_scene(s, integrator, res, 24, {
+        "from": (0.0, -6.0, 3.0), "to": (0.0, 0.0, 0.5),
+        "up": (0.0, -6.0, 4.0), "focal": 1.2}, raydepth=2, bounces=2)
+
+
+def veach_box(integrator: str, lights, res: int, spp: int):
+    """tests/test_veach.py's box: a floor and a back wall, bounces 3,
+    raydepth 4."""
+    s = Scene()
+    white = s.create_material("white", ParamMap(
+        type="shinydiffusemat", color=(0.7, 0.7, 0.7)))
+    for name, params in lights:
+        s.create_light(name, ParamMap(params))
+    quad_mesh(s, 1, ((-2, -2, 0), (2, -2, 0), (2, 2, 0), (-2, 2, 0),
+                     (-2, 2, 0), (2, 2, 0), (2, 2, 3), (-2, 2, 3)), white,
+              tris=((0, 1, 2), (0, 2, 3), (4, 5, 6), (4, 6, 7)))
+    return flat_scene(s, integrator, res, spp, {
+        "from": (0.0, -5.0, 1.2), "to": (0.0, 0.0, 0.9),
+        "up": (0.0, -5.0, 2.2), "focal": 1.4}, bounces=3, raydepth=4)
+
+
+def spot_floor(soft: bool, res: int):
+    s = Scene()
+    floor = s.create_material("floor", ParamMap(
+        type="shinydiffusemat", color=(1.0, 1.0, 1.0)))
+    blk = s.create_material("blk", ParamMap(
+        type="shinydiffusemat", color=(0.0, 0.0, 0.0)))
+    p = {"type": "spotlight", "from": (0.0, 0.0, 4.0), "to": (0.0, 0.0, 0.0),
+         "cone_angle": 60.0, "power": 40.0, "color": (1.0, 1.0, 1.0)}
+    if soft:
+        p.update(soft_shadows=True, shadowFuzzyness=0.4, samples=16)
+    s.create_light("L", ParamMap(p))
+    s.start_tri_mesh(1, has_uv=False, visibility="normal")
+    for v in ((-3, -3, 0), (3, -3, 0), (3, 3, 0), (-3, 3, 0), (0, -3, 2),
+              (0, 3, 2), (1.5, -3, 2), (1.5, 3, 2)):
+        s.add_vertex(*(float(x) for x in v))
+    for a, b, c, m in ((0, 1, 2, floor), (0, 2, 3, floor), (4, 6, 7, blk),
+                       (4, 7, 5, blk)):  # the floor, a black blocker
+        s.add_triangle(a, b, c, m)
+    s.end_tri_mesh()
+    return flat_scene(s, "directlighting", res, 4, {
+        "from": (0.0, 0.0, 6.0), "to": (0.0, 0.001, 0.0),
+        "up": (0.0, 1.0, 6.0), "focal": 1.0}, raydepth=1)
+
+
+def lights_physics(smi) -> None:
+    """The reference's light physics on the card at 128² (its tests'
+    bounds): meshlight vs arealight floor (mean abs difference < 0.15 ×
+    the mean), sphere light pathtracing vs directlighting (means within
+    10%, the sphere seen), BDPT vs pathtracing with a point light (6%),
+    sun and directional under BDPT (lit, 8%), the spot's soft_shadows
+    widening its penumbra: by more than 0.01 of the image width at 128²,
+    and by the reference's own measure at its 48² (the share of pixels
+    between lit and shadowed, + 0.01)."""
+    r = LIGHTS_PHYSICS_RES
+    k = r // 32  # the reference tests' 32² windows, scaled
+
+    def img(s):
+        return render_scene(s, device="cuda").image
+
+    fa = img(box_light("area", r))[20 * k:]
+    fm = img(box_light("mesh", r))[20 * k:]
+    mesh_rel = float(np.abs(fa - fm).mean() / fa.mean())
+    ip, idl = img(sphere_light("pathtracing", r)), img(
+        sphere_light("directlighting", r))
+    sphere_rel = abs(float(ip.mean()) - float(idl.mean())) / float(
+        idl.mean())
+    seen = bool(ip[2 * k:12 * k, 10 * k:22 * k].max() > ip[20 * k:].max())
+    point = [("P", {"type": "pointlight", "from": (0.0, 0.0, 1.9),
+                    "power": 6.0, "color": (1.0, 1.0, 1.0)})]
+    mb, mp = (float(img(veach_box(i, point, r, 16)).mean())
+              for i in ("bidirectional", "pathtracing"))
+    sun = [("S", {"type": "sunlight", "direction": (0.3, 0.3, 1.0),
+                  "power": 2.0, "color": (1.0, 1.0, 1.0), "angle": 0.5}),
+           ("D", {"type": "directional", "direction": (-0.2, 0.1, 1.0),
+                  "power": 1.0, "color": (1.0, 0.9, 0.8)})]
+    sb, sp_ = (float(img(veach_box(i, sun, r, 4)).mean())
+               for i in ("bidirectional", "pathtracing"))
+
+    def edge_frac(im):
+        # the reference's measure: the share of pixels between lit and
+        # shadowed (its bound, 0.01, is set at its 48² size)
+        v = im[..., 0]
+        lit = np.percentile(v[v > 1e-4], 90)
+        return float(((v > 0.15 * lit) & (v < 0.7 * lit)).mean())
+
+    def edge_width(im):
+        # the penumbra's width on the lit side of the blocker's shadow
+        # edge (the image's centre column), over the middle rows: the
+        # pixels below 0.9 of the lit floor a quarter width away, as a
+        # share of the image width (independent of the resolution)
+        v = im[..., 0]
+        h, w = v.shape
+        rows = v[h // 3:2 * h // 3]
+        band = (rows[:, w // 4:w // 2] if rows[:, w // 4].mean()
+                > rows[:, 3 * w // 4].mean()
+                else rows[:, w // 2:3 * w // 4][:, ::-1])
+        return float((band < 0.9 * band[:, :1]).sum(axis=1).mean()) / w
+
+    hard, soft = (edge_width(img(spot_floor(f, r))) for f in (False, True))
+    hard48, soft48 = (edge_frac(img(spot_floor(f, 48)))
+                      for f in (False, True))
+    checks = dict(mesh_vs_area=(mesh_rel, 0.15),
+                  sphere_path_vs_direct=(sphere_rel, 0.1),
+                  bdpt_vs_path_point=(abs(mb - mp) / mp, 0.06),
+                  bdpt_vs_path_sun=(abs(sb - sp_) / sp_, 0.08))
+    phase("lights_physics", size=f"{r}x{r}",
+          **{k_: f"{v:.5f}<{b}" for k_, (v, b) in checks.items()},
+          sphere_seen=seen, sun_bdpt_mean=sb, penumbra_width_hard=hard,
+          penumbra_width_soft=soft, edge_frac_48_hard=hard48,
+          edge_frac_48_soft=soft48, gpu=repr(smi))
+    if not (all(v < b for v, b in checks.values()) and seen and sb > 1e-3
+            and soft > hard + 0.01 and soft48 > hard48 + 0.01):
+        raise AssertionError("lights_physics: a light's physics is off")
+
+
+def slice18_phases(smi, out_dir: str, kernels: list) -> None:
+    """Every light type on cornell_lights.xml: the scene, its dense
+    kernels against their plain versions on recorded rays, the path at its
+    own settings (and a profiled step), BDPT and photon mapping at full
+    width, the card against the CPU under all five integrators and the
+    portal room, the reference's light physics at 128², and the CLI.  The
+    dense and photon kernels' entries of `kernels` take `*_lights`."""
+    scene, cfg, cs = lights_scene()
+    chk = lights_kernels(cs, cfg)
+    path = lights_path(smi, cs, cfg)
+    bidir = lights_bidir(smi)
+    photon, dens, near = lights_photon(smi)
+    phase("lights_kernels", **{
+        what: (f"err={c['err']} ms={round(c['ms'], 4)} "
+               f"plain_ms={round(c['plain_ms'], 4)} "
+               f"bound_ms={round(c['bound']['bound_ms'], 5)}")
+        for what, c in (("closest_primary", chk["closest"]),
+                        ("shadow_point", chk["point"]),
+                        ("shadow_sun", chk["sun"]),
+                        ("density_radiance", dens),
+                        ("nearest_final_gather", near))},
+        tolerance="closest bit-equal; shadow atol 2e-3 and bit-equal; "
+                  "gathers counts equal, values rtol 1e-5")
+    lights_card_vs_cpu()
+    lights_physics(smi)
+    cli_copy("lights_cli", LIGHTS, 64, 64, 16, smi, out_dir)
+    by_name = {k["name"]: k for k in kernels}
+    updates = {
+        DENSE[0]: dict(launches_lights=path[DENSE[0]],
+                       launches_lights_bidir=bidir[DENSE[0]],
+                       launches_lights_photon=photon[DENSE[0]],
+                       ms_lights=chk["closest"]["ms"],
+                       plain_ms_lights=chk["closest"]["plain_ms"],
+                       bound_ms_lights=chk["closest"]["bound"]["bound_ms"],
+                       max_abs_err_lights=chk["closest"]["err"]),
+        DENSE[1]: dict(launches_lights=path[DENSE[1]],
+                       launches_lights_bidir=bidir[DENSE[1]],
+                       launches_lights_photon=photon[DENSE[1]],
+                       ms_lights_point=chk["point"]["ms"],
+                       plain_ms_lights_point=chk["point"]["plain_ms"],
+                       bound_ms_lights_point=chk["point"]["bound"][
+                           "bound_ms"],
+                       ms_lights_sun=chk["sun"]["ms"],
+                       plain_ms_lights_sun=chk["sun"]["plain_ms"],
+                       bound_ms_lights_sun=chk["sun"]["bound"]["bound_ms"],
+                       max_abs_err_lights=max(chk["point"]["err"],
+                                              chk["sun"]["err"])),
+        "density_flash": dict(launches_lights_photon=photon["density_flash"],
+                              ms_lights=dens["ms"],
+                              plain_ms_lights=dens["plain_ms"],
+                              bound_ms_lights=dens["bound"]["bound_ms"],
+                              max_abs_err_lights=dens["err"]),
+        "nearest_flash": dict(launches_lights_photon=photon["nearest_flash"],
+                              ms_lights=near["ms"],
+                              plain_ms_lights=near["plain_ms"],
+                              bound_ms_lights=near["bound"]["bound_ms"],
+                              max_abs_err_lights=near["err"]),
+    }
+    for name, kv in updates.items():
+        if name in by_name:  # absent on a run of --only slice18
+            by_name[name].update(kv)
+
+
 def main(argv=None) -> None:
     import argparse
 
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
-    ap.add_argument("--only", choices=("slice17",), default=None,
+    ap.add_argument("--only", choices=("slice17", "slice18"), default=None,
                     help="run only this slice's phases after the build (an "
                          "iteration run: it prints no result line)")
     only = ap.parse_args(argv).only
@@ -3096,11 +3650,12 @@ def main(argv=None) -> None:
                 if "registers" in line or "spill" in line:
                     print("  ptxas: " + line.strip(), flush=True)
 
-    if only == "slice17":
+    if only:
         with tempfile.TemporaryDirectory() as out_dir:
-            slice17_phases(smi, out_dir, [])
+            {"slice17": slice17_phases,
+             "slice18": slice18_phases}[only](smi, out_dir, [])
         print(smi, flush=True)
-        print("chip_smoke: --only slice17 ran; no result line", flush=True)
+        print(f"chip_smoke: --only {only} ran; no result line", flush=True)
         return
 
     # 3. kernels vs plain at the main path's shapes
@@ -3188,6 +3743,10 @@ def main(argv=None) -> None:
     # 16. slice 17: BDPT on cornell_bidir.xml and the DebugIntegrator
     with tempfile.TemporaryDirectory() as out_dir:
         slice17_phases(smi, out_dir, kernels)
+
+    # 17. slice 18: every light type on cornell_lights.xml
+    with tempfile.TemporaryDirectory() as out_dir:
+        slice18_phases(smi, out_dir, mid + photon)
 
     print(json.dumps({"kernels": kernels + fine + photon + mid + pairs}),
           flush=True)

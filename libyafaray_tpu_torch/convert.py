@@ -23,9 +23,10 @@ from .integrators.config import RenderConfig
 from .ops.cluster_intersect import quarter_boxes
 from .ops.fine_intersect import sub_aabbs
 from .scene.scene import (BACKGROUND_ARRAY_KEYS, FINE_ARRAY_KEYS,
-                          ORCO_ARRAY_KEY, QUARTER_ARRAY_KEYS,
-                          SLICE_ARRAY_KEYS, SPHERE_ARRAY_KEYS,
-                          TEXTURE_ARRAY_PREFIXES, LightStatic, SceneStatic)
+                          LIGHT_ARRAY_PREFIXES, ORCO_ARRAY_KEY,
+                          QUARTER_ARRAY_KEYS, SLICE_ARRAY_KEYS,
+                          SPHERE_ARRAY_KEYS, TEXTURE_ARRAY_PREFIXES,
+                          TRI_POS_KEY, LightStatic, SceneStatic)
 from .textures.nodes import NodeProgram, NodeSpec
 
 _DTYPES = {np.dtype(np.float32): torch.float32,
@@ -56,7 +57,8 @@ def to_tensors(arrays: dict, device) -> dict:
 def arrays_from_reference(arrays: dict, device) -> dict:
     """The reference's CompiledScene.arrays -> the port's scene tensors:
     the keys the port reads (with the sphere pack, the textures, the orco
-    pack and the background's map and IBL tables where the scene has
+    pack, the background's map and IBL tables, the meshlights' and
+    portals' CDFs with tri_pos, and the IES profiles where the scene has
     them), plus the sub-cluster and 32-column box tables the port builds
     once per scene (FINE_ARRAY_KEYS, QUARTER_ARRAY_KEYS) derived from the
     reference's packs, whose real width is the triangle count
@@ -74,7 +76,9 @@ def arrays_from_reference(arrays: dict, device) -> dict:
     keys = SLICE_ARRAY_KEYS + tuple(
         k for k in arrays
         if k in SPHERE_ARRAY_KEYS + BACKGROUND_ARRAY_KEYS + (ORCO_ARRAY_KEY,)
-        or k.startswith(TEXTURE_ARRAY_PREFIXES))
+        or k.startswith(TEXTURE_ARRAY_PREFIXES + LIGHT_ARRAY_PREFIXES))
+    if any(k.startswith("mlight_cdf_") for k in keys):
+        keys += (TRI_POS_KEY,)
     return to_tensors({**{k: arrays[k] for k in keys},
                        **dict.fromkeys(FINE_ARRAY_KEYS, sub8),
                        **dict.fromkeys(QUARTER_ARRAY_KEYS, box32)}, device)

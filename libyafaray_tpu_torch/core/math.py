@@ -16,6 +16,17 @@ def div(x: torch.Tensor, s: float) -> torch.Tensor:
     return x / torch.full((), float(s), dtype=x.dtype, device=x.device)
 
 
+def sqrt_rn(x: torch.Tensor) -> torch.Tensor:
+    """float32 square root rounded to nearest, as IEEE (and XLA, and the
+    card) computes it: torch's vectorised CPU kernel is only within ~0.5
+    ulp, which a cone's 1 - cos_max or a spot's falloff amplifies.  On the
+    CPU it goes through float64 (whose square root, rounded once more to
+    float32, is the correctly rounded float32 one)."""
+    if x.is_cuda:
+        return torch.sqrt(x)
+    return torch.sqrt(x.double()).float()
+
+
 def dot(a: torch.Tensor, b: torch.Tensor) -> torch.Tensor:
     """Batched 3-vector dot product -> (...,) scalar."""
     p = a * b

@@ -33,7 +33,12 @@ and bumps its normal (textures/eval.py), the mip LOD read from a ray cone
 at every non-specular scatter).  Blend and mask materials resolve through
 materials/blend.py.  Escaped rays see the background (a texture
 background's map); with an `ibl` background its light joins NEE
-(lights/bglight.py) and the escape is MIS-weighted against it.
+(lights/bglight.py) and the escape is MIS-weighted against it; with a
+portal light (and no IBL light) the background reaches non-specular
+vertices through the portal's NEE only.  Every light type of the
+reference is sampled (`sample_light`); BSDF hits on area and mesh lights
+are MIS-weighted with the area pdf, on sphere lights with the cone pdf of
+their sampler.
 
 Everything is SoA over the lanes; dead lanes are masked, exactly as in
 the reference, so the same QMC stream gives the same image.  The compact
@@ -65,6 +70,7 @@ from ..film.imagefilm import (clamp_sample, film_splat, film_splat_compact,
                               splat_plane, splat_plane_compact)
 from ..lights import base as lightmod
 from ..lights.bglight import pdf_bg_dir, sample_bg_light
+from ..lights.ies import apply_ies_profile
 from ..materials import blend as blendmod
 from ..materials import bsdf
 from ..materials.base import (MT_COATED_GLOSSY, MT_GLASS, MT_GLOSSY,
@@ -79,15 +85,13 @@ F32 = torch.float32
 
 PORTED_INTEGRATORS = ("directlighting", "pathtracing", "photonmapping",
                       "SPPM", "bidirectional", "DebugIntegrator")
-PORTED_LIGHTS = (lightmod.LT_AREA, lightmod.LT_BACKGROUND)
 
 
 def check_supported(static, cfg: RenderConfig) -> None:
     """Raise for any part of (scene, config) that the port does not render
     with cfg.integrator.  All six of the reference's surface integrators
-    are ported; under each of them passes, alpha and lights other than
-    area and IBL raise (item 17: BDPT would also need those lights'
-    emitter branches, integrators/veach.py)."""
+    and all its light types are ported; under each integrator passes and
+    alpha raise (item 17)."""
     if cfg.integrator not in PORTED_INTEGRATORS:
         raise ValueError(f"unknown integrator {cfg.integrator!r}")
     if cfg.passes or cfg.transp_background:
@@ -95,11 +99,6 @@ def check_supported(static, cfg: RenderConfig) -> None:
             "render passes / AOVs and alpha are not ported yet: ROADMAP "
             "Queue 1 item 17")
     check_background(static.bg)
-    for ls in static.lights:
-        if ls.ltype not in PORTED_LIGHTS:
-            raise NotImplementedError(
-                f"light type {ls.ltype} is not ported yet: ROADMAP Queue 1 "
-                "item 17")
 
 
 def check_arrays(arrays: dict, device: torch.device, prefix: str = "") -> None:
@@ -201,13 +200,47 @@ def has_bg_light(static) -> bool:
                for ls in static.lights)
 
 
+def has_portal(static) -> bool:
+    return any(ls.ltype == lightmod.LT_PORTAL and ls.enabled
+               for ls in static.lights)
+
+
+_LIGHT_SAMPLERS = {
+    lightmod.LT_POINT: lightmod.sample_point,
+    lightmod.LT_SPOT: lightmod.sample_spot,
+    lightmod.LT_DIRECTIONAL: lightmod.sample_directional,
+    lightmod.LT_SUN: lightmod.sample_sun,
+    lightmod.LT_AREA: lightmod.sample_area,
+    lightmod.LT_SPHERE: lightmod.sample_sphere_light,
+}
+
+
 def sample_light(arrays, static, li: int, p, u1, u2) -> dict:
-    """One NEE sample of light li per lane: an area light's point, or the
-    IBL light's direction from the environment table."""
-    if static.lights[li].ltype == lightmod.LT_BACKGROUND:
+    """One NEE sample of light li per lane (reference _sample_one_light):
+    a portal's point, radiance from the background along it times the
+    portal's power; a meshlight's point; the IBL light's direction from the
+    environment table; an IES light's point-light sample scaled by its
+    profile; else the type's sampler of lights/base.py."""
+    ls = static.lights[li]
+    if ls.ltype == lightmod.LT_BACKGROUND:
         return sample_bg_light(arrays, static.bg, p, u1, u2)
-    return lightmod.sample_area(lightmod.light_row(arrays["lights"], li), p,
-                                u1, u2)
+    lrow = lightmod.light_row(arrays["lights"], li)
+    if ls.ltype in (lightmod.LT_PORTAL, lightmod.LT_MESH):
+        tri_pos = arrays["tri_pos"][ls.tri_start:ls.tri_start + ls.tri_count]
+        smp = lightmod.sample_mesh_light(lrow, p, u1, u2,
+                                         arrays[f"mlight_cdf_{li}"], tri_pos)
+        if ls.ltype == lightmod.LT_PORTAL:
+            bg = eval_background(static.bg, arrays.get(
+                "bg_image_ibl", arrays.get("bg_image")), smp["wi"])
+            smp["li"] = bg * lrow["power"]
+        return smp
+    if ls.ltype == lightmod.LT_IES:
+        smp = lightmod.sample_point(lrow, p, u1, u2)
+        fac = apply_ies_profile(arrays[f"ies_{li}"], lrow["direction"],
+                                smp["wi"])
+        smp["li"] = smp["li"] * fac[..., None]
+        return smp
+    return _LIGHT_SAMPLERS[ls.ltype](lrow, p, u1, u2)
 
 
 def shadow_rays(arrays, static, li: int, ns: int, p, n, ng, alive, s_idx,
@@ -551,6 +584,9 @@ def make_sample_step(static, camera, cfg: RenderConfig, device,
     if tex:
         cone0_s, cone0_w = pixel_cone(camera)
     bg_light = has_bg_light(static)
+    portal = has_portal(static)
+    sphere_lights = any(ls.ltype == lightmod.LT_SPHERE
+                        for ls in static.lights)
     families, depth = static.mat_families, static.has_blend
 
     def shade_vertex(arrays, st, bounce_idx: int, s_idx, ph, first: bool,
@@ -577,13 +613,17 @@ def make_sample_step(static, camera, cfg: RenderConfig, device,
                                                 * seg[..., None])
 
         # escaped rays: the background, MIS-weighted against the IBL
-        # light's NEE where it has one
+        # light's NEE where it has one; with a portal instead, only
+        # specular chains see it (the portal's NEE is the background's
+        # sole strategy at non-specular vertices)
         escape = alive & ~hit.hit
         bg = eval_background(static.bg, arrays.get("bg_image"), dirn)
         if bg_light:
             w_bg = torch.where(spec_mask, 1.0, power_heuristic(
                 prev_pdf, pdf_bg_dir(arrays, static.bg, dirn)))
             bg = bg * w_bg[..., None]
+        elif portal:
+            bg = bg * torch.where(spec_mask, 1.0, 0.0)[..., None]
         L = L + torch.where(escape[..., None], throughput * bg, 0.0)
         alive = alive & hit.hit
 
@@ -627,6 +667,21 @@ def make_sample_step(static, camera, cfg: RenderConfig, device,
         cos_l = vmath.dot(sp["ng"], wo).abs()
         pdf_light_hit = (hit.t * hit.t) / torch.clamp(
             area_l * torch.clamp(cos_l, min=1e-6), min=1e-9)
+        if sphere_lights:
+            # a sphere light's NEE samples the cone of its visible cap:
+            # the MIS counterpart of a BSDF hit is that cone's pdf from
+            # the ray origin, not the area form
+            is_sphere_l = is_light_tri & (lpk[:, 5].to(torch.int32)
+                                          == lightmod.LT_SPHERE)
+            dvec = lpk[:, 6:9] - org
+            d_c2 = torch.clamp(vmath.dot(dvec, dvec), min=1e-12)
+            sl_r = lpk[:, 9]
+            sin2 = torch.clamp(sl_r * sl_r / d_c2, 0.0, 1.0)
+            cos_max = vmath.sqrt_rn(torch.clamp(1.0 - sin2, min=0.0))
+            den = torch.clamp(2.0 * np.pi * (1.0 - cos_max), min=1e-9)
+            pdf_light_hit = torch.where(is_sphere_l,
+                                        torch.ones_like(den) / den,
+                                        pdf_light_hit)
         # MIS only against lights that the NEE step actually samples
         nee_on = nee_on_table[torch.clamp(li_id, min=0).long()] > 0.5
         mis_w = torch.where(is_light_tri & ~spec_mask & nee_on,

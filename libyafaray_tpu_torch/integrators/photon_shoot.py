@@ -1,14 +1,22 @@
 """Wavefront photon shooting (port of libyafaray_tpu/integrators/
-photon_shoot.py for area lights).
+photon_shoot.py).
 
 All photons advance in lockstep through a static-depth bounce loop.  Each
 lane picks a light by the power CDF, emits from it, then intersects and
 scatters with Russian roulette by albedo; every qualifying hit records a
 photon into a (bounce slot, lane) row: no append, no atomics; invalid rows
-carry valid=False.  Emitted flux of an area light: color·power (radiance
-L = Φ/(πA)); the IBL light emits no photons (zero flux, as the
-reference's light_flux gives it).  Other light types raise (ROADMAP Queue
-1 item 17).
+carry valid=False.
+
+Emitted flux, as the reference's:
+  area/mesh : color·power (radiance L = Φ/(πA))
+  point     : 4π·intensity
+  spot      : intensity·2π(1-(cos_start+cos_end)/2) (the cone's solid
+              angle with the smoothstep falloff folded into the emission)
+  sphere    : color·power
+  sun, directional, IES, portal and the IBL light: 0
+A meshlight's flux enters the power CDF, but its photons leave with zero
+flux from the origin along +z, as the reference emits them (its emitter
+has no meshlight branch): the lanes that pick it store nothing.
 """
 from __future__ import annotations
 
@@ -18,7 +26,8 @@ import torch
 from ..core import math as vmath
 from ..core import qmc
 from ..core.math import div
-from ..core.sampling import PI, sample_cos_hemisphere
+from ..core.sampling import PI, sample_cone, sample_cos_hemisphere, \
+    sample_sphere
 from ..lights import base as lightmod
 from ..materials import bsdf
 from ..materials.base import gather_rows
@@ -28,39 +37,70 @@ from .engine import (F32, _surface_point, closest_hit,
 PHOTON_MODES = ("diffuse", "caustic", "indirect")
 
 
-def _check_area_lights(static) -> None:
-    for ls in static.lights:
-        if ls.ltype not in (lightmod.LT_AREA, lightmod.LT_BACKGROUND):
-            raise NotImplementedError(
-                f"photons from light type {ls.ltype} are not ported yet: "
-                "ROADMAP Queue 1 item 17")
-
-
 def light_flux(static, lights: dict) -> np.ndarray:
     """Per-light total emitted flux (scalar luminance) for the power CDF,
-    from the compiled scene's numpy light table."""
-    _check_area_lights(static)
+    from the compiled scene's numpy light table (reference
+    light->totalEnergy).  Each branch keeps the reference's scalar types:
+    a Python float times a float32 table entry stays float32."""
     flux = []
     for li, ls in enumerate(static.lights):
-        if not ls.enabled or ls.ltype == lightmod.LT_BACKGROUND:
+        if not ls.enabled:
             flux.append(0.0)
             continue
-        # the reference's scalar types: a float32 area keeps the product
-        # float32
-        f = (float(np.mean(lights["radiance"][li])) * PI
-             * max(lights["area"][li], 1e-12))
-        flux.append(max(float(f), 0.0))
+        if ls.ltype in (lightmod.LT_AREA, lightmod.LT_MESH):
+            f = (float(np.mean(lights["radiance"][li])) * PI
+                 * max(lights["area"][li], 1e-12))
+        elif ls.ltype == lightmod.LT_SPHERE:
+            f = (float(np.mean(lights["radiance"][li])) * 4 * PI * PI
+                 * lights["radius"][li] ** 2)
+        elif ls.ltype == lightmod.LT_POINT:
+            f = float(np.mean(lights["intensity"][li])) * 4.0 * PI
+        elif ls.ltype == lightmod.LT_SPOT:
+            cs, ce = lights["cos_start"][li], lights["cos_end"][li]
+            f = (float(np.mean(lights["intensity"][li])) * 2.0 * PI
+                 * (1.0 - 0.5 * (cs + ce)))
+        else:  # sun, directional, IES, portal, IBL: no photons
+            f = 0.0
+        flux.append(max(f, 0.0))
     return np.asarray(flux, np.float64)
 
 
-def _emit_area(lrow: dict, n: int, u1, u2, u3, u4):
-    """Photon origin, direction and flux color of an area light over all
-    lanes: a uniform point of the parallelogram, a cosine direction."""
-    q = lrow["p0"] + u1[..., None] * lrow["e1"] + u2[..., None] * lrow["e2"]
-    ln = vmath.normalize(vmath.cross(lrow["e1"], lrow["e2"])).expand(n, 3)
-    d, _ = sample_cos_hemisphere(ln, u3, u4)
-    flux = lrow["radiance"] * PI * lrow["area"]
-    return q, d, flux.expand(n, 3)
+def _emit_one_light(ls, lrow: dict, n: int, u1, u2, u3, u4):
+    """Photon origin, direction and flux color of one light over all lanes
+    (reference _emit_one_light): an area light's uniform point and cosine
+    direction; a point light's uniform direction; a spot's uniform
+    direction in its cone, weighted by the cone's solid angle and the
+    falloff; a sphere light's uniform surface point and cosine direction
+    about its normal.  Any other light: a zero photon from the origin
+    along +z."""
+    if ls.ltype == lightmod.LT_AREA:
+        q = (lrow["p0"] + u1[..., None] * lrow["e1"]
+             + u2[..., None] * lrow["e2"])
+        ln = vmath.normalize(vmath.cross(lrow["e1"], lrow["e2"])).expand(
+            n, 3)
+        d, _ = sample_cos_hemisphere(ln, u3, u4)
+        return q, d, (lrow["radiance"] * PI * lrow["area"]).expand(n, 3)
+    if ls.ltype == lightmod.LT_POINT:
+        d = sample_sphere(u3, u4)
+        return (lrow["p0"].expand(n, 3), d,
+                (lrow["intensity"] * (4.0 * PI)).expand(n, 3))
+    if ls.ltype == lightmod.LT_SPOT:
+        axis = lrow["direction"].expand(n, 3)
+        d, _ = sample_cone(axis, lrow["cos_end"], u3, u4)
+        fall = lightmod.spot_falloff(lrow, vmath.dot(d, axis))
+        # E[I·Ω·fall] under the cone pdf 1/Ω is the CDF's flux (the
+        # smoothstep integrates to 1/2 over the blend band)
+        omega = 2.0 * PI * (1.0 - lrow["cos_end"])
+        return (lrow["p0"].expand(n, 3), d,
+                lrow["intensity"][None, :] * omega * fall[..., None])
+    if ls.ltype == lightmod.LT_SPHERE:
+        r = lrow["radius"]
+        dn = sample_sphere(u1, u2)
+        d, _ = sample_cos_hemisphere(dn, u3, u4)
+        return (lrow["p0"] + dn * r, d,
+                (lrow["radiance"] * (PI * 4.0 * PI * (r * r))).expand(n, 3))
+    zero = torch.zeros((n, 3), dtype=F32, device=u1.device)
+    return zero, zero + torch.tensor([0.0, 0.0, 1.0], device=u1.device), zero
 
 
 def make_photon_pass(static, cfg, n_lanes: int, max_bounces: int,
@@ -75,7 +115,6 @@ def make_photon_pass(static, cfg, n_lanes: int, max_bounces: int,
     from the light: SPPM's eye pass adds direct light by NEE)."""
     if mode not in PHOTON_MODES:
         raise ValueError(f"photon mode {mode!r} is not one of {PHOTON_MODES}")
-    _check_area_lights(static)
     n = n_lanes
     families = static.mat_families
 
@@ -97,13 +136,9 @@ def make_photon_pass(static, cfg, n_lanes: int, max_bounces: int,
         dirn = torch.zeros((n, 3), dtype=F32, device=dev)
         pcol = torch.zeros((n, 3), dtype=F32, device=dev)
         for li, ls in enumerate(static.lights):
-            if ls.ltype == lightmod.LT_AREA:
-                o_l, d_l, f_l = _emit_area(
-                    lightmod.light_row(arrays["lights"], li), n, u1, u2, u3,
-                    u4)
-            else:  # the IBL light: a zero photon from the origin along +z
-                o_l = f_l = torch.zeros((n, 3), dtype=F32, device=dev)
-                d_l = o_l + torch.tensor([0.0, 0.0, 1.0], device=dev)
+            o_l, d_l, f_l = _emit_one_light(
+                ls, lightmod.light_row(arrays["lights"], li), n, u1, u2, u3,
+                u4)
             sel = (li_pick == li)[..., None]
             prob = max(cdf[li + 1] - cdf[li], np.float32(1e-9))
             org = torch.where(sel, o_l, org)

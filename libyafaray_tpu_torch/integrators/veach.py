@@ -29,10 +29,11 @@ counted are the reference's: the live camera lanes times T_MAX + S_MAX a
 step, connection rays not counted.  The first-hit AOV planes of the
 reference's step are left out (passes raise, ROADMAP Queue 1 item 17).
 
-Lights: area lights take part in light subpaths and s = 1; the point,
-spot, sphere and mesh emitter branches raise (item 17: the port's light
-factory does not build those lights yet).  Cameras: the pinhole
-perspective camera.
+Lights: area, mesh, sphere, point and spot lights take part in light
+subpaths and s = 1 (`_BD_LIGHT_TYPES`); sun, directional and IES lights
+have no photon flux, so no pick probability, and reach the image through
+the weight-1 eye-side NEE; the IBL light and portals through the escape.
+Cameras: the pinhole perspective camera.
 """
 from __future__ import annotations
 
@@ -47,7 +48,8 @@ from ..cameras.base import (CAM_ARCHITECT, CAM_PERSPECTIVE,
 from ..convert import to_tensors
 from ..core import math as vmath
 from ..core import qmc
-from ..core.sampling import PI, sample_cos_hemisphere
+from ..core.sampling import (PI, sample_cone, sample_cos_hemisphere,
+                             sample_sphere)
 from ..film.filters import eval_filter_2d, filter_radius
 from ..film.imagefilm import film_splat
 from ..lights import base as lightmod
@@ -68,10 +70,7 @@ _BD_LIGHT_TYPES = (lightmod.LT_AREA, lightmod.LT_MESH, lightmod.LT_SPHERE,
                    lightmod.LT_POINT, lightmod.LT_SPOT)
 
 
-def _unported_emitter(ltype: int) -> NotImplementedError:
-    return NotImplementedError(
-        f"the BDPT emitter branch of light type {ltype} (point, spot, "
-        "sphere, mesh) is not ported yet: ROADMAP Queue 1 item 17")
+INV_4PI = 1.0 / (4.0 * PI)
 
 
 def _rdiv(s: float, x: torch.Tensor) -> torch.Tensor:
@@ -121,61 +120,157 @@ def _light_tables(static) -> list:
 
 def _emit_vertex(ls, lrow, n, u1, u2, u3, u4) -> dict:
     """The light subpath's origin y0 and first direction, with separable
-    pdfs: dict(org, nl, dirn, le (N,3) radiance, pdf_pos (area), pdf_dir
-    (solid angle), cos0 |cos| at y0).  A double-sided area light picks its
-    side by u4's high half and reuses the rest of u4."""
-    if ls.ltype != lightmod.LT_AREA:
-        raise _unported_emitter(ls.ltype)
-    one = torch.ones((n,), dtype=F32, device=u1.device)
-    q = lrow["p0"] + u1[..., None] * lrow["e1"] + u2[..., None] * lrow["e2"]
-    ln = vmath.normalize(vmath.cross(lrow["e1"], lrow["e2"])
-                         + torch.zeros((n, 3), dtype=F32, device=u1.device))
-    dbl = lrow["double_sided"]
-    flip = dbl & (u4 > 0.5)
-    u4s = torch.where(dbl, torch.where(flip, (u4 - 0.5) * 2.0, u4 * 2.0), u4)
+    pdfs (BDPT's MIS needs the position and direction pdfs apart, unlike
+    photon_shoot's folded flux): dict(org, nl, dirn, le (N,3) radiance or
+    radiant intensity, pdf_pos (area; 1 for a point), pdf_dir (solid
+    angle), cos0 |cos| at y0, 1 for a point).  A double-sided area light
+    picks its side by u4's high half and reuses the rest of u4.  A
+    meshlight goes through `_emit_mesh_vertex`; any other light gives a
+    dead vertex (pdf_dir 0)."""
+    dev = u1.device
+    one = torch.ones((n,), dtype=F32, device=dev)
+    zeros3 = torch.zeros((n, 3), dtype=F32, device=dev)
+    if ls.ltype == lightmod.LT_AREA:
+        q = (lrow["p0"] + u1[..., None] * lrow["e1"]
+             + u2[..., None] * lrow["e2"])
+        ln = vmath.normalize(vmath.cross(lrow["e1"], lrow["e2"]) + zeros3)
+        dbl = lrow["double_sided"]
+        flip = dbl & (u4 > 0.5)
+        u4s = torch.where(dbl, torch.where(flip, (u4 - 0.5) * 2.0, u4 * 2.0),
+                          u4)
+        ln_s = torch.where(flip[..., None], -ln, ln)
+        d, pdf_d = sample_cos_hemisphere(ln_s, u3, u4s)
+        pdf_d = pdf_d * torch.where(dbl, 0.5, 1.0)
+        return dict(org=q, nl=ln_s, dirn=d, le=lrow["radiance"] + zeros3,
+                    pdf_pos=one / torch.clamp(lrow["area"], min=1e-9),
+                    pdf_dir=pdf_d, cos0=vmath.dot(ln_s, d).abs())
+    if ls.ltype == lightmod.LT_SPHERE:
+        r = lrow["radius"]
+        dn = sample_sphere(u1, u2)
+        d, pdf_d = sample_cos_hemisphere(dn, u3, u4)
+        area = 4.0 * PI * (r * r)
+        return dict(org=lrow["p0"] + dn * r, nl=dn, dirn=d,
+                    le=lrow["radiance"] + zeros3,
+                    pdf_pos=one / torch.clamp(area, min=1e-9), pdf_dir=pdf_d,
+                    cos0=vmath.dot(dn, d).abs())
+    if ls.ltype == lightmod.LT_POINT:
+        d = sample_sphere(u3, u4)
+        return dict(org=lrow["p0"].expand(n, 3), nl=d, dirn=d,
+                    le=lrow["intensity"] + zeros3, pdf_pos=one,
+                    pdf_dir=one * INV_4PI, cos0=one)
+    if ls.ltype == lightmod.LT_SPOT:
+        axis = lrow["direction"].expand(n, 3)
+        d, pdf_d = sample_cone(axis, lrow["cos_end"], u3, u4)
+        fall = lightmod.spot_falloff(lrow, vmath.dot(d, axis))
+        return dict(org=lrow["p0"].expand(n, 3), nl=d, dirn=d,
+                    le=lrow["intensity"][None, :] * fall[..., None],
+                    pdf_pos=one, pdf_dir=pdf_d + 0.0 * one, cos0=one)
+    dirn = zeros3.clone()
+    dirn[:, 2] = 1.0
+    return dict(org=zeros3, nl=zeros3, dirn=dirn, le=zeros3, pdf_pos=one,
+                pdf_dir=0.0 * one, cos0=one)
+
+
+def _emit_mesh_vertex(arrays, ls, li, lrow, n, u1, u2, u3, u4) -> dict:
+    """`_emit_vertex` of a meshlight: a uniform point by area
+    (`lights.base.mesh_point`), a cosine direction about the side u4's
+    high half picks (meshlights emit double-sided)."""
+    q, ln = lightmod.mesh_point(
+        arrays[f"mlight_cdf_{li}"],
+        arrays["tri_pos"][ls.tri_start:ls.tri_start + ls.tri_count], u1, u2)
+    flip = u4 > 0.5
+    u4s = torch.where(flip, (u4 - 0.5) * 2.0, u4 * 2.0)
     ln_s = torch.where(flip[..., None], -ln, ln)
     d, pdf_d = sample_cos_hemisphere(ln_s, u3, u4s)
-    pdf_d = pdf_d * torch.where(dbl, 0.5, 1.0)
+    one = torch.ones((n,), dtype=F32, device=u1.device)
     return dict(org=q, nl=ln_s, dirn=d,
-                le=lrow["radiance"] + torch.zeros_like(q), pdf_pos=one / torch.clamp(lrow["area"], min=1e-9),
-                pdf_dir=pdf_d, cos0=vmath.dot(ln_s, d).abs())
+                le=lrow["radiance"] + torch.zeros_like(q),
+                pdf_pos=one / torch.clamp(lrow["area"], min=1e-9),
+                pdf_dir=pdf_d * 0.5, cos0=vmath.dot(ln_s, d).abs())
 
 
 def _sample_light_point(arrays, ls, li, lrow, n, u1, u2) -> dict:
-    """s=1 resampling: a point on the light by area: dict(q, nl, le,
-    pdf_pos (area), dbl, surface)."""
-    if ls.ltype != lightmod.LT_AREA:
-        raise _unported_emitter(ls.ltype)
-    q = lrow["p0"] + u1[..., None] * lrow["e1"] + u2[..., None] * lrow["e2"]
-    ln = vmath.normalize(vmath.cross(lrow["e1"], lrow["e2"])
-                         + torch.zeros_like(q))
-    one = torch.ones((n,), dtype=F32, device=u1.device)
-    return dict(q=q, nl=ln, le=lrow["radiance"] + torch.zeros_like(q),
-                pdf_pos=one / torch.clamp(lrow["area"], min=1e-9),
-                dbl=lrow["double_sided"], surface=True)
+    """s=1 resampling: a point on the light by area (not solid angle):
+    dict(q, nl, le, pdf_pos (area; 1 for a point), dbl, surface)."""
+    dev = u1.device
+    one = torch.ones((n,), dtype=F32, device=dev)
+    zeros3 = torch.zeros((n, 3), dtype=F32, device=dev)
+    no = torch.zeros((n,), dtype=torch.bool, device=dev)
+    if ls.ltype == lightmod.LT_AREA:
+        q = (lrow["p0"] + u1[..., None] * lrow["e1"]
+             + u2[..., None] * lrow["e2"])
+        ln = vmath.normalize(vmath.cross(lrow["e1"], lrow["e2"]) + zeros3)
+        return dict(q=q, nl=ln, le=lrow["radiance"] + zeros3,
+                    pdf_pos=one / torch.clamp(lrow["area"], min=1e-9),
+                    dbl=lrow["double_sided"], surface=True)
+    if ls.ltype == lightmod.LT_MESH:
+        smp = _emit_mesh_vertex(arrays, ls, li, lrow, n, u1, u2,
+                                0.0 * one, 0.0 * one)
+        return dict(q=smp["org"], nl=smp["nl"], le=smp["le"],
+                    pdf_pos=smp["pdf_pos"], dbl=~no, surface=True)
+    if ls.ltype == lightmod.LT_SPHERE:
+        r = lrow["radius"]
+        dn = sample_sphere(u1, u2)
+        area = 4.0 * PI * (r * r)
+        return dict(q=lrow["p0"] + dn * r, nl=dn,
+                    le=lrow["radiance"] + zeros3,
+                    pdf_pos=one / torch.clamp(area, min=1e-9), dbl=no,
+                    surface=True)
+    if ls.ltype in (lightmod.LT_POINT, lightmod.LT_SPOT):
+        if ls.ltype == lightmod.LT_SPOT:
+            nl = lrow["direction"].expand(n, 3)
+        else:
+            nl = zeros3.clone()
+            nl[:, 2] = 1.0
+        return dict(q=lrow["p0"].expand(n, 3), nl=nl,
+                    le=lrow["intensity"] + zeros3, pdf_pos=one, dbl=no,
+                    surface=False)
+    return dict(q=zeros3, nl=zeros3, le=zeros3, pdf_pos=one, dbl=no,
+                surface=False)
+
+
+def _spot_fall(lrow, wi_from_light):
+    """A spot's falloff toward wi_from_light (unit, light -> point)."""
+    return lightmod.spot_falloff(lrow, vmath.dot(wi_from_light,
+                                                 lrow["direction"]))
 
 
 def _emit_dir_pdf_le(static, arrays, pick_pmf, li_id, p_l, n_l, w_out):
     """At light-surface points p_l (normals n_l) of the lights li_id, the
-    emission pdf toward w_out (solid angle), the position pdf (area) and
-    the light's pick probability, gathered per lane over the static light
-    list (0 for lanes on no supported light)."""
+    emission pdf toward w_out (solid angle), the position pdf (area; 1 for
+    a point) and the light's pick probability, gathered per lane over the
+    static light list (0 for lanes on no supported light)."""
     n = li_id.shape[0]
     zero = torch.zeros((n,), dtype=F32, device=li_id.device)
     pdf_dir, pdf_pos, pick = zero, zero, zero
     for li, ls in enumerate(static.lights):
         if not (ls.enabled and ls.ltype in _BD_LIGHT_TYPES):
             continue
-        if ls.ltype != lightmod.LT_AREA:
-            raise _unported_emitter(ls.ltype)
         lrow = lightmod.light_row(arrays["lights"], li)
         sel = li_id == li
         cos_o = vmath.dot(n_l, w_out)
-        pd = torch.where(lrow["double_sided"],
-                         vmath.div(cos_o.abs(), 2.0 * PI),
-                         vmath.div(torch.clamp(cos_o, min=0.0), PI))
-        area = torch.clamp(lrow["area"], min=1e-9)
-        pp = torch.ones_like(area) / area
+        one = torch.ones_like(lrow["area"])
+        if ls.ltype == lightmod.LT_AREA:
+            pd = torch.where(lrow["double_sided"],
+                             vmath.div(cos_o.abs(), 2.0 * PI),
+                             vmath.div(torch.clamp(cos_o, min=0.0), PI))
+            pp = one / torch.clamp(lrow["area"], min=1e-9)
+        elif ls.ltype == lightmod.LT_MESH:
+            pd = vmath.div(cos_o.abs(), 2.0 * PI)
+            pp = one / torch.clamp(lrow["area"], min=1e-9)
+        elif ls.ltype == lightmod.LT_SPHERE:
+            pd = vmath.div(torch.clamp(cos_o, min=0.0), PI)
+            r = lrow["radius"]
+            pp = one / torch.clamp(4.0 * PI * (r * r), min=1e-9)
+        elif ls.ltype == lightmod.LT_POINT:
+            pd = zero + INV_4PI
+            pp = one
+        else:  # spot
+            den = torch.clamp(2.0 * PI * (1.0 - lrow["cos_end"]), min=1e-9)
+            pd = (zero + 1.0) / den
+            pd = pd * (vmath.dot(w_out, lrow["direction"])
+                       > lrow["cos_end"])
+            pp = one
         pdf_dir = torch.where(sel, pd, pdf_dir)
         pdf_pos = torch.where(sel, pp + zero, pdf_pos)
         pick = torch.where(sel, pick_pmf[li], pick)
@@ -400,8 +495,12 @@ def make_bdpt_step(cscene, cfg: RenderConfig, device):
         no = torch.zeros((n,), dtype=torch.bool, device=dev)
         dl0, surf0 = no, no
         for li in bd_lights:
+            ls = static.lights[li]
             lrow = lightmod.light_row(arrays["lights"], li)
-            e = _emit_vertex(static.lights[li], lrow, n, u1, u2, u3, u4)
+            if ls.ltype == lightmod.LT_MESH:
+                e = _emit_mesh_vertex(arrays, ls, li, lrow, n, u1, u2, u3, u4)
+            else:
+                e = _emit_vertex(ls, lrow, n, u1, u2, u3, u4)
             sel = li_pick == li
             sel3 = sel[..., None]
             org0 = torch.where(sel3, e["org"], org0)
@@ -523,7 +622,11 @@ def make_bdpt_step(cscene, cfg: RenderConfig, device):
                 sel3 = sel[..., None]
                 q = torch.where(sel3, smp["q"], q)
                 nl = torch.where(sel3, smp["nl"], nl)
-                le = torch.where(sel3, smp["le"], le)
+                lev = smp["le"]
+                if static.lights[li].ltype == lightmod.LT_SPOT:
+                    wi_l = vmath.normalize(zv["p"] - smp["q"])
+                    lev = lev * _spot_fall(lrow, wi_l)[..., None]
+                le = torch.where(sel3, lev, le)
                 ppos = torch.where(sel, smp["pdf_pos"], ppos)
                 pick = torch.where(sel, torch.clamp(pick_pmf_t[li],
                                                     min=1e-12), pick)

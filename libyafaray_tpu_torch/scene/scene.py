@@ -6,12 +6,16 @@ render).
 keys that the slice reads, with equal values; `convert.to_tensors` moves
 them to a torch device once per render.  Textures and their mip atlases,
 the orco pack, the background map and the IBL light's alias tables ride
-in the same dict (TEXTURE_ARRAY_PREFIXES, BACKGROUND_ARRAY_KEYS).
+in the same dict (TEXTURE_ARRAY_PREFIXES, BACKGROUND_ARRAY_KEYS), and so
+do the meshlights' and portals' triangle CDFs with the triangle corners
+they index, and the IES lights' profiles (LIGHT_ARRAY_PREFIXES,
+TRI_POS_KEY).
 Features outside the slice raise NotImplementedError naming their ROADMAP
 item.
 """
 from __future__ import annotations
 
+import logging
 from dataclasses import dataclass, replace
 
 import numpy as np
@@ -21,7 +25,7 @@ from ..backgrounds.factory import background_from_params, blur_env_map
 from ..backgrounds.host import bake_background_np
 from ..cameras.base import Camera
 from ..cameras.factory import camera_from_params
-from ..lights.base import build_light_table
+from ..lights.base import LT_MESH, build_light_table
 from ..lights.bglight import build_bg_cdf
 from ..lights.factory import bg_light_row, light_from_params
 from ..materials.base import (MT_BLEND, MT_LIGHT, MT_MASK,
@@ -37,6 +41,8 @@ from ..textures.eval import DEFAULT_MAPPING
 from ..textures.factory import build_mip_atlas, texture_from_params
 from .mesh import TriMesh, finalize_mesh
 from .params import ParamMap
+
+log = logging.getLogger("libyafaray_tpu_torch")
 
 # the arrays of the reference's CompiledScene.arrays that the port reads
 SLICE_ARRAY_KEYS = (
@@ -61,6 +67,13 @@ ORCO_ARRAY_KEY = "tri_orco_pack"
 # light's alias tables
 BACKGROUND_ARRAY_KEYS = ("bg_image", "bg_image_ibl", "bg_alias_prob",
                          "bg_alias", "bg_pdf_grid")
+# per light li: a meshlight's / portal's area CDF over its triangles
+# (mlight_cdf_{li}), an IES light's candela grid (ies_{li}); tri_pos, the
+# (T,3,3) corners of the visible triangles in concatenation order, which a
+# CDF's [tri_start, tri_start + tri_count) slice indexes, is present with
+# the CDFs
+LIGHT_ARRAY_PREFIXES = ("mlight_cdf_", "ies_")
+TRI_POS_KEY = "tri_pos"
 _TEX_COLS = ("tex_diffuse", "tex_glossy", "tex_mirror", "tex_transparency",
              "tex_translucency", "tex_blend", "tex_mask", "tex_sigma_oren",
              "tex_ior", "node_prog")
@@ -174,6 +187,7 @@ class Scene:
         self.materials: list[dict] = [default_row()]  # row 0 = fallback null
         self.material_names: dict[str, int] = {"__default__": 0}
         self.lights: list[dict] = []
+        self.light_names: list[str] = []
         self.light_geometry: list = []  # parallel: geometry or None
         self.analytic_spheres: list = []  # (center, radius, mat_id)
         self.cameras: dict[str, Camera] = {}
@@ -244,6 +258,7 @@ class Scene:
     def create_light(self, name: str, params: ParamMap) -> int:
         row, geometry = light_from_params(params)
         self.lights.append(row)
+        self.light_names.append(name)
         self.light_geometry.append(geometry)
         return len(self.lights) - 1
 
@@ -277,8 +292,12 @@ class Scene:
         points); it only picks the intersector, so it needs no card.
         pairs=True asks for the pair-granular intersection route, which
         packs of 64 or more clusters (above ~8,000 triangles) then take."""
-        blocks = [b for b in (finalize_mesh(m) for m in self.meshes.values())
-                  if b is not None]
+        blocks, block_mesh_ids = [], []
+        for mesh_id, m in self.meshes.items():
+            b = finalize_mesh(m)
+            if b is not None:
+                blocks.append(b)
+                block_mesh_ids.append(mesh_id)
         materials = list(self.materials)
         # area-light panels -> synthetic light_mat + triangles
         for li, geom in enumerate(self.light_geometry):
@@ -301,6 +320,7 @@ class Scene:
                 mat=np.full(tcount, len(materials) - 1, np.int32),
                 light_id=np.full(tcount, li, np.int32),
             ))
+            block_mesh_ids.append(None)
         if not blocks:
             raise NotImplementedError("an empty scene is not ported")
         # blocks without object coordinates (light panels) take local = pos
@@ -333,6 +353,54 @@ class Scene:
         n_real = pos.shape[0]
         intersector = intersector_for(device, n_real)
 
+        # meshlights and portals (reference src/lights/meshlight.cc): the
+        # object's triangle range in the concatenation, an area-weighted
+        # CDF over it, radiance L = Φ/(π·A_total); a meshlight's triangles
+        # carry its light id, so BSDF hits add its radiance (hit_radiance)
+        # over the object's own material.  A missing object disables the
+        # light.
+        lights = [dict(r) for r in self.lights]
+        mesh_ranges, cursor = {}, 0
+        for mid, b in zip(block_mesh_ids, blocks):
+            if mid is not None:
+                mesh_ranges[mid] = (cursor, b["pos"].shape[0])
+            cursor += b["pos"].shape[0]
+        light_arrays = {}
+        for li, row in enumerate(lights):
+            if "_object" not in row:
+                continue
+            try:
+                obj_key = int(row["_object"])
+            except (TypeError, ValueError):
+                obj_key = None
+            if obj_key not in mesh_ranges:
+                log.warning("meshlight %s: object %r not found; disabled",
+                            self.light_names[li], row["_object"])
+                row["enabled"] = False
+                continue
+            start, cnt = mesh_ranges[obj_key]
+            tri = pos[start:start + cnt]
+            areas = 0.5 * np.linalg.norm(
+                np.cross(tri[:, 1] - tri[:, 0], tri[:, 2] - tri[:, 0]),
+                axis=1)
+            total_area = float(max(areas.sum(), 1e-12))
+            cdf = np.concatenate([[0.0], np.cumsum(areas / areas.sum())])
+            cdf[-1] = 1.0
+            light_arrays[f"mlight_cdf_{li}"] = cdf.astype(np.float32)
+            row["area"] = total_area
+            row["radiance"] = tuple(np.asarray(row["_color"]) * row["_power"]
+                                    / (np.pi * total_area))
+            row["tri_start"] = start
+            row["tri_count"] = cnt
+            if row["ltype"] == LT_MESH:  # portals do not emit at hits
+                light_id[start:start + cnt] = li
+        if light_arrays:
+            light_arrays[TRI_POS_KEY] = pos.astype(np.float32)
+        for li, r in enumerate(lights):
+            if "_ies_profile" in r:
+                light_arrays[f"ies_{li}"] = np.asarray(r["_ies_profile"],
+                                                       np.float32)
+
         v0 = pos[:, 0]
         e1 = pos[:, 1] - pos[:, 0]
         e2 = pos[:, 2] - pos[:, 0]
@@ -354,7 +422,7 @@ class Scene:
         # an `ibl` background adds the IBL light; a constant background is
         # baked to a small lat-long map so both sample one way
         bg_spec, bg_img = self.background
-        all_lights = list(self.lights)
+        all_lights = list(lights)
         if bg_spec.ibl:
             if bg_img is None:
                 bg_img = bake_background_np(bg_spec, 32, 64)
@@ -362,9 +430,12 @@ class Scene:
         lights_table = build_light_table(
             [{k: v for k, v in r.items() if not k.startswith("_")}
              for r in all_lights])
-        # emission radiance for BSDF hits on meshlights (area lights emit
-        # through their synthetic light_mat instead)
+        # emission radiance for BSDF hits on meshlights (area and sphere
+        # lights emit through their synthetic light_mat instead)
         hit_rad = np.zeros((len(all_lights), 3), np.float32)
+        for li, r in enumerate(all_lights):
+            if "_object" in r and r["enabled"] and r["ltype"] == LT_MESH:
+                hit_rad[li] = np.asarray(r["radiance"], np.float32)
         lights_table["hit_radiance"] = hit_rad
         # per-light emission-hit attributes, one gather in the engine:
         # [area, double_sided, hit_radiance rgb, ltype, center xyz, radius]
@@ -473,6 +544,7 @@ class Scene:
             shadow_filt_binary=sfilt_bin,
             materials=mats,
             lights=lights_table,
+            **light_arrays,
         )
         # the texture coordinate spaces the shading needs: orco / object
         # read the per-corner orco pack, window the raster projection.  (As

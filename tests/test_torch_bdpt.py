@@ -179,17 +179,25 @@ def test_emit_dir_pdf(compiled, double_sided):
 
 
 def test_unported_emitters_raise():
-    """The point, spot, sphere and mesh branches wait for their lights
-    (item 17); the factory refuses those lights before BDPT sees them."""
-    class Point:
-        ltype = lightmod.LT_POINT
-        enabled = True
+    """No emitter branch raises now that every light type is ported:
+    the lights outside BDPT's strategy set (sun, directional, IES: zero
+    flux, never picked) take the reference's fallback branches, a dead
+    light vertex (pdf_dir 0, no radiance) and a zero s=1 point, as in
+    libyafaray_tpu/integrators/veach.py."""
+    u = torch.full((4,), 0.3)
+    for ltype in (lightmod.LT_SUN, lightmod.LT_DIRECTIONAL, lightmod.LT_IES):
+        class Light:
+            enabled = True
 
-    u = torch.zeros(4)
-    with pytest.raises(NotImplementedError, match="item 17"):
-        veach._emit_vertex(Point, {}, 4, u, u, u, u)
-    with pytest.raises(NotImplementedError, match="item 17"):
-        veach._sample_light_point({}, Point, 0, {}, 4, u, u)
+        Light.ltype = ltype
+        e = veach._emit_vertex(Light, {}, 4, u, u, u, u)
+        want = ref_veach._emit_vertex(Light, {}, 4, *(u.numpy(),) * 4)
+        for k in want:
+            _close(e[k], np.broadcast_to(np.asarray(want[k]), e[k].shape))
+        assert float(e["pdf_dir"].abs().max()) == 0.0
+        assert float(e["le"].abs().max()) == 0.0
+        p = veach._sample_light_point({}, Light, 0, {}, 4, u, u)
+        assert float(p["le"].abs().max()) == 0.0 and p["surface"] is False
 
 
 # ---- cornell_bidir.xml against the reference -------------------------------

@@ -91,20 +91,26 @@ def test_render_timed_counts_the_same_rays():
 
 
 @pytest.mark.parametrize("over, item", [
-    (dict(integrator="bidirectional", point_light=True), "item 17"),
+    (dict(integrator="bidirectional", camera="orthographic"), "item 17"),
     (dict(passes=("z-depth-norm",)), "item 17"),
     (dict(transp_background=True), "item 17"),
 ])
 def test_unported_config_raises(over, item):
-    """Passes and alpha raise; so does BDPT with a point light (the light,
-    and BDPT's point emitter branch, wait for item 17)."""
+    """Passes and alpha raise; so does BDPT through an orthographic camera
+    (cameras other than the pinhole perspective wait for item 17)."""
     over = dict(over)
-    point = over.pop("point_light", False)
+    camera = over.pop("camera", None)
     s, cfg = _setup(parse_xml_file, build_config, RenderConfig, 8, 1, **over)
+    if camera:  # replaces the scene's camera "cam"
+        s.create_camera("cam", ParamMap({"type": camera, "resx": 8,
+                                         "resy": 8}))
     with pytest.raises(NotImplementedError, match=item):
-        if point:  # raised by the light factory, before any render
-            s.create_light("point", ParamMap({"type": "pointlight"}))
-        render(s.compile(device="cpu"), cfg, device="cpu")
+        if cfg.integrator == "bidirectional":
+            from libyafaray_tpu_torch.integrators.veach import render_bdpt
+
+            render_bdpt(s.compile(device="cpu"), cfg, device="cpu")
+        else:
+            render(s.compile(device="cpu"), cfg, device="cpu")
 
 
 def _grid_renders(path, size, spp):

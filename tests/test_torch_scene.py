@@ -159,15 +159,19 @@ _SCENE = """<scene type="triangle">{body}
     ('<material name="m"><type sval="shinydiffusemat"/></material>'
      '<volumeregion name="v"><type sval="UniformVolume"/></volumeregion>',
      "item 17"),
-    ('<light name="l"><type sval="pointlight"/></light>', "item 17"),
+    ('<material name="m"><type sval="shinydiffusemat"/></material>'
+     '<camera name="c"><type sval="angular"/></camera>', "item 17"),
     ('<background name="b"><type sval="gradient"/></background>', "item 17"),
     ('<material name="m"><type sval="shinydiffusemat"/></material>'
      '<background name="b"><type sval="sunsky"/></background>', "item 17"),
 ])
 def test_unsupported_features_raise(body, item):
     """Raised at compile (glass renders in every ported integrator now, a
-    dispersive one raises), or when pathtracing checks the compiled
-    scene."""
+    dispersive one raises), or when pathtracing checks the compiled scene
+    and its camera (every light type renders now; cameras other than the
+    pinhole perspective raise)."""
+    from libyafaray_tpu_torch.cameras.base import \
+        check_supported as check_camera
     from libyafaray_tpu_torch.integrators.config import RenderConfig
     from libyafaray_tpu_torch.integrators.engine import check_supported
 
@@ -175,14 +179,15 @@ def test_unsupported_features_raise(body, item):
         cs = parse_xml_string(_SCENE.format(body=body)).compile(
             device="cpu")
         check_supported(cs.static, RenderConfig(integrator="pathtracing"))
+        check_camera(cs.camera)
 
 
 def test_port_imports_no_jax_and_no_reference(tmp_path):
     """In a fresh interpreter, importing the port (and chip_smoke.py),
-    rendering 8x8 on the CPU (Cornell, and ibl_spheres.xml with its
-    textures and IBL light), and generating a scene and rendering it
-    through the port's CLI leave jax and libyafaray_tpu out of
-    sys.modules; and chip_smoke.py's text names neither the JAX package's
+    rendering 8x8 on the CPU (Cornell, ibl_spheres.xml with its textures
+    and IBL light, and cornell_lights.xml with every other light type),
+    and generating a scene and rendering it through the port's CLI leave
+    jax and libyafaray_tpu out of sys.modules; and chip_smoke.py's text names neither the JAX package's
     modules nor the repository's scripts (it runs no subprocess of them)."""
     with open(os.path.join(REPO, "chip_smoke.py")) as f:
         smoke = f.read()
@@ -219,6 +224,14 @@ def test_port_imports_no_jax_and_no_reference(tmp_path):
         # textures, the IBL light and the texture background (slice 15)
         s = parse_xml_file({os.path.join(REPO, "scenes",
                                          "ibl_spheres.xml")!r})
+        s.render_params.update(width=8, height=8, AA_minsamples=1)
+        img = render(s.compile(device="cpu"), build_config(s),
+                     device="cpu").image
+        assert img.shape == (8, 8, 3) and img.mean() > 0
+        # every light type (slice 18): scenes/cornell_lights.xml
+        import libyafaray_tpu_torch.lights.ies
+        s = parse_xml_file({os.path.join(REPO, "scenes",
+                                         "cornell_lights.xml")!r})
         s.render_params.update(width=8, height=8, AA_minsamples=1)
         img = render(s.compile(device="cpu"), build_config(s),
                      device="cpu").image
