@@ -125,9 +125,25 @@ started together) and drives the ported paths through them:
   spp (the t=1 density plane on its own, and the card against itself:
   that plane adds through atomics), the CLI at 64²; and the
   DebugIntegrator's normals of cornell.xml at 512² (one closest hit)
-  against the CPU.
-`python3 chip_smoke.py --only slice17` builds the kernels and runs slice
-17's phases alone (an iteration run: no result line).  Each path is
+  against the CPU;
+- slice 18, every light type on scenes/cornell_lights.xml (352 triangles,
+  the dense kernels) at its own settings, as BDPT and as photon mapping;
+- slice 19, scenes/sky_fog.xml at its own settings (pathtracing, bounces
+  3, 512², 16 spp: a sunsky with its IBL light and a sun, an exponential
+  ground fog under the single-scatter volume integrator, a thin-lens
+  camera with hexagonal bokeh; 26 camera-visible triangles on the tiny
+  closest hit, 334 shadow casters on the dense shadow sum) through
+  `render_scene(timed=True)` and the CLI, each kernel launched as often a
+  step as the engine's and the march's loops ask, both held to their
+  plain versions on the step's primary rays and a fog in-scatter batch,
+  one profiled step with the volume layer's launches, the card against
+  the CPU at 32², 2 spp under every camera type, darksky, BDPT with the
+  architect camera, photon mapping with depth of field and a gradient
+  background's IBL with an emission fog, `optimize` against the exact
+  march, and the four object-visibility variants at 64².
+`python3 chip_smoke.py --only slice17` (or slice18, slice19) builds the
+kernels and runs that slice's phases alone (an iteration run: no result
+line).  Each path is
 rendered with every launch counter set to 0 just before it and read just
 after.  Every kernel's line carries its bound: the larger of its
 FP32 operations over the card's 67 TFLOP/s and its bytes (each input read
@@ -883,9 +899,12 @@ def profile_step(step, arrays, cfg, kernel_tags: tuple,
     finally:
         for (module, fn_name), fn in saved.items():
             setattr(module, fn_name, fn)
+    # the stage ranges also appear on the device's timeline (as user
+    # annotations spanning their kernels): they are no device work
     spans = sorted((e.time_range.start, e.time_range.end, e.name)
                    for e in prof.events()
-                   if getattr(e, "device_type", None) == DeviceType.CUDA)
+                   if getattr(e, "device_type", None) == DeviceType.CUDA
+                   and e.name not in (stages or {}))
     if not spans:
         return dict(device_busy_ms="not measured")
     busy_us, end = 0.0, float("-inf")
@@ -3298,7 +3317,8 @@ def lights_photon(smi) -> tuple:
     return launches, dens, near
 
 
-def entry_vs_cpu(what, make, bound_img, **kw) -> None:
+def entry_vs_cpu(what, make, bound_img, tag="lights_card_vs_cpu",
+                 **kw) -> None:
     """make() -> a fresh scene, rendered through render_scene on the card
     and on the CPU: image RMSE <= bound_img, rays within rays_rel (default
     1e-4), the density layer RMSE <= density (where given), the photon
@@ -3319,13 +3339,13 @@ def entry_vs_cpu(what, make, bound_img, **kw) -> None:
             b = c.stats["photon_maps"][m]["stored"]
             extra[f"stored_{m}"] = f"{a}/{b}"
             ok = ok and abs(a - b) <= kw["stored_rel"] * max(b, 1)
-    phase("lights_card_vs_cpu", scene=what,
+    phase(tag, scene=what,
           size=f"{g.cfg.width}x{g.cfg.height}",
           integrator=g.cfg.integrator, spp=g.cfg.aa_samples, rmse=rmse,
           bound=bound_img, rays_gpu=g.stats["rays"],
           rays_cpu=c.stats["rays"], rays_rel=rel, **extra)
     if not ok:
-        raise AssertionError(f"lights_card_vs_cpu ({what}, "
+        raise AssertionError(f"{tag} ({what}, "
                              f"{g.cfg.integrator}): card and CPU disagree")
 
 
@@ -3611,11 +3631,403 @@ def slice18_phases(smi, out_dir: str, kernels: list) -> None:
             by_name[name].update(kv)
 
 
+# ---- slice 19: cameras, sky backgrounds, volumes, visibility --------------
+
+SKY_FOG = os.path.join(REPO, "scenes", "sky_fog.xml")
+SKY_SMALL = dict(width=32, height=32, AA_minsamples=2)
+SKY_CLI = dict(size=64, spp=4)
+# a point light the light-tracing strategies can start from (the sun and
+# the IBL light carry no photon flux): BDPT's t = 1 splats, photon maps
+SKY_LAMP = dict(type="pointlight", color=(1.0, 0.9, 0.8), power=60.0,
+                **{"from": (0.8, -1.6, 2.4)})
+# the card-vs-CPU cameras: field overrides of the scene's thin-lens camera
+SKY_CAMERAS = {
+    "perspective_dof_hexagon": {},
+    "perspective_dof_ring_center": dict(bokeh_type="ring",
+                                        bokeh_bias="center"),
+    "perspective_dof_triangle_edge": dict(bokeh_type="triangle",
+                                          bokeh_bias="edge"),
+    "architect_dof": dict(cam_type=1),
+    "angular_circular_mirrored": dict(cam_type=2, angle_deg=150.0,
+                                      circular=True, mirrored=True),
+    "orthographic": dict(cam_type=3, scale=9.0),
+    "equirectangular": dict(cam_type=4),
+}
+# directlighting with an EmissionIntegrator fog on a gradient background
+# with its IBL light
+GRADIENT_FOG_XML = """<scene type="triangle">
+  <material name="m"><type sval="shinydiffusemat"/>
+    <color r="0.7" g="0.6" b="0.5"/></material>
+  <light name="p"><type sval="pointlight"/>
+    <from x="1.0" y="-1.0" z="3.0"/><power fval="6.0"/>
+    <color r="1.0" g="1.0" b="1.0"/></light>
+  <background name="bg"><type sval="gradient"/>
+    <horizon_color r="0.9" g="0.8" b="0.7"/>
+    <zenith_color r="0.2" g="0.4" b="0.9"/>
+    <horizon_ground_color r="0.5" g="0.45" b="0.4"/>
+    <zenith_ground_color r="0.2" g="0.18" b="0.15"/>
+    <power fval="1.5"/><ibl bval="true"/><ibl_samples ival="4"/>
+  </background>
+  <camera name="cam"><type sval="perspective"/>
+    <from x="0.5" y="-6.0" z="2.0"/><to x="0.0" y="0.0" z="0.5"/>
+    <up x="0.5" y="-6.0" z="3.0"/><resx ival="32"/><resy ival="32"/>
+    <focal fval="0.9"/></camera>
+  <volumeregion name="v"><type sval="ExpDensityVolume"/>
+    <sigma_a fval="0.05"/><sigma_s fval="0.1"/><l_e fval="0.4"/>
+    <a fval="1.0"/><b fval="0.7"/>
+    <minX fval="-3.0"/><minY fval="-3.0"/><minZ fval="0.0"/>
+    <maxX fval="3.0"/><maxY fval="3.0"/><maxZ fval="2.5"/></volumeregion>
+  <mesh id="1" vertices="4" faces="2" has_uv="false" type="0">
+    <p x="-3" y="-3" z="0"/><p x="3" y="-3" z="0"/><p x="3" y="3" z="0"/>
+    <p x="-3" y="3" z="0"/><set_material sval="m"/>
+    <f a="0" b="1" c="2"/><f a="0" b="2" c="3"/>
+  </mesh>
+  <integrator name="default"><type sval="directlighting"/>
+    <raydepth ival="2"/></integrator>
+  <integrator name="volintegr"><type sval="EmissionIntegrator"/></integrator>
+  <render><camera_name sval="cam"/><integrator_name sval="default"/>
+    <volintegrator_name sval="volintegr"/>
+    <width ival="32"/><height ival="32"/><AA_minsamples ival="2"/>
+    <filter_type sval="box"/></render>
+</scene>"""
+# the reference's object-visibility scene (a floor, an occluder quad between
+# it and a point light; tests/test_visibility.py) at 64²
+VIS_XML = """<scene type="triangle">
+  <material name="white"><type sval="shinydiffusemat"/>
+    <color r="0.8" g="0.8" b="0.8"/></material>
+  <material name="gray"><type sval="shinydiffusemat"/>
+    <color r="0.3" g="0.3" b="0.3"/></material>
+  <light name="sun"><type sval="pointlight"/>
+    <from x="0.0" y="0.0" z="4.0"/><color r="1.0" g="1.0" b="1.0"/>
+    <power fval="80.0"/></light>
+  <camera name="cam"><type sval="perspective"/>
+    <from x="0.0" y="-6.0" z="3.0"/><to x="0.0" y="0.0" z="0.0"/>
+    <up x="0.0" y="-6.0" z="4.0"/><resx ival="64"/><resy ival="64"/>
+    <focal fval="1.1"/></camera>
+  <background name="bg"><type sval="constant"/>
+    <color r="0.0" g="0.0" b="0.0"/></background>
+  <mesh id="1" vertices="4" faces="2" has_uv="false" type="0">
+    <p x="-4.0" y="-4.0" z="0.0"/><p x="4.0" y="-4.0" z="0.0"/>
+    <p x="4.0" y="4.0" z="0.0"/><p x="-4.0" y="4.0" z="0.0"/>
+    <set_material sval="white"/><f a="0" b="1" c="2"/><f a="0" b="2" c="3"/>
+  </mesh>
+  <mesh id="2" vertices="4" faces="2" has_uv="false"{vis} type="0">
+    <p x="-1.0" y="-1.0" z="2.0"/><p x="1.0" y="-1.0" z="2.0"/>
+    <p x="1.0" y="1.0" z="2.0"/><p x="-1.0" y="1.0" z="2.0"/>
+    <set_material sval="gray"/><f a="0" b="1" c="2"/><f a="0" b="2" c="3"/>
+  </mesh>
+  <integrator name="default"><type sval="directlighting"/>
+    <raydepth ival="2"/></integrator>
+  <integrator name="volintegr"><type sval="none"/></integrator>
+  <render><camera_name sval="cam"/><integrator_name sval="default"/>
+    <width ival="64"/><height ival="64"/><AA_passes ival="1"/>
+    <AA_minsamples ival="4"/><filter_type sval="box"/></render>
+</scene>"""
+
+
+def sky_scene(render_params=None, integrator=None, camera=None,
+              lamp=False, background=None):
+    """scenes/sky_fog.xml parsed, with render / integrator parameters, its
+    camera's fields replaced by `camera`, SKY_LAMP added (lamp) and its
+    background replaced (background: the factory's parameters)."""
+    from dataclasses import replace
+
+    scene = scene_at(SKY_FOG, render_params, integrator)
+    if camera:
+        scene.cameras["cam"] = replace(scene.cameras["cam"], **camera)
+    if lamp:
+        scene.create_light("lamp", ParamMap(SKY_LAMP))
+    if background:
+        scene.create_background("sky", ParamMap(background))
+    return scene
+
+
+def sky_step_launches(cs, cfg) -> dict:
+    """Each kernel's launches a sample step, from the engine's loops: a
+    closest hit at every path vertex (bounces + 1); a shadow batch at every
+    vertex for each NEE light that casts shadows, and at each of the fog
+    march's MARCH_STEPS steps one for each light the march samples (not
+    the meshlights, not the background light)."""
+    from libyafaray_tpu_torch.volumes import integrate as vol
+
+    verts = cfg.bounces + 1
+    marched = len(vol._marched_lights(cs.static)) * len(cs.static.volumes)
+    return {TINY[0]: verts,
+            DENSE[1]: verts * nee_lights(cs.static)
+            + vol.MARCH_STEPS * marched}
+
+
+def sky_fog_scene() -> tuple:
+    """sky_fog.xml compiled for the card: 26 camera-visible triangles (the
+    tiny route) and 334 shadow casters (the dense route), its sky grid
+    (uploaded to the card and read back) equal to the host's Preetham
+    bake, one ExpDensityVolume.  Returns (scene, config, compiled)."""
+    import xml.etree.ElementTree as ET
+
+    from libyafaray_tpu_torch.backgrounds.sky import bake_sky
+    from libyafaray_tpu_torch.scene.xml_parser import _parse_params
+
+    t0 = time.perf_counter()
+    scene = scene_at(SKY_FOG)
+    cfg = build_config(scene)
+    cs = scene.compile(device="cuda")
+    a, st = cs.arrays, cs.static
+    routes = (isect.route(a["tri_pack10"], a["tri_cluster8"],
+                          st.n_tris_real),
+              isect.route(a["stri_pack10"], a["stri_cluster8"],
+                          st.n_stris_real))
+    sky_el = next(e for e in ET.parse(SKY_FOG).getroot()
+                  if e.tag == "background")
+    _, host = bake_sky("sunsky", _parse_params(sky_el))
+    card = to_tensors({"bg_image": a["bg_image"]}, "cuda")["bg_image"]
+    grid_equal = bool(np.array_equal(card.cpu().numpy(), host))
+    vol = st.volumes[0] if st.volumes else None
+    phase("sky_scene", visible_tris=st.n_tris_real,
+          shadow_tris=st.n_stris_real, routes=routes,
+          invisible_excluded=True, sky_grid=tuple(card.shape),
+          sky_grid_equal_cpu_bake=grid_equal, ibl_samples=st.bg.ibl_samples,
+          lights=[LT_NAMES[ls.ltype] for ls in st.lights],
+          fog=(f"type={vol.vtype} box={vol.bmin}..{vol.bmax} "
+               f"sigma_a={vol.sigma_a} sigma_s={vol.sigma_s} a={vol.a} "
+               f"b={vol.b}" if vol else None),
+          vol_integrator=cfg.vol_integrator, camera=(
+              f"aperture={cs.camera.aperture} bokeh={cs.camera.bokeh_type} "
+              f"dof={cs.camera.dof_distance}"),
+          integrator=cfg.integrator, bounces=cfg.bounces,
+          size=f"{cfg.width}x{cfg.height}", spp=cfg.aa_samples,
+          compile_s=round(time.perf_counter() - t0, 3))
+    if routes != ("tiny", "dense") or (st.n_tris_real,
+                                       st.n_stris_real) != (26, 334):
+        raise AssertionError(f"sky_scene: sets {st.n_tris_real} / "
+                             f"{st.n_stris_real} routed {routes}")
+    if not grid_equal or vol is None or vol.sigma_s <= 0:
+        raise AssertionError("sky_scene: the sky grid differs from the CPU "
+                             "bake, or the fog is missing")
+    return scene, cfg, cs
+
+
+def sky_kernels(cs, cfg) -> dict:
+    """closest_hit_tiny on one 512² step's recorded primary rays, and
+    shadow_logsum_dense on one recorded fog in-scatter batch (march step
+    7: the sun's segments of 1e8 from every lane's march point, no dead
+    lane), each against its plain version."""
+    from libyafaray_tpu_torch.volumes import integrate as vol
+
+    step, arrays = path_step(cs, cfg)
+    dev = engine.resolve_device("cuda")
+    flags = torch.ones((cfg.height, cfg.width), dtype=torch.bool, device=dev)
+    (_, shadow), closest = record_calls(ci, (TINY[0],), lambda: record_calls(
+        cx, (DENSE[1],), lambda: step(arrays, _fresh_film(cfg, dev), flags)))
+    torch.cuda.synchronize()
+    want = sky_step_launches(cs, cfg)
+    if len(closest) != want[TINY[0]] or len(shadow) != want[DENSE[1]]:
+        raise AssertionError(f"sky_kernels: recorded {len(closest)} / "
+                             f"{len(shadow)} calls, expected {want}")
+    args = shadow[7][1]  # the march runs before the first vertex's NEE
+    dist = args[6]
+    if not (bool((dist == 1e8).all())
+            and dist.shape[0] == cfg.width * cfg.height
+            and vol.MARCH_STEPS > 7):
+        raise AssertionError("sky_kernels: the recorded batch is not a fog "
+                             "in-scatter batch")
+    pk, org, dirn, tmin, tmax, n_tris = closest[0][1]
+    out = dict(closest=check_tiny_closest(pk, (org, dirn, tmin, tmax),
+                                          n_tris, "sky_fog primary"),
+               shadow=check_mid_shadow("dense", args,
+                                       "sky_fog in-scatter step 7 (1e8)"))
+    del closest, shadow, arrays
+    return out
+
+
+def sky_path(smi, cs, cfg) -> dict:
+    """sky_fog.xml at its own settings (pathtracing, bounces 3, 512², 16
+    spp, the fog's 16-step march) through render_scene(timed=True),
+    counted against sky_step_launches; one profiled step, and one with the
+    volume integrator off: the volume layer's launches are the
+    difference."""
+    scene = scene_at(SKY_FOG)
+    res, launches = entry_counted(scene, (TINY[0], DENSE[1]))
+    per_step = sky_step_launches(cs, cfg)
+    steps = cfg.aa_samples + 1
+    path_line("sky_path", res, cfg, launches,
+              {k: v * steps for k, v in per_step.items()}, smi,
+              spp=cfg.aa_samples, bounces=cfg.bounces,
+              launches_per_step=per_step,
+              step_ms=round(1e3 * res.stats["render_s"] / cfg.aa_samples,
+                            3))
+    tags = ("closest_tiny_kernel", "shadow_dense_kernel")
+    step, arrays = path_step(cs, cfg)
+    prof = profile_step(step, arrays, cfg, tags,
+                        {"volume": (engine, "integrate_volume")})
+    off = RenderConfig(**{**cfg.__dict__, "vol_integrator": "none"})
+    no_fog = profile_step(engine.make_sample_step(
+        cs.static, cs.camera, off, engine.resolve_device("cuda")), arrays,
+        off, tags)
+    step_ms = 1e3 * res.stats["render_s"] / cfg.aa_samples
+    busy = prof["device_busy_ms"]
+    phase("sky_profile", step_ms=round(step_ms, 3), **prof,
+          busy_share=(busy / step_ms if isinstance(busy, float)
+                      else "not measured"),
+          launches_no_fog=no_fog.get("kernel_launches", "not measured"),
+          volume_layer_launches=(
+              prof["kernel_launches"] - no_fog["kernel_launches"]
+              if "kernel_launches" in prof and "kernel_launches" in no_fog
+              else "not measured"),
+          busy_ms_no_fog=no_fog["device_busy_ms"], gpu=repr(smi))
+    del arrays
+    return launches
+
+
+def sky_card_vs_cpu() -> None:
+    """The card against the CPU at 32², 2 spp (PERF.md §2's bounds): the
+    scene through every camera (SKY_CAMERAS), under darksky (the Preetham
+    stand-in), as BDPT with the architect camera and SKY_LAMP (the t = 1
+    density plane on its own), and as photon mapping with the scene's
+    depth of field at 16,384 photons; and GRADIENT_FOG_XML (directlighting,
+    EmissionIntegrator, gradient IBL)."""
+    from libyafaray_tpu_torch.scene.xml_parser import parse_xml_string
+
+    for what, cam in SKY_CAMERAS.items():
+        entry_vs_cpu(f"sky_fog {what}", lambda: sky_scene(
+            SKY_SMALL, camera=cam), 1e-4, tag="sky_card_vs_cpu")
+    entry_vs_cpu("sky_fog darksky", lambda: sky_scene(
+        SKY_SMALL, background=dict(
+            type="darksky", turbidity=3.0, background_light=True,
+            light_samples=8, **{"from": (-0.45, 0.55, 0.7)})), 1e-4,
+        tag="sky_card_vs_cpu")
+    entry_vs_cpu("sky_fog bidirectional architect_dof", lambda: sky_scene(
+        SKY_SMALL, dict(type="bidirectional"), camera=dict(cam_type=1),
+        lamp=True), 1e-4, density=1e-5, tag="sky_card_vs_cpu")
+    entry_vs_cpu("sky_fog photonmapping dof", lambda: sky_scene(
+        SKY_SMALL, dict(type="photonmapping", photons=16_384, cPhotons=8192,
+                        fg_samples=4), lamp=True), 1e-3, rays_rel=1e-3,
+        stored_rel=1e-3, tag="sky_card_vs_cpu")
+    entry_vs_cpu("gradient_fog directlighting emission",
+                 lambda: parse_xml_string(GRADIENT_FOG_XML), 1e-4,
+                 tag="sky_card_vs_cpu")
+
+
+def sky_optimize(smi) -> None:
+    """SingleScatter `optimize` (attenuation grids baked at render start)
+    against the exact march on the reference's own test scene (a point
+    light in a UniformVolume box, directlighting raydepth 1; a floor below
+    the box, as the port compiles no empty scene) at 64², 4 spp: image
+    means within 5% (tests/test_volumes_film.py's bound), and the grids
+    taking the march's shadow batches."""
+    def make(optimize):
+        s = Scene()
+        floor = s.create_material("floor", ParamMap(type="shinydiffusemat"))
+        s.create_background("bg", ParamMap(type="constant",
+                                           color=(0.0, 0.0, 0.0)))
+        s.create_light("L", ParamMap(type="pointlight", color=(1.0, 1.0, 1.0),
+                                     power=40.0, **{"from": (0.0, 0.0, 2.5)}))
+        quad_mesh(s, 1, ((-6, -6, -3), (6, -6, -3), (6, 6, -3), (-6, 6, -3)),
+                  floor)
+        s.create_volume_region("v", ParamMap(
+            type="UniformVolume", sigma_a=0.05, sigma_s=0.25, minX=-2.0,
+            maxX=2.0, minY=-2.0, maxY=2.0, minZ=-2.0, maxZ=2.0))
+        s.create_integrator("volintegr", ParamMap(
+            type="SingleScatterIntegrator", stepSize=0.2, optimize=optimize))
+        s = flat_scene(s, "directlighting", 64, 4, {
+            "from": (0.0, -5.0, 0.0), "to": (0.0, 0.0, 0.0),
+            "up": (0.0, -5.0, 1.0), "focal": 1.0}, raydepth=1)
+        s.render_params["volintegrator_name"] = "volintegr"
+        return s
+
+    out = {}
+    for opt in (False, True):
+        res, launches = counted(lambda: render_scene(make(opt),
+                                                     device="cuda"))
+        out[opt] = (res, launches["shadow_logsum_tiny"])
+    exact, opt = out[False][0].image, out[True][0].image
+    rel = abs(float(opt.mean()) - float(exact.mean())) / float(exact.mean())
+    phase("sky_optimize", size="64x64", spp=4, mean_exact=float(exact.mean()),
+          mean_optimize=float(opt.mean()), rel=rel, bound=0.05,
+          shadow_launches_exact=out[False][1],
+          shadow_launches_optimize=out[True][1],
+          rmse=float(np.sqrt(np.mean((opt - exact) ** 2))), gpu=repr(smi))
+    if not (np.isfinite(opt).all() and exact.mean() > 1e-3 and rel < 0.05
+            and out[True][1] < out[False][1]):
+        raise AssertionError("sky_optimize: the attenuation grids disagree "
+                             "with the exact march")
+
+
+def visibility_phase(smi) -> None:
+    """The four object-visibility variants of VIS_XML on the card at 64²,
+    4 spp (directlighting), held to tests/test_visibility.py's assertions:
+    a shadow where the occluder casts, a lit floor where it does not, the
+    occluder seen or not, and the same shadow field whether or not the
+    camera sees the caster."""
+    from libyafaray_tpu_torch.scene.xml_parser import parse_xml_string
+
+    img, sets = {}, {}
+    for vis in ("normal", "invisible", "shadow_only", "no_shadows"):
+        xml = VIS_XML.format(vis=f' visibility="{vis}"')
+        cs = parse_xml_string(xml).compile(device="cuda")
+        sets[vis] = (cs.static.n_tris_real, cs.static.n_stris_real)
+        img[vis] = render_scene(parse_xml_string(xml), device="cuda").image
+
+    def center(a):
+        h, w, _ = a.shape
+        return float(a[h // 2 - 4:h // 2 + 4, w // 2 - 4:w // 2 + 4].mean())
+
+    h = img["normal"].shape[0]
+    sl = np.s_[h // 2 - 2:h // 2 + 2, h // 2 - 2:h // 2 + 2]
+    checks = {
+        "normal_shadowed": center(img["normal"]) < 0.05,
+        "shadow_only_shadowed": center(img["shadow_only"]) < 0.05,
+        "invisible_lit": center(img["invisible"]) > 0.5,
+        "no_shadows_lit": center(img["no_shadows"]) > 0.5,
+        "shadow_drops_energy": (
+            img["shadow_only"].mean() < 0.9 * img["invisible"].mean()
+            and img["normal"].mean() < 0.9 * img["no_shadows"].mean()),
+        "caster_seen": (
+            np.abs(img["normal"] - img["shadow_only"]).max() > 0.05
+            and np.abs(img["no_shadows"] - img["invisible"]).max() > 0.05),
+        "same_shadow_field": bool(np.allclose(
+            img["normal"][sl], img["shadow_only"][sl], atol=1e-5)),
+        "sets": sets == {"normal": (4, 4), "invisible": (2, 2),
+                         "shadow_only": (2, 4), "no_shadows": (4, 2)},
+    }
+    phase("visibility", size=f"{h}x{h}", spp=4, sets=sets,
+          center={k: round(center(v), 5) for k, v in img.items()},
+          checks=checks, gpu=repr(smi))
+    if not all(checks.values()):
+        raise AssertionError(f"visibility: {checks}")
+
+
+def slice19_phases(smi, out_dir: str, kernels: list) -> None:
+    """Cameras, the sky backgrounds, volumes and object visibility on
+    scenes/sky_fog.xml: the scene and its two sets, the tiny closest hit
+    and the dense shadow sum against their plain versions on recorded
+    rays, the path at its own settings (and a profiled step), the card
+    against the CPU under every camera and the other backgrounds and
+    integrators, `optimize` against the exact march, the four visibility
+    variants, and the CLI.  The closest_hit_tiny and shadow_logsum_dense
+    entries of `kernels` take `*_sky`."""
+    _, cfg, cs = sky_fog_scene()
+    chk = sky_kernels(cs, cfg)
+    path = sky_path(smi, cs, cfg)
+    sky_card_vs_cpu()
+    sky_optimize(smi)
+    visibility_phase(smi)
+    cli_copy("sky_cli", SKY_FOG, 16, SKY_CLI["size"], SKY_CLI["spp"], smi,
+             out_dir)
+    by_name = {k["name"]: k for k in kernels}
+    for name, c in ((TINY[0], chk["closest"]), (DENSE[1], chk["shadow"])):
+        if name in by_name:  # absent on a run of --only slice19
+            by_name[name].update(
+                launches_sky=path[name], ms_sky=c["ms"],
+                plain_ms_sky=c["plain_ms"],
+                bound_ms_sky=c["bound"]["bound_ms"], max_abs_err_sky=c["err"])
+
+
 def main(argv=None) -> None:
     import argparse
 
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
-    ap.add_argument("--only", choices=("slice17", "slice18"), default=None,
+    ap.add_argument("--only", choices=("slice17", "slice18", "slice19"),
+                    default=None,
                     help="run only this slice's phases after the build (an "
                          "iteration run: it prints no result line)")
     only = ap.parse_args(argv).only
@@ -3653,7 +4065,8 @@ def main(argv=None) -> None:
     if only:
         with tempfile.TemporaryDirectory() as out_dir:
             {"slice17": slice17_phases,
-             "slice18": slice18_phases}[only](smi, out_dir, [])
+             "slice18": slice18_phases,
+             "slice19": slice19_phases}[only](smi, out_dir, [])
         print(smi, flush=True)
         print(f"chip_smoke: --only {only} ran; no result line", flush=True)
         return
@@ -3747,6 +4160,10 @@ def main(argv=None) -> None:
     # 17. slice 18: every light type on cornell_lights.xml
     with tempfile.TemporaryDirectory() as out_dir:
         slice18_phases(smi, out_dir, mid + photon)
+
+    # 18. slice 19: cameras, sky backgrounds, volumes, visibility
+    with tempfile.TemporaryDirectory() as out_dir:
+        slice19_phases(smi, out_dir, kernels + mid)
 
     print(json.dumps({"kernels": kernels + fine + photon + mid + pairs}),
           flush=True)

@@ -8,8 +8,9 @@ and never jax, and nothing from `libyafaray_tpu`.
 The entry points are `scene/session.py` `render_scene` and the CLI
 `python -m libyafaray_tpu_torch.cli.yafaray_xml scene.xml out.exr`: XML
 parse -> scene compile -> `integrators/render.py` (pathtracing,
-directlighting), `integrators/photonmap.py` (photon mapping) or
-`integrators/sppm.py` (SPPM) -> wavefront sample step or pass -> film ->
+directlighting, with the volume integrator), `integrators/photonmap.py`
+(photon mapping), `integrators/sppm.py` (SPPM), `integrators/veach.py`
+(bidirectional) or `integrators/debug.py` -> wavefront sample step or pass -> film ->
 image.  They run on the card ("cuda") unless the caller passes
 device="cpu".  Every Pallas kernel of the reference on these paths is
 hand-written CUDA for Hopper under `csrc/`, with a plain PyTorch version
@@ -19,11 +20,14 @@ raises NotImplementedError naming its ROADMAP item.
   core/         math, color, QMC, sampling warps
   scene/        params, meshes, XML parser, scene compile, session, the
                 grid-spheres scene generator
-  cameras/      perspective shoot_rays, pixel cone, projection
+  cameras/      shoot_rays of every camera type (thin-lens depth of
+                field, bokeh), pixel cone, projection
   materials/    material table, the ported BSDFs, blend and mask
   lights/       light table, area-light sampling, the IBL light (alias
                 table over the environment map)
-  backgrounds/  constant and texture backgrounds, the env-map blur
+  backgrounds/  constant, gradient and texture backgrounds, the sunsky /
+                darksky bakes (Preetham, Hosek-Wilkie), the env-map blur
+  volumes/      volume regions, the emission and single-scatter marches
   textures/     image textures (mip atlas, nearest / bilinear / bicubic /
                 trilinear / EWA), procedural textures, node programs
   ops/          intersection dispatch, photon gathers: CUDA wrappers and

@@ -1,7 +1,8 @@
 """Backgrounds (port of libyafaray_tpu/backgrounds/base.py: the spec record,
-the none / constant / texture branches of `eval_background`, and the
-lat-long and angular-probe direction <-> uv maps the IBL light shares).
-Gradient, sunsky and darksky raise (ROADMAP Queue 1 item 17)."""
+`eval_background` (none, constant, gradient, texture), and the lat-long and
+angular-probe direction <-> uv maps the IBL light shares).  The sunsky and
+darksky backgrounds are baked on the host to a lat-long map
+(backgrounds/sky.py) and evaluate as texture backgrounds."""
 from __future__ import annotations
 
 import math
@@ -17,8 +18,6 @@ BG_GRADIENT = 1
 BG_TEXTURE = 2
 BG_SUNSKY = 3
 BG_DARKSKY = 4
-
-PORTED_BACKGROUNDS = (BG_NONE, BG_CONSTANT, BG_TEXTURE)
 
 
 @dataclass(frozen=True)
@@ -41,18 +40,10 @@ class BackgroundSpec:
     with_diffuse: bool = True
 
 
-def check_supported(spec: BackgroundSpec) -> None:
-    if spec.bg_type not in PORTED_BACKGROUNDS:
-        raise NotImplementedError(
-            f"background type {spec.bg_type} is not ported yet: ROADMAP "
-            "Queue 1 item 17 (gradient, sunsky, darksky)")
-
-
 def eval_background(spec: BackgroundSpec, bg_image, d: torch.Tensor):
     """Radiance of escaping rays with direction d (N, 3).  bg_image: the
     (Hb, Wb, 3) map of a texture background (None otherwise), read at the
     nearest texel."""
-    check_supported(spec)
     if spec.bg_type == BG_NONE:
         return torch.zeros(d.shape[:-1] + (3,), dtype=torch.float32,
                            device=d.device)
@@ -60,6 +51,20 @@ def eval_background(spec: BackgroundSpec, bg_image, d: torch.Tensor):
         c = torch.tensor(spec.color, dtype=torch.float32, device=d.device) \
             * spec.power
         return c.expand(d.shape[:-1] + (3,))
+    if spec.bg_type == BG_GRADIENT:
+        # sky colors above the horizon, ground colors below, each blended
+        # from horizon to zenith by |z|
+        def col(c):
+            return torch.tensor(c, dtype=torch.float32, device=d.device)
+
+        z = d[..., 2]
+        t = torch.clamp(z.abs(), 0.0, 1.0)[..., None]
+        sky = (1.0 - t) * col(spec.horizon_color) + t * col(spec.zenith_color)
+        ground = ((1.0 - t) * col(spec.horizon_ground_color)
+                  + t * col(spec.zenith_ground_color))
+        return torch.where((z >= 0.0)[..., None], sky, ground) * spec.power
+    if spec.bg_type != BG_TEXTURE:
+        raise ValueError(f"background type {spec.bg_type} not compiled here")
     u, v = dir_to_uv(spec, d)
     hb, wb = bg_image.shape[0], bg_image.shape[1]
     x = torch.clamp((u * wb).to(torch.int32), 0, wb - 1)

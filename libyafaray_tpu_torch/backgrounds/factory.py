@@ -1,7 +1,8 @@
 """Background factory: ParamMap -> (BackgroundSpec, image or None) (port of
-libyafaray_tpu/backgrounds/factory.py for the constant and texture
-backgrounds; gradient, sunsky and darksky raise, ROADMAP Queue 1 item 17),
-and `blur_env_map`, the IBL light's prefilter."""
+libyafaray_tpu/backgrounds/factory.py: constant, gradient, textureback, and
+sunsky / darksky baked to a lat-long map (backgrounds/sky.py); an unknown
+type warns and renders black), and `blur_env_map`, the IBL light's
+prefilter."""
 from __future__ import annotations
 
 import logging
@@ -9,7 +10,7 @@ import logging
 import numpy as np
 
 from ..scene.params import ParamMap
-from .base import BG_CONSTANT, BG_TEXTURE, BackgroundSpec
+from .base import BG_CONSTANT, BG_GRADIENT, BG_TEXTURE, BackgroundSpec
 
 log = logging.getLogger("libyafaray_tpu_torch")
 
@@ -26,6 +27,16 @@ def background_from_params(params: ParamMap, textures: dict | None = None):
             bg_type=BG_CONSTANT, power=power,
             color=params.get_rgb("color", (0.0, 0.0, 0.0)),
             ibl=ibl, ibl_samples=ibl_samples), None
+    if btype == "gradient":
+        return BackgroundSpec(
+            bg_type=BG_GRADIENT, power=power,
+            horizon_color=params.get_rgb("horizon_color", (0.8, 0.9, 1.0)),
+            zenith_color=params.get_rgb("zenith_color", (0.1, 0.3, 0.8)),
+            horizon_ground_color=params.get_rgb("horizon_ground_color",
+                                                (0.6, 0.6, 0.6)),
+            zenith_ground_color=params.get_rgb("zenith_ground_color",
+                                               (0.3, 0.3, 0.3)),
+            ibl=ibl, ibl_samples=ibl_samples), None
     if btype in ("textureback", "texture"):
         tex_name = params.get_str("texture", "")
         if textures and tex_name in textures:
@@ -41,9 +52,11 @@ def background_from_params(params: ParamMap, textures: dict | None = None):
             rotation=params.get_float("rotation", 0.0),
             ibl=ibl, ibl_samples=ibl_samples,
             ibl_blur=params.get_float("ibl_blur", 0.0)), img
-    raise NotImplementedError(
-        f"background type {btype!r} is not ported yet: ROADMAP Queue 1 "
-        "item 17 (gradient, sunsky, darksky)")
+    if btype in ("sunsky", "darksky"):
+        from .sky import bake_sky
+        return bake_sky(btype, params)
+    log.warning("unknown background type %r; black", btype)
+    return BackgroundSpec(), None
 
 
 def blur_env_map(img: np.ndarray, ibl_blur: float) -> np.ndarray:

@@ -2,11 +2,15 @@
 libyafaray_tpu/cameras/factory.py)."""
 from __future__ import annotations
 
+import logging
+
 from ..scene.params import ParamMap
 from .base import (
     CAM_ANGULAR, CAM_ARCHITECT, CAM_EQUIRECT, CAM_ORTHO, CAM_PERSPECTIVE,
     Camera,
 )
+
+log = logging.getLogger("libyafaray_tpu_torch")
 
 _TYPES = {
     "perspective": CAM_PERSPECTIVE,
@@ -20,8 +24,8 @@ _TYPES = {
 def camera_from_params(params: ParamMap) -> Camera:
     tname = params.get_str("type", "perspective")
     if tname not in _TYPES:
-        raise NotImplementedError(
-            f"camera type {tname!r} is not ported: ROADMAP Queue 1 item 17")
+        log.warning("unknown camera type %r; using perspective", tname)
+        tname = "perspective"
     return Camera.from_lookat(
         _TYPES[tname],
         params.get_int("resx", 512),

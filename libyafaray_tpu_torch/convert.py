@@ -22,12 +22,12 @@ from .cameras.base import Camera
 from .integrators.config import RenderConfig
 from .ops.cluster_intersect import quarter_boxes
 from .ops.fine_intersect import sub_aabbs
-from .scene.scene import (BACKGROUND_ARRAY_KEYS, FINE_ARRAY_KEYS,
-                          LIGHT_ARRAY_PREFIXES, ORCO_ARRAY_KEY,
-                          QUARTER_ARRAY_KEYS, SLICE_ARRAY_KEYS,
-                          SPHERE_ARRAY_KEYS, TEXTURE_ARRAY_PREFIXES,
-                          TRI_POS_KEY, LightStatic, SceneStatic)
+from .scene.scene import (BACKGROUND_ARRAY_KEYS, LIGHT_ARRAY_PREFIXES,
+                          ORCO_ARRAY_KEY, SLICE_ARRAY_KEYS, SPHERE_ARRAY_KEYS,
+                          TEXTURE_ARRAY_PREFIXES, TRI_POS_KEY, LightStatic,
+                          SceneStatic)
 from .textures.nodes import NodeProgram, NodeSpec
+from .volumes.factory import VolumeRegion, grid_arrays
 
 _DTYPES = {np.dtype(np.float32): torch.float32,
            np.dtype(np.int32): torch.int32,
@@ -54,34 +54,47 @@ def to_tensors(arrays: dict, device) -> dict:
     return out
 
 
-def arrays_from_reference(arrays: dict, device) -> dict:
+def arrays_from_reference(arrays: dict, device,
+                          n_stris_real: int | None = None,
+                          volumes: tuple = ()) -> dict:
     """The reference's CompiledScene.arrays -> the port's scene tensors:
     the keys the port reads (with the sphere pack, the textures, the orco
     pack, the background's map and IBL tables, the meshlights' and
     portals' CDFs with tri_pos, and the IES profiles where the scene has
     them), plus the sub-cluster and 32-column box tables the port builds
-    once per scene (FINE_ARRAY_KEYS, QUARTER_ARRAY_KEYS) derived from the
-    reference's packs, whose real width is the triangle count
-    (tri_shade_pack rows)."""
+    once per scene (FINE_ARRAY_KEYS, QUARTER_ARRAY_KEYS), each set's from
+    its own pack: the visible set's real width is the triangle count
+    (tri_shade_pack rows), the shadow set's `n_stris_real` (the reference
+    static's), which a scene whose shadow set differs must give; and the
+    density grids of `volumes` (the static's regions) that are
+    GridVolumes."""
     missing = [k for k in SLICE_ARRAY_KEYS if k not in arrays]
     if missing:
         raise KeyError(f"reference arrays lack {missing}")
-    if not np.array_equal(arrays["stri_pack10"], arrays["tri_pack10"]):
-        raise NotImplementedError(
-            "a shadow triangle set other than the scene's (object "
-            "visibility) is not ported yet: ROADMAP Queue 1 item 17")
     n_real = arrays["tri_shade_pack"].shape[0]
-    sub8 = sub_aabbs(arrays["tri_pack10"], n_real)
-    box32 = quarter_boxes(arrays["tri_pack10"], n_real)
+    same = np.array_equal(arrays["stri_pack10"], arrays["tri_pack10"])
+    if n_stris_real is None:
+        if not same:
+            raise ValueError("the shadow set differs from the visible set: "
+                             "pass the reference static's n_stris_real")
+        n_stris_real = n_real
+    tables = {"tri_sub8": sub_aabbs(arrays["tri_pack10"], n_real),
+              "tri_box32": quarter_boxes(arrays["tri_pack10"], n_real)}
+    if same and n_stris_real == n_real:
+        tables.update(stri_sub8=tables["tri_sub8"],
+                      stri_box32=tables["tri_box32"])
+    else:
+        tables.update(stri_sub8=sub_aabbs(arrays["stri_pack10"], n_stris_real),
+                      stri_box32=quarter_boxes(arrays["stri_pack10"],
+                                               n_stris_real))
     keys = SLICE_ARRAY_KEYS + tuple(
         k for k in arrays
         if k in SPHERE_ARRAY_KEYS + BACKGROUND_ARRAY_KEYS + (ORCO_ARRAY_KEY,)
         or k.startswith(TEXTURE_ARRAY_PREFIXES + LIGHT_ARRAY_PREFIXES))
     if any(k.startswith("mlight_cdf_") for k in keys):
         keys += (TRI_POS_KEY,)
-    return to_tensors({**{k: arrays[k] for k in keys},
-                       **dict.fromkeys(FINE_ARRAY_KEYS, sub8),
-                       **dict.fromkeys(QUARTER_ARRAY_KEYS, box32)}, device)
+    return to_tensors({**{k: arrays[k] for k in keys}, **tables,
+                       **grid_arrays(volumes)}, device)
 
 
 def _copy_fields(cls, ref, **override):
@@ -90,17 +103,15 @@ def _copy_fields(cls, ref, **override):
 
 
 def static_from_reference(static) -> SceneStatic:
-    """The reference's SceneStatic -> the port's (the fields the port reads).
-    Raises for reference features the port does not render."""
-    if static.volumes:
-        raise NotImplementedError(
-            "volumes are not ported yet: ROADMAP Queue 1 item 17")
+    """The reference's SceneStatic -> the port's (the fields the port reads),
+    its volume regions included."""
     # the reference takes its pair route from an environment flag, not its
     # static: a converted static asks for the default routes
     return _copy_fields(
         SceneStatic, static, pairs=False,
         lights=tuple(_copy_fields(LightStatic, ls) for ls in static.lights),
         bg=_copy_fields(BackgroundSpec, static.bg),
+        volumes=tuple(_copy_fields(VolumeRegion, v) for v in static.volumes),
         mat_families=tuple(int(c) for c in static.mat_families),
         node_programs=tuple(
             NodeProgram(nodes=tuple(NodeSpec(*nd) for nd in prog.nodes),

@@ -76,8 +76,9 @@ def render_debug(cscene, cfg: RenderConfig, debug_type: str = "N", *,
     lane = torch.arange(n, dtype=torch.int32, device=dev)
     py = torch.div(lane, w, rounding_mode="floor")
     px = lane - py * w
+    zeros = torch.zeros((n,), dtype=F32, device=dev)  # no lens sample
     org, dirn, _ = shoot_rays(cscene.camera, px.to(F32) + 0.5,
-                              py.to(F32) + 0.5)
+                              py.to(F32) + 0.5, zeros, zeros)
     tmin = torch.full((n,), static.ray_min_dist, dtype=F32, device=dev)
     hit = closest_hit(arrays, static, org, dirn, tmin,
                       torch.full((n,), float("inf"), dtype=F32, device=dev))

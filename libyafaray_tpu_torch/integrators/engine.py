@@ -25,7 +25,10 @@ meets such a material, and a lane past its budget dies.  In direct mode a
 path continues only through specular vertices, takes no Russian roulette
 and weighs its NEE samples 1.  A lane inside a glass with absorption
 carries the glass's Beer coefficient (`medium_sigma`) and loses
-exp(-sigma·t) of its throughput over each segment.
+exp(-sigma·t) of its throughput over each segment.  In a scene with volume
+regions and a volume integrator the first vertex runs it over the camera
+segment (volumes/integrate.py): its in-scattered light is added and the
+throughput takes the segment's transmittance.
 
 In a scene with textures every vertex applies them to its material row
 and bumps its normal (textures/eval.py), the mip LOD read from a ray cone
@@ -57,10 +60,11 @@ answers, and `_surface_point` decodes sphere hits (tri = -2 - sphere).
 """
 from __future__ import annotations
 
+from functools import partial
+
 import numpy as np
 import torch
 
-from ..backgrounds.base import check_supported as check_background
 from ..backgrounds.base import eval_background
 from ..cameras.base import pixel_cone, project_to_camera, shoot_rays
 from ..core import math as vmath
@@ -78,6 +82,7 @@ from ..materials.base import (MT_COATED_GLOSSY, MT_GLASS, MT_GLOSSY,
 from ..ops import intersect as isect
 from ..ops.photon_flash import density_auto
 from ..textures.eval import apply_textures, bump_normal
+from ..volumes.integrate import integrate_volume
 from .config import RenderConfig
 
 F32 = torch.float32
@@ -89,16 +94,15 @@ PORTED_INTEGRATORS = ("directlighting", "pathtracing", "photonmapping",
 
 def check_supported(static, cfg: RenderConfig) -> None:
     """Raise for any part of (scene, config) that the port does not render
-    with cfg.integrator.  All six of the reference's surface integrators
-    and all its light types are ported; under each integrator passes and
-    alpha raise (item 17)."""
+    with cfg.integrator.  All six of the reference's surface integrators,
+    all its light, camera, background and volume types are ported; under
+    each integrator passes and alpha raise (item 17)."""
     if cfg.integrator not in PORTED_INTEGRATORS:
         raise ValueError(f"unknown integrator {cfg.integrator!r}")
     if cfg.passes or cfg.transp_background:
         raise NotImplementedError(
             "render passes / AOVs and alpha are not ported yet: ROADMAP "
             "Queue 1 item 17")
-    check_background(static.bg)
 
 
 def check_arrays(arrays: dict, device: torch.device, prefix: str = "") -> None:
@@ -154,11 +158,18 @@ def pixel_lanes(h: int, w: int, qmc_seed: int, device):
 
 def camera_rays(camera, px, py, pixel_hash, s_idx):
     """Primary rays of sample s_idx: (dx, dy, org, dirn, weight), (dx, dy)
-    the in-pixel offsets from QMC dims 0-1.  (The lens pair, dims 2-3, only
-    feeds depth of field, which the port's perspective pinhole does not
-    have.)"""
+    the in-pixel offsets from QMC dims 0-1 and the lens pair from dims 2-3.
+    (The reference's path, BDPT, photon-mapping and SPPM steps draw the
+    lens pair as one sample_dim_pair or as two sample_dim calls, which give
+    the same values.  Only depth of field reads the pair: a camera without
+    an aperture skips the draw.)"""
     dx, dy = qmc.sample_dim_pair(s_idx, qmc.DIM_PIXEL_X, pixel_hash)
-    org, dirn, wt = shoot_rays(camera, px.to(F32) + dx, py.to(F32) + dy)
+    if camera.aperture > 0.0:
+        lu, lv = qmc.sample_dim_pair(s_idx, qmc.DIM_LENS_U, pixel_hash)
+    else:
+        lu = lv = torch.zeros_like(dx)
+    org, dirn, wt = shoot_rays(camera, px.to(F32) + dx, py.to(F32) + dy,
+                               lu, lv)
     return dx, dy, org, dirn, wt
 
 
@@ -567,6 +578,7 @@ def make_sample_step(static, camera, cfg: RenderConfig, device,
     # absorption lives on glass rows only: without glass no lane ever
     # enters a medium
     media = MT_GLASS in static.mat_families
+    volumes = bool(static.volumes) and cfg.vol_integrator not in ("none", "")
     dev = resolve_device(device)
     h, w = cfg.height, cfg.width
     spb = max(1, cfg.spp_batch)
@@ -611,6 +623,16 @@ def make_sample_step(static, camera, cfg: RenderConfig, device,
             seg = torch.where(hit.hit, hit.t, 0.0)
             throughput = throughput * torch.exp(-st["medium_sigma"]
                                                 * seg[..., None])
+        if first and volumes:
+            # the volume integrator on the camera segment (escapes march to
+            # 1e8): L += T·L_vol over it, and the surface behind sees T
+            l_vol, t_vol = integrate_volume(
+                static.volumes, cfg.vol_integrator, arrays, static, cfg,
+                partial(shadow_transmission, arrays, static,
+                        cfg.transp_shad),
+                org, dirn, torch.where(hit.hit, hit.t, 1e8), s_idx, ph)
+            L = L + torch.where(alive[..., None], throughput * l_vol, 0.0)
+            throughput = throughput * t_vol[..., None]
 
         # escaped rays: the background, MIS-weighted against the IBL
         # light's NEE where it has one; with a portal instead, only

@@ -59,15 +59,27 @@ def _fresh_film(cfg: RenderConfig, device,
 
 
 def _setup(cscene: CompiledScene, cfg: RenderConfig, device):
-    """(device, scene tensors, make_step, stats): the path tracer's caustic
-    map, when its caustic_type asks for one, is built here and rides in the
-    tensors as pm_caustic (stats: preprocess_s and photon_maps);
+    """(device, scene tensors, make_step, stats): SingleScatter's
+    `optimize` attenuation grids (tensors vol_att_*) and the path tracer's
+    caustic map, when its caustic_type asks for one (pm_caustic; stats:
+    preprocess_s and photon_maps), are built here;
     make_step(cfg, compact_n=0) builds a sample step of the scene that
     adds the map's term."""
     dev = resolve_device(device)
     check_supported(cscene.static, cfg)
     arrays = to_tensors(cscene.arrays, dev)
     caustic, stats = None, {}
+    if (cfg.vol_optimize and cscene.static.volumes
+            and cfg.vol_integrator == "SingleScatterIntegrator"):
+        # SingleScatter `optimize`: the per-(volume, light) attenuation
+        # grids, baked once (reference attenuationGridMap)
+        from ..volumes.integrate import build_attenuation_grids
+        from .engine import shadow_transmission
+
+        arrays.update(build_attenuation_grids(
+            cscene.static.volumes, cscene.static, arrays, cfg,
+            partial(shadow_transmission, arrays, cscene.static,
+                    cfg.transp_shad)))
     if (cfg.integrator == "pathtracing"
             and cfg.caustic_type in ("photon", "both")):
         from .photonmap import build_caustic_map

@@ -33,7 +33,10 @@ Lights: area, mesh, sphere, point and spot lights take part in light
 subpaths and s = 1 (`_BD_LIGHT_TYPES`); sun, directional and IES lights
 have no photon flux, so no pick probability, and reach the image through
 the weight-1 eye-side NEE; the IBL light and portals through the escape.
-Cameras: the pinhole perspective camera.
+Cameras: every type.  As in the reference, only perspective and architect
+cameras give the camera vertex its direction pdf and make t = 1 splats
+(projected through the pinhole even with an aperture); the others take
+pdf_cam0 = 1 and no t = 1 strategy.
 """
 from __future__ import annotations
 

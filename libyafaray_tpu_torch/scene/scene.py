@@ -10,6 +10,13 @@ in the same dict (TEXTURE_ARRAY_PREFIXES, BACKGROUND_ARRAY_KEYS), and so
 do the meshlights' and portals' triangle CDFs with the triangle corners
 they index, and the IES lights' profiles (LIGHT_ARRAY_PREFIXES,
 TRI_POS_KEY).
+
+Object visibility splits the meshes into two triangle sets: the camera-
+visible set (`normal` and `no_shadows` meshes: tri_* arrays) and the
+shadow-caster set (`normal` and `shadow_only`: stri_*, sfilt4,
+shadow_filt); an `invisible` mesh is in neither.  When every mesh is
+`normal` the shadow set's packs alias the visible set's.  Volume regions
+ride in SceneStatic.volumes.
 Features outside the slice raise NotImplementedError naming their ROADMAP
 item.
 """
@@ -39,6 +46,7 @@ from ..ops.fine_intersect import sub_aabbs
 from ..ops.intersect import intersector_for, pad_triangles
 from ..textures.eval import DEFAULT_MAPPING
 from ..textures.factory import build_mip_atlas, texture_from_params
+from ..volumes.factory import grid_arrays, volume_from_params
 from .mesh import TriMesh, finalize_mesh
 from .params import ParamMap
 
@@ -120,6 +128,7 @@ class SceneStatic:
     need_window: bool = False  # some texco is window: raster projection
     max_additional_depth: int = 0  # the largest material additionalDepth
     has_sampling_factor: bool = False  # some material samplingFactor != 1
+    volumes: tuple = ()  # volume regions (volumes/factory.py VolumeRegion)
 
 
 @dataclass
@@ -198,6 +207,7 @@ class Scene:
         self.background: tuple = (BackgroundSpec(), None)
         self.render_params = ParamMap()
         self.integrator_params: dict[str, ParamMap] = {}
+        self.volumes: list = []
         self._cur_mesh: TriMesh | None = None
         self._next_mesh_id = 0
         self.shadow_bias = 5e-4
@@ -208,12 +218,14 @@ class Scene:
     def start_tri_mesh(self, mesh_id: int, has_uv: bool,
                        visibility: str, has_orco: bool = False) -> int:
         self._next_mesh_id = max(self._next_mesh_id, mesh_id + 1)
-        if visibility != "normal":
-            raise NotImplementedError(
-                f"object visibility {visibility!r} is not ported yet: "
-                "ROADMAP Queue 1 item 17")
+        if visibility not in ("normal", "invisible", "shadow_only",
+                              "no_shadows"):
+            log.warning("startTriMesh: unknown visibility %r -> normal",
+                        visibility)
+            visibility = "normal"
         self._cur_mesh = TriMesh(mesh_id=mesh_id, has_uv=bool(has_uv),
-                                 has_orco=bool(has_orco))
+                                 has_orco=bool(has_orco),
+                                 visibility=visibility)
         self.meshes[mesh_id] = self._cur_mesh
         return mesh_id
 
@@ -275,6 +287,10 @@ class Scene:
         self.background = background_from_params(params, self.textures)
         return self.background
 
+    def create_volume_region(self, name: str, params: ParamMap):
+        self.volumes.append(volume_from_params(params))
+        return self.volumes[-1]
+
     def create_integrator(self, name: str, params: ParamMap):
         self.integrator_params[name] = ParamMap(params)
 
@@ -323,6 +339,17 @@ class Scene:
             block_mesh_ids.append(None)
         if not blocks:
             raise NotImplementedError("an empty scene is not ported")
+        vis_pairs = [(mid, b) for mid, b in zip(block_mesh_ids, blocks)
+                     if b.get("visibility", "normal") in ("normal",
+                                                          "no_shadows")]
+        shadow_blocks = [b for b in blocks
+                         if b.get("visibility", "normal") in ("normal",
+                                                              "shadow_only")]
+        if not vis_pairs:
+            vis_pairs = [(block_mesh_ids[0], blocks[0])]
+        if not shadow_blocks:
+            shadow_blocks = blocks[:1]
+        vis_blocks = [b for _, b in vis_pairs]
         # blocks without object coordinates (light panels) take local = pos
         # and orco = local normalised over the block's bounding box
         for b in blocks:
@@ -341,8 +368,8 @@ class Scene:
                 "dispersive glass (dispersion_power > 0) is not ported yet: "
                 "ROADMAP Queue 1 item 10 (dispersion)")
 
-        def cat(key):
-            return np.concatenate([b[key] for b in blocks], axis=0)
+        def cat(key, bs=vis_blocks):
+            return np.concatenate([b[key] for b in bs], axis=0)
 
         pos = cat("pos")  # (T,3,3)
         normal = cat("normal")
@@ -351,7 +378,6 @@ class Scene:
         mat = cat("mat")
         light_id = cat("light_id")
         n_real = pos.shape[0]
-        intersector = intersector_for(device, n_real)
 
         # meshlights and portals (reference src/lights/meshlight.cc): the
         # object's triangle range in the concatenation, an area-weighted
@@ -361,7 +387,7 @@ class Scene:
         # light.
         lights = [dict(r) for r in self.lights]
         mesh_ranges, cursor = {}, 0
-        for mid, b in zip(block_mesh_ids, blocks):
+        for mid, b in vis_pairs:
             if mid is not None:
                 mesh_ranges[mid] = (cursor, b["pos"].shape[0])
             cursor += b["pos"].shape[0]
@@ -406,11 +432,26 @@ class Scene:
         e2 = pos[:, 2] - pos[:, 0]
         chunk = int(min(512, max(8, -(-n_real // 8) * 8)))
         v0p, e1p, e2p, _ = pad_triangles(v0, e1, e2, chunk)
-        ns_pad = v0p.shape[0]
+        # the shadow set is the visible set when every mesh is "normal":
+        # its packs alias the visible set's
+        same_shadow = (len(shadow_blocks) == len(vis_blocks) and all(
+            a is b for a, b in zip(shadow_blocks, vis_blocks)))
+        if same_shadow:
+            sv0, se1, se2, smat, sv0p = v0, e1, e2, mat, v0p
+        else:
+            spos = cat("pos", shadow_blocks)
+            sv0 = spos[:, 0]
+            se1 = spos[:, 1] - spos[:, 0]
+            se2 = spos[:, 2] - spos[:, 0]
+            smat = cat("mat", shadow_blocks)
+            sv0p, _, _, _ = pad_triangles(sv0, se1, se2, chunk)
+        ns_pad = sv0p.shape[0]
+        ns_real = sv0.shape[0]
+        intersector = intersector_for(device, max(n_real, ns_real))
 
         mats = build_material_table(materials)
         filt_m = shadow_filter_np(mats)  # (M,3)
-        sfilt = filt_m[mat]
+        sfilt = filt_m[smat]
         sfilt = np.concatenate(
             [sfilt, np.zeros((ns_pad - sfilt.shape[0], 3), np.float32)])
         # binary variant for transpShad=false renders: only true
@@ -507,14 +548,23 @@ class Scene:
         # Morton order above 1024 triangles (column = triangle id below),
         # with its cluster boxes, the 128-column sub-cluster boxes the
         # large-scene kernels walk and the 32-column boxes the mid-size ones
-        # skip by
+        # skip by; the shadow set's pack and tables from its own triangles
         t_order = morton_order(v0, e1, e2) if n_real > 1024 else None
-        tri_pack10, tri_cluster8, s_ord = build_tri_pack(v0, e1, e2, t_order)
+        tri_pack10, tri_cluster8, t_ord = build_tri_pack(v0, e1, e2, t_order)
         tri_sub8 = sub_aabbs(tri_pack10, n_real)
         tri_box32 = quarter_boxes(tri_pack10, n_real)
+        if same_shadow:
+            stri_pack10, stri_cluster8, s_ord = tri_pack10, tri_cluster8, t_ord
+            stri_sub8, stri_box32 = tri_sub8, tri_box32
+        else:
+            s_order = morton_order(sv0, se1, se2) if ns_real > 1024 else None
+            stri_pack10, stri_cluster8, s_ord = build_tri_pack(sv0, se1, se2,
+                                                               s_order)
+            stri_sub8 = sub_aabbs(stri_pack10, ns_real)
+            stri_box32 = quarter_boxes(stri_pack10, ns_real)
         # shadow filters in pack order (padded entries alias tri 0 — they
         # are degenerate and never hit)
-        sfilt_pk = filt_m[mat][s_ord]
+        sfilt_pk = filt_m[smat][s_ord]
         sfilt_bin_pk = np.where(
             np.min(sfilt_pk, axis=-1, keepdims=True) >= 1.0 - 1e-6,
             1.0, 0.0).astype(np.float32)
@@ -528,11 +578,11 @@ class Scene:
             tri_pack10=tri_pack10,
             tri_cluster8=tri_cluster8,
             tri_sub8=tri_sub8,
-            stri_pack10=tri_pack10,
-            stri_cluster8=tri_cluster8,
-            stri_sub8=tri_sub8,
+            stri_pack10=stri_pack10,
+            stri_cluster8=stri_cluster8,
+            stri_sub8=stri_sub8,
             tri_box32=tri_box32,
-            stri_box32=tri_box32,
+            stri_box32=stri_box32,
             sfilt4=np.concatenate(
                 [sfilt_pk.T.astype(np.float32),
                  np.zeros((1, sfilt_pk.shape[0]), np.float32)]),
@@ -577,6 +627,7 @@ class Scene:
                 arrays.update(build_bg_cdf(arrays.get("bg_image_ibl",
                                                       bg_img)))
 
+        arrays.update(grid_arrays(self.volumes))
         if self.analytic_spheres:
             sp_rows = np.asarray([[c[0], c[1], c[2], r, float(m)]
                                   for (c, r, m) in self.analytic_spheres],
@@ -598,7 +649,7 @@ class Scene:
             bmax = np.maximum(bmax, (sc + sr).max(axis=0))
 
         static = SceneStatic(
-            n_tris_real=n_real, n_stris_real=n_real,
+            n_tris_real=n_real, n_stris_real=ns_real,
             lights=light_statics, bg=bg_spec,
             mat_families=families, has_blend=_blend_depth(materials),
             ray_min_dist=self.ray_min_dist, shadow_bias=self.shadow_bias,
@@ -617,6 +668,7 @@ class Scene:
             has_sampling_factor=any(
                 abs(r.get("sampling_factor", 1.0) - 1.0) > 1e-9
                 for r in materials),
+            volumes=tuple(self.volumes),
         )
         cam = next(iter(self.cameras.values())) if self.cameras else Camera()
         cam_name = self.render_params.get_str("camera_name", "")

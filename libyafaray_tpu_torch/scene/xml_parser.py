@@ -2,10 +2,11 @@
 
 stdlib ElementTree; typed leaf params (ival/fval/bval/sval attributes,
 colors as r/g/b/a, points as x/y/z), <texture>s, meshes streamed via
-<p>/<n>/<uv>/<set_material>/<f> (has_uv, has_orco), analytic <sphere>s,
-and the closing <render> block.  Elements outside the ported slices
-(volumes, smoothing, instances) raise NotImplementedError naming their
-ROADMAP item.
+<p>/<n>/<uv>/<set_material>/<f> (has_uv, has_orco, and the object
+`visibility`: normal | invisible | shadow_only | no_shadows), analytic
+<sphere>s, <volumeregion>s and the closing <render> block.  Elements outside
+the ported slices (smoothing, instances) raise NotImplementedError naming
+their ROADMAP item.
 """
 from __future__ import annotations
 
@@ -18,7 +19,6 @@ from .scene import Scene
 log = logging.getLogger("libyafaray_tpu_torch")
 
 _NOT_PORTED = {
-    "volumeregion": "ROADMAP Queue 1 item 17",
     "smooth": "ROADMAP Queue 1 item 10",
     "instance": "ROADMAP Queue 1 item 11",
 }
@@ -129,6 +129,8 @@ def parse_xml_string(text: str) -> Scene:
             scene.create_background(name, _parse_params(el))
         elif tag == "integrator":
             scene.create_integrator(name or "default", _parse_params(el))
+        elif tag == "volumeregion":
+            scene.create_volume_region(name, _parse_params(el))
         elif tag == "mesh":
             _parse_mesh(el, scene)
         elif tag == "sphere":

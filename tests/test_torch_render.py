@@ -26,7 +26,6 @@ from libyafaray_tpu.scene.session import build_config as ref_build
 from libyafaray_tpu.scene.xml_parser import parse_xml_file as ref_parse
 from libyafaray_tpu_torch.integrators.config import RenderConfig
 from libyafaray_tpu_torch.integrators.render import render, render_timed
-from libyafaray_tpu_torch.scene.params import ParamMap
 from libyafaray_tpu_torch.scene.session import build_config
 from libyafaray_tpu_torch.scene.xml_parser import parse_xml_file
 
@@ -91,19 +90,14 @@ def test_render_timed_counts_the_same_rays():
 
 
 @pytest.mark.parametrize("over, item", [
-    (dict(integrator="bidirectional", camera="orthographic"), "item 17"),
+    (dict(integrator="bidirectional", passes=("z-depth-norm",)), "item 17"),
     (dict(passes=("z-depth-norm",)), "item 17"),
     (dict(transp_background=True), "item 17"),
 ])
 def test_unported_config_raises(over, item):
-    """Passes and alpha raise; so does BDPT through an orthographic camera
-    (cameras other than the pinhole perspective wait for item 17)."""
-    over = dict(over)
-    camera = over.pop("camera", None)
+    """Passes and alpha raise, under the path tracer and under BDPT (every
+    camera type renders since item 17's cameras were ported)."""
     s, cfg = _setup(parse_xml_file, build_config, RenderConfig, 8, 1, **over)
-    if camera:  # replaces the scene's camera "cam"
-        s.create_camera("cam", ParamMap({"type": camera, "resx": 8,
-                                         "resy": 8}))
     with pytest.raises(NotImplementedError, match=item):
         if cfg.integrator == "bidirectional":
             from libyafaray_tpu_torch.integrators.veach import render_bdpt

@@ -157,35 +157,37 @@ _SCENE = """<scene type="triangle">{body}
      '<dispersion_power fval="0.5"/></material>', "item 10"),
     ('<material name="m"><type sval="rough_glass"/></material>', "item 10"),
     ('<material name="m"><type sval="shinydiffusemat"/></material>'
-     '<volumeregion name="v"><type sval="UniformVolume"/></volumeregion>',
-     "item 17"),
+     '<smooth ID="1" angle="30"/>', "item 10"),
     ('<material name="m"><type sval="shinydiffusemat"/></material>'
-     '<camera name="c"><type sval="angular"/></camera>', "item 17"),
-    ('<background name="b"><type sval="gradient"/></background>', "item 17"),
+     '<instance base_object_id="1"/>', "item 11"),
     ('<material name="m"><type sval="shinydiffusemat"/></material>'
-     '<background name="b"><type sval="sunsky"/></background>', "item 17"),
+     '<render><render_passes sval="z-depth-norm"/></render>', "item 17"),
+    ('<material name="m"><type sval="shinydiffusemat"/></material>'
+     '<render><bg_transp bval="true"/></render>', "item 17"),
 ])
 def test_unsupported_features_raise(body, item):
-    """Raised at compile (glass renders in every ported integrator now, a
-    dispersive one raises), or when pathtracing checks the compiled scene
-    and its camera (every light type renders now; cameras other than the
-    pinhole perspective raise)."""
-    from libyafaray_tpu_torch.cameras.base import \
-        check_supported as check_camera
+    """Raised at parse (smoothing, instances), at compile (glass renders in
+    every ported integrator now, a dispersive one raises), or when
+    pathtracing checks the compiled scene and its config (render passes and
+    alpha).  Every camera, background and volume type, and every object
+    visibility, renders now."""
     from libyafaray_tpu_torch.integrators.config import RenderConfig
     from libyafaray_tpu_torch.integrators.engine import check_supported
+    from libyafaray_tpu_torch.scene.session import build_config
 
     with pytest.raises(NotImplementedError, match=item):
-        cs = parse_xml_string(_SCENE.format(body=body)).compile(
-            device="cpu")
-        check_supported(cs.static, RenderConfig(integrator="pathtracing"))
-        check_camera(cs.camera)
+        scene = parse_xml_string(_SCENE.format(body=body))
+        cs = scene.compile(device="cpu")
+        cfg = build_config(scene)
+        check_supported(cs.static, RenderConfig(**{
+            **cfg.__dict__, "integrator": "pathtracing"}))
 
 
 def test_port_imports_no_jax_and_no_reference(tmp_path):
     """In a fresh interpreter, importing the port (and chip_smoke.py),
     rendering 8x8 on the CPU (Cornell, ibl_spheres.xml with its textures
-    and IBL light, and cornell_lights.xml with every other light type),
+    and IBL light, cornell_lights.xml with every other light type, and
+    sky_fog.xml with its sunsky, fog, thin-lens camera and visibility),
     and generating a scene and rendering it through the port's CLI leave
     jax and libyafaray_tpu out of sys.modules; and chip_smoke.py's text names neither the JAX package's
     modules nor the repository's scripts (it runs no subprocess of them)."""
@@ -232,6 +234,18 @@ def test_port_imports_no_jax_and_no_reference(tmp_path):
         import libyafaray_tpu_torch.lights.ies
         s = parse_xml_file({os.path.join(REPO, "scenes",
                                          "cornell_lights.xml")!r})
+        s.render_params.update(width=8, height=8, AA_minsamples=1)
+        img = render(s.compile(device="cpu"), build_config(s),
+                     device="cpu").image
+        assert img.shape == (8, 8, 3) and img.mean() > 0
+        # cameras, sky backgrounds, volumes, visibility (slice 19):
+        # scenes/sky_fog.xml
+        import libyafaray_tpu_torch.cameras.factory
+        import libyafaray_tpu_torch.backgrounds.sky
+        import libyafaray_tpu_torch.backgrounds.hosek
+        import libyafaray_tpu_torch.volumes.factory
+        import libyafaray_tpu_torch.volumes.integrate
+        s = parse_xml_file({os.path.join(REPO, "scenes", "sky_fog.xml")!r})
         s.render_params.update(width=8, height=8, AA_minsamples=1)
         img = render(s.compile(device="cpu"), build_config(s),
                      device="cpu").image

@@ -77,7 +77,8 @@ def test_shoot_rays_perspective(cornell, rng):
     ro, rd, rw = rcam.shoot_rays(cam_r, jnp.asarray(px), jnp.asarray(py),
                                  jnp.asarray(lu), jnp.asarray(lu))
     po, pd, pw = pcam.shoot_rays(cam_p, torch.from_numpy(px),
-                                 torch.from_numpy(py))
+                                 torch.from_numpy(py), torch.from_numpy(lu),
+                                 torch.from_numpy(lu))
     for name, r, p in (("org", ro, po), ("dir", rd, pd), ("wt", rw, pw)):
         assert p.dtype == torch.float32
         _close(r, p, name)
