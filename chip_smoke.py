@@ -140,8 +140,22 @@ started together) and drives the ported paths through them:
   the CPU at 32², 2 spp under every camera type, darksky, BDPT with the
   architect camera, photon mapping with depth of field and a gradient
   background's IBL with an emission fog, `optimize` against the exact
-  march, and the four object-visibility variants at 64².
-`python3 chip_smoke.py --only slice17` (or slice18, slice19) builds the
+  march, and the four object-visibility variants at 64²;
+- slice 20, the film layer on scenes/ibl_passes.xml (ibl_spheres.xml's
+  scene with all 28 render passes, bg_transp and bg_transp_refract) at its
+  own settings (512², 64 spp, bounces 5) through `render_scene`: the tiny
+  kernels launched as the loops ask (one more shadow batch a step for the
+  AO pass), every plane finite and the reference's pass and alpha
+  semantics; one step profiled with the planes on and off (the film
+  layer's added launches, at most 2,000); every plane and alpha card
+  against CPU at 32², 4 spp on ibl_passes.xml and cornell.xml, at
+  spp_batch 4, over compact adaptive passes (bit-equal to dense ones) and
+  BDPT's first-hit planes; film save / load resumed to the straight film
+  under the path tracer, photon mapping, SPPM and BDPT, and a time
+  autosave; the CLI's multilayer .exr, -z and --film; and the NLM denoise
+  of the 512² image, card against CPU.
+`python3 chip_smoke.py --only slice17` (or slice18, slice19, slice20)
+builds the
 kernels and runs that slice's phases alone (an iteration run: no result
 line).  Each path is
 rendered with every launch counter set to 0 just before it and read just
@@ -188,6 +202,8 @@ from libyafaray_tpu_torch.ops import fine_intersect as fi  # noqa: E402
 from libyafaray_tpu_torch.ops import intersect as isect  # noqa: E402
 from libyafaray_tpu_torch.ops import pairs_intersect as pi  # noqa: E402
 from libyafaray_tpu_torch.ops import photon_flash as pf  # noqa: E402
+from libyafaray_tpu_torch.film.passes import (  # noqa: E402
+    PASS_NAMES, film_add_passes)
 from libyafaray_tpu_torch.integrators import photonmap  # noqa: E402
 from libyafaray_tpu_torch.integrators import render as rmod  # noqa: E402
 from libyafaray_tpu_torch.integrators import sppm  # noqa: E402
@@ -268,6 +284,16 @@ LIGHTS_PHOTON = dict(type="photonmapping", photons=200_000,
 LIGHTS_PHOTON_SPP = 16
 LIGHTS_PHYSICS_RES = 128
 SPB = dict(size=128, spb=64, plain_stride=4, sweep=(1, 4, 16))
+# slice 20: ibl_passes.xml (ibl_spheres.xml with every pass and alpha); the
+# card against the CPU at 32², 4 spp; film resume at 32²; the CLI at 64²,
+# 4 spp.  The discrete planes may differ card to CPU in a few pixels (a
+# grazing ray's hit, a rounding edge of toon's quantization).
+IBL_PASSES = os.path.join(REPO, "scenes", "ibl_passes.xml")
+PASSES_SMALL = dict(size=32, spp=4)
+FILM_RESUME = dict(size=32)
+PASSES_CLI = dict(size=64, spp=4)
+DISCRETE_PASSES = frozenset(
+    [p for p in PASS_NAMES if "-index-" in p] + ["shadow", "toon"])
 TINY = ("closest_hit_tiny", "shadow_logsum_tiny")
 # queries the plain gathers are compared and timed on (bounds their time);
 # the culled kernel's two plain versions over 3.68 M photons take half
@@ -864,7 +890,7 @@ def _stage_ms(events, stages) -> dict:
 
 
 def profile_step(step, arrays, cfg, kernel_tags: tuple,
-                 stages: dict | None = None, arg=None) -> dict:
+                 stages: dict | None = None, arg=None, film=None) -> dict:
     """One sample step under torch.profiler, after an unprofiled one: its
     kernel launches, the device's busy milliseconds (the union of its
     kernel and copy intervals), the milliseconds of the ported kernels
@@ -874,14 +900,15 @@ def profile_step(step, arrays, cfg, kernel_tags: tuple,
     name)}) wraps those functions in profiler ranges for the profiled step
     and adds the device ms of the aten kernels inside each.  arg: the
     step's third argument (a compact step's lane list; default every
-    pixel's flag)."""
+    pixel's flag); film: a function that makes the step's first film
+    (default the plain film)."""
     from torch.autograd import DeviceType
     from torch.profiler import ProfilerActivity, profile, record_function
 
     dev = engine.resolve_device("cuda")
     flags = (torch.ones((cfg.height, cfg.width), dtype=torch.bool, device=dev)
              if arg is None else arg)
-    film = step(arrays, _fresh_film(cfg, dev), flags)
+    film = step(arrays, film() if film else _fresh_film(cfg, dev), flags)
     torch.cuda.synchronize()
     saved = {}
     for name, (module, fn_name) in (stages or {}).items():
@@ -2551,9 +2578,10 @@ def ibl_phases(smi, out_dir: str) -> tuple:
     3, 512², 64 spp, IBL light with 8 samples): its assets, the tiny
     kernels against their plain versions on one step's recorded primary
     rays and bounce-0 NEE rays (2,097,152 segments of 1e8 toward the
-    environment), the render through render_scene and the CLI, one
-    profiled step, the card against the CPU at 64², 4 spp, and the golden
-    at 96², 48 spp.  Returns (launches, closest check, shadow check)."""
+    environment), the render through render_scene, the CLI at 64², 16
+    spp, one profiled step, the card against the CPU at 64², 4 spp, and
+    the golden at 96², 48 spp.  Returns (launches, closest check, shadow
+    check)."""
     scene = scene_at(IBL)
     cfg = build_config(scene)
     cs = scene.compile(device="cuda")
@@ -2573,7 +2601,9 @@ def ibl_phases(smi, out_dir: str) -> tuple:
               spp=cfg.aa_samples, bounces=cfg.bounces,
               rr_min_bounces=cfg.rr_min_bounces,
               ibl_samples=cs.static.bg.ibl_samples, assets=assets)
-    mid_cli("ibl", IBL, res, smi, out_dir)
+    # the CLI at 64², 16 spp (at its own settings it took ~30 s of the
+    # script's time limit)
+    cli_copy("ibl_cli", IBL, 64, 64, 16, smi, out_dir)
     profile("ibl_profile", res, step, arrays, cfg, ("tiny_kernel",), smi)
     del step, arrays
     card_vs_cpu("ibl_card_vs_cpu", lambda dev: photon_scene(
@@ -3397,14 +3427,13 @@ def portal_room(res, spp):
 
 def lights_card_vs_cpu() -> None:
     """The card against the CPU within PERF.md §2's bounds: the scene as
-    pathtracing and directlighting at 64², 4 spp, BDPT at 32², 4 spp,
-    photonmapping at 32², 2 spp with 16,384 photons, SPPM at 32², 2
-    passes, and the portal room at 64², 4 spp."""
-    small = dict(width=64, height=64, AA_minsamples=4)
+    pathtracing and directlighting, BDPT (4 spp) and photonmapping (2 spp,
+    16,384 photons) at 32², SPPM at 32², 2 passes, and the portal room at
+    64², 4 spp."""
     tiny = dict(width=32, height=32, AA_minsamples=4)
     for integ in ("pathtracing", "directlighting"):
         entry_vs_cpu("cornell_lights", lambda: scene_at(
-            LIGHTS, small, dict(type=integ)), 1e-4)
+            LIGHTS, tiny, dict(type=integ)), 1e-4)
     entry_vs_cpu("cornell_lights", lambda: scene_at(
         LIGHTS, tiny, dict(type="bidirectional")), 1e-4, density=1e-5)
     entry_vs_cpu("cornell_lights", lambda: scene_at(
@@ -4022,11 +4051,424 @@ def slice19_phases(smi, out_dir: str, kernels: list) -> None:
                 bound_ms_sky=c["bound"]["bound_ms"], max_abs_err_sky=c["err"])
 
 
+# ---- slice 20: the film layer -----------------------------------------------
+
+
+def _plane_check(name: str, got: np.ndarray, want: np.ndarray) -> dict:
+    """One pass plane of the card against the CPU's: RMSE and max abs
+    against 1e-4 · max(1, |plane|max); the discrete planes (index, shadow,
+    toon), where an ulp at a grazing ray or a rounding edge moves a whole
+    sample, may instead differ in at most 0.5% of their pixels."""
+    scale = max(1.0, float(np.abs(want).max()))
+    d = np.abs(got.astype(np.float64) - want)
+    rmse = float(np.sqrt(np.mean(d * d)))
+    off = int((d.max(axis=-1) > 1e-4 * scale).sum())
+    ok = bool(np.isfinite(got).all()) and (rmse <= 1e-4 * scale or (
+        name in DISCRETE_PASSES and off <= 0.005 * d.shape[0] * d.shape[1]))
+    return dict(rmse=rmse, max_abs=float(d.max()), off=off, ok=ok)
+
+
+def planes_vs(tag: str, gpu, cpu, extra=None) -> dict:
+    """Every pass plane and alpha of two renders of one config (card, CPU),
+    and their images and rays: a phase line; raises on any disagreement."""
+    checks = {name: _plane_check(name, gpu.passes[name], cpu.passes[name])
+              for name in cpu.cfg.passes}
+    if cpu.alpha is not None:
+        checks["alpha"] = _plane_check("alpha", gpu.alpha[..., None],
+                                       cpu.alpha[..., None])
+    rmse = float(np.sqrt(np.mean((gpu.image - cpu.image) ** 2)))
+    bad = sorted(k for k, v in checks.items() if not v["ok"])
+    worst = max(checks, key=lambda k: checks[k]["rmse"])
+    phase(tag, planes=len(checks), image_rmse=rmse, bound=1e-4,
+          rays_gpu=gpu.stats["rays"], rays_cpu=cpu.stats["rays"],
+          worst=f"{worst}:{checks[worst]['rmse']:.3e}",
+          off_pixels={k: v["off"] for k, v in checks.items() if v["off"]},
+          failed=bad, **(extra or {}))
+    if bad or rmse > 1e-4 or gpu.stats["rays"] != cpu.stats["rays"]:
+        raise AssertionError(f"{tag}: card and CPU planes disagree: {bad}")
+    return checks
+
+
+def passes_scene(smi) -> tuple:
+    """ibl_passes.xml parsed and compiled for the card: its assets loaded
+    from their files (as [ibl_path] asserts), its 28 passes, bg_transp and
+    bg_transp_refract.  Returns (scene, config, compiled scene)."""
+    scene = scene_at(IBL_PASSES)
+    cfg = build_config(scene)
+    cs = scene.compile(device="cuda")
+    assets = check_assets(cs)
+    phase("passes_scene", passes=len(cfg.passes),
+          bg_transp=cfg.transp_background,
+          bg_transp_refract=cfg.bg_transp_refract, assets=assets,
+          size=f"{cfg.width}x{cfg.height}", spp=cfg.aa_samples,
+          bounces=cfg.bounces, ao_samples=cfg.ao_samples)
+    if not (len(cfg.passes) == 28 and set(cfg.passes) <= set(PASS_NAMES)
+            and cfg.transp_background and cfg.bg_transp_refract):
+        raise AssertionError("passes_scene: the scene's passes or alpha "
+                             "did not parse")
+    return scene, cfg, cs
+
+
+def passes_launches(cfg) -> dict:
+    """The tiny kernels' launches in one step of the IBL path with the AO
+    pass: a closest hit a vertex, an NEE shadow batch a vertex and one AO
+    batch at the first."""
+    return {TINY[0]: cfg.bounces + 1, TINY[1]: cfg.bounces + 2}
+
+
+def _mask_mean(plane, mask) -> float:
+    return float(plane[mask].mean()) if mask.any() else float("nan")
+
+
+def passes_path(smi, scene, cfg, cs) -> tuple:
+    """ibl_passes.xml at its own settings (512², 64 spp, bounces 5)
+    through render_scene, counted, no warm-up (its film keeps the planes):
+    every plane finite, the semantics of the reference's test_passes.py
+    and test_alpha.py (shadow in [0, 1], ao-clay grey, alpha 0 on the
+    environment, 1 on the floor, below 1 through the glass with
+    bg_transp_refract).  Returns (result, launches)."""
+    res, launches = counted(lambda: render_scene(scene, device="cuda"))
+    others = {k: v for k, v in launches.items() if k not in TINY and v}
+    if others:
+        raise AssertionError(f"kernels off the path launched: {others}")
+    launches = {k: launches[k] for k in TINY}
+    per_step = passes_launches(cfg)
+    want = {k: v * cfg.aa_samples for k, v in per_step.items()}
+    planes, alpha = res.passes, res.alpha
+    mats = scene.material_names
+    idx = planes["mat-index-abs"][..., 0]
+    z = planes["z-depth-abs"][..., 0]
+    env = z == 0.0
+    floor = idx == float(mats["floor"])
+    glass = idx == float(mats["glass"])
+    sh, clay = planes["shadow"], planes["ao-clay"]
+    checks = {
+        "finite": all(np.isfinite(p).all() for p in planes.values())
+        and bool(np.isfinite(alpha).all()),
+        "planes": len(planes) == 28,
+        "shadow_in_0_1": bool(sh.min() >= -1e-6 and sh.max() <= 1 + 1e-6),
+        "ao_clay_grey": bool(np.allclose(clay[..., 0], clay[..., 1])
+                             and np.allclose(clay[..., 1], clay[..., 2])),
+        "alpha_env_0": bool(env.any() and np.median(alpha[env]) == 0.0
+                            and _mask_mean(alpha, env) < 0.05),
+        "alpha_floor_1": bool(floor.any() and np.median(alpha[floor]) == 1.0
+                              and _mask_mean(alpha, floor) > 0.95),
+        "alpha_glass_below_1": bool(glass.any()
+                                    and _mask_mean(alpha, glass) < 0.9),
+        "refract_lit": float(planes["refract"].max()) > 0.0,
+        "reflect_lit": float(planes["reflect"].max()) > 0.0,
+    }
+    path_line("passes_path", res, cfg, launches, want, smi,
+              spp=cfg.aa_samples, bounces=cfg.bounces,
+              launches_per_step=per_step,
+              step_ms=round(1e3 * res.stats["render_s"] / cfg.aa_samples,
+                            3),
+              alpha_env=_mask_mean(alpha, env),
+              alpha_floor=_mask_mean(alpha, floor),
+              alpha_glass=_mask_mean(alpha, glass),
+              pixels=dict(env=int(env.sum()), floor=int(floor.sum()),
+                          glass=int(glass.sum())), checks=checks)
+    if not all(checks.values()):
+        raise AssertionError(f"passes_path: {checks}")
+    return res, launches
+
+
+def passes_film(cfg, dev) -> dict:
+    """A fresh film with the config's alpha and pass planes."""
+    return film_add_passes(_fresh_film(cfg, dev, with_alpha=True),
+                           cfg.height, cfg.width, cfg.passes, dev)
+
+
+def passes_profile(smi, res, cs, cfg) -> None:
+    """One step of the IBL path profiled with every pass and alpha on, and
+    one with the plain film: launches, busy ms and share of each, and the
+    film layer's added launches (at most 2,000 a step)."""
+    step, arrays = path_step(cs, cfg)
+    dev = engine.resolve_device("cuda")
+    step_ms = 1e3 * res.stats["render_s"] / cfg.aa_samples
+    on = profile_step(step, arrays, cfg, ("tiny_kernel",),
+                      film=lambda: passes_film(cfg, dev))
+    off = profile_step(step, arrays, cfg, ("tiny_kernel",))
+    added = on["kernel_launches"] - off["kernel_launches"]
+    busy = {k: v["device_busy_ms"] for k, v in (("on", on), ("off", off))}
+    phase("passes_profile", step_ms=round(step_ms, 3),
+          launches_on=on["kernel_launches"],
+          launches_off=off["kernel_launches"], film_layer_launches=added,
+          bound=2000, busy_ms_on=busy["on"], busy_ms_off=busy["off"],
+          busy_share_on=(busy["on"] / step_ms
+                         if isinstance(busy["on"], float)
+                         else "not measured"),
+          ported_by_kernel_on=on["ported_by_kernel"],
+          top_ops_on=on["top_ops"], gpu=repr(smi))
+    if added > 2000:
+        raise AssertionError(f"passes_profile: the film layer adds {added} "
+                             "launches a step (> 2,000)")
+
+
+def passes_card_vs_cpu() -> None:
+    """Every pass plane and alpha, card against CPU, at 32², 4 spp:
+    ibl_passes.xml; cornell.xml as pathtracing with the same 28 passes;
+    ibl_passes.xml at spp_batch 4; cornell.xml with the passes and alpha
+    over 3 adaptive passes (4 + 2 spp, threshold 0.3: compact), the card's
+    compact films and planes bit-equal to its dense ones; and BDPT's
+    first-hit planes on cornell_bidir.xml."""
+    size, spp = PASSES_SMALL["size"], PASSES_SMALL["spp"]
+    passes = " ".join(build_config(scene_at(IBL_PASSES)).passes)
+
+    def both(path, render_params=None, integrator=None, **kw):
+        rp = dict(width=size, height=size, AA_minsamples=spp,
+                  **(render_params or {}))
+        return tuple(render_scene(scene_at(path, rp, integrator), device=d,
+                                  **kw) for d in ("cuda", "cpu"))
+
+    planes_vs("passes_card_vs_cpu", *both(IBL_PASSES),
+              extra=dict(scene="ibl_passes", size=f"{size}x{size}", spp=spp))
+    cornell_passes = dict(render_passes=passes, bg_transp=True)
+    planes_vs("passes_card_vs_cpu", *both(
+        CORNELL, cornell_passes, dict(type="pathtracing", bounces=4)),
+        extra=dict(scene="cornell", size=f"{size}x{size}", spp=spp))
+    rp = dict(width=size, height=size, AA_minsamples=spp)
+    gpu, cpu = (render(*photon_scene(IBL_PASSES, d, size=size,
+                                     aa_samples=spp, spp_batch=4),
+                       device=d) for d in ("cuda", "cpu"))
+    planes_vs("passes_card_vs_cpu", gpu, cpu,
+              extra=dict(scene="ibl_passes", spp_batch=4,
+                         size=f"{size}x{size}", spp=spp))
+    adaptive = dict(cornell_passes, AA_passes=3, AA_inc_samples=2,
+                    AA_threshold=0.3)
+    integ = dict(type="pathtracing", bounces=4)
+    gpu, cpu = both(CORNELL, adaptive, integ)
+    dense = render_scene(scene_at(CORNELL, dict(rp, **adaptive), integ),
+                         device="cuda", compact=False)
+    modes = [e["mode"] for e in gpu.stats["pass_log"]]
+    equal = set(gpu.film) == set(dense.film) and all(
+        torch.equal(gpu.film[k], dense.film[k]) for k in gpu.film)
+    planes_vs("passes_card_vs_cpu", gpu, cpu, extra=dict(
+        scene="cornell", adaptive_passes=3, modes=modes,
+        compact_equals_dense=equal, size=f"{size}x{size}", spp=spp))
+    if not (equal and "compact" in modes):
+        raise AssertionError("passes_card_vs_cpu: compact passes disagree "
+                             "with dense ones")
+    bd = dict(render_passes="z-depth-abs normal-smooth normal-geom uv "
+              "mat-index-abs obj-index-abs diffuse-color")
+    planes_vs("passes_card_vs_cpu", *both(BIDIR, bd),
+              extra=dict(scene="cornell_bidir", size=f"{size}x{size}",
+                         spp=spp))
+
+
+class Killed(Exception):
+    pass
+
+
+def kill_and_resume(run, path: str, kill_at: int):
+    """run(film_path, progress_cb) stopped by its callback after pass
+    (step) kill_at, so the film of the pass before it is on disk, then run
+    again from that film.  Returns the resumed result."""
+    def kill(p, total):
+        if p == kill_at:
+            raise Killed
+
+    try:
+        run(path, kill)
+    except Killed:
+        pass
+    else:
+        raise AssertionError("kill_and_resume: the render was not stopped")
+    saved = int(np.load(path)["__pass__"])
+    if saved != kill_at - 1:
+        raise AssertionError(f"kill_and_resume: saved pass {saved}")
+    return run(path, None)
+
+
+def film_resume(smi, out_dir: str) -> None:
+    """On the card at 32²: the path tracer (3 adaptive passes, with pass
+    and alpha planes), photon mapping (2 passes), SPPM (4 passes, 16,384
+    photons) and BDPT (3 steps) stopped after a pass and resumed under
+    load-save, against the same render straight through: every film plane
+    equal (BDPT: the eye planes equal, density RMSE <= 1e-5); and a
+    time-autosave file written mid-pass."""
+    size = FILM_RESUME["size"]
+    rows = {}
+
+    def case(tag, path, rp, integ, kill_at, skip=()):
+        rp = dict(width=size, height=size, film_save_load="load-save",
+                  **rp)
+        straight = render_scene(scene_at(path, rp, integ), device="cuda")
+        film = os.path.join(out_dir, f"{tag}.npz")
+        resumed = kill_and_resume(lambda f, cb: render_scene(
+            scene_at(path, rp, integ), device="cuda", film_path=f,
+            progress_cb=cb), film, kill_at)
+        equal = set(straight.film) == set(resumed.film) and all(
+            torch.equal(straight.film[k], resumed.film[k])
+            for k in straight.film if k not in skip)
+        d = [float(torch.sqrt(torch.mean(
+            (straight.film[k] - resumed.film[k]) ** 2))) for k in skip]
+        rows[tag] = dict(equal=equal, rmse=max(d, default=0.0),
+                         planes=len(straight.film))
+        return equal and all(x <= 1e-5 for x in d)
+
+    ok = [
+        case("render", CORNELL, dict(
+            AA_minsamples=4, AA_passes=3, AA_inc_samples=2,
+            AA_threshold=0.3, bg_transp=True,
+            render_passes="z-depth-abs direct ao reflect"),
+            dict(type="pathtracing", bounces=4), 2),
+        case("photon", PHOTON, dict(AA_minsamples=2, AA_passes=2,
+                                    AA_inc_samples=1),
+             dict(photons=16_384, cPhotons=8_192, fg_samples=4), 2),
+        case("sppm", CORNELL_SPPM, {}, dict(passNums=4, photons=16_384), 3),
+        case("bdpt", BIDIR, dict(AA_minsamples=3,
+                                 render_passes="z-depth-abs normal-smooth"),
+             None, 2, skip=("density",)),
+    ]
+    auto = os.path.join(out_dir, "auto.npz")
+    render_scene(scene_at(CORNELL, dict(
+        width=size, height=size, AA_minsamples=2, AA_passes=2,
+        AA_inc_samples=1, images_autosave_interval_type="time",
+        images_autosave_interval_seconds=0.0)), device="cuda",
+        film_path=auto)
+    auto_pass = int(np.load(auto)["__pass__"]) if os.path.exists(auto) \
+        else None
+    phase("film_resume", size=f"{size}x{size}", cases=rows,
+          time_autosave_pass=auto_pass, density_bound=1e-5, gpu=repr(smi))
+    if not (all(ok) and auto_pass == 1):
+        raise AssertionError(f"film_resume: {rows}, autosave {auto_pass}")
+
+
+def passes_cli(smi, out_dir: str) -> None:
+    """The CLI on ibl_passes.xml at 64², 4 spp to a multilayer .exr, read
+    back with the port's reader: every layer equal to its render_scene
+    call's pass (the combined image, alpha), rays equal; cornell.xml with
+    -z to a PNG (its .z-depth-norm.png the 8-bit of the call's pass); and
+    --film with load-save run twice (the second loads the finished film,
+    runs no pass, and writes the same image and rays)."""
+    from libyafaray_tpu_torch.io.exr import read_exr_multilayer
+    from libyafaray_tpu_torch.io.image import read_png
+    from libyafaray_tpu_torch.scene import session
+
+    size, spp = PASSES_CLI["size"], PASSES_CLI["spp"]
+    xml = os.path.join(out_dir, "passes_cli.xml")
+    with open(IBL_PASSES) as f:
+        text = f.read()
+    with open(xml, "w") as f:
+        f.write(text.replace('<AA_minsamples ival="64"/>',
+                             f'<AA_minsamples ival="{spp}"/>'))
+    real, results = session.render_scene, []
+
+    def recorded(*args, **kwargs):
+        results.append(real(*args, **kwargs))
+        return results[-1]
+
+    def cli(args):
+        buf = io.StringIO()
+        with contextlib.redirect_stdout(buf):
+            rc = cli_main(args + ["--json-stats", "-vl", "warning",
+                                  "--width", str(size), "--height",
+                                  str(size)])
+        stats = json.loads([line for line in buf.getvalue().splitlines()
+                            if line.startswith("{")][-1])
+        return rc, stats
+
+    session.render_scene = recorded
+    try:
+        out = os.path.join(out_dir, "passes_cli.exr")
+        rc, stats = cli([xml, out])
+        layers = read_exr_multilayer(out)
+        res = results[-1]
+        want = dict(res.passes, alpha=res.alpha[..., None])
+        want[""] = res.image
+        layers_equal = set(layers) == set(want) and all(
+            np.array_equal(layers[k], want[k]) for k in want)
+        # -z to a PNG
+        zxml = os.path.join(out_dir, "z.xml")
+        with open(CORNELL) as f:
+            ztext = f.read()
+        with open(zxml, "w") as f:
+            f.write(ztext.replace('<AA_minsamples ival="64"/>',
+                                  f'<AA_minsamples ival="{spp}"/>'))
+        zout = os.path.join(out_dir, "z.png")
+        zrc, _ = cli([zxml, zout, "-z"])
+        zres = results[-1]
+        zfile = os.path.join(out_dir, "z.z-depth-norm.png")
+        z8 = (np.clip(zres.passes["z-depth-norm"], 0, 1) * 255 + 0.5).astype(
+            np.uint8)[..., 0]
+        z_ok = (zrc == 0 and zres.cfg.passes == ("z-depth-norm",)
+                and os.path.exists(zfile)
+                and np.array_equal(read_png(zfile)[..., 0], z8))
+        # --film: load-save twice
+        fxml = os.path.join(out_dir, "film.xml")
+        with open(fxml, "w") as f:
+            f.write(ztext.replace('<AA_minsamples ival="64"/>',
+                                  f'<AA_minsamples ival="{spp}"/>').replace(
+                "</render>", '<film_save_load sval="load-save"/></render>'))
+        film = os.path.join(out_dir, "cli_film.npz")
+        runs = []
+        for k in range(2):
+            fout = os.path.join(out_dir, f"film{k}.exr")
+            frc, fstats = cli([fxml, fout, "--film", film])
+            runs.append((frc, fstats["rays"], read_exr(fout),
+                         os.stat(film).st_mtime_ns))
+        film_ok = (runs[0][0] == runs[1][0] == 0 and runs[0][1] == runs[1][1]
+                   and np.array_equal(runs[0][2], runs[1][2])
+                   and runs[0][3] == runs[1][3])
+    finally:
+        session.render_scene = real
+    phase("passes_cli", rc=rc, size=f"{size}x{size}", spp=spp,
+          layers=len(layers), layers_equal=layers_equal,
+          rays=stats["rays"], rays_render_scene=res.stats["rays"],
+          wall_s=round(stats["wall_s"], 4),
+          render_s=round(stats["render_s"], 4), z_png=z_ok,
+          film_resume=film_ok, gpu=repr(smi))
+    if not (rc == 0 and layers_equal and len(layers) == 30
+            and stats["rays"] == res.stats["rays"] and z_ok and film_ok):
+        raise AssertionError("passes_cli: the CLI's output disagrees with "
+                             "its render")
+
+
+def denoise_phase(smi, image: np.ndarray) -> None:
+    """nlm_denoise of the [passes_path] image (512²) on the card against
+    the CPU: max abs within 1e-5 · max(1, |image|max)."""
+    from libyafaray_tpu_torch.film.denoise import nlm_denoise
+
+    x = torch.from_numpy(np.ascontiguousarray(image))
+    gpu, ms = once_ms(lambda: nlm_denoise(x.cuda()))
+    gpu = gpu.cpu().numpy()
+    cpu = nlm_denoise(x).numpy()
+    scale = max(1.0, float(np.abs(cpu).max()))
+    err = float(np.abs(gpu - cpu).max())
+    phase("denoise", size=f"{image.shape[0]}x{image.shape[1]}",
+          ms=round(ms, 3), max_abs_err=err, bound=1e-5 * scale,
+          smoothed=float(np.abs(np.diff(cpu, axis=1)).mean())
+          < float(np.abs(np.diff(image, axis=1)).mean()), gpu=repr(smi))
+    if not (np.isfinite(gpu).all() and err <= 1e-5 * scale):
+        raise AssertionError("denoise: card and CPU disagree")
+
+
+def slice20_phases(smi, out_dir: str, kernels: list) -> None:
+    """The film layer on scenes/ibl_passes.xml: the scene, the path with
+    every pass and alpha at its own settings, a step profiled with the
+    planes on and off, the planes card against CPU (and compact against
+    dense), film resume under four integrators, the CLI, and the denoise.
+    The tiny kernels' entries of `kernels` take `launches_passes`."""
+    scene, cfg, cs = passes_scene(smi)
+    res, launches = passes_path(smi, scene, cfg, cs)
+    passes_profile(smi, res, cs, cfg)
+    passes_card_vs_cpu()
+    film_resume(smi, out_dir)
+    passes_cli(smi, out_dir)
+    denoise_phase(smi, res.image)
+    by_name = {k["name"]: k for k in kernels}
+    for name in TINY:
+        if name in by_name:  # absent on a run of --only slice20
+            by_name[name]["launches_passes"] = launches[name]
+
+
 def main(argv=None) -> None:
     import argparse
 
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
-    ap.add_argument("--only", choices=("slice17", "slice18", "slice19"),
+    ap.add_argument("--only", choices=("slice17", "slice18", "slice19",
+                                       "slice20"),
                     default=None,
                     help="run only this slice's phases after the build (an "
                          "iteration run: it prints no result line)")
@@ -4066,7 +4508,8 @@ def main(argv=None) -> None:
         with tempfile.TemporaryDirectory() as out_dir:
             {"slice17": slice17_phases,
              "slice18": slice18_phases,
-             "slice19": slice19_phases}[only](smi, out_dir, [])
+             "slice19": slice19_phases,
+             "slice20": slice20_phases}[only](smi, out_dir, [])
         print(smi, flush=True)
         print(f"chip_smoke: --only {only} ran; no result line", flush=True)
         return
@@ -4164,6 +4607,10 @@ def main(argv=None) -> None:
     # 18. slice 19: cameras, sky backgrounds, volumes, visibility
     with tempfile.TemporaryDirectory() as out_dir:
         slice19_phases(smi, out_dir, kernels + mid)
+
+    # 19. slice 20: the film layer (passes, alpha, resume, denoise, EXR)
+    with tempfile.TemporaryDirectory() as out_dir:
+        slice20_phases(smi, out_dir, kernels)
 
     print(json.dumps({"kernels": kernels + fine + photon + mid + pairs}),
           flush=True)

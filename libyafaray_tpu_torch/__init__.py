@@ -32,12 +32,14 @@ raises NotImplementedError naming its ROADMAP item.
                 trilinear / EWA), procedural textures, node programs
   ops/          intersection dispatch, photon gathers: CUDA wrappers and
                 plain versions
-  film/         filters, scatter-free splat, film image, density layer
+  film/         filters, scatter-free splat, film image, density, alpha
+                and render-pass planes, film save / load, the NLM
+                denoise
   integrators/  the wavefront engine (path and direct modes), photon
                 mapping and the path tracer's caustic map, SPPM, the
                 render loops
-  io/           EXR, RGBE and 8-bit image output; EXR, RGBE and PNG
-                reading (PNG without Pillow)
+  io/           EXR (multilayer), RGBE, PNG and 8-bit image output;
+                EXR, RGBE and PNG reading (PNG without Pillow)
   utils/        render logs and the parameter badge
   cli/          the yafaray-xml command line
   convert.py    reference compiled scene -> port tensors

@@ -9,8 +9,13 @@ on `--device` (default the card) with the scene's integrator
 (pathtracing, directlighting, photonmapping, SPPM, bidirectional, or the
 DebugIntegrator's normals image) and writes the image; `--json-stats`
 prints one JSON line (output, wall_s, render_s, rays, mrays_per_sec).
-The z-buffer pass, film save/load and more than one device raise, naming
-their ROADMAP items.
+With render passes (`render_passes`, or `-z` for z-depth-norm) an .exr
+output is one multilayer file (the combined image, an `alpha` layer with
+bg_transp, a layer a pass); any other format writes the image (RGBA with
+an alpha plane, premultiplied under `premult`) and a `<base>.<pass><ext>`
+file a pass.  `--film PATH` saves / resumes the film as the scene's
+`film_save_load` and autosave parameters ask.  More than one device
+raises, naming its ROADMAP item.
 """
 from __future__ import annotations
 
@@ -21,8 +26,9 @@ import os
 import sys
 import time
 
-_UNPORTED = ("{} is not ported yet: ROADMAP Queue 1 items 17 (film passes "
-             "and save/load) and 19 (multi-device)")
+import numpy as np
+
+_UNPORTED = "{} is not ported yet: ROADMAP Queue 1 item 19 (multi-device)"
 
 
 def main(argv=None) -> int:
@@ -42,9 +48,9 @@ def main(argv=None) -> int:
     ap.add_argument("-vl", "--verbosity", default="info",
                     help="console verbosity: mute|error|warning|info|debug")
     ap.add_argument("-z", "--z-channel", action="store_true",
-                    help="z-buffer pass (not ported: raises)")
+                    help="enable the z-buffer pass (z-depth-norm)")
     ap.add_argument("--film", default=None,
-                    help="film save/load path (not ported: raises)")
+                    help="film save/load path for resume")
     ap.add_argument("--badge", action="store_true",
                     help="draw the parameter badge into the output image")
     ap.add_argument("--logs", action="store_true",
@@ -67,10 +73,6 @@ def main(argv=None) -> int:
                          "the kernels' plain versions)")
     args = ap.parse_args(argv)
 
-    if args.z_channel:
-        raise NotImplementedError(_UNPORTED.format("the z-buffer pass (-z)"))
-    if args.film:
-        raise NotImplementedError(_UNPORTED.format("film save/load (--film)"))
     if args.devices is not None and args.devices > 1:
         raise NotImplementedError(_UNPORTED.format("--devices > 1"))
 
@@ -80,7 +82,7 @@ def main(argv=None) -> int:
     logging.basicConfig(level=level, format="[%(levelname)s] %(message)s")
     log = logging.getLogger("libyafaray_tpu_torch")
 
-    from ..io.image import save_image
+    from ..io.image import save_image, save_multilayer_exr
     from ..scene.session import render_scene
     from ..scene.xml_parser import parse_xml_file
     from ..utils.observability import RenderLog
@@ -100,11 +102,20 @@ def main(argv=None) -> int:
         scene.render_params["width"] = args.width
     if args.height:
         scene.render_params["height"] = args.height
+    if args.z_channel:
+        scene.render_params["z_channel"] = True
 
     rlog = RenderLog(scene_name=os.path.basename(args.input))
     rlog.set_params("render", dict(scene.render_params))
     for iname, ip in scene.integrator_params.items():
         rlog.set_params(f"integrator:{iname}", dict(ip))
+
+    def progress(p, total):
+        rlog.event("info", f"pass {p}/{total}")
+
+    def run():
+        return render_scene(scene, device=args.device, progress_cb=progress,
+                            film_path=args.film)
 
     if args.profile:
         from torch.profiler import ProfilerActivity, profile
@@ -113,31 +124,53 @@ def main(argv=None) -> int:
         if args.device.startswith("cuda"):
             acts.append(ProfilerActivity.CUDA)
         with profile(activities=acts) as prof:
-            result = render_scene(scene, device=args.device)
+            result = run()
         os.makedirs(args.profile, exist_ok=True)
         trace = os.path.join(args.profile, "trace.json")
         prof.export_chrome_trace(trace)
         log.info("profiler trace written to %s", trace)
     else:
-        result = render_scene(scene, device=args.device)
+        result = run()
     rlog.event("info", f"rendered on {args.device}")
 
     out = args.output or os.path.splitext(args.input)[0] + ".png"
     if args.format:
         out = os.path.splitext(out)[0] + "." + args.format.lstrip(".")
     cfg = result.cfg
-    img = result.image
-    if args.badge:
-        from .. import __version__
-        from ..utils.observability import draw_badge
+    passes = result.passes if cfg.passes else {}
+    if passes and out.lower().endswith(".exr"):
+        # one multilayer file: the combined image, alpha, every pass
+        layers = {"": result.image}
+        if result.alpha is not None:
+            layers["alpha"] = result.alpha[..., None]
+        layers.update(passes)
+        save_multilayer_exr(out, layers)
+    else:
+        img, alpha = result.image, result.alpha
+        if alpha is not None and cfg.premult_alpha:
+            img = img * alpha[..., None]
+        if args.badge:
+            from .. import __version__
+            from ..utils.observability import draw_badge
 
-        img = draw_badge(img, [
-            f"libyafaray_tpu_torch {__version__} | "
-            f"{os.path.basename(args.input)} | {cfg.integrator}",
-            f"{cfg.width}x{cfg.height} | AA {cfg.aa_passes}x{cfg.aa_samples}"
-            f" | {result.mrays_per_sec:.1f} Mrays/s",
-        ])
-    save_image(out, img, color_space=cfg.color_space, gamma=cfg.gamma)
+            img = draw_badge(img, [
+                f"libyafaray_tpu_torch {__version__} | "
+                f"{os.path.basename(args.input)} | {cfg.integrator}",
+                f"{cfg.width}x{cfg.height} | AA "
+                f"{cfg.aa_passes}x{cfg.aa_samples}"
+                f" | {result.mrays_per_sec:.1f} Mrays/s",
+            ])
+        save_image(out, img, color_space=cfg.color_space, gamma=cfg.gamma,
+                   alpha=alpha)
+        base, ext = os.path.splitext(out)
+        for name, plane in passes.items():
+            # a file a pass, its channels padded to RGB, linear
+            if plane.shape[-1] == 1:
+                plane = np.repeat(plane, 3, axis=-1)
+            elif plane.shape[-1] == 2:
+                plane = np.concatenate(
+                    [plane, np.zeros_like(plane[..., :1])], axis=-1)
+            save_image(f"{base}.{name}{ext}", plane, color_space="linear")
     wall = time.perf_counter() - t0
     log.info("wrote %s  [%.2fs total, %.1f Mrays/s]", out, wall,
              result.mrays_per_sec)

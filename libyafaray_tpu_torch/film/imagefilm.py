@@ -2,8 +2,9 @@
 libyafaray_tpu/film/imagefilm.py: film_init with the variance plane,
 film_splat, splat_plane, their compact counterparts, film_image, the
 adaptive estimators compute_aa_flags and compute_stderr_flags, and SPPM's
-density layer; the AOV and alpha planes and film save/load wait for ROADMAP
-Queue 1 item 17).
+density layer, the alpha plane (film_alpha) and film save / load for
+resume (film_param_hash, film_save, film_load, the reference's npz layout);
+the AOV planes are film/passes.py's).
 
 The dense lanes are pixel-ordered, one sample per pixel per plane, so
 splatting a filter of radius R is (2R+1)² shifted plane-adds, never a
@@ -17,6 +18,9 @@ sample and tap by tap, in the reference's order.
 """
 from __future__ import annotations
 
+import hashlib
+
+import numpy as np
 import torch
 
 from ..core.math import div
@@ -26,7 +30,7 @@ F32 = torch.float32
 
 
 def film_init(h: int, w: int, device, with_density: bool = False,
-              with_variance: bool = False) -> dict:
+              with_alpha: bool = False, with_variance: bool = False) -> dict:
     film = dict(
         wsum=torch.zeros((h, w, 3), dtype=F32, device=device),
         w=torch.zeros((h, w), dtype=F32, device=device),
@@ -34,6 +38,10 @@ def film_init(h: int, w: int, device, with_density: bool = False,
     )
     if with_density:
         film["density"] = torch.zeros((h, w, 3), dtype=F32, device=device)
+    if with_alpha:
+        # coverage (bg_transp): filter-weighted like wsum, normalized by
+        # the same w (film_alpha)
+        film["alpha"] = torch.zeros((h, w, 1), dtype=F32, device=device)
     if with_variance:
         # second-moment plane (sum of w·C², wsum's footprint) for the
         # stderr estimator (compute_stderr_flags)
@@ -213,6 +221,15 @@ def film_image(film: dict) -> torch.Tensor:
     return img
 
 
+def film_alpha(film: dict):
+    """(H,W) weighted-mean alpha in [0, 1], or None when the film has no
+    alpha plane; a pixel with no sample reads 0 (transparent)."""
+    if "alpha" not in film:
+        return None
+    return torch.clamp(film["alpha"][..., 0]
+                       / torch.clamp(film["w"], min=1e-8), 0.0, 1.0)
+
+
 def _mean3(x: torch.Tensor) -> torch.Tensor:
     """Mean over a last axis of 3, summed in order and truly divided."""
     return div(x[..., 0] + x[..., 1] + x[..., 2], 3.0)
@@ -278,3 +295,38 @@ def add_density(film: dict, contrib: torch.Tensor) -> dict:
     """SPPM's density layer accumulation (reference addDensitySample)."""
     base = film.get("density")
     return dict(film, density=contrib if base is None else base + contrib)
+
+
+# ---- save / load for resume (the reference's binary film + autosave) -------
+
+
+def film_param_hash(params: dict) -> str:
+    s = repr(sorted(params.items()))
+    return hashlib.sha256(s.encode()).hexdigest()[:16]
+
+
+def film_save(path: str, film: dict, params: dict, pass_idx: int) -> None:
+    """np.savez_compressed of every film key (tensors copied to the host in
+    their dtypes) beside __hash__ (of params) and __pass__ (the pass or
+    step to resume from).  numpy appends .npz to a path without it, as for
+    the reference's writer."""
+    arrays = {k: v.detach().cpu().numpy() if isinstance(v, torch.Tensor)
+              else np.asarray(v) for k, v in film.items()}
+    np.savez_compressed(path, __hash__=film_param_hash(params),
+                        __pass__=pass_idx, **arrays)
+
+
+def film_load(path: str, params: dict, device):
+    """(film, pass_idx) of a film_save file, every array a tensor on
+    `device` in its saved dtype; None when the file is missing or was saved
+    under other params (the render then starts fresh)."""
+    try:
+        data = np.load(path, allow_pickle=False)
+    except (FileNotFoundError, OSError):
+        return None
+    with data:
+        if str(data["__hash__"]) != film_param_hash(params):
+            return None
+        film = {k: torch.from_numpy(np.array(data[k])).to(device)
+                for k in data.files if not k.startswith("__")}
+        return film, int(data["__pass__"])

@@ -16,8 +16,20 @@ of spp_batch samples per pixel:
       bounces 1..B    hash-keyed dynamic QMC dims; 1 NEE sample per light
                       (AA_clamp_indirect clamps that term)
       splat           spb plane splats into a fresh film fragment, added
-                      once to the film (and the m2 and samp_factor planes
-                      where the film has them)
+                      once to the film (and the m2 plane where the film has
+                      one); the alpha and pass planes as below
+
+The film's planes decide what else a step computes, so a film without
+them costs nothing more.  An `alpha` plane (bg_transp) keeps each lane's
+camera-visibility chain (`track`: through null and straight-through
+transparency, and refracted specular chains under bg_transp_refract) and
+whether it reached the background (`transp`); `aov_<source>` planes
+(film/passes.py) ask the first vertex for their sources (`first_hit_aux`:
+AO and the shadow value only then) and, for reflect / refract, keep per
+lane the light that arrived through a bounce-0 specular reflection /
+transmission (`tag`).  The filter-weighted planes (alpha, direct, emit,
+reflect, refract) go into the film in one splat of their channels
+stacked, the others as plain per-sample sums in one add.
 
 B is `bounces` in path mode and `raydepth` in direct mode, plus the scene's
 largest per-material additionalDepth: a lane's depth budget rises where it
@@ -69,9 +81,11 @@ from ..backgrounds.base import eval_background
 from ..cameras.base import pixel_cone, project_to_camera, shoot_rays
 from ..core import math as vmath
 from ..core import qmc
+from ..core.color import luminance
 from ..core.sampling import INV_PI, power_heuristic, sample_cos_hemisphere
 from ..film.imagefilm import (clamp_sample, film_splat, film_splat_compact,
                               splat_plane, splat_plane_compact)
+from ..film.passes import FILTER_WEIGHTED_AOVS
 from ..lights import base as lightmod
 from ..lights.bglight import pdf_bg_dir, sample_bg_light
 from ..lights.ies import apply_ies_profile
@@ -95,14 +109,10 @@ PORTED_INTEGRATORS = ("directlighting", "pathtracing", "photonmapping",
 def check_supported(static, cfg: RenderConfig) -> None:
     """Raise for any part of (scene, config) that the port does not render
     with cfg.integrator.  All six of the reference's surface integrators,
-    all its light, camera, background and volume types are ported; under
-    each integrator passes and alpha raise (item 17)."""
+    all its light, camera, background and volume types, its render passes
+    and its alpha plane are ported."""
     if cfg.integrator not in PORTED_INTEGRATORS:
         raise ValueError(f"unknown integrator {cfg.integrator!r}")
-    if cfg.passes or cfg.transp_background:
-        raise NotImplementedError(
-            "render passes / AOVs and alpha are not ported yet: ROADMAP "
-            "Queue 1 item 17")
 
 
 def check_arrays(arrays: dict, device: torch.device, prefix: str = "") -> None:
@@ -460,7 +470,7 @@ def _make_mat_resolve(arrays, static, sp: dict):
 
 def _direct_lighting(arrays, static, cfg, p, n, ng, row, wo, s_idx, skey,
                      bounce_dim, full_count: bool, static_dims: bool, alive,
-                     mis_with_bsdf=True, resolve=None):
+                     mis_with_bsdf=True, resolve=None, shadow_pass=False):
     """NEE with two-strategy MIS over the enabled lights (reference
     estimateAllDirectLight).  full_count gives every light its full
     `samples` count (else one sample), all ns samples batched block-major
@@ -471,9 +481,12 @@ def _direct_lighting(arrays, static, cfg, p, n, ng, row, wo, s_idx, skey,
     dynamic dims.  mis_with_bsdf=False weighs the light samples 1 (for
     callers that never take the BSDF-sampled counterpart).  Blend and
     mask rows evaluate through materials/blend.py, `resolve` as there.
-    Returns (L (N,3), shadow rays per live lane)."""
+    Returns (L (N,3), shadow rays per live lane), and with shadow_pass
+    the "shadow" pass's value: each light's mean luminance of its samples'
+    transmission, averaged over the lights sampled."""
     L = torch.zeros_like(p)
     nrays = 0
+    sh_sum, sh_cnt = 0.0, 0
     families = static.mat_families
     for li, ls in enumerate(static.lights):
         if not ls.enabled or ls.photon_only:
@@ -508,6 +521,17 @@ def _direct_lighting(arrays, static, cfg, p, n, ng, row, wo, s_idx, skey,
         if ls.cast_shadows:
             nrays += ns
         L = L + vmath.div(accum, ns)
+        if shadow_pass:
+            lum = luminance(tr)
+            acc = lum[:n0]
+            for k in range(1, ns):
+                acc = acc + lum[k * n0:(k + 1) * n0]
+            sh_sum = sh_sum + vmath.div(acc, ns)
+            sh_cnt += 1
+    if shadow_pass:
+        if not sh_cnt:  # no light sampled
+            sh_sum = torch.zeros_like(p[:, 0])
+        return L, nrays, vmath.div(sh_sum, max(sh_cnt, 1))
     return L, nrays
 
 
@@ -536,6 +560,91 @@ def _ambient_occlusion(arrays, static, cfg, p, n_f, diffuse_color, s_idx,
         ao = ao + tr[j * n0:(j + 1) * n0]
     ao_col = torch.tensor(cfg.ao_color, dtype=F32, device=p.device)
     return vmath.div(ao * diffuse_color * ao_col, ns)
+
+
+# the aux sources that read the surface point's texture fields (uv, the
+# clamped triangle id, dPdU, dPdV)
+SP_AUX = frozenset({"uv", "obj_index", "nu", "nv", "dpdu", "dpdv"})
+
+
+def first_hit_aux(want: frozenset, hit, sp: dict, row: dict, n_sh, ng_sh,
+                  alive, emit, Ld, shadow, ao) -> dict:
+    """The first vertex's values of the aux sources in `want` (the
+    reference's primary-hit attributes), each (N,) or (N, C): on hit lanes
+    z (the hit distance), normal and geo_normal (the shading frame's),
+    uv, mat_index, obj_index (the hit triangle, 0 on a sphere),
+    diffuse_color, samp_factor (the material's samplingFactor, 1 on a
+    miss), nu and nv (the frame orthonormalized from dPdU, build_onb's u
+    where dPdU lies along the normal), dpdu and dpdv (normalized); on the
+    lanes that go on past the vertex (the reference's mask) emit, direct,
+    ao and shadow (1 elsewhere).  shadow: (the NEE's shadow value,) or
+    ()."""
+    hm = hit.hit
+    h3 = hm[..., None]
+    out = {}
+    if "z" in want:
+        out["z"] = torch.where(hm, hit.t, 0.0)
+    if "normal" in want:
+        out["normal"] = torch.where(h3, n_sh, 0.0)
+    if "geo_normal" in want:
+        out["geo_normal"] = torch.where(h3, ng_sh, 0.0)
+    if "uv" in want:
+        out["uv"] = torch.where(h3, sp["uv"], 0.0)
+    hf = hm.to(F32)
+    if "mat_index" in want:
+        out["mat_index"] = sp["mat"].to(F32) * hf
+    if "obj_index" in want:
+        out["obj_index"] = sp["tri"].to(F32) * hf
+    if "diffuse_color" in want:
+        out["diffuse_color"] = torch.where(h3, row["diffuse_color"], 0.0)
+    if "samp_factor" in want:
+        out["samp_factor"] = torch.where(hm, row["sampling_factor"], 1.0)
+    a3 = alive[..., None]
+    if "emit" in want:
+        out["emit"] = torch.where(a3, emit, 0.0)
+    if "direct" in want:
+        out["direct"] = torch.where(a3, Ld, 0.0)
+    if "shadow" in want:
+        out["shadow"] = torch.where(alive, shadow[0], 1.0)
+    if "ao" in want:
+        out["ao"] = torch.where(a3, ao, 0.0)
+    if "nu" in want or "nv" in want:
+        du = sp["dpdu"] - n_sh * vmath.dot(n_sh, sp["dpdu"])[..., None]
+        du_len = vmath.length(du)[..., None]
+        onb_u, _ = vmath.build_onb(n_sh)
+        tu = torch.where(du_len > 1e-9, du / torch.clamp(du_len, min=1e-9),
+                         onb_u)
+        out["nu"] = torch.where(h3, tu, 0.0)
+        out["nv"] = torch.where(h3, vmath.cross(n_sh, tu), 0.0)
+    for key in ("dpdu", "dpdv"):
+        if key in want:
+            out[key] = torch.where(h3, vmath.normalize(sp[key]), 0.0)
+    return out
+
+
+def _channels(x: torch.Tensor) -> torch.Tensor:
+    """(N,) -> (N, 1); (N, C) as it is."""
+    return x[:, None] if x.dim() == 1 else x
+
+
+def stack_planes(film: dict, keys: list) -> torch.Tensor:
+    """The film planes of keys, (H, W, C_k) each, stacked on the channel
+    axis (one plane as it is)."""
+    if len(keys) == 1:
+        return film[keys[0]]
+    return torch.cat([film[k] for k in keys], dim=-1)
+
+
+def unstack_planes(keys: list, film: dict, stacked: torch.Tensor) -> dict:
+    """stack_planes' inverse: key -> its channels of stacked (views)."""
+    if len(keys) == 1:
+        return {keys[0]: stacked}
+    out, c = {}, 0
+    for k in keys:
+        ck = film[k].shape[-1]
+        out[k] = stacked[..., c:c + ck]
+        c += ck
+    return out
 
 
 def is_diffuse_family(mtype: torch.Tensor) -> torch.Tensor:
@@ -602,18 +711,35 @@ def make_sample_step(static, camera, cfg: RenderConfig, device,
     families, depth = static.mat_families, static.has_blend
 
     def shade_vertex(arrays, st, bounce_idx: int, s_idx, ph, first: bool,
-                     samp_factor: bool):
+                     want: frozenset):
         """One path vertex: intersect, attenuate by the medium, add
         background (MIS against the IBL light) and emission (MIS), apply
         textures, NEE, AO and caustics at the first vertex, sample the
-        continuation.  ph: the lanes' QMC pixel hashes; samp_factor: the
-        first vertex records its material's samplingFactor."""
+        continuation.  ph: the lanes' QMC pixel hashes; want: the aux
+        sources the film's planes ask of the first vertex (`first_hit_aux`;
+        "ao" and "shadow" also ask their extra work).  Where the state
+        carries them, the vertex also keeps the alpha chain (track, transp)
+        and the reflect / refract planes (L_refl, L_refr by the bounce-0
+        tag)."""
         bounce_dim = qmc.bounce_dim(bounce_idx, 0)
         throughput, alive = st["throughput"], st["alive"]
         spec_mask, prev_pdf = st["spec_mask"], st["prev_pdf"]
         L, nrays = st["L"], st["nrays"]
         org, dirn = st["org"], st["dirn"]
         mats = arrays["materials"]
+        out = {}
+        # past the first vertex a contribution also lands in the plane of
+        # its lane's bounce-0 tag (1 reflect, 2 refract); at the first every
+        # tag is 0
+        tagged = [] if first else [
+            (key, (st["tag"] == t)[..., None])
+            for key, t in (("L_refl", 1), ("L_refr", 2)) if key in st]
+
+        def add(L, x, mask):
+            x = torch.where(mask[..., None], x, 0.0)
+            for key, on in tagged:
+                out[key] = out.get(key, st[key]) + torch.where(on, x, 0.0)
+            return L + x
 
         hit = closest_hit(arrays, static, org, dirn,
                           *ray_bounds(static, alive))
@@ -646,17 +772,21 @@ def make_sample_step(static, camera, cfg: RenderConfig, device,
             bg = bg * w_bg[..., None]
         elif portal:
             bg = bg * torch.where(spec_mask, 1.0, 0.0)[..., None]
-        L = L + torch.where(escape[..., None], throughput * bg, 0.0)
+        L = add(L, throughput * bg, escape)
+        if "transp" in st:
+            # alpha: a lane whose camera-visibility chain reaches the
+            # background ends transparent
+            out["transp"] = st["transp"] | (escape & st["track"])
         alive = alive & hit.hit
 
         fp = None
         if tex:  # the ray cone's footprint at the hit (mip LOD)
             fp = st["cone_w"] + st["cone_spread"] * torch.where(
                 hit.hit, hit.t, 0.0)
-        sp = _surface_point(arrays, hit, org, dirn, fp=fp, tex=tex)
+        sp = _surface_point(arrays, hit, org, dirn, fp=fp,
+                            tex=tex or (first and bool(want & SP_AUX)))
         wo = -dirn
         row = gather_rows(mats, sp["mat"].long())
-        out = {}
         if extra_depth:
             # a material with additionalDepth raises the lane's budget to
             # base + its extra vertices
@@ -708,27 +838,30 @@ def make_sample_step(static, camera, cfg: RenderConfig, device,
         nee_on = nee_on_table[torch.clamp(li_id, min=0).long()] > 0.5
         mis_w = torch.where(is_light_tri & ~spec_mask & nee_on,
                             power_heuristic(prev_pdf, pdf_light_hit), 1.0)
-        L = L + torch.where(alive[..., None],
-                            throughput * emit * mis_w[..., None], 0.0)
+        L = add(L, throughput * emit * mis_w[..., None], alive)
 
         # ---- shading frame ----
         n_sh, ng_sh = shading_frame(sp, wo)
         skey_b = bounce_key(ph, bounce_idx)
 
         # ---- NEE (single-strategy in direct mode) ----
-        Ld, sh_rays = _direct_lighting(
+        nee = _direct_lighting(
             arrays, static, cfg, sp["p"], n_sh, ng_sh, row, wo, s_idx,
             skey_b, bounce_dim, first, first, alive, mis_with_bsdf=path_mode,
-            resolve=resolve)
+            resolve=resolve, shadow_pass=first and "shadow" in want)
+        Ld, sh_rays = nee[:2]
         if not first:  # AA_clamp_indirect, on the NEE term past the first
             Ld = clamp_sample(Ld, cfg.aa_clamp_indirect)
-        L = L + torch.where(alive[..., None], throughput * Ld, 0.0)
+        L = add(L, throughput * Ld, alive)
         nrays = nrays + sh_rays * alive.to(F32).sum()
 
-        if first and cfg.do_ao and not path_mode:
+        ao = None
+        if first and ((cfg.do_ao and not path_mode) or "ao" in want):
+            # direct mode's AO term, and the AO pass under either mode
             ao = _ambient_occlusion(arrays, static, cfg, sp["p"], ng_sh,
                                     row["diffuse_color"], s_idx, skey_b,
                                     alive)
+        if first and cfg.do_ao and not path_mode:
             L = L + torch.where(alive[..., None], throughput * ao, 0.0)
 
         if first and caustic is not None:
@@ -739,11 +872,8 @@ def make_sample_step(static, camera, cfg: RenderConfig, device,
                            c_nem)
             f_c = (row["diffuse_reflect"][..., None] * row["diffuse_color"]
                    * INV_PI)
-            on = alive & is_diffuse_family(row["mtype"])
-            L = L + torch.where(on[..., None], throughput * f_c * lc, 0.0)
-        if first and samp_factor:
-            out["samp_factor"] = torch.where(hit.hit, row["sampling_factor"],
-                                             1.0)
+            L = add(L, throughput * f_c * lc,
+                    alive & is_diffuse_family(row["mtype"]))
 
         # ---- continuation ----
         if first:
@@ -768,6 +898,12 @@ def make_sample_step(static, camera, cfg: RenderConfig, device,
             q = torch.clamp(throughput.amax(dim=-1), 0.05, 1.0)
             alive = alive & ~(u_rr > q)
             throughput = throughput / q[..., None]
+        if first and "tag" in st:
+            # the reflect / refract planes route a path by the kind of its
+            # bounce-0 specular continuation
+            spec = alive & smp["specular"]
+            out["tag"] = torch.where(spec & ~smp["transmit"], 1, torch.where(
+                spec & smp["transmit"], 2, 0))
 
         if media:
             # entering a glass takes its coefficient, leaving one clears it
@@ -779,6 +915,16 @@ def make_sample_step(static, camera, cfg: RenderConfig, device,
         org = sp["p"] + ng_sh * off * static.shadow_bias
         # null pass-through keeps the MIS state of the last real vertex
         pt = smp["passthrough"]
+        if "track" in st:
+            # the alpha chain survives null pass-through and straight-
+            # through transparency (wi == -wo); refracted specular chains
+            # only under bg_transp_refract
+            through = smp["specular"] & smp["transmit"]
+            straight = pt | (through & (vmath.dot(smp["wi"], -wo)
+                                        > 0.999999))
+            if cfg.bg_transp_refract:
+                straight = straight | through
+            out["track"] = st["track"] & straight
         spec_mask = torch.where(pt, spec_mask, smp["specular"])
         prev_pdf = torch.where(pt, prev_pdf, smp["pdf"])
         if tex:
@@ -792,14 +938,19 @@ def make_sample_step(static, camera, cfg: RenderConfig, device,
         if extra_depth:  # the next vertex must fit the lane's budget
             alive = alive & (bounce_idx + 1.0 <= out["depth_limit"])
         nrays = nrays + alive.to(F32).sum()
+        if first and want:
+            out["aux"] = first_hit_aux(want, hit, sp, row, n_sh, ng_sh,
+                                       alive, emit, Ld, nee[2:], ao)
         return dict(st, **out, org=org, dirn=smp["wi"],
                     throughput=throughput, alive=alive, spec_mask=spec_mask,
                     prev_pdf=prev_pdf, L=L, nrays=nrays)
 
     def run_wavefront(arrays, s_idx, ph, org, dirn, wt, active,
-                      samp_factor: bool) -> dict:
+                      want: frozenset, alpha: bool) -> dict:
         """The first vertex and the bounce loop, shared by the dense and
-        compact steps: the final lane state (L, nrays, samp_factor)."""
+        compact steps: the final lane state (L, nrays; with want, the
+        first vertex's aux; the planes want and alpha ask: L_refl, L_refr,
+        transp)."""
         alive = active & (wt > 0.0)
         st = dict(
             org=org, dirn=dirn,
@@ -820,9 +971,16 @@ def make_sample_step(static, camera, cfg: RenderConfig, device,
         if extra_depth:
             st["depth_limit"] = torch.full((n,), float(base_bounces),
                                            dtype=F32, device=dev)
-        st = shade_vertex(arrays, st, 0, s_idx, ph, True, samp_factor)
+        for key, src in (("L_refl", "reflect"), ("L_refr", "refract")):
+            if src in want:
+                st[key] = torch.zeros((n, 3), dtype=F32, device=dev)
+                st["tag"] = torch.zeros((n,), dtype=torch.int64, device=dev)
+        if alpha:
+            st["track"] = torch.ones((n,), dtype=torch.bool, device=dev)
+            st["transp"] = torch.zeros((n,), dtype=torch.bool, device=dev)
+        st = shade_vertex(arrays, st, 0, s_idx, ph, True, want)
         for b in range(1, n_bounces + 1):
-            st = shade_vertex(arrays, st, b, s_idx, ph, False, False)
+            st = shade_vertex(arrays, st, b, s_idx, ph, False, want)
         return st
 
     def splat(acc, val, dx, dy, act, pix):
@@ -843,14 +1001,52 @@ def make_sample_step(static, camera, cfg: RenderConfig, device,
                   dx.reshape(shape), dy.reshape(shape), act.reshape(shape),
                   cfg.filter_type, cfg.aa_pixelwidth, **kw)
 
+    def add_planes(film, st, wt, dx, dy, act, pix) -> dict:
+        """The alpha and AOV planes with the step's samples added: the
+        filter-weighted ones (alpha, direct, emit, reflect, refract) in one
+        splat of their channels stacked, the others as plain per-sample
+        sums (the spb samples a pixel summed first) in one add."""
+        vals = dict(st.get("aux", {}))
+        for key, src in (("L_refl", "reflect"), ("L_refr", "refract")):
+            if key in st:
+                vals[src] = st[key] * wt[..., None]
+        if "transp" in st:  # a lane off the camera counts transparent
+            vals["alpha"] = torch.where(st["transp"] | (wt <= 0.0), 0.0,
+                                        1.0)
+        weighted = [k for k in film if k == "alpha" or (
+            k.startswith("aov_") and k[4:] in FILTER_WEIGHTED_AOVS)]
+        plain = [k for k in film if k.startswith("aov_")
+                 and k not in weighted]
+        out = {}
+        if weighted:
+            base = stack_planes(film, weighted)
+            val = torch.cat([_channels(vals[k.removeprefix("aov_")])
+                             for k in weighted], dim=-1)
+            out.update(unstack_planes(weighted, film, base + splat(
+                torch.zeros_like(base), val, dx, dy, act, pix)))
+        if plain:
+            base = stack_planes(film, plain)
+            val = [_channels(vals[k[4:]]) for k in plain]
+            val = (val[0] if len(val) == 1 else torch.cat(val, dim=-1)) \
+                * act[:, None]
+            c = base.shape[-1]
+            out.update(unstack_planes(plain, film, (
+                base + val.reshape(spb, h, w, c).sum(dim=0) if pix is None
+                else base.reshape(-1, c).index_add(
+                    0, torch.clamp(pix, min=0).long(), val).reshape(
+                        base.shape))))
+        return out
+
     def advance(arrays, film, lpx, lpy, ph, base_idx, active, pix) -> dict:
         """Trace the lanes (pixels (lpx, lpy), hashes ph, first sample
         index base_idx, resample flags active) and accumulate them."""
         check_arrays(arrays, dev)
         s_idx = base_idx if lane_k is None else base_idx + lane_k
         dx, dy, org, dirn, wt = camera_rays(camera, lpx, lpy, ph, s_idx)
-        st = run_wavefront(arrays, s_idx, ph, org, dirn, wt, active,
-                           "aov_samp_factor" in film)
+        # the film's planes ask for the work they read, nothing more
+        want = frozenset(k[4:] for k in film if k.startswith("aov_"))
+        st = run_wavefront(arrays, s_idx, ph, org, dirn, wt, active, want,
+                           "alpha" in film)
         L = st["L"] * wt[..., None]
         act = active.to(F32)
         # two-level accumulation: splat into a fresh fragment, then add it
@@ -868,14 +1064,8 @@ def make_sample_step(static, camera, cfg: RenderConfig, device,
             L2 = clamp_sample(L, cfg.aa_clamp_samples)
             out["m2"] = film["m2"] + splat(torch.zeros_like(film["m2"]),
                                            L2 * L2, dx, dy, act, pix)
-        if "aov_samp_factor" in film:  # a plain per-sample sum
-            val = (st["samp_factor"] * act)[:, None]
-            plane = film["aov_samp_factor"]
-            out["aov_samp_factor"] = (
-                plane + val.reshape(spb, h, w, 1).sum(dim=0) if pix is None
-                else plane.reshape(-1, 1).index_add(
-                    0, torch.clamp(pix, min=0).long(), val).reshape(
-                        plane.shape))
+        if want or "alpha" in film:
+            out.update(add_planes(film, st, wt, dx, dy, act, pix))
         return out
 
     if compact_n:

@@ -1,5 +1,5 @@
 """Photon-mapping integrator (port of libyafaray_tpu/integrators/
-photonmap.py for one AA pass, without film save/load and the device mesh),
+photonmap.py without the device mesh, with its film save / load by pass),
 and the path tracer's caustic photon map (`build_caustic_map`).
 
     preprocess  wavefront photon passes (photon_shoot), device-side
@@ -29,7 +29,7 @@ from ..convert import to_tensors
 from ..core import qmc
 from ..core.math import div
 from ..core.sampling import INV_PI, sample_cos_hemisphere
-from ..film.imagefilm import compute_aa_flags, film_splat
+from ..film.imagefilm import compute_aa_flags, film_save, film_splat
 from ..materials import bsdf
 from ..materials.base import gather_rows
 from ..ops.photon_flash import (density_auto, make_photon_pack_auto,
@@ -41,7 +41,8 @@ from .engine import (F32, _direct_lighting, _surface_point,
                      closest_hit, is_diffuse_family, resolve_device,
                      shading_frame, uses_textures)
 from .photon_shoot import light_flux, make_photon_pass
-from .render import RenderResult, _fresh_film, _sync
+from .render import (RenderResult, _fresh_film, _sync, film_params,
+                     load_film, saves_passes)
 
 MAX_PHOTON_LANES = 1 << 18
 RADIANCE_QUERIES = 1 << 16  # radiance-map size target and query chunk
@@ -348,7 +349,8 @@ def install_photon_maps(cscene, cfg: RenderConfig, arrays: dict) -> dict:
     return maps
 
 
-def _render(cscene, cfg: RenderConfig, device, warmup: bool) -> RenderResult:
+def _render(cscene, cfg: RenderConfig, device, warmup: bool, film_path=None,
+            progress_cb=None) -> RenderResult:
     dev = resolve_device(device)
     check_supported(cscene.static, cfg)
     arrays = to_tensors(cscene.arrays, dev)
@@ -363,8 +365,15 @@ def _render(cscene, cfg: RenderConfig, device, warmup: bool) -> RenderResult:
         step(arrays, _fresh_film(cfg, dev), flags)
         _sync(dev)
     film = _fresh_film(cfg, dev)
+    start_pass = 0
+    loaded = load_film(cfg, film_path, dev)
+    if loaded is not None:
+        # the photon maps are rebuilt at preprocess from the same seeds:
+        # only the film's own planes resume
+        lf, start_pass = loaded
+        film = {k: lf.get(k, v) for k, v in film.items()}
     t1 = time.perf_counter()
-    for p in range(cfg.aa_passes):
+    for p in range(start_pass, cfg.aa_passes):
         # adaptive passes as the reference runs them: the contrast
         # estimator, dense steps masked by its flags
         fl = flags if p == 0 else compute_aa_flags(
@@ -372,19 +381,27 @@ def _render(cscene, cfg: RenderConfig, device, warmup: bool) -> RenderResult:
             cfg.aa_dark_factor, cfg.aa_detect_color_noise)
         for _ in range(cfg.aa_samples if p == 0 else cfg.aa_inc_samples):
             film = step(arrays, film, fl)
+        if progress_cb is not None:
+            progress_cb(p + 1, cfg.aa_passes)
+        if saves_passes(cfg, film_path):
+            film_save(film_path, film, film_params(cfg), p + 1)
     _sync(dev)
     return RenderResult(film, dict(
         render_s=time.perf_counter() - t1, preprocess_s=preprocess_s,
         rays=float(film["rays"]), photon_maps=maps["info"]), cfg)
 
 
-def render_photonmap(cscene, cfg: RenderConfig, *,
-                     device="cuda") -> RenderResult:
+def render_photonmap(cscene, cfg: RenderConfig, *, device="cuda",
+                     film_path=None, progress_cb=None) -> RenderResult:
     """Full photon-mapping render: preprocess, then AA_minsamples steps
     and, where aa_passes > 1, adaptive passes of AA_inc_samples steps.
     stats: render_s (the steps), preprocess_s (photon shooting, packs and
-    the radiance map), rays, photon_maps (counts per map)."""
-    return _render(cscene, cfg, device, warmup=False)
+    the radiance map), rays, photon_maps (counts per map).  Its film keeps
+    no alpha or pass planes (as the reference's).  film_path: film
+    save / load by pass as `render.render` (no autosave by time, as in the
+    reference); progress_cb(pass done, aa_passes) after each pass."""
+    return _render(cscene, cfg, device, warmup=False, film_path=film_path,
+                   progress_cb=progress_cb)
 
 
 def render_photonmap_timed(cscene, cfg: RenderConfig, *,

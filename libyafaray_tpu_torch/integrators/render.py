@@ -1,7 +1,8 @@
 """Render orchestration (port of libyafaray_tpu/integrators/render.py:
-`render`, the adaptive pass loop with its compact passes, without mesh or
-film save / load, and `render_timed`), for pathtracing, with its caustic
-photon map when caustic_type is photon or both, and directlighting.
+`render`, the adaptive pass loop with its compact passes, the film's alpha
+and pass planes, film save / load and autosave, without a device mesh, and
+`render_timed`), for pathtracing, with its caustic photon map when
+caustic_type is photon or both, and directlighting.
 
 `device` (default "cuda", which raises without a card) threads from here
 down: the scene tensors, the film and every lane live on it.  Timing
@@ -18,7 +19,9 @@ import torch
 
 from ..convert import to_tensors
 from ..film.imagefilm import (compute_aa_flags, compute_stderr_flags,
-                              film_image, film_init)
+                              film_alpha, film_image, film_init, film_load,
+                              film_save)
+from ..film.passes import extract_passes, film_add_passes
 from ..scene.scene import CompiledScene
 from .config import RenderConfig
 from .engine import check_supported, make_sample_step, resolve_device
@@ -39,6 +42,18 @@ class RenderResult:
         return film_image(self.film).cpu().numpy()
 
     @property
+    def alpha(self):
+        """(H, W) alpha plane, or None when the film carries none
+        (bg_transp off, or an integrator that keeps none)."""
+        a = film_alpha(self.film)
+        return None if a is None else a.cpu().numpy()
+
+    @property
+    def passes(self) -> dict:
+        """name -> (H, W, C) numpy planes of cfg.passes (film/passes.py)."""
+        return extract_passes(self.film, self.cfg.passes)
+
+    @property
     def mrays_per_sec(self) -> float:
         """Rays counted as film["rays"] (camera rays, shadow rays and live
         continuation rays) over the timed render seconds."""
@@ -50,12 +65,35 @@ def _sync(device: torch.device) -> None:
         torch.cuda.synchronize(device)
 
 
-def _fresh_film(cfg: RenderConfig, device,
-                with_variance: bool = False) -> dict:
-    f = film_init(cfg.height, cfg.width, device,
+def _fresh_film(cfg: RenderConfig, device, with_variance: bool = False,
+                with_alpha: bool = False) -> dict:
+    f = film_init(cfg.height, cfg.width, device, with_alpha=with_alpha,
                   with_variance=with_variance)
     f["rays"] = torch.zeros((), dtype=torch.float32, device=device)
     return f
+
+
+def film_params(cfg: RenderConfig) -> dict:
+    """What a saved film's hash covers: the whole config, as the
+    reference's."""
+    return {"cfg": repr(cfg)}
+
+
+def load_film(cfg: RenderConfig, film_path, device):
+    """(film, pass to start from) of film_path under film_save_load "load"
+    or "load-save", or None (no path, not asked, missing, or saved under
+    another config)."""
+    if cfg.film_save_load in ("load", "load-save") and film_path:
+        return film_load(film_path, film_params(cfg), device)
+    return None
+
+
+def saves_passes(cfg: RenderConfig, film_path) -> bool:
+    """Whether the film is saved after every pass: autosave by pass, or
+    film_save_load "save" / "load-save"."""
+    return bool(film_path) and (
+        cfg.autosave_interval_type == "pass"
+        or cfg.film_save_load in ("save", "load-save"))
 
 
 def _setup(cscene: CompiledScene, cfg: RenderConfig, device):
@@ -156,7 +194,8 @@ def compact_lanes(flags: torch.Tensor, nf: int) -> torch.Tensor:
 
 
 def render(cscene: CompiledScene, cfg: RenderConfig, *, device="cuda",
-           compact: bool = True) -> RenderResult:
+           compact: bool = True, film_path=None,
+           progress_cb=None) -> RenderResult:
     """Full render: aa_passes passes (reference imagefilm adaptive AA).
     Pass 0 runs ceil(AA_minsamples / spp_batch) steps over every pixel;
     each later pass flags pixels by the estimator (`adaptive_flags`),
@@ -166,21 +205,36 @@ def render(cscene: CompiledScene, cfg: RenderConfig, *, device="cuda",
     per bucket, and per pass where the multipliers change the NEE counts),
     else the dense step masked by the flags.  stats: render_s, rays,
     passes, and pass_log, a (flagged, lanes, "compact" or "dense", steps,
-    wall_s) entry per pass run."""
+    wall_s) entry per pass run.
+
+    The film carries an alpha plane with bg_transp and the planes of
+    cfg.passes.  film_path: with film_save_load "load" / "load-save" a film
+    saved there under the same config resumes (its passes are not run
+    again); "save" / "load-save" or autosave by pass save it after every
+    pass, autosave by time between steps (with the pass it is in).
+    progress_cb(pass done, aa_passes) after each pass."""
     dev, arrays, make_step, stats = _setup(cscene, cfg, device)
     step = make_step(cfg)
-    film = _fresh_film(cfg, dev, with_variance=(
-        cfg.aa_passes > 1 and cfg.aa_estimator == "variance"))
+    film = _fresh_film(cfg, dev, with_alpha=cfg.transp_background,
+                       with_variance=(cfg.aa_passes > 1
+                                      and cfg.aa_estimator == "variance"))
+    if cfg.passes:
+        film = film_add_passes(film, cfg.height, cfg.width, cfg.passes, dev)
     if cfg.aa_passes > 1 and cscene.static.has_sampling_factor:
         # the primary hit's samplingFactor, summed per sample, scales the
         # adaptive threshold
-        film["aov_samp_factor"] = torch.zeros((cfg.height, cfg.width, 1),
-                                              dtype=torch.float32, device=dev)
+        film.setdefault("aov_samp_factor", torch.zeros(
+            (cfg.height, cfg.width, 1), dtype=torch.float32, device=dev))
+    start_pass = 0
+    loaded = load_film(cfg, film_path, dev)
+    if loaded is not None:
+        film, start_pass = loaded
+    params = film_params(cfg)
     n_px = cfg.height * cfg.width
     compact_steps: dict = {}
     log = []
     t0 = time.perf_counter()
-    for p in range(cfg.aa_passes):
+    for p in range(start_pass, cfg.aa_passes):
         cfg_p = pass_config(cfg, p)
         if p > 0 and cfg_p is not cfg:
             step = make_step(cfg_p)
@@ -199,14 +253,23 @@ def render(cscene: CompiledScene, cfg: RenderConfig, *, device="cuda",
                     compact_steps[key] = make_step(cfg_p, compact_n=nc)
                 run, arg, lanes = (compact_steps[key],
                                    compact_lanes(flags, nf), nc)
-        t_p = time.perf_counter()
+        t_p = last_save = time.perf_counter()
         n_steps = _pass_steps(cfg, p)
         for _ in range(n_steps):
             film = run(arrays, film, arg)
+            if (cfg.autosave_interval_type == "time" and film_path
+                    and time.perf_counter() - last_save
+                    > cfg.autosave_interval):
+                film_save(film_path, film, params, p)
+                last_save = time.perf_counter()
         _sync(dev)
         log.append(dict(flagged=nf, lanes=lanes,
                         mode="compact" if run is not step else "dense",
                         steps=n_steps, wall_s=time.perf_counter() - t_p))
+        if progress_cb is not None:
+            progress_cb(p + 1, cfg.aa_passes)
+        if saves_passes(cfg, film_path):
+            film_save(film_path, film, params, p + 1)
     return RenderResult(film, dict(
         stats, render_s=time.perf_counter() - t0, rays=float(film["rays"]),
         passes=cfg.aa_passes, pass_log=log), cfg)
@@ -217,7 +280,8 @@ def render_timed(cscene: CompiledScene, cfg: RenderConfig, *,
     """Benchmark render: one warm-up step on a throw-away film, then
     ceil(AA_minsamples·AA_passes / spp_batch) timed steps over every pixel
     (the Mrays/s metric; adaptive passes run uniform, as the reference's
-    benchmark render runs them)."""
+    benchmark render runs them).  Its film is the reference's plain one:
+    no alpha or pass planes, so no work for them."""
     dev, arrays, make_step, stats = _setup(cscene, cfg, device)
     step = make_step(cfg)
     flags = torch.ones((cfg.height, cfg.width), dtype=torch.bool, device=dev)

@@ -1,5 +1,6 @@
 """SPPM, stochastic progressive photon mapping (port of
-libyafaray_tpu/integrators/sppm.py for one device, without film save/load).
+libyafaray_tpu/integrators/sppm.py for one device, with its film
+save / load).
 
 Per pass:
   eye pass    the camera rays follow specular chains (and rough glass, the
@@ -16,6 +17,9 @@ Per pass:
               N' = N+αM (`flux_update`, α = sppm_alpha)
 
 After the last pass the film's density layer holds τ/(πR²·photons emitted).
+A saved film carries the progressive state beside the film (sppm_r2,
+sppm_n, sppm_tau, sppm_nem: photons emitted so far), so a resumed render
+goes on with pass p's photon stream.
 The eye pass's QMC stream is its own: the pixel hash carries no qmc_seed,
 each dim is drawn by `qmc.sample_dim`'s values and a vertex's key is
 hash_combine(pixel hash, bounce); photon pass p is seeded 31337 + p.
@@ -31,7 +35,7 @@ from ..backgrounds.base import eval_background
 from ..convert import to_tensors
 from ..core import qmc
 from ..core.sampling import INV_PI
-from ..film.imagefilm import add_density, film_init, film_splat
+from ..film.imagefilm import add_density, film_init, film_save, film_splat
 from ..materials import bsdf
 from ..materials.base import gather_rows
 from ..ops.photon_flash import density_auto, make_photon_pack_auto
@@ -43,7 +47,8 @@ from .engine import (F32, _direct_lighting, _make_mat_resolve,
                      uses_textures)
 from .photon_shoot import make_photon_pass
 from .photonmap import MAX_PHOTON_LANES, _light_cdf, compact_photons_device
-from .render import RenderResult, _sync
+from .render import (RenderResult, _sync, film_params, load_film,
+                     saves_passes)
 
 
 def make_eye_pass(cscene, cfg: RenderConfig, device):
@@ -152,8 +157,7 @@ def flux_update(hitpoints: dict, pack: dict, r2, n_acc, tau, alpha: float):
 
 def make_sppm_pass(cscene, cfg: RenderConfig, device):
     """(fresh, sppm_pass): fresh() -> the state before the first pass, a
-    dict of film (with a zero density layer), r2 (the initial radius
-    squared), n_acc and tau (zero);
+    dict of film, r2 (the initial radius squared), n_acc and tau (zero);
     sppm_pass(arrays, state, p) -> (state after pass p, the photons pass p
     stored, a device scalar).  The first pass reads its stored count once,
     for the compaction's capacity (1.3 times it, in 4096s), and every
@@ -178,7 +182,7 @@ def make_sppm_pass(cscene, cfg: RenderConfig, device):
     cap = []
 
     def fresh() -> dict:
-        film = film_init(h, w, dev, with_density=True)
+        film = film_init(h, w, dev)
         film["rays"] = torch.zeros((), dtype=F32, device=dev)
         return dict(film=film,
                     r2=torch.full((n,), r0 * r0, dtype=F32, device=dev),
@@ -205,21 +209,51 @@ def make_sppm_pass(cscene, cfg: RenderConfig, device):
     return fresh, sppm_pass
 
 
-def _render(cscene, cfg: RenderConfig, device, warmup: bool) -> RenderResult:
+def _save(film_path, cfg: RenderConfig, state: dict, emitted: int,
+          p: int) -> None:
+    """The film and the progressive state, as the reference saves them."""
+    film_save(film_path, dict(state["film"], sppm_r2=state["r2"],
+                              sppm_n=state["n_acc"], sppm_tau=state["tau"],
+                              sppm_nem=np.asarray(emitted)),
+              film_params(cfg), p)
+
+
+def _resume(cfg: RenderConfig, film_path, dev, state: dict):
+    """(state, photons emitted, first pass) of a saved SPPM film, or None."""
+    loaded = load_film(cfg, film_path, dev)
+    if loaded is None:
+        return None
+    lf, start = loaded
+    st = dict(r2=lf.pop("sppm_r2"), n_acc=lf.pop("sppm_n"),
+              tau=lf.pop("sppm_tau"))
+    emitted = int(lf.pop("sppm_nem"))
+    st["film"] = {k: lf.get(k, v) for k, v in state["film"].items()}
+    return st, emitted, start
+
+
+def _render(cscene, cfg: RenderConfig, device, warmup: bool, film_path=None,
+            progress_cb=None) -> RenderResult:
     dev = resolve_device(device)
     fresh, sppm_pass = make_sppm_pass(cscene, cfg, dev)
     arrays = to_tensors(cscene.arrays, dev)
     if warmup:
         sppm_pass(arrays, fresh(), 0)
         _sync(dev)
-    state, stored = fresh(), []
+    state, stored, emitted, start = fresh(), [], 0, 0
+    resumed = _resume(cfg, film_path, dev, state)
+    if resumed is not None:
+        state, emitted, start = resumed
     t1 = time.perf_counter()
-    for p in range(cfg.sppm_passes):
+    for p in range(start, cfg.sppm_passes):
         state, n_stored = sppm_pass(arrays, state, p)
         stored.append(n_stored)
+        emitted += sppm_pass.lanes
+        if progress_cb is not None:
+            progress_cb(p + 1, cfg.sppm_passes)
+        if saves_passes(cfg, film_path):
+            _save(film_path, cfg, state, emitted, p + 1)
     _sync(dev)
     render_s = time.perf_counter() - t1
-    emitted = sppm_pass.lanes * cfg.sppm_passes
     # density layer: τ/(πR²·photons emitted); the direct part is the film
     dens = state["tau"] / (torch.clamp(state["r2"], min=1e-12)[..., None]
                            * np.pi * float(max(emitted, 1)))
@@ -231,12 +265,18 @@ def _render(cscene, cfg: RenderConfig, device, warmup: bool) -> RenderResult:
                      stored=[int(x) for x in stored])), cfg)
 
 
-def render_sppm(cscene, cfg: RenderConfig, *, device="cuda") -> RenderResult:
+def render_sppm(cscene, cfg: RenderConfig, *, device="cuda", film_path=None,
+                progress_cb=None) -> RenderResult:
     """Full SPPM render: sppm_passes passes.  stats: render_s (the
     passes), rays (the eye passes' film["rays"]; photons are not rays),
     passes, photons (lanes a pass, emitted in all, the compaction cap,
-    stored a pass)."""
-    return _render(cscene, cfg, device, warmup=False)
+    stored a pass run).  Its film keeps no alpha or pass planes (as the
+    reference's).  film_path: the film and the progressive state saved
+    after every pass under film_save_load "save" / "load-save" or autosave
+    by pass, and resumed under "load" / "load-save";
+    progress_cb(pass done, sppm_passes) after each pass."""
+    return _render(cscene, cfg, device, warmup=False, film_path=film_path,
+                   progress_cb=progress_cb)
 
 
 def render_sppm_timed(cscene, cfg: RenderConfig, *,

@@ -26,8 +26,11 @@ H·W·spp_batch lanes, and every closest hit and shadow segment goes through
 the engine's `closest_hit` / `shadow_transmission`, so through the
 triangle kernels (the tiny kernels on scenes/cornell_bidir.xml).  The rays
 counted are the reference's: the live camera lanes times T_MAX + S_MAX a
-step, connection rays not counted.  The first-hit AOV planes of the
-reference's step are left out (passes raise, ROADMAP Queue 1 item 17).
+step, connection rays not counted.  The film's pass planes take the eye
+path's first hit (z, normal, geo_normal, uv, mat_index, obj_index,
+diffuse_color) as plain per-sample sums; the film keeps no alpha plane,
+as the reference's.  A saved film carries the t=1 plane summed so far
+(`bd_splat`) and resumes at the step after it.
 
 Lights: area, mesh, sphere, point and spot lights take part in light
 subpaths and s = 1 (`_BD_LIGHT_TYPES`); sun, directional and IES lights
@@ -54,18 +57,21 @@ from ..core import qmc
 from ..core.sampling import (PI, sample_cone, sample_cos_hemisphere,
                              sample_sphere)
 from ..film.filters import eval_filter_2d, filter_radius
-from ..film.imagefilm import film_splat
+from ..film.imagefilm import film_save, film_splat
+from ..film.passes import film_add_passes
 from ..lights import base as lightmod
 from ..materials import blend as blendmod
 from ..materials.base import MT_GLASS, gather_rows
 from ..textures.eval import apply_textures, bump_normal
 from .config import RenderConfig
-from .engine import (F32, _surface_point, _tile, camera_rays, check_arrays,
-                     check_supported, closest_hit, ray_bounds, resolve_device,
-                     sample_light, shading_frame, shadow_transmission,
+from .engine import (F32, _channels, _surface_point, _tile, camera_rays,
+                     check_arrays, check_supported, closest_hit, ray_bounds,
+                     resolve_device, sample_light, shading_frame,
+                     shadow_transmission, stack_planes, unstack_planes,
                      uses_textures)
 from .photonmap import _light_cdf
-from .render import RenderResult, _fresh_film, _sync
+from .render import (RenderResult, _fresh_film, _sync, film_params,
+                     load_film, saves_passes)
 
 # light subpaths and s=1 resampling take these emitter types; other lights
 # contribute through the eye strategies only (a weight-1 partition)
@@ -362,11 +368,13 @@ def make_bdpt_step(cscene, cfg: RenderConfig, device):
                                  v["ng"], wo, wi, depth, families)
 
     def walk(arrays, org, dirn, beta, pdf_dir, alive, skey, importance,
-             p_prev, n_prev, on_prev, n_steps) -> list:
+             p_prev, n_prev, on_prev, n_steps, first_aux=False) -> list:
         """A subpath from (org, dirn) with start throughput beta and
         direction pdf pdf_dir (solid angle at the previous vertex), n_steps
         surface vertices.  Vertex i sets the reverse pdf of vertex i-1 (the
-        first keeps its own as prev_rev for the caller's origin)."""
+        first keeps its own as prev_rev for the caller's origin).
+        first_aux: the first vertex also keeps its hit's t, uv, triangle
+        and material (the film's pass planes read them)."""
         mats = arrays["materials"]
         verts = []
         medium = zeros3
@@ -379,7 +387,9 @@ def make_bdpt_step(cscene, cfg: RenderConfig, device):
             escape = alive & ~hit.hit
             alive = alive & hit.hit
             # textures sample at footprint 0 (mip level 0) on BDPT vertices
-            sp = _surface_point(arrays, hit, org, dirn, fp=zeros_f, tex=tex)
+            keep = first_aux and i == 0
+            sp = _surface_point(arrays, hit, org, dirn, fp=zeros_f,
+                                tex=tex or keep)
             wo = -dirn
             row = gather_rows(mats, sp["mat"].long())
             if tex:
@@ -396,6 +406,8 @@ def make_bdpt_step(cscene, cfg: RenderConfig, device):
                      # area-measure forward pdf of this vertex
                      pdf_fwd=_to_area(pdf_dir, p_prev, sp["p"], ng_sh),
                      pdf_rev=zeros_f)
+            if keep:
+                v.update(t=hit.t, uv=sp["uv"], tri=sp["tri"], mat=sp["mat"])
 
             u1, u2, ul = (qmc.sample_dim(zeros_i, d, qmc.hash_combine(
                 skey, word(11 + d + 7 * i))) for d in range(3))
@@ -535,6 +547,29 @@ def make_bdpt_step(cscene, cfg: RenderConfig, device):
             v["delta_light"] = dl0
         return [y0] + lw
 
+    def first_hit_planes(film: dict, planes: list, z1: dict, active) -> dict:
+        """The film's pass planes plus the eye path's first hit, each a
+        plain per-sample sum (the spb samples a pixel summed first), all in
+        one add; a plane of no first-hit source keeps its zeros."""
+        hm = z1["valid"]
+        h3, hf = hm[..., None], hm.to(F32)
+        src = dict(z=lambda: torch.where(hm, z1["t"], 0.0),
+                   normal=lambda: torch.where(h3, z1["n"], 0.0),
+                   geo_normal=lambda: torch.where(h3, z1["ng"], 0.0),
+                   uv=lambda: torch.where(h3, z1["uv"], 0.0),
+                   mat_index=lambda: z1["mat"].to(F32) * hf,
+                   obj_index=lambda: z1["tri"].to(F32) * hf,
+                   diffuse_color=lambda: torch.where(
+                       h3, z1["row"]["diffuse_color"], 0.0))
+        keys = [k for k in planes if k[4:] in src]
+        if not keys:
+            return {}
+        val = torch.cat([_channels(src[k[4:]]()) for k in keys], dim=-1)
+        val = val * active.to(F32)[:, None]
+        base = stack_planes(film, keys)
+        return unstack_planes(keys, film, base + val.reshape(
+            spb, h, w, base.shape[-1]).sum(dim=0))
+
     def step(arrays: dict, film: dict, flags: torch.Tensor):
         check_arrays(arrays, dev)
         mats = arrays["materials"]
@@ -548,9 +583,10 @@ def make_bdpt_step(cscene, cfg: RenderConfig, device):
         alive_e = active & (wt > 0.0)
         pdf_cam0 = (cam_pdf(vmath.dot(dir_e, cam_fwd)) if cam_persp
                     else torch.ones_like(zeros_f))
+        planes = [k for k in film if k.startswith("aov_")]
         Ev = walk(arrays, org_e, dir_e, torch.ones_like(zeros3), pdf_cam0,
                   alive_e, qmc.hash_combine(skey_step, word(0xE7E)), False,
-                  org_e, cam_fwd + zeros3, False, T_MAX)
+                  org_e, cam_fwd + zeros3, False, T_MAX, bool(planes))
 
         # ---- light subpath ----
         Lv = light_subpath(arrays, skey_step, active) if has_any_bd_light \
@@ -793,6 +829,8 @@ def make_bdpt_step(cscene, cfg: RenderConfig, device):
                           active.to(F32).reshape(spb, h, w), cfg.filter_type,
                           cfg.aa_pixelwidth,
                           clamp_samples=cfg.aa_clamp_samples)
+        if planes:
+            film.update(first_hit_planes(film, planes, Ev[0], active))
         rays = alive_e.to(F32).sum() * float(T_MAX + S_MAX)
         film = dict(film, rays=film["rays"] + rays)
         return film, torch.nan_to_num(splat.reshape(h, w, 3), nan=0.0,
@@ -801,20 +839,21 @@ def make_bdpt_step(cscene, cfg: RenderConfig, device):
     return step
 
 
-def _check_unported(film_path, mesh) -> None:
-    if film_path is not None:
-        raise NotImplementedError(
-            "BDPT film save/load is not ported yet: ROADMAP Queue 1 item 17")
+def _check_unported(mesh) -> None:
     if mesh is not None:
         raise NotImplementedError(
             "multi-device BDPT (a device mesh) is not ported yet: ROADMAP "
             "Queue 1 item 19")
 
 
-def _run(cscene, cfg: RenderConfig, device, warm_up: bool) -> RenderResult:
+def _run(cscene, cfg: RenderConfig, device, warm_up: bool, film_path=None,
+         progress_cb=None) -> RenderResult:
     """aa_samples · aa_passes uniform steps (the reference runs no adaptive
     flags under BDPT), each of spp_batch samples a pixel; the t=1 planes
-    summed and divided by the light paths a pixel into film["density"]."""
+    summed and divided by the light paths a pixel into film["density"].
+    film_path: the film and the t=1 sum saved after every step (film
+    save / load "save" / "load-save" or autosave by pass) and resumed under
+    "load" / "load-save"; progress_cb(step done, steps) after each step."""
     t0 = time.perf_counter()
     dev = resolve_device(device)
     check_supported(cscene.static, cfg)
@@ -826,13 +865,26 @@ def _run(cscene, cfg: RenderConfig, device, warm_up: bool) -> RenderResult:
         step(arrays, _fresh_film(cfg, dev), flags)
         _sync(dev)
     film = _fresh_film(cfg, dev)
+    if cfg.passes:
+        film = film_add_passes(film, h, w, cfg.passes, dev)
     splat = torch.zeros((h, w, 3), dtype=F32, device=dev)
     n_steps = max(1, cfg.aa_samples * cfg.aa_passes)
     spb = max(1, cfg.spp_batch)
+    start = 0
+    loaded = load_film(cfg, film_path, dev)
+    if loaded is not None:
+        lf, start = loaded
+        splat = lf.pop("bd_splat")
+        film = {k: lf.get(k, v) for k, v in film.items()}
     t1 = time.perf_counter()
-    for _ in range(n_steps):
+    for p in range(start, n_steps):
         film, plane = step(arrays, film, flags)
         splat = splat + plane
+        if progress_cb is not None:
+            progress_cb(p + 1, n_steps)
+        if saves_passes(cfg, film_path):
+            film_save(film_path, dict(film, bd_splat=splat),
+                      film_params(cfg), p + 1)
     film["density"] = vmath.div(splat, max(n_steps * spb, 1))
     _sync(dev)
     t2 = time.perf_counter()
@@ -842,12 +894,14 @@ def _run(cscene, cfg: RenderConfig, device, warm_up: bool) -> RenderResult:
 
 
 def render_bdpt(cscene, cfg: RenderConfig, *, device="cuda", film_path=None,
-                mesh=None) -> RenderResult:
+                progress_cb=None, mesh=None) -> RenderResult:
     """Full-MIS BDPT render: one eye and one light subpath a pixel sample
-    a step; stats render_s, total_s, rays, bdpt_steps.  Film save/load
-    (film_path) and a device mesh raise, naming their ROADMAP items."""
-    _check_unported(film_path, mesh)
-    return _run(cscene, cfg, device, warm_up=False)
+    a step; stats render_s, total_s, rays, bdpt_steps.  film_path and
+    progress_cb as `_run`; a device mesh raises, naming its ROADMAP
+    item."""
+    _check_unported(mesh)
+    return _run(cscene, cfg, device, warm_up=False, film_path=film_path,
+                progress_cb=progress_cb)
 
 
 def render_bdpt_timed(cscene, cfg: RenderConfig, *,

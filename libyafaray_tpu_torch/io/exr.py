@@ -1,8 +1,12 @@
-"""Minimal OpenEXR codec: the scanline NONE / ZIPS / ZIP subset of
-libyafaray_tpu/io/exr.py `read_exr`, enough to read the repository's
-golden images, and its float32 ZIPS scanline writer `write_exr` (channels
-R, G, B[, A]), which the CLI's .exr output uses.  Pure numpy,
-struct and zlib."""
+"""Minimal OpenEXR codec (port of libyafaray_tpu/io/exr.py's scanline
+subset): single-part scanline files of float32 channels, one layer a
+channel-name prefix (`layer.R`, `layer.G`, ...; the combined image's
+channels bare), as the reference's multilayer output writes all render
+passes into one file.  Write: compression NONE or ZIPS, one scanline a
+chunk (a ZIPS chunk that does not shrink is stored raw).  Read: NONE, ZIPS
+and ZIP of float32 / half / uint channels.  Tiled and multi-part files and
+the other codecs raise (ROADMAP Queue 1 item 22).  Pure numpy, struct and
+zlib."""
 from __future__ import annotations
 
 import struct
@@ -11,9 +15,13 @@ import zlib
 import numpy as np
 
 _MAGIC = 20000630
+_PIXEL_FLOAT = 2  # OpenEXR FLOAT
 _SIZE = {0: 4, 1: 2, 2: 4}  # UINT, HALF, FLOAT bytes
 _DT = {0: "<u4", 1: "<f2", 2: "<f4"}
 _LINES = {0: 1, 2: 1, 3: 16}  # NONE, ZIPS, ZIP
+_WRITE = {"none": 0, "zips": 2}
+_UNPORTED = ("{} is not ported yet: ROADMAP Queue 1 item 22 (the rest of "
+             "the EXR codec)")
 
 
 def _unfilter(buf: bytes) -> bytes:
@@ -49,18 +57,36 @@ def _attr(name: bytes, typ: bytes, data: bytes) -> bytes:
 
 
 def write_exr(path: str, img: np.ndarray) -> None:
-    """Write an (H, W, 3|4) image as a single-part scanline EXR of float32
-    channels R, G, B[, A], one scanline per ZIPS chunk (a chunk that does
-    not shrink is stored raw), as the reference's writer does."""
-    img = np.asarray(img, np.float32)
-    h, w, c = img.shape
-    names = sorted("RGBA"[:c])  # channels in alphabetical order on disk
-    planes = {n: img[..., "RGBA".index(n)] for n in names}
-    chlist = b"".join(n.encode() + b"\0" + struct.pack("<iiii", 2, 0, 1, 1)
+    """Write an (H, W, 3|4) image as a single-layer ZIPS EXR (channels R,
+    G, B[, A]), as the reference's writer does."""
+    write_exr_multilayer(path, {"": np.asarray(img, np.float32)})
+
+
+def write_exr_multilayer(path: str, layers: dict,
+                         compression: str = "zips") -> None:
+    """layers: name -> (H, W, C) (channels R, G, B, A of the first C) or
+    (H, W) (channel Y); the name "" writes bare channel names.  Every
+    channel float32, alphabetical on disk, one scanline a chunk."""
+    if compression not in _WRITE:
+        raise NotImplementedError(_UNPORTED.format(
+            f"EXR compression {compression!r}"))
+    comp = _WRITE[compression]
+    h, w = next(iter(layers.values())).shape[:2]
+    planes = {}
+    for lname, arr in layers.items():
+        arr = np.asarray(arr, np.float32)
+        comps = ["R", "G", "B", "A"][:arr.shape[-1]] if arr.ndim == 3 \
+            else ["Y"]
+        for ci, c in enumerate(comps):
+            planes[f"{lname}.{c}" if lname else c] = (
+                arr[..., ci] if arr.ndim == 3 else arr)
+    names = sorted(planes)
+    chlist = b"".join(n.encode() + b"\0" + struct.pack("<iiii", _PIXEL_FLOAT,
+                                                       0, 1, 1)
                       for n in names) + b"\0"
     header = (
         _attr(b"channels", b"chlist", chlist)
-        + _attr(b"compression", b"compression", bytes([2]))  # ZIPS
+        + _attr(b"compression", b"compression", bytes([comp]))
         + _attr(b"dataWindow", b"box2i", struct.pack("<iiii", 0, 0, w - 1,
                                                      h - 1))
         + _attr(b"displayWindow", b"box2i", struct.pack("<iiii", 0, 0,
@@ -73,8 +99,9 @@ def write_exr(path: str, img: np.ndarray) -> None:
     chunks = []
     for y in range(h):
         raw = b"".join(planes[n][y].astype("<f4").tobytes() for n in names)
-        z = zlib.compress(_filter(raw))
-        raw = z if len(z) < len(raw) else raw
+        if comp == 2:
+            z = zlib.compress(_filter(raw))
+            raw = z if len(z) < len(raw) else raw
         chunks.append(struct.pack("<ii", y, len(raw)) + raw)
     with open(path, "wb") as f:
         f.write(struct.pack("<II", _MAGIC, 2))
@@ -90,15 +117,28 @@ def write_exr(path: str, img: np.ndarray) -> None:
 
 
 def read_exr(path: str) -> np.ndarray:
-    """(H, W, C) float32 image of a single-part scanline EXR (channels
-    R, G, B[, A] in that order)."""
+    """The combined image of an EXR: its bare-named layer (channels R, G,
+    B[, A]), else its first layer."""
+    layers = read_exr_multilayer(path)
+    if "" in layers:
+        return layers[""]
+    return next(iter(layers.values()))
+
+
+def read_exr_multilayer(path: str) -> dict:
+    """name -> layer of a single-part scanline EXR: (H, W, C) float32 of
+    its R, G, B, A channels in that order, or (H, W) of its one other
+    channel; the layer of a channel is its name before the last dot ("" for
+    a bare name)."""
     with open(path, "rb") as f:
         data = f.read()
     magic, version = struct.unpack_from("<II", data, 0)
     if magic != _MAGIC:
         raise ValueError("not an EXR file")
-    if version & 0x1200:
-        raise NotImplementedError("tiled / multi-part EXR files")
+    if version & 0x1000:
+        raise NotImplementedError(_UNPORTED.format("multi-part EXR"))
+    if version & 0x200:
+        raise NotImplementedError(_UNPORTED.format("tiled EXR"))
     pos = 8
     channels = []
     h = w = None
@@ -124,7 +164,8 @@ def read_exr(path: str) -> np.ndarray:
             compression = payload[0]
     pos += 1  # header terminator
     if compression not in _LINES:
-        raise NotImplementedError(f"EXR compression type {compression}")
+        raise NotImplementedError(_UNPORTED.format(
+            f"EXR compression type {compression}"))
     lines = _LINES[compression]
     chans = sorted(c for c, _ in channels)
     ptypes = dict(channels)
@@ -145,7 +186,13 @@ def read_exr(path: str) -> np.ndarray:
                 planes[c][y0 + ly] = np.frombuffer(
                     chunk, _DT[ptypes[c]], w, p).astype(np.float32)
                 p += _SIZE[ptypes[c]] * w
-    order = [planes[k] for k in ("R", "G", "B", "A") if k in planes]
-    if not order:
-        raise ValueError(f"EXR without R/G/B/A channels: {chans}")
-    return np.stack(order, axis=-1)
+    groups: dict = {}
+    for c in chans:
+        lname, comp = c.rsplit(".", 1) if "." in c else ("", c)
+        groups.setdefault(lname, {})[comp] = planes[c]
+    layers = {}
+    for lname, comps in groups.items():
+        order = [comps[k] for k in ("R", "G", "B", "A") if k in comps]
+        layers[lname] = (np.stack(order, axis=-1) if order
+                         else next(iter(comps.values())))
+    return layers

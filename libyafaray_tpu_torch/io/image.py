@@ -1,5 +1,5 @@
-"""Image I/O (port of libyafaray_tpu/io/image.py `load_image` and
-`save_image`).
+"""Image I/O (port of libyafaray_tpu/io/image.py `load_image`,
+`save_image` and `save_multilayer_exr`).
 
 Loads decode to LINEAR float32 (H, W, 3[4]): .hdr through io/rgbe.py, .exr
 through io/exr.py, PNG through `read_png` (the standard library's zlib and
@@ -7,8 +7,9 @@ numpy, no Pillow), other 8-bit formats through Pillow when it is
 importable.  8-bit images are taken as sRGB unless the color space says
 otherwise (`raw_manual_gamma` raises them to `gamma`).  Saves apply the
 film's output transform: .exr through io/exr.py's writer, .hdr through
-io/rgbe.py, and 8-bit formats (PNG, JPEG, TGA, TIFF) through Pillow, after
-the sRGB or manual-gamma transform, clipped to [0, 1].
+io/rgbe.py, and 8-bit formats after the sRGB or manual-gamma transform,
+clipped to [0, 1]: PNG (RGB, or RGBA with an alpha plane) through
+`write_png` (zlib and numpy), JPEG, TGA and TIFF through Pillow.
 """
 from __future__ import annotations
 
@@ -120,6 +121,25 @@ def read_png(path: str) -> np.ndarray:
     return px
 
 
+def write_png(path: str, u8: np.ndarray) -> None:
+    """Encode uint8 (H, W, 3) or (H, W, 4) as an 8-bit non-interlaced PNG
+    (colour type 2 or 6), every row filter 0."""
+    h, w, ch = u8.shape
+    rows = np.concatenate([np.zeros((h, 1), np.uint8),
+                           np.ascontiguousarray(u8).reshape(h, w * ch)],
+                          axis=1)
+
+    def chunk(ctype: bytes, body: bytes) -> bytes:
+        return (struct.pack(">I", len(body)) + ctype + body
+                + struct.pack(">I", zlib.crc32(ctype + body) & 0xFFFFFFFF))
+
+    ihdr = struct.pack(">IIBBBBB", w, h, 8, {3: 2, 4: 6}[ch], 0, 0, 0)
+    with open(path, "wb") as f:
+        f.write(_PNG_SIGNATURE + chunk(b"IHDR", ihdr)
+                + chunk(b"IDAT", zlib.compress(rows.tobytes()))
+                + chunk(b"IEND", b""))
+
+
 def _read_8bit(path: str) -> np.ndarray:
     """uint8 (H, W, 3|4) of an 8-bit image: PNG through read_png, other
     formats (and PNGs it does not decode) through Pillow."""
@@ -189,7 +209,19 @@ def save_image(path: str, img: np.ndarray, color_space: str = "sRGB",
     if alpha is not None:
         a8 = (np.clip(alpha, 0.0, 1.0) * 255.0 + 0.5).astype(np.uint8)
         u8 = np.concatenate([u8, a8[..., None]], axis=-1)
+    if ext == ".png":
+        write_png(path, u8)
+        return
 
     from PIL import Image
 
     Image.fromarray(u8).save(path)
+
+
+def save_multilayer_exr(path: str, layers: dict) -> None:
+    """One EXR of every layer (name -> (H, W, C)): the combined image under
+    "" and each render pass under its name (the reference's multilayer
+    output), ZIPS."""
+    from .exr import write_exr_multilayer
+
+    write_exr_multilayer(path, layers)

@@ -1,5 +1,5 @@
 """Render session helpers (port of `build_config` and `render_scene` from
-libyafaray_tpu/scene/session.py, one device, no film persistence)."""
+libyafaray_tpu/scene/session.py, one device)."""
 from __future__ import annotations
 
 from ..integrators.config import RenderConfig, config_from_params
@@ -36,7 +36,8 @@ def build_config(scene: Scene) -> RenderConfig:
 
 
 def render_scene(scene: Scene, *, device="cuda", timed: bool = False,
-                 pairs: bool = False, compact: bool = True) -> RenderResult:
+                 pairs: bool = False, compact: bool = True, progress_cb=None,
+                 film_path=None) -> RenderResult:
     """The entry point: build the config, compile for `device` (default
     the card; it raises without one, device="cpu" renders on the CPU) and
     render with the scene's integrator (pathtracing and directlighting ->
@@ -49,7 +50,10 @@ def render_scene(scene: Scene, *, device="cuda", timed: bool = False,
     or more clusters take it).  compact=False runs the adaptive passes of
     pathtracing and directlighting dense and masked instead of over
     compact lane lists (the reference's photon mapping has no compact
-    passes)."""
+    passes).  progress_cb(done, total) after each pass (BDPT: step) and
+    film_path (film save / load and autosave as the scene's render
+    parameters ask) go to every integrator that takes them, as the
+    reference's: not the DebugIntegrator, and not the timed variants."""
     from ..integrators import debug, photonmap, render, sppm, veach
     from ..integrators.engine import resolve_device
 
@@ -68,8 +72,13 @@ def render_scene(scene: Scene, *, device="cuda", timed: bool = False,
     if cfg.integrator not in runners:
         raise ValueError(f"unknown integrator {cfg.integrator!r}")
     run = runners[cfg.integrator][timed]
+    kw = {}
+    if not timed and run is not debug.render_debug:
+        kw = {k: v for k, v in (("progress_cb", progress_cb),
+                                ("film_path", film_path)) if v is not None}
     # only the adaptive pass loop takes the keyword, and only to turn
     # compaction off
-    kw = {} if compact or run is not render.render else dict(compact=False)
+    if not compact and run is render.render:
+        kw["compact"] = False
     return run(scene.compile(device=device, pairs=pairs), cfg, device=device,
                **kw)

@@ -15,8 +15,7 @@ reference on the CPU:
 and the port alone: `render_bdpt_timed` against `render_bdpt`, BDPT
 against the port's own path tracer on tests/test_veach.py's diffuse box
 (mean within 6%, floor and back wall within 10%), and the entry points'
-refusals (film save/load item 17, a device mesh item 19, a point light
-item 17)."""
+refusal of a device mesh (item 19)."""
 import os
 
 import numpy as np
@@ -261,7 +260,6 @@ def test_render_bdpt_timed_counts_the_same_rays():
 
 
 @pytest.mark.parametrize("kw, item", [
-    (dict(film_path="film.npz"), "item 17"),
     (dict(mesh=object()), "item 19"),
 ])
 def test_film_persistence_and_mesh_raise(kw, item):

@@ -118,10 +118,9 @@ def test_cli_profile_writes_a_trace(tmp_path, small_scene):
         assert "traceEvents" in json.load(f)
 
 
-@pytest.mark.parametrize("flag", [["-z"], ["--film", "f.film"],
-                                  ["--devices", "2"]])
+@pytest.mark.parametrize("flag", [["--devices", "2"]])
 def test_cli_raises_on_unported_options(tmp_path, small_scene, flag):
-    with pytest.raises(NotImplementedError, match="items 17 .* and 19"):
+    with pytest.raises(NotImplementedError, match="item 19"):
         main([small_scene, str(tmp_path / "img.exr"), *flag, "--device",
               "cpu"])
 

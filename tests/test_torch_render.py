@@ -89,24 +89,6 @@ def test_render_timed_counts_the_same_rays():
     assert timed.mrays_per_sec > 0
 
 
-@pytest.mark.parametrize("over, item", [
-    (dict(integrator="bidirectional", passes=("z-depth-norm",)), "item 17"),
-    (dict(passes=("z-depth-norm",)), "item 17"),
-    (dict(transp_background=True), "item 17"),
-])
-def test_unported_config_raises(over, item):
-    """Passes and alpha raise, under the path tracer and under BDPT (every
-    camera type renders since item 17's cameras were ported)."""
-    s, cfg = _setup(parse_xml_file, build_config, RenderConfig, 8, 1, **over)
-    with pytest.raises(NotImplementedError, match=item):
-        if cfg.integrator == "bidirectional":
-            from libyafaray_tpu_torch.integrators.veach import render_bdpt
-
-            render_bdpt(s.compile(device="cpu"), cfg, device="cpu")
-        else:
-            render(s.compile(device="cpu"), cfg, device="cpu")
-
-
 def _grid_renders(path, size, spp):
     rs, rc = _setup(ref_parse, ref_build, RefConfig, size, spp, path)
     ref = ref_render(rs.compile(), rc)

@@ -160,17 +160,12 @@ _SCENE = """<scene type="triangle">{body}
      '<smooth ID="1" angle="30"/>', "item 10"),
     ('<material name="m"><type sval="shinydiffusemat"/></material>'
      '<instance base_object_id="1"/>', "item 11"),
-    ('<material name="m"><type sval="shinydiffusemat"/></material>'
-     '<render><render_passes sval="z-depth-norm"/></render>', "item 17"),
-    ('<material name="m"><type sval="shinydiffusemat"/></material>'
-     '<render><bg_transp bval="true"/></render>', "item 17"),
 ])
 def test_unsupported_features_raise(body, item):
-    """Raised at parse (smoothing, instances), at compile (glass renders in
-    every ported integrator now, a dispersive one raises), or when
-    pathtracing checks the compiled scene and its config (render passes and
-    alpha).  Every camera, background and volume type, and every object
-    visibility, renders now."""
+    """Raised at parse (smoothing, instances) or at compile (glass renders
+    in every ported integrator now, a dispersive one raises).  Every camera,
+    background and volume type, every object visibility, the render passes
+    and the alpha plane render now."""
     from libyafaray_tpu_torch.integrators.config import RenderConfig
     from libyafaray_tpu_torch.integrators.engine import check_supported
     from libyafaray_tpu_torch.scene.session import build_config
