@@ -153,11 +153,22 @@ started together) and drives the ported paths through them:
   BDPT's first-hit planes; film save / load resumed to the straight film
   under the path tracer, photon mapping, SPPM and BDPT, and a time
   autosave; the CLI's multilayer .exr, -z and --film; and the NLM denoise
-  of the 512² image, card against CPU.
-`python3 chip_smoke.py --only slice17` (or slice18, slice19, slice20)
-builds the
-kernels and runs that slice's phases alone (an iteration run: no result
-line).  Each path is
+  of the 512² image, card against CPU;
+- slice 21, scenes/cornell_surfaces.xml (a cylinder under <smooth>, two
+  <instance>s of it, one mirrored, a rough-glass ball and a dispersive
+  prism; 166 triangles) at its own settings (pathtracing, bounces 5,
+  512², 16 spp) through `render_scene(timed=True)` and the CLI (64²): the
+  dense kernels launched as the loops ask and held to their plain
+  versions on the step's primary rays and the prism lamp's NEE batch, one
+  profiled step, the card against the CPU at 32², 4 spp under four
+  integrators, the reference's rough-glass white furnace and its
+  dispersion sampler's assertions on the card.
+A profile phase reads the trace from the profiler's raw events
+(`trace_events`: torch's own event tree, kernel links and merges,
+without building its event objects).
+`python3 chip_smoke.py --only slice17` (or slice18 to slice21) builds
+the kernels and runs that slice's phases alone (an iteration run: no
+result line).  Each path is
 rendered with every launch counter set to 0 just before it and read just
 after.  Every kernel's line carries its bound: the larger of its
 FP32 operations over the card's 67 TFLOP/s and its bytes (each input read
@@ -874,35 +885,187 @@ def card_vs_cpu(tag, make, size, spp) -> None:
         raise AssertionError(f"{tag}: card and CPU renders disagree")
 
 
+class _TraceEvent:
+    """One event of a profiler trace, as torch's parse keeps it (its
+    FunctionEvent): times in µs from the trace's start, the demangled
+    name, the device, the thread, async-ness, the correlation ids, the
+    device kernels it launched (their µs) and its CPU children."""
+
+    __slots__ = ("start", "end", "name", "device", "thread", "is_async",
+                 "id", "linked", "kernels", "children", "parent",
+                 "annotation", "_total")
+
+    def __init__(self, e, t0, name):
+        self.start = (e.start_ns() - t0) / 1000
+        self.end = (e.end_ns() - t0) / 1000
+        self.name = name
+        self.device = e.device_type()
+        self.thread = e.start_thread_id()
+        self.is_async = e.is_async() or (self.thread != e.end_thread_id())
+        self.id = e.correlation_id()
+        self.linked = e.linked_correlation_id()
+        self.annotation = e.is_user_annotation()
+        self.kernels, self.children, self.parent, self._total = \
+            [], [], None, None
+
+    def device_time_total(self, cpu) -> float:
+        """FunctionEvent.device_time_total: a sync CPU event's kernels and
+        its children's totals; a device event's own length."""
+        if self._total is None:
+            if self.is_async:
+                self._total = 0
+            elif self.device == cpu:
+                self._total = sum(self.kernels) + sum(
+                    ch.device_time_total(cpu) for ch in self.children)
+            else:
+                self._total = self.end - self.start
+        return self._total
+
+
+def trace_events(prof) -> list:
+    """The events of a finished torch.profiler run with their kernels, CPU
+    parents and children, as torch's own parse and tree build give them
+    (autograd.profiler `_parse_kineto_results`, EventList `_build_tree`:
+    kernels join the op of their linked correlation id, a sync CPU event
+    is the child of the innermost one on its thread whose interval holds
+    it, a lone child of its own name is merged into its parent), read
+    straight from the raw kineto events: a fraction of the time of
+    building FunctionEvents for ~90,000 events a step."""
+    from itertools import groupby
+
+    from torch.autograd import DeviceType
+    from torch.autograd.profiler_util import _filter_name, _rewrite_name
+
+    res = prof.profiler.kineto_results
+    t0 = res.trace_start_ns()
+    names: dict = {}
+    events, corr, front = [], {}, []
+    for e in res.events():
+        raw = e.name()
+        if _filter_name(raw) or getattr(e, "is_hidden_event",
+                                        lambda: False)():
+            continue
+        name = names.get(raw)
+        if name is None:
+            name = names[raw] = _rewrite_name(name=raw, with_wildcard=True)
+        ev = _TraceEvent(e, t0, name)
+        events.append(ev)
+        if ev.linked > 0:
+            corr.setdefault(ev.linked, []).append(ev)
+        elif ev.linked == 0:
+            front.append(ev)
+    cpu = DeviceType.CPU
+    for fe in front:
+        if fe.device == cpu and not fe.is_async and fe.id in corr:
+            for f in corr[fe.id]:
+                if f.device == cpu:
+                    f.thread = fe.thread
+                else:
+                    fe.kernels.append(f.end - f.start)
+    events.sort(key=lambda ev: (ev.start, -ev.end))
+    # a stable sort by thread keeps each thread's events in start order
+    sync = sorted((ev for ev in events
+                   if not ev.is_async and ev.device == cpu),
+                  key=lambda ev: ev.thread)
+    for _, thread in groupby(sync, key=lambda ev: ev.thread):
+        stack = []
+        for ev in thread:
+            while stack:
+                top = stack[-1]
+                if ev.start >= top.end or ev.end > top.end:
+                    stack.pop()
+                else:
+                    top.children.append(ev)
+                    ev.parent = top
+                    break
+            stack.append(ev)
+    while True:  # EventList._remove_dup_nodes
+        drop = set()
+        for i, ev in enumerate(events):
+            p = ev.parent
+            if p is not None and p.name == ev.name and len(p.children) == 1:
+                p.children = ev.children
+                p.kernels = ev.kernels
+                for ch in ev.children:
+                    ch.parent = p
+                drop.add(i)
+        if not drop:
+            return events
+        events = [ev for i, ev in enumerate(events) if i not in drop]
+
+
 def _stage_ms(events, stages) -> dict:
     """Device ms of the aten kernels launched inside each `stages` range
-    (the innermost one), by the profiler's CPU-op -> kernel links."""
+    (the innermost one), by the events' kernel and parent links."""
     out = dict.fromkeys(stages, 0.0)
     for e in events:
-        if not getattr(e, "kernels", None):
+        if not e.kernels:
             continue
         p = e
         while p is not None and p.name not in out:
-            p = p.cpu_parent
+            p = p.parent
         if p is not None:
-            out[p.name] += sum(k.duration for k in e.kernels) / 1e3
+            out[p.name] += sum(e.kernels) / 1e3
     return {k: round(v, 4) for k, v in out.items()}
+
+
+def trace_summary(events, kernel_tags: tuple, stages: dict | None) -> dict:
+    """What profile_step reports of a profiled step's events: its kernel
+    launches, the device's busy ms (the union of its kernel and copy
+    intervals), the ported kernels' ms (those whose names hold one of
+    `kernel_tags`: in all, a launch each in launch order, and per tag as
+    ms / launches), the aten ops with the most device time (ms / calls,
+    by name as key_averages sums them) and, with `stages`, the device ms
+    of the aten kernels inside each stage range."""
+    from torch.autograd import DeviceType
+
+    cuda, cpu = DeviceType.CUDA, DeviceType.CPU
+    # the stage ranges also appear on the device's timeline (as user
+    # annotations spanning their kernels): they are no device work
+    spans = sorted((e.start, e.end, e.name) for e in events
+                   if e.device == cuda and e.name not in (stages or {}))
+    if not spans:
+        return dict(device_busy_ms="not measured")
+    busy_us, end = 0.0, float("-inf")
+    for a, b, _ in spans:
+        busy_us += max(0.0, b - max(a, end))
+        end = max(end, b)
+    totals: dict = {}
+    for e in events:  # key_averages: (name, device, annotation) groups
+        key = (e.name, e.device, e.annotation)
+        t = totals.setdefault(key, [0, 0])
+        t[0] += e.device_time_total(cpu)
+        t[1] += 1
+    ops = sorted(((k[0], v) for k, v in totals.items()
+                  if k[0].startswith("aten::") and v[0] > 0),
+                 key=lambda kv: -kv[1][0])[:6]
+    ported = [(next(t for t in kernel_tags if t in n), (b - a) / 1e3)
+              for a, b, n in spans if any(t in n for t in kernel_tags)]
+    by_tag = {t: [ms for k, ms in ported if k == t] for t in kernel_tags}
+    extra = {}
+    if stages:
+        extra["stage_ms"] = _stage_ms(events, stages)
+    return dict(
+        kernel_launches=sum(not n.startswith(("Memcpy", "Memset"))
+                            for _, _, n in spans),
+        device_busy_ms=busy_us / 1e3,
+        ported_ms=sum(ms for _, ms in ported),
+        ported_calls_ms=[round(ms, 4) for _, ms in ported],
+        ported_by_kernel={t: f"{sum(v):.4f}ms/{len(v)}"
+                          for t, v in by_tag.items()},
+        top_ops={k: f"{tot / 1e3:.4f}ms/{n}" for k, (tot, n) in ops},
+        **extra)
 
 
 def profile_step(step, arrays, cfg, kernel_tags: tuple,
                  stages: dict | None = None, arg=None, film=None) -> dict:
-    """One sample step under torch.profiler, after an unprofiled one: its
-    kernel launches, the device's busy milliseconds (the union of its
-    kernel and copy intervals), the milliseconds of the ported kernels
-    whose names hold one of `kernel_tags` (in all, per launch in launch
-    order, and per tag as ms / launches), and the aten ops with the most
-    device time (ms / calls).  `stages` ({range name: (module, function
-    name)}) wraps those functions in profiler ranges for the profiled step
-    and adds the device ms of the aten kernels inside each.  arg: the
-    step's third argument (a compact step's lane list; default every
-    pixel's flag); film: a function that makes the step's first film
-    (default the plain film)."""
-    from torch.autograd import DeviceType
+    """One sample step under torch.profiler, after an unprofiled one:
+    `trace_summary` of its events (`trace_events`).  `stages` ({range
+    name: (module, function name)}) wraps those functions in profiler
+    ranges for the profiled step.  arg: the step's third argument (a
+    compact step's lane list; default every pixel's flag); film: a
+    function that makes the step's first film (default the plain
+    film)."""
     from torch.profiler import ProfilerActivity, profile, record_function
 
     dev = engine.resolve_device("cuda")
@@ -926,37 +1089,7 @@ def profile_step(step, arrays, cfg, kernel_tags: tuple,
     finally:
         for (module, fn_name), fn in saved.items():
             setattr(module, fn_name, fn)
-    # the stage ranges also appear on the device's timeline (as user
-    # annotations spanning their kernels): they are no device work
-    spans = sorted((e.time_range.start, e.time_range.end, e.name)
-                   for e in prof.events()
-                   if getattr(e, "device_type", None) == DeviceType.CUDA
-                   and e.name not in (stages or {}))
-    if not spans:
-        return dict(device_busy_ms="not measured")
-    busy_us, end = 0.0, float("-inf")
-    for a, b, _ in spans:
-        busy_us += max(0.0, b - max(a, end))
-        end = max(end, b)
-    ops = sorted((e for e in prof.key_averages()
-                  if e.key.startswith("aten::") and e.device_time_total > 0),
-                 key=lambda e: -e.device_time_total)[:6]
-    ported = [(next(t for t in kernel_tags if t in n), (b - a) / 1e3)
-              for a, b, n in spans if any(t in n for t in kernel_tags)]
-    by_tag = {t: [ms for k, ms in ported if k == t] for t in kernel_tags}
-    extra = {}
-    if stages:
-        extra["stage_ms"] = _stage_ms(prof.events(), stages)
-    return dict(
-        kernel_launches=sum(not n.startswith(("Memcpy", "Memset"))
-                            for _, _, n in spans),
-        device_busy_ms=busy_us / 1e3,
-        ported_ms=sum(ms for _, ms in ported),
-        ported_calls_ms=[round(ms, 4) for _, ms in ported],
-        ported_by_kernel={t: f"{sum(v):.4f}ms/{len(v)}"
-                          for t, v in by_tag.items()},
-        top_ops={e.key: f"{e.device_time_total / 1e3:.4f}ms/{e.count}"
-                 for e in ops}, **extra)
+    return trace_summary(trace_events(prof), kernel_tags, stages)
 
 
 def profile(tag, res, step, arrays, cfg, kernel_tags, smi,
@@ -2601,9 +2734,7 @@ def ibl_phases(smi, out_dir: str) -> tuple:
               spp=cfg.aa_samples, bounces=cfg.bounces,
               rr_min_bounces=cfg.rr_min_bounces,
               ibl_samples=cs.static.bg.ibl_samples, assets=assets)
-    # the CLI at 64², 16 spp (at its own settings it took ~30 s of the
-    # script's time limit)
-    cli_copy("ibl_cli", IBL, 64, 64, 16, smi, out_dir)
+    mid_cli("ibl", IBL, res, smi, out_dir)
     profile("ibl_profile", res, step, arrays, cfg, ("tiny_kernel",), smi)
     del step, arrays
     card_vs_cpu("ibl_card_vs_cpu", lambda dev: photon_scene(
@@ -3427,13 +3558,14 @@ def portal_room(res, spp):
 
 def lights_card_vs_cpu() -> None:
     """The card against the CPU within PERF.md §2's bounds: the scene as
-    pathtracing and directlighting, BDPT (4 spp) and photonmapping (2 spp,
-    16,384 photons) at 32², SPPM at 32², 2 passes, and the portal room at
-    64², 4 spp."""
+    pathtracing and directlighting at 64², 4 spp, BDPT at 32², 4 spp,
+    photonmapping at 32², 2 spp with 16,384 photons, SPPM at 32², 2
+    passes, and the portal room at 64², 4 spp."""
+    small = dict(width=64, height=64, AA_minsamples=4)
     tiny = dict(width=32, height=32, AA_minsamples=4)
     for integ in ("pathtracing", "directlighting"):
         entry_vs_cpu("cornell_lights", lambda: scene_at(
-            LIGHTS, tiny, dict(type=integ)), 1e-4)
+            LIGHTS, small, dict(type=integ)), 1e-4)
     entry_vs_cpu("cornell_lights", lambda: scene_at(
         LIGHTS, tiny, dict(type="bidirectional")), 1e-4, density=1e-5)
     entry_vs_cpu("cornell_lights", lambda: scene_at(
@@ -4463,12 +4595,229 @@ def slice20_phases(smi, out_dir: str, kernels: list) -> None:
             by_name[name]["launches_passes"] = launches[name]
 
 
+# ---- slice 21: smoothing, instances, rough glass, dispersion ---------------
+
+SURFACES = os.path.join(REPO, "scenes", "cornell_surfaces.xml")
+SURFACES_SMALL = dict(width=32, height=32, AA_minsamples=4)
+SURFACES_CLI = dict(size=64, spp=16)
+# the reference's rough-glass white furnace (tests/test_integrators.py:226)
+FURNACE = dict(res=24, spp=48, bound=0.05)
+
+
+def surfaces_scene(smi) -> tuple:
+    """cornell_surfaces.xml compiled for the card: its triangles before and
+    after the two instances, its clusters and routes (dense: < 4 clusters
+    of 128), and the corners of the smoothed cylinder that <smooth> rounded
+    and that its angle left sharp.  Returns (scene, config, compiled)."""
+    from libyafaray_tpu_torch.scene.mesh import finalize_mesh
+
+    t0 = time.perf_counter()
+    scene = scene_at(SURFACES)
+    cfg = build_config(scene)
+    cs = scene.compile(device="cuda")
+    a, st = cs.arrays, cs.static
+    routes = (isect.route(a["tri_pack10"], a["tri_cluster8"],
+                          st.n_tris_real),
+              isect.route(a["stri_pack10"], a["stri_cluster8"],
+                          st.n_stris_real))
+    meshes = {mid: finalize_mesh(m) for mid, m in scene.meshes.items()}
+    smooth = [mid for mid, m in scene.meshes.items()
+              if m.smooth_angle is not None]
+    rounded = sharp = 0
+    for mid in smooth:
+        b = meshes[mid]
+        off = np.abs(np.einsum("tkc,tc->tk", b["normal"], b["geo_n"])
+                     - 1.0) > 1e-6
+        rounded, sharp = rounded + int(off.sum()), sharp + int((~off).sum())
+    before = sum(b["pos"].shape[0] for b in meshes.values())
+    inst = sum(b["pos"].shape[0] for b in scene.extra_tri_blocks)
+    lamps = st.n_tris_real - before - inst
+    phase("surface_scene", tris_meshes=before, tris_instances=inst,
+          tris_lamps=lamps, tris=st.n_tris_real, instances=len(
+              scene.extra_tri_blocks),
+          clusters=a["tri_cluster8"].shape[1], routes=routes,
+          smoothed_mesh=smooth, smooth_angle=[scene.meshes[m].smooth_angle
+                                              for m in smooth],
+          corners_rounded=rounded, corners_sharp=sharp,
+          families=list(st.mat_families), dispersion=st.dispersion,
+          spheres=st.n_spheres, lights=[LT_NAMES[ls.ltype]
+                                        for ls in st.lights],
+          integrator=cfg.integrator, bounces=cfg.bounces,
+          size=f"{cfg.width}x{cfg.height}", spp=cfg.aa_samples,
+          compile_s=round(time.perf_counter() - t0, 3), gpu=repr(smi))
+    if routes != ("dense", "dense") or not 64 < st.n_tris_real <= 384:
+        raise AssertionError(f"surface_scene: {st.n_tris_real} triangles "
+                             f"routed {routes}")
+    if not (rounded and sharp and inst and st.dispersion
+            and 5 in st.mat_families):  # MT_ROUGH_GLASS
+        raise AssertionError("surface_scene: smoothing, the instances, the "
+                             "rough glass or the dispersion is missing")
+    return scene, cfg, cs
+
+
+def surfaces_kernels(cs, cfg) -> dict:
+    """The dense kernels against their plain versions on one 512² step's
+    recorded calls: the primary rays and the prism lamp's bounce-0 NEE
+    batch."""
+    _, _, calls = step_calls(cs, cfg, cx, DENSE)
+    out = dict(closest=check_mid_closest("dense", calls[DENSE[0]][0],
+                                         "surfaces primary"),
+               shadow=check_mid_shadow("dense", calls[DENSE[1]][1],
+                                       "surfaces bounce-0 NEE prism lamp"))
+    del calls
+    return out
+
+
+def surfaces_path(smi, cs, cfg) -> dict:
+    """cornell_surfaces.xml at its own settings (pathtracing, bounces 5,
+    512², 16 spp) through render_scene(timed=True), counted: per step a
+    closest hit per vertex and a shadow batch per vertex and lamp, the
+    warm-up step included, nothing else; one profiled step."""
+    res, launches = entry_counted(scene_at(SURFACES), DENSE)
+    verts = cfg.bounces + 1
+    per_step = {DENSE[0]: verts, DENSE[1]: verts * nee_lights(cs.static)}
+    steps = cfg.aa_samples + 1
+    path_line("surface_path", res, cfg, launches,
+              {k: v * steps for k, v in per_step.items()}, smi,
+              spp=cfg.aa_samples, bounces=cfg.bounces,
+              launches_per_step=per_step,
+              step_ms=round(1e3 * res.stats["render_s"] / cfg.aa_samples,
+                            3))
+    profile("surface_profile", res, *path_step(cs, cfg), cfg,
+            ("closest_dense_kernel", "shadow_dense_kernel"), smi)
+    return launches
+
+
+def surfaces_card_vs_cpu() -> None:
+    """The card against the CPU at 32², 4 spp within PERF.md §2's bounds:
+    pathtracing and directlighting (1e-4, rays within 0.01%), BDPT (1e-4,
+    rays equal, its density layer 1e-5) and photon mapping (2 spp, 16,384
+    photons: 1e-3, rays and stored photons within 0.1%)."""
+    for integ in ("pathtracing", "directlighting"):
+        entry_vs_cpu("cornell_surfaces", lambda: scene_at(
+            SURFACES, SURFACES_SMALL, dict(type=integ)), 1e-4,
+            tag="surface_card_vs_cpu")
+    entry_vs_cpu("cornell_surfaces", lambda: scene_at(
+        SURFACES, SURFACES_SMALL, dict(type="bidirectional")), 1e-4,
+        tag="surface_card_vs_cpu", density=1e-5, rays_rel=0.0)
+    entry_vs_cpu("cornell_surfaces", lambda: scene_at(
+        SURFACES, dict(SURFACES_SMALL, AA_minsamples=2), dict(
+            type="photonmapping", photons=16_384, cPhotons=8192,
+            fg_samples=4)), 1e-3, tag="surface_card_vs_cpu", rays_rel=1e-3,
+        stored_rel=1e-3)
+
+
+def rough_glass_furnace(smi) -> None:
+    """tests/test_integrators.py's white furnace on the card: a lossless
+    rough-glass sphere (IOR 1.5, alpha 0.35) in a uniform 0.5 environment
+    with its IBL light, pathtracing, bounces 6, 24², 48 spp: the mean of
+    |pixel - 0.5| under 0.05."""
+    s = Scene()
+    s.create_material("m", ParamMap({
+        "type": "rough_glass", "IOR": 1.5, "alpha": 0.35,
+        "filter_color": (1.0, 1.0, 1.0), "mirror_color": (1.0, 1.0, 1.0)}))
+    s.create_background("bg", ParamMap({
+        "type": "constant", "color": (0.5, 0.5, 0.5), "ibl": True,
+        "ibl_samples": 4}))
+    s.add_sphere((0.0, 0.0, 0.0), 1.0, "m")
+    flat_scene(s, "pathtracing", FURNACE["res"], FURNACE["spp"], {
+        "from": (0.0, -4.0, 0.0), "to": (0.0, 0.0, 0.0),
+        "up": (0.0, -4.0, 1.0), "focal": 1.8}, bounces=6, raydepth=6,
+        path_samples=1)
+    res = render_scene(s, device="cuda")
+    err = float(np.abs(res.image - 0.5).mean())
+    phase("rough_glass_furnace", size=f"{FURNACE['res']}x{FURNACE['res']}",
+          spp=FURNACE["spp"], mean=float(res.image.mean()),
+          mean_abs_err=err, bound=FURNACE["bound"], rays=res.stats["rays"],
+          gpu=repr(smi))
+    if not (np.isfinite(res.image).all() and err < FURNACE["bound"]):
+        raise AssertionError(f"rough_glass_furnace: mean |pixel - 0.5| "
+                             f"{err} >= {FURNACE['bound']}")
+
+
+def dispersion_phase(smi) -> None:
+    """tests/test_dispersion_cameras.py:26 on the card: chromatic lanes
+    through a dispersive glass (power 0.01) at 45 degrees draw wavelengths
+    in [0, 1] where it transmits them, the refracted direction spreads with
+    the wavelength, wl_to_rgb averages to white within 0.15, and a
+    non-dispersive glass keeps every lane chromatic."""
+    from libyafaray_tpu_torch.core.color import wl_to_rgb
+    from libyafaray_tpu_torch.materials import base as mbase
+    from libyafaray_tpu_torch.materials import bsdf
+    from libyafaray_tpu_torch.materials.factory import \
+        material_row_from_params
+
+    n, dev = 4096, torch.device("cuda")
+
+    def glass(power):
+        row = material_row_from_params(ParamMap({
+            "type": "glass", "IOR": 1.55, "dispersion_power": power,
+            "filter_color": (1.0, 1.0, 1.0)}), {}, {}, {})
+        table = to_tensors(mbase.build_material_table([row]), dev)
+        return mbase.gather_rows(table, torch.zeros(n, dtype=torch.long,
+                                                    device=dev))
+
+    rng = np.random.default_rng(5)
+    nrm = torch.tensor([[0.0, 0.0, 1.0]], device=dev).expand(n, 3)
+    wo = torch.tensor([[np.sqrt(0.5), 0.0, np.sqrt(0.5)]],
+                      dtype=torch.float32, device=dev).expand(n, 3)
+    u1, u2, ul = (torch.from_numpy(rng.random(n).astype(np.float32)).to(dev)
+                  for _ in range(3))
+    wl = torch.full((n,), -1.0, device=dev)
+    fam = (mbase.MT_GLASS,)
+    smp = bsdf.sample_bsdf(glass(0.01), nrm, nrm, wo, u1, u2, ul, fam, wl)
+    tr = (smp["transmit"] & smp["valid"]).cpu().numpy()
+    new_wl = smp["new_wavelength"].cpu().numpy()
+    wi = smp["wi"].cpu().numpy()
+    lo, hi = tr & (new_wl < 0.2), tr & (new_wl > 0.8)
+    spread = float(abs(wi[lo, 0].mean() - wi[hi, 0].mean()))
+    mean_rgb = wl_to_rgb(torch.linspace(0.0, 1.0, 2048, device=dev)).mean(0)
+    smp0 = bsdf.sample_bsdf(glass(0.0), nrm, nrm, wo, u1, u2, ul, fam, wl)
+    chromatic = bool((smp0["new_wavelength"] < 0.0).all())
+    ok = (tr.sum() > n // 4 and (new_wl[tr] >= 0.0).all()
+          and (new_wl[tr] <= 1.0).all() and lo.sum() > 50 and hi.sum() > 50
+          and spread > 1e-4
+          and bool((torch.abs(mean_rgb - 1.0) < 0.15).all()) and chromatic)
+    phase("dispersion", lanes=n, transmitted=int(tr.sum()),
+          blue_end=int(lo.sum()), red_end=int(hi.sum()), spread=spread,
+          mean_rgb=[round(float(x), 4) for x in mean_rgb],
+          plain_glass_chromatic=chromatic, gpu=repr(smi))
+    if not ok:
+        raise AssertionError("dispersion: the reference's assertions fail "
+                             "on the card")
+
+
+def slice21_phases(smi, out_dir: str, kernels: list) -> None:
+    """The rest of the surface on cornell_surfaces.xml: the scene (smoothing
+    and instances), its dense kernels against their plain versions on
+    recorded rays, the path at its own settings (and a profiled step), the
+    card against the CPU under four integrators, the CLI, the rough-glass
+    furnace and the dispersion sampler.  The dense kernels' entries of
+    `kernels` take `*_surfaces`."""
+    scene, cfg, cs = surfaces_scene(smi)
+    chk = surfaces_kernels(cs, cfg)
+    launches = surfaces_path(smi, cs, cfg)
+    surfaces_card_vs_cpu()
+    cli_copy("surface_cli", SURFACES, 16, SURFACES_CLI["size"],
+             SURFACES_CLI["spp"], smi, out_dir)
+    rough_glass_furnace(smi)
+    dispersion_phase(smi)
+    by_name = {k["name"]: k for k in kernels}
+    for name, c in zip(DENSE, (chk["closest"], chk["shadow"])):
+        if name in by_name:  # absent on a run of --only slice21
+            by_name[name].update(
+                launches_surfaces=launches[name], ms_surfaces=c["ms"],
+                plain_ms_surfaces=c["plain_ms"],
+                bound_ms_surfaces=c["bound"]["bound_ms"],
+                max_abs_err_surfaces=c["err"])
+
+
 def main(argv=None) -> None:
     import argparse
 
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     ap.add_argument("--only", choices=("slice17", "slice18", "slice19",
-                                       "slice20"),
+                                       "slice20", "slice21"),
                     default=None,
                     help="run only this slice's phases after the build (an "
                          "iteration run: it prints no result line)")
@@ -4509,7 +4858,8 @@ def main(argv=None) -> None:
             {"slice17": slice17_phases,
              "slice18": slice18_phases,
              "slice19": slice19_phases,
-             "slice20": slice20_phases}[only](smi, out_dir, [])
+             "slice20": slice20_phases,
+             "slice21": slice21_phases}[only](smi, out_dir, [])
         print(smi, flush=True)
         print(f"chip_smoke: --only {only} ran; no result line", flush=True)
         return
@@ -4611,6 +4961,10 @@ def main(argv=None) -> None:
     # 19. slice 20: the film layer (passes, alpha, resume, denoise, EXR)
     with tempfile.TemporaryDirectory() as out_dir:
         slice20_phases(smi, out_dir, kernels)
+
+    # 20. slice 21: smoothing, instances, rough glass and dispersion
+    with tempfile.TemporaryDirectory() as out_dir:
+        slice21_phases(smi, out_dir, mid)
 
     print(json.dumps({"kernels": kernels + fine + photon + mid + pairs}),
           flush=True)

@@ -10,7 +10,7 @@ from dataclasses import dataclass
 
 import torch
 
-from ..core.math import div
+from ..core.math import div, sqrt_rn
 
 BG_NONE = -1
 BG_CONSTANT = 0
@@ -78,7 +78,7 @@ def dir_to_uv(spec: BackgroundSpec, d: torch.Tensor):
     if spec.mapping == "probe":
         dx, dy, dz = d[..., 0], d[..., 1], d[..., 2]
         r = div(torch.acos(torch.clamp(-dy, -1.0, 1.0)), math.pi)
-        denom = torch.clamp(torch.sqrt(dx * dx + dz * dz), min=1e-9)
+        denom = torch.clamp(sqrt_rn(dx * dx + dz * dz), min=1e-9)
         return 0.5 + 0.5 * r * dx / denom, 0.5 + 0.5 * r * dz / denom
     phi = torch.atan2(d[..., 1], d[..., 0]) + spec.rotation * math.pi / 180.0
     u = div(phi, 2.0 * math.pi) % 1.0

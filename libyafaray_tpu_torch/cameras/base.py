@@ -210,7 +210,7 @@ def project_to_camera(cam: Camera, p: torch.Tensor):
                                                   cam.fwd, cam.origin))
     aspect = cam.resy / cam.resx * cam.aspect_ratio
     v = p - org0
-    dist = torch.sqrt(torch.clamp(vmath.dot(v, v), min=1e-12))
+    dist = vmath.sqrt_rn(torch.clamp(vmath.dot(v, v), min=1e-12))
     z = vmath.dot(v, fwd)
     if cam.cam_type == CAM_ORTHO:
         x = vmath.div(vmath.dot(v, right), cam.scale)

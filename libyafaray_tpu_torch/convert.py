@@ -102,13 +102,19 @@ def _copy_fields(cls, ref, **override):
                   else getattr(ref, f.name) for f in dataclasses.fields(cls)})
 
 
-def static_from_reference(static) -> SceneStatic:
+def static_from_reference(static, materials: dict | None = None
+                          ) -> SceneStatic:
     """The reference's SceneStatic -> the port's (the fields the port reads),
-    its volume regions included."""
+    its volume regions included.  The reference keeps no dispersion flag
+    (its step always carries the wavelength lane): `materials`, the
+    reference's compiled material table, sets it; without it the static
+    has none."""
     # the reference takes its pair route from an environment flag, not its
     # static: a converted static asks for the default routes
+    dispersion = materials is not None and bool(
+        np.any(np.asarray(materials["dispersion_power"]) > 1e-6))
     return _copy_fields(
-        SceneStatic, static, pairs=False,
+        SceneStatic, static, pairs=False, dispersion=dispersion,
         lights=tuple(_copy_fields(LightStatic, ls) for ls in static.lights),
         bg=_copy_fields(BackgroundSpec, static.bg),
         volumes=tuple(_copy_fields(VolumeRegion, v) for v in static.volumes),

@@ -27,6 +27,19 @@ def sqrt_rn(x: torch.Tensor) -> torch.Tensor:
     return torch.sqrt(x.double()).float()
 
 
+def cos_rn(x: torch.Tensor) -> torch.Tensor:
+    """float32 cosine through float64 on every device: the card's and the
+    CPU's float32 cos differ in the last bit on some inputs, and a sampled
+    direction that a glass prism refracts several times carries that
+    into another path."""
+    return torch.cos(x.double()).float()
+
+
+def sin_rn(x: torch.Tensor) -> torch.Tensor:
+    """float32 sine through float64 on every device (see cos_rn)."""
+    return torch.sin(x.double()).float()
+
+
 def dot(a: torch.Tensor, b: torch.Tensor) -> torch.Tensor:
     """Batched 3-vector dot product -> (...,) scalar."""
     p = a * b
@@ -41,7 +54,7 @@ def cross(a: torch.Tensor, b: torch.Tensor) -> torch.Tensor:
 
 
 def length(v: torch.Tensor) -> torch.Tensor:
-    return torch.sqrt(torch.clamp(dot(v, v), min=0.0))
+    return sqrt_rn(torch.clamp(dot(v, v), min=0.0))
 
 
 def normalize(v: torch.Tensor) -> torch.Tensor:
@@ -61,7 +74,7 @@ def refract(wo: torch.Tensor, n: torch.Tensor, eta: torch.Tensor):
     inv_eta = torch.ones_like(eta) / eta
     sin2_t = inv_eta * inv_eta * torch.clamp(1.0 - cos_i * cos_i, min=0.0)
     valid = sin2_t < 1.0
-    cos_t = torch.sqrt(torch.clamp(1.0 - sin2_t, min=0.0))
+    cos_t = sqrt_rn(torch.clamp(1.0 - sin2_t, min=0.0))
     wi = -inv_eta[..., None] * wo + (inv_eta * cos_i - cos_t)[..., None] * n
     return normalize(wi), valid
 
@@ -72,7 +85,7 @@ def refract_unit_eta(wo: torch.Tensor, n: torch.Tensor):
     cos_i = dot(n, wo)
     sin2_t = torch.clamp(1.0 - cos_i * cos_i, min=0.0)
     valid = sin2_t < 1.0
-    cos_t = torch.sqrt(torch.clamp(1.0 - sin2_t, min=0.0))
+    cos_t = sqrt_rn(torch.clamp(1.0 - sin2_t, min=0.0))
     wi = -wo + (cos_i - cos_t)[..., None] * n
     return normalize(wi), valid
 
@@ -82,7 +95,7 @@ def fresnel_dielectric(cos_i: torch.Tensor, eta: torch.Tensor) -> torch.Tensor:
     cos_i = torch.clamp(cos_i, 0.0, 1.0)
     sin2_t = (1.0 / (eta * eta)) * torch.clamp(1.0 - cos_i * cos_i, min=0.0)
     tir = sin2_t >= 1.0
-    cos_t = torch.sqrt(torch.clamp(1.0 - sin2_t, min=0.0))
+    cos_t = sqrt_rn(torch.clamp(1.0 - sin2_t, min=0.0))
     r_par = (eta * cos_i - cos_t) / torch.clamp(eta * cos_i + cos_t, min=1e-12)
     r_perp = (cos_i - eta * cos_t) / torch.clamp(cos_i + eta * cos_t,
                                                  min=1e-12)

@@ -17,11 +17,11 @@ def sample_cos_hemisphere(n: torch.Tensor, u1: torch.Tensor,
                           u2: torch.Tensor):
     """Cosine-weighted hemisphere around normal n. Returns (dir, pdf)."""
     u, v = vmath.build_onb(n)
-    r = torch.sqrt(torch.clamp(u1, min=0.0))
+    r = vmath.sqrt_rn(torch.clamp(u1, min=0.0))
     phi = 2.0 * PI * u2
-    x = r * torch.cos(phi)
-    y = r * torch.sin(phi)
-    z = torch.sqrt(torch.clamp(1.0 - u1, min=0.0))
+    x = r * vmath.cos_rn(phi)
+    y = r * vmath.sin_rn(phi)
+    z = vmath.sqrt_rn(torch.clamp(1.0 - u1, min=0.0))
     d = x[..., None] * u + y[..., None] * v + z[..., None] * n
     pdf = torch.clamp(z, min=1e-8) * INV_PI
     return d, pdf
@@ -30,9 +30,9 @@ def sample_cos_hemisphere(n: torch.Tensor, u1: torch.Tensor,
 def sample_sphere(u1: torch.Tensor, u2: torch.Tensor) -> torch.Tensor:
     """Uniform direction on the unit sphere (pdf 1/(4π))."""
     z = 1.0 - 2.0 * u1
-    r = torch.sqrt(torch.clamp(1.0 - z * z, min=0.0))
+    r = vmath.sqrt_rn(torch.clamp(1.0 - z * z, min=0.0))
     phi = 2.0 * PI * u2
-    return torch.stack([r * torch.cos(phi), r * torch.sin(phi), z], dim=-1)
+    return torch.stack([r * vmath.cos_rn(phi), r * vmath.sin_rn(phi), z], dim=-1)
 
 
 def sample_cone(axis: torch.Tensor, cos_max: torch.Tensor, u1: torch.Tensor,
@@ -43,8 +43,8 @@ def sample_cone(axis: torch.Tensor, cos_max: torch.Tensor, u1: torch.Tensor,
     cos_t = 1.0 - u1 * (1.0 - cos_max)
     sin_t = vmath.sqrt_rn(torch.clamp(1.0 - cos_t * cos_t, min=0.0))
     phi = 2.0 * PI * u2
-    d = ((sin_t * torch.cos(phi))[..., None] * u
-         + (sin_t * torch.sin(phi))[..., None] * v
+    d = ((sin_t * vmath.cos_rn(phi))[..., None] * u
+         + (sin_t * vmath.sin_rn(phi))[..., None] * v
          + cos_t[..., None] * axis)
     den = torch.clamp(2.0 * PI * (1.0 - cos_max), min=1e-9)
     return d, torch.ones_like(den) / den
@@ -52,7 +52,7 @@ def sample_cone(axis: torch.Tensor, cos_max: torch.Tensor, u1: torch.Tensor,
 
 def sample_triangle(u1: torch.Tensor, u2: torch.Tensor):
     """Uniform barycentrics (b0, b1) on a triangle (square-root warp)."""
-    su1 = torch.sqrt(torch.clamp(u1, min=0.0))
+    su1 = vmath.sqrt_rn(torch.clamp(u1, min=0.0))
     return 1.0 - su1, u2 * su1
 
 
@@ -68,8 +68,8 @@ def sample_disk_concentric(u1: torch.Tensor, u2: torch.Tensor):
     safe_oy = torch.where(oy.abs() < 1e-12, 1.0, oy)
     theta = torch.where(use_x, (PI / 4.0) * (oy / safe_ox),
                         (PI / 2.0) - (PI / 4.0) * (ox / safe_oy))
-    return (torch.where(zero, 0.0, r * torch.cos(theta)),
-            torch.where(zero, 0.0, r * torch.sin(theta)))
+    return (torch.where(zero, 0.0, r * vmath.cos_rn(theta)),
+            torch.where(zero, 0.0, r * vmath.sin_rn(theta)))
 
 
 def power_heuristic(pdf_a: torch.Tensor, pdf_b: torch.Tensor) -> torch.Tensor:

@@ -37,7 +37,11 @@ meets such a material, and a lane past its budget dies.  In direct mode a
 path continues only through specular vertices, takes no Russian roulette
 and weighs its NEE samples 1.  A lane inside a glass with absorption
 carries the glass's Beer coefficient (`medium_sigma`) and loses
-exp(-sigma·t) of its throughput over each segment.  In a scene with volume
+exp(-sigma·t) of its throughput over each segment.  In a scene with a
+dispersive glass each lane carries a wavelength (`wavelength`, -1 while
+chromatic), which the glass draws when it first transmits the lane
+(materials/bsdf.py sample_bsdf) and which then fixes its IOR at every
+later dispersive vertex.  In a scene with volume
 regions and a volume integrator the first vertex runs it over the camera
 segment (volumes/integrate.py): its in-scattered light is added and the
 throughput takes the segment's transmittance.
@@ -92,7 +96,7 @@ from ..lights.ies import apply_ies_profile
 from ..materials import blend as blendmod
 from ..materials import bsdf
 from ..materials.base import (MT_COATED_GLOSSY, MT_GLASS, MT_GLOSSY,
-                              MT_SHINYDIFFUSE, gather_rows)
+                              MT_ROUGH_GLASS, MT_SHINYDIFFUSE, gather_rows)
 from ..ops import intersect as isect
 from ..ops.photon_flash import density_auto
 from ..textures.eval import apply_textures, bump_normal
@@ -318,7 +322,7 @@ def _sphere_roots(spheres, org, dirn):
     b = _fma(oc[..., 2], d[..., 2],
              _fma(oc[..., 1], d[..., 1], oc[..., 0] * d[..., 0]))
     disc = _fma(b, b, -(vmath.dot(oc, oc) - r[None] * r[None]))
-    sq = torch.sqrt(torch.clamp(disc, min=0.0))
+    sq = vmath.sqrt_rn(torch.clamp(disc, min=0.0))
     return disc, -b - sq, -b + sq
 
 
@@ -430,7 +434,7 @@ def _surface_point(arrays: dict, hit: isect.Hit, org=None, dirn=None,
                 0.5 - vmath.div(torch.asin(torch.clamp(n_s[..., 2], -1.0,
                                                        1.0)), np.pi)], dim=-1)
             r_s = srow[:, 3:4]
-            cos_lat = torch.sqrt(torch.clamp(1.0 - nz * nz, min=1e-12))
+            cos_lat = vmath.sqrt_rn(torch.clamp(1.0 - nz * nz, min=1e-12))
             dpdu_s = 2.0 * np.pi * r_s * torch.cat(
                 [-ny, nx, torch.zeros_like(nx)], dim=-1)
             dpdv_s = np.pi * r_s * torch.cat(
@@ -686,7 +690,10 @@ def make_sample_step(static, camera, cfg: RenderConfig, device,
     n_bounces = base_bounces + extra_depth
     # absorption lives on glass rows only: without glass no lane ever
     # enters a medium
-    media = MT_GLASS in static.mat_families
+    media = bool({MT_GLASS, MT_ROUGH_GLASS} & set(static.mat_families))
+    # a dispersive glass: each lane carries a wavelength (-1 chromatic),
+    # drawn where the glass first transmits it
+    dispersion = static.dispersion
     volumes = bool(static.volumes) and cfg.vol_integrator not in ("none", "")
     dev = resolve_device(device)
     h, w = cfg.height, cfg.width
@@ -887,7 +894,10 @@ def make_sample_step(static, camera, cfg: RenderConfig, device,
                 for slot in (qmc.SLOT_BSDF_U, qmc.SLOT_BSDF_V,
                              qmc.SLOT_LIGHT_PICK, qmc.SLOT_RR))
         smp = blendmod.sample_bsdf(mats, row, n_sh, ng_sh, wo, u1, u2, ul,
-                                   depth, families, resolve)
+                                   depth, families, resolve,
+                                   st.get("wavelength"))
+        if dispersion:
+            out["wavelength"] = smp["new_wavelength"]
         alive = alive & smp["valid"]
         if not path_mode:  # direct mode follows specular vertices only
             alive = alive & smp["specular"]
@@ -964,6 +974,8 @@ def make_sample_step(static, camera, cfg: RenderConfig, device,
         )
         if media:
             st["medium_sigma"] = torch.zeros((n, 3), dtype=F32, device=dev)
+        if dispersion:
+            st["wavelength"] = torch.full((n,), -1.0, dtype=F32, device=dev)
         if tex:
             st["cone_w"] = torch.full((n,), cone0_w, dtype=F32, device=dev)
             st["cone_spread"] = torch.full((n,), cone0_s, dtype=F32,

@@ -256,14 +256,15 @@ def make_photon_sample_step(cscene, cfg: RenderConfig, maps: dict, device):
             done = done | here
             if bounce == cfg.raydepth:
                 break
-            # continue only through specular chains (rough glass, the
-            # reference's other chain family, raises)
+            # continue only through chains: specular vertices and rough
+            # glass (non-delta, but never a stored hit); no wavelength
+            # lane, so a dispersive glass is glass at its base IOR
             u1, u2 = qmc.sample_dim_pair(s_idx, bdim + qmc.SLOT_BSDF_U,
                                          skey_b)
             ul = qmc.sample_dim(s_idx, bdim + qmc.SLOT_LIGHT_PICK, skey_b)
             smp = bsdf.sample_bsdf(row, n_sh, ng_sh, wo, u1, u2, ul,
                                    static.mat_families)
-            alive = alive & smp["specular"] & smp["valid"] & ~done
+            alive = alive & smp["chain"] & smp["valid"] & ~done
             throughput = throughput * smp["tp"]
             off = torch.where(smp["transmit"], -1.0, 1.0)[..., None]
             org = sp["p"] + ng_sh * off * static.shadow_bias

@@ -4,7 +4,7 @@ save / load).
 
 Per pass:
   eye pass    the camera rays follow specular chains (and rough glass, the
-              reference's other chain family, which raises) up to raydepth
+              reference's other chain family) up to raydepth
               and store one hit point per pixel at the first diffuse hit
               (position, normal, throughput, ρ/π); NEE at every vertex
               (full light sample counts, static QMC dims, no MIS) and the

@@ -61,7 +61,7 @@ from ..film.imagefilm import film_save, film_splat
 from ..film.passes import film_add_passes
 from ..lights import base as lightmod
 from ..materials import blend as blendmod
-from ..materials.base import MT_GLASS, gather_rows
+from ..materials.base import MT_GLASS, MT_ROUGH_GLASS, gather_rows
 from ..textures.eval import apply_textures, bump_normal
 from .config import RenderConfig
 from .engine import (F32, _channels, _surface_point, _tile, camera_rays,
@@ -102,7 +102,7 @@ def _to_area(pdf_sa, p_from, p_to, n_to, on_surface_to=True):
     d2 = torch.clamp(vmath.dot(d, d), min=1e-12)
     if on_surface_to is False:
         return pdf_sa / d2
-    cos_t = vmath.dot(n_to, d / torch.sqrt(d2)[..., None]).abs()
+    cos_t = vmath.dot(n_to, d / vmath.sqrt_rn(d2)[..., None]).abs()
     if on_surface_to is not True:
         cos_t = torch.where(on_surface_to, cos_t, 1.0)
     return pdf_sa * cos_t / d2
@@ -342,7 +342,9 @@ def make_bdpt_step(cscene, cfg: RenderConfig, device):
     zeros3 = torch.zeros((n, 3), dtype=F32, device=dev)
 
     tex = uses_textures(static)
-    media = MT_GLASS in static.mat_families
+    # Beer media on glass and rough glass; no wavelength lane: a dispersive
+    # glass renders at its base IOR, as in the reference
+    media = bool({MT_GLASS, MT_ROUGH_GLASS} & set(static.mat_families))
     families, depth = static.mat_families, static.has_blend
     bias = static.shadow_bias
 
@@ -674,7 +676,7 @@ def make_bdpt_step(cscene, cfg: RenderConfig, device):
                 dbl = torch.where(sel, smp["dbl"], dbl)
             dvec = q - zv["p"]
             d2 = torch.clamp(vmath.dot(dvec, dvec), min=1e-12)
-            dist = torch.sqrt(d2)
+            dist = vmath.sqrt_rn(d2)
             wi = dvec / dist[..., None]
             cos_l = vmath.dot(nl, -wi)
             cos_l_eff = torch.where(dbl | dls, cos_l.abs(),
@@ -735,7 +737,7 @@ def make_bdpt_step(cscene, cfg: RenderConfig, device):
                 yv, zv = Lv[s - 1], Ev[t - 2]
                 dvec = yv["p"] - zv["p"]
                 d2 = torch.clamp(vmath.dot(dvec, dvec), min=1e-12)
-                dist = torch.sqrt(d2)
+                dist = vmath.sqrt_rn(d2)
                 wi = dvec / dist[..., None]  # z -> y
                 f_z = eval_f(arrays, zv, zv["wo"], wi)
                 f_y = eval_f(arrays, yv, yv["wo"], -wi) * _shading_corr(

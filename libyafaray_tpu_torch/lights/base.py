@@ -85,7 +85,7 @@ def sample_point(row: dict, p: torch.Tensor, u1: torch.Tensor,
     """A point light: the one direction to it, Li = I/d²."""
     d = row["p0"] - p
     dist2 = torch.clamp(vmath.dot(d, d), min=1e-12)
-    dist = torch.sqrt(dist2)
+    dist = vmath.sqrt_rn(dist2)
     return dict(wi=d / dist[..., None], dist=dist,
                 li=row["intensity"] / dist2[..., None],
                 pdf=torch.ones_like(dist),
@@ -118,7 +118,7 @@ def sample_spot(row: dict, p: torch.Tensor, u1: torch.Tensor,
           + (dy * r_j)[..., None] * t2)
     dvec = p0 - p
     d2 = torch.clamp(vmath.dot(dvec, dvec), min=1e-12)
-    dist = torch.sqrt(d2)
+    dist = vmath.sqrt_rn(d2)
     wi = dvec / dist[..., None]
     cos_a = vmath.dot(-wi, row["direction"])
     out.update(wi=wi, dist=dist, li=row["intensity"] / d2[..., None]
@@ -159,7 +159,7 @@ def sample_sphere_light(row: dict, p: torch.Tensor, u1: torch.Tensor,
     visible cap, the segment to the sphere's near surface."""
     c = row["p0"] - p
     dist_c2 = torch.clamp(vmath.dot(c, c), min=1e-12)
-    dist_c = torch.sqrt(dist_c2)
+    dist_c = vmath.sqrt_rn(dist_c2)
     axis = c / dist_c[..., None]
     r = row["radius"]
     sin_max2 = torch.clamp(r * r / dist_c2, 0.0, 1.0)
@@ -167,7 +167,7 @@ def sample_sphere_light(row: dict, p: torch.Tensor, u1: torch.Tensor,
     wi, pdf = sample_cone(axis, cos_max, u1, u2)
     b = vmath.dot(wi, c)
     det = torch.clamp(b * b - dist_c2 + r * r, min=0.0)
-    dist = b - torch.sqrt(det)
+    dist = b - vmath.sqrt_rn(det)
     return dict(wi=wi, dist=torch.clamp(dist, min=1e-4),
                 li=row["radiance"] + torch.zeros_like(p), pdf=pdf,
                 valid=dist_c > r)
@@ -202,7 +202,7 @@ def sample_mesh_light(row: dict, p: torch.Tensor, u1: torch.Tensor,
     q, ln = mesh_point(tri_cdf, tri_pos, u1, u2)
     d = q - p
     dist2 = torch.clamp(vmath.dot(d, d), min=1e-12)
-    dist = torch.sqrt(dist2)
+    dist = vmath.sqrt_rn(dist2)
     wi = d / dist[..., None]
     cos_l = vmath.dot(ln, -wi).abs()
     pdf = dist2 / torch.clamp(row["area"] * torch.clamp(cos_l, min=1e-6),
@@ -232,7 +232,7 @@ def sample_area(row: dict, p: torch.Tensor, u1: torch.Tensor,
                          + torch.zeros_like(p))
     d = q - p
     dist2 = torch.clamp(vmath.dot(d, d), min=1e-12)
-    dist = torch.sqrt(dist2)
+    dist = vmath.sqrt_rn(dist2)
     wi = d / dist[..., None]
     cos_l = vmath.dot(ln, -wi)
     cos_l_eff = torch.where(row["double_sided"], cos_l.abs(), cos_l)

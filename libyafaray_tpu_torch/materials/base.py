@@ -38,9 +38,9 @@ MATERIAL_TYPE_NAMES = {
 }
 
 # the families the port renders (blend and mask through
-# materials/blend.py); the rest raise at scene compile
+# materials/blend.py): all of the reference's
 SUPPORTED_FAMILIES = (MT_NULL, MT_SHINYDIFFUSE, MT_GLOSSY, MT_COATED_GLOSSY,
-                      MT_GLASS, MT_BLEND, MT_MASK, MT_LIGHT)
+                      MT_GLASS, MT_ROUGH_GLASS, MT_BLEND, MT_MASK, MT_LIGHT)
 
 _SCALAR_COLS = [
     "diffuse_reflect", "specular_reflect", "transparency", "translucency",
@@ -131,8 +131,8 @@ def oren_nayar_factor(sigma, n, wo, wi):
     b = 0.45 * s2 / (s2 + 0.09)
     cos_o = torch.clamp(vmath.dot(n, wo), -1.0, 1.0)
     cos_i = torch.clamp(vmath.dot(n, wi), -1.0, 1.0)
-    sin_o = torch.sqrt(torch.clamp(1.0 - cos_o * cos_o, min=0.0))
-    sin_i = torch.sqrt(torch.clamp(1.0 - cos_i * cos_i, min=0.0))
+    sin_o = vmath.sqrt_rn(torch.clamp(1.0 - cos_o * cos_o, min=0.0))
+    sin_i = vmath.sqrt_rn(torch.clamp(1.0 - cos_i * cos_i, min=0.0))
     wo_t = wo - cos_o[..., None] * n
     wi_t = wi - cos_i[..., None] * n
     denom = torch.clamp(vmath.length(wo_t) * vmath.length(wi_t), min=1e-9)
@@ -162,7 +162,7 @@ def glossy_eval_local(row: dict, wo_l, wi_l):
     e = _as_exponent(row, h[..., 0], h[..., 1], hz)
     wo_h = torch.clamp(vmath.dot(wo_l, h), min=1e-6)
     norm_iso = (row["exponent"] + 1.0) / (8.0 * PI)
-    norm_aniso = torch.sqrt(torch.clamp(
+    norm_aniso = vmath.sqrt_rn(torch.clamp(
         (row["exp_u"] + 1.0) * (row["exp_v"] + 1.0), min=0.0)) / (8.0 * PI)
     norm = torch.where(row["anisotropic"], norm_aniso, norm_iso)
     d = torch.pow(torch.clamp(hz, min=0.0), e)
@@ -191,7 +191,7 @@ def glossy_pdf_local(row: dict, wo_l, wi_l, p_diffuse):
     e = _as_exponent(row, h[..., 0], h[..., 1], hz)
     wo_h = torch.clamp(vmath.dot(wo_l, h), min=1e-6)
     norm_iso = (row["exponent"] + 1.0) / (2.0 * PI)
-    norm_aniso = torch.sqrt(torch.clamp(
+    norm_aniso = vmath.sqrt_rn(torch.clamp(
         (row["exp_u"] + 1.0) * (row["exp_v"] + 1.0), min=0.0)) / (2.0 * PI)
     norm = torch.where(row["anisotropic"], norm_aniso, norm_iso)
     pdf_h = norm * torch.pow(hz, e)
@@ -203,13 +203,16 @@ def sample_blinn_h(row: dict, u1, u2):
     """Half-vector from the Blinn (isotropic) or AS-anisotropic NDF, in the
     local frame."""
     e_iso = row["exponent"]
-    cos_h_iso = torch.pow(torch.clamp(u1, 1e-9, 1.0), 1.0 / (e_iso + 1.0))
+    # the sampled direction's pow, cos and sin through float64 on every
+    # device, so the card's half-vectors are the CPU's bit for bit
+    cos_h_iso = torch.pow(torch.clamp(u1, 1e-9, 1.0).double(),
+                          (1.0 / (e_iso + 1.0)).double()).float()
     phi_iso = 2.0 * PI * u2
     # anisotropic (AS): per-quadrant phi warp
     eu, ev = row["exp_u"], row["exp_v"]
     q = torch.floor(u1 * 4.0)
     u1q = torch.clamp(u1 * 4.0 - q, 1e-9, 1.0 - 1e-7)
-    phi_q = torch.atan(torch.sqrt((eu + 1.0) / torch.clamp(ev + 1.0,
+    phi_q = torch.atan(vmath.sqrt_rn((eu + 1.0) / torch.clamp(ev + 1.0,
                                                            min=1e-6))
                        * torch.tan(0.5 * PI * u1q))
     phi_aniso = torch.where(
@@ -222,8 +225,8 @@ def sample_blinn_h(row: dict, u1, u2):
     use_a = row["anisotropic"]
     cos_h = torch.where(use_a, cos_h_aniso, cos_h_iso)
     phi = torch.where(use_a, phi_aniso, phi_iso)
-    sin_h = torch.sqrt(torch.clamp(1.0 - cos_h * cos_h, min=0.0))
-    return torch.stack([sin_h * torch.cos(phi), sin_h * torch.sin(phi),
+    sin_h = vmath.sqrt_rn(torch.clamp(1.0 - cos_h * cos_h, min=0.0))
+    return torch.stack([sin_h * vmath.cos_rn(phi), sin_h * vmath.sin_rn(phi),
                         cos_h], dim=-1)
 
 

@@ -72,9 +72,12 @@ def pdf_bsdf(mats, row, n, ng, wo, wi, depth: int, families, resolve=None):
 
 
 def sample_bsdf(mats, row, n, ng, wo, u1, u2, u_lobe, depth: int, families,
-                resolve=None):
+                resolve=None, wavelength=None):
+    """The leaf BSDF's sample after the stochastic descent; wavelength
+    (the dispersion lane, or None) goes through to the leaf."""
     if not depth:
-        return bsdf.sample_bsdf(row, n, ng, wo, u1, u2, u_lobe, families)
+        return bsdf.sample_bsdf(row, n, ng, wo, u1, u2, u_lobe, families,
+                                wavelength)
     comp_top = _is_composite(row)
     cur = row
     for _ in range(depth):
@@ -92,7 +95,8 @@ def sample_bsdf(mats, row, n, ng, wo, u1, u2, u_lobe, depth: int, families,
                      else (comp[..., None], pick_b[..., None]))
             nxt[k] = torch.where(c, torch.where(pb, rb[k], ra[k]), v)
         cur = nxt
-    out = bsdf.sample_bsdf(cur, n, ng, wo, u1, u2, u_lobe, families)
+    out = bsdf.sample_bsdf(cur, n, ng, wo, u1, u2, u_lobe, families,
+                           wavelength)
     # the full mixture pdf on composite non-delta samples
     mix_pdf = pdf_bsdf(mats, row, n, ng, wo, out["wi"], depth, families,
                        resolve)

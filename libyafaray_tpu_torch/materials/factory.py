@@ -83,7 +83,7 @@ def material_row_from_params(params: ParamMap, mat_name_to_id: dict,
     row["exp_v"] = params.get_float("exp_v", 50.0)
     row["as_diffuse"] = params.get_bool("as_diffuse", False)
 
-    # glass family (rough glass: table columns only, the family raises)
+    # glass family (glass, rough glass)
     if row["mtype"] in (MT_GLASS, MT_ROUGH_GLASS):
         row["ior"] = params.get_float("IOR", 1.5)
         row["filter_color"] = params.get_rgb("filter_color", (1.0, 1.0, 1.0))

@@ -1,8 +1,9 @@
-"""Host-side triangle meshes (port of libyafaray_tpu/scene/mesh.py: TriMesh and
-`finalize_mesh` for faceted meshes with optional per-vertex normals, UVs
-and orco coordinates, and `make_sphere_mesh`, the icosphere that
-scene/generate.py tessellates).  Scene.compile flattens them into SoA
-triangle arrays."""
+"""Host-side triangle meshes (port of libyafaray_tpu/scene/mesh.py: TriMesh,
+`finalize_mesh` for meshes with optional per-vertex normals, angle-
+thresholded smoothing (`<smooth>`), UVs and orco coordinates,
+`transform_baked` for `<instance>` copies, and `make_sphere_mesh`, the
+icosphere that scene/generate.py tessellates).  Scene.compile flattens
+them into SoA triangle arrays."""
 from __future__ import annotations
 
 from dataclasses import dataclass, field
@@ -23,6 +24,7 @@ class TriMesh:
     faces: list = field(default_factory=list)  # (a,b,c, mat_id)
     face_uvs: list = field(default_factory=list)  # (uva, uvb, uvc) uv indices
     uvs: list = field(default_factory=list)  # (u,v)
+    smooth_angle: float | None = None  # degrees; None = faceted
     light_id: int = -1  # meshlight association
     visibility: str = "normal"  # normal|invisible|shadow_only|no_shadows
 
@@ -42,6 +44,38 @@ class TriMesh:
     def add_triangle(self, a, b, c, mat_id, uv_a=-1, uv_b=-1, uv_c=-1):
         self.faces.append((int(a), int(b), int(c), int(mat_id)))
         self.face_uvs.append((int(uv_a), int(uv_b), int(uv_c)))
+
+    def smooth(self, angle_deg: float):
+        self.smooth_angle = float(angle_deg)
+
+
+def compute_vertex_normals(verts: np.ndarray, faces: np.ndarray,
+                           smooth_angle_deg: float) -> np.ndarray:
+    """Angle-thresholded smoothed per-corner normals, (T,3,3).
+
+    A vertex's normal is the area-weighted sum of its faces' normals; a
+    corner takes it only where it lies within the smoothing angle of the
+    corner's own face normal, else the face normal (angle >= 180 smooths
+    every corner)."""
+    v0 = verts[faces[:, 0]]
+    v1 = verts[faces[:, 1]]
+    v2 = verts[faces[:, 2]]
+    fn = np.cross(v1 - v0, v2 - v0)  # area-weighted face normal
+    fn_len = np.linalg.norm(fn, axis=1, keepdims=True)
+    fn_unit = fn / np.maximum(fn_len, 1e-20)
+    vnorm = np.zeros((len(verts), 3), np.float64)
+    for k in range(3):
+        np.add.at(vnorm, faces[:, k], fn)
+    vn_unit = vnorm / np.maximum(np.linalg.norm(vnorm, axis=1, keepdims=True),
+                                 1e-20)
+    cos_thresh = np.cos(np.deg2rad(min(smooth_angle_deg, 180.0)))
+    corner = np.empty((len(faces), 3, 3), np.float32)
+    for k in range(3):
+        cand = vn_unit[faces[:, k]]
+        agree = np.sum(cand * fn_unit, axis=1) >= cos_thresh - 1e-6
+        corner[:, k, :] = np.where(agree[:, None], cand,
+                                   fn_unit).astype(np.float32)
+    return corner
 
 
 def finalize_mesh(mesh: TriMesh):
@@ -72,6 +106,8 @@ def finalize_mesh(mesh: TriMesh):
         corner_n = np.stack(
             [vn[faces[:, 0]], vn[faces[:, 1]], vn[faces[:, 2]]], axis=1
         ).astype(np.float32)
+    elif mesh.smooth_angle is not None:  # explicit normals win over it
+        corner_n = compute_vertex_normals(verts, faces, mesh.smooth_angle)
     else:
         corner_n = np.repeat(gn_unit[:, None, :], 3, axis=1).astype(
             np.float32)
@@ -109,6 +145,30 @@ def finalize_mesh(mesh: TriMesh):
         local=local.astype(np.float32),
         orco=orco.astype(np.float32),
     )
+
+
+def transform_baked(tri_arrays: dict, matrix: np.ndarray) -> dict:
+    """An instance of finalized triangle arrays under a 4x4 transform (the
+    triangles re-added, transformed).  Normals go through the inverse
+    transpose; a mirroring transform (det < 0) flips both normals.  local
+    and orco stay the base mesh's."""
+    m = np.asarray(matrix, np.float64).reshape(4, 4)
+    r = m[:3, :3]
+    t = m[:3, 3]
+    pos = tri_arrays["pos"] @ r.T + t
+    rit = np.linalg.inv(r).T
+    nrm = tri_arrays["normal"] @ rit.T
+    nrm /= np.maximum(np.linalg.norm(nrm, axis=-1, keepdims=True), 1e-20)
+    gn = tri_arrays["geo_n"] @ rit.T
+    gn /= np.maximum(np.linalg.norm(gn, axis=-1, keepdims=True), 1e-20)
+    if np.linalg.det(r) < 0:
+        gn = -gn
+        nrm = -nrm
+    out = dict(tri_arrays)
+    out["pos"] = pos.astype(np.float32)
+    out["normal"] = nrm.astype(np.float32)
+    out["geo_n"] = gn.astype(np.float32)
+    return out
 
 
 def make_sphere_mesh(center, radius, mat_id, subdiv: int = 3) -> dict:

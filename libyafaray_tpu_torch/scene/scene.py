@@ -17,6 +17,9 @@ shadow-caster set (`normal` and `shadow_only`: stri_*, sfilt4,
 shadow_filt); an `invisible` mesh is in neither.  When every mesh is
 `normal` the shadow set's packs alias the visible set's.  Volume regions
 ride in SceneStatic.volumes.
+`<smooth>` sets a mesh's smoothing angle and `<instance>` bakes a
+transformed copy of a mesh into `extra_tri_blocks`, which compile appends
+after the meshes with no mesh id (a meshlight cannot name one).
 Features outside the slice raise NotImplementedError naming their ROADMAP
 item.
 """
@@ -47,7 +50,7 @@ from ..ops.intersect import intersector_for, pad_triangles
 from ..textures.eval import DEFAULT_MAPPING
 from ..textures.factory import build_mip_atlas, texture_from_params
 from ..volumes.factory import grid_arrays, volume_from_params
-from .mesh import TriMesh, finalize_mesh
+from .mesh import TriMesh, finalize_mesh, transform_baked
 from .params import ParamMap
 
 log = logging.getLogger("libyafaray_tpu_torch")
@@ -129,6 +132,9 @@ class SceneStatic:
     max_additional_depth: int = 0  # the largest material additionalDepth
     has_sampling_factor: bool = False  # some material samplingFactor != 1
     volumes: tuple = ()  # volume regions (volumes/factory.py VolumeRegion)
+    # some material has dispersion_power > 0: the path tracer carries a
+    # wavelength lane (-1 chromatic) and hands it to sample_bsdf
+    dispersion: bool = False
 
 
 @dataclass
@@ -208,6 +214,7 @@ class Scene:
         self.render_params = ParamMap()
         self.integrator_params: dict[str, ParamMap] = {}
         self.volumes: list = []
+        self.extra_tri_blocks: list = []  # baked instances
         self._cur_mesh: TriMesh | None = None
         self._next_mesh_id = 0
         self.shadow_bias = 5e-4
@@ -244,6 +251,26 @@ class Scene:
 
     def end_tri_mesh(self):
         self._cur_mesh = None
+
+    def smooth_mesh(self, mesh_id: int, angle_deg: float):
+        """Smooth a mesh's normals within angle_deg; an unknown id falls
+        back to the mesh being built."""
+        m = self.meshes.get(int(mesh_id)) or self._cur_mesh
+        if m is not None:
+            m.smooth(angle_deg)
+
+    def add_instance(self, base_mesh_id: int, matrix16):
+        """Add a copy of a mesh under a 4x4 transform (16 numbers, row
+        major), baked at once: later edits of the base do not reach it."""
+        base = self.meshes.get(int(base_mesh_id))
+        if base is None:
+            log.warning("addInstance: unknown base mesh %s", base_mesh_id)
+            return
+        arrays = finalize_mesh(base)
+        if arrays is None:
+            return
+        self.extra_tri_blocks.append(transform_baked(
+            arrays, np.asarray(matrix16, np.float64).reshape(4, 4)))
 
     def add_sphere(self, center, radius, mat_name: str):
         """Analytic sphere primitive (reference std_primitives.cc "sphere"),
@@ -314,6 +341,9 @@ class Scene:
             if b is not None:
                 blocks.append(b)
                 block_mesh_ids.append(mesh_id)
+        for b in self.extra_tri_blocks:
+            blocks.append(dict(b))
+            block_mesh_ids.append(None)
         materials = list(self.materials)
         # area-light panels -> synthetic light_mat + triangles
         for li, geom in enumerate(self.light_geometry):
@@ -338,7 +368,16 @@ class Scene:
             ))
             block_mesh_ids.append(None)
         if not blocks:
-            raise NotImplementedError("an empty scene is not ported")
+            # no triangles (a scene of analytic spheres): one degenerate
+            # triangle far away, which no ray hits
+            blocks.append(dict(
+                pos=np.full((1, 3, 3), 1e30, np.float32),
+                normal=np.zeros((1, 3, 3), np.float32),
+                geo_n=np.zeros((1, 3), np.float32),
+                uv=np.zeros((1, 3, 2), np.float32),
+                mat=np.zeros(1, np.int32),
+                light_id=np.full(1, -1, np.int32)))
+            block_mesh_ids.append(None)
         vis_pairs = [(mid, b) for mid, b in zip(block_mesh_ids, blocks)
                      if b.get("visibility", "normal") in ("normal",
                                                           "no_shadows")]
@@ -363,10 +402,6 @@ class Scene:
                 b["orco"] = ((b["local"] - ctr) / ext).astype(np.float32)
         families = tuple(sorted({r["mtype"] for r in materials}))
         check_families(families)
-        if any(r.get("dispersion_power", 0.0) > 1e-6 for r in materials):
-            raise NotImplementedError(
-                "dispersive glass (dispersion_power > 0) is not ported yet: "
-                "ROADMAP Queue 1 item 10 (dispersion)")
 
         def cat(key, bs=vis_blocks):
             return np.concatenate([b[key] for b in bs], axis=0)
@@ -669,6 +704,8 @@ class Scene:
                 abs(r.get("sampling_factor", 1.0) - 1.0) > 1e-9
                 for r in materials),
             volumes=tuple(self.volumes),
+            dispersion=any(r.get("dispersion_power", 0.0) > 1e-6
+                           for r in materials),
         )
         cam = next(iter(self.cameras.values())) if self.cameras else Camera()
         cam_name = self.render_params.get_str("camera_name", "")

@@ -4,9 +4,9 @@ stdlib ElementTree; typed leaf params (ival/fval/bval/sval attributes,
 colors as r/g/b/a, points as x/y/z), <texture>s, meshes streamed via
 <p>/<n>/<uv>/<set_material>/<f> (has_uv, has_orco, and the object
 `visibility`: normal | invisible | shadow_only | no_shadows), analytic
-<sphere>s, <volumeregion>s and the closing <render> block.  Elements outside
-the ported slices (smoothing, instances) raise NotImplementedError naming
-their ROADMAP item.
+<sphere>s, <volumeregion>s, <smooth ID angle> (default angle 181: smooth
+every corner), <instance base_object_id> with its <transform> child, and
+the closing <render> block.
 """
 from __future__ import annotations
 
@@ -17,11 +17,6 @@ from .params import ParamMap
 from .scene import Scene
 
 log = logging.getLogger("libyafaray_tpu_torch")
-
-_NOT_PORTED = {
-    "smooth": "ROADMAP Queue 1 item 10",
-    "instance": "ROADMAP Queue 1 item 11",
-}
 
 
 def _parse_value(el: ET.Element):
@@ -114,9 +109,6 @@ def parse_xml_string(text: str) -> Scene:
     for el in root:
         tag = el.tag
         name = el.attrib.get("name", "")
-        if tag in _NOT_PORTED:
-            raise NotImplementedError(
-                f"<{tag}> is not ported yet: {_NOT_PORTED[tag]}")
         if tag == "texture":
             scene.create_texture(name, _parse_params(el))
         elif tag == "material":
@@ -133,6 +125,18 @@ def parse_xml_string(text: str) -> Scene:
             scene.create_volume_region(name, _parse_params(el))
         elif tag == "mesh":
             _parse_mesh(el, scene)
+        elif tag == "smooth":
+            scene.smooth_mesh(int(el.attrib.get("ID",
+                                                el.attrib.get("id", 0))),
+                              float(el.attrib.get("angle", 181.0)))
+        elif tag == "instance":
+            m = None
+            for child in el:
+                if child.tag == "transform":
+                    m = _parse_value(child)
+            if m is not None:
+                scene.add_instance(int(el.attrib.get("base_object_id", 0)),
+                                   m)
         elif tag == "sphere":
             p = _parse_params(el)
             scene.add_sphere(p.get_point("center", (0, 0, 0)),

@@ -807,16 +807,30 @@ def test_render_scene_dispatches_on_the_integrator(monkeypatch):
 
 
 def test_pathtracing_raises_on_spheres_and_glass():
-    """Spheres and smooth glass render in pathtracing now (Beer media:
-    tests/test_torch_direct.py holds cornell_path.xml to the reference);
-    rough glass still raises, naming ROADMAP item 10, and so does a
-    dispersive glass."""
+    """Spheres and every glass render in pathtracing now: the rough and the
+    dispersive glass that this case once asserted raise (ROADMAP item 10)
+    replace cornell_photon.xml's glass, and the port's 8², 2 spp path
+    tracer matches the reference's: image RMSE <= 1e-4, rays within
+    0.01% (tests/test_torch_direct.py's bounds)."""
+    from libyafaray_tpu.scene.params import ParamMap as RefParamMap
+    from libyafaray_tpu.scene.session import render_scene as ref_scene
     from libyafaray_tpu_torch.scene.params import ParamMap
 
     for glass in (dict(type="rough_glass", IOR=1.5),
                   dict(type="glass", IOR=1.5, dispersion_power=0.5)):
-        s = _scene(parse_xml_file)
-        s.integrator_params["default"]["type"] = "pathtracing"
-        s.create_material("glass", ParamMap(glass))
-        with pytest.raises(NotImplementedError, match="item 10"):
-            session.render_scene(s, device="cpu")
+        out = []
+        for parse, pm, run in ((ref_parse, RefParamMap, ref_scene),
+                               (parse_xml_file, ParamMap,
+                                session.render_scene)):
+            s = _scene(parse)
+            s.render_params.update(width=8, height=8, AA_minsamples=2)
+            s.integrator_params["default"]["type"] = "pathtracing"
+            s.create_material("glass", pm(glass))
+            out.append(run(s) if run is ref_scene else run(s, device="cpu"))
+        ref, port = out
+        assert np.isfinite(port.image).all() and port.image.mean() > 0.02
+        rmse = float(np.sqrt(np.mean((port.image.astype(np.float64)
+                                      - ref.image) ** 2)))
+        assert rmse <= 1e-4, (glass, rmse)
+        r_ref, r_port = ref.stats["rays"], port.stats["rays"]
+        assert abs(r_port - r_ref) <= 1e-4 * r_ref, (glass, r_ref, r_port)

@@ -162,20 +162,30 @@ _SCENE = """<scene type="triangle">{body}
      '<instance base_object_id="1"/>', "item 11"),
 ])
 def test_unsupported_features_raise(body, item):
-    """Raised at parse (smoothing, instances) or at compile (glass renders
-    in every ported integrator now, a dispersive one raises).  Every camera,
-    background and volume type, every object visibility, the render passes
-    and the alpha plane render now."""
+    """The four features these cases once asserted raise (dispersive and
+    rough glass, smoothing, an instance: ROADMAP Queue 1 `item`) now parse
+    and compile as the reference does: every array equal after the
+    converter, and the path tracer accepts the scene (an instance without
+    a <transform> adds nothing, as in the reference)."""
+    from libyafaray_tpu.scene.xml_parser import parse_xml_string as ref_str
     from libyafaray_tpu_torch.integrators.config import RenderConfig
     from libyafaray_tpu_torch.integrators.engine import check_supported
     from libyafaray_tpu_torch.scene.session import build_config
 
-    with pytest.raises(NotImplementedError, match=item):
-        scene = parse_xml_string(_SCENE.format(body=body))
-        cs = scene.compile(device="cpu")
-        cfg = build_config(scene)
-        check_supported(cs.static, RenderConfig(**{
-            **cfg.__dict__, "integrator": "pathtracing"}))
+    text = _SCENE.format(body=body)
+    scene = parse_xml_string(text)
+    cs = scene.compile(device="cpu")
+    cfg = build_config(scene)
+    check_supported(cs.static, RenderConfig(**{
+        **cfg.__dict__, "integrator": "pathtracing"}))
+    rcs = ref_str(text).compile()
+    want = dict(_flat(convert.arrays_from_reference(rcs.arrays, "cpu")))
+    got = dict(_flat(convert.to_tensors(cs.arrays, "cpu")))
+    assert set(got) == set(want)
+    for k in want:
+        assert torch.equal(got[k], want[k]), k
+    assert cs.static.dispersion == ("dispersion_power" in body)
+    assert cs.static.n_tris_real == rcs.static.n_tris_real == 1
 
 
 def test_port_imports_no_jax_and_no_reference(tmp_path):
