@@ -162,11 +162,24 @@ started together) and drives the ported paths through them:
   versions on the step's primary rays and the prism lamp's NEE batch, one
   profiled step, the card against the CPU at 32², 4 spp under four
   integrators, the reference's rough-glass white furnace and its
-  dispersion sampler's assertions on the card.
+  dispersion sampler's assertions on the card;
+- slice 22, scenes above 2^20 triangles: the generated 2,621,452-triangle
+  grid compiled onto the threaded BVH (the native builder asserted), the
+  two BVH kernels (csrc/bvh_walk.cu) bit-equal to their plain lockstep
+  walks on a step's recorded primary, bounce-1 and NEE rays, their bound
+  from their own counting walk, the path at the scene's settings (512²,
+  4 spp) through `render_scene(timed=True)`, one profiled step and the
+  card against the CPU at 16²; the BVH against the fine kernels on the
+  164K grid under the intersection contract; `env.hdr` rewritten by the
+  port's EXR writer as NONE, ZIPS, PIZ and tiled ZIPS under
+  `ibl_spheres.xml` (bit-equal films); `cornell.xml` built through the
+  flat `Interface` (bit-equal to the XML route), and `python -m
+  libyafaray_tpu_torch` checked by `python -m
+  libyafaray_tpu_torch.cli.compare` at RMSE 0.
 A profile phase reads the trace from the profiler's raw events
 (`trace_events`: torch's own event tree, kernel links and merges,
 without building its event objects).
-`python3 chip_smoke.py --only slice17` (or slice18 to slice21) builds
+`python3 chip_smoke.py --only slice17` (or slice18 to slice22) builds
 the kernels and runs that slice's phases alone (an iteration run: no
 result line).  Each path is
 rendered with every launch counter set to 0 just before it and read just
@@ -176,11 +189,14 @@ once, each output written once) over 3.35 TB/s, with the pair tests counted
 from this run's rays.  Every phase prints one line; any failure raises and
 the script exits non-zero without printing a result.  The last line is
 {"ok": true, "device": {"platform": "gpu", "kind": ..., "count": ...}}.
-Imports nothing of JAX and runs no other program of the repository.
+Imports nothing of JAX and runs no program of the repository but the
+port's own command line and compare tool (`python -m
+libyafaray_tpu_torch`, `-m libyafaray_tpu_torch.cli.compare`).
 """
 from __future__ import annotations
 
 import contextlib
+import dataclasses
 import io
 import json
 import os
@@ -206,7 +222,9 @@ from libyafaray_tpu_torch.integrators.config import RenderConfig  # noqa: E402
 from libyafaray_tpu_torch.integrators.render import (  # noqa: E402
     _fresh_film, render, render_timed)
 from libyafaray_tpu_torch.io.exr import read_exr  # noqa: E402
+from libyafaray_tpu_torch.accel import bvh as bvh_mod  # noqa: E402
 from libyafaray_tpu_torch.ops import _build  # noqa: E402
+from libyafaray_tpu_torch.ops import bvh_traverse as bt  # noqa: E402
 from libyafaray_tpu_torch.ops import cluster_intersect as cx  # noqa: E402
 from libyafaray_tpu_torch.ops import cuda_intersect as ci  # noqa: E402
 from libyafaray_tpu_torch.ops import fine_intersect as fi  # noqa: E402
@@ -227,6 +245,7 @@ from libyafaray_tpu_torch.scene.xml_parser import parse_xml_file  # noqa: E402
 from libyafaray_tpu_torch.lights import base as lightmod  # noqa: E402
 from libyafaray_tpu_torch.lights.ies import parse_ies  # noqa: E402
 from libyafaray_tpu_torch.scene.params import ParamMap  # noqa: E402
+from libyafaray_tpu_torch.scene import scene as scene_mod  # noqa: E402
 from libyafaray_tpu_torch.scene.scene import Scene  # noqa: E402
 
 CORNELL = os.path.join(REPO, "scenes", "cornell.xml")
@@ -242,7 +261,7 @@ BIDIR_GOLDEN = os.path.join(REPO, "scenes", "goldens", "cornell_bidir.exr")
 PHOTON_GOLDEN = os.path.join(REPO, "scenes", "goldens",
                              "cornell_photonmapping.exr")
 SOURCES = ("tiny_intersect", "fine_intersect", "photon_flash",
-           "cluster_intersect", "pairs_intersect")
+           "cluster_intersect", "pairs_intersect", "bvh_walk")
 SRC = "libyafaray_tpu_torch/csrc/{}.cu"
 PALLAS = "libyafaray_tpu/ops/pallas_intersect.py:{}"
 FLASH = "libyafaray_tpu/ops/photon_flash.py:{}"
@@ -495,7 +514,7 @@ def main_path_rays(cscene, cfg, arrays):
     """The kernels' inputs at the main path's shapes, made by the engine's
     own functions: the primary camera rays of sample 0 (H·W), and the first
     light's NEE shadow rays from their hit points (samples·H·W)."""
-    dev = arrays["tri_pack10"].device
+    dev = arrays["tri_geom_pack"].device
     st = cscene.static
     px, py, ph = engine.pixel_lanes(cfg.height, cfg.width, cfg.qmc_seed, dev)
     s_idx = torch.zeros_like(px)
@@ -829,7 +848,7 @@ WRAPPERS = {fn.__name__: fn for fn in (
     fi.shadow_logsum_fine, pf.density_flash, pf.nearest_flash,
     pf.density_culled, cx.closest_hit_dense, cx.shadow_logsum_dense,
     cx.closest_hit_stream, cx.shadow_logsum_stream, pi.pairs_closest,
-    pi.pairs_shadow)}
+    pi.pairs_shadow, bt.closest_hit_bvh, bt.shadow_logsum_bvh)}
 
 
 def counted(run):
@@ -4812,12 +4831,515 @@ def slice21_phases(smi, out_dir: str, kernels: list) -> None:
                 max_abs_err_surfaces=c["err"])
 
 
+# ---- slice 22: scenes above 2^20 triangles, the EXR codecs, the flat API
+
+
+BVH = ("closest_hit_bvh", "shadow_logsum_bvh")
+# the generated grid-spheres scene at 2.5 x MAX_TRIS (the generator's default
+# layout two subdivisions finer), at the grid phases' 4 spp
+BVH_GRID = dict(grid=8, subdiv=5, spp=4, tris=2_621_452)
+# rays of a plain walk on the card: ~650 lockstep steps of ~200 small ops
+# whatever the lane count, so a few seconds a call
+BVH_PLAIN_LANES = 4096
+BVH_SMALL = dict(size=16, spp=1)
+BVH_REPLACES = "libyafaray_tpu/ops/bvh_traverse.py:{}"
+NODE_BYTES = 32  # a node visit: its box (24 B), first_tri and a next index
+TRI_BYTES = 40  # a triangle test: v0 | e1 | e2 (36 B) and its tri_order
+# a node visit's box test (bvh_walk.cu node_entered, the reference's
+# _aabb_hit), which is not the clustered kernels' widened one: per axis 2
+# sub, 2 mul, 1 min, 1 max; 3 max for the entry, 3 min for the exit and 1
+# compare.  The closest walk adds 1 min for min(tmax, best_t).
+BVH_BOX_OPS = 25
+# the clustered kernels' tables, which the BVH route does not build
+CLUSTERED_KEYS = ("tris", "tri_pack10", "tri_cluster8", "stri_pack10",
+                  "stri_cluster8", "tri_sub8", "stri_sub8", "tri_box32",
+                  "stri_box32", "sfilt4", "sfilt4_binary")
+EXR_IBL = dict(size=64, spp=4, tiles=(16, 16),
+               codecs=(("none", {}), ("zips", {}), ("piz", {}),
+                       ("zips_tiled", {"tiles": (16, 16)})))
+INTERFACE = dict(size=64, spp=4, cli_size=32)
+
+
+def bvh_scene(smi, out_dir: str) -> tuple:
+    """The generated 2,621,452-triangle grid-spheres scene compiled for the
+    card: the BVH route, its BVH built by the native builder (a numpy
+    build of 2.6M triangles takes minutes), the shadow set's BVH aliasing
+    the visible set's, the clustered kernels' box tables skipped.
+    Returns (scene, config, compiled, tensors)."""
+    t0 = time.perf_counter()
+    path = write_grid_spheres(os.path.join(out_dir, "grid8_5.xml"),
+                              BVH_GRID["grid"], BVH_GRID["subdiv"],
+                              BVH_GRID["spp"])
+    gen_s = time.perf_counter() - t0
+    t0 = time.perf_counter()
+    scene = parse_xml_file(path)
+    cfg = build_config(scene)
+    parse_s = time.perf_counter() - t0
+    builds, real = [], scene_mod.build_bvh
+
+    def timed_build(*args, **kwargs):
+        t = time.perf_counter()
+        out = real(*args, **kwargs)
+        builds.append((time.perf_counter() - t, bvh_mod.last_builder))
+        return out
+
+    t0 = time.perf_counter()
+    scene_mod.build_bvh = timed_build
+    try:
+        cs = scene.compile(device="cuda")
+    finally:
+        scene_mod.build_bvh = real
+    compile_s = time.perf_counter() - t0
+    t0 = time.perf_counter()
+    arrays = to_tensors(cs.arrays, "cuda")
+    torch.cuda.synchronize()
+    upload_s = time.perf_counter() - t0
+    st, a = cs.static, cs.arrays
+    builders = [b for _, b in builds]
+    phase("bvh_scene", tris=st.n_tris_real, intersector=st.intersector,
+          nodes=a["bvh"]["bb_min"].shape[0],
+          leaves=int((a["bvh"]["first_tri"] >= 0).sum()),
+          builder=builders, sbvh_aliases=a["sbvh"] is a["bvh"],
+          clustered_tables=sorted(k for k in a if k in CLUSTERED_KEYS),
+          generate_s=round(gen_s, 3), parse_s=round(parse_s, 3),
+          compile_s=round(compile_s, 3),
+          build_s=round(sum(s for s, _ in builds), 3),
+          upload_s=round(upload_s, 3),
+          parse_compile_upload_s=round(parse_s + compile_s + upload_s, 3),
+          integrator=cfg.integrator, bounces=cfg.bounces,
+          filter=cfg.filter_type,
+          light_samples=[ls.samples for ls in st.lights],
+          size=f"{cfg.width}x{cfg.height}", spp=cfg.aa_samples,
+          gpu=repr(smi))
+    if st.n_tris_real != BVH_GRID["tris"] or st.intersector != "bvh":
+        raise AssertionError(f"bvh_scene: {st.n_tris_real} triangles on "
+                             f"{st.intersector!r}")
+    if (builders != ["native"] or a["sbvh"] is not a["bvh"]
+            or any(k in a for k in CLUSTERED_KEYS)):
+        raise AssertionError(f"bvh_scene: builds {builders}, sbvh aliases "
+                             f"{a['sbvh'] is a['bvh']}, clustered tables "
+                             f"{sorted(k for k in a if k in CLUSTERED_KEYS)}")
+    return scene, cfg, cs, arrays
+
+
+def check_bvh_kernel(name: str, args: tuple, rays: str) -> dict:
+    """One BVH kernel on recorded inputs: bit-equal to its plain walk on a
+    strided subset of at most BVH_PLAIN_LANES rays, repeated bit for bit,
+    its device ms, and its bound from its own walk (the counting kernel:
+    node visits and triangle tests per ray, the nodes and triangles it
+    touched), its ptxas registers."""
+    closest = name == BVH[0]
+    kind = "closest" if closest else "shadow"
+    wrapper = getattr(bt, name)
+    per_ray = args[2:] if closest else args[3:]
+    n = per_ray[0].shape[0]
+    out = wrapper(*args)
+    again = wrapper(*args)
+    torch.cuda.synchronize()
+    repeat = sum(int((x != y).reshape(n, -1).any(dim=1).sum())
+                 for x, y in zip(out, again))
+    stride = max(1, -(-n // BVH_PLAIN_LANES))
+    sub = args[:len(args) - len(per_ray)] + tuple(
+        x[::stride].contiguous() for x in per_ray)
+    plain_fn = bt.closest_bvh_plain if closest else bt.shadow_bvh_plain
+    plain, plain_ms = once_ms(lambda: plain_fn(*sub, counts=True))
+    k_sub = tuple(x[::stride] for x in out[:len(plain) - 1])
+    m = k_sub[0].shape[0]
+    differ = sum(((x != y).reshape(m, -1).any(dim=1)) for x, y in
+                 zip(k_sub, plain[:-1])).gt(0).sum()
+    counted_out, counts, nodes, tris = bt.walk_counts(kind, *args)
+    torch.cuda.synchronize()
+    count_differ = int((counts[::stride].long() != plain[-1]).any(
+        dim=1).sum())
+    count_out_differ = sum(int((x != y).reshape(n, -1).any(dim=1).sum())
+                           for x, y in zip(out, counted_out))
+    if closest:
+        hit = out[4][::stride]
+        err = max([0.0] + [float((x[hit] - y[hit]).abs().max())
+                           for x, y in zip((k_sub[0], k_sub[2], k_sub[3]),
+                                           (plain[0], plain[2], plain[3]))
+                           if hit.any()])
+        io_bytes = n * (32 + 16)  # org, dir, tmin, tmax; t, tri, u, v
+        extra = dict(hits=int(out[4].sum()))
+    else:
+        tr_k = torch.where(k_sub[1][:, None], 0.0, torch.exp(k_sub[0]))
+        tr_p = torch.where(plain[1][:, None], 0.0, torch.exp(plain[0]))
+        err = float((tr_k - tr_p).abs().max()) if m else 0.0
+        io_bytes = n * (28 + 13)  # org, dir, tmax; log sum, blocked
+        extra = dict(live=int((per_ray[2] > 0).sum()),
+                     blocked=int(out[1].sum()))
+    visits = int(counts[:, 0].sum())
+    tests = int(counts[:, 1].sum())
+    moved = (nodes * NODE_BYTES + tris * (TRI_BYTES + (0 if closest else 16))
+             + io_bytes)
+    b = bound((BVH_BOX_OPS + int(closest)) * visits + MT_OPS * tests, moved,
+              node_visits=visits,
+              tri_tests=tests, nodes_touched=nodes, tris_touched=tris,
+              visits_per_ray=round(visits / max(n, 1), 2),
+              tests_per_ray=round(tests / max(n, 1), 2))
+    ms = device_ms(lambda: wrapper(*args), calls=5, replays=3)
+    reg = registers("bvh_walk", f"bvh_{kind}_kernel")
+    phase("kernel", name=name, rays=rays, n=n, compared_rays=m,
+          differ=int(differ), repeat_differ=repeat,
+          count_differ=count_differ, max_abs_err=err,
+          tolerance="bit-equal (t, tri, u, v / log sum, blocked)",
+          ms=round(ms, 4), plain_ms=round(plain_ms, 4),
+          plain=f"one eager call on every {stride}th ray", **extra, **reg,
+          **b)
+    if int(differ) or repeat or count_differ or count_out_differ:
+        raise AssertionError(f"{name} ({rays}): {int(differ)} rays differ "
+                             f"from the plain walk, {repeat} between two "
+                             f"calls, {count_differ} counts from the "
+                             f"plain walk's, {count_out_differ} answers "
+                             "from the counting kernel's")
+    return dict(ms=ms, plain_ms=plain_ms, err=err, bound=b, n=n, **reg)
+
+
+def bvh_kernels(cs, cfg) -> dict:
+    """Both BVH kernels on one 512² step's recorded calls: the closest hit
+    on the primary and bounce-1 rays, the shadow sum on the bounce-0 and
+    bounce-1 NEE batches."""
+    _, _, calls = step_calls(cs, cfg, bt, BVH)
+    out = {}
+    for name, k, rays in ((BVH[0], 0, "primary"), (BVH[0], 1, "bounce 1"),
+                          (BVH[1], 0, "bounce-0 NEE"),
+                          (BVH[1], 1, "bounce-1 NEE")):
+        out[(name, k)] = check_bvh_kernel(name, calls[name][k], rays)
+    del calls
+    return out
+
+
+def bvh_path(smi, scene, cs, cfg, arrays) -> dict:
+    """The scene at its own settings (pathtracing, bounces 3, gauss, 512²,
+    4 spp) through render_scene(timed=True), counted: per step a closest
+    hit and an NEE shadow batch per path vertex, the warm-up step
+    included, no other intersection kernel; one profiled step."""
+    res, launches = entry_counted(scene, BVH)
+    verts = cfg.bounces + 1
+    per_step = {BVH[0]: verts, BVH[1]: verts * nee_lights(cs.static)}
+    steps = cfg.aa_samples + 1
+    path_line("bvh_path", res, cfg, launches,
+              {k: v * steps for k, v in per_step.items()}, smi,
+              spp=cfg.aa_samples, bounces=cfg.bounces,
+              launches_per_step=per_step,
+              step_ms=round(1e3 * res.stats["render_s"] / cfg.aa_samples,
+                            3))
+    dev = engine.resolve_device("cuda")
+    step = engine.make_sample_step(cs.static, cs.camera, cfg, dev)
+    profile("bvh_profile", res, step, arrays, cfg,
+            ("bvh_closest_kernel", "bvh_shadow_kernel"), smi)
+    return launches
+
+
+def bvh_card_vs_cpu(cs, cfg) -> None:
+    """The scene at 16², 1 spp on the card (the BVH kernels) and on the CPU
+    (the plain walks), one compile: image RMSE <= 1e-4, the film planes
+    within 1e-5, rays equal."""
+    size = BVH_SMALL["size"]
+    small = dataclasses.replace(cs, camera=dataclasses.replace(
+        cs.camera, resx=size, resy=size))
+    scfg = RenderConfig(**{**cfg.__dict__, "width": size, "height": size,
+                           "aa_samples": BVH_SMALL["spp"]})
+    t0 = time.perf_counter()
+    g = render(small, scfg, device="cuda")
+    c = render(small, scfg, device="cpu")
+    rmse = float(np.sqrt(np.mean((g.image - c.image) ** 2)))
+    planes = {k: float(torch.sqrt(torch.mean(
+        (g.film[k].cpu().double() - c.film[k].double()) ** 2)))
+        for k in ("wsum", "w", "nsamples")}
+    phase("bvh_card_vs_cpu", size=f"{size}x{size}", spp=scfg.aa_samples,
+          rmse=rmse, bound=1e-4, planes_rmse=planes, planes_bound=1e-5,
+          rays_gpu=g.stats["rays"], rays_cpu=c.stats["rays"],
+          image_mean=float(g.image.mean()),
+          seconds=round(time.perf_counter() - t0, 3))
+    if not (rmse <= 1e-4 and max(planes.values()) <= 1e-5
+            and g.stats["rays"] == c.stats["rays"] > 0
+            and g.image.mean() > 0.0):
+        raise AssertionError("bvh_card_vs_cpu: card and CPU disagree")
+
+
+def bvh_vs_fine(gscene, gcfg, smi) -> None:
+    """The 164K grid (the fine route) with a BVH built over its triangles:
+    both intersectors on its primary rays and bounce-0 NEE rays, held to
+    the intersection contract (hit equal, tri equal but on exact ties, t
+    within rtol 1e-4, transmission within atol 2e-3), and each kernel's
+    device ms on those rays."""
+    st = gscene.static
+    n = st.n_tris_real
+    arrays = to_tensors(gscene.arrays, "cuda")
+    a = gscene.arrays
+    g = a["tri_geom_pack"]
+    t0 = time.perf_counter()
+    bvh_np = scene_mod.bvh_arrays(g, g, a["shadow_filt"][:n],
+                                  a["shadow_filt_binary"][:n])
+    build_s = time.perf_counter() - t0
+    extra = to_tensors(bvh_np, "cuda")
+    barrays = {**arrays, **extra}
+    bstatic = dataclasses.replace(st, intersector="bvh")
+    primary, shadow = main_path_rays(gscene, gcfg, arrays)
+    hf = isect.closest_hit(arrays, st, *primary)
+    hb = isect.closest_hit(barrays, bstatic, *primary)
+    hit = hf.hit
+    other = (hb.tri != hf.tri) & hit
+    ties_ok = torch.equal(hb.t[other], hf.t[other])
+    t_err = float(((hb.t[hit] - hf.t[hit]).abs()
+                   / hf.t[hit].abs().clamp(min=1e-30)).max())
+    tf = isect.shadow_transmission(arrays, st, False, *shadow)
+    tb = isect.shadow_transmission(barrays, bstatic, False, *shadow)
+    tr_err = float((tf - tb).abs().max())
+    pk, cl, sub = (arrays[k] for k in ("tri_pack10", "tri_cluster8",
+                                       "tri_sub8"))
+    logf = ci.log_filter(arrays["sfilt4_binary"])
+    tmax_s = bt.shadow_tmax(shadow[2]).contiguous()
+    lf4 = extra["sbvh_lf4_binary"]
+    g_t = extra["stri_geom_pack"]
+    ms = dict(
+        closest_fine=device_ms(lambda: fi.closest_hit_fine(
+            pk, cl, sub, *primary, n), calls=5, replays=3),
+        closest_bvh=device_ms(lambda: bt.closest_hit_bvh(
+            extra["bvh"], g_t, *primary), calls=5, replays=3),
+        shadow_fine=device_ms(lambda: fi.shadow_logsum_fine(
+            pk, cl, sub, logf, *shadow, n), calls=3, replays=3),
+        shadow_bvh=device_ms(lambda: bt.shadow_logsum_bvh(
+            extra["bvh"], g_t, lf4, shadow[0], shadow[1], tmax_s), calls=3,
+            replays=3))
+    phase("bvh_vs_fine", tris=n, nodes=bvh_np["bvh"]["bb_min"].shape[0],
+          build_s=round(build_s, 3), builder=bvh_mod.last_builder,
+          rays=primary[0].shape[0], hits=int(hit.sum()),
+          hit_differ=int((hb.hit != hf.hit).sum()),
+          tri_differ=int(other.sum()), ties_only=ties_ok, t_rel_err=t_err,
+          shadow_rays=shadow[0].shape[0], transmission_err=tr_err,
+          tolerance="hit equal, tri on exact ties only, t rtol 1e-4, "
+          "transmission atol 2e-3",
+          ms={k: round(v, 4) for k, v in ms.items()}, gpu=repr(smi))
+    if not (torch.equal(hb.hit, hf.hit) and ties_ok and t_err <= 1e-4
+            and tr_err <= 2e-3):
+        raise AssertionError("bvh_vs_fine: the BVH and the fine kernels "
+                             "break the intersection contract")
+
+
+def exr_ibl(smi, out_dir: str) -> None:
+    """scenes/assets/env.hdr's pixels written by the port's EXR writer as
+    float32 NONE, ZIPS, PIZ and 16x16-tiled ZIPS, each read back equal to
+    the pixels; ibl_spheres.xml pointed at each (a copy) and rendered on
+    the card at 64², 4 spp: every film bit-equal to the NONE one."""
+    from libyafaray_tpu_torch.io.exr import write_exr_multilayer
+    from libyafaray_tpu_torch.io.rgbe import read_hdr
+
+    asset = "scenes/assets/env.hdr"
+    px = read_hdr(asset)
+    with open(IBL) as f:
+        text = f.read()
+    if asset not in text:
+        raise AssertionError(f"{IBL}: does not name {asset}")
+    films, sizes, t0 = {}, {}, time.perf_counter()
+    for label, kw in EXR_IBL["codecs"]:
+        path = os.path.join(out_dir, f"env_{label}.exr")
+        write_exr_multilayer(path, {"": px}, label.split("_")[0], **kw)
+        sizes[label] = os.path.getsize(path)
+        back = read_exr(path)
+        if not np.array_equal(back.view(np.uint32), px.view(np.uint32)):
+            raise AssertionError(f"exr_ibl: {label} does not read back")
+        xml = os.path.join(out_dir, f"ibl_{label}.xml")
+        with open(xml, "w") as f:
+            f.write(text.replace(asset, path))
+        res = render_scene(scene_at(xml, dict(
+            width=EXR_IBL["size"], height=EXR_IBL["size"],
+            AA_minsamples=EXR_IBL["spp"])), device="cuda")
+        films[label] = (res.image, {k: v.cpu().numpy()
+                                    for k, v in res.film.items()})
+    ref_img, ref_film = films["none"]
+    equal = {label: bool(np.array_equal(img, ref_img) and all(
+        np.array_equal(f[k], ref_film[k]) for k in ref_film))
+        for label, (img, f) in films.items()}
+    phase("exr_ibl", env=f"{px.shape[0]}x{px.shape[1]}", bytes=sizes,
+          size=f"{EXR_IBL['size']}x{EXR_IBL['size']}", spp=EXR_IBL["spp"],
+          film_equal_to_none=equal, image_mean=float(ref_img.mean()),
+          seconds=round(time.perf_counter() - t0, 3), gpu=repr(smi))
+    if not all(equal.values()) or not ref_img.mean() > 0.0:
+        raise AssertionError(f"exr_ibl: films differ across the lossless "
+                             f"codecs: {equal}")
+
+
+def _interface_params(yi, el) -> None:
+    """An XML element's leaf params as the flat API's params_set_* calls,
+    by their attributes (colors r g b [a], points x y z, matrices)."""
+    for child in el:
+        a = child.attrib
+        if "ival" in a:
+            yi.params_set_int(child.tag, int(a["ival"]))
+        elif "fval" in a:
+            yi.params_set_float(child.tag, float(a["fval"]))
+        elif "bval" in a:
+            yi.params_set_bool(child.tag, a["bval"].lower() in (
+                "true", "1", "yes", "on"))
+        elif "sval" in a:
+            yi.params_set_string(child.tag, a["sval"])
+        elif "r" in a:
+            yi.params_set_color(child.tag, float(a["r"]), float(a["g"]),
+                                float(a["b"]), float(a.get("a", 1.0)))
+        elif "x" in a:
+            yi.params_set_point(child.tag, float(a["x"]), float(a["y"]),
+                                float(a["z"]))
+        elif "m00" in a:
+            yi.params_set_matrix(child.tag, [float(a[f"m{i}{j}"])
+                                             for i in range(4)
+                                             for j in range(4)])
+        else:
+            raise AssertionError(f"interface: no call for <{child.tag}>")
+
+
+def interface_scene(path: str, **render_params):
+    """The scene of an XML file built through the flat API's calls, as an
+    exporter would make them, `render_params` overriding its <render>
+    block's; returns the Interface ready to render."""
+    import xml.etree.ElementTree as ET
+
+    from libyafaray_tpu_torch.scene.interface import Interface
+
+    yi = Interface()
+    create = dict(texture=yi.create_texture, material=yi.create_material,
+                  light=yi.create_light, camera=yi.create_camera,
+                  background=yi.create_background,
+                  integrator=yi.create_integrator,
+                  volumeregion=yi.create_volume_region)
+    for el in ET.parse(path).getroot():
+        if el.tag in create:
+            _interface_params(yi, el)
+            create[el.tag](el.attrib.get("name", "") or "default")
+        elif el.tag == "mesh":
+            a = el.attrib
+            has_uv = a.get("has_uv", "false").lower() in ("true", "1")
+            yi.start_tri_mesh(int(a["id"]), int(a.get("vertices", 0)),
+                              int(a.get("faces", 0)),
+                              a.get("has_orco", "false").lower() in (
+                                  "true", "1"), has_uv, 0,
+                              a.get("visibility", "normal"))
+            mat = 0
+            for c in el:
+                ca = c.attrib
+                if c.tag == "p":
+                    yi.add_vertex(float(ca["x"]), float(ca["y"]),
+                                  float(ca["z"]))
+                elif c.tag == "n":
+                    yi.add_normal(float(ca["x"]), float(ca["y"]),
+                                  float(ca["z"]))
+                elif c.tag == "uv":
+                    yi.add_uv(float(ca["u"]), float(ca["v"]))
+                elif c.tag == "set_material":
+                    mat = ca["sval"]
+                elif has_uv and "uv_a" in ca:
+                    yi.add_triangle_uv(int(ca["a"]), int(ca["b"]),
+                                       int(ca["c"]), int(ca["uv_a"]),
+                                       int(ca["uv_b"]), int(ca["uv_c"]), mat)
+                else:
+                    yi.add_triangle(int(ca["a"]), int(ca["b"]), int(ca["c"]),
+                                    mat)
+            yi.end_tri_mesh()
+        elif el.tag == "render":
+            _interface_params(yi, el)
+        else:
+            raise AssertionError(f"interface: no call for <{el.tag}>")
+    for k, v in render_params.items():
+        yi.params_set_int(k, v)
+    return yi
+
+
+def interface_phase(smi, out_dir: str) -> None:
+    """cornell.xml built through the flat API and rendered on the card at
+    64², 4 spp: image and film bit-equal to the XML route's render_scene;
+    then `python -m libyafaray_tpu_torch` on cornell.xml at 32² writes an
+    .exr that `python -m libyafaray_tpu_torch.cli.compare` finds at RMSE
+    0 (exit 0, --threshold 0) against the same render_scene call's image."""
+    from libyafaray_tpu_torch.io.exr import write_exr
+
+    t0 = time.perf_counter()
+    size, spp = INTERFACE["size"], INTERFACE["spp"]
+    yi = interface_scene(CORNELL, width=size, height=size,
+                         AA_minsamples=spp)
+    api = yi.render(device="cuda")
+    xml = render_scene(scene_at(CORNELL, dict(
+        width=size, height=size, AA_minsamples=spp)), device="cuda")
+    equal = bool(np.array_equal(api.image, xml.image) and all(
+        torch.equal(api.film[k], xml.film[k]) for k in xml.film))
+    api_s = time.perf_counter() - t0
+    t0 = time.perf_counter()
+    cs = INTERFACE["cli_size"]
+    out, ref = (os.path.join(out_dir, f) for f in ("cli.exr", "ref.exr"))
+    env = dict(os.environ, PYTHONPATH=REPO)
+    r = subprocess.run([sys.executable, "-m", "libyafaray_tpu_torch",
+                        CORNELL, out, "--width", str(cs), "--height",
+                        str(cs), "-vl", "warning"], cwd=REPO, env=env,
+                       capture_output=True, text=True, timeout=600)
+    if r.returncode != 0:
+        raise AssertionError(f"interface: python -m libyafaray_tpu_torch "
+                             f"exited {r.returncode}: {r.stderr[-2000:]}")
+    same = render_scene(scene_at(CORNELL, dict(width=cs, height=cs)),
+                        device="cuda")
+    write_exr(ref, same.image)
+    c = subprocess.run([sys.executable, "-m",
+                        "libyafaray_tpu_torch.cli.compare", out, ref,
+                        "--threshold", "0"], cwd=REPO, env=env,
+                       capture_output=True, text=True, timeout=300)
+    line = json.loads(c.stdout.strip().splitlines()[-1])
+    phase("interface", size=f"{size}x{size}", spp=spp,
+          film_equal_to_xml=equal, rays=api.stats["rays"],
+          api_s=round(api_s, 3), cli_size=f"{cs}x{cs}",
+          cli_rc=r.returncode, compare_rc=c.returncode, compare=line,
+          cli_s=round(time.perf_counter() - t0, 3), gpu=repr(smi))
+    if not (equal and api.image.mean() > 0.0):
+        raise AssertionError("interface: the flat API's render differs "
+                             "from the XML route's")
+    if c.returncode != 0 or line.get("rmse") != 0.0:
+        raise AssertionError(f"interface: compare exited {c.returncode}: "
+                             f"{line}")
+
+
+def slice22_phases(smi, out_dir: str, kernels: list,
+                   vs_fine_done: bool = False) -> None:
+    """Scenes above 2^20 triangles on the threaded BVH (the 2.6M-triangle
+    grid: its compile, both BVH kernels bit-equal to their plain walks on
+    recorded rays, the path at its own settings, a profiled step, the card
+    against the CPU), the BVH against the fine kernels on the 164K grid
+    (run inside the grid phases unless `vs_fine_done` is False), the EXR
+    codecs under an IBL render, and the flat API, the CLI module and the
+    compare tool.  Appends the two BVH kernels' entries to `kernels`."""
+    t0 = time.perf_counter()
+    with tempfile.TemporaryDirectory() as scenes:
+        scene, cfg, cs, arrays = bvh_scene(smi, scenes)
+        chk = bvh_kernels(cs, cfg)
+        launches = bvh_path(smi, scene, cs, cfg, arrays)
+        del arrays
+        bvh_card_vs_cpu(cs, cfg)
+        del scene, cs
+        if not vs_fine_done:
+            path = make_grid(scenes, GRID["grid"], GRID["subdiv"])
+            gscene, gcfg = grid(path, GRID["size"], GRID["spp"], "cuda")
+            bvh_vs_fine(gscene, gcfg, smi)
+            del gscene
+    exr_ibl(smi, out_dir)
+    interface_phase(smi, out_dir)
+    for name, line in zip(BVH, (53, 106)):
+        first, second = chk[(name, 0)], chk[(name, 1)]
+        kernels.append(dict(
+            name=name, route="cuda", source=SRC.format("bvh_walk"),
+            replaces=BVH_REPLACES.format(line), launches=launches[name],
+            max_abs_err=max(first["err"], second["err"]), ms=first["ms"],
+            plain_ms=first["plain_ms"], rays=first["n"], **first["bound"],
+            ms_bounce1=second["ms"], plain_ms_bounce1=second["plain_ms"],
+            rays_bounce1=second["n"],
+            bound_ms_bounce1=second["bound"]["bound_ms"],
+            registers=first["registers"],
+            spill_stores=first["spill_stores"]))
+    phase("slice22", seconds=round(time.perf_counter() - t0, 3))
+
+
 def main(argv=None) -> None:
     import argparse
 
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     ap.add_argument("--only", choices=("slice17", "slice18", "slice19",
-                                       "slice20", "slice21"),
+                                       "slice20", "slice21", "slice22"),
                     default=None,
                     help="run only this slice's phases after the build (an "
                          "iteration run: it prints no result line)")
@@ -4859,7 +5381,8 @@ def main(argv=None) -> None:
              "slice18": slice18_phases,
              "slice19": slice19_phases,
              "slice20": slice20_phases,
-             "slice21": slice21_phases}[only](smi, out_dir, [])
+             "slice21": slice21_phases,
+             "slice22": slice22_phases}[only](smi, out_dir, [])
         print(smi, flush=True)
         print(f"chip_smoke: --only {only} ran; no result line", flush=True)
         return
@@ -4930,6 +5453,8 @@ def main(argv=None) -> None:
 
         # 10. slice 5: the pair route on the grid, the 10K grid and the soup
         pairs = pairs_phases(scenes, path, gscene, gcfg, res, fine, smi)
+        # slice 22's BVH against the fine kernels, on this grid
+        bvh_vs_fine(gscene, gcfg, smi)
 
         # 11. slice 4: the mid-size scenes on the dense and stream kernels
         mid = mid_phases(scenes, smi)
@@ -4966,8 +5491,14 @@ def main(argv=None) -> None:
     with tempfile.TemporaryDirectory() as out_dir:
         slice21_phases(smi, out_dir, mid)
 
-    print(json.dumps({"kernels": kernels + fine + photon + mid + pairs}),
-          flush=True)
+    # 21. slice 22: the 2.6M-triangle grid on the BVH, the EXR codecs, the
+    # flat API, the CLI module and the compare tool
+    bvh = []
+    with tempfile.TemporaryDirectory() as out_dir:
+        slice22_phases(smi, out_dir, bvh, vs_fine_done=True)
+
+    print(json.dumps({"kernels": kernels + fine + photon + mid + pairs
+                      + bvh}), flush=True)
     print(smi, flush=True)
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": kind,

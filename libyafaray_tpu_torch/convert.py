@@ -20,6 +20,7 @@ import torch
 from .backgrounds.base import BackgroundSpec
 from .cameras.base import Camera
 from .integrators.config import RenderConfig
+from .ops.bvh_traverse import log_filter4
 from .ops.cluster_intersect import quarter_boxes
 from .ops.fine_intersect import sub_aabbs
 from .scene.scene import (BACKGROUND_ARRAY_KEYS, LIGHT_ARRAY_PREFIXES,
@@ -34,14 +35,21 @@ _DTYPES = {np.dtype(np.float32): torch.float32,
            np.dtype(np.bool_): torch.bool}
 
 
-def to_tensors(arrays: dict, device) -> dict:
+def to_tensors(arrays: dict, device, _done: dict | None = None) -> dict:
     """Nested dict of numpy arrays -> the same dict of tensors on `device`.
     Keeps float32 / int32 / bool; float64 and int64 are narrowed to
-    float32 / int32 so no lane is promoted to 64 bits."""
+    float32 / int32 so no lane is promoted to 64 bits.  An array or dict
+    that appears under several keys (the shadow set's packs and BVH when
+    they alias the visible set's) is moved once and aliased."""
+    done = {} if _done is None else _done
     out = {}
     for k, v in arrays.items():
+        if id(v) in done:
+            out[k] = done[id(v)][1]
+            continue
         if isinstance(v, dict):
-            out[k] = to_tensors(v, device)
+            out[k] = to_tensors(v, device, done)
+            done[id(v)] = (v, out[k])
             continue
         a = np.asarray(v)
         if a.dtype == np.float64:
@@ -51,6 +59,7 @@ def to_tensors(arrays: dict, device) -> dict:
         if a.dtype not in _DTYPES:
             raise TypeError(f"array {k!r}: unsupported dtype {a.dtype}")
         out[k] = torch.from_numpy(np.ascontiguousarray(a)).to(device)
+        done[id(v)] = (v, out[k])
     return out
 
 
@@ -65,7 +74,9 @@ def arrays_from_reference(arrays: dict, device,
     once per scene (FINE_ARRAY_KEYS, QUARTER_ARRAY_KEYS), each set's from
     its own pack: the visible set's real width is the triangle count
     (tri_shade_pack rows), the shadow set's `n_stris_real` (the reference
-    static's), which a scene whose shadow set differs must give; and the
+    static's), which a scene whose shadow set differs must give; the
+    reference's `bvh` / `sbvh` where it built them, with the rest of
+    BVH_ARRAY_KEYS made from its shadow triangles and filters; and the
     density grids of `volumes` (the static's regions) that are
     GridVolumes."""
     missing = [k for k in SLICE_ARRAY_KEYS if k not in arrays]
@@ -87,6 +98,17 @@ def arrays_from_reference(arrays: dict, device,
         tables.update(stri_sub8=sub_aabbs(arrays["stri_pack10"], n_stris_real),
                       stri_box32=quarter_boxes(arrays["stri_pack10"],
                                                n_stris_real))
+    if "bvh" in arrays:
+        st = arrays["stris"]
+        tables.update(
+            bvh=arrays["bvh"], sbvh=arrays["sbvh"],
+            stri_geom_pack=np.concatenate(
+                [st["v0"], st["e1"], st["e2"]],
+                axis=1)[:n_stris_real].astype(np.float32),
+            **{key: log_filter4(torch.from_numpy(np.asarray(
+                arrays[f], np.float32)[:n_stris_real])).numpy()
+               for key, f in (("sbvh_lf4", "shadow_filt"),
+                              ("sbvh_lf4_binary", "shadow_filt_binary"))})
     keys = SLICE_ARRAY_KEYS + tuple(
         k for k in arrays
         if k in SPHERE_ARRAY_KEYS + BACKGROUND_ARRAY_KEYS + (ORCO_ARRAY_KEY,)

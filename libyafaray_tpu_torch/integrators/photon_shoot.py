@@ -119,7 +119,7 @@ def make_photon_pass(static, cfg, n_lanes: int, max_bounces: int,
     families = static.mat_families
 
     def shoot(arrays: dict, light_cdf: np.ndarray, seed: int) -> dict:
-        dev = arrays["tri_pack10"].device
+        dev = arrays["tri_geom_pack"].device
         lane_ids = torch.arange(n, dtype=torch.int32, device=dev)
         skey = qmc.hash_combine(lane_ids, qmc.word_like(lane_ids, seed))
         s_idx = torch.zeros((n,), dtype=torch.int32, device=dev)

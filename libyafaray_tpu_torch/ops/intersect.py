@@ -1,8 +1,11 @@
 """Ray-scene intersection: the hit record and the dispatch to the kernels.
 
-Port of libyafaray_tpu/ops/intersect.py's hit record and of the choice
+Port of libyafaray_tpu/ops/intersect.py's hit record, of the engine's
+choice between the clustered kernels and the threaded BVH
+(`static.intersector`: "bvh" above MAX_TRIS = 2^20 triangles, the walks of
+`ops/bvh_traverse.py` over the scene's `bvh` / `sbvh`), and of the choice
 `closest_hit_pallas` / `shadow_transmission_pallas` make in
-ops/pallas_intersect.py, by pack shape:
+ops/pallas_intersect.py among the clustered kernels, by pack shape:
 - at most TINY_TRIS triangles: the tiny-scene kernels
   (`ops/cuda_intersect.py`);
 - fewer than FB_MIN_CLUSTERS = 4 clusters: the dense kernels
@@ -14,7 +17,8 @@ ops/pallas_intersect.py, by pack shape:
   and at PAIRS_MIN_CLUSTERS = 64 clusters or more: the pair-granular route
   (`ops/pairs_intersect.py`), its stragglers through the fine kernels.
 The reference takes its pair route from an environment flag
-(`LIBYAF_PAIRS`); the port only from the caller's argument.  Each wrapper
+(`LIBYAF_PAIRS`); the port only from the caller's argument.  Neither
+has an effect on a BVH scene.  Each wrapper
 launches its CUDA kernel for a CUDA tensor and runs its plain PyTorch
 version for a CPU tensor.
 """
@@ -25,8 +29,8 @@ from typing import NamedTuple
 import numpy as np
 import torch
 
-from . import (cluster_intersect, cuda_intersect, fine_intersect,
-               pairs_intersect)
+from . import (bvh_traverse, cluster_intersect, cuda_intersect,
+               fine_intersect, pairs_intersect)
 
 RAY_EPS = 5e-5  # reference ray_min_dist default
 SHADOW_EPS = 5e-4  # reference shadow_bias default
@@ -44,20 +48,15 @@ class Hit(NamedTuple):
 def intersector_for(device, n_tris: int) -> str:
     """The intersector for a scene of n_tris triangles rendered on `device`:
     "brute" (the tiny and clustered kernels) up to MAX_TRIS on either
-    device.  Above it the reference switches to its BVH, which the port
-    does not have yet.  Unlike the reference, the CPU does not switch to
-    the BVH above CPU_DENSE_MAX = 131072: that switch is a speed heuristic
-    of the JAX CPU path, and the port's CPU path runs the plain versions
-    of its kernels, whose answers are the kernels' own."""
+    device, "bvh" (the threaded BVH walks) above it, as in the reference.
+    Unlike the reference, the CPU does not switch to the BVH above
+    CPU_DENSE_MAX = 131072: that switch is a speed heuristic of the JAX
+    CPU path, and the port's CPU path runs the plain versions of its
+    kernels, whose answers are the kernels' own."""
     dev = torch.device(device)
     if dev.type not in ("cpu", "cuda"):
         raise ValueError(f"no intersector for device {dev}")
-    if n_tris > MAX_TRIS:
-        raise NotImplementedError(
-            f"scenes above {MAX_TRIS} triangles need the BVH intersector "
-            "(accel/bvh.py, ops/bvh_traverse.py), not ported yet: ROADMAP "
-            "Queue 1 item 11")
-    return "brute"
+    return "bvh" if n_tris > MAX_TRIS else "brute"
 
 
 def pad_triangles(v0, e1, e2, multiple: int):
@@ -97,10 +96,13 @@ def route(pack10: torch.Tensor, cluster8: torch.Tensor, n_tris: int,
 
 def closest_hit(arrays: dict, static, org, dirn, tmin, tmax) -> Hit:
     """Nearest hit of every ray in (tmin, tmax) over the scene triangles."""
-    n_tris = static.n_tris_real
-    pack = arrays["tri_pack10"]
     org, dirn = org.contiguous(), dirn.contiguous()
     tmin, tmax = tmin.contiguous(), tmax.contiguous()
+    if static.intersector == "bvh":
+        return Hit(*bvh_traverse.closest_hit_bvh(
+            arrays["bvh"], arrays["tri_geom_pack"], org, dirn, tmin, tmax))
+    n_tris = static.n_tris_real
+    pack = arrays["tri_pack10"]
     cl = arrays["tri_cluster8"]
     kind = route(pack, cl, n_tris, static.pairs)
     if kind == "tiny":
@@ -125,10 +127,15 @@ def closest_hit(arrays: dict, static, org, dirn, tmin, tmax) -> Hit:
 def shadow_transmission(arrays: dict, static, transp_shad: bool, org, dirn,
                         dist) -> torch.Tensor:
     """(N,3) transmission along org -> org + dirn·dist (0 = occluded)."""
+    org, dirn, dist = org.contiguous(), dirn.contiguous(), dist.contiguous()
+    if static.intersector == "bvh":
+        return bvh_traverse.shadow_transmission_bvh(
+            arrays["sbvh"], arrays["stri_geom_pack"],
+            arrays["sbvh_lf4" if transp_shad else "sbvh_lf4_binary"], org,
+            dirn, dist)
     n_tris = static.n_stris_real
     pack = arrays["stri_pack10"]
     filt4 = arrays["sfilt4"] if transp_shad else arrays["sfilt4_binary"]
-    org, dirn, dist = org.contiguous(), dirn.contiguous(), dist.contiguous()
     cl = arrays["stri_cluster8"]
     kind = route(pack, cl, n_tris, static.pairs)
     if kind == "tiny":

@@ -20,8 +20,10 @@ ride in SceneStatic.volumes.
 `<smooth>` sets a mesh's smoothing angle and `<instance>` bakes a
 transformed copy of a mesh into `extra_tri_blocks`, which compile appends
 after the meshes with no mesh id (a meshlight cannot name one).
-Features outside the slice raise NotImplementedError naming their ROADMAP
-item.
+Above MAX_TRIS = 2^20 triangles (either set) compile takes the BVH route:
+it builds the threaded BVH of each set (accel/bvh.py, BVH_ARRAY_KEYS) and
+skips the box tables only the clustered kernels read.  The create* calls
+keep their ParamMaps for the XML writer (scene/xml_writer.py).
 """
 from __future__ import annotations
 
@@ -29,7 +31,9 @@ import logging
 from dataclasses import dataclass, replace
 
 import numpy as np
+import torch
 
+from ..accel.bvh import build_bvh
 from ..backgrounds.base import BackgroundSpec
 from ..backgrounds.factory import background_from_params, blur_env_map
 from ..backgrounds.host import bake_background_np
@@ -43,6 +47,7 @@ from ..materials.base import (MT_BLEND, MT_LIGHT, MT_MASK,
 from ..materials.bsdf import check_families
 from ..materials.factory import material_row_from_params
 from ..materials.host import shadow_filter_np
+from ..ops.bvh_traverse import log_filter4
 from ..ops.cluster_intersect import quarter_boxes
 from ..ops.cuda_intersect import build_tri_pack, morton_order
 from ..ops.fine_intersect import sub_aabbs
@@ -67,6 +72,12 @@ FINE_ARRAY_KEYS = ("tri_sub8", "stri_sub8")
 # the 32-column box tables the mid-size kernels skip by (closest_hit_stream,
 # shadow_logsum_dense)
 QUARTER_ARRAY_KEYS = ("tri_box32", "stri_box32")
+# what the BVH route (intersector "bvh") adds: the visible set's BVH over
+# tri_geom_pack, the shadow set's over stri_geom_pack (aliases when the sets
+# are one), and the shadow set's lf4 rows (ops/bvh_traverse.py) for the
+# transparent and the binary filters
+BVH_ARRAY_KEYS = ("bvh", "sbvh", "stri_geom_pack", "sbvh_lf4",
+                  "sbvh_lf4_binary")
 # the analytic sphere pack [cx cy cz r mat] and its shadow filters, present
 # only in scenes with <sphere> elements
 SPHERE_ARRAY_KEYS = ("spheres", "sphere_filt", "sphere_filt_binary")
@@ -140,7 +151,9 @@ class SceneStatic:
 @dataclass
 class CompiledScene:
     # numpy arrays, SLICE_ARRAY_KEYS + FINE_ARRAY_KEYS + QUARTER_ARRAY_KEYS
-    # (+ SPHERE_ARRAY_KEYS in a scene with spheres)
+    # (on the BVH route BVH_ARRAY_KEYS in place of all but tri_shade_pack,
+    # tri_geom_pack, shadow_filt*, materials and lights; + SPHERE_ARRAY_KEYS
+    # in a scene with spheres)
     arrays: dict
     static: SceneStatic
     camera: Camera
@@ -194,6 +207,70 @@ def _blend_child_textured(materials: list) -> bool:
     return False
 
 
+def bvh_arrays(geom9: np.ndarray, sgeom9: np.ndarray, sfilt: np.ndarray,
+               sfilt_bin: np.ndarray) -> dict:
+    """BVH_ARRAY_KEYS of a scene whose visible and shadow triangles are the
+    (T, 9) v0 | e1 | e2 rows geom9 and sgeom9 (the same array when the sets
+    are one: its BVH is then built once and aliased), with the shadow set's
+    per-triangle filters (Ts, 3) and binary filters (Ts, 1)."""
+    def bvh(g):
+        return build_bvh(g[:, 0:3], g[:, 3:6], g[:, 6:9])
+
+    out = dict(bvh=bvh(geom9), stri_geom_pack=sgeom9)
+    out["sbvh"] = out["bvh"] if sgeom9 is geom9 else bvh(sgeom9)
+    for key, f in (("sbvh_lf4", sfilt), ("sbvh_lf4_binary", sfilt_bin)):
+        out[key] = log_filter4(torch.from_numpy(np.ascontiguousarray(
+            f, np.float32))).numpy()
+    return out
+
+
+def clustered_arrays(tris: tuple, stris: tuple | None, padded: tuple,
+                     sfilt: np.ndarray) -> dict:
+    """The clustered kernels' arrays (SLICE_ARRAY_KEYS' packs and filters,
+    FINE_ARRAY_KEYS, QUARTER_ARRAY_KEYS) of the visible triangles `tris`
+    (v0, e1, e2) and the shadow set `stris` (None when it is the visible
+    set: its arrays alias), with the padded visible set `padded` and the
+    shadow set's (T_s, 3) filters `sfilt`.
+
+    The (10, T') v0|e1|e2|orig_id pack is in Morton order above 1024
+    triangles (column = triangle id below), with its cluster boxes, the
+    128-column sub-cluster boxes the large-scene kernels walk and the
+    32-column boxes the mid-size ones skip by; the shadow set's pack and
+    tables come from its own triangles."""
+    n_real = tris[0].shape[0]
+    t_order = morton_order(*tris) if n_real > 1024 else None
+    pack, cl, t_ord = build_tri_pack(*tris, t_order)
+    out = dict(tris=dict(zip(("v0", "e1", "e2"), (
+                   np.asarray(x, np.float32) for x in padded))),
+               tri_pack10=pack, tri_cluster8=cl,
+               tri_sub8=sub_aabbs(pack, n_real),
+               tri_box32=quarter_boxes(pack, n_real))
+    if stris is None:
+        ns_real, s_ord = n_real, t_ord
+        out.update(stri_pack10=pack, stri_cluster8=cl,
+                   stri_sub8=out["tri_sub8"], stri_box32=out["tri_box32"])
+    else:
+        ns_real = stris[0].shape[0]
+        s_order = morton_order(*stris) if ns_real > 1024 else None
+        spack, scl, s_ord = build_tri_pack(*stris, s_order)
+        out.update(stri_pack10=spack, stri_cluster8=scl,
+                   stri_sub8=sub_aabbs(spack, ns_real),
+                   stri_box32=quarter_boxes(spack, ns_real))
+    # shadow filters in pack order (padded entries alias tri 0 — they are
+    # degenerate and never hit)
+    sfilt_pk = sfilt[s_ord]
+    sfilt_bin_pk = np.where(
+        np.min(sfilt_pk, axis=-1, keepdims=True) >= 1.0 - 1e-6,
+        1.0, 0.0).astype(np.float32)
+    zero = np.zeros((1, sfilt_pk.shape[0]), np.float32)
+    out.update(
+        sfilt4=np.concatenate([sfilt_pk.T.astype(np.float32), zero]),
+        sfilt4_binary=np.concatenate(
+            [np.broadcast_to(sfilt_bin_pk, (sfilt_pk.shape[0], 3))
+             .T.astype(np.float32), zero]))
+    return out
+
+
 class Scene:
     """Host scene under construction through the flat API."""
 
@@ -219,6 +296,15 @@ class Scene:
         self._next_mesh_id = 0
         self.shadow_bias = 5e-4
         self.ray_min_dist = 5e-5
+        self.aborted = False
+        # the create* calls' ParamMaps, kept for the XML writer
+        # (scene/xml_writer.py)
+        self.material_params: dict[str, ParamMap] = {}
+        self.light_params: list[ParamMap] = []
+        self.camera_params: dict[str, ParamMap] = {}
+        self.background_params: ParamMap | None = None
+        self.volume_params: list[ParamMap] = []
+        self.texture_params: dict[str, ParamMap] = {}
 
     # ---- geometry streaming (yafrayInterface parity) -------------------
 
@@ -283,6 +369,7 @@ class Scene:
     # ---- factories (renderEnvironment_t::create*) ----------------------
 
     def create_material(self, name: str, params: ParamMap) -> int:
+        self.material_params[name] = ParamMap(params)
         row = material_row_from_params(
             params, self.material_names,
             {n: i for i, n in enumerate(self.textures)},
@@ -295,6 +382,7 @@ class Scene:
         return self.material_names[name]
 
     def create_light(self, name: str, params: ParamMap) -> int:
+        self.light_params.append(ParamMap(params))
         row, geometry = light_from_params(params)
         self.lights.append(row)
         self.light_names.append(name)
@@ -302,19 +390,23 @@ class Scene:
         return len(self.lights) - 1
 
     def create_camera(self, name: str, params: ParamMap) -> Camera:
+        self.camera_params[name] = ParamMap(params)
         cam = camera_from_params(params)
         self.cameras[name] = cam
         return cam
 
     def create_texture(self, name: str, params: ParamMap):
+        self.texture_params[name] = ParamMap(params)
         self.textures[name] = texture_from_params(params)
         return self.textures[name]
 
     def create_background(self, name: str, params: ParamMap):
+        self.background_params = ParamMap(params)
         self.background = background_from_params(params, self.textures)
         return self.background
 
     def create_volume_region(self, name: str, params: ParamMap):
+        self.volume_params.append(ParamMap(params))
         self.volumes.append(volume_from_params(params))
         return self.volumes[-1]
 
@@ -325,6 +417,11 @@ class Scene:
         self.render_params = ParamMap(params)
         self.shadow_bias = params.get_float("shadow_bias", 5e-4)
         self.ray_min_dist = params.get_float("ray_min_dist", 5e-5)
+
+    def abort(self):
+        """Flag the scene aborted (the flat API's abort; as in the
+        reference, no render reads the flag)."""
+        self.aborted = True
 
     # ---- compile (scene_t::update analog) ------------------------------
 
@@ -579,52 +676,23 @@ class Scene:
         tri_geom_pack = np.concatenate(
             [np.asarray(v0, np.float32), np.asarray(e1, np.float32),
              np.asarray(e2, np.float32)], axis=1)
-        # (10, T') v0|e1|e2|orig_id pack of the intersection kernels, in
-        # Morton order above 1024 triangles (column = triangle id below),
-        # with its cluster boxes, the 128-column sub-cluster boxes the
-        # large-scene kernels walk and the 32-column boxes the mid-size ones
-        # skip by; the shadow set's pack and tables from its own triangles
-        t_order = morton_order(v0, e1, e2) if n_real > 1024 else None
-        tri_pack10, tri_cluster8, t_ord = build_tri_pack(v0, e1, e2, t_order)
-        tri_sub8 = sub_aabbs(tri_pack10, n_real)
-        tri_box32 = quarter_boxes(tri_pack10, n_real)
-        if same_shadow:
-            stri_pack10, stri_cluster8, s_ord = tri_pack10, tri_cluster8, t_ord
-            stri_sub8, stri_box32 = tri_sub8, tri_box32
+        if intersector == "bvh":
+            # the BVH walks read the geometry packs, the BVHs and their lf4
+            # rows only: the clustered kernels' packs, box tables and
+            # filters below are not built
+            route_arrays = bvh_arrays(
+                tri_geom_pack, tri_geom_pack if same_shadow else
+                np.concatenate([sv0, se1, se2], axis=1).astype(np.float32),
+                sfilt[:ns_real], sfilt_bin[:ns_real])
         else:
-            s_order = morton_order(sv0, se1, se2) if ns_real > 1024 else None
-            stri_pack10, stri_cluster8, s_ord = build_tri_pack(sv0, se1, se2,
-                                                               s_order)
-            stri_sub8 = sub_aabbs(stri_pack10, ns_real)
-            stri_box32 = quarter_boxes(stri_pack10, ns_real)
-        # shadow filters in pack order (padded entries alias tri 0 — they
-        # are degenerate and never hit)
-        sfilt_pk = filt_m[smat][s_ord]
-        sfilt_bin_pk = np.where(
-            np.min(sfilt_pk, axis=-1, keepdims=True) >= 1.0 - 1e-6,
-            1.0, 0.0).astype(np.float32)
+            route_arrays = clustered_arrays(
+                (v0, e1, e2), None if same_shadow else (sv0, se1, se2),
+                (v0p, e1p, e2p), filt_m[smat])
 
         arrays = dict(
-            tris=dict(v0=np.asarray(v0p, np.float32),
-                      e1=np.asarray(e1p, np.float32),
-                      e2=np.asarray(e2p, np.float32)),
             tri_shade_pack=tri_shade_pack,
             tri_geom_pack=tri_geom_pack,
-            tri_pack10=tri_pack10,
-            tri_cluster8=tri_cluster8,
-            tri_sub8=tri_sub8,
-            stri_pack10=stri_pack10,
-            stri_cluster8=stri_cluster8,
-            stri_sub8=stri_sub8,
-            tri_box32=tri_box32,
-            stri_box32=stri_box32,
-            sfilt4=np.concatenate(
-                [sfilt_pk.T.astype(np.float32),
-                 np.zeros((1, sfilt_pk.shape[0]), np.float32)]),
-            sfilt4_binary=np.concatenate(
-                [np.broadcast_to(sfilt_bin_pk, (sfilt_pk.shape[0], 3))
-                 .T.astype(np.float32),
-                 np.zeros((1, sfilt_pk.shape[0]), np.float32)]),
+            **route_arrays,
             shadow_filt=sfilt.astype(np.float32),
             shadow_filt_binary=sfilt_bin,
             materials=mats,

@@ -186,7 +186,7 @@ def build_attenuation_grids(volumes, static, arrays, cfg, shadow_fn) -> dict:
     grid of emitter samples.  Returns {"vol_att_{vi}_{li}": (G, G, G)}."""
     from ..integrators.engine import _LIGHT_SAMPLERS
 
-    dev = arrays["tri_pack10"].device
+    dev = arrays["tri_geom_pack"].device
     out = {}
     g = ATT_GRID
     grids = _grids(volumes, arrays)

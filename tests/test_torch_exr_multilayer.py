@@ -4,7 +4,9 @@ output with passes (cli/yafaray_xml.py) against the JAX reference's:
 
 - a file the port writes (NONE and ZIPS) is byte-equal to the reference
   writer's, and each reader reads the other's file bit for bit;
-- tiled files and the other codecs raise, naming ROADMAP item 22;
+- a tiled file and a PIZ file the reference writes read bit for bit as
+  the reference reads them (every codec and layout is held in
+  tests/test_torch_exr_codecs.py);
 - both CLIs on tests/test_alpha.py's opaque quad with passes and
   bg_transp at 16²: the .exr's layers (combined, alpha, a layer a pass)
   have the same names and agree; a PNG output with -z writes the same
@@ -77,10 +79,18 @@ def test_port_reads_reference_files(tmp_path, compression):
 @pytest.mark.parametrize("kw, what", [(dict(tiles=(4, 4)), "tiled"),
                                       (dict(compression="piz"), "type 4")])
 def test_unported_exr_variants_raise(tmp_path, kw, what):
+    """Once unported (they raised), a tiled file and a PIZ (type 4) file
+    now read as the reference reads them, bit for bit."""
     path = str(tmp_path / "x.exr")
-    ref_exr.write_exr_multilayer(path, _layers(), **kw)
-    with pytest.raises(NotImplementedError, match=f"{what}.*item 22"):
-        exr.read_exr_multilayer(path)
+    layers = _layers()
+    ref_exr.write_exr_multilayer(path, layers, **kw)
+    got = exr.read_exr_multilayer(path)
+    want = ref_exr.read_exr_multilayer(path)
+    assert set(got) == set(want) == set(layers), what
+    for k in layers:
+        assert got[k].dtype == np.float32, (what, k)
+        assert np.array_equal(got[k], want[k]), (what, k)
+        assert np.array_equal(got[k], layers[k]), (what, k)
 
 
 @pytest.fixture(scope="module")

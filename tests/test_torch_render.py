@@ -7,7 +7,8 @@ the same XML and the same QMC stream:
   with its own settings (pathtracing, bounces=3, gauss filter): 2.6K
   triangles (--grid 2 --subdiv 2, the fine path), and the 164K-triangle
   bench.py config 3 (--grid 4 --subdiv 4), where the reference's CPU path
-  intersects through its BVH.
+  intersects through its BVH; the port renders it once on its clustered
+  kernels and once forced onto its own BVH route.
 
 Bounds: film planes within RMSE 1e-5, image within RMSE 1e-4, ray count
 within 0.01%.  The reference's own device-vs-CPU RMSE at equal spp is
@@ -120,12 +121,47 @@ def test_grid_spheres_matches_reference(tmp_path):
     assert np.isfinite(port.image).all() and port.image.mean() > 0.05
 
 
-def test_grid_spheres_164k_matches_reference_bvh(tmp_path):
-    """The parity gate at scale the reference never had: bench.py config 3
-    (163,852 triangles) at 8², 1 spp; the port's plain fine versions
-    against the reference's BVH walk (its CPU intersector above 131,072
-    triangles)."""
-    ref, port = _grid_renders(_make_grid(tmp_path, 4, 4), 8, 1)
+@pytest.fixture(scope="module")
+def grid164k(tmp_path_factory):
+    """bench.py config 3 (163,852 triangles) at 8², 1 spp: the scene's
+    path and the reference's render, through its BVH walk (its CPU
+    intersector above 131,072 triangles), made once for both tests."""
+    path = _make_grid(tmp_path_factory.mktemp("grid164k"), 4, 4)
+    rs, rc = _setup(ref_parse, ref_build, RefConfig, 8, 1, path)
+    return path, ref_render(rs.compile(), rc)
+
+
+def _port_grid_render(path):
+    ps, pc = _setup(parse_xml_file, build_config, RenderConfig, 8, 1, path)
+    assert (pc.integrator, pc.bounces, pc.filter_type) == (
+        "pathtracing", 3, "gauss")
+    cs = ps.compile(device="cpu")
+    return cs, render(cs, pc, device="cpu")
+
+
+def test_grid_spheres_164k_matches_reference_bvh(grid164k):
+    """The parity gate at scale the reference never had: the port's plain
+    fine versions against the reference's BVH walk."""
+    path, ref = grid164k
+    cs, port = _port_grid_render(path)
+    assert cs.static.intersector == "brute"
+    assert _rmse(ref.image, port.image) <= 1e-4
+    assert ref.stats["rays"] == port.stats["rays"] > 0
+    assert np.isfinite(port.image).all() and port.image.mean() > 0.05
+
+
+def test_grid_spheres_164k_bvh_route_matches_reference(grid164k,
+                                                       monkeypatch):
+    """The same render with the port forced onto its own BVH route (its
+    budget cut to the reference's CPU one, 131,072 triangles): both
+    engines walk the same threaded BVH, the port through its plain
+    lockstep walk."""
+    from libyafaray_tpu_torch.ops import intersect
+
+    monkeypatch.setattr(intersect, "MAX_TRIS", 131072)
+    path, ref = grid164k
+    cs, port = _port_grid_render(path)
+    assert cs.static.intersector == "bvh"
     assert _rmse(ref.image, port.image) <= 1e-4
     assert ref.stats["rays"] == port.stats["rays"] > 0
     assert np.isfinite(port.image).all() and port.image.mean() > 0.05

@@ -128,8 +128,8 @@ def test_intersector_follows_torch_device(compiled):
 
     assert intersector_for("cpu", 1 << 20) == "brute"
     assert intersector_for("cuda", 1 << 20) == "brute"
-    with pytest.raises(NotImplementedError, match="Queue 1 item 11"):
-        intersector_for("cuda", (1 << 20) + 1)
+    assert intersector_for("cpu", (1 << 20) + 1) == "bvh"
+    assert intersector_for("cuda", (1 << 20) + 1) == "bvh"
     with pytest.raises(ValueError, match="meta"):
         intersector_for("meta", 32)
     assert compiled[1].static.intersector == intersector_for("cpu", 32)
@@ -192,8 +192,10 @@ def test_port_imports_no_jax_and_no_reference(tmp_path):
     """In a fresh interpreter, importing the port (and chip_smoke.py),
     rendering 8x8 on the CPU (Cornell, ibl_spheres.xml with its textures
     and IBL light, cornell_lights.xml with every other light type, and
-    sky_fog.xml with its sunsky, fog, thin-lens camera and visibility),
-    and generating a scene and rendering it through the port's CLI leave
+    sky_fog.xml with its sunsky, fog, thin-lens camera and visibility,
+    and that scene again on the BVH route), writing and reading a PIZ
+    EXR, exporting XML through the flat API, and generating a scene and
+    rendering it through the port's CLI leave
     jax and libyafaray_tpu out of sys.modules; and chip_smoke.py's text names neither the JAX package's
     modules nor the repository's scripts (it runs no subprocess of them)."""
     with open(os.path.join(REPO, "chip_smoke.py")) as f:
@@ -255,6 +257,21 @@ def test_port_imports_no_jax_and_no_reference(tmp_path):
         img = render(s.compile(device="cpu"), build_config(s),
                      device="cpu").image
         assert img.shape == (8, 8, 3) and img.mean() > 0
+        # the BVH route, the EXR codecs and the flat API (slice 22)
+        import libyafaray_tpu_torch.__main__
+        import libyafaray_tpu_torch.cli.compare
+        import libyafaray_tpu_torch.ops.intersect as isect
+        from libyafaray_tpu_torch.io.exr import read_exr, write_exr
+        from libyafaray_tpu_torch.scene.interface import XmlExportInterface
+        isect.MAX_TRIS = 1
+        cs = s.compile(device="cpu")
+        assert cs.static.intersector == "bvh"
+        img = render(cs, build_config(s), device="cpu").image
+        assert img.shape == (8, 8, 3) and img.mean() > 0
+        isect.MAX_TRIS = 1 << 20
+        write_exr({str(tmp_path / "p.exr")!r}, img, "piz")
+        assert (read_exr({str(tmp_path / "p.exr")!r}) == img).all()
+        assert "<scene" in XmlExportInterface().render()
         bad = [m for m in sys.modules if m == "jax" or m.startswith("jax.")
                or m == "libyafaray_tpu" or m.startswith("libyafaray_tpu.")]
         print("BAD", bad)
