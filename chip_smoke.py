@@ -166,9 +166,9 @@ started together) and drives the ported paths through them:
 - slice 22, scenes above 2^20 triangles: the generated 2,621,452-triangle
   grid compiled onto the threaded BVH (the native builder asserted), the
   two BVH kernels (csrc/bvh_walk.cu) bit-equal to their plain lockstep
-  walks on a step's recorded primary, bounce-1 and NEE rays, their bound
-  from their own counting walk, the path at the scene's settings (512²,
-  4 spp) through `render_scene(timed=True)`, one profiled step and the
+  walks and to the bodies they replaced on a step's recorded primary,
+  bounce-1 and NEE rays, their bound from their own counting walk, the
+  path at the scene's settings (512², 4 spp) through `render_scene(timed=True)`, one profiled step and the
   card against the CPU at 16²; the BVH against the fine kernels on the
   164K grid under the intersection contract; `env.hdr` rewritten by the
   port's EXR writer as NONE, ZIPS, PIZ and tiled ZIPS under
@@ -4843,8 +4843,14 @@ BVH_GRID = dict(grid=8, subdiv=5, spp=4, tris=2_621_452)
 BVH_PLAIN_LANES = 4096
 BVH_SMALL = dict(size=16, spp=1)
 BVH_REPLACES = "libyafaray_tpu/ops/bvh_traverse.py:{}"
-NODE_BYTES = 32  # a node visit: its box (24 B), first_tri and a next index
-TRI_BYTES = 40  # a triangle test: v0 | e1 | e2 (36 B) and its tri_order
+# bytes a walk needs of each node and triangle it touches, in any layout: a
+# node's box (24 B), its next index and its leaf's range (8 B); a triangle's
+# v0 | e1 | e2 (36 B) and its index (4 B); a shadow walk's filter row (16 B).
+# The packed rows' 8 B of padding a triangle carry nothing and are not
+# counted.
+NODE_BYTES = 32
+TRI_BYTES = 40
+LF4_BYTES = 16
 # a node visit's box test (bvh_walk.cu node_entered, the reference's
 # _aabb_hit), which is not the clustered kernels' widened one: per axis 2
 # sub, 2 mul, 1 min, 1 max; 3 max for the entry, 3 min for the exit and 1
@@ -4875,7 +4881,8 @@ def bvh_scene(smi, out_dir: str) -> tuple:
     scene = parse_xml_file(path)
     cfg = build_config(scene)
     parse_s = time.perf_counter() - t0
-    builds, real = [], scene_mod.build_bvh
+    builds, packs = [], []
+    real, real_pack = scene_mod.build_bvh, scene_mod.pack_bvh
 
     def timed_build(*args, **kwargs):
         t = time.perf_counter()
@@ -4883,12 +4890,18 @@ def bvh_scene(smi, out_dir: str) -> tuple:
         builds.append((time.perf_counter() - t, bvh_mod.last_builder))
         return out
 
+    def timed_pack(*args, **kwargs):
+        t = time.perf_counter()
+        out = real_pack(*args, **kwargs)
+        packs.append(time.perf_counter() - t)
+        return out
+
     t0 = time.perf_counter()
-    scene_mod.build_bvh = timed_build
+    scene_mod.build_bvh, scene_mod.pack_bvh = timed_build, timed_pack
     try:
         cs = scene.compile(device="cuda")
     finally:
-        scene_mod.build_bvh = real
+        scene_mod.build_bvh, scene_mod.pack_bvh = real, real_pack
     compile_s = time.perf_counter() - t0
     t0 = time.perf_counter()
     arrays = to_tensors(cs.arrays, "cuda")
@@ -4904,6 +4917,8 @@ def bvh_scene(smi, out_dir: str) -> tuple:
           generate_s=round(gen_s, 3), parse_s=round(parse_s, 3),
           compile_s=round(compile_s, 3),
           build_s=round(sum(s for s, _ in builds), 3),
+          pack_s=round(sum(packs), 3),
+          packed_bytes=nbytes(*(arrays["bvh"][k] for k in bt.PACKED_KEYS)),
           upload_s=round(upload_s, 3),
           parse_compile_upload_s=round(parse_s + compile_s + upload_s, 3),
           integrator=cfg.integrator, bounces=cfg.bounces,
@@ -4914,45 +4929,101 @@ def bvh_scene(smi, out_dir: str) -> tuple:
     if st.n_tris_real != BVH_GRID["tris"] or st.intersector != "bvh":
         raise AssertionError(f"bvh_scene: {st.n_tris_real} triangles on "
                              f"{st.intersector!r}")
-    if (builders != ["native"] or a["sbvh"] is not a["bvh"]
+    if (builders != ["native"] or len(packs) != 1
+            or a["sbvh"] is not a["bvh"]
             or any(k in a for k in CLUSTERED_KEYS)):
-        raise AssertionError(f"bvh_scene: builds {builders}, sbvh aliases "
+        raise AssertionError(f"bvh_scene: builds {builders}, packs "
+                             f"{len(packs)}, sbvh aliases "
                              f"{a['sbvh'] is a['bvh']}, clustered tables "
                              f"{sorted(k for k in a if k in CLUSTERED_KEYS)}")
     return scene, cfg, cs, arrays
 
 
+def ray_differ(a: tuple, b: tuple) -> int:
+    """Rays (the first dimension) where any tensor of a differs from its
+    counterpart in b."""
+    n = a[0].shape[0]
+    out = torch.zeros((n,), dtype=torch.bool, device=a[0].device)
+    for x, y in zip(a, b):
+        out |= (x != y).reshape(n, -1).any(dim=1)
+    return int(out.sum())
+
+
+def sectors(offsets: torch.Tensor, size: int) -> torch.Tensor:
+    """32-byte sectors a row of `size` bytes at each byte offset spans."""
+    return (offsets % 32 + size + 31) // 32
+
+
+def sectors_per_visit(bvh: dict) -> dict:
+    """Sectors a node visit reads, from the layouts, over the tree's nodes:
+    the packed record (its place in memory included), and the first
+    bodies' box rows (12-byte rows at a 12-byte stride), first_tri, the
+    next index and, at a leaf, tri_count."""
+    n = bvh["bb_min"].shape[0]
+    node = torch.arange(n, dtype=torch.int64, device=bvh["bb_min"].device)
+    packed = sectors(bvh["nodes"].data_ptr() + 32 * node, 32)
+    before = (sectors(bvh["bb_min"].data_ptr() + 12 * node, 12)
+              + sectors(bvh["bb_max"].data_ptr() + 12 * node, 12) + 2
+              + (bvh["first_tri"] >= 0).long())
+    return dict(packed=round(float(packed.double().mean()), 4),
+                before=round(float(before.double().mean()), 4))
+
+
+def visit_efficiency(visits: torch.Tensor) -> float:
+    """A warp's share of useful visits: over the 32-ray groups of `visits`
+    (per ray, in the order the warps take them), the sum of the visits
+    over the sum of 32 x the group's largest."""
+    m = visits.shape[0] // 32 * 32
+    g = visits[:m].reshape(-1, 32).double()
+    return round(float(g.sum() / (32 * g.max(dim=1).values.sum())), 4)
+
+
+def before_args(name: str, args: tuple) -> tuple:
+    """A recorded call's arguments for the body that the walk of `name`
+    replaced: the shadow body reads lf4 in the triangles' order, the walk
+    in leaf order."""
+    if name == BVH[0]:
+        return args
+    bvh, tri9, lf4 = args[:3]
+    by_tri = torch.empty_like(lf4)
+    by_tri[bvh["tri_order"].long()] = lf4
+    return (bvh, tri9, by_tri) + tuple(args[3:])
+
+
 def check_bvh_kernel(name: str, args: tuple, rays: str) -> dict:
     """One BVH kernel on recorded inputs: bit-equal to its plain walk on a
-    strided subset of at most BVH_PLAIN_LANES rays, repeated bit for bit,
-    its device ms, and its bound from its own walk (the counting kernel:
-    node visits and triangle tests per ray, the nodes and triangles it
-    touched), its ptxas registers."""
+    strided subset of at most BVH_PLAIN_LANES rays and to the body it
+    replaced (`_<name>_before`) on every ray, repeated bit for bit, its
+    device ms and the replaced body's, its bound from its own walk (the
+    counting kernel: node visits and triangle tests per ray, the nodes and
+    triangles it touched), the sectors a visit reads in both layouts, the
+    warps' visit efficiency, its ptxas registers."""
     closest = name == BVH[0]
     kind = "closest" if closest else "shadow"
     wrapper = getattr(bt, name)
-    per_ray = args[2:] if closest else args[3:]
+    old_args = before_args(name, args)
+    before = getattr(bt, f"_{name}_before")
+    scene = args[:2] if closest else args[:3]
+    per_ray = args[2:6] if closest else args[3:6]
     n = per_ray[0].shape[0]
     out = wrapper(*args)
     again = wrapper(*args)
+    old = before(*old_args)
     torch.cuda.synchronize()
-    repeat = sum(int((x != y).reshape(n, -1).any(dim=1).sum())
-                 for x, y in zip(out, again))
+    repeat = ray_differ(out, again)
+    differ_old = ray_differ(out, old)
     stride = max(1, -(-n // BVH_PLAIN_LANES))
-    sub = args[:len(args) - len(per_ray)] + tuple(
-        x[::stride].contiguous() for x in per_ray)
+    sub = scene + tuple(x[::stride].contiguous() for x in per_ray)
     plain_fn = bt.closest_bvh_plain if closest else bt.shadow_bvh_plain
     plain, plain_ms = once_ms(lambda: plain_fn(*sub, counts=True))
     k_sub = tuple(x[::stride] for x in out[:len(plain) - 1])
     m = k_sub[0].shape[0]
-    differ = sum(((x != y).reshape(m, -1).any(dim=1)) for x, y in
-                 zip(k_sub, plain[:-1])).gt(0).sum()
+    n_differ = ray_differ(k_sub, plain[:-1])
     counted_out, counts, nodes, tris = bt.walk_counts(kind, *args)
     torch.cuda.synchronize()
     count_differ = int((counts[::stride].long() != plain[-1]).any(
         dim=1).sum())
-    count_out_differ = sum(int((x != y).reshape(n, -1).any(dim=1).sum())
-                           for x, y in zip(out, counted_out))
+    count_out_differ = ray_differ(out, counted_out)
     if closest:
         hit = out[4][::stride]
         err = max([0.0] + [float((x[hit] - y[hit]).abs().max())
@@ -4970,29 +5041,38 @@ def check_bvh_kernel(name: str, args: tuple, rays: str) -> dict:
                      blocked=int(out[1].sum()))
     visits = int(counts[:, 0].sum())
     tests = int(counts[:, 1].sum())
-    moved = (nodes * NODE_BYTES + tris * (TRI_BYTES + (0 if closest else 16))
-             + io_bytes)
-    b = bound((BVH_BOX_OPS + int(closest)) * visits + MT_OPS * tests, moved,
+    lf4 = 0 if closest else LF4_BYTES
+    ops = (BVH_BOX_OPS + int(closest)) * visits + MT_OPS * tests
+    b = bound(ops, nodes * NODE_BYTES + tris * (TRI_BYTES + lf4) + io_bytes,
               node_visits=visits,
               tri_tests=tests, nodes_touched=nodes, tris_touched=tris,
               visits_per_ray=round(visits / max(n, 1), 2),
               tests_per_ray=round(tests / max(n, 1), 2))
     ms = device_ms(lambda: wrapper(*args), calls=5, replays=3)
+    ms_before = device_ms(lambda: before(*old_args), calls=5, replays=3)
     reg = registers("bvh_walk", f"bvh_{kind}_kernel")
+    reg_before = registers("bvh_walk", f"bvh_{kind}_before_kernel")
     phase("kernel", name=name, rays=rays, n=n, compared_rays=m,
-          differ=int(differ), repeat_differ=repeat,
-          count_differ=count_differ, max_abs_err=err,
+          differ=n_differ, repeat_differ=repeat,
+          differ_vs_old_body=differ_old, count_differ=count_differ,
+          max_abs_err=err,
           tolerance="bit-equal (t, tri, u, v / log sum, blocked)",
-          ms=round(ms, 4), plain_ms=round(plain_ms, 4),
-          plain=f"one eager call on every {stride}th ray", **extra, **reg,
-          **b)
-    if int(differ) or repeat or count_differ or count_out_differ:
-        raise AssertionError(f"{name} ({rays}): {int(differ)} rays differ "
+          ms=round(ms, 4), ms_before=round(ms_before, 4),
+          speedup=round(ms_before / ms, 3), plain_ms=round(plain_ms, 4),
+          plain=f"one eager call on every {stride}th ray",
+          sectors_per_visit=sectors_per_visit(args[0]),
+          warp_visit_efficiency=visit_efficiency(counts[:, 0]),
+          **extra, **reg,
+          registers_before=reg_before["registers"], **b)
+    if n_differ or repeat or differ_old or count_differ or count_out_differ:
+        raise AssertionError(f"{name} ({rays}): {n_differ} rays differ "
                              f"from the plain walk, {repeat} between two "
-                             f"calls, {count_differ} counts from the "
+                             f"calls, {differ_old} from the body it "
+                             f"replaced, {count_differ} counts from the "
                              f"plain walk's, {count_out_differ} answers "
                              "from the counting kernel's")
-    return dict(ms=ms, plain_ms=plain_ms, err=err, bound=b, n=n, **reg)
+    return dict(ms=ms, ms_before=ms_before, plain_ms=plain_ms, err=err,
+                bound=b, n=n, **reg)
 
 
 def bvh_kernels(cs, cfg) -> dict:
@@ -5091,17 +5171,29 @@ def bvh_vs_fine(gscene, gcfg, smi) -> None:
                                        "tri_sub8"))
     logf = ci.log_filter(arrays["sfilt4_binary"])
     tmax_s = bt.shadow_tmax(shadow[2]).contiguous()
-    lf4 = extra["sbvh_lf4_binary"]
     g_t = extra["stri_geom_pack"]
+    c_args = (extra["bvh"], g_t, *primary)
+    s_args = (extra["bvh"], g_t, extra["sbvh_lf4_binary"], shadow[0],
+              shadow[1], tmax_s)
+    s_old = before_args(BVH[1], s_args)
+    old_body = dict(
+        closest=ray_differ(bt.closest_hit_bvh(*c_args),
+                           bt._closest_hit_bvh_before(*c_args)),
+        shadow=ray_differ(bt.shadow_logsum_bvh(*s_args),
+                          bt._shadow_logsum_bvh_before(*s_old)))
     ms = dict(
         closest_fine=device_ms(lambda: fi.closest_hit_fine(
             pk, cl, sub, *primary, n), calls=5, replays=3),
-        closest_bvh=device_ms(lambda: bt.closest_hit_bvh(
-            extra["bvh"], g_t, *primary), calls=5, replays=3),
+        closest_bvh=device_ms(lambda: bt.closest_hit_bvh(*c_args), calls=5,
+                              replays=3),
+        closest_bvh_before=device_ms(
+            lambda: bt._closest_hit_bvh_before(*c_args), calls=5, replays=3),
         shadow_fine=device_ms(lambda: fi.shadow_logsum_fine(
             pk, cl, sub, logf, *shadow, n), calls=3, replays=3),
-        shadow_bvh=device_ms(lambda: bt.shadow_logsum_bvh(
-            extra["bvh"], g_t, lf4, shadow[0], shadow[1], tmax_s), calls=3,
+        shadow_bvh=device_ms(lambda: bt.shadow_logsum_bvh(*s_args), calls=3,
+                             replays=3),
+        shadow_bvh_before=device_ms(
+            lambda: bt._shadow_logsum_bvh_before(*s_old), calls=3,
             replays=3))
     phase("bvh_vs_fine", tris=n, nodes=bvh_np["bvh"]["bb_min"].shape[0],
           build_s=round(build_s, 3), builder=bvh_mod.last_builder,
@@ -5110,12 +5202,16 @@ def bvh_vs_fine(gscene, gcfg, smi) -> None:
           tri_differ=int(other.sum()), ties_only=ties_ok, t_rel_err=t_err,
           shadow_rays=shadow[0].shape[0], transmission_err=tr_err,
           tolerance="hit equal, tri on exact ties only, t rtol 1e-4, "
-          "transmission atol 2e-3",
+          "transmission atol 2e-3; the replaced bodies bit-equal",
+          differ_vs_old_body=old_body,
           ms={k: round(v, 4) for k, v in ms.items()}, gpu=repr(smi))
     if not (torch.equal(hb.hit, hf.hit) and ties_ok and t_err <= 1e-4
             and tr_err <= 2e-3):
         raise AssertionError("bvh_vs_fine: the BVH and the fine kernels "
                              "break the intersection contract")
+    if any(old_body.values()):
+        raise AssertionError(f"bvh_vs_fine: rays differ from the replaced "
+                             f"bodies: {old_body}")
 
 
 def exr_ibl(smi, out_dir: str) -> None:
@@ -5326,8 +5422,9 @@ def slice22_phases(smi, out_dir: str, kernels: list,
             replaces=BVH_REPLACES.format(line), launches=launches[name],
             max_abs_err=max(first["err"], second["err"]), ms=first["ms"],
             plain_ms=first["plain_ms"], rays=first["n"], **first["bound"],
-            ms_bounce1=second["ms"], plain_ms_bounce1=second["plain_ms"],
-            rays_bounce1=second["n"],
+            ms_before=first["ms_before"], ms_bounce1=second["ms"],
+            ms_before_bounce1=second["ms_before"],
+            plain_ms_bounce1=second["plain_ms"], rays_bounce1=second["n"],
             bound_ms_bounce1=second["bound"]["bound_ms"],
             registers=first["registers"],
             spill_stores=first["spill_stores"]))

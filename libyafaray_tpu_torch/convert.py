@@ -20,7 +20,7 @@ import torch
 from .backgrounds.base import BackgroundSpec
 from .cameras.base import Camera
 from .integrators.config import RenderConfig
-from .ops.bvh_traverse import log_filter4
+from .ops.bvh_traverse import leaf_lf4, log_filter4, pack_bvh
 from .ops.cluster_intersect import quarter_boxes
 from .ops.fine_intersect import sub_aabbs
 from .scene.scene import (BACKGROUND_ARRAY_KEYS, LIGHT_ARRAY_PREFIXES,
@@ -75,10 +75,10 @@ def arrays_from_reference(arrays: dict, device,
     its own pack: the visible set's real width is the triangle count
     (tri_shade_pack rows), the shadow set's `n_stris_real` (the reference
     static's), which a scene whose shadow set differs must give; the
-    reference's `bvh` / `sbvh` where it built them, with the rest of
-    BVH_ARRAY_KEYS made from its shadow triangles and filters; and the
-    density grids of `volumes` (the static's regions) that are
-    GridVolumes."""
+    reference's `bvh` / `sbvh` where it built them, packed for the card,
+    with the rest of BVH_ARRAY_KEYS made from its shadow triangles and
+    filters; and the density grids of `volumes` (the static's regions)
+    that are GridVolumes."""
     missing = [k for k in SLICE_ARRAY_KEYS if k not in arrays]
     if missing:
         raise KeyError(f"reference arrays lack {missing}")
@@ -100,15 +100,16 @@ def arrays_from_reference(arrays: dict, device,
                                                n_stris_real))
     if "bvh" in arrays:
         st = arrays["stris"]
-        tables.update(
-            bvh=arrays["bvh"], sbvh=arrays["sbvh"],
-            stri_geom_pack=np.concatenate(
-                [st["v0"], st["e1"], st["e2"]],
-                axis=1)[:n_stris_real].astype(np.float32),
-            **{key: log_filter4(torch.from_numpy(np.asarray(
-                arrays[f], np.float32)[:n_stris_real])).numpy()
-               for key, f in (("sbvh_lf4", "shadow_filt"),
-                              ("sbvh_lf4_binary", "shadow_filt_binary"))})
+        sgeom9 = np.concatenate([st["v0"], st["e1"], st["e2"]],
+                                axis=1)[:n_stris_real].astype(np.float32)
+        bvh = pack_bvh(arrays["bvh"], arrays["tri_geom_pack"])
+        sbvh = (bvh if arrays["sbvh"] is arrays["bvh"]
+                else pack_bvh(arrays["sbvh"], sgeom9))
+        tables.update(bvh=bvh, sbvh=sbvh, stri_geom_pack=sgeom9)
+        for key, f in (("sbvh_lf4", "shadow_filt"),
+                       ("sbvh_lf4_binary", "shadow_filt_binary")):
+            tables[key] = leaf_lf4(sbvh, log_filter4(torch.from_numpy(
+                np.asarray(arrays[f], np.float32)[:n_stris_real])).numpy())
     keys = SLICE_ARRAY_KEYS + tuple(
         k for k in arrays
         if k in SPHERE_ARRAY_KEYS + BACKGROUND_ARRAY_KEYS + (ORCO_ARRAY_KEY,)

@@ -47,7 +47,7 @@ from ..materials.base import (MT_BLEND, MT_LIGHT, MT_MASK,
 from ..materials.bsdf import check_families
 from ..materials.factory import material_row_from_params
 from ..materials.host import shadow_filter_np
-from ..ops.bvh_traverse import log_filter4
+from ..ops.bvh_traverse import leaf_lf4, log_filter4, pack_bvh
 from ..ops.cluster_intersect import quarter_boxes
 from ..ops.cuda_intersect import build_tri_pack, morton_order
 from ..ops.fine_intersect import sub_aabbs
@@ -74,8 +74,9 @@ FINE_ARRAY_KEYS = ("tri_sub8", "stri_sub8")
 QUARTER_ARRAY_KEYS = ("tri_box32", "stri_box32")
 # what the BVH route (intersector "bvh") adds: the visible set's BVH over
 # tri_geom_pack, the shadow set's over stri_geom_pack (aliases when the sets
-# are one), and the shadow set's lf4 rows (ops/bvh_traverse.py) for the
-# transparent and the binary filters
+# are one), each with its packed rows for the card (ops/bvh_traverse.py
+# PACKED_KEYS), and the shadow set's lf4 rows for the transparent and the
+# binary filters, in the shadow BVH's leaf order
 BVH_ARRAY_KEYS = ("bvh", "sbvh", "stri_geom_pack", "sbvh_lf4",
                   "sbvh_lf4_binary")
 # the analytic sphere pack [cx cy cz r mat] and its shadow filters, present
@@ -211,16 +212,17 @@ def bvh_arrays(geom9: np.ndarray, sgeom9: np.ndarray, sfilt: np.ndarray,
                sfilt_bin: np.ndarray) -> dict:
     """BVH_ARRAY_KEYS of a scene whose visible and shadow triangles are the
     (T, 9) v0 | e1 | e2 rows geom9 and sgeom9 (the same array when the sets
-    are one: its BVH is then built once and aliased), with the shadow set's
-    per-triangle filters (Ts, 3) and binary filters (Ts, 1)."""
+    are one: its BVH is then built and packed once and aliased), with the
+    shadow set's per-triangle filters (Ts, 3) and binary filters (Ts, 1)
+    (their lf4 rows in the shadow BVH's leaf order)."""
     def bvh(g):
-        return build_bvh(g[:, 0:3], g[:, 3:6], g[:, 6:9])
+        return pack_bvh(build_bvh(g[:, 0:3], g[:, 3:6], g[:, 6:9]), g)
 
     out = dict(bvh=bvh(geom9), stri_geom_pack=sgeom9)
     out["sbvh"] = out["bvh"] if sgeom9 is geom9 else bvh(sgeom9)
     for key, f in (("sbvh_lf4", sfilt), ("sbvh_lf4_binary", sfilt_bin)):
-        out[key] = log_filter4(torch.from_numpy(np.ascontiguousarray(
-            f, np.float32))).numpy()
+        out[key] = leaf_lf4(out["sbvh"], log_filter4(torch.from_numpy(
+            np.ascontiguousarray(f, np.float32))).numpy())
     return out
 
 

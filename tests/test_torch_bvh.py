@@ -148,7 +148,8 @@ def test_shadow_walk_matches_reference_and_brute(scenes, name):
         np.float32)
     dist = np.full((n,), 2.5, np.float32)
     tb, tri9, (rb, rt) = _walk_inputs(v0, e1, e2)
-    lf4 = bt.log_filter4(torch.from_numpy(filt))
+    lf4 = torch.from_numpy(bt.leaf_lf4(tb, bt.log_filter4(
+        torch.from_numpy(filt))))
     tr = bt.shadow_transmission_bvh(tb, tri9, lf4, torch.from_numpy(org),
                                     torch.from_numpy(d),
                                     torch.from_numpy(dist))
@@ -288,3 +289,134 @@ def test_photonmap_on_the_bvh_route_matches_reference(monkeypatch):
     assert rmse <= 1e-4, rmse
     r_ref, r_port = ref.stats["rays"], port.stats["rays"]
     assert abs(r_port - r_ref) <= 1e-4 * r_ref, (r_ref, r_port)
+
+
+# ---- the card's layout (pack_bvh, leaf_lf4) ---------------------------------
+
+
+def _layout_case(name, scenes):
+    """(v0, e1, e2) of a layout case: the file's scenes, a random soup, one
+    triangle, fewer than LEAF_SIZE, and 40 triangles on one centroid (the
+    builders' median split)."""
+    if name in scenes:
+        return scenes[name][:3]
+    rng = np.random.default_rng(11)
+    if name == "soup2000":
+        v0 = rng.uniform(-3, 3, (2000, 3))
+        e1, e2 = rng.normal(0, 0.2, (2, 2000, 3))
+    elif name == "one":
+        v0, e1, e2 = (np.array([[0.0, 0.0, 1.0]]), np.array([[1.0, 0, 0]]),
+                      np.array([[0.0, 1.0, 0]]))
+    elif name == "three":
+        v0 = rng.uniform(-1, 1, (port_bvh.LEAF_SIZE - 1, 3))
+        e1, e2 = rng.normal(0, 0.3, (2, port_bvh.LEAF_SIZE - 1, 3))
+    else:  # "centroid40": scaled copies of one triangle about its centroid
+        s = rng.uniform(0.5, 2.0, (40, 1))
+        a, b, c = (np.array([1.0, 0, 0]), np.array([0, 1.0, 0]),
+                   np.array([-1.0, -1.0, 0]))
+        v0, e1, e2 = a * s, (b - a) * s, (c - a) * s
+    return tuple(np.asarray(x, np.float32) for x in (v0, e1, e2))
+
+
+LAYOUT_CASES = ["soup700", "grid2572", "soup2000", "one", "three",
+                "centroid40"]
+
+
+@pytest.mark.parametrize("native", [True, False], ids=["native", "numpy"])
+@pytest.mark.parametrize("name", LAYOUT_CASES)
+def test_packed_layout_decodes_to_the_builder_arrays(scenes, name, native):
+    """The builders thread their nodes in depth-first pre-order (hit_next
+    is node + 1 at an inner node, miss_next at a leaf), and pack_bvh's
+    node records, leaf-ordered triangle rows and leaf_lf4's filter rows
+    decode bit for bit to BVH_KEYS, tri9 and lf4."""
+    v0, e1, e2 = _layout_case(name, scenes)
+    bvh = port_bvh.build_bvh(v0, e1, e2, prefer_native=native)
+    assert port_bvh.last_builder == ("native" if native else "numpy")
+    n, t = bvh["bb_min"].shape[0], v0.shape[0]
+    leaf = bvh["first_tri"] >= 0
+    node = np.arange(n)
+    assert np.array_equal(bvh["hit_next"][~leaf], node[~leaf] + 1)
+    assert np.array_equal(bvh["hit_next"][leaf], bvh["miss_next"][leaf])
+    if name == "centroid40":
+        assert leaf.sum() > 1  # split, by the median branch
+    tri9 = np.concatenate([v0, e1, e2], axis=1)
+    packed = bt.pack_bvh(bvh, tri9)
+    assert set(packed) == set(bt.BVH_KEYS) | set(bt.PACKED_KEYS)
+    nodes, tris = packed["nodes"], packed["tris"]
+    assert nodes.shape == (n, 8) and nodes.dtype == np.float32
+    assert tris.shape == (t, 12) and tris.dtype == np.float32
+    bits = nodes.view(np.int32)
+    assert np.array_equal(bits[:, 0:3], bvh["bb_min"].view(np.int32))
+    assert np.array_equal(bits[:, 4:7], bvh["bb_max"].view(np.int32))
+    assert np.array_equal(bits[:, 3], bvh["miss_next"])
+    word = bits[:, 7]
+    assert np.all(word[~leaf] == -1) and np.all(word[leaf] >= 0)
+    assert np.array_equal(word[leaf] >> bt.LEAF_BITS, bvh["first_tri"][leaf])
+    assert np.array_equal(word[leaf] & ((1 << bt.LEAF_BITS) - 1),
+                          bvh["tri_count"][leaf])
+    hit = np.where(word < 0, node + 1, bits[:, 3])
+    assert np.array_equal(hit, bvh["hit_next"])
+    order = bvh["tri_order"]
+    rows = tris.view(np.int32)
+    assert np.array_equal(rows[:, 3], order)
+    assert np.all(rows[:, [7, 11]] == 0)
+    g = tris[:, [0, 1, 2, 4, 5, 6, 8, 9, 10]]
+    assert np.array_equal(g.view(np.int32), tri9[order].view(np.int32))
+    rng = np.random.default_rng(5)
+    lf4 = bt.log_filter4(torch.from_numpy(rng.random((t, 3)).astype(
+        np.float32) * (rng.random((t, 1)) > 0.3))).numpy()
+    lf_leaf = bt.leaf_lf4(bvh, lf4)
+    assert np.array_equal(lf_leaf.view(np.int32), lf4[order].view(np.int32))
+    back = np.empty_like(lf_leaf)
+    back[order] = lf_leaf
+    assert np.array_equal(back.view(np.int32), lf4.view(np.int32))
+
+
+def test_pack_bvh_raises_where_the_walk_would_go_wrong(scenes):
+    """A node order the kernels' implicit hit_next cannot follow, or a
+    leaf range outside the triangles, raises: no layout falls back."""
+    v0, e1, e2 = scenes["soup700"][:3]
+    bvh = port_bvh.build_bvh(v0, e1, e2)
+    tri9 = np.concatenate([v0, e1, e2], axis=1)
+    inner = int(np.flatnonzero(bvh["first_tri"] < 0)[0])
+    moved = dict(bvh, hit_next=bvh["hit_next"].copy())
+    moved["hit_next"][inner] = moved["miss_next"][inner]
+    with pytest.raises(ValueError, match="pre-order"):
+        bt.pack_bvh(moved, tri9)
+    leaf = int(np.flatnonzero(bvh["first_tri"] >= 0)[-1])
+    wide = dict(bvh, tri_count=bvh["tri_count"].copy())
+    wide["tri_count"][leaf] = 8
+    with pytest.raises(ValueError, match="leaf"):
+        bt.pack_bvh(wide, tri9)
+    with pytest.raises(ValueError, match="tri9"):
+        bt.pack_bvh(bvh, tri9[:, :6])
+
+
+def test_wrappers_check_the_packed_rows(scenes):
+    """With the packed rows present the CPU wrappers still take the plain
+    walks, and check the rows they would hand the card's kernels."""
+    v0, e1, e2, org, d = scenes["soup700"]
+    tri9_np = np.concatenate([v0, e1, e2], axis=1)
+    packed = bt.pack_bvh(port_bvh.build_bvh(v0, e1, e2), tri9_np)
+    tb = {k: torch.from_numpy(v) for k, v in packed.items()}
+    tri9 = torch.from_numpy(tri9_np)
+    o, dd = torch.from_numpy(org), torch.from_numpy(d)
+    lo, hi = torch.full((512,), isect.RAY_EPS), torch.full((512,), 3.0)
+    plain = bt.closest_bvh_plain(tb, tri9, o, dd, lo, hi)
+    got = bt.closest_hit_bvh(tb, tri9, o, dd, lo, hi)
+    for a, b in zip(plain, got):
+        assert torch.equal(a, b)
+    lf4 = torch.from_numpy(bt.leaf_lf4(packed, bt.log_filter4(
+        torch.full((v0.shape[0], 1), 0.5))))
+    lg, blk = bt.shadow_logsum_bvh(tb, tri9, lf4, o, dd, hi)
+    lg0, blk0 = bt.shadow_bvh_plain(tb, tri9, lf4, o, dd, hi)
+    assert torch.equal(lg, lg0) and torch.equal(blk, blk0) and (lg < 0).any()
+    with pytest.raises(ValueError, match="nodes"):
+        bt.closest_hit_bvh({**tb, "nodes": tb["nodes"][:, :4].contiguous()},
+                           tri9, o, dd, lo, hi)
+    with pytest.raises(ValueError, match="tris"):
+        bt.closest_hit_bvh({**tb, "tris": tb["tris"][1:]}, tri9, o, dd, lo,
+                           hi)
+    with pytest.raises(ValueError, match="lacks"):
+        bt.closest_hit_bvh({k: v for k, v in tb.items() if k != "tris"},
+                           tri9, o, dd, lo, hi)
