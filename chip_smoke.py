@@ -176,12 +176,26 @@ started together) and drives the ported paths through them:
   flat `Interface` (bit-equal to the XML route), and `python -m
   libyafaray_tpu_torch` checked by `python -m
   libyafaray_tpu_torch.cli.compare` at RMSE 0.
+- slice 24, several devices: two ranks of one gloo process group share
+  the card (its machine has one) and render, inside the group through
+  `render_scene`, the main path at full width (cornell.xml as
+  pathtracing, 512², 64 spp, bounces 4) and, at 128², cornell_photon.xml,
+  cornell_sppm.xml (4 passes), cornell_bidir.xml (4 spp) and adaptive AA
+  (4 passes); each is held to the one-device render of the same call
+  (image within 1e-5, photon mapping, SPPM and BDPT 1e-4, BDPT's density
+  RMSE 1e-5, rays within 1, at 512² within 1e-6 relative), the ranks'
+  lanes and rays summing to the one-device counts; the photon packs
+  built over the mesh bit-equal to one device's; and the CLI under two
+  env-initialised ranks (torchrun's variables) at 64².  Both ranks share
+  one card, so nothing here measures scaling.
 A profile phase reads the trace from the profiler's raw events
 (`trace_events`: torch's own event tree, kernel links and merges,
-without building its event objects).
-`python3 chip_smoke.py --only slice17` (or slice18 to slice22) builds
-the kernels and runs that slice's phases alone (an iteration run: no
-result line).  Each path is
+without building its event objects).  The untimed checks (every card
+against CPU phase and the goldens) run after the timed phases, in one
+block whose CPU renders go to a pool of processes (`run_deferred`).
+`python3 chip_smoke.py --only slice17` (or slice18 to slice22, slice24)
+builds the kernels and runs that slice's phases alone (an iteration run:
+no result line).  Each path is
 rendered with every launch counter set to 0 just before it and read just
 after.  Every kernel's line carries its bound: the larger of its
 FP32 operations over the card's 67 TFLOP/s and its bytes (each input read
@@ -260,8 +274,7 @@ BIDIR = os.path.join(REPO, "scenes", "cornell_bidir.xml")
 BIDIR_GOLDEN = os.path.join(REPO, "scenes", "goldens", "cornell_bidir.exr")
 PHOTON_GOLDEN = os.path.join(REPO, "scenes", "goldens",
                              "cornell_photonmapping.exr")
-SOURCES = ("tiny_intersect", "fine_intersect", "photon_flash",
-           "cluster_intersect", "pairs_intersect", "bvh_walk")
+SOURCES = _build.CUDA_SOURCES
 SRC = "libyafaray_tpu_torch/csrc/{}.cu"
 PALLAS = "libyafaray_tpu/ops/pallas_intersect.py:{}"
 FLASH = "libyafaray_tpu/ops/photon_flash.py:{}"
@@ -887,13 +900,98 @@ def check_path(tag, res, cfg, launches, smi) -> None:
             raise AssertionError(f"{k}: {v} launches, expected {want}")
 
 
+# ---- the untimed checks, run together after the timed phases ---------------
+# A card-against-CPU phase renders one call on the card (kernels) and on the
+# CPU (plain versions) and compares them; a golden renders on the card and
+# compares with a stored image.  Nothing in either is timed, so they run
+# after every timed phase, in one block (`run_deferred`): the goldens go to
+# CARD_WORKERS spawned processes on the card, the CPU renders of every
+# queued card-against-CPU phase to CPU_WORKERS spawned processes, all at
+# once, and this process resumes each card-against-CPU phase in turn (its
+# card half, then its comparison as its CPU renders come back).  A
+# card-against-CPU phase is a generator that yields its CPU renders as
+# picklable (fn, args, kwargs) calls and takes their results back; `defer`
+# queues it, `defer_card` queues a card-only check (a module-level
+# function, whose phase lines this process prints when it is done).  The
+# block's phase lines keep their tags.
+CPU_WORKERS, CPU_THREADS, CARD_WORKERS = 4, 2, 2
+DEFERRED: list = []
+DEFERRED_CARD: list = []
+
+
+def defer(gen) -> None:
+    """Queue a card-against-CPU phase: run it up to its CPU renders."""
+    DEFERRED.append((gen, next(gen)))
+
+
+def defer_card(fn, *args) -> None:
+    """Queue an untimed card-only check (a golden)."""
+    DEFERRED_CARD.append((fn, args))
+
+
+def cpu_call(fn, args: tuple, kwargs: dict):
+    """One queued CPU render, in a worker process."""
+    return fn(*args, **kwargs)
+
+
+def card_call(fn, args: tuple) -> list:
+    """One queued card-only check, in a worker process: its phase lines
+    are returned as (tag, fields), for the parent to print."""
+    global phase
+    lines, printing = [], phase
+    phase = lambda tag, **kv: lines.append((tag, kv))  # noqa: E731
+    try:
+        fn(*args)
+    finally:
+        phase = printing
+    return lines
+
+
+def run_deferred() -> None:
+    """The block of queued checks (comment above DEFERRED)."""
+    import multiprocessing
+    from concurrent.futures import ProcessPoolExecutor
+
+    t0 = time.perf_counter()
+    n_cpu = sum(len(specs) for _, specs in DEFERRED)
+    spawn = multiprocessing.get_context("spawn")
+    with ProcessPoolExecutor(CARD_WORKERS, mp_context=spawn) as cards, \
+            ProcessPoolExecutor(CPU_WORKERS, mp_context=spawn,
+                                initializer=torch.set_num_threads,
+                                initargs=(CPU_THREADS,)) as pool:
+        golden = [cards.submit(card_call, fn, args)
+                  for fn, args in DEFERRED_CARD]
+        futures = [[pool.submit(cpu_call, *spec) for spec in specs]
+                   for _, specs in DEFERRED]
+        for (gen, _), futs in zip(DEFERRED, futures):
+            try:
+                gen.send([f.result() for f in futs])
+            except StopIteration:
+                continue
+            raise AssertionError("a card-against-CPU phase yielded twice")
+        for f in golden:
+            for tag, kv in f.result():
+                phase(tag, **kv)
+    phase("untimed_checks", card_vs_cpu_phases=len(DEFERRED),
+          cpu_renders=n_cpu, card_checks=len(DEFERRED_CARD),
+          cpu_workers=CPU_WORKERS, cpu_threads=CPU_THREADS,
+          card_workers=CARD_WORKERS,
+          seconds=round(time.perf_counter() - t0, 3))
+    DEFERRED.clear()
+    DEFERRED_CARD.clear()
+
+
 def card_vs_cpu(tag, make, size, spp) -> None:
     """The same render on the card (kernels) and the CPU (plain versions):
-    RMSE <= 1e-4 and rays within 0.01%."""
-    out = {}
-    for dev in ("cuda", "cpu"):
-        cs, cc = make(dev)
-        out[dev] = render(cs, cc, device=dev)
+    RMSE <= 1e-4 and rays within 0.01% (deferred: `defer`).  make(device)
+    -> (compiled scene, config), called for both devices now."""
+    defer(_card_vs_cpu(tag, make, size, spp))
+
+
+def _card_vs_cpu(tag, make, size, spp):
+    card = make("cuda")
+    (cpu,) = yield [(render, make("cpu"), dict(device="cpu"))]
+    out = dict(cpu=cpu, cuda=render(*card, device="cuda"))
     rmse = float(np.sqrt(np.mean((out["cuda"].image
                                   - out["cpu"].image) ** 2)))
     r_gpu, r_cpu = out["cuda"].stats["rays"], out["cpu"].stats["rays"]
@@ -1581,13 +1679,15 @@ def photon_golden() -> None:
         raise AssertionError(f"photon golden RMSE {rmse} >= 0.02")
 
 
-def photon_card_vs_cpu() -> None:
+def photon_card_vs_cpu():
     """The same photon render on the card (kernels) and the CPU (plain
     versions): image RMSE <= 1e-3, stored photons and rays within 0.1%."""
-    out = {}
-    for dev in ("cuda", "cpu"):
-        cs, cc = photon_scene(PHOTON, dev, **CARD_VS_CPU_PHOTON)
-        out[dev] = photonmap.render_photonmap(cs, cc, device=dev)
+    card = photon_scene(PHOTON, "cuda", **CARD_VS_CPU_PHOTON)
+    (cpu,) = yield [(photonmap.render_photonmap,
+                     photon_scene(PHOTON, "cpu", **CARD_VS_CPU_PHOTON),
+                     dict(device="cpu"))]
+    out = dict(cpu=cpu, cuda=photonmap.render_photonmap(*card,
+                                                        device="cuda"))
     rmse = float(np.sqrt(np.mean((out["cuda"].image
                                   - out["cpu"].image) ** 2)))
     rel = {}
@@ -1683,8 +1783,8 @@ def photon_phases(smi) -> list:
     profile("photon_profile", res, step, arrays, cfg, PHOTON_TAGS, smi)
     del step, arrays
 
-    photon_golden()
-    photon_card_vs_cpu()
+    defer_card(photon_golden)
+    defer(photon_card_vs_cpu())
 
     # the scale route: density_culled at both of its shapes (the radiance
     # precompute's queries; one 512² step's hit points without final
@@ -2643,13 +2743,22 @@ def sppm_phases(smi) -> tuple:
     sppm_profile(scene.compile(device="cuda"), cfg, smi,
                  res.stats["render_s"])
 
-    out = {}
-    for dev in ("cuda", "cpu"):
-        cs, cc = photon_scene(CORNELL_SPPM, dev,
-                              size=CARD_VS_CPU_SPPM["size"],
-                              **{k: v for k, v in CARD_VS_CPU_SPPM.items()
-                                 if k != "size"})
-        out[dev] = sppm.render_sppm(cs, cc, device=dev)
+    defer(sppm_card_vs_cpu())
+    defer_card(sppm_golden)
+    return launches, last, dict(ms=first_ms, plain_ms=plain_ms, err=err)
+
+
+def sppm_card_vs_cpu():
+    """The same SPPM render on the card and the CPU (CARD_VS_CPU_SPPM):
+    image RMSE <= 1e-3, rays within 0.1%."""
+    def make(dev):
+        return photon_scene(CORNELL_SPPM, dev, size=CARD_VS_CPU_SPPM["size"],
+                            **{k: v for k, v in CARD_VS_CPU_SPPM.items()
+                               if k != "size"})
+
+    card = make("cuda")
+    (cpu,) = yield [(sppm.render_sppm, make("cpu"), dict(device="cpu"))]
+    out = dict(cpu=cpu, cuda=sppm.render_sppm(*card, device="cuda"))
     rmse = float(np.sqrt(np.mean((out["cuda"].image
                                   - out["cpu"].image) ** 2)))
     r_gpu, r_cpu = out["cuda"].stats["rays"], out["cpu"].stats["rays"]
@@ -2661,6 +2770,10 @@ def sppm_phases(smi) -> tuple:
     if not (rmse <= 1e-3 and rel <= 1e-3):
         raise AssertionError("sppm_card_vs_cpu: card and CPU disagree")
 
+
+def sppm_golden() -> None:
+    """SPPM on cornell.xml at the golden's overrides (GOLDEN_SPPM) against
+    the stored golden: RMSE < 0.02."""
     golden = read_exr(SPPM_GOLDEN)
     gs = golden.shape[0]
     cs, cc = photon_scene(CORNELL, "cuda", size=gs, **GOLDEN_SPPM)
@@ -2671,7 +2784,6 @@ def sppm_phases(smi) -> tuple:
           render_s=round(gres.stats["render_s"], 4), rmse=rmse, bound=0.02)
     if not rmse < 0.02:
         raise AssertionError(f"SPPM golden RMSE {rmse} >= 0.02")
-    return launches, last, dict(ms=first_ms, plain_ms=plain_ms, err=err)
 
 
 def slice14_phases(smi, out_dir: str, kernels: list) -> None:
@@ -2758,6 +2870,13 @@ def ibl_phases(smi, out_dir: str) -> tuple:
     del step, arrays
     card_vs_cpu("ibl_card_vs_cpu", lambda dev: photon_scene(
         IBL, dev, size=64, aa_samples=4), 64, 4)
+    defer_card(ibl_golden)
+    return launches, closest, shadow
+
+
+def ibl_golden() -> None:
+    """ibl_spheres.xml at IBL_GOLDEN_SPP against the stored golden: RMSE <
+    0.05 (tests/test_golden.py's bound)."""
     golden = read_exr(IBL_GOLDEN)
     gs = golden.shape[0]
     gcs, gcc = photon_scene(IBL, "cuda", size=gs, aa_samples=IBL_GOLDEN_SPP,
@@ -2768,7 +2887,6 @@ def ibl_phases(smi, out_dir: str) -> tuple:
           render_s=round(gres.stats["render_s"], 4), rmse=rmse, bound=0.05)
     if not rmse < 0.05:
         raise AssertionError(f"IBL golden RMSE {rmse} >= 0.05")
-    return launches, closest, shadow
 
 
 def slice15_phases(smi, out_dir: str, kernels: list) -> None:
@@ -2911,7 +3029,15 @@ def adaptive_checks() -> None:
     """The physics against the stored golden (96², bounces 6, 4 passes),
     and the card against the CPU at 64² (4 spp, then 2 a pass; the
     scene's threshold, whose passes run dense, and 0.3, whose run
-    compact)."""
+    compact), all deferred."""
+    defer_card(adaptive_golden)
+    for thr in (None, 0.3):
+        defer(adaptive_card_vs_cpu(thr))
+
+
+def adaptive_golden() -> None:
+    """The adaptive path at the golden's 96², bounces 6, 4 passes, against
+    the stored golden: RMSE < 0.02."""
     golden = read_exr(GOLDEN)
     gs = golden.shape[0]
     gres = render_scene(adaptive_scene(gs, bounces=6), device="cuda")
@@ -2922,27 +3048,30 @@ def adaptive_checks() -> None:
           render_s=round(gres.stats["render_s"], 4), rmse=rmse, bound=0.02)
     if not rmse < 0.02:
         raise AssertionError(f"adaptive golden RMSE {rmse} >= 0.02")
-    for thr in (None, 0.3):
-        over = dict(AA_minsamples=4, AA_inc_samples=2)
-        if thr is not None:
-            over["AA_threshold"] = thr
-        scene = adaptive_scene(64, **over)
-        out = {dev: render_scene(scene, device=dev) for dev in ("cuda",
-                                                                 "cpu")}
-        rmse = float(np.sqrt(np.mean((out["cuda"].image
-                                      - out["cpu"].image) ** 2)))
-        r_gpu, r_cpu = out["cuda"].stats["rays"], out["cpu"].stats["rays"]
-        rel = abs(r_gpu - r_cpu) / max(r_cpu, 1.0)
-        ns_equal = bool(torch.equal(out["cuda"].film["nsamples"].cpu(),
-                                    out["cpu"].film["nsamples"]))
-        phase("adaptive_card_vs_cpu", size="64x64", threshold=thr or 0.05,
-              passes=[(e["flagged"], e["mode"]) for e in
-                      out["cuda"].stats["pass_log"]], rmse=rmse, bound=1e-4,
-              rays_gpu=r_gpu, rays_cpu=r_cpu, rays_rel=rel,
-              nsamples_equal=ns_equal)
-        if not (rmse <= 1e-4 and rel <= 1e-4 and ns_equal):
-            raise AssertionError("adaptive_card_vs_cpu: card and CPU "
-                                 "disagree")
+
+
+def adaptive_card_vs_cpu(thr):
+    """One adaptive render (threshold thr, None the scene's) on the card
+    and the CPU: image RMSE <= 1e-4, rays within 0.01%, nsamples equal."""
+    over = dict(AA_minsamples=4, AA_inc_samples=2)
+    if thr is not None:
+        over["AA_threshold"] = thr
+    scene = adaptive_scene(64, **over)
+    (cpu,) = yield [(render_scene, (scene,), dict(device="cpu"))]
+    out = dict(cpu=cpu, cuda=render_scene(scene, device="cuda"))
+    rmse = float(np.sqrt(np.mean((out["cuda"].image
+                                  - out["cpu"].image) ** 2)))
+    r_gpu, r_cpu = out["cuda"].stats["rays"], out["cpu"].stats["rays"]
+    rel = abs(r_gpu - r_cpu) / max(r_cpu, 1.0)
+    ns_equal = bool(torch.equal(out["cuda"].film["nsamples"].cpu(),
+                                out["cpu"].film["nsamples"]))
+    phase("adaptive_card_vs_cpu", size="64x64", threshold=thr or 0.05,
+          passes=[(e["flagged"], e["mode"]) for e in
+                  out["cuda"].stats["pass_log"]], rmse=rmse, bound=1e-4,
+          rays_gpu=r_gpu, rays_cpu=r_cpu, rays_rel=rel,
+          nsamples_equal=ns_equal)
+    if not (rmse <= 1e-4 and rel <= 1e-4 and ns_equal):
+        raise AssertionError("adaptive_card_vs_cpu: card and CPU disagree")
 
 
 def spb_phases(smi) -> tuple:
@@ -3149,7 +3278,7 @@ def bidir_golden() -> None:
         raise AssertionError(f"bidir golden RMSE {rmse} >= 0.035")
 
 
-def bidir_card_vs_cpu() -> None:
+def bidir_card_vs_cpu():
     """The same render on the card and on the CPU at 32², 4 spp: image RMSE
     <= 1e-4, the density plane RMSE <= 1e-5, rays equal; and the card
     twice, whose density planes may differ in their last bits (the t=1
@@ -3157,7 +3286,8 @@ def bidir_card_vs_cpu() -> None:
     scene = scene_at(BIDIR, dict(width=BIDIR_SMALL["size"],
                                  height=BIDIR_SMALL["size"],
                                  AA_minsamples=BIDIR_SMALL["spp"]))
-    out = {dev: render_scene(scene, device=dev) for dev in ("cuda", "cpu")}
+    (cpu,) = yield [(render_scene, (scene,), dict(device="cpu"))]
+    out = dict(cpu=cpu, cuda=render_scene(scene, device="cuda"))
     again = render_scene(scene, device="cuda")
     gpu, cpu = out["cuda"], out["cpu"]
     rmse = float(np.sqrt(np.mean((gpu.image - cpu.image) ** 2)))
@@ -3276,8 +3406,8 @@ def slice17_phases(smi, out_dir: str, kernels: list) -> None:
     profile("bidir_profile", res, lambda a, f, fl: step(a, f, fl)[0],
             arrays, cfg, ("tiny_kernel",), smi)
     del step, arrays
-    bidir_golden()
-    bidir_card_vs_cpu()
+    defer_card(bidir_golden)
+    defer(bidir_card_vs_cpu())
     bidir_cli(smi, out_dir)
     debug = debug_path(smi)
     by_name = {k["name"]: k for k in kernels}
@@ -3502,9 +3632,14 @@ def entry_vs_cpu(what, make, bound_img, tag="lights_card_vs_cpu",
     """make() -> a fresh scene, rendered through render_scene on the card
     and on the CPU: image RMSE <= bound_img, rays within rays_rel (default
     1e-4), the density layer RMSE <= density (where given), the photon
-    maps' stored counts within stored_rel (where given)."""
-    g = render_scene(make(), device="cuda")
-    c = render_scene(make(), device="cpu")
+    maps' stored counts within stored_rel (where given).  Deferred
+    (`defer`); make() is called now, once for each device."""
+    defer(_entry_vs_cpu(what, make(), make(), bound_img, tag, kw))
+
+
+def _entry_vs_cpu(what, card_scene, cpu_scene, bound_img, tag, kw):
+    (c,) = yield [(render_scene, (cpu_scene,), dict(device="cpu"))]
+    g = render_scene(card_scene, device="cuda")
     rmse = float(np.sqrt(np.mean((g.image - c.image) ** 2)))
     rel = abs(g.stats["rays"] - c.stats["rays"]) / max(c.stats["rays"], 1.0)
     extra, ok = {}, rmse <= bound_img and rel <= kw.get("rays_rel", 1e-4)
@@ -4356,7 +4491,7 @@ def passes_profile(smi, res, cs, cfg) -> None:
                              "launches a step (> 2,000)")
 
 
-def passes_card_vs_cpu() -> None:
+def passes_card_vs_cpu():
     """Every pass plane and alpha, card against CPU, at 32², 4 spp:
     ibl_passes.xml; cornell.xml as pathtracing with the same 28 passes;
     ibl_passes.xml at spp_batch 4; cornell.xml with the passes and alpha
@@ -4365,44 +4500,44 @@ def passes_card_vs_cpu() -> None:
     first-hit planes on cornell_bidir.xml."""
     size, spp = PASSES_SMALL["size"], PASSES_SMALL["spp"]
     passes = " ".join(build_config(scene_at(IBL_PASSES)).passes)
-
-    def both(path, render_params=None, integrator=None, **kw):
-        rp = dict(width=size, height=size, AA_minsamples=spp,
-                  **(render_params or {}))
-        return tuple(render_scene(scene_at(path, rp, integrator), device=d,
-                                  **kw) for d in ("cuda", "cpu"))
-
-    planes_vs("passes_card_vs_cpu", *both(IBL_PASSES),
-              extra=dict(scene="ibl_passes", size=f"{size}x{size}", spp=spp))
-    cornell_passes = dict(render_passes=passes, bg_transp=True)
-    planes_vs("passes_card_vs_cpu", *both(
-        CORNELL, cornell_passes, dict(type="pathtracing", bounces=4)),
-        extra=dict(scene="cornell", size=f"{size}x{size}", spp=spp))
     rp = dict(width=size, height=size, AA_minsamples=spp)
-    gpu, cpu = (render(*photon_scene(IBL_PASSES, d, size=size,
-                                     aa_samples=spp, spp_batch=4),
-                       device=d) for d in ("cuda", "cpu"))
-    planes_vs("passes_card_vs_cpu", gpu, cpu,
-              extra=dict(scene="ibl_passes", spp_batch=4,
-                         size=f"{size}x{size}", spp=spp))
+    cornell_passes = dict(render_passes=passes, bg_transp=True)
     adaptive = dict(cornell_passes, AA_passes=3, AA_inc_samples=2,
                     AA_threshold=0.3)
     integ = dict(type="pathtracing", bounces=4)
-    gpu, cpu = both(CORNELL, adaptive, integ)
-    dense = render_scene(scene_at(CORNELL, dict(rp, **adaptive), integ),
-                         device="cuda", compact=False)
-    modes = [e["mode"] for e in gpu.stats["pass_log"]]
-    equal = set(gpu.film) == set(dense.film) and all(
-        torch.equal(gpu.film[k], dense.film[k]) for k in gpu.film)
-    planes_vs("passes_card_vs_cpu", gpu, cpu, extra=dict(
+    bd = dict(render_passes="z-depth-abs normal-smooth normal-geom uv "
+              "mat-index-abs obj-index-abs diffuse-color")
+    scenes = [scene_at(IBL_PASSES, rp),
+              scene_at(CORNELL, dict(rp, **cornell_passes), integ),
+              scene_at(CORNELL, dict(rp, **adaptive), integ),
+              scene_at(BIDIR, dict(rp, **bd))]
+    batch4 = photon_scene(IBL_PASSES, "cpu", size=size, aa_samples=spp,
+                          spp_batch=4)
+    cpu = yield ([(render_scene, (sc,), dict(device="cpu"))
+                  for sc in scenes]
+                 + [(render, batch4, dict(device="cpu"))])
+    gpu = [render_scene(sc, device="cuda") for sc in scenes]
+    gpu.append(render(*photon_scene(IBL_PASSES, "cuda", size=size,
+                                    aa_samples=spp, spp_batch=4),
+                      device="cuda"))
+    planes_vs("passes_card_vs_cpu", gpu[0], cpu[0],
+              extra=dict(scene="ibl_passes", size=f"{size}x{size}", spp=spp))
+    planes_vs("passes_card_vs_cpu", gpu[1], cpu[1],
+              extra=dict(scene="cornell", size=f"{size}x{size}", spp=spp))
+    planes_vs("passes_card_vs_cpu", gpu[4], cpu[4],
+              extra=dict(scene="ibl_passes", spp_batch=4,
+                         size=f"{size}x{size}", spp=spp))
+    dense = render_scene(scenes[2], device="cuda", compact=False)
+    modes = [e["mode"] for e in gpu[2].stats["pass_log"]]
+    equal = set(gpu[2].film) == set(dense.film) and all(
+        torch.equal(gpu[2].film[k], dense.film[k]) for k in gpu[2].film)
+    planes_vs("passes_card_vs_cpu", gpu[2], cpu[2], extra=dict(
         scene="cornell", adaptive_passes=3, modes=modes,
         compact_equals_dense=equal, size=f"{size}x{size}", spp=spp))
     if not (equal and "compact" in modes):
         raise AssertionError("passes_card_vs_cpu: compact passes disagree "
                              "with dense ones")
-    bd = dict(render_passes="z-depth-abs normal-smooth normal-geom uv "
-              "mat-index-abs obj-index-abs diffuse-color")
-    planes_vs("passes_card_vs_cpu", *both(BIDIR, bd),
+    planes_vs("passes_card_vs_cpu", gpu[3], cpu[3],
               extra=dict(scene="cornell_bidir", size=f"{size}x{size}",
                          spp=spp))
 
@@ -4604,7 +4739,7 @@ def slice20_phases(smi, out_dir: str, kernels: list) -> None:
     scene, cfg, cs = passes_scene(smi)
     res, launches = passes_path(smi, scene, cfg, cs)
     passes_profile(smi, res, cs, cfg)
-    passes_card_vs_cpu()
+    defer(passes_card_vs_cpu())
     film_resume(smi, out_dir)
     passes_cli(smi, out_dir)
     denoise_phase(smi, res.image)
@@ -5431,12 +5566,306 @@ def slice22_phases(smi, out_dir: str, kernels: list,
     phase("slice22", seconds=round(time.perf_counter() - t0, 3))
 
 
+# slice 24: several devices as the ranks of one gloo group.  The card's
+# machine has one card, so both ranks share it: the group checks that a
+# sharded render is the one-device render, not how it scales.
+MULTI_RANKS = 2
+MULTI_SIZE = 128
+MULTI_CLI_SIZE = 64
+MULTI_TIMEOUT_S = 300.0
+MULTI_DEVICE = "cuda"
+# the slice's kernels: rows 1-2 on every render, 11-12 on the photon ones
+MULTI_KERNELS = TINY + ("density_flash", "nearest_flash")
+
+
+def multi_scenes() -> dict:
+    """name -> (scene, image bound) of the [multidevice_path] group: the
+    main path at full width (cornell.xml as pathtracing, 512², 64 spp,
+    bounces 4, through render_scene(timed=True), the [main_path] phase's
+    route), then at 128² cornell_photon.xml and cornell_sppm.xml (4
+    passes) at their photon settings, cornell_bidir.xml at 4 spp and
+    adaptive AA over 4 passes (4 spp, then 2 a pass, threshold 0.3: each
+    rank's later passes run compact over its band).  The bounds are the
+    reference's (tests/test_parallel.py, tests/test_veach.py)."""
+    s = MULTI_SIZE
+    return dict(
+        main=(scene_at(CORNELL, dict(
+            width=MAIN["size"], height=MAIN["size"],
+            AA_minsamples=MAIN["spp"], AA_passes=1), dict(
+                type="pathtracing", bounces=MAIN["bounces"],
+                russian_roulette_min_bounces=MAIN["rr_min_bounces"])), 1e-5),
+        photon=(scene_at(PHOTON, dict(width=s, height=s)), 1e-4),
+        sppm=(scene_at(CORNELL_SPPM, dict(width=s, height=s),
+                       dict(passNums=4)), 1e-4),
+        bidir=(scene_at(BIDIR, dict(width=s, height=s, AA_minsamples=4)),
+               1e-4),
+        adaptive=(adaptive_scene(s, AA_minsamples=4, AA_inc_samples=2,
+                                 AA_threshold=0.3), 1e-5),
+    )
+
+
+def render_steps(res, timed: bool = False) -> int:
+    """Sample steps (SPPM: passes) a render ran, for launches a step; a
+    timed render's warm-up step included."""
+    st, cfg = res.stats, res.cfg
+    if "pass_log" in st:  # path tracing, adaptive
+        return sum(e["steps"] for e in st["pass_log"])
+    if "bdpt_steps" in st:
+        return st["bdpt_steps"]
+    if "photons" in st:  # SPPM
+        return st["passes"]
+    if cfg.integrator == "photonmapping":
+        return cfg.aa_samples * cfg.aa_passes
+    # render_timed
+    return -(-cfg.aa_samples * cfg.aa_passes // max(1, cfg.spp_batch)) + timed
+
+
+def multi_rank(rank: int, out_dir: str) -> None:
+    """One rank of the [multidevice_path] group: every render of
+    `multi_scenes` through render_scene inside the group, its launches
+    counted (set to 0 just before, read just after); its film, stats and
+    launches written to out_dir; then the photon maps built over the
+    mesh, their packs written."""
+    import torch.distributed as dist
+
+    from libyafaray_tpu_torch.parallel.mesh import make_device_mesh
+
+    for name, (scene, _) in multi_scenes().items():
+        res, launches = counted(lambda: render_scene(
+            scene, device=MULTI_DEVICE, timed=name == "main"))
+        np.savez(os.path.join(out_dir, f"{name}.{rank}.npz"),
+                 **{k: v.cpu().numpy() for k, v in res.film.items()})
+        with open(os.path.join(out_dir, f"{name}.{rank}.json"), "w") as f:
+            json.dump(dict(stats=res.stats, launches=launches,
+                           steps=render_steps(res, name == "main"),
+                           backend=dist.get_backend()), f, default=str)
+    scene = multi_scenes()["photon"][0]
+    cs = scene.compile(device=MULTI_DEVICE)
+    mesh = make_device_mesh(height=MULTI_SIZE, device=MULTI_DEVICE)
+    maps = photonmap.build_photon_maps(cs, build_config(scene),
+                                       to_tensors(cs.arrays, mesh.device),
+                                       mesh=mesh)
+    np.savez(os.path.join(out_dir, f"packs.{rank}.npz"),
+             **{k: v.cpu().numpy() for k, v in flat_packs(maps).items()})
+
+
+def flat_packs(maps: dict) -> dict:
+    """The tensors of a build_photon_maps result's packs by map.key."""
+    return {f"{m}.{k}": v for m in ("diffuse", "caustic", "radiance")
+            if maps[m] is not None for k, v in maps[m].items()
+            if isinstance(v, torch.Tensor)}
+
+
+def differ_rows(a: np.ndarray, b: np.ndarray) -> tuple:
+    """(pixels where two images differ, their rows, max |a - b|)."""
+    d = np.abs(a.astype(np.float64) - b.astype(np.float64)).max(axis=-1)
+    rows = sorted(set(np.nonzero(d)[0].tolist()))
+    return int((d > 0).sum()), rows, float(d.max())
+
+
+def multi_render_line(name, bound, got: list, one, smi) -> None:
+    """The phase line of one sharded render against the one-device render
+    of the same call, and its checks (module comment of MULTI_RANKS)."""
+    films = [f for f, _ in got]
+    stats = [j["stats"] for _, j in got]
+    for f in films[1:]:
+        for k in films[0]:
+            if not np.array_equal(films[0][k], f[k]):
+                raise AssertionError(f"{name}: ranks return other {k}")
+    img = engine_image(films[0])
+    n_diff, rows, err = differ_rows(img, one.image)
+    rays, one_rays = stats[0]["rays"], one.stats["rays"]
+    rank_rays = [st["rank_rays"] for st in stats]
+    # a float32 counter of ~1e8 rays has an ulp of 8: within 1e-6 there
+    ray_tol = 1.0 if one_rays < 1e7 else 1e-6 * one_rays
+    # the lanes each rank's sample steps ran (pass 0's under adaptive
+    # passes, whose compact buckets are per band), against one device's
+    adaptive = one.cfg.aa_passes > 1 and "pass_log" in one.stats
+    lanes = [st["pass_log"][0]["lanes"] if adaptive else st["lanes_traced"]
+             for st in stats]
+    lanes_one = (one.stats["pass_log"][0]["lanes"] if adaptive
+                 else one.stats["lanes_traced"])
+    per_step = [{k: round(j["launches"][k] / max(j["steps"], 1), 3)
+                 for k in MULTI_KERNELS if j["launches"][k]}
+                for _, j in got]
+    extra = {}
+    if "density" in films[0] and name == "bidir":
+        dd = films[0]["density"].astype(np.float64) \
+            - one.film["density"].cpu().numpy()
+        extra["density_rmse"] = float(np.sqrt(np.mean(dd ** 2)))
+    if "pass_log" in one.stats:
+        extra["flagged_by_rank"] = [[e.get("band_flagged") for e in
+                                     st["pass_log"]] for st in stats]
+        extra["flagged_one"] = [e["flagged"] for e in
+                                one.stats["pass_log"]]
+        extra["pass_lanes_by_rank"] = [[e["lanes"] for e in st["pass_log"]]
+                                       for st in stats]
+        extra["pass_modes_by_rank"] = [[e["mode"] for e in st["pass_log"]]
+                                       for st in stats]
+    phase("multidevice_path", render=name,
+          size=f"{one.cfg.width}x{one.cfg.height}", ranks=len(got),
+          backend=got[0][1]["backend"], max_abs=err, bound=bound,
+          pixels_differ=n_diff, rows_differ=rows[:16], rays=rays,
+          rays_one=one_rays, rank_rays=rank_rays,
+          lanes_by_rank=lanes, lanes_one=lanes_one,
+          launches_by_rank=[{k: j["launches"][k] for k in MULTI_KERNELS
+                             if j["launches"][k]} for _, j in got],
+          launches_per_step_by_rank=per_step,
+          render_s_by_rank=[round(st["render_s"], 4) for st in stats],
+          render_s_one=round(one.stats["render_s"], 4),
+          reduce_ms_by_rank=[round(1e3 * st.get("reduce_s", 0.0), 3)
+                             for st in stats], **extra, gpu=repr(smi))
+    if not (np.isfinite(img).all() and err <= bound):
+        raise AssertionError(f"{name}: sharded image off by {err}")
+    if abs(rays - one_rays) > ray_tol or abs(sum(rank_rays)
+                                             - one_rays) > ray_tol:
+        raise AssertionError(f"{name}: rays {rays} / ranks {rank_rays} "
+                             f"against {one_rays}")
+    if not (sum(lanes) == lanes_one > 0 and all(lanes)):
+        raise AssertionError(f"{name}: the ranks traced {lanes} lanes "
+                             f"against {lanes_one}")
+    if extra.get("density_rmse", 0.0) > 1e-5:
+        raise AssertionError(f"{name}: density RMSE {extra}")
+    if "flagged_one" in extra and [sum(x) for x in zip(
+            *extra["flagged_by_rank"])] != extra["flagged_one"][
+                :len(extra["flagged_by_rank"][0])]:
+        raise AssertionError(f"{name}: flagged pixels by band {extra}")
+    want = TINY + (("density_flash", "nearest_flash") if name == "photon"
+                   else ("density_flash",) if name == "sppm" else ())
+    for _, j in got:
+        if any(not j["launches"][k] for k in want):
+            raise AssertionError(f"{name}: a kernel of the path did not "
+                                 f"launch: {j['launches']}")
+
+
+def engine_image(film: dict) -> np.ndarray:
+    """film_image of a host film."""
+    from libyafaray_tpu_torch.film.imagefilm import film_image
+
+    return film_image({k: torch.from_numpy(v) for k, v in film.items()
+                       }).numpy()
+
+
+def multi_cli(smi, out_dir: str) -> None:
+    """cornell.xml through the CLI under two env-initialised ranks (the
+    variables torchrun sets, a localhost rendezvous) at 64²: rank 0's .exr
+    against the one-device CLI's."""
+    import socket
+
+    t0 = time.perf_counter()
+    size = str(MULTI_CLI_SIZE)
+    out, ref = (os.path.join(out_dir, f) for f in ("ranks.exr", "one.exr"))
+    with socket.socket() as sock:
+        sock.bind(("127.0.0.1", 0))
+        port = sock.getsockname()[1]
+    env = dict(os.environ, PYTHONPATH=REPO, MASTER_ADDR="127.0.0.1",
+               MASTER_PORT=str(port), WORLD_SIZE=str(MULTI_RANKS),
+               LOCAL_WORLD_SIZE=str(MULTI_RANKS))
+    procs = [subprocess.Popen(
+        [sys.executable, "-m", "libyafaray_tpu_torch.cli.yafaray_xml",
+         CORNELL, out, "--width", size, "--height", size, "-vl", "warning",
+         "--device", MULTI_DEVICE],
+        cwd=REPO, env=dict(env, RANK=str(r), LOCAL_RANK=str(r)),
+        stdout=subprocess.PIPE, stderr=subprocess.PIPE, text=True)
+        for r in range(MULTI_RANKS)]
+    try:
+        # the one-device CLI, here while the ranks start (nothing timed)
+        one_rc = cli_main([CORNELL, ref, "--width", size, "--height", size,
+                           "-vl", "warning", "--device", MULTI_DEVICE])
+        outs = [p.communicate(timeout=MULTI_TIMEOUT_S) for p in procs]
+    finally:
+        for p in procs:
+            p.kill()
+    rcs = [p.returncode for p in procs]
+    ranks_s = time.perf_counter() - t0
+    if any(rcs):
+        raise AssertionError(f"multidevice_cli: ranks exited {rcs}: "
+                             f"{[o[1][-2000:] for o in outs]}")
+    if one_rc != 0:
+        raise AssertionError("multidevice_cli: the one-device CLI failed")
+    a, b = read_exr(out), read_exr(ref)
+    n_diff, rows, err = differ_rows(a, b)
+    phase("multidevice_cli", size=f"{size}x{size}", ranks=MULTI_RANKS,
+          rcs=rcs, max_abs=err, bound=1e-5, pixels_differ=n_diff,
+          rows_differ=rows[:16], ranks_s=round(ranks_s, 3),
+          seconds=round(time.perf_counter() - t0, 3), gpu=repr(smi))
+    if not (a.shape == b.shape and err <= 1e-5 and a.mean() > 0.0):
+        raise AssertionError(f"multidevice_cli: ranks' image off by {err}")
+
+
+def slice24_phases(smi, out_dir: str, kernels: list, main=None) -> None:
+    """Several devices (slice 24): two gloo ranks on the one card render
+    every scene of `multi_scenes` inside one group, each held to the
+    one-device render of the same call in this process (the main path's
+    is `main`, the [main_path] phase's render, where given: the same
+    film); the photon packs built over the mesh bit-equal to the
+    one-device packs; the CLI under two env-initialised ranks.  Both
+    ranks share one card, so nothing here measures scaling.  The launches
+    each rank made go into the `kernels` entries of rows 1-2 and 11-12
+    (launches_multidevice_by_rank)."""
+    from libyafaray_tpu_torch.parallel import distributed as pd
+
+    t0 = time.perf_counter()
+    pd.spawn_ranks(multi_rank, MULTI_RANKS, (out_dir,), device=MULTI_DEVICE,
+                   timeout_s=MULTI_TIMEOUT_S)
+    phase("multidevice_ranks", ranks=MULTI_RANKS,
+          seconds=round(time.perf_counter() - t0, 3))
+    total = [dict.fromkeys(MULTI_KERNELS, 0) for _ in range(MULTI_RANKS)]
+    for name, (scene, bound) in multi_scenes().items():
+        got = []
+        for r in range(MULTI_RANKS):
+            base = os.path.join(out_dir, f"{name}.{r}")
+            with open(base + ".json") as f:
+                got.append((dict(np.load(base + ".npz")), json.load(f)))
+            for k in MULTI_KERNELS:
+                total[r][k] += got[-1][1]["launches"][k]
+        one = (main if name == "main" and main is not None
+               else render_scene(scene, device=MULTI_DEVICE,
+                                 timed=name == "main"))
+        multi_render_line(name, bound, got, one, smi)
+    scene = multi_scenes()["photon"][0]
+    cs = scene.compile(device=MULTI_DEVICE)
+    one = flat_packs(photonmap.build_photon_maps(
+        cs, build_config(scene), to_tensors(cs.arrays, MULTI_DEVICE)))
+    equal = []
+    for r in range(MULTI_RANKS):
+        packs = dict(np.load(os.path.join(out_dir, f"packs.{r}.npz")))
+        equal.append(sorted(packs) == sorted(one) and all(
+            np.array_equal(packs[k], v.cpu().numpy()) for k, v in one.items()))
+    phase("multidevice_packs", packs=len(one), bit_equal_by_rank=equal)
+    if not all(equal):
+        raise AssertionError("multidevice_packs: a rank's photon packs "
+                             "differ from the one-device packs")
+    multi_cli(smi, out_dir)
+    for k in kernels:
+        if k["name"] in MULTI_KERNELS:
+            k["launches_multidevice_by_rank"] = [t[k["name"]]
+                                                 for t in total]
+    phase("slice24", seconds=round(time.perf_counter() - t0, 3))
+
+
+def main_golden() -> None:
+    """The main path's physics: cornell.xml as pathtracing at the golden's
+    96², 64 spp, bounces 6, against the stored golden (RMSE < 0.02)."""
+    golden = read_exr(GOLDEN)
+    gs = golden.shape[0]
+    cs, cc = cornell(size=gs, spp=64, bounces=6, rr_min_bounces=2,
+                     device="cuda")
+    rmse_g = float(np.sqrt(np.mean((render(cs, cc, device="cuda").image
+                                    - golden) ** 2)))
+    phase("golden", size=f"{gs}x{gs}", spp=64, bounces=6, rmse=rmse_g,
+          bound=0.02)
+    if not rmse_g < 0.02:
+        raise AssertionError(f"golden RMSE {rmse_g} >= 0.02")
+
+
 def main(argv=None) -> None:
     import argparse
 
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     ap.add_argument("--only", choices=("slice17", "slice18", "slice19",
-                                       "slice20", "slice21", "slice22"),
+                                       "slice20", "slice21", "slice22",
+                                       "slice24"),
                     default=None,
                     help="run only this slice's phases after the build (an "
                          "iteration run: it prints no result line)")
@@ -5479,7 +5908,9 @@ def main(argv=None) -> None:
              "slice19": slice19_phases,
              "slice20": slice20_phases,
              "slice21": slice21_phases,
-             "slice22": slice22_phases}[only](smi, out_dir, [])
+             "slice22": slice22_phases,
+             "slice24": slice24_phases}[only](smi, out_dir, [])
+            run_deferred()
         print(smi, flush=True)
         print(f"chip_smoke: --only {only} ran; no result line", flush=True)
         return
@@ -5493,6 +5924,7 @@ def main(argv=None) -> None:
     res, launches = render_counted(cscene, cfg, ("closest_hit_tiny",
                                                  "shadow_logsum_tiny"))
     check_path("main_path", res, cfg, launches, smi)
+    main_res = res  # slice 24's one-device main path
     for k in kernels:
         k["launches"] = launches[k["name"]]
 
@@ -5501,16 +5933,7 @@ def main(argv=None) -> None:
             smi)
 
     # 6. physics on the card: the stored golden (96², 256 spp)
-    golden = read_exr(GOLDEN)
-    gs = golden.shape[0]
-    cs, cc = cornell(size=gs, spp=64, bounces=6, rr_min_bounces=2,
-                     device="cuda")
-    rmse_g = float(np.sqrt(np.mean((render(cs, cc, device="cuda").image
-                                    - golden) ** 2)))
-    phase("golden", size=f"{gs}x{gs}", spp=64, bounces=6, rmse=rmse_g,
-          bound=0.02)
-    if not rmse_g < 0.02:
-        raise AssertionError(f"golden RMSE {rmse_g} >= 0.02")
+    defer_card(main_golden)
 
     # 7. card vs CPU on the same QMC stream
     card_vs_cpu("card_vs_cpu", lambda dev: cornell(
@@ -5593,6 +6016,13 @@ def main(argv=None) -> None:
     bvh = []
     with tempfile.TemporaryDirectory() as out_dir:
         slice22_phases(smi, out_dir, bvh, vs_fine_done=True)
+
+    # 22. the untimed checks (card against CPU, goldens), together
+    run_deferred()
+
+    # 23. slice 24: several devices, two ranks of one group on the card
+    with tempfile.TemporaryDirectory() as out_dir:
+        slice24_phases(smi, out_dir, kernels + photon, main=main_res)
 
     print(json.dumps({"kernels": kernels + fine + photon + mid + pairs
                       + bvh}), flush=True)

@@ -17,8 +17,9 @@ image.  They run on the card ("cuda") unless the caller passes
 device="cpu".  Every Pallas kernel of the reference on these paths, and
 its threaded-BVH walks (the intersector of scenes above 2^20 triangles),
 is hand-written CUDA for Hopper under `csrc/`, with a plain PyTorch
-version beside its wrapper in `ops/`.  Multi-device rendering (ROADMAP
-item 19) raises NotImplementedError naming its item.
+version beside its wrapper in `ops/`.  Several devices render one film as
+ranks of a torch.distributed group, one process a device (`parallel/`):
+`render_scene(n_devices=N)`, the CLI's `--devices N`, or torchrun.
 
   core/         math, color, QMC, sampling warps
   scene/        params, meshes, XML parser and writer, scene compile,
@@ -43,6 +44,8 @@ item 19) raises NotImplementedError naming its item.
   integrators/  the wavefront engine (path and direct modes), photon
                 mapping and the path tracer's caustic map, SPPM, the
                 render loops
+  parallel/     the process group, the film mesh (row bands a rank), the
+                summed film and the photon gather
   io/           EXR (multilayer, scanline or tiled; NONE, ZIPS, PXR24,
                 B44, B44A, PIZ written, RLE and ZIP read too), RGBE, PNG
                 and 8-bit image output; PNG read without Pillow

@@ -14,8 +14,16 @@ output is one multilayer file (the combined image, an `alpha` layer with
 bg_transp, a layer a pass); any other format writes the image (RGBA with
 an alpha plane, premultiplied under `premult`) and a `<base>.<pass><ext>`
 file a pass.  `--film PATH` saves / resumes the film as the scene's
-`film_save_load` and autosave parameters ask.  More than one device
-raises, naming its ROADMAP item.
+`film_save_load` and autosave parameters ask.
+
+Several devices: `--devices N` starts N local ranks (one process a device,
+`scene/session.py` `render_scene`); under torchrun (RANK / WORLD_SIZE in
+the environment) every process joins one group and renders its band of
+the film rows.  Only rank 0 writes the image, the pass files, the logs
+and the `--json-stats` line (and, through the render, the film file).
+
+    torchrun --nproc-per-node 2 -m libyafaray_tpu_torch.cli.yafaray_xml \
+        scene.xml out.exr
 """
 from __future__ import annotations
 
@@ -27,8 +35,6 @@ import sys
 import time
 
 import numpy as np
-
-_UNPORTED = "{} is not ported yet: ROADMAP Queue 1 item 19 (multi-device)"
 
 
 def main(argv=None) -> int:
@@ -63,7 +69,9 @@ def main(argv=None) -> int:
     ap.add_argument("--width", type=int, default=None)
     ap.add_argument("--height", type=int, default=None)
     ap.add_argument("--devices", type=int, default=None, metavar="N",
-                    help="devices to use (only 1 is ported)")
+                    help="devices to render on, one local rank each "
+                         "(default: every visible card; on the CPU one); "
+                         "lowered to a divisor of the height")
     ap.add_argument("--compile-cache", default=None, metavar="DIR",
                     help="accepted for CLI parity and has no effect: the "
                          "port compiles no XLA programs (its CUDA kernels "
@@ -73,9 +81,6 @@ def main(argv=None) -> int:
                          "the kernels' plain versions)")
     args = ap.parse_args(argv)
 
-    if args.devices is not None and args.devices > 1:
-        raise NotImplementedError(_UNPORTED.format("--devices > 1"))
-
     level = dict(mute=logging.CRITICAL, error=logging.ERROR,
                  warning=logging.WARNING, info=logging.INFO,
                  debug=logging.DEBUG).get(args.verbosity, logging.INFO)
@@ -83,6 +88,7 @@ def main(argv=None) -> int:
     log = logging.getLogger("libyafaray_tpu_torch")
 
     from ..io.image import save_image, save_multilayer_exr
+    from ..parallel.distributed import init_distributed
     from ..scene.session import render_scene
     from ..scene.xml_parser import parse_xml_file
     from ..utils.observability import RenderLog
@@ -113,9 +119,14 @@ def main(argv=None) -> int:
     def progress(p, total):
         rlog.event("info", f"pass {p}/{total}")
 
+    # torchrun's ranks join one group (none is made without its
+    # environment); a rank other than 0 renders its band and writes nothing
+    init_distributed(device=args.device)
+    rank = int(os.environ.get("RANK", 0))
+
     def run():
         return render_scene(scene, device=args.device, progress_cb=progress,
-                            film_path=args.film)
+                            film_path=args.film, n_devices=args.devices)
 
     if args.profile:
         from torch.profiler import ProfilerActivity, profile
@@ -132,6 +143,8 @@ def main(argv=None) -> int:
     else:
         result = run()
     rlog.event("info", f"rendered on {args.device}")
+    if rank != 0:
+        return 0
 
     out = args.output or os.path.splitext(args.input)[0] + ".png"
     if args.format:

@@ -202,6 +202,23 @@ def film_splat_compact(film: dict, color, pix, sx, sy, active,
     return out
 
 
+def film_splat_lanes(film: dict, color, pix, sx, sy, active,
+                     filter_type: str, pixel_width: float,
+                     clamp_samples: float = 0.0) -> dict:
+    """film_splat of lanes in a flat layout: color (N,3) or (S,N,3), sx, sy,
+    active (N,) or (S,N).  pix None: the lanes are every pixel, row-major
+    (the dense splat); else their flat pixel ids (`film_splat_compact`)."""
+    if pix is not None:
+        return film_splat_compact(film, color, pix, sx, sy, active,
+                                  filter_type, pixel_width, clamp_samples)
+    hw = tuple(film["w"].shape)
+    return film_splat(film, color.reshape(color.shape[:-2] + hw + (3,)),
+                      sx.reshape(sx.shape[:-1] + hw),
+                      sy.reshape(sy.shape[:-1] + hw),
+                      active.reshape(active.shape[:-1] + hw), filter_type,
+                      pixel_width, clamp_samples)
+
+
 def splat_plane_compact(acc, val, pix, sx, sy, active, filter_type: str,
                         pixel_width: float):
     """splat_plane for a compact lane set (val (N,C), or (S,N,C))."""

@@ -674,7 +674,7 @@ def make_sample_step(static, camera, cfg: RenderConfig, device,
     flat pixel ids, -1 for a dead lane.  Each lane's pixel hash and sample
     index come from its pixel id and the film's nsamples, so a compact pass
     draws the samples the dense masked pass would, over compact_n·spb lanes
-    instead of H·W·spb."""
+    instead of H·W·spb.  The step's `lanes` is its lane count."""
     check_supported(static, cfg)
     if cfg.integrator not in ("pathtracing", "directlighting"):
         raise ValueError(f"make_sample_step renders pathtracing and "
@@ -1090,6 +1090,7 @@ def make_sample_step(static, camera, cfg: RenderConfig, device,
             return advance(arrays, film, lpx, lpy, ph, base_idx,
                            lane_pix >= 0, lane_pix)
 
+        sample_step_compact.lanes = n
         return sample_step_compact
 
     def sample_step(arrays: dict, film: dict, flags: torch.Tensor) -> dict:
@@ -1099,4 +1100,5 @@ def make_sample_step(static, camera, cfg: RenderConfig, device,
                        _tile(film["nsamples"].reshape(-1), spb),
                        _tile(flags.reshape(-1), spb), None)
 
+    sample_step.lanes = n
     return sample_step

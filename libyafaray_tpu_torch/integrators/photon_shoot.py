@@ -31,6 +31,8 @@ from ..core.sampling import PI, sample_cone, sample_cos_hemisphere, \
 from ..lights import base as lightmod
 from ..materials import bsdf
 from ..materials.base import gather_rows
+from ..parallel import distributed as pd
+from ..parallel.mesh import sharded
 from .engine import (F32, _surface_point, closest_hit,
                      is_diffuse_family, shading_frame)
 
@@ -103,8 +105,38 @@ def _emit_one_light(ls, lrow: dict, n: int, u1, u2, u3, u4):
     return zero, zero + torch.tensor([0.0, 0.0, 1.0], device=u1.device), zero
 
 
+def gather_stored(rec: dict, slots: int) -> dict:
+    """The stored rows of every rank's photon record (each rank's a share
+    of the lanes, slot-major), gathered into the stored rows of the whole
+    record in its order: slot by slot, rank by rank, lane by lane, which is
+    the one-device record's order with its unstored rows taken out.  The
+    stored counts differ by rank: they are gathered first, and each rank's
+    rows padded to the largest.  Every returned row is valid."""
+    valid = rec["valid"]
+    dev = valid.device
+    counts = torch.stack(pd.all_gather(
+        valid.reshape(slots, -1).sum(dim=1))).cpu().numpy()  # (world, slots)
+    rows = torch.cat([rec["pos"], rec["dir"], rec["power"],
+                      rec["mat"].view(F32)[:, None], rec["normal"]],
+                     dim=1)[valid]
+    per_rank = counts.sum(axis=1)
+    m = max(int(per_rank.max()), 1)
+    buf = torch.zeros((m, rows.shape[1]), dtype=F32, device=dev)
+    buf[:rows.shape[0]] = rows
+    starts = np.cumsum(counts, axis=1) - counts
+    idx = np.concatenate([np.zeros(0, np.int64)] + [
+        r * m + starts[r, s] + np.arange(counts[r, s])
+        for s in range(slots) for r in range(counts.shape[0])])
+    full = torch.cat(pd.all_gather(buf))[torch.from_numpy(idx).to(dev)]
+    out = dict(pos=full[:, 0:3], dir=full[:, 3:6], power=full[:, 6:9],
+               mat=full[:, 9].view(torch.int32), normal=full[:, 10:13])
+    out = {k: v.contiguous() for k, v in out.items()}
+    out["valid"] = torch.ones((full.shape[0],), dtype=torch.bool, device=dev)
+    return out
+
+
 def make_photon_pass(static, cfg, n_lanes: int, max_bounces: int,
-                     mode: str):
+                     mode: str, mesh=None):
     """Returns shoot(arrays, light_cdf, seed) -> photon record dict of
     (max_bounces + 1)·n_lanes rows, slot-major: pos, dir (incoming, toward
     the surface the photon came from), power, mat, normal, valid.
@@ -112,15 +144,21 @@ def make_photon_pass(static, cfg, n_lanes: int, max_bounces: int,
     mode: 'diffuse' stores every diffuse hit; 'caustic' stores diffuse hits
     reached through a specular-only chain of at least one bounce;
     'indirect' stores diffuse hits from the first bounce on (none straight
-    from the light: SPPM's eye pass adds direct light by NEE)."""
+    from the light: SPPM's eye pass adds direct light by NEE).
+    mesh: a film mesh of more than one rank splits the lanes (each keyed
+    by its id, as on one device) and every rank returns the stored rows of
+    the whole record (`gather_stored`): its compaction is the one-device
+    record's."""
     if mode not in PHOTON_MODES:
         raise ValueError(f"photon mode {mode!r} is not one of {PHOTON_MODES}")
-    n = n_lanes
+    multi = sharded(mesh)
+    lane0, lane1 = mesh.lanes(n_lanes) if multi else (0, n_lanes)
+    n = lane1 - lane0
     families = static.mat_families
 
     def shoot(arrays: dict, light_cdf: np.ndarray, seed: int) -> dict:
         dev = arrays["tri_geom_pack"].device
-        lane_ids = torch.arange(n, dtype=torch.int32, device=dev)
+        lane_ids = torch.arange(lane0, lane1, dtype=torch.int32, device=dev)
         skey = qmc.hash_combine(lane_ids, qmc.word_like(lane_ids, seed))
         s_idx = torch.zeros((n,), dtype=torch.int32, device=dev)
         mats = arrays["materials"]
@@ -188,6 +226,7 @@ def make_photon_pass(static, cfg, n_lanes: int, max_bounces: int,
             off = torch.where(smp["transmit"], -1.0, 1.0)[..., None]
             org = sp["p"] + ng_sh * off * static.shadow_bias
             dirn = smp["wi"]
-        return {k: torch.cat(v) for k, v in rec.items()}
+        rec = {k: torch.cat(v) for k, v in rec.items()}
+        return gather_stored(rec, max_bounces + 1) if multi else rec
 
     return shoot

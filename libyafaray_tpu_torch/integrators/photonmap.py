@@ -1,6 +1,6 @@
 """Photon-mapping integrator (port of libyafaray_tpu/integrators/
-photonmap.py without the device mesh, with its film save / load by pass),
-and the path tracer's caustic photon map (`build_caustic_map`).
+photonmap.py, over one device or a film mesh, with its film save / load by
+pass), and the path tracer's caustic photon map (`build_caustic_map`).
 
     preprocess  wavefront photon passes (photon_shoot), device-side
                 compaction, photon packs (ops/photon_flash) and the
@@ -16,6 +16,12 @@ and the path tracer's caustic photon map (`build_caustic_map`).
 
 The pixel hash carries no qmc_seed, and the step splats straight into the
 film, both as the reference's photon step does.
+
+On a film mesh (`parallel/mesh.py`) every photon pass splits its lanes over
+the ranks and gathers the stored photons in lane order, so each rank
+builds the one-device maps; each rank's step traces the pixels of its band
+of rows into its partial film, and the adaptive flags and the result read
+the summed film.
 """
 from __future__ import annotations
 
@@ -29,7 +35,7 @@ from ..convert import to_tensors
 from ..core import qmc
 from ..core.math import div
 from ..core.sampling import INV_PI, sample_cos_hemisphere
-from ..film.imagefilm import compute_aa_flags, film_save, film_splat
+from ..film.imagefilm import compute_aa_flags, film_save, film_splat_lanes
 from ..materials import bsdf
 from ..materials.base import gather_rows
 from ..ops.photon_flash import (density_auto, make_photon_pack_auto,
@@ -41,6 +47,7 @@ from .engine import (F32, _direct_lighting, _surface_point,
                      closest_hit, is_diffuse_family, resolve_device,
                      shading_frame, uses_textures)
 from .photon_shoot import light_flux, make_photon_pass
+from ..parallel.mesh import band_of, finish, lane_pixels, sum_film, writes
 from .render import (RenderResult, _fresh_film, _sync, film_params,
                      load_film, saves_passes)
 
@@ -94,13 +101,14 @@ def _layout_info(pack: dict) -> dict:
                 layout=pack_layout(pack))
 
 
-def build_caustic_map(cscene, cfg: RenderConfig, arrays: dict):
+def build_caustic_map(cscene, cfg: RenderConfig, arrays: dict, mesh=None):
     """The path tracer's caustic map (reference build_caustic_map, the
     createCausticMap that directlight and the path tracer share): one
     caustic photon pass of caustic_photons lanes (rounded to 4096, at most
-    MAX_PHOTON_LANES) seeded 777, compacted and packed.  Returns (pack,
-    radius, photons emitted, photons stored), or None when no light emits
-    or no photon is stored.  Reads the stored count once."""
+    MAX_PHOTON_LANES) seeded 777, compacted and packed; on a mesh its lanes
+    split over the ranks (`make_photon_pass`).  Returns (pack, radius,
+    photons emitted, photons stored), or None when no light emits or no
+    photon is stored.  Reads the stored count once."""
     static = cscene.static
     cdf, total_flux = _light_cdf(static, cscene.arrays["lights"])
     if total_flux <= 0:
@@ -109,7 +117,7 @@ def build_caustic_map(cscene, cfg: RenderConfig, arrays: dict):
     lanes = min(MAX_PHOTON_LANES,
                 max(4096, -(-cfg.caustic_photons // 4096) * 4096))
     shoot = make_photon_pass(static, cfg, lanes, cfg.photon_bounces,
-                             "caustic")
+                             "caustic", mesh=mesh)
     rec = shoot(arrays, cdf, 777)
     n_stored = int(rec["valid"].sum())
     if n_stored == 0:
@@ -120,10 +128,12 @@ def build_caustic_map(cscene, cfg: RenderConfig, arrays: dict):
     return pack, c_radius, lanes, n_stored
 
 
-def build_photon_maps(cscene, cfg: RenderConfig, arrays: dict) -> dict:
+def build_photon_maps(cscene, cfg: RenderConfig, arrays: dict,
+                      mesh=None) -> dict:
     """Shoot the diffuse and caustic maps and precompute the radiance map.
     Returns dict(diffuse, caustic, radiance: packs or None, n_em_d, n_em_c:
-    photons emitted per map, info: counts for reports)."""
+    photons emitted per map, info: counts for reports).  On a mesh the
+    photon passes split their lanes and every rank builds the same maps."""
     static = cscene.static
     cdf, total_flux = _light_cdf(static, cscene.arrays["lights"])
     out = dict(diffuse=None, caustic=None, radiance=None, n_em_d=1,
@@ -137,7 +147,7 @@ def build_photon_maps(cscene, cfg: RenderConfig, arrays: dict) -> dict:
         lanes = min(MAX_PHOTON_LANES, max(4096, -(-n_req // 4096) * 4096))
         n_passes = max(1, int(np.ceil(n_req / lanes)))
         shoot = make_photon_pass(static, cfg, lanes, cfg.photon_bounces,
-                                 mode)
+                                 mode, mesh=mesh)
         recs = [shoot(arrays, cdf, seed0 + p) for p in range(n_passes)]
         rec = {k: torch.cat([r[k] for r in recs]) for k in recs[0]}
         n_stored = int(rec["valid"].sum())
@@ -176,10 +186,14 @@ def build_photon_maps(cscene, cfg: RenderConfig, arrays: dict) -> dict:
     return out
 
 
-def make_photon_sample_step(cscene, cfg: RenderConfig, maps: dict, device):
+def make_photon_sample_step(cscene, cfg: RenderConfig, maps: dict, device,
+                            pix: torch.Tensor | None = None):
     """One-sample-per-pixel photon-mapping step on `device`:
     sample_step(arrays, film, flags) -> film, `arrays` the scene tensors
-    with the packs under pm_diffuse / pm_caustic / pm_radiance."""
+    with the packs under pm_diffuse / pm_caustic / pm_radiance.  pix: the
+    flat pixel ids of the lanes (a rank's band), None for every pixel; the
+    step then splats its lanes by id (`film_splat_compact`, the same adds
+    in the same order as the dense splat)."""
     static = cscene.static
     check_supported(static, cfg)
     if cfg.integrator != "photonmapping":
@@ -194,8 +208,9 @@ def make_photon_sample_step(cscene, cfg: RenderConfig, maps: dict, device):
             "reference's hit-point shading has no texture coordinates")
     dev = resolve_device(device)
     h, w = cfg.height, cfg.width
-    n = h * w
-    lane = torch.arange(n, dtype=torch.int32, device=dev)
+    lane = (torch.arange(h * w, dtype=torch.int32, device=dev)
+            if pix is None else pix)
+    n = lane.shape[0]
     py = torch.div(lane, w, rounding_mode="floor")
     px = lane - py * w
     pixel_hash = qmc.hash_u32(px ^ (py << 16))  # no qmc_seed, as the ref
@@ -328,22 +343,26 @@ def make_photon_sample_step(cscene, cfg: RenderConfig, maps: dict, device):
     def sample_step(arrays: dict, film: dict, flags: torch.Tensor) -> dict:
         check_arrays(arrays, dev)
         s_idx = film["nsamples"].reshape(-1)
-        L, dx, dy, nrays = shade_lanes(arrays, s_idx, flags.reshape(-1))
+        active = flags.reshape(-1)
+        if pix is not None:
+            s_idx, active = s_idx[pix.long()], active[pix.long()]
+        L, dx, dy, nrays = shade_lanes(arrays, s_idx, active)
         # one splat straight into the film, as the reference's photon step
-        film = film_splat(film, L.reshape(h, w, 3), dx.reshape(h, w),
-                          dy.reshape(h, w), flags.to(F32), cfg.filter_type,
-                          cfg.aa_pixelwidth,
-                          clamp_samples=cfg.aa_clamp_samples)
+        film = film_splat_lanes(film, L, pix, dx, dy, active.to(F32),
+                                cfg.filter_type, cfg.aa_pixelwidth,
+                                clamp_samples=cfg.aa_clamp_samples)
         return dict(film, rays=film["rays"] + nrays)
 
+    sample_step.lanes = n
     return sample_step
 
 
-def install_photon_maps(cscene, cfg: RenderConfig, arrays: dict) -> dict:
+def install_photon_maps(cscene, cfg: RenderConfig, arrays: dict,
+                        mesh=None) -> dict:
     """build_photon_maps, with its packs added to the scene tensors as
     pm_diffuse / pm_caustic / pm_radiance (the sample step reads them
     there).  Returns the maps."""
-    maps = build_photon_maps(cscene, cfg, arrays)
+    maps = build_photon_maps(cscene, cfg, arrays, mesh=mesh)
     for key in ("diffuse", "caustic", "radiance"):
         if maps[key] is not None:
             arrays[f"pm_{key}"] = maps[key]
@@ -351,62 +370,74 @@ def install_photon_maps(cscene, cfg: RenderConfig, arrays: dict) -> dict:
 
 
 def _render(cscene, cfg: RenderConfig, device, warmup: bool, film_path=None,
-            progress_cb=None) -> RenderResult:
-    dev = resolve_device(device)
+            progress_cb=None, mesh=None) -> RenderResult:
+    dev = mesh.device if mesh is not None else resolve_device(device)
     check_supported(cscene.static, cfg)
     arrays = to_tensors(cscene.arrays, dev)
     _sync(dev)
     t0 = time.perf_counter()
-    maps = install_photon_maps(cscene, cfg, arrays)
+    maps = install_photon_maps(cscene, cfg, arrays, mesh=mesh)
     _sync(dev)
     preprocess_s = time.perf_counter() - t0
-    step = make_photon_sample_step(cscene, cfg, maps, dev)
+    step = make_photon_sample_step(cscene, cfg, maps, dev,
+                                   pix=lane_pixels(mesh, cfg.width))
     flags = torch.ones((cfg.height, cfg.width), dtype=torch.bool, device=dev)
     if warmup:
         step(arrays, _fresh_film(cfg, dev), flags)
         _sync(dev)
     film = _fresh_film(cfg, dev)
     start_pass = 0
+    stats = dict(lanes_traced=0)
     loaded = load_film(cfg, film_path, dev)
     if loaded is not None:
         # the photon maps are rebuilt at preprocess from the same seeds:
         # only the film's own planes resume
         lf, start_pass = loaded
-        film = {k: lf.get(k, v) for k, v in film.items()}
+        film = band_of({k: lf.get(k, v) for k, v in film.items()}, mesh)
     t1 = time.perf_counter()
     for p in range(start_pass, cfg.aa_passes):
         # adaptive passes as the reference runs them: the contrast
         # estimator, dense steps masked by its flags
         fl = flags if p == 0 else compute_aa_flags(
-            film, cfg.aa_threshold, cfg.aa_dark_detection,
-            cfg.aa_dark_factor, cfg.aa_detect_color_noise)
+            sum_film(film, mesh, stats), cfg.aa_threshold,
+            cfg.aa_dark_detection, cfg.aa_dark_factor,
+            cfg.aa_detect_color_noise)
         for _ in range(cfg.aa_samples if p == 0 else cfg.aa_inc_samples):
             film = step(arrays, film, fl)
+            stats["lanes_traced"] += step.lanes
         if progress_cb is not None:
             progress_cb(p + 1, cfg.aa_passes)
         if saves_passes(cfg, film_path):
-            film_save(film_path, film, film_params(cfg), p + 1)
+            full = sum_film(film, mesh, stats)
+            if writes(mesh):
+                film_save(film_path, full, film_params(cfg), p + 1)
     _sync(dev)
+    render_s = time.perf_counter() - t1
+    film = finish(film, mesh, stats)
     return RenderResult(film, dict(
-        render_s=time.perf_counter() - t1, preprocess_s=preprocess_s,
+        stats, render_s=render_s, preprocess_s=preprocess_s,
         rays=float(film["rays"]), photon_maps=maps["info"]), cfg)
 
 
 def render_photonmap(cscene, cfg: RenderConfig, *, device="cuda",
-                     film_path=None, progress_cb=None) -> RenderResult:
+                     film_path=None, progress_cb=None,
+                     mesh=None) -> RenderResult:
     """Full photon-mapping render: preprocess, then AA_minsamples steps
     and, where aa_passes > 1, adaptive passes of AA_inc_samples steps.
     stats: render_s (the steps), preprocess_s (photon shooting, packs and
-    the radiance map), rays, photon_maps (counts per map).  Its film keeps
+    the radiance map), rays, photon_maps (counts per map), lanes_traced
+    (the lanes of every step, summed).  Its film keeps
     no alpha or pass planes (as the reference's).  film_path: film
     save / load by pass as `render.render` (no autosave by time, as in the
-    reference); progress_cb(pass done, aa_passes) after each pass."""
+    reference); progress_cb(pass done, aa_passes) after each pass.  mesh:
+    a film mesh splits the photon lanes and the film rows (module
+    docstring); stats then add rank_rays, reduce_s and mesh."""
     return _render(cscene, cfg, device, warmup=False, film_path=film_path,
-                   progress_cb=progress_cb)
+                   progress_cb=progress_cb, mesh=mesh)
 
 
-def render_photonmap_timed(cscene, cfg: RenderConfig, *,
-                           device="cuda") -> RenderResult:
+def render_photonmap_timed(cscene, cfg: RenderConfig, *, device="cuda",
+                           mesh=None) -> RenderResult:
     """Benchmark variant: one warm-up step on a throw-away film after the
     preprocess, then the timed steps (the Mrays/s metric)."""
-    return _render(cscene, cfg, device, warmup=True)
+    return _render(cscene, cfg, device, warmup=True, mesh=mesh)

@@ -1,12 +1,14 @@
 """Render orchestration (port of libyafaray_tpu/integrators/render.py:
 `render`, the adaptive pass loop with its compact passes, the film's alpha
-and pass planes, film save / load and autosave, without a device mesh, and
-`render_timed`), for pathtracing, with its caustic photon map when
-caustic_type is photon or both, and directlighting.
+and pass planes, film save / load and autosave, over one device or a film
+mesh (`parallel/mesh.py`), and `render_timed`), for pathtracing, with its
+caustic photon map when caustic_type is photon or both, and
+directlighting.
 
 `device` (default "cuda", which raises without a card) threads from here
-down: the scene tensors, the film and every lane live on it.  Timing
-synchronizes the device before the clock is read.
+down: the scene tensors, the film and every lane live on it (on a mesh,
+the rank's device).  Timing synchronizes the device before the clock is
+read.
 """
 from __future__ import annotations
 
@@ -22,6 +24,9 @@ from ..film.imagefilm import (compute_aa_flags, compute_stderr_flags,
                               film_alpha, film_image, film_init, film_load,
                               film_save)
 from ..film.passes import extract_passes, film_add_passes
+from ..parallel import distributed as pd
+from ..parallel.mesh import (band_of, finish, lane_pixels, sharded, sum_film,
+                             writes)
 from ..scene.scene import CompiledScene
 from .config import RenderConfig
 from .engine import check_supported, make_sample_step, resolve_device
@@ -96,14 +101,14 @@ def saves_passes(cfg: RenderConfig, film_path) -> bool:
         or cfg.film_save_load in ("save", "load-save"))
 
 
-def _setup(cscene: CompiledScene, cfg: RenderConfig, device):
+def _setup(cscene: CompiledScene, cfg: RenderConfig, device, mesh=None):
     """(device, scene tensors, make_step, stats): SingleScatter's
     `optimize` attenuation grids (tensors vol_att_*) and the path tracer's
-    caustic map, when its caustic_type asks for one (pm_caustic; stats:
-    preprocess_s and photon_maps), are built here;
-    make_step(cfg, compact_n=0) builds a sample step of the scene that
-    adds the map's term."""
-    dev = resolve_device(device)
+    caustic map, when its caustic_type asks for one (pm_caustic, its lanes
+    split over the mesh; stats: preprocess_s and photon_maps), are built
+    here; make_step(cfg, compact_n=0) builds a sample step of the scene
+    that adds the map's term."""
+    dev = mesh.device if mesh is not None else resolve_device(device)
     check_supported(cscene.static, cfg)
     arrays = to_tensors(cscene.arrays, dev)
     caustic, stats = None, {}
@@ -124,7 +129,7 @@ def _setup(cscene: CompiledScene, cfg: RenderConfig, device):
 
         _sync(dev)
         t0 = time.perf_counter()
-        cmap = build_caustic_map(cscene, cfg, arrays)
+        cmap = build_caustic_map(cscene, cfg, arrays, mesh=mesh)
         _sync(dev)
         stats["preprocess_s"] = time.perf_counter() - t0
         if cmap is not None:
@@ -193,28 +198,64 @@ def compact_lanes(flags: torch.Tensor, nf: int) -> torch.Tensor:
     return pix
 
 
+def pass_lanes(flags: torch.Tensor, band, compact: bool):
+    """The lanes of an adaptive pass over the pixel ids `band` (None: every
+    pixel of the film): the flagged ones compacted into their bucket while
+    that is at most half of those pixels (and compact), else all of them
+    masked by the flags, as the flags plane itself for the dense step (band
+    None) or as the band's ids with the unflagged ones dead (-1).  Returns
+    (lanes, flagged among them, "compact" or "dense")."""
+    fl = flags.reshape(-1)
+    if band is not None:
+        fl = fl[band.long()]
+    nf = int(fl.sum())
+    nc = compact_bucket(nf)
+    if compact and nc <= fl.numel() // 2:
+        pix = torch.full((nc,), -1, dtype=torch.int32, device=flags.device)
+        pix[:nf] = (torch.nonzero(fl)[:, 0].to(torch.int32) if band is None
+                    else band[fl])
+        return pix, nf, "compact"
+    return (flags if band is None else torch.where(fl, band, -1)), nf, "dense"
+
+
+def lanes_compact_n(lanes: torch.Tensor) -> int:
+    """compact_n of the sample step that runs `lanes`: 0 (the dense step)
+    for a flags plane, else the lane list's length."""
+    return 0 if lanes.dtype == torch.bool else lanes.numel()
+
+
 def render(cscene: CompiledScene, cfg: RenderConfig, *, device="cuda",
-           compact: bool = True, film_path=None,
-           progress_cb=None) -> RenderResult:
+           compact: bool = True, film_path=None, progress_cb=None,
+           mesh=None) -> RenderResult:
     """Full render: aa_passes passes (reference imagefilm adaptive AA).
     Pass 0 runs ceil(AA_minsamples / spp_batch) steps over every pixel;
     each later pass flags pixels by the estimator (`adaptive_flags`),
     stops the render when none is flagged, and runs its steps over the
-    flagged pixels: with compact=True, while the bucket of nc >= flagged
-    lanes is at most half the pixels, through the compact step (one built
-    per bucket, and per pass where the multipliers change the NEE counts),
-    else the dense step masked by the flags.  stats: render_s, rays,
-    passes, and pass_log, a (flagged, lanes, "compact" or "dense", steps,
-    wall_s) entry per pass run.
+    flagged pixels (`pass_lanes`): with compact=True, while the bucket of
+    nc >= flagged lanes is at most half the pixels, through the compact
+    step, else the dense step masked by the flags.  A step is built when a
+    pass first needs it (one a bucket, and a pass where the multipliers
+    change the NEE counts).  stats: render_s, rays, passes, lanes_traced
+    (the lanes of every step, summed), and pass_log, a (flagged, lanes,
+    "compact" or "dense", steps, wall_s) entry per pass run.
 
     The film carries an alpha plane with bg_transp and the planes of
     cfg.passes.  film_path: with film_save_load "load" / "load-save" a film
     saved there under the same config resumes (its passes are not run
     again); "save" / "load-save" or autosave by pass save it after every
     pass, autosave by time between steps (with the pass it is in).
-    progress_cb(pass done, aa_passes) after each pass."""
-    dev, arrays, make_step, stats = _setup(cscene, cfg, device)
-    step = make_step(cfg)
+    progress_cb(pass done, aa_passes) after each pass.
+
+    mesh: a film mesh (`parallel.mesh.make_device_mesh`) of more than one
+    rank splits the film rows: this rank's lanes are the pixels of its
+    band, every one in pass 0 and its flagged ones after, by the rule above
+    applied to the band, always through the compact step; the flags come
+    from the summed film, and so do the saved film and the result (every
+    rank returns the full film; rank 0 writes the file).  A resumed film is
+    split into the ranks' bands.  stats then add rank_rays (this rank's
+    rays), reduce_s and mesh (rank, world, rows); pass_log counts this
+    rank's lanes, and band_flagged its band's flagged pixels."""
+    dev, arrays, make_step, stats = _setup(cscene, cfg, device, mesh)
     film = _fresh_film(cfg, dev, with_alpha=cfg.transp_background,
                        with_variance=(cfg.aa_passes > 1
                                       and cfg.aa_estimator == "variance"))
@@ -229,69 +270,90 @@ def render(cscene: CompiledScene, cfg: RenderConfig, *, device="cuda",
     loaded = load_film(cfg, film_path, dev)
     if loaded is not None:
         film, start_pass = loaded
+        film = band_of(film, mesh)
     params = film_params(cfg)
+
+    def save(p: int) -> None:
+        full = sum_film(film, mesh, stats)
+        if writes(mesh):
+            film_save(film_path, full, params, p)
+
     n_px = cfg.height * cfg.width
-    compact_steps: dict = {}
+    band = lane_pixels(mesh, cfg.width)
+    steps: dict = {}
     log = []
+    stats["lanes_traced"] = 0
     t0 = time.perf_counter()
     for p in range(start_pass, cfg.aa_passes):
         cfg_p = pass_config(cfg, p)
-        if p > 0 and cfg_p is not cfg:
-            step = make_step(cfg_p)
-        flags = (torch.ones((cfg.height, cfg.width), dtype=torch.bool,
-                            device=dev) if p == 0
-                 else adaptive_flags(film, cfg))
-        run, arg, nf, lanes = step, flags, n_px, n_px
-        if p > 0:
+        if p == 0:
+            flags = torch.ones((cfg.height, cfg.width), dtype=torch.bool,
+                               device=dev)
+            nf = n_px
+        else:
+            flags = adaptive_flags(sum_film(film, mesh, stats), cfg)
             nf = int(flags.sum())
             if nf == 0:
                 break  # nothing left to resample
-            nc = compact_bucket(nf)
-            if compact and nc <= n_px // 2:
-                key = (nc, p if cfg_p is not cfg else 0)
-                if key not in compact_steps:
-                    compact_steps[key] = make_step(cfg_p, compact_n=nc)
-                run, arg, lanes = (compact_steps[key],
-                                   compact_lanes(flags, nf), nc)
+        arg, nf_lanes, mode = pass_lanes(flags, band, compact)
+        run = None  # no flagged pixel in this rank's band: idle
+        if nf_lanes:
+            key = (lanes_compact_n(arg), p if cfg_p is not cfg else 0)
+            if key not in steps:
+                steps[key] = make_step(cfg_p, compact_n=key[0])
+            run = steps[key]
         t_p = last_save = time.perf_counter()
         n_steps = _pass_steps(cfg, p)
         for _ in range(n_steps):
-            film = run(arrays, film, arg)
-            if (cfg.autosave_interval_type == "time" and film_path
-                    and time.perf_counter() - last_save
-                    > cfg.autosave_interval):
-                film_save(film_path, film, params, p)
-                last_save = time.perf_counter()
+            if run is not None:
+                film = run(arrays, film, arg)
+                stats["lanes_traced"] += run.lanes
+            if cfg.autosave_interval_type == "time" and film_path:
+                due = time.perf_counter() - last_save > cfg.autosave_interval
+                if pd.broadcast_flag(due) if sharded(mesh) else due:
+                    save(p)
+                    last_save = time.perf_counter()
         _sync(dev)
-        log.append(dict(flagged=nf, lanes=lanes,
-                        mode="compact" if run is not step else "dense",
-                        steps=n_steps, wall_s=time.perf_counter() - t_p))
+        log.append(dict(flagged=nf, lanes=lanes_compact_n(arg) or n_px,
+                        mode=mode, steps=n_steps,
+                        wall_s=time.perf_counter() - t_p))
+        if band is not None:
+            log[-1]["band_flagged"] = nf_lanes
         if progress_cb is not None:
             progress_cb(p + 1, cfg.aa_passes)
         if saves_passes(cfg, film_path):
-            film_save(film_path, film, params, p + 1)
+            save(p + 1)
+    render_s = time.perf_counter() - t0
+    film = finish(film, mesh, stats)
     return RenderResult(film, dict(
-        stats, render_s=time.perf_counter() - t0, rays=float(film["rays"]),
+        stats, render_s=render_s, rays=float(film["rays"]),
         passes=cfg.aa_passes, pass_log=log), cfg)
 
 
 def render_timed(cscene: CompiledScene, cfg: RenderConfig, *,
-                 device="cuda") -> RenderResult:
+                 device="cuda", mesh=None) -> RenderResult:
     """Benchmark render: one warm-up step on a throw-away film, then
     ceil(AA_minsamples·AA_passes / spp_batch) timed steps over every pixel
     (the Mrays/s metric; adaptive passes run uniform, as the reference's
     benchmark render runs them).  Its film is the reference's plain one:
-    no alpha or pass planes, so no work for them."""
-    dev, arrays, make_step, stats = _setup(cscene, cfg, device)
-    step = make_step(cfg)
-    flags = torch.ones((cfg.height, cfg.width), dtype=torch.bool, device=dev)
-    step(arrays, _fresh_film(cfg, dev), flags)
+    no alpha or pass planes, so no work for them.  mesh: as `render`, each
+    rank timing the steps over its band (render_s), the sum after them
+    (reduce_s)."""
+    dev, arrays, make_step, stats = _setup(cscene, cfg, device, mesh)
+    arg, _, _ = pass_lanes(torch.ones((cfg.height, cfg.width),
+                                      dtype=torch.bool, device=dev),
+                           lane_pixels(mesh, cfg.width), False)
+    step = make_step(cfg, compact_n=lanes_compact_n(arg))
+    step(arrays, _fresh_film(cfg, dev), arg)
     _sync(dev)
     film = _fresh_film(cfg, dev)
+    n_steps = -(-cfg.aa_samples * cfg.aa_passes // max(1, cfg.spp_batch))
     t0 = time.perf_counter()
-    for _ in range(-(-cfg.aa_samples * cfg.aa_passes
-                     // max(1, cfg.spp_batch))):
-        film = step(arrays, film, flags)
+    for _ in range(n_steps):
+        film = step(arrays, film, arg)
     _sync(dev)
-    return RenderResult(film, dict(stats, render_s=time.perf_counter() - t0,
-                                   rays=float(film["rays"]), passes=1), cfg)
+    render_s = time.perf_counter() - t0
+    film = finish(film, mesh, stats)
+    return RenderResult(film, dict(stats, render_s=render_s,
+                                   rays=float(film["rays"]), passes=1,
+                                   lanes_traced=n_steps * step.lanes), cfg)

@@ -1,6 +1,6 @@
 """SPPM, stochastic progressive photon mapping (port of
-libyafaray_tpu/integrators/sppm.py for one device, with its film
-save / load).
+libyafaray_tpu/integrators/sppm.py, over one device or a film mesh, with
+its film save / load).
 
 Per pass:
   eye pass    the camera rays follow specular chains (and rough glass, the
@@ -23,6 +23,12 @@ goes on with pass p's photon stream.
 The eye pass's QMC stream is its own: the pixel hash carries no qmc_seed,
 each dim is drawn by `qmc.sample_dim`'s values and a vertex's key is
 hash_combine(pixel hash, bounce); photon pass p is seeded 31337 + p.
+
+On a film mesh (`parallel/mesh.py`) a rank's eye pass traces the pixels of
+its band of rows and keeps their hit points and R², N, τ; each photon pass
+splits its lanes and gathers the stored photons in lane order, so every
+rank gathers from the one-device pack; the photons emitted count all
+lanes.  The density layer and the film are the ranks' partials summed.
 """
 from __future__ import annotations
 
@@ -35,7 +41,8 @@ from ..backgrounds.base import eval_background
 from ..convert import to_tensors
 from ..core import qmc
 from ..core.sampling import INV_PI
-from ..film.imagefilm import add_density, film_init, film_save, film_splat
+from ..film.imagefilm import (add_density, film_init, film_save,
+                              film_splat_lanes)
 from ..materials import bsdf
 from ..materials.base import gather_rows
 from ..ops.photon_flash import density_auto, make_photon_pack_auto
@@ -43,25 +50,31 @@ from .config import RenderConfig
 from .engine import (F32, _direct_lighting, _make_mat_resolve,
                      _surface_point, bounce_key, camera_rays, check_arrays,
                      check_supported, closest_hit, is_diffuse_family,
-                     pixel_lanes, ray_bounds, resolve_device, shading_frame,
-                     uses_textures)
+                     pixel_lanes, pixel_of, ray_bounds, resolve_device,
+                     shading_frame, uses_textures)
 from .photon_shoot import make_photon_pass
 from .photonmap import MAX_PHOTON_LANES, _light_cdf, compact_photons_device
+from ..parallel import distributed as pd
+from ..parallel.mesh import (at_pixels, band_of, finish, lane_pixels,
+                             sum_film, writes)
 from .render import (RenderResult, _sync, film_params, load_film,
                      saves_passes)
 
 
-def make_eye_pass(cscene, cfg: RenderConfig, device):
+def make_eye_pass(cscene, cfg: RenderConfig, device,
+                  pix: torch.Tensor | None = None):
     """eye_pass(arrays, film) -> (film, hitpoints): one sample per pixel
     splatted into the film (and its rays counted), and the pixels' hit
     points: pos, normal, tp, fd (N,3) and valid (N,) bool.  A pixel that
-    stores nothing keeps pos = normal = tp = fd = 0."""
+    stores nothing keeps pos = normal = tp = fd = 0.  pix: the flat pixel
+    ids of the lanes (a rank's band), None for every pixel."""
     static = cscene.static
     dev = resolve_device(device)
     h, w = cfg.height, cfg.width
-    n = h * w
-    px, py, pixel_hash = pixel_lanes(h, w, 0, dev)  # no qmc_seed
-    ones = torch.ones((h, w), dtype=F32, device=dev)
+    px, py, pixel_hash = (pixel_lanes(h, w, 0, dev) if pix is None
+                          else pixel_of(pix, w, 0))  # no qmc_seed
+    n = px.shape[0]
+    ones = torch.ones((n,), dtype=F32, device=dev)
     # textures apply only to the children of composites, inside NEE (as
     # in the reference's eye pass)
     child_tex = bool(static.has_blend and static.blend_child_textured
@@ -70,6 +83,8 @@ def make_eye_pass(cscene, cfg: RenderConfig, device):
     def eye_pass(arrays: dict, film: dict):
         check_arrays(arrays, dev)
         s_idx = film["nsamples"].reshape(-1)
+        if pix is not None:
+            s_idx = s_idx[pix.long()]
         dx, dy, org, dirn, wt = camera_rays(cscene.camera, px, py,
                                             pixel_hash, s_idx)
         mats = arrays["materials"]
@@ -130,11 +145,11 @@ def make_eye_pass(cscene, cfg: RenderConfig, device):
             nrays = nrays + alive.to(F32).sum()
 
         L = L * wt[..., None]
-        film = film_splat(film, L.reshape(h, w, 3), dx.reshape(h, w),
-                          dy.reshape(h, w), ones, cfg.filter_type,
-                          cfg.aa_pixelwidth)
+        film = film_splat_lanes(film, L, pix, dx, dy, ones, cfg.filter_type,
+                                cfg.aa_pixelwidth)
         return dict(film, rays=film["rays"] + nrays), dict(hp, valid=stored)
 
+    eye_pass.lanes = n
     return eye_pass
 
 
@@ -155,18 +170,21 @@ def flux_update(hitpoints: dict, pack: dict, r2, n_acc, tau, alpha: float):
             (tau + tau_add) * ratio[..., None])
 
 
-def make_sppm_pass(cscene, cfg: RenderConfig, device):
+def make_sppm_pass(cscene, cfg: RenderConfig, device, mesh=None):
     """(fresh, sppm_pass): fresh() -> the state before the first pass, a
     dict of film, r2 (the initial radius squared), n_acc and tau (zero);
     sppm_pass(arrays, state, p) -> (state after pass p, the photons pass p
     stored, a device scalar).  The first pass reads its stored count once,
     for the compaction's capacity (1.3 times it, in 4096s), and every
-    later pass keeps it."""
+    later pass keeps it.  On a mesh of more than one rank r2, n_acc and
+    tau are its band's pixels' (sppm_pass.pix, their flat ids) and the
+    photon lanes split (`make_photon_pass`)."""
     static = cscene.static
-    dev = resolve_device(device)
+    dev = mesh.device if mesh is not None else resolve_device(device)
     check_supported(static, cfg)
     h, w = cfg.height, cfg.width
-    n = h * w
+    pix = lane_pixels(mesh, w)
+    n = h * w if pix is None else pix.shape[0]
     cdf, _ = _light_cdf(static, cscene.arrays["lights"])
     if cfg.sppm_initial_radius > 0:
         r0 = cfg.sppm_initial_radius
@@ -174,11 +192,11 @@ def make_sppm_pass(cscene, cfg: RenderConfig, device):
         diag = float(np.linalg.norm(np.asarray(cscene.bound_max)
                                     - np.asarray(cscene.bound_min)))
         r0 = diag / max(h, w) * 2.0
-    eye = make_eye_pass(cscene, cfg, dev)
+    eye = make_eye_pass(cscene, cfg, dev, pix)
     lanes = min(MAX_PHOTON_LANES,
                 max(4096, -(-cfg.sppm_photons // 4096) * 4096))
     shoot = make_photon_pass(static, cfg, lanes, cfg.photon_bounces,
-                             "indirect")
+                             "indirect", mesh=mesh)
     cap = []
 
     def fresh() -> dict:
@@ -206,6 +224,8 @@ def make_sppm_pass(cscene, cfg: RenderConfig, device):
 
     sppm_pass.lanes = lanes
     sppm_pass.cap = cap
+    sppm_pass.pix = pix
+    sppm_pass.eye_lanes = eye.lanes
     return fresh, sppm_pass
 
 
@@ -218,8 +238,21 @@ def _save(film_path, cfg: RenderConfig, state: dict, emitted: int,
               film_params(cfg), p)
 
 
-def _resume(cfg: RenderConfig, film_path, dev, state: dict):
-    """(state, photons emitted, first pass) of a saved SPPM film, or None."""
+def _full_state(state: dict, pix, mesh, stats: dict) -> dict:
+    """The film summed over the mesh and the progressive state of every
+    pixel (each rank's band scattered into zeros, then summed), as saved."""
+    if pix is None:
+        return state
+    out = dict(film=sum_film(state["film"], mesh, stats))
+    n_px = state["film"]["w"].numel()
+    for k in ("r2", "n_acc", "tau"):
+        out[k] = pd.all_reduce_sum(at_pixels(state[k], pix, n_px))
+    return out
+
+
+def _resume(cfg: RenderConfig, film_path, dev, state: dict, pix, mesh):
+    """(state, photons emitted, first pass) of a saved SPPM film, or None;
+    on a mesh, this rank's band of it."""
     loaded = load_film(cfg, film_path, dev)
     if loaded is None:
         return None
@@ -227,60 +260,76 @@ def _resume(cfg: RenderConfig, film_path, dev, state: dict):
     st = dict(r2=lf.pop("sppm_r2"), n_acc=lf.pop("sppm_n"),
               tau=lf.pop("sppm_tau"))
     emitted = int(lf.pop("sppm_nem"))
-    st["film"] = {k: lf.get(k, v) for k, v in state["film"].items()}
+    film = {k: lf.get(k, v) for k, v in state["film"].items()}
+    if pix is not None:
+        st = {k: v[pix.long()] for k, v in st.items()}
+        film = band_of(film, mesh)
+    st["film"] = film
     return st, emitted, start
 
 
 def _render(cscene, cfg: RenderConfig, device, warmup: bool, film_path=None,
-            progress_cb=None) -> RenderResult:
-    dev = resolve_device(device)
-    fresh, sppm_pass = make_sppm_pass(cscene, cfg, dev)
+            progress_cb=None, mesh=None) -> RenderResult:
+    dev = mesh.device if mesh is not None else resolve_device(device)
+    fresh, sppm_pass = make_sppm_pass(cscene, cfg, dev, mesh=mesh)
+    pix = sppm_pass.pix
     arrays = to_tensors(cscene.arrays, dev)
     if warmup:
         sppm_pass(arrays, fresh(), 0)
         _sync(dev)
     state, stored, emitted, start = fresh(), [], 0, 0
-    resumed = _resume(cfg, film_path, dev, state)
+    resumed = _resume(cfg, film_path, dev, state, pix, mesh)
     if resumed is not None:
         state, emitted, start = resumed
+    stats = dict(lanes_traced=0)
     t1 = time.perf_counter()
     for p in range(start, cfg.sppm_passes):
         state, n_stored = sppm_pass(arrays, state, p)
         stored.append(n_stored)
+        stats["lanes_traced"] += sppm_pass.eye_lanes
         emitted += sppm_pass.lanes
         if progress_cb is not None:
             progress_cb(p + 1, cfg.sppm_passes)
         if saves_passes(cfg, film_path):
-            _save(film_path, cfg, state, emitted, p + 1)
+            full = _full_state(state, pix, mesh, stats)
+            if writes(mesh):
+                _save(film_path, cfg, full, emitted, p + 1)
     _sync(dev)
     render_s = time.perf_counter() - t1
     # density layer: τ/(πR²·photons emitted); the direct part is the film
     dens = state["tau"] / (torch.clamp(state["r2"], min=1e-12)[..., None]
                            * np.pi * float(max(emitted, 1)))
-    film = add_density(state["film"], dens.reshape(cfg.height, cfg.width, 3))
+    # on a mesh, this rank's band of the layer (zero elsewhere), then sums
+    film = finish(add_density(state["film"], at_pixels(
+        dens, pix, cfg.height * cfg.width).reshape(cfg.height, cfg.width,
+                                                   3)), mesh, stats)
     return RenderResult(film, dict(
-        render_s=render_s, rays=float(film["rays"]), passes=cfg.sppm_passes,
+        stats, render_s=render_s, rays=float(film["rays"]),
+        passes=cfg.sppm_passes,
         photons=dict(lanes=sppm_pass.lanes, emitted=emitted,
                      cap=sppm_pass.cap[0] if sppm_pass.cap else 0,
                      stored=[int(x) for x in stored])), cfg)
 
 
 def render_sppm(cscene, cfg: RenderConfig, *, device="cuda", film_path=None,
-                progress_cb=None) -> RenderResult:
+                progress_cb=None, mesh=None) -> RenderResult:
     """Full SPPM render: sppm_passes passes.  stats: render_s (the
     passes), rays (the eye passes' film["rays"]; photons are not rays),
     passes, photons (lanes a pass, emitted in all, the compaction cap,
-    stored a pass run).  Its film keeps no alpha or pass planes (as the
+    stored a pass run), lanes_traced (the eye passes' lanes, summed).  Its
+    film keeps no alpha or pass planes (as the
     reference's).  film_path: the film and the progressive state saved
     after every pass under film_save_load "save" / "load-save" or autosave
     by pass, and resumed under "load" / "load-save";
-    progress_cb(pass done, sppm_passes) after each pass."""
+    progress_cb(pass done, sppm_passes) after each pass.  mesh: a film mesh
+    splits the film rows and the photon lanes (module docstring); stats
+    then add rank_rays, reduce_s and mesh."""
     return _render(cscene, cfg, device, warmup=False, film_path=film_path,
-                   progress_cb=progress_cb)
+                   progress_cb=progress_cb, mesh=mesh)
 
 
-def render_sppm_timed(cscene, cfg: RenderConfig, *,
-                      device="cuda") -> RenderResult:
+def render_sppm_timed(cscene, cfg: RenderConfig, *, device="cuda",
+                      mesh=None) -> RenderResult:
     """Benchmark variant: one warm-up pass (pass 0 on throw-away state)
     before the timed passes."""
-    return _render(cscene, cfg, device, warmup=True)
+    return _render(cscene, cfg, device, warmup=True, mesh=mesh)

@@ -57,7 +57,7 @@ from ..core import qmc
 from ..core.sampling import (PI, sample_cone, sample_cos_hemisphere,
                              sample_sphere)
 from ..film.filters import eval_filter_2d, filter_radius
-from ..film.imagefilm import film_save, film_splat
+from ..film.imagefilm import film_save, film_splat_lanes
 from ..film.passes import film_add_passes
 from ..lights import base as lightmod
 from ..materials import blend as blendmod
@@ -69,6 +69,8 @@ from .engine import (F32, _channels, _surface_point, _tile, camera_rays,
                      resolve_device, sample_light, shading_frame,
                      shadow_transmission, stack_planes, unstack_planes,
                      uses_textures)
+from ..parallel.mesh import (at_pixels, band_of, finish, lane_pixels,
+                             sum_film, writes)
 from .photonmap import _light_cdf
 from .render import (RenderResult, _fresh_film, _sync, film_params,
                      load_film, saves_passes)
@@ -290,19 +292,23 @@ def d2v(dist):
     return torch.clamp(dist * dist, min=1e-9)
 
 
-def make_bdpt_step(cscene, cfg: RenderConfig, device):
+def make_bdpt_step(cscene, cfg: RenderConfig, device,
+                   pix: torch.Tensor | None = None):
     """The BDPT sample step on `device`:
         step(arrays, film, flags) -> (film', splat_plane)
     with `arrays` the scene tensors on `device` and flags (H, W) bool.  The
     eye-side strategies splat into the film; the t=1 strategies return an
     unnormalized (H, W, 3) plane (the caller divides its sum by the light
-    paths a pixel)."""
+    paths a pixel).  pix: the flat pixel ids of the lanes (a rank's band),
+    None for every pixel; its lanes splat by id (`film_splat_compact`), and
+    their t=1 splats land in any row of the plane."""
     static, camera = cscene.static, cscene.camera
     check_supported(static, cfg)
     dev = resolve_device(device)
     h, w = cfg.height, cfg.width
     spb = max(1, cfg.spp_batch)
-    n = h * w * spb
+    n_pix = h * w if pix is None else pix.shape[0]
+    n = n_pix * spb
 
     # subpath lengths: T_MAX eye surface vertices, S_MAX light vertices (y0
     # on the emitter included); raydepth bounds s + t
@@ -331,8 +337,10 @@ def make_bdpt_step(cscene, cfg: RenderConfig, device):
     cam_fwd = torch.tensor(camera.fwd, dtype=F32, device=dev)
 
     lane = torch.arange(n, dtype=torch.int32, device=dev)
-    lane_pix = lane % (h * w)
-    lane_k = torch.div(lane, h * w, rounding_mode="floor")
+    lane_pix = lane % n_pix
+    lane_k = torch.div(lane, n_pix, rounding_mode="floor")
+    if pix is not None:
+        lane_pix = pix[lane_pix.long()]
     py = torch.div(lane_pix, w, rounding_mode="floor")
     px = lane_pix - py * w
     # the reference's BDPT keys its pixels without qmc_seed
@@ -569,14 +577,19 @@ def make_bdpt_step(cscene, cfg: RenderConfig, device):
         val = torch.cat([_channels(src[k[4:]]()) for k in keys], dim=-1)
         val = val * active.to(F32)[:, None]
         base = stack_planes(film, keys)
-        return unstack_planes(keys, film, base + val.reshape(
-            spb, h, w, base.shape[-1]).sum(dim=0))
+        c = base.shape[-1]
+        return unstack_planes(keys, film, base + at_pixels(
+            val.reshape(spb, n_pix, c).sum(dim=0), pix, h * w).reshape(
+                base.shape))
 
     def step(arrays: dict, film: dict, flags: torch.Tensor):
         check_arrays(arrays, dev)
         mats = arrays["materials"]
-        s_idx = _tile(film["nsamples"].reshape(-1), spb) + lane_k
-        active = _tile(flags.reshape(-1), spb)
+        counts, fl = film["nsamples"].reshape(-1), flags.reshape(-1)
+        if pix is not None:
+            counts, fl = counts[pix.long()], fl[pix.long()]
+        s_idx = _tile(counts, spb) + lane_k
+        active = _tile(fl, spb)
         skey_step = qmc.hash_combine(pixel_hash, s_idx)
 
         # ---- eye subpath ----
@@ -826,11 +839,11 @@ def make_bdpt_step(cscene, cfg: RenderConfig, device):
 
         # ---- film ----
         L = torch.nan_to_num(L * wt[..., None], nan=0.0, posinf=0.0)
-        film = film_splat(film, L.reshape(spb, h, w, 3),
-                          dx.reshape(spb, h, w), dy.reshape(spb, h, w),
-                          active.to(F32).reshape(spb, h, w), cfg.filter_type,
-                          cfg.aa_pixelwidth,
-                          clamp_samples=cfg.aa_clamp_samples)
+        film = film_splat_lanes(
+            film, L.reshape(spb, n_pix, 3), pix, dx.reshape(spb, n_pix),
+            dy.reshape(spb, n_pix), active.to(F32).reshape(spb, n_pix),
+            cfg.filter_type, cfg.aa_pixelwidth,
+            clamp_samples=cfg.aa_clamp_samples)
         if planes:
             film.update(first_hit_planes(film, planes, Ev[0], active))
         rays = alive_e.to(F32).sum() * float(T_MAX + S_MAX)
@@ -838,29 +851,26 @@ def make_bdpt_step(cscene, cfg: RenderConfig, device):
         return film, torch.nan_to_num(splat.reshape(h, w, 3), nan=0.0,
                                       posinf=0.0)
 
+    step.lanes = n
     return step
 
 
-def _check_unported(mesh) -> None:
-    if mesh is not None:
-        raise NotImplementedError(
-            "multi-device BDPT (a device mesh) is not ported yet: ROADMAP "
-            "Queue 1 item 19")
-
-
 def _run(cscene, cfg: RenderConfig, device, warm_up: bool, film_path=None,
-         progress_cb=None) -> RenderResult:
+         progress_cb=None, mesh=None) -> RenderResult:
     """aa_samples · aa_passes uniform steps (the reference runs no adaptive
     flags under BDPT), each of spp_batch samples a pixel; the t=1 planes
     summed and divided by the light paths a pixel into film["density"].
     film_path: the film and the t=1 sum saved after every step (film
     save / load "save" / "load-save" or autosave by pass) and resumed under
-    "load" / "load-save"; progress_cb(step done, steps) after each step."""
+    "load" / "load-save"; progress_cb(step done, steps) after each step.
+    mesh: a film mesh of more than one rank traces this rank's band of rows
+    (`make_bdpt_step`'s pix); the film and the t=1 plane, whose splats land
+    in any row, are the ranks' partials summed."""
     t0 = time.perf_counter()
-    dev = resolve_device(device)
+    dev = mesh.device if mesh is not None else resolve_device(device)
     check_supported(cscene.static, cfg)
     arrays = to_tensors(cscene.arrays, dev)
-    step = make_bdpt_step(cscene, cfg, dev)
+    step = make_bdpt_step(cscene, cfg, dev, pix=lane_pixels(mesh, cfg.width))
     h, w = cfg.height, cfg.width
     flags = torch.ones((h, w), dtype=torch.bool, device=dev)
     if warm_up:  # one step on a throw-away film, outside the clock
@@ -873,24 +883,30 @@ def _run(cscene, cfg: RenderConfig, device, warm_up: bool, film_path=None,
     n_steps = max(1, cfg.aa_samples * cfg.aa_passes)
     spb = max(1, cfg.spp_batch)
     start = 0
+    stats = dict(lanes_traced=0)
     loaded = load_film(cfg, film_path, dev)
     if loaded is not None:
         lf, start = loaded
         splat = lf.pop("bd_splat")
-        film = {k: lf.get(k, v) for k, v in film.items()}
+        film = band_of(dict({k: lf.get(k, v) for k, v in film.items()},
+                            bd_splat=splat), mesh)
+        splat = film.pop("bd_splat")
     t1 = time.perf_counter()
     for p in range(start, n_steps):
         film, plane = step(arrays, film, flags)
+        stats["lanes_traced"] += step.lanes
         splat = splat + plane
         if progress_cb is not None:
             progress_cb(p + 1, n_steps)
         if saves_passes(cfg, film_path):
-            film_save(film_path, dict(film, bd_splat=splat),
-                      film_params(cfg), p + 1)
+            full = sum_film(dict(film, bd_splat=splat), mesh, stats)
+            if writes(mesh):
+                film_save(film_path, full, film_params(cfg), p + 1)
     film["density"] = vmath.div(splat, max(n_steps * spb, 1))
     _sync(dev)
     t2 = time.perf_counter()
-    return RenderResult(film, dict(render_s=t2 - t1, total_s=t2 - t0,
+    film = finish(film, mesh, stats)
+    return RenderResult(film, dict(stats, render_s=t2 - t1, total_s=t2 - t0,
                                    rays=float(film["rays"]),
                                    bdpt_steps=n_steps), cfg)
 
@@ -898,17 +914,17 @@ def _run(cscene, cfg: RenderConfig, device, warm_up: bool, film_path=None,
 def render_bdpt(cscene, cfg: RenderConfig, *, device="cuda", film_path=None,
                 progress_cb=None, mesh=None) -> RenderResult:
     """Full-MIS BDPT render: one eye and one light subpath a pixel sample
-    a step; stats render_s, total_s, rays, bdpt_steps.  film_path and
-    progress_cb as `_run`; a device mesh raises, naming its ROADMAP
-    item."""
-    _check_unported(mesh)
+    a step; stats render_s, total_s, rays, bdpt_steps, lanes_traced (the
+    lanes of every step, summed).  film_path,
+    progress_cb and mesh as `_run` (on a mesh stats add rank_rays,
+    reduce_s and mesh)."""
     return _run(cscene, cfg, device, warm_up=False, film_path=film_path,
-                progress_cb=progress_cb)
+                progress_cb=progress_cb, mesh=mesh)
 
 
-def render_bdpt_timed(cscene, cfg: RenderConfig, *,
-                      device="cuda") -> RenderResult:
+def render_bdpt_timed(cscene, cfg: RenderConfig, *, device="cuda",
+                      mesh=None) -> RenderResult:
     """render_bdpt after one warm-up step on a throw-away film outside the
     clock (the Mrays/s metric; the rays are the reference's count, so
     BDPT's Mrays/s does not compare with the path tracer's)."""
-    return _run(cscene, cfg, device, warm_up=True)
+    return _run(cscene, cfg, device, warm_up=True, mesh=mesh)

@@ -28,6 +28,10 @@ NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
               "-Xptxas", "-v")
 GXX_FLAGS = ("-O3", "-shared", "-fPIC", "-std=c++17")
 
+# the csrc/ sources with kernels a render may launch
+CUDA_SOURCES = ("tiny_intersect", "fine_intersect", "photon_flash",
+                "cluster_intersect", "pairs_intersect", "bvh_walk")
+
 _lock = threading.Lock()
 _loaded: dict[str, ctypes.CDLL] = {}
 _failed: dict[str, Exception] = {}

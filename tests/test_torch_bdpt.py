@@ -14,8 +14,8 @@ reference on the CPU:
   module fixture;
 and the port alone: `render_bdpt_timed` against `render_bdpt`, BDPT
 against the port's own path tracer on tests/test_veach.py's diffuse box
-(mean within 6%, floor and back wall within 10%), and the entry points'
-refusal of a device mesh (item 19)."""
+(mean within 6%, floor and back wall within 10%), and BDPT on two local
+ranks (a film mesh) against one process."""
 import os
 
 import numpy as np
@@ -260,13 +260,21 @@ def test_render_bdpt_timed_counts_the_same_rays():
 
 
 @pytest.mark.parametrize("kw, item", [
-    (dict(mesh=object()), "item 19"),
+    (dict(n_devices=2), "item 19"),
 ])
 def test_film_persistence_and_mesh_raise(kw, item):
-    s = _sized(parse_xml_file, size=8, spp=1)
-    with pytest.raises(NotImplementedError, match=item):
-        veach.render_bdpt(s.compile(device="cpu"), build_config(s),
-                          device="cpu", **kw)
+    """BDPT over a film mesh (ROADMAP `item`, which raised until
+    multi-device rendering was ported): render_scene on two local gloo
+    ranks against one process at 8², 1 spp: image within 1e-4, the t=1
+    density plane RMSE <= 1e-5 (its splats land in any row: each rank's
+    partial plane is summed), rays within 1."""
+    one = render_scene(_sized(parse_xml_file, size=8, spp=1), device="cpu")
+    many = render_scene(_sized(parse_xml_file, size=8, spp=1), device="cpu",
+                        **kw)
+    assert many.stats["mesh"]["world"] == kw["n_devices"], item
+    np.testing.assert_allclose(many.image, one.image, rtol=0, atol=1e-4)
+    assert _rmse(many.film["density"], one.film["density"]) <= 1e-5
+    assert abs(many.stats["rays"] - one.stats["rays"]) < 1.0
 
 
 def test_entry_point_needs_a_card_by_default():

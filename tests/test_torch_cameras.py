@@ -28,6 +28,16 @@ from libyafaray_tpu_torch.cameras.factory import camera_from_params
 from libyafaray_tpu_torch.core import qmc
 from libyafaray_tpu_torch.scene.params import ParamMap
 
+
+@pytest.fixture(scope="module", autouse=True)
+def one_thread():
+    """The port's CPU path is many small tensor ops: one thread runs them
+    fastest (and keeps parallel test workers off each other's cores)."""
+    n = torch.get_num_threads()
+    torch.set_num_threads(1)
+    yield
+    torch.set_num_threads(n)
+
 N = 4096
 RTOL, ATOL = 1e-5, 1e-6
 RES = (96, 64)  # resx, resy: a non-square frame exercises the aspect

@@ -10,6 +10,7 @@ import os
 
 import numpy as np
 import pytest
+import torch
 
 from libyafaray_tpu.integrators.debug import render_debug as ref_debug
 from libyafaray_tpu.scene.session import build_config as ref_build
@@ -17,6 +18,16 @@ from libyafaray_tpu.scene.xml_parser import parse_xml_file as ref_parse
 from libyafaray_tpu_torch.integrators.debug import DEBUG_TYPES, render_debug
 from libyafaray_tpu_torch.scene.session import build_config, render_scene
 from libyafaray_tpu_torch.scene.xml_parser import parse_xml_file
+
+
+@pytest.fixture(scope="module", autouse=True)
+def one_thread():
+    """The port's CPU path is many small tensor ops: one thread runs them
+    fastest (and keeps parallel test workers off each other's cores)."""
+    n = torch.get_num_threads()
+    torch.set_num_threads(1)
+    yield
+    torch.set_num_threads(n)
 
 REPO = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 SCENES = {name: os.path.join(REPO, "scenes", f"{name}.xml")

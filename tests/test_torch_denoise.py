@@ -14,6 +14,16 @@ import torch
 from libyafaray_tpu.film import denoise as ref_denoise
 from libyafaray_tpu_torch.film.denoise import denoise_image, nlm_denoise
 
+
+@pytest.fixture(scope="module", autouse=True)
+def one_thread():
+    """The port's CPU path is many small tensor ops: one thread runs them
+    fastest (and keeps parallel test workers off each other's cores)."""
+    n = torch.get_num_threads()
+    torch.set_num_threads(1)
+    yield
+    torch.set_num_threads(n)
+
 SETTINGS = [(5.0, 5.0, 0.8), (0.0, 0.0, 0.8), (5.0, 5.0, 0.0),
             (3.0, 0.0, 1.0)]
 

@@ -15,6 +15,7 @@ import zlib
 
 import numpy as np
 import pytest
+import torch
 
 from libyafaray_tpu.io import exr as ref_exr
 from libyafaray_tpu.io import exr_codecs as ref_codecs
@@ -22,6 +23,16 @@ from libyafaray_tpu.io.image import load_image as ref_load_image
 from libyafaray_tpu_torch.io import exr
 from libyafaray_tpu_torch.io import exr_codecs as codecs
 from libyafaray_tpu_torch.io.image import load_image
+
+
+@pytest.fixture(scope="module", autouse=True)
+def one_thread():
+    """The port's CPU path is many small tensor ops: one thread runs them
+    fastest (and keeps parallel test workers off each other's cores)."""
+    n = torch.get_num_threads()
+    torch.set_num_threads(1)
+    yield
+    torch.set_num_threads(n)
 
 CODECS = ["none", "zips", "pxr24", "b44", "b44a", "piz"]
 LAYOUTS = {"scanline": None, "tiles4": (4, 4)}

@@ -31,6 +31,16 @@ from libyafaray_tpu_torch.ops import cuda_intersect as ci
 from libyafaray_tpu_torch.ops import fine_intersect as fi
 from libyafaray_tpu_torch.ops import intersect as isect
 
+
+@pytest.fixture(scope="module", autouse=True)
+def one_thread():
+    """The port's CPU path is many small tensor ops: one thread runs them
+    fastest (and keeps parallel test workers off each other's cores)."""
+    n = torch.get_num_threads()
+    torch.set_num_threads(1)
+    yield
+    torch.set_num_threads(n)
+
 REPO = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 
 

@@ -7,7 +7,18 @@ at 16², 2 spp against the reference's render (image RMSE <= 1e-4, rays
 within 0.01%, the bounds of tests/test_torch_render.py), from the
 reference's compile through `convert`, and at its own 64 spp through
 `render_scene` and the port's CLI.  Host-built tables are bit-equal; a
-draw's cells are equal and its values within rtol 1e-5."""
+draw's cells are equal and its values within rtol 1e-5.
+
+The IBL light in photon mapping and SPPM: ibl_spheres.xml with an area
+light added above the spheres (`ibl_area_scene`), so the photon maps hold
+the area light's photons while the IBL light (zero photon flux, as the
+reference's light_flux gives it) lights the hit points through NEE and
+the background shows at escapes and in the final gather.  16², raydepth
+3; photon mapping 2 spp, 4,096 + 2,048 photons, final gather 2; SPPM 2
+passes of 4,096 photons (the photon pass shoots the area light's photons
+only, the eye pass takes NEE from both lights).  Image RMSE <= 1e-4, rays
+within 0.01% (tests/test_torch_photon.py's and test_torch_sppm.py's
+bounds)."""
 import json
 import os
 
@@ -23,7 +34,10 @@ from libyafaray_tpu.integrators.render import render as ref_render
 from libyafaray_tpu.lights import alias as ref_alias
 from libyafaray_tpu.lights import bglight as ref_bgl
 from libyafaray_tpu.scene.session import build_config as ref_build
+from libyafaray_tpu.scene.session import render_scene as ref_render_scene
 from libyafaray_tpu.scene.xml_parser import parse_xml_file as ref_parse
+from libyafaray_tpu.scene.xml_parser import \
+    parse_xml_string as ref_parse_string
 from libyafaray_tpu_torch import convert
 from libyafaray_tpu_torch.backgrounds import base as bg
 from libyafaray_tpu_torch.backgrounds.factory import blur_env_map
@@ -35,7 +49,8 @@ from libyafaray_tpu_torch.io.rgbe import read_hdr
 from libyafaray_tpu_torch.lights import alias, bglight
 from libyafaray_tpu_torch.scene.scene import CompiledScene
 from libyafaray_tpu_torch.scene.session import build_config, render_scene
-from libyafaray_tpu_torch.scene.xml_parser import parse_xml_file
+from libyafaray_tpu_torch.scene.xml_parser import (parse_xml_file,
+                                                    parse_xml_string)
 
 REPO = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 IBL = os.path.join(REPO, "scenes", "ibl_spheres.xml")
@@ -263,3 +278,57 @@ def test_ibl_spheres_raises_without_a_card(monkeypatch):
     monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
     with pytest.raises(RuntimeError, match="no CUDA device"):
         render_scene(parse_xml_file(IBL))
+
+
+# ---- the IBL light in photon mapping and SPPM ------------------------------
+
+PANEL = """
+  <light name="panel">
+    <type sval="arealight"/>
+    <corner x="-0.5" y="-0.5" z="4.0"/>
+    <point1 x="0.5" y="-0.5" z="4.0"/>
+    <point2 x="-0.5" y="0.5" z="4.0"/>
+    <color r="1" g="1" b="1"/>
+    <power fval="20.0"/>
+    <samples ival="2"/>
+  </light>
+"""
+PHOTON_INTEGRATORS = {
+    "SPPM": dict(type="SPPM", photons=4096, passNums=2, raydepth=3),
+    "photonmapping": dict(type="photonmapping", photons=4096, cPhotons=2048,
+                          fg_samples=2, raydepth=3),
+}
+
+
+def ibl_area_scene(parse, integrator: str):
+    """ibl_spheres.xml with the area light, at 16², 2 spp, with the
+    integrator's small settings."""
+    with open(IBL) as f:
+        xml = f.read().replace("</scene>", PANEL + "</scene>")
+    s = parse(xml)
+    s.render_params.update(width=16, height=16, AA_minsamples=2)
+    s.integrator_params["default"].update(PHOTON_INTEGRATORS[integrator])
+    return s
+
+
+def _photon_integrator_matches_reference(integrator: str) -> None:
+    ref = ref_render_scene(ibl_area_scene(ref_parse_string, integrator))
+    port = render_scene(ibl_area_scene(parse_xml_string, integrator),
+                        device="cpu")
+    assert port.cfg.integrator == integrator
+    img = port.image
+    assert img.shape == (16, 16, 3) and np.isfinite(img).all()
+    assert img.mean() > 0.05
+    rmse = float(np.sqrt(np.mean((img.astype(np.float64)
+                                  - np.asarray(ref.image)) ** 2)))
+    assert rmse <= 1e-4, rmse
+    r_ref, r_port = ref.stats["rays"], port.stats["rays"]
+    assert abs(r_port - r_ref) <= 1e-4 * r_ref, (r_ref, r_port)
+
+
+def test_ibl_photonmapping_matches_reference():
+    _photon_integrator_matches_reference("photonmapping")
+
+
+def test_ibl_sppm_matches_reference():
+    _photon_integrator_matches_reference("SPPM")

@@ -25,6 +25,16 @@ from libyafaray_tpu.scene.xml_parser import parse_xml_file as ref_parse
 from libyafaray_tpu_torch.ops import cuda_intersect as ci
 
 
+@pytest.fixture(scope="module", autouse=True)
+def one_thread():
+    """The port's CPU path is many small tensor ops: one thread runs them
+    fastest (and keeps parallel test workers off each other's cores)."""
+    n = torch.get_num_threads()
+    torch.set_num_threads(1)
+    yield
+    torch.set_num_threads(n)
+
+
 @pytest.fixture(scope="module")
 def cornell():
     s = ref_parse("scenes/cornell.xml")

@@ -8,9 +8,32 @@ floats, validity flags equal; parse_ies, the factory rows, the compiled
 light arrays and the power CDF's fluxes exactly equal.  The scene
 scenes/cornell_lights.xml compiles to 352 triangles and takes the dense
 kernels.
-"""
-import os
 
+The scene end to end under the photon integrators and BDPT, at 16² (the
+scene names its IES file relative to the repository root: these tests
+run from there):
+- photon mapping (16,384 diffuse and 8,192 caustic photons, final gather
+  4, 2 spp): the power CDF over every light type (the meshlight's flux
+  enters it, its photons leave with zero flux, as the reference's do;
+  sun, directional and IES emit none), the point, spot and sphere
+  emitters.  Image RMSE <= 1e-3, the diffuse and caustic maps' stored
+  photons within 0.1% of the reference's (its log line), rays within 0.1%;
+- SPPM (2 passes of 16,384 photons): image and density layer RMSE <=
+  1e-3, rays equal; one `indirect` photon pass of 16,384 lanes from every
+  light type (make_photon_pass of both packages, the same seed): the
+  stored photons within 0.1%, and the emitted power of each stored
+  photon's light type present;
+- bidirectional (raydepth 4, 2 spp): the light subpaths start on the
+  meshlight, point, spot and sphere lights (picked by flux), the s = 1
+  resampling takes the spot's falloff, the sun, directional and IES
+  lights arrive through the weight-1 eye-side NEE.  Image RMSE <= 1e-4,
+  rays equal, the t=1 density plane RMSE <= 1e-5.
+"""
+import logging
+import os
+import re
+
+import jax
 import jax.numpy as jnp
 import numpy as np
 import pytest
@@ -21,7 +44,10 @@ from libyafaray_tpu.integrators import veach as ref_veach
 from libyafaray_tpu.lights import base as ref_base
 from libyafaray_tpu.lights import ies as ref_ies
 from libyafaray_tpu.lights.factory import light_from_params as ref_factory
+from libyafaray_tpu.integrators.photonmap import _light_cdf as ref_cdf
 from libyafaray_tpu.scene.params import ParamMap as RefParamMap
+from libyafaray_tpu.scene.session import build_config as ref_build
+from libyafaray_tpu.scene.session import render_scene as ref_render_scene
 from libyafaray_tpu.scene.xml_parser import parse_xml_file as ref_parse
 from libyafaray_tpu_torch import convert
 from libyafaray_tpu_torch.core import sampling
@@ -34,7 +60,18 @@ from libyafaray_tpu_torch.lights import ies
 from libyafaray_tpu_torch.lights.factory import light_from_params
 from libyafaray_tpu_torch.ops.intersect import route
 from libyafaray_tpu_torch.scene.params import ParamMap
+from libyafaray_tpu_torch.scene.session import build_config, render_scene
 from libyafaray_tpu_torch.scene.xml_parser import parse_xml_file
+
+
+@pytest.fixture(scope="module", autouse=True)
+def one_thread():
+    """The port's CPU path is many small tensor ops: one thread runs them
+    fastest (and keeps parallel test workers off each other's cores)."""
+    n = torch.get_num_threads()
+    torch.set_num_threads(1)
+    yield
+    torch.set_num_threads(n)
 
 REPO = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 LIGHTS_XML = os.path.join(REPO, "scenes", "cornell_lights.xml")
@@ -458,3 +495,152 @@ def test_engine_samples_every_scene_light(compiled):
         for k in ("wi", "dist", "li", "pdf", "valid"):
             _close(got[k], np.broadcast_to(np.asarray(want[k]),
                                            got[k].shape), f"{li} {k}")
+
+
+# ---- cornell_lights.xml end to end: photon mapping, SPPM, BDPT -------------
+
+
+def _lights_scene(parse, integrator: str, spp: int, **params):
+    s = parse(LIGHTS_XML)
+    s.render_params.update(width=16, height=16, AA_minsamples=spp)
+    s.integrator_params["default"]["type"] = integrator
+    s.integrator_params["default"].update(params)
+    return s
+
+
+PHOTON_PARAMS = dict(photons=16384, cPhotons=8192, fg_samples=4)
+SPPM_PARAMS = dict(photons=16384, passNums=2)
+
+
+def _rmse(a, b) -> float:
+    return float(np.sqrt(np.mean((np.asarray(a, np.float64)
+                                  - np.asarray(b, np.float64)) ** 2)))
+
+
+@pytest.fixture
+def at_repo_root(monkeypatch):
+    """The scene names its IES file relative to the repository root."""
+    monkeypatch.chdir(REPO)
+
+
+@pytest.fixture(scope="module")
+def photon_renders():
+    """Both photon-mapping renders, and the reference's stored and
+    emitted photon counts from its log line."""
+    cwd = os.getcwd()
+    os.chdir(REPO)
+    logger = logging.getLogger("libyafaray_tpu")
+    lines = []
+
+    class Keep(logging.Handler):
+        def emit(self, record):
+            lines.append(record.getMessage())
+
+    h, level = Keep(), logger.level
+    logger.addHandler(h)
+    logger.setLevel(logging.INFO)
+    try:
+        port = render_scene(_lights_scene(parse_xml_file, "photonmapping", 2,
+                                          **PHOTON_PARAMS), device="cpu")
+        ref = ref_render_scene(_lights_scene(ref_parse, "photonmapping", 2,
+                                             **PHOTON_PARAMS))
+    finally:
+        logger.removeHandler(h)
+        logger.setLevel(level)
+        os.chdir(cwd)
+    m = next(re.search(r"(\d+) diffuse stores / (\d+) emitted, (\d+) "
+                       r"caustic stores / (\d+) emitted", ln)
+             for ln in lines if "diffuse stores" in ln)
+    return port, ref, [int(x) for x in m.groups()]
+
+
+def test_photonmap_image_matches_reference(photon_renders):
+    port, ref, _ = photon_renders
+    img = port.image
+    assert img.shape == (16, 16, 3) and np.isfinite(img).all()
+    assert img.mean() > 0.05
+    rmse = float(np.sqrt(np.mean((img.astype(np.float64)
+                                  - np.asarray(ref.image)) ** 2)))
+    assert rmse <= 1e-3, rmse
+    r_ref, r_port = ref.stats["rays"], port.stats["rays"]
+    assert abs(r_port - r_ref) <= 1e-3 * r_ref, (r_ref, r_port)
+
+
+def test_photonmap_stored_photons_match_reference(photon_renders):
+    port, _, (d_ref, d_em, c_ref, c_em) = photon_renders
+    info = port.stats["photon_maps"]
+    assert info["diffuse"]["emitted"] == d_em == 16384
+    assert info["caustic"]["emitted"] == c_em == 8192
+    assert d_ref > 1000
+    # no specular surface: the caustic map stores nothing in either
+    for got, want in ((info["diffuse"]["stored"], d_ref),
+                      (info["caustic"]["stored"], c_ref)):
+        assert abs(got - want) <= 1e-3 * max(want, 1), (got, want)
+
+
+def test_sppm_matches_reference(at_repo_root):
+    port = render_scene(_lights_scene(parse_xml_file, "SPPM", 1,
+                                      **SPPM_PARAMS), device="cpu")
+    ref = ref_render_scene(_lights_scene(ref_parse, "SPPM", 1,
+                                         **SPPM_PARAMS))
+    assert port.stats["passes"] == ref.stats["passes"] == 2
+    img = port.image
+    assert img.shape == (16, 16, 3) and np.isfinite(img).all()
+    assert img.mean() > 0.05
+    assert _rmse(ref.image, img) <= 1e-3
+    assert _rmse(ref.film["density"], port.film["density"].numpy()) <= 1e-3
+    assert port.stats["rays"] == ref.stats["rays"] > 0
+
+
+def test_indirect_photon_pass_matches_reference(at_repo_root):
+    s = _lights_scene(parse_xml_file, "SPPM", 1, **SPPM_PARAMS)
+    rs = _lights_scene(ref_parse, "SPPM", 1, **SPPM_PARAMS)
+    cs, rcs = s.compile(device="cpu"), rs.compile()
+    cfg, rcfg = build_config(s), ref_build(rs)
+    cdf, _ = _light_cdf(cs.static, cs.arrays["lights"])
+    rcdf, rflux = ref_cdf(rcs.static, rcs.arrays)
+    assert np.array_equal(cdf, rcdf)
+    rec = photon_shoot.make_photon_pass(cs.static, cfg, 16384,
+                                        cfg.photon_bounces, "indirect")(
+        convert.to_tensors(cs.arrays, "cpu"), cdf, 31337)
+    rrec = jax.jit(ref_shoot.make_photon_pass(rcs.static, rcfg, 16384,
+                                              rcfg.photon_bounces,
+                                              "indirect"))(
+        rcs.arrays, jnp.asarray(rcdf), rflux, jnp.uint32(31337))
+    got, want = int(rec["valid"].sum()), int(jnp.sum(rrec["valid"]))
+    assert want > 1000 and abs(got - want) <= 1e-3 * want, (got, want)
+    p_got = rec["power"][rec["valid"]].sum(0).numpy()
+    p_want = np.asarray(rrec["power"])[np.asarray(rrec["valid"])].sum(0)
+    np.testing.assert_allclose(p_got, p_want, rtol=1e-3)
+
+
+@pytest.fixture(scope="module")
+def bdpt_renders():
+    cwd = os.getcwd()
+    os.chdir(REPO)
+    try:
+        yield (render_scene(_lights_scene(parse_xml_file, "bidirectional",
+                                          2), device="cpu"),
+               ref_render_scene(_lights_scene(ref_parse, "bidirectional",
+                                              2)))
+    finally:
+        os.chdir(cwd)
+
+
+def test_bdpt_image_and_rays_match_reference(bdpt_renders):
+    port, ref = bdpt_renders
+    img = port.image
+    assert img.shape == (16, 16, 3) and np.isfinite(img).all()
+    assert img.mean() > 0.05
+    assert _rmse(ref.image, img) <= 1e-4
+    assert port.stats["rays"] == ref.stats["rays"] > 0
+    assert port.stats["bdpt_steps"] == ref.stats["bdpt_steps"] == 2
+
+
+def test_bdpt_density_plane_matches_reference(bdpt_renders):
+    """The t=1 splats (light vertices connected to the camera): the point,
+    spot, sphere and meshlight subpaths all reach the film."""
+    port, ref = bdpt_renders
+    dens = port.film["density"].numpy()
+    assert float(dens.max()) > 0.0
+    assert _rmse(ref.film["density"], dens) <= 1e-5

@@ -41,6 +41,16 @@ from libyafaray_tpu_torch.ops import photon_flash as ppf
 from libyafaray_tpu_torch.scene import session
 from libyafaray_tpu_torch.scene.xml_parser import parse_xml_file
 
+
+@pytest.fixture(scope="module", autouse=True)
+def one_thread():
+    """The port's CPU path is many small tensor ops: one thread runs them
+    fastest (and keeps parallel test workers off each other's cores)."""
+    n = torch.get_num_threads()
+    torch.set_num_threads(1)
+    yield
+    torch.set_num_threads(n)
+
 REPO = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 SCENE = os.path.join(REPO, "scenes", "cornell_photon.xml")
 RTOL = 1e-5

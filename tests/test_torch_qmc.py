@@ -10,6 +10,16 @@ import jax.numpy as jnp
 from libyafaray_tpu.core import qmc as ref
 from libyafaray_tpu_torch.core import qmc
 
+
+@pytest.fixture(scope="module", autouse=True)
+def one_thread():
+    """The port's CPU path is many small tensor ops: one thread runs them
+    fastest (and keeps parallel test workers off each other's cores)."""
+    n = torch.get_num_threads()
+    torch.set_num_threads(1)
+    yield
+    torch.set_num_threads(n)
+
 N_LANES = 65536
 
 

@@ -20,6 +20,7 @@ import sys
 
 import numpy as np
 import pytest
+import torch
 
 from libyafaray_tpu.integrators.config import RenderConfig as RefConfig
 from libyafaray_tpu.integrators.render import render as ref_render
@@ -29,6 +30,16 @@ from libyafaray_tpu_torch.integrators.config import RenderConfig
 from libyafaray_tpu_torch.integrators.render import render, render_timed
 from libyafaray_tpu_torch.scene.session import build_config
 from libyafaray_tpu_torch.scene.xml_parser import parse_xml_file
+
+
+@pytest.fixture(scope="module", autouse=True)
+def one_thread():
+    """The port's CPU path is many small tensor ops: one thread runs them
+    fastest (and keeps parallel test workers off each other's cores)."""
+    n = torch.get_num_threads()
+    torch.set_num_threads(1)
+    yield
+    torch.set_num_threads(n)
 
 REPO = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 CORNELL = os.path.join(REPO, "scenes", "cornell.xml")

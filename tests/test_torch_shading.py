@@ -31,6 +31,16 @@ from libyafaray_tpu_torch.lights import base as plights
 from libyafaray_tpu_torch.materials import base as pmat
 from libyafaray_tpu_torch.materials import bsdf as pbsdf
 
+
+@pytest.fixture(scope="module", autouse=True)
+def one_thread():
+    """The port's CPU path is many small tensor ops: one thread runs them
+    fastest (and keeps parallel test workers off each other's cores)."""
+    n = torch.get_num_threads()
+    torch.set_num_threads(1)
+    yield
+    torch.set_num_threads(n)
+
 N = 4096
 ATOL, RTOL = 1e-6, 1e-5
 FAMILIES = (rmat.MT_NULL, rmat.MT_SHINYDIFFUSE, rmat.MT_LIGHT)
