@@ -187,13 +187,23 @@ started together) and drives the ported paths through them:
   lanes and rays summing to the one-device counts; the photon packs
   built over the mesh bit-equal to one device's; and the CLI under two
   env-initialised ranks (torchrun's variables) at 64².  Both ranks share
-  one card, so nothing here measures scaling.
+  one card, so nothing here measures scaling;
+- slice 25, the pair route's entries as a kernel (csrc/pair_entries.cu,
+  `nearest_clusters`: each ray's k nearest cluster entries, ids and count
+  without the rays x boxes table): inside slice 5's phases it is held to
+  its plain version bit for bit on the grid step's recorded 262,144
+  primary rays (k 21) and 2,097,152 bounce-0 NEE segments (k 24), with the
+  NEE call's peak device memory, and on the 300,000-triangle soup's
+  cluster boxes (k 21 and 24); `[pairs_path]` counts its 8 launches a step
+  and sets the pair step's wall, busy ms and launches beside the fine
+  route's.
 A profile phase reads the trace from the profiler's raw events
 (`trace_events`: torch's own event tree, kernel links and merges,
 without building its event objects).  The untimed checks (every card
 against CPU phase and the goldens) run after the timed phases, in one
 block whose CPU renders go to a pool of processes (`run_deferred`).
-`python3 chip_smoke.py --only slice17` (or slice18 to slice22, slice24)
+`python3 chip_smoke.py --only slice17` (or slice18 to slice22, slice24,
+slice25)
 builds the kernels and runs that slice's phases alone (an iteration run:
 no result line).  Each path is
 rendered with every launch counter set to 0 just before it and read just
@@ -360,7 +370,8 @@ SWEEPS = dict(tris=300_000, rays=16384)
 # slots the plain pair versions are compared and timed on (bounds their time)
 PLAIN_SLOTS = 1 << 22
 PAIR_KERNELS = ("pairs_closest_kernel", "pairs_shadow_kernel",
-                "closest_fine_kernel", "shadow_fine_kernel")
+                "nearest_clusters_kernel", "closest_fine_kernel",
+                "shadow_fine_kernel")
 # the pair route's stages a profiled step splits its glue by
 PAIR_STAGES = {"pairs.entries": (pi, "nearest_clusters"),
                "pairs.expand": (pi, "expand_pairs"),
@@ -861,7 +872,8 @@ WRAPPERS = {fn.__name__: fn for fn in (
     fi.shadow_logsum_fine, pf.density_flash, pf.nearest_flash,
     pf.density_culled, cx.closest_hit_dense, cx.shadow_logsum_dense,
     cx.closest_hit_stream, cx.shadow_logsum_stream, pi.pairs_closest,
-    pi.pairs_shadow, bt.closest_hit_bvh, bt.shadow_logsum_bvh)}
+    pi.pairs_shadow, pi.nearest_clusters, bt.closest_hit_bvh,
+    bt.shadow_logsum_bvh)}
 
 
 def counted(run):
@@ -1010,7 +1022,7 @@ class _TraceEvent:
 
     __slots__ = ("start", "end", "name", "device", "thread", "is_async",
                  "id", "linked", "kernels", "children", "parent",
-                 "annotation", "_total")
+                 "annotation", "taken", "_total")
 
     def __init__(self, e, t0, name):
         self.start = (e.start_ns() - t0) / 1000
@@ -1024,6 +1036,7 @@ class _TraceEvent:
         self.annotation = e.is_user_annotation()
         self.kernels, self.children, self.parent, self._total = \
             [], [], None, None
+        self.taken = False  # a device event an op's `kernels` holds
 
     def device_time_total(self, cpu) -> float:
         """FunctionEvent.device_time_total: a sync CPU event's kernels and
@@ -1079,6 +1092,7 @@ def trace_events(prof) -> list:
                     f.thread = fe.thread
                 else:
                     fe.kernels.append(f.end - f.start)
+                    f.taken = True
     events.sort(key=lambda ev: (ev.start, -ev.end))
     # a stable sort by thread keeps each thread's events in start order
     sync = sorted((ev for ev in events
@@ -1112,17 +1126,29 @@ def trace_events(prof) -> list:
 
 
 def _stage_ms(events, stages) -> dict:
-    """Device ms of the aten kernels launched inside each `stages` range
-    (the innermost one), by the events' kernel and parent links."""
+    """Device ms of the kernels launched inside each `stages` range (the
+    innermost one): an aten op's by the events' kernel and parent links;
+    a kernel no op took (the port's own, launched through ctypes) by the
+    CUDA runtime call that launched it, which carries its correlation
+    id."""
+    from torch.autograd import DeviceType
+
     out = dict.fromkeys(stages, 0.0)
+
+    def add(e, ms):
+        while e is not None and e.name not in out:
+            e = e.parent
+        if e is not None:
+            out[e.name] += ms
+
+    launch = {e.id: e for e in events
+              if e.device == DeviceType.CPU and e.name.startswith("cu")}
     for e in events:
-        if not e.kernels:
-            continue
-        p = e
-        while p is not None and p.name not in out:
-            p = p.parent
-        if p is not None:
-            out[p.name] += sum(e.kernels) / 1e3
+        if e.kernels:
+            add(e, sum(e.kernels) / 1e3)
+        elif (e.device != DeviceType.CPU and not e.taken
+              and e.name not in out and e.id in launch):
+            add(launch[e.id], (e.end - e.start) / 1e3)
     return {k: round(v, 4) for k, v in out.items()}
 
 
@@ -1210,15 +1236,18 @@ def profile_step(step, arrays, cfg, kernel_tags: tuple,
 
 
 def profile(tag, res, step, arrays, cfg, kernel_tags, smi,
-            stages=None) -> None:
+            stages=None) -> dict:
     """The profile phase line of a path: one step profiled, its wall time
-    the path's unprofiled render_s per sample."""
+    the path's unprofiled render_s per sample.  Returns the line's
+    fields."""
     step_ms = 1e3 * res.stats["render_s"] / cfg.aa_samples
     prof = profile_step(step, arrays, cfg, kernel_tags, stages)
     busy = prof["device_busy_ms"]
-    phase(tag, step_ms=round(step_ms, 3), **prof,
-          busy_share=(busy / step_ms if isinstance(busy, float)
-                      else "not measured"), gpu=repr(smi))
+    out = dict(step_ms=round(step_ms, 3), **prof,
+               busy_share=(busy / step_ms if isinstance(busy, float)
+                           else "not measured"))
+    phase(tag, **out, gpu=repr(smi))
+    return out
 
 
 def path_step(cscene, cfg):
@@ -2358,11 +2387,15 @@ def fine_bounce_shadow(shadow, fine_kernel: dict) -> None:
                        max_abs_err_bounce=err)
 
 
-def pairs_path(path: str, gcfg, fine_res, smi):
+def pairs_path(path: str, gcfg, fine_res, fine_prof, step, arrays, smi):
     """The grid at GRID's settings through render_scene(pairs=True), held to
     slice 2's fine-route render: rays within 0.01%, image RMSE <= 1e-4.
-    The pair kernels launch, the fine kernels only for stragglers, no
-    other kernel."""
+    The pair kernels and nearest_clusters launch, nearest_clusters once
+    for each closest-hit and each shadow pass (8 a step, the warm-up step
+    counted), the fine kernels only for stragglers, no other kernel.  One
+    step profiled (`pairs_profile`); the line sets its step wall, device
+    busy ms and launches beside the fine route's (`fine_prof`, the
+    `grid_profile` line)."""
     scene = parse_xml_file(path)
     scene.render_params.update(width=GRID["size"], height=GRID["size"],
                                AA_minsamples=GRID["spp"], AA_passes=1)
@@ -2371,30 +2404,109 @@ def pairs_path(path: str, gcfg, fine_res, smi):
         raise AssertionError("pairs_path: not the grid path's config")
     res, launches = counted(lambda: render_scene(
         scene, device="cuda", timed=True, pairs=True))
-    names = ("pairs_closest", "pairs_shadow", "closest_hit_fine",
-             "shadow_logsum_fine")
+    names = ("pairs_closest", "pairs_shadow", "nearest_clusters",
+             "closest_hit_fine", "shadow_logsum_fine")
     others = {k: v for k, v in launches.items() if k not in names and v}
     rmse = float(np.sqrt(np.mean((res.image - fine_res.image) ** 2)))
     r_p, r_f = res.stats["rays"], fine_res.stats["rays"]
     rel = abs(r_p - r_f) / max(r_f, 1.0)
     steps = cfg.aa_samples + 1
+    want_entries = 2 * (cfg.bounces + 1) * steps
+    prof = profile("pairs_profile", res, step, arrays, gcfg, PAIR_KERNELS,
+                   smi, stages=PAIR_STAGES)
     phase("pairs_path", size=f"{cfg.width}x{cfg.height}", spp=cfg.aa_samples,
           bounces=cfg.bounces, render_s=round(res.stats["render_s"], 4),
           rays=r_p, mrays_per_s=round(res.mrays_per_sec, 3),
           fine_mrays_per_s=round(fine_res.mrays_per_sec, 3),
+          step_ms=prof["step_ms"], fine_step_ms=fine_prof["step_ms"],
+          device_busy_ms=prof["device_busy_ms"],
+          fine_device_busy_ms=fine_prof["device_busy_ms"],
+          kernel_launches_per_step=prof.get("kernel_launches"),
+          fine_kernel_launches_per_step=fine_prof.get("kernel_launches"),
           launches={k: launches[k] for k in names},
           launches_per_step={k: launches[k] / steps for k in names},
+          expected_nearest_clusters=want_entries,
           rmse_vs_fine=rmse, rays_rel=rel, bound=1e-4, gpu=repr(smi))
     if others:
         raise AssertionError(f"pairs_path: off-path kernels {others}")
     if not (launches["pairs_closest"] and launches["pairs_shadow"]):
         raise AssertionError("pairs_path: a pair kernel never launched")
+    if launches["nearest_clusters"] != want_entries:
+        raise AssertionError(f"pairs_path: nearest_clusters launched "
+                             f"{launches['nearest_clusters']} times, "
+                             f"expected {want_entries}")
     if not np.all(np.isfinite(res.image)) or res.image.min() < 0.0:
         raise AssertionError("pairs_path: image is not finite and >= 0")
     if not (rmse <= 1e-4 and rel <= 1e-4):
         raise AssertionError("pairs_path: the pair route's render differs "
                              "from the fine route's")
     return res, launches
+
+
+def check_nearest_clusters(args, rays: str, memory: bool = False) -> dict:
+    """nearest_clusters against its plain version on recorded arguments
+    (cluster8, sub8, org, dirn, lo, hi, n_tris, k): entries bit for bit,
+    ids and counts equal, and a second call the same; kernel ms (a CUDA
+    graph of calls), the plain version's one eager call, and the call's
+    peak device memory above what was allocated before it (with `memory`
+    held to 1.1 x its outputs' bytes plus the box tables: it writes no
+    (rays, boxes) table).  The bound counts the box tests its walk needs
+    (every real cluster box, and the real sub-boxes of each entered
+    cluster); bound_ms_before a test of every real box of the plain
+    version's table."""
+    cl8, sub8, org, dirn, lo, hi, n_tris, k = args
+    torch.cuda.synchronize()
+    base = torch.cuda.memory_allocated()
+    torch.cuda.reset_peak_memory_stats()
+    ke, kid, kc = pi.nearest_clusters(*args)
+    torch.cuda.synchronize()
+    peak = torch.cuda.max_memory_allocated() - base
+    out_bytes = nbytes(ke, kid, kc)
+    ae, aid, ac = pi.nearest_clusters(*args)
+    (pe, pid, pc), plain_ms = once_ms(
+        lambda: pi.nearest_clusters_plain(*args))
+    bits = lambda x: x.view(torch.int32)  # noqa: E731
+    differ = int(((bits(ke) != bits(pe)) | (kid != pid)).any(dim=1).sum()
+                 + (kc != pc).sum())
+    repeat = int(((bits(ke) != bits(ae)) | (kid != aid)).any(dim=1).sum()
+                 + (kc != ac).sum())
+    fin = torch.isfinite(pe)
+    err = float((ke[fin] - pe[fin]).abs().max()) if fin.any() else 0.0
+    call = lambda: pi.nearest_clusters(*args)  # noqa: E731
+    ms = device_ms(call, calls=3, replays=3)
+    tests, tests_before = pi.entry_box_tests(cl8, sub8, org, dirn, lo, hi,
+                                             n_tris)
+    moved = nbytes(cl8, sub8, org, dirn, lo, hi) + out_bytes
+    bnd = bound(BOX_OPS * tests, moved, box_tests=tests)
+    bnd_b = bound(BOX_OPS * tests_before, moved)
+    limit = 1.1 * out_bytes + nbytes(cl8, sub8)
+    regs = registers("pair_entries", "nearest_clusters_kernel")
+    n_cl, n_sc = cl8.shape[1], sub8.shape[1]
+    phase("kernel", name="nearest_clusters", rays=rays, n=org.shape[0], k=k,
+          tris=n_tris, clusters=n_cl, sub_boxes=n_sc,
+          n_sub=pi.pick_nsub(n_sc * fi.SUB_BT, n_sc * fi.SUB_BT // n_cl),
+          entered_mean=round(float(pc.float().mean()), 3),
+          entered_max=int(pc.max()), rows_past_k=int((pc > k).sum()),
+          rows_tied_at_lo=int(((pe == lo[:, None]).sum(dim=1) >= 2).sum()),
+          differ=differ, repeat_differ=repeat, max_abs_err=err,
+          tolerance="entries bit-equal, ids and counts equal",
+          ms=round(ms, 4), call_ms=round(call_ms(call, calls=3), 4),
+          plain_ms=round(plain_ms, 4), plain="one eager call, every ray",
+          peak_bytes=peak, out_bytes=out_bytes, peak_limit_bytes=int(limit),
+          **regs, box_tests_before=tests_before,
+          bound_ms_before=bnd_b["bound_ms"], **bnd)
+    if differ or repeat:
+        raise AssertionError(f"nearest_clusters ({rays}): {differ} rays "
+                             f"differ from plain, {repeat} from a second "
+                             "call")
+    if memory and peak > limit:
+        raise AssertionError(f"nearest_clusters ({rays}): peak {peak} B "
+                             f"above its inputs, limit {int(limit)} B")
+    return dict(name="nearest_clusters", route="cuda",
+                source=SRC.format("pair_entries"),
+                replaces=PALLAS.format(1173), max_abs_err=err, ms=ms,
+                plain_ms=plain_ms, peak_bytes=peak, out_bytes=out_bytes,
+                bound_ms_before=bnd_b["bound_ms"], **regs, **bnd)
 
 
 def soup131(smi) -> None:
@@ -2478,10 +2590,13 @@ def soup131(smi) -> None:
                                  f"kernel differ: {repeat}")
 
 
-def fine_sweeps() -> None:
+def fine_sweeps() -> dict:
     """closest_hit_fine on a random soup of more than 256 clusters, where
     its walk takes the cluster boxes in more than one sweep: t and col
-    equal to the plain brute force on incoherent rays."""
+    equal to the plain brute force on incoherent rays.  nearest_clusters
+    on the same pack (too many sub-boxes for the sub-box table: its
+    entries take the cluster boxes, in two sweeps of its warp) and rays at
+    k 21 and 24, against its plain version; returns the k 24 entry."""
     v0, e1, e2 = make_soup(SWEEPS["tris"])
     n_tris = v0.shape[0]
     pack, cl8, _ = ci.build_tri_pack(v0, e1, e2, ci.morton_order(v0, e1, e2))
@@ -2501,15 +2616,21 @@ def fine_sweeps() -> None:
     if cl.shape[1] <= 256 or differ:
         raise AssertionError(f"fine_sweeps: {differ} rays differ from plain "
                              f"over {cl.shape[1]} clusters")
+    args = (cl, sub, o, d, tmin, tmax, n_tris)
+    check_nearest_clusters((*args, 21), "sweeps")
+    return check_nearest_clusters((*args, 24), "sweeps")
 
 
 def pairs_phases(scenes: str, grid_path: str, gscene, gcfg, fine_res,
-                 fine_kernels, smi) -> list:
+                 fine_kernels, fine_prof, smi) -> list:
     """Slice 5: the pair kernels against their plain versions on slots
     recorded from a grid step, the fine kernels on bounce-1 rays, the two
     routes on the same recorded rays, the grid path through the pair route,
     one profiled step, the card against the CPU on the 10K grid, the soup,
-    and the fine closest hit over a pack of several sweeps."""
+    and the fine closest hit over a pack of several sweeps.  Slice 25:
+    nearest_clusters against its plain version on the step's recorded
+    primary rays (k 21) and bounce-0 NEE segments (k 24), and on the
+    sweeps pack."""
     _, _, calls = step_calls(gscene, gcfg, fi, ("closest_hit_fine",
                                                 "shadow_logsum_fine"))
     fine_bounce(calls["closest_hit_fine"][1], fine_kernels[0])
@@ -2520,20 +2641,33 @@ def pairs_phases(scenes: str, grid_path: str, gscene, gcfg, fine_res,
 
     pscene, _ = grid(grid_path, GRID["size"], GRID["spp"], "cuda",
                      pairs=True)
-    step, arrays, calls = step_calls(pscene, gcfg, pi, ("pairs_closest",
-                                                        "pairs_shadow"))
+    step, arrays, calls = step_calls(pscene, gcfg, pi, (
+        "pairs_closest", "pairs_shadow", "nearest_clusters"))
     rounds = [a[3].shape[0] for a in calls["pairs_closest"]]
+    picks = [(a[2].shape[0], a[7]) for a in calls["nearest_clusters"]]
     phase("pairs_slots", closest_per_round=rounds,
-          shadow=[a[4].shape[0] for a in calls["pairs_shadow"]])
+          shadow=[a[4].shape[0] for a in calls["pairs_shadow"]],
+          entries_rays_k=picks)
+    # a vertex's closest hit, then its NEE batch: primary, bounce-0 NEE
+    n_px = gcfg.width * gcfg.height
+    if picks[0] != (n_px, 21) or picks[1][1] != 24 or picks[1][0] <= n_px:
+        raise AssertionError(f"nearest_clusters: calls {picks[:2]}, "
+                             "expected the primary rays at k 21, then the "
+                             "bounce-0 NEE segments at k 24")
+    entries = check_nearest_clusters(calls["nearest_clusters"][1],
+                                     "bounce-0 NEE", memory=True)
+    primary = check_nearest_clusters(calls["nearest_clusters"][0],
+                                     "primary")
+    entries.update({f"{key}_primary": primary[key] for key in (
+        "ms", "plain_ms", "bound_ms", "box_tests", "bound_ms_before")})
     kernels = [check_pairs_closest(calls["pairs_closest"][2]),
-               check_pairs_shadow(calls["pairs_shadow"][0])]
+               check_pairs_shadow(calls["pairs_shadow"][0]), entries]
     del calls
 
-    res, launches = pairs_path(grid_path, gcfg, fine_res, smi)
+    res, launches = pairs_path(grid_path, gcfg, fine_res, fine_prof, step,
+                               arrays, smi)
     for k in kernels:
         k["launches"] = launches[k["name"]]
-    profile("pairs_profile", res, step, arrays, gcfg, PAIR_KERNELS, smi,
-            stages=PAIR_STAGES)
     del step, arrays
 
     small = make_grid(scenes, PAIRS_SMALL["grid"], PAIRS_SMALL["subdiv"])
@@ -2551,8 +2685,25 @@ def pairs_phases(scenes: str, grid_path: str, gscene, gcfg, fine_res,
         PAIRS_SMALL["size"], PAIRS_SMALL["spp"])
 
     soup131(smi)
-    fine_sweeps()
+    sweeps = fine_sweeps()
+    entries.update({f"{key}_sweeps": sweeps[key] for key in (
+        "ms", "plain_ms", "bound_ms", "box_tests")})
     return kernels
+
+
+def slice25_phases(smi, out_dir: str, kernels: list) -> None:
+    """The pair route's phases alone (`pairs_phases`, with slice 25's
+    nearest_clusters): the 164K grid written to out_dir and rendered on the
+    fine route first, the yardstick of the pair path."""
+    path = make_grid(out_dir, GRID["grid"], GRID["subdiv"])
+    gscene, gcfg = grid(path, GRID["size"], GRID["spp"], "cuda")
+    res, launches = render_counted(gscene, gcfg, ("closest_hit_fine",
+                                                  "shadow_logsum_fine"))
+    check_path("grid_path", res, gcfg, launches, smi)
+    prof = profile("grid_profile", res, *path_step(gscene, gcfg), gcfg,
+                   ("fine_kernel",), smi)
+    fine = [dict(name="closest_hit_fine"), dict(name="shadow_logsum_fine")]
+    kernels += pairs_phases(out_dir, path, gscene, gcfg, res, fine, prof, smi)
 
 
 # ---- slice 14: directlighting, Beer glass, caustic map, SPPM --------------
@@ -5865,7 +6016,7 @@ def main(argv=None) -> None:
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     ap.add_argument("--only", choices=("slice17", "slice18", "slice19",
                                        "slice20", "slice21", "slice22",
-                                       "slice24"),
+                                       "slice24", "slice25"),
                     default=None,
                     help="run only this slice's phases after the build (an "
                          "iteration run: it prints no result line)")
@@ -5909,7 +6060,8 @@ def main(argv=None) -> None:
              "slice20": slice20_phases,
              "slice21": slice21_phases,
              "slice22": slice22_phases,
-             "slice24": slice24_phases}[only](smi, out_dir, [])
+             "slice24": slice24_phases,
+             "slice25": slice25_phases}[only](smi, out_dir, [])
             run_deferred()
         print(smi, flush=True)
         print(f"chip_smoke: --only {only} ran; no result line", flush=True)
@@ -5963,8 +6115,8 @@ def main(argv=None) -> None:
         check_path("grid_path", res, gcfg, launches, smi)
         for k in fine:
             k["launches"] = launches[k["name"]]
-        profile("grid_profile", res, *path_step(gscene, gcfg), gcfg,
-                ("fine_kernel",), smi)
+        grid_prof = profile("grid_profile", res, *path_step(gscene, gcfg),
+                            gcfg, ("fine_kernel",), smi)
 
         # 9. slice 2 card vs CPU on a small generated grid (fine path too)
         small = make_grid(scenes, 2, 2)
@@ -5972,7 +6124,8 @@ def main(argv=None) -> None:
                     32, 2)
 
         # 10. slice 5: the pair route on the grid, the 10K grid and the soup
-        pairs = pairs_phases(scenes, path, gscene, gcfg, res, fine, smi)
+        pairs = pairs_phases(scenes, path, gscene, gcfg, res, fine,
+                             grid_prof, smi)
         # slice 22's BVH against the fine kernels, on this grid
         bvh_vs_fine(gscene, gcfg, smi)
 

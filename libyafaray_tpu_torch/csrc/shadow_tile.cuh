@@ -109,13 +109,17 @@ __device__ __forceinline__ float shadow_hi(float dist) {
 // (8, w) table (rows lo xyz | hi xyz): each box is widened by 1e-5 of the
 // largest magnitude among its faces and the ray origin on that axis.  The
 // interval's part inside the box is [*enter, *exit_], empty if it misses.
+// GLOBAL: the table lies in device memory (read through the read-only
+// cache); false for a table staged in shared memory.
+template <bool GLOBAL = true>
 __device__ __forceinline__ void slab(const float* __restrict__ tab, int w,
                                      int j, const Ray& r, float lo, float hi,
                                      float* enter, float* exit_) {
   *enter = lo, *exit_ = hi;
   for (int a = 0; a < 3; ++a) {
-    const float bl = __ldg(tab + a * w + j);
-    const float bh = __ldg(tab + (a + 3) * w + j);
+    const float bl = GLOBAL ? __ldg(tab + a * w + j) : tab[a * w + j];
+    const float bh =
+        GLOBAL ? __ldg(tab + (a + 3) * w + j) : tab[(a + 3) * w + j];
     const float pad = fmaxf(r.pad[a],
                             (float)1e-5 * fmaxf(fabsf(bl), fabsf(bh)));
     const float t0 = (bl - pad - r.o[a]) * r.iv[a];

@@ -30,7 +30,8 @@ GXX_FLAGS = ("-O3", "-shared", "-fPIC", "-std=c++17")
 
 # the csrc/ sources with kernels a render may launch
 CUDA_SOURCES = ("tiny_intersect", "fine_intersect", "photon_flash",
-                "cluster_intersect", "pairs_intersect", "bvh_walk")
+                "cluster_intersect", "pairs_intersect", "pair_entries",
+                "bvh_walk")
 
 _lock = threading.Lock()
 _loaded: dict[str, ctypes.CDLL] = {}

@@ -6,20 +6,24 @@ Port of the pair section of libyafaray_tpu/ops/pallas_intersect.py:
 `_pairs_closest_kernel` and `_pairs_shadow_kernel` (launched by
 `_pairs_sweep`), `_ray_cluster_entries`, `_pick_nsub`, `_expand_pairs`,
 `_pair_round`, `_closest_hit_pairs` and `_shadow_transmission_pairs`.  The
-kernels live in csrc/pairs_intersect.cu and are built by ops/_build.py at
-first use.
+pair kernels live in csrc/pairs_intersect.cu; the entries and the nearest-k
+pick (`_ray_cluster_entries` with its callers' argsort / top_k) are one
+kernel, csrc/pair_entries.cu (`nearest_clusters`).  ops/_build.py builds
+them at first use.
 
 The route is opt-in (`Scene.compile(pairs=True)`) for packs of at least
 PAIRS_MIN_CLUSTERS clusters.  Each ray's clusters are ordered by the entry
 of its interval into their boxes (the minimum over a cluster's 128-column
-sub-boxes where `pick_nsub` > 1); picked clusters become (ray, cluster)
-slots sorted by cluster, so that neighbouring threads of a kernel test the
-same triangles, and the per-slot results are reduced back to rays.  Both
-kernels take the sub-box table too: a block of slots stages its cluster's
-128-column sub-clusters in shared memory and a slot tests only those its
-segment enters, for a closest hit only those it enters before its best hit
-so far (the plain versions test every column of the cluster: the same
-answers, the shadow sums up to the order of the additions).
+sub-boxes where `pick_nsub` > 1), equal entries by the lower cluster id,
+as the reference's stable argsort and top_k order them; picked clusters
+become (ray, cluster) slots sorted by cluster, so that neighbouring threads
+of a kernel test the same triangles, and the per-slot results are reduced
+back to rays.  Both pair kernels take the sub-box table too: a block of
+slots stages its cluster's 128-column sub-clusters in shared memory and a
+slot tests only those its segment enters, for a closest hit only those it
+enters before its best hit so far (the plain versions test every column
+of the cluster: the same answers, the shadow sums up to the order of the
+additions).
 - Closest hit: round 1 tests each ray's PAIR_K1 nearest clusters, round 2
   the next PAIR_K2 whose entry is nearer than round 1's hit; a ray with a
   cluster past those still nearer than its best hit is a straggler.
@@ -62,6 +66,7 @@ PAIR_K2 = 16  # round 2 cap (the rest go to the straggler pass)
 PAIRS_MIN_CLUSTERS = 64  # fewer clusters never take the pair route
 SHADOW_KS = 24  # shadow rays entering more clusters are stragglers
 MAX_NSUB_TABLE = 2048  # sub-boxes above which entries use the cluster boxes
+MAX_PICKS = 32  # nearest_clusters' largest k: one pick a lane of a warp
 # rays x boxes per chunk of the entry slab (bounds its temporaries)
 _ENTRY_ELEMS = 1 << 26
 _BIG = torch.iinfo(torch.int32).max
@@ -93,35 +98,40 @@ def cluster_entries(cluster8, sub8, org, dirn, lo, hi, n_tris: int):
     return ent.view(-1, n_cl, n_sub).amin(dim=2)
 
 
-def nearest_clusters(cluster8, sub8, org, dirn, lo, hi, n_tris: int,
-                     k: int):
-    """Each ray's k nearest clusters by entry, nearest first: (entries
-    (N, k), cluster ids (N, k) int64, count of clusters entered (N,)).
+def nearest_clusters_plain(cluster8, sub8, org, dirn, lo, hi, n_tris: int,
+                           k: int):
+    """Each ray's k nearest clusters by entry (`cluster_entries`): (entries
+    (N, k) ascending, cluster ids (N, k) int32, count of clusters entered
+    (N,) int32).  Equal entries keep the lower cluster id first, the rule
+    of the reference's stable argsort and top_k; ids past the clusters a
+    ray enters are n_cl (their entries inf); -0 entries read as +0.
     Chunked over rays so the (rays, boxes) temporaries stay bounded."""
-    n, boxes = org.shape[0], sub8.shape[1]
+    n, boxes, n_cl = org.shape[0], sub8.shape[1], cluster8.shape[1]
     step = max(1, _ENTRY_ELEMS // max(boxes, 1))
     vals, idx, cnt = [], [], []
     for r0 in range(0, n, step):
         sl = slice(r0, r0 + step)
         e = cluster_entries(cluster8, sub8, org[sl], dirn[sl], lo[sl],
                             hi[sl], n_tris)
-        v, i = torch.topk(e, k, dim=1, largest=False, sorted=True)
+        e = torch.where(e == 0, 0.0, e)
+        v, i = torch.sort(e, dim=1, stable=True)
+        v, i = v[:, :k], i[:, :k].to(torch.int32)
         vals.append(v)
-        idx.append(i)
-        cnt.append(torch.isfinite(e).sum(dim=1))
+        idx.append(torch.where(torch.isfinite(v), i, n_cl))
+        cnt.append(torch.isfinite(e).sum(dim=1, dtype=torch.int32))
     if not vals:
         z = torch.zeros((0, k), device=org.device)
-        return z, z.long(), z[:, 0].long()
+        return z, z.to(torch.int32), z[:, 0].to(torch.int32)
     return torch.cat(vals), torch.cat(idx), torch.cat(cnt)
 
 
 def expand_pairs(idx, valid, n_cl: int):
-    """(N, K) cluster picks -> the valid picks as slots sorted by cluster
-    (stable: rays ascending within a cluster).  Returns (slot ray ids
-    int32, slot cluster ids int32, each slot's index into the flattened
-    (N·K) picks)."""
+    """(N, K) int32 cluster picks -> the valid picks as slots sorted by
+    cluster (stable: rays ascending within a cluster).  Returns (slot ray
+    ids int32, slot cluster ids int32, each slot's index into the
+    flattened (N·K) picks)."""
     n, k = idx.shape
-    keys = torch.where(valid, idx, n_cl).reshape(-1).to(torch.int32)
+    keys = torch.where(valid, idx, n_cl).reshape(-1)
     n_slots = int(valid.sum())
     scl, flat = torch.sort(keys, stable=True)
     flat = flat[:n_slots]
@@ -154,6 +164,31 @@ def slot_pair_tests(sub8, n_cl: int, sray, scl, org, dirn, lo, hi,
                       * cols[sc]).sum())
         boxes += int(real.sum())
     return pairs, boxes
+
+
+def entry_box_tests(cluster8, sub8, org, dirn, lo, hi, n_tris: int,
+                    chunk: int = 1 << 18) -> tuple:
+    """(box tests, box tests of the whole table) that `nearest_clusters`
+    needs on these rays: a test of every real cluster box for each ray and,
+    where the entries take the sub-box table, of the real sub-boxes of every
+    cluster whose box its interval [lo, hi] enters; against a test of every
+    real box of the table the entries take (the plain version's slab).
+    Counts what the inputs need, for a kernel's bound; not a kernel path."""
+    n_cl, n_sc, n = cluster8.shape[1], sub8.shape[1], org.shape[0]
+    bt = n_sc * SUB_BT // n_cl
+    n_sub = pick_nsub(n_sc * SUB_BT, bt)
+    cl_real = -(-n_tris // bt)
+    if n_sub == 1:
+        return n * cl_real, n * cl_real
+    sc_real = -(-n_tris // SUB_BT)
+    subs = fine_intersect.real_columns(n_sub, cl_real, sc_real, org.device)
+    boxes = 0
+    for r0 in range(0, n, chunk):
+        sl = slice(r0, r0 + chunk)
+        c_in = torch.isfinite(box_entry(cluster8[:, :cl_real], org[sl],
+                                        dirn[sl], lo[sl], hi[sl]))
+        boxes += int((c_in.to(torch.int64) * subs).sum())
+    return n * cl_real + boxes, n * sc_real
 
 
 # ---- plain PyTorch versions ---------------------------------------------
@@ -364,9 +399,77 @@ def pairs_shadow(pack10, n_cl: int, sub8, logf, sray, scl, org, dirn, dist,
 
 
 pairs_shadow.launches = 0
+
+
+def _entries_lib() -> ctypes.CDLL:
+    lib = _build.load("pair_entries")
+    if lib.nearest_clusters_launch.argtypes is None:
+        lib.nearest_clusters_launch.argtypes = [
+            _P, _I, _P, _I, _I, _I, _P, _P, _P, _P, _I, _I, _P, _P, _P, _P]
+        lib.nearest_clusters_launch.restype = _I
+    return lib
+
+
+def nearest_clusters(cluster8, sub8, org, dirn, lo, hi, n_tris: int, k: int):
+    """Each ray's k nearest clusters by the entry of its interval [lo, hi]:
+    (entries (N, k) float32 ascending, cluster ids (N, k) int32, the count
+    of clusters it enters (N,) int32), as `nearest_clusters_plain` defines
+    them: the lower id first on equal entries, ids past the entered
+    clusters n_cl.
+
+    cluster8 (8, C) and sub8 (8, S) are the boxes of the pack's C clusters
+    and of its S 128-column sub-clusters (clusters are whole
+    sub-clusters), org/dirn (N, 3), lo/hi (N,): float32, contiguous, one
+    device; 1 <= k <= min(MAX_PICKS, C).  On the card one launch, with no
+    (rays, boxes) table in device memory: its kernel tests a cluster's
+    sub-boxes only where the ray enters the cluster box, which gives the
+    same entries as long as each cluster box holds its sub-boxes (as the
+    scene's tables do)."""
+    dev = org.device
+    n = org.shape[0]
+    _check("cluster8", cluster8, (8, None), dev)
+    _check("sub8", sub8, (8, None), dev)
+    n_cl, n_sc = cluster8.shape[1], sub8.shape[1]
+    if n_cl <= 0 or n_sc % n_cl:
+        raise ValueError(f"{n_sc} sub-boxes are not {n_cl} equal clusters")
+    if not 0 <= n_tris <= n_sc * SUB_BT:
+        raise ValueError(f"n_tris={n_tris} outside [0, {n_sc * SUB_BT}]")
+    if not 1 <= k <= min(MAX_PICKS, n_cl):
+        raise ValueError(f"k={k} outside [1, min({MAX_PICKS}, {n_cl})]")
+    _check("org", org, (n, 3), dev)
+    _check("dirn", dirn, (n, 3), dev)
+    _check("lo", lo, (n,), dev)
+    _check("hi", hi, (n,), dev)
+    if n >= 1 << 31:
+        raise ValueError(f"{n} rays: a launch takes fewer than 2^31")
+    if dev.type == "cpu":
+        return nearest_clusters_plain(cluster8, sub8, org, dirn, lo, hi,
+                                      n_tris, k)
+    if dev.type != "cuda":
+        raise ValueError(f"nearest_clusters: unsupported device {dev}")
+    ent = torch.empty((n, k), dtype=torch.float32, device=dev)
+    ids = torch.empty((n, k), dtype=torch.int32, device=dev)
+    cnt = torch.empty((n,), dtype=torch.int32, device=dev)
+    if n == 0:
+        return ent, ids, cnt
+    n_sub = pick_nsub(n_sc * SUB_BT, n_sc * SUB_BT // n_cl)
+    lib = _entries_lib()
+    with torch.cuda.device(dev):
+        stream = torch.cuda.current_stream(dev).cuda_stream
+        code = lib.nearest_clusters_launch(
+            cluster8.data_ptr(), n_cl, sub8.data_ptr(), n_sc, n_sub, n_tris,
+            org.data_ptr(), dirn.data_ptr(), lo.data_ptr(), hi.data_ptr(), n,
+            k, ent.data_ptr(), ids.data_ptr(), cnt.data_ptr(), stream)
+    _WRAPPERS["nearest_clusters"].launches += 1
+    _raise_on(code, "nearest_clusters")
+    return ent, ids, cnt
+
+
+nearest_clusters.launches = 0
 # the wrappers whose launches they count, bound here so a caller that wraps
 # a module attribute (to record calls) keeps the counts
-_WRAPPERS = {f.__name__: f for f in (pairs_closest, pairs_shadow)}
+_WRAPPERS = {f.__name__: f for f in (pairs_closest, pairs_shadow,
+                                     nearest_clusters)}
 
 
 # ---- the route ------------------------------------------------------------
